@@ -1,0 +1,66 @@
+"""FedAvg (McMahan et al. 2016) -- the paper's baseline.
+
+Each round: sample ``c`` clients, train each for E local epochs from the
+same global weights, and average their weights with n_k / n (Eq. 6).  It is
+the ``gamma=1`` + random-singleton-schedule + weight-aggregation
+configuration of ``core.engine.FLRoundEngine``.  ``alpha`` enables the
+augmentation-only ablation (Alg. 2 without mediators).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+from repro_torch.core.astraea import online_plan
+from repro_torch.core.engine import EngineConfig, FLRoundEngine
+from repro_torch.core.fl import LocalSpec
+from repro_torch.data.federated import FederatedDataset
+from repro_torch.optim.optimizers import Optimizer
+
+
+@dataclass
+class FedAvgTrainer:
+    model: object
+    opt: Optimizer
+    data: FederatedDataset
+    clients_per_round: int           # c
+    local: LocalSpec                 # B, E
+    alpha: float | None = None       # Alg. 2 factor; None = plain FedAvg
+    aug_mode: str | None = "online"  # "online" | None
+    # padded row count; defaults to c
+    pad_mediators_to: int | None = None
+    seed: int = 0
+    device: object = None            # None = the CUDA device
+    init_params: dict | None = None
+    draws: object = None
+    history: list[dict] = field(default_factory=list)
+
+    def __post_init__(self):
+        self.augmentation_plan, engine_plan = online_plan(
+            self.data, self.alpha, self.aug_mode)
+        pad_m = self.pad_mediators_to or \
+            min(self.clients_per_round, self.data.num_clients)
+        self.engine = FLRoundEngine(
+            self.model, self.opt, self.data,
+            EngineConfig.fedavg(clients_per_round=self.clients_per_round,
+                                local=self.local, pad_mediators_to=pad_m,
+                                seed=self.seed),
+            aug_plan=engine_plan, device=self.device,
+            init_params=self.init_params, draws=self.draws)
+        self.history = self.engine.history
+
+    @property
+    def params(self):
+        return self.engine.params
+
+    @property
+    def comm(self):
+        return self.engine.comm
+
+    def run_round(self) -> None:
+        self.engine.run_round()
+
+    def evaluate(self) -> dict:
+        return self.engine.evaluate()
+
+    def fit(self, rounds: int, eval_every: int = 10) -> list[dict]:
+        return self.engine.fit(rounds, eval_every)

@@ -1,0 +1,147 @@
+"""Algorithm 3 -- mediator based multi-client rescheduling.
+
+A mediator repeatedly absorbs the unassigned client whose label histogram
+brings its merged distribution closest to uniform (min
+``D_KL(P_m + P_k || P_u)``) until it holds ``gamma`` clients; then a fresh
+mediator opens, until no client is left.
+
+Two implementations, one tie-break (the first minimum, i.e. the lowest
+client id among equal scores):
+
+* ``impl="batched"`` -- the whole pass in one call to
+  ``kernels.ops.kld_greedy_picks``: the one-CTA CUDA kernel for a CUDA
+  device, its plain PyTorch masked-argmin loop on the CPU.
+* ``impl="loop"`` -- the numpy greedy loop, scoring each step with
+  ``distribution.merged_kld_scores`` (the oracle).
+
+Scores are f32 over integer counts.  Clients whose histograms are
+permutations of each other tie in real arithmetic but may round apart in
+f32, differently on different devices and libraries; ``first_divergence``
+tells such float ties from real disagreements.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from repro_torch.core import distribution as dist
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+
+IMPLS = ("batched", "loop")
+
+
+@dataclass
+class Mediator:
+    """One mediator's schedule: ordered client ids + merged label counts."""
+    clients: list[int] = field(default_factory=list)
+    counts: np.ndarray | None = None
+
+    def kld_to_uniform(self) -> float:
+        return float(dist.kld_to_uniform(torch.as_tensor(self.counts,
+                                                         dtype=torch.float32)))
+
+
+def _groups(client_counts: np.ndarray, picks: np.ndarray, gamma: int
+            ) -> list[Mediator]:
+    return [Mediator(clients=[int(c) for c in picks[s:s + gamma]],
+                     counts=client_counts[picks[s:s + gamma]].sum(0))
+            for s in range(0, picks.shape[0], gamma)]
+
+
+def reschedule(client_counts: np.ndarray, gamma: int, *, impl: str = "batched",
+               device: str | torch.device | None = None) -> list[Mediator]:
+    """Alg. 3: partition clients into mediators of size <= gamma.
+
+    ``client_counts (K, C)`` are the clients' label histograms.  ``device``
+    is where the batched pass runs (the card unless ``"cpu"``); the loop
+    always runs on the host.  Every client appears in exactly one
+    mediator."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown reschedule impl {impl!r}; expected one of {IMPLS}")
+    client_counts = np.asarray(client_counts, np.float64)
+    num_clients, num_classes = client_counts.shape
+    if num_clients == 0:
+        return []
+    if impl == "batched":
+        counts = torch.as_tensor(client_counts, dtype=torch.float32,
+                                 device=resolve_device(device))
+        picks = ops.kld_greedy_picks(counts, int(gamma)).cpu().numpy()
+        return _groups(client_counts, picks.astype(np.int64), gamma)
+    cand_all = torch.as_tensor(client_counts, dtype=torch.float32)
+    unassigned = list(range(num_clients))
+    mediators: list[Mediator] = []
+    while unassigned:
+        med = Mediator(counts=np.zeros(num_classes))
+        while unassigned and len(med.clients) < gamma:
+            scores = dist.merged_kld_scores(
+                torch.as_tensor(med.counts, dtype=torch.float32),
+                cand_all[unassigned]).numpy()
+            cid = unassigned.pop(int(np.argmin(scores)))
+            med.clients.append(cid)
+            med.counts = med.counts + client_counts[cid]
+        mediators.append(med)
+    return mediators
+
+
+def picks_of(mediators: list[Mediator]) -> np.ndarray:
+    """The absorption order behind a schedule."""
+    return np.asarray([c for m in mediators for c in m.clients], np.int64)
+
+
+def _scores_f64(med: np.ndarray, counts: np.ndarray) -> np.ndarray:
+    merged = med[None, :] + counts
+    p = merged / np.maximum(merged.sum(-1, keepdims=True), 1e-300)
+    c = counts.shape[1]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        terms = np.where(p > 0, p * (np.log(p) + np.log(c)), 0.0)
+    return terms.sum(-1)
+
+
+def first_divergence(client_counts: np.ndarray, gamma: int, picks_a,
+                     picks_b) -> dict | None:
+    """Compare two absorption orders of the same greedy pass.
+
+    Returns ``None`` if they are equal; otherwise the first step where they
+    differ, the two candidates there, their float64 scores against the
+    shared mediator state, and ``tie`` -- whether those scores agree to
+    1e-9 relative (a float tie, where either pick is correct)."""
+    counts = np.asarray(client_counts, np.float64)
+    a, b = np.asarray(picks_a, np.int64), np.asarray(picks_b, np.int64)
+    if a.shape != b.shape:
+        raise ValueError(f"pick lists differ in length: {a.shape} vs {b.shape}")
+    diff = np.flatnonzero(a != b)
+    if diff.size == 0:
+        return None
+    step = int(diff[0])
+    open_from = step - step % gamma
+    med = counts[a[open_from:step]].sum(0) if step > open_from \
+        else np.zeros(counts.shape[1])
+    sa, sb = _scores_f64(med, counts[[a[step], b[step]]])
+    tie = bool(abs(sa - sb) <= 1e-9 * max(abs(sa), abs(sb), 1e-300))
+    return {"step": step, "a": int(a[step]), "b": int(b[step]),
+            "score_a": float(sa), "score_b": float(sb), "tie": tie}
+
+
+def random_schedule(num_clients: int, gamma: int, client_counts: np.ndarray,
+                    seed: int = 0) -> list[Mediator]:
+    """Control: arbitrary grouping (what plain FedAvg round batching does)."""
+    client_counts = np.asarray(client_counts, np.float64)
+    order = np.random.default_rng(seed).permutation(num_clients)
+    return [Mediator(clients=[int(i) for i in order[s:s + gamma]],
+                     counts=client_counts[order[s:s + gamma]].sum(0))
+            for s in range(0, num_clients, gamma)]
+
+
+def schedule_stats(mediators: list[Mediator]) -> dict[str, float]:
+    """Fig. 7 metrics: distribution of D_KL(P_m || P_u) over mediators."""
+    klds = np.array([m.kld_to_uniform() for m in mediators])
+    return {
+        "kld_mean": float(klds.mean()),
+        "kld_median": float(np.median(klds)),
+        "kld_max": float(klds.max()),
+        "kld_min": float(klds.min()),
+        "num_mediators": len(mediators),
+    }

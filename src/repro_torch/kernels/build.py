@@ -1,0 +1,125 @@
+"""Build the CUDA kernels into one shared library and load it with ctypes.
+
+The sources in ``csrc/`` have a plain C interface and include no PyTorch
+header, so ``nvcc`` compiles each in seconds.  The build runs at first use,
+never at import: every source is compiled to an object by its own ``nvcc``
+process, all started together, and the objects are linked into one
+``.so`` for ``sm_90a`` under ``<repo>/build/repro_torch/``.  The library's
+name carries a hash of the sources and flags, so an edited source is
+rebuilt and an unchanged one is loaded as it is.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch; the
+``ops`` wrappers raise on a non-zero code.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("fedavg_agg.cu", "kld_greedy.cu", "affine_warp.cu")
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_I = ctypes.c_int
+# entry point -> argument types (every one returns an int error code)
+SIGNATURES = {
+    "fedavg_agg_f32": (_P, _P, _P, _I64, _I64, _P),
+    "fedavg_agg_bf16": (_P, _P, _P, _I64, _I64, _P),
+    "kld_greedy_picks": (_P, _P, _I, _I, _I, _P),
+    "affine_warp_f32": (_P, _P, _P, _P, _I64, _I, _I, _I, _P),
+}
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libreprotorch_{_digest()}.so"
+
+
+def build(log: list[str] | None = None) -> Path:
+    """Compile and link the kernels unless the current library exists.
+    Appends the compiler's output (``-Xptxas=-v`` register/smem report)
+    and the build seconds to ``log`` when given."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for name in SOURCES:
+            obj = Path(tmp) / (Path(name).stem + ".o")
+            objs.append(str(obj))
+            procs.append((name, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for name, proc in procs:
+            text, _ = proc.communicate()
+            if log is not None:
+                log.append(f"[nvcc {name}]\n{text}")
+            if proc.returncode:
+                failed.append(f"{name}:\n{text}")
+        if failed:
+            raise RuntimeError("nvcc failed\n" + "\n".join(failed))
+        tmp_lib = Path(tmp) / out.name
+        link = subprocess.run(
+            [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+             *objs, "-o", str(tmp_lib)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(tmp_lib, out)
+    if log is not None:
+        log.append(f"build seconds: {time.perf_counter() - t0:.2f}")
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, args in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(args)
+        fn.restype = ctypes.c_int
+    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(code: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if code != 0:
+        msg = library().repro_cuda_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA error {code}: {msg}")

@@ -1,0 +1,142 @@
+"""Public wrappers around the port's CUDA kernels.
+
+Each wrapper checks device, dtype, shape and contiguity, then
+
+* for CPU tensors, returns the plain PyTorch version (``kernels/ref.py``);
+* for CUDA tensors, launches its kernel on the current stream and adds one
+  to ``LAUNCHES[name]`` -- or raises.  Nothing routes a CUDA tensor around
+  its kernel.
+
+The kernel library is built on the first CUDA call (``kernels/build.py``).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+
+# kernel launches since the last reset, per kernel (main-path evidence)
+LAUNCHES: dict[str, int] = {"fedavg_agg": 0, "kld_greedy_picks": 0,
+                            "affine_warp": 0}
+
+# single-CTA limits of the greedy kernel (pick mask and histogram live in
+# shared memory; a multi-CTA pass for larger K is later work)
+GREEDY_MAX_K = 16_384
+GREEDY_MAX_C = 1_024
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _on_cuda(*tensors: torch.Tensor) -> bool:
+    """True for CUDA inputs, False for CPU ones; raises on anything else or
+    on a mix of devices."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"inputs lie on different devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError("CUDA kernel inputs must be contiguous")
+    return True
+
+
+def _launch(name: str, entry: str, device: torch.device, *args) -> None:
+    from repro_torch.kernels import build
+    lib = build.library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        code = getattr(lib, entry)(*args, stream)
+    build.check(code, entry)
+    LAUNCHES[name] += 1
+
+
+def fedavg_agg(deltas: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Eq. 6: ``deltas (M, N)`` f32 or bf16, raw ``weights (M,)`` ->
+    ``(N,)`` in ``deltas``' dtype, fp32 accumulate.  Weights are normalized
+    before the kernel, so zero-weight rows are exact no-ops."""
+    if deltas.dim() != 2 or weights.shape != (deltas.shape[0],):
+        raise ValueError(f"expected deltas (M, N) and weights (M,), got "
+                         f"{tuple(deltas.shape)} and {tuple(weights.shape)}")
+    if deltas.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"deltas must be float32 or bfloat16, got {deltas.dtype}")
+    if not _on_cuda(deltas, weights):
+        return ref.fedavg_agg(deltas, weights)
+    m, n = deltas.shape
+    wn = ref.normalized_weights(weights).contiguous()
+    out = torch.empty(n, dtype=deltas.dtype, device=deltas.device)
+    entry = "fedavg_agg_f32" if deltas.dtype == torch.float32 else "fedavg_agg_bf16"
+    _launch("fedavg_agg", entry, deltas.device, deltas.data_ptr(),
+            wn.data_ptr(), out.data_ptr(), m, n)
+    return out
+
+
+def fedavg_agg_tree(deltas: dict[str, torch.Tensor],
+                    weights: torch.Tensor) -> dict[str, torch.Tensor]:
+    """Eq. 6 over a dict of stacked ``(M, ...)`` leaves: each dtype group is
+    flattened into one ``(M, total)`` buffer and aggregated by one call.
+    Columns are reduced independently, so the result equals one call per
+    leaf bit for bit."""
+    if not deltas:
+        return {}
+    m = next(iter(deltas.values())).shape[0]
+    groups: dict[torch.dtype, list[str]] = {}
+    for name, leaf in deltas.items():
+        groups.setdefault(leaf.dtype, []).append(name)
+    out: dict[str, torch.Tensor] = {}
+    for names in groups.values():
+        flat = torch.cat([deltas[k].reshape(m, -1) for k in names], dim=1)
+        agg = fedavg_agg(flat, weights)
+        start = 0
+        for k in names:
+            shape = deltas[k].shape[1:]
+            size = deltas[k][0].numel()
+            out[k] = agg[start:start + size].reshape(shape)
+            start += size
+    return {k: out[k] for k in deltas}
+
+
+def kld_greedy_picks(client_counts: torch.Tensor, gamma: int) -> torch.Tensor:
+    """The whole Alg. 3 pass: ``(K, C)`` float32 histograms -> ``(K,)``
+    int32 absorption order (mediator ``i`` holds picks ``[i*gamma,
+    (i+1)*gamma)``)."""
+    if client_counts.dim() != 2 or client_counts.dtype != torch.float32:
+        raise ValueError("client_counts must be a (K, C) float32 tensor")
+    if gamma < 1:
+        raise ValueError(f"gamma must be >= 1, got {gamma}")
+    if not _on_cuda(client_counts):
+        return ref.kld_greedy_picks(client_counts, gamma)
+    k, c = client_counts.shape
+    if k > GREEDY_MAX_K or c > GREEDY_MAX_C:
+        raise ValueError(f"the single-CTA greedy kernel takes K <= {GREEDY_MAX_K} "
+                         f"and C <= {GREEDY_MAX_C}, got K={k}, C={c}")
+    picks = torch.empty(k, dtype=torch.int32, device=client_counts.device)
+    _launch("kld_greedy_picks", "kld_greedy_picks", client_counts.device,
+            client_counts.data_ptr(), picks.data_ptr(), k, c, int(gamma))
+    return picks
+
+
+def affine_warp(images: torch.Tensor, mats: torch.Tensor,
+                trans: torch.Tensor) -> torch.Tensor:
+    """Bilinear inverse-affine warp: ``images (B, H, W, C)`` float32,
+    ``mats (B, 2, 2)``, ``trans (B, 2)`` -> ``(B, H, W, C)``."""
+    if images.dim() != 4:
+        raise ValueError(f"images must be (B, H, W, C), got {tuple(images.shape)}")
+    b, h, w, c = images.shape
+    if mats.shape != (b, 2, 2) or trans.shape != (b, 2):
+        raise ValueError(f"expected mats ({b}, 2, 2) and trans ({b}, 2), got "
+                         f"{tuple(mats.shape)} and {tuple(trans.shape)}")
+    if not all(t.dtype == torch.float32 for t in (images, mats, trans)):
+        raise ValueError("affine_warp takes float32 images, mats and trans")
+    if not _on_cuda(images, mats, trans):
+        return ref.affine_warp(images, mats, trans)
+    out = torch.empty_like(images)
+    _launch("affine_warp", "affine_warp_f32", images.device, images.data_ptr(),
+            mats.data_ptr(), trans.data_ptr(), out.data_ptr(), b, h, w, c)
+    return out

@@ -1,0 +1,264 @@
+"""Port parity: the plain versions of the three CUDA kernels against the
+JAX reference's non-Pallas oracles, and the ``ops`` wrappers' CPU routing
+and checks.  tests/test_torch_cuda.py holds the kernels themselves against
+these plain versions on a card."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+from repro.core import distribution as jdist                      # noqa: E402
+from repro.core import fl as jfl                                  # noqa: E402
+from repro.core import scheduling as jsched                       # noqa: E402
+from repro.core.augmentation import warp_params                   # noqa: E402
+from repro.kernels import ref as jref                             # noqa: E402
+
+from repro_torch.core import distribution as dist                 # noqa: E402
+from repro_torch.core import scheduling                           # noqa: E402
+from repro_torch.core.fl import weighted_average                  # noqa: E402
+from repro_torch.kernels import ops                               # noqa: E402
+
+
+# ---------------------------------------------------------------- Eq. 6
+
+@pytest.mark.parametrize("m,n", [(1, 7), (4, 300), (16, 1031)])
+def test_fedavg_agg_matches_reference(m, n):
+    rng = np.random.default_rng(m * 100 + n)
+    d = rng.normal(size=(m, n)).astype(np.float32)
+    w = (rng.random(m) * 10 + 0.1).astype(np.float32)
+    w[-1] = 0.0 if m > 1 else w[-1]          # a zero-weight (dummy) row
+    got = ops.fedavg_agg(torch.from_numpy(d), torch.from_numpy(w)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jref.fedavg_agg(jnp.asarray(d), jnp.asarray(w))),
+                               rtol=1e-6, atol=1e-7)
+    expect_wa = jfl.weighted_average({"x": jnp.asarray(d)}, jnp.asarray(w))["x"]
+    np.testing.assert_allclose(got, np.asarray(expect_wa), rtol=1e-6, atol=1e-7)
+
+
+def test_fedavg_agg_bf16_accumulates_in_fp32():
+    rng = np.random.default_rng(5)
+    d = torch.from_numpy(rng.normal(size=(6, 513)).astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy(rng.random(6).astype(np.float32))
+    got = ops.fedavg_agg(d, w)
+    assert got.dtype == torch.bfloat16
+    wn = w / w.sum()
+    expect = (wn[:, None].double() * d.double()).sum(0)
+    # one bf16 rounding of the fp32 sum: within half a bf16 ulp (2^-8 rel)
+    torch.testing.assert_close(got.double(), expect, rtol=2 ** -8, atol=1e-6)
+
+
+def test_fedavg_agg_tree_fused_equals_per_leaf_and_weighted_average():
+    rng = np.random.default_rng(7)
+    tree = {"a": torch.from_numpy(rng.normal(size=(5, 3, 4)).astype(np.float32)),
+            "b": torch.from_numpy(rng.normal(size=(5, 11)).astype(np.float32)),
+            "c": torch.from_numpy(rng.normal(size=(5, 6)).astype(np.float32)
+                                  ).to(torch.bfloat16)}
+    w = torch.from_numpy(rng.random(5).astype(np.float32))
+    fused = ops.fedavg_agg_tree(tree, w)
+    assert list(fused) == list(tree)
+    for k, leaf in tree.items():
+        per_leaf = ops.fedavg_agg(leaf.reshape(5, -1), w).reshape(leaf.shape[1:])
+        assert fused[k].dtype == leaf.dtype
+        assert torch.equal(fused[k], per_leaf)
+    wa = weighted_average({k: tree[k] for k in ("a", "b")}, w)
+    for k in ("a", "b"):
+        torch.testing.assert_close(fused[k], wa[k], rtol=1e-6, atol=1e-7)
+
+
+def test_fedavg_agg_rejects_bad_inputs():
+    with pytest.raises(ValueError):
+        ops.fedavg_agg(torch.zeros(3, 4, dtype=torch.float64), torch.ones(3))
+    with pytest.raises(ValueError):
+        ops.fedavg_agg(torch.zeros(3, 4), torch.ones(2))
+    with pytest.raises(ValueError):
+        ops.fedavg_agg(torch.zeros(3, 4, device="meta"), torch.ones(3, device="meta"))
+
+
+# ---------------------------------------------------------------- warp
+
+_jax_warp = jax.jit(jref.affine_warp)
+_jax_warp_params = jax.jit(lambda key: warp_params(key, 3))
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_affine_warp_matches_map_coordinates(case):
+    """Ten seeded batches per case (40 in all), including far out-of-bounds
+    maps.  atol 5e-5: the four-tap arithmetic and map_coordinates round
+    the source coordinate in a different order."""
+    worst = 0.0
+    for j in range(10):
+        seed = case * 10 + j
+        rng = np.random.default_rng(seed)
+        b, hw, c = 3, [8, 16, 28][seed % 3], [1, 3][seed % 2]
+        scale = 0.5 + 2.0 * rng.random()
+        imgs = rng.normal(size=(b, hw, hw, c)).astype(np.float32)
+        mats, trans = _jax_warp_params(jax.random.PRNGKey(seed))
+        mats = np.asarray(mats) * scale
+        trans = np.asarray(trans) * scale
+        expect = np.asarray(_jax_warp(jnp.asarray(imgs), jnp.asarray(mats),
+                                      jnp.asarray(trans)))
+        got = ops.affine_warp(torch.from_numpy(imgs), torch.from_numpy(mats),
+                              torch.from_numpy(trans)).numpy()
+        worst = max(worst, float(np.max(np.abs(got - expect))))
+    assert worst <= 5e-5
+
+
+def test_online_augment_batch_matches_reference_with_its_draws():
+    """One padded client batch through Alg. 2's resample + warp, fed the
+    reference's own categorical / uniform / warp draws."""
+    from repro.core.augmentation import online_augment_batch as j_online
+    from repro_torch.core.augmentation import online_augment_batch
+    from torch_parity import aug_draws
+    rng = np.random.default_rng(4)
+    pad, nc = 30, 6
+    x = rng.normal(size=(pad, 16, 16, 1)).astype(np.float32)
+    y = rng.integers(0, nc, pad).astype(np.int32)
+    m = (np.arange(pad) < 23).astype(np.float32)
+    plan = np.array([0, 3, 1, 0, 2, 5], np.int32)
+    key = jax.random.PRNGKey(9)
+    ex, ey = jax.jit(lambda k: j_online(k, jnp.asarray(x), jnp.asarray(y),
+                                        jnp.asarray(m), jnp.asarray(plan),
+                                        impl="reference"))(key)
+    w = m * (1.0 + plan[y]).astype(np.float32)
+    draws = [torch.from_numpy(np.array(a)) for a in aug_draws(key, jnp.asarray(w), n=pad)]
+    draws[0] = draws[0].long()
+    gx, gy = online_augment_batch(torch.from_numpy(x), torch.from_numpy(y),
+                                  torch.from_numpy(plan), draws)
+    np.testing.assert_array_equal(gy.numpy(), np.asarray(ey))
+    np.testing.assert_allclose(gx.numpy(), np.asarray(ex), rtol=0, atol=5e-5)
+
+
+def test_warp_batch_is_the_kernel_on_its_draws():
+    from repro_torch.core.augmentation import warp_batch, warp_params
+    imgs = torch.from_numpy(np.random.default_rng(2).normal(size=(5, 12, 12, 2))
+                            .astype(np.float32))
+    out = warp_batch(imgs, generator=torch.Generator().manual_seed(3))
+    mats, trans = warp_params(5, generator=torch.Generator().manual_seed(3))
+    assert torch.equal(out, ops.affine_warp(imgs, mats, trans))
+
+
+def test_affine_warp_identity_and_checks():
+    img = torch.from_numpy(np.random.default_rng(1).normal(size=(2, 9, 7, 2)).astype(np.float32))
+    eye = torch.eye(2).expand(2, 2, 2).contiguous()
+    assert torch.equal(ops.affine_warp(img, eye, torch.zeros(2, 2)), img)
+    with pytest.raises(ValueError):
+        ops.affine_warp(img, eye[:1], torch.zeros(2, 2))
+    with pytest.raises(ValueError):
+        ops.affine_warp(img.double(), eye.double(), torch.zeros(2, 2).double())
+
+
+# ---------------------------------------------------------------- Alg. 3
+
+def test_merged_kld_scores_match_reference():
+    rng = np.random.default_rng(3)
+    med = rng.integers(0, 30, 47).astype(np.float32)
+    cand = rng.integers(0, 30, (64, 47)).astype(np.float32)
+    cand[3] = 0.0
+    expect = np.asarray(jdist.merged_kld_scores(jnp.asarray(med), jnp.asarray(cand)))
+    got = dist.merged_kld_scores(torch.from_numpy(med), torch.from_numpy(cand)).numpy()
+    np.testing.assert_allclose(got, expect, rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(
+        dist.kld_to_uniform(torch.from_numpy(cand)).numpy(),
+        np.asarray(jdist.kld_to_uniform(jnp.asarray(cand))), rtol=1e-6, atol=1e-7)
+    labels = rng.integers(0, 47, 200)
+    mask = (rng.random(200) < 0.7).astype(np.float32)
+    np.testing.assert_array_equal(
+        dist.class_histogram(torch.from_numpy(labels), 47, torch.from_numpy(mask)).numpy(),
+        np.asarray(jdist.class_histogram(jnp.asarray(labels), 47, jnp.asarray(mask))))
+
+
+# every case has K = 8 clients over 8 or 47 classes: the reference loop
+# scores eagerly, and a fixed set of shapes keeps its compiles cached
+K = 8
+
+
+def _cases():
+    rng = np.random.default_rng(11)
+    cases = []
+    for i in range(6):                                   # random histograms
+        c = (8, 47)[i % 2]
+        cases.append((rng.integers(0, 60, (K, c)), int(rng.integers(1, 6))))
+    for i in range(4):                                   # permuted duplicates
+        base = rng.integers(0, 40, (3, 8))
+        cases.append((np.stack([rng.permutation(base[j % 3]) for j in range(K)]),
+                      int(rng.integers(2, 5))))
+    cases.append((np.tile(rng.integers(1, 9, (1, 8)), (K, 1)), 3))     # all tied
+    cases.append((np.zeros((K, 8)), 2))                                  # empty
+    return cases
+
+
+@pytest.mark.parametrize("case", range(12))
+def test_greedy_picks_match_reference_loop(case):
+    """Port picks (batched plain pass and loop) vs the reference's numpy
+    loop.  Where the lists diverge, the two candidates tie in float64."""
+    counts, gamma = _cases()[case]
+    expect = jsched.reschedule(counts, gamma, impl="loop")
+    picks_ref = np.array([c for m in expect for c in m.clients])
+    for impl in ("batched", "loop"):
+        got = scheduling.reschedule(counts, gamma, impl=impl, device="cpu")
+        assert [len(m.clients) for m in got] == [len(m.clients) for m in expect]
+        div = scheduling.first_divergence(counts, gamma, picks_ref,
+                                          scheduling.picks_of(got))
+        assert div is None or div["tie"], div
+        if div is None:
+            for a, b in zip(got, expect):
+                np.testing.assert_array_equal(a.counts, b.counts)
+
+
+def test_greedy_random_cases_match_strictly():
+    """Random integer histograms have no float64 ties: strict equality."""
+    rng = np.random.default_rng(5)
+    for _ in range(10):
+        counts = rng.integers(0, 100, (K, 47))
+        expect = jsched.reschedule(counts, 4, impl="loop")
+        got = scheduling.reschedule(counts, 4, impl="batched", device="cpu")
+        assert [m.clients for m in got] == [m.clients for m in expect]
+
+
+def test_all_tied_picks_are_in_client_order():
+    counts = np.ones((10, 4))
+    picks = ops.kld_greedy_picks(torch.ones(10, 4), 3)
+    np.testing.assert_array_equal(picks.numpy(), np.arange(10))
+    assert picks.dtype == torch.int32
+    assert [m.clients for m in scheduling.reschedule(counts, 3, impl="loop")] \
+        == [[0, 1, 2], [3, 4, 5], [6, 7, 8], [9]]
+
+
+def test_first_divergence_flags_real_disagreements():
+    counts = np.array([[5, 0], [0, 5], [3, 3]], float)
+    assert scheduling.first_divergence(counts, 3, [2, 0, 1], [2, 0, 1]) is None
+    div = scheduling.first_divergence(counts, 3, [2, 0, 1], [0, 2, 1])
+    assert div["step"] == 0 and not div["tie"]
+    div = scheduling.first_divergence(counts, 3, [2, 0, 1], [2, 1, 0])
+    assert div["step"] == 1 and div["tie"]
+
+
+def test_schedule_stats_and_random_schedule_match_reference():
+    rng = np.random.default_rng(9)
+    counts = rng.integers(0, 50, (13, 8))
+    got = scheduling.random_schedule(13, 4, counts, seed=3)
+    expect = jsched.random_schedule(13, 4, counts, seed=3)
+    assert [m.clients for m in got] == [m.clients for m in expect]
+    s_got, s_exp = scheduling.schedule_stats(got), jsched.schedule_stats(expect)
+    assert s_got.keys() == s_exp.keys()
+    for k in s_got:
+        assert s_got[k] == pytest.approx(s_exp[k], rel=1e-6)
+
+
+def test_greedy_wrapper_checks():
+    with pytest.raises(ValueError):
+        ops.kld_greedy_picks(torch.ones(4, 3, dtype=torch.float64), 2)
+    with pytest.raises(ValueError):
+        ops.kld_greedy_picks(torch.ones(4, 3), 0)
+    with pytest.raises(ValueError):
+        scheduling.reschedule(np.ones((3, 2)), 2, impl="scan", device="cpu")
+
+
+def test_cpu_calls_launch_nothing():
+    ops.reset_launches()
+    ops.fedavg_agg(torch.ones(2, 3), torch.ones(2))
+    ops.kld_greedy_picks(torch.ones(3, 2), 2)
+    ops.affine_warp(torch.ones(1, 4, 4, 1), torch.eye(2)[None], torch.zeros(1, 2))
+    assert ops.LAUNCHES == {"fedavg_agg": 0, "kld_greedy_picks": 0, "affine_warp": 0}
