@@ -6,7 +6,8 @@
 Phases, each fatal on failure:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: the three CUDA kernels with ``nvcc`` for sm_90a;
+2. build: the five CUDA kernels with ``nvcc`` for sm_90a, one process per
+   source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at a large one, with CUDA-event times of the
    kernel, the plain version and a one-call PyTorch yardstick, beside the
@@ -16,7 +17,22 @@ Phases, each fatal on failure:
 5. main path: FedAvg then Astraea at the paper's EMNIST width (68,873
    parameters), 3 rounds each, with every kernel launch count reset just
    before and read just after; the WAN ledger must equal the CommMeter
-   formula and accuracy must be finite.
+   formula and accuracy must be finite;
+6. serving agreement: a reduced Hymba (GQA 4:2, f32 weights from one seed)
+   prefilled and decoded on the card against the same run on the CPU;
+7. serving path: ``repro_torch.launch.serve.serve`` on hymba-1.5b at full
+   width (1,393,625,120 parameters, bf16), batch 4, a 2,048-token prompt
+   and 16 new tokens, with the launch counts reset just before and read
+   just after: 32 flash-attention and 32 SSD launches in the prefill;
+   every logit must be finite.  Then one warm prefill and 4 decode steps
+   of the same model under ``torch.profiler``: device busy time, idle
+   share and the top kernels of each.
+
+Phase 3 also holds the flash-attention and SSD kernels against their plain
+versions at the serve shapes (bf16 and f32), with a no-window, a
+``q_offset`` and a GQA 1:1 attention row, and times
+``F.scaled_dot_product_attention`` with an explicit mask as attention's
+one-call yardstick (the port never calls it).
 
 Prints the kernels' JSON summary, then as the last line
 ``{"ok": true, "device": {...}}``.  Full results go to
@@ -42,11 +58,13 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM data-sheet peaks (dense, no sparsity) at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 
 FED_KW = dict(num_clients=64, total_samples=6400, test_samples=2350,
               sizes="instagram", global_dist="letterfreq", local="random",
               seed=0)
 CLIENTS, GAMMA, ROUNDS, ALPHA = 16, 4, 3, 0.67
+FL_KERNELS = ("fedavg_agg", "kld_greedy_picks", "affine_warp")
 
 
 def log(*a):
@@ -98,8 +116,9 @@ def timed(row: dict, **fns) -> dict:
     return row
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS_PER_S
+          ) -> tuple[float, str]:
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / peak
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
 
@@ -186,7 +205,86 @@ def check_warp(dev, b, h, w, c, gen):
                      align_corners=True), 50.0))
 
 
-# ---------------------------------------------------------------- phases 4-5
+def _dname(dtype):
+    return str(dtype).split(".")[-1]
+
+
+def check_flash(dev, gen, *, b, sq, skv, h, kv, d, dtype, window, q_offset=0,
+                causal=True):
+    from repro_torch.kernels import ops, ref
+    q = torch.randn(b, sq, h, d, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, skv, kv, d, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, skv, kv, d, generator=gen, device=dev).to(dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out, plain = ops.flash_attention(q, k, v, **kw), ref.flash_attention(q, k, v, **kw)
+    err = float((out.double() - plain.double()).abs().max())
+    scale = float(plain.double().abs().max())
+    # fp32: online softmax vs the whole-row plain version, sums in other
+    # orders; bf16: the two fp32 results may round to neighbouring values
+    tol = (1e-5 if dtype == torch.float32 else 2 ** -7) * max(scale, 1.0)
+    if not err <= tol:
+        raise AssertionError(f"flash_attention {tuple(q.shape)} {dtype} {kw}: "
+                             f"err {err} > {tol}")
+    mask = ref.attention_mask(sq, skv, device=dev, **kw)
+    pairs = int(mask.sum()) * b * h                  # visible (query, key) pairs
+    esize = q.element_size()
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    b_ms, by = bound(esize * (2 * q.numel() + k.numel() + v.numel()), 4.0 * d * pairs, peak)
+    # yardstick: SDPA in its (b, H, s, d) layout with the same boolean mask
+    # and the KV heads repeated, prepared outside the timed call
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(h // kv, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(h // kv, dim=2).transpose(1, 2).contiguous()
+    sdpa = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask).transpose(1, 2)
+    row = timed({"shape": f"b={b} sq={sq} skv={skv} H={h} KV={kv} d={d} "
+                          f"W={window} off={q_offset} {_dname(dtype)}",
+                 "max_abs_err": err, "tol": tol, "pairs": pairs,
+                 "sdpa_err": float((sdpa.double() - plain.double()).abs().max()),
+                 "bound_ms": b_ms, "bound_by": by},
+                ms=(lambda: ops.flash_attention(q, k, v, **kw), 50.0),
+                plain_ms=(lambda: ref.flash_attention(q, k, v, **kw), 50.0),
+                library_ms=(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask), 50.0))
+    return row
+
+
+def check_ssd(dev, gen, *, b, nc, L, h, p, n, dtype):
+    from repro_torch.kernels import ops, ref
+    x = torch.randn(b, nc, L, h, p, generator=gen, device=dev).to(dtype)
+    dt = F.softplus(torch.randn(b, nc, L, h, generator=gen, device=dev) - 1.0)
+    A = -torch.exp(torch.randn(h, generator=gen, device=dev))
+    B = torch.randn(b, nc, L, n, generator=gen, device=dev).to(dtype)
+    C = torch.randn(b, nc, L, n, generator=gen, device=dev).to(dtype)
+    got, want = ops.ssd_chunk(x, dt, A, B, C), ref.ssd_chunk(x, dt, A, B, C)
+    errs = []
+    for i, (o, w) in enumerate(zip(got, want)):
+        err = float((o.double() - w.double()).abs().max())
+        scale = max(float(w.double().abs().max()), 1.0)
+        # fp32 sums in another order: 1e-5 of the scale; y_diag in bf16:
+        # one bf16 ulp
+        tol = (2 ** -7 if (i == 0 and dtype == torch.bfloat16) else 1e-5) * scale
+        if not err <= tol:
+            raise AssertionError(f"ssd_chunk output {i} {dtype}: err {err} > {tol}")
+        errs.append(err)
+    tiles, tri = b * nc * h, L * (L + 1) // 2
+    # C.B over n, y_diag over p, the decay exp, on the lower triangle; the
+    # outgoing state; w and the chunk cumsum
+    flops = tiles * (tri * (2 * n + 2 * p + 2) + 2 * L * n * p + 3 * L * n + 2 * L)
+    esize = x.element_size()
+    nbytes = (esize * (2 * x.numel() + B.numel() + C.numel()) + 4 * (dt.numel() + h)
+              + 4 * (got[1].numel() + got[2].numel()))
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    b_ms, by = bound(nbytes, flops, peak)
+    row = timed({"shape": f"b={b} nc={nc} L={L} h={h} p={p} n={n} {_dname(dtype)}",
+                 "max_abs_err": max(errs), "errs_y_S_g": errs,
+                 "bound_ms": b_ms, "bound_by": by},
+                ms=(lambda: ops.ssd_chunk(x, dt, A, B, C), 50.0),
+                plain_ms=(lambda: ref.ssd_chunk(x, dt, A, B, C), 50.0))
+    row["library_ms"] = row["library_device_ms"] = None
+    return row
+
+
+# ---------------------------------------------------------------- phases 4-7
 
 class _DrawsOn:
     """CPU-seeded draws moved to ``device``: the same numbers on both sides
@@ -285,11 +383,131 @@ def main_path(fed, dev):
             expect = [plan_bytes + per_round * (r + 1) for r in range(ROUNDS)]
         if tr.comm.round_log != expect:
             raise AssertionError(f"{name}: WAN ledger {tr.comm.round_log} != {expect}")
-    launches = dict(ops.LAUNCHES)
+    launches = {k: ops.LAUNCHES[k] for k in FL_KERNELS}
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}: {launches}")
     return rows, launches
+
+
+def serve_agreement(dev):
+    """Reduced Hymba with GQA 4:2 (``reduced`` alone gives 4:4), f32
+    weights from one seed: prefill of a 2W-token prompt (window mask and
+    ring wrap) and 8 teacher-forced decode steps on the card against the
+    CPU's plain versions.  Tolerance 2e-4 of the logit scale: fp32 sums in
+    other orders (cuBLAS, the kernels) amplified by the reference init's
+    large activations, as in tests/test_torch_serve.py."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(configs.reduced(configs.get("hymba-1.5b")), n_kv_heads=2)
+    cpu = T.init_model(cfg, torch.Generator().manual_seed(0))
+    card = T.Transformer(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    s, steps = 2 * cfg.sliding_window, 8
+    toks = torch.randint(0, cfg.vocab, (2, s + steps),
+                         generator=torch.Generator().manual_seed(1))
+    lc, cc = T.forward_prefill(cpu, {"tokens": toks[:, :s]}, pad_to=s + steps)
+    lg, cg = T.forward_prefill(card, {"tokens": toks[:, :s].to(dev)}, pad_to=s + steps)
+    errs, scales = [], []
+    for i in range(steps + 1):
+        errs.append(float((lg.cpu() - lc).abs().max()))
+        scales.append(max(float(lc.abs().max()), 1.0))
+        if i == steps:
+            break
+        pos = s + i
+        tok = toks[:, pos:pos + 1]
+        lc, cc = T.forward_decode(cpu, {"tokens": tok, "positions": torch.full((2,), pos)}, cc)
+        lg, cg = T.forward_decode(card, {"tokens": tok.to(dev),
+                                         "positions": torch.full((2,), pos, device=dev)}, cg)
+    rel = max(e / sc for e, sc in zip(errs, scales))
+    if not rel <= 2e-4:
+        raise AssertionError(f"serving card vs CPU: logits errors {errs} (scales {scales})")
+    return {"logits_max_abs_err": errs, "logit_scale": scales, "max_rel_err": rel,
+            "tol_rel": 2e-4, "prompt": s, "decode_steps": steps}
+
+
+def serve_path(dev):
+    """hymba-1.5b at full width through the serving entry point."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    cfg = configs.get("hymba-1.5b")
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    r = serve(cfg, batch=4, prompt_len=2048, tokens=16, device=dev,
+              generator=torch.Generator(device=dev).manual_seed(0))
+    launches = dict(ops.LAUNCHES)
+    pre = r["prefill_launches"]
+    if r["params"] != 1_393_625_120:
+        raise AssertionError(f"hymba-1.5b has {r['params']} params")
+    if pre["flash_attention"] != cfg.n_layers or pre["ssd_chunk"] != cfg.n_layers:
+        raise AssertionError(f"prefill launched {pre}; expected {cfg.n_layers} "
+                             f"flash_attention and {cfg.n_layers} ssd_chunk")
+    if not r["logits_finite"]:
+        raise AssertionError("hymba-1.5b serve: non-finite logits")
+    if tuple(r["tokens"].shape) != (4, 16):
+        raise AssertionError(f"generated {tuple(r['tokens'].shape)} tokens")
+    steps = r["decode_step_s"]
+    return {"prefill_s": r["prefill_s"], "decode_step_s": steps,
+            "decode_ms_per_token": 1e3 * sum(steps) / len(steps),
+            "prefill_launches": pre, "decode_launches": r["decode_launches"],
+            "launches": launches, "params": r["params"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "sample": r["tokens"][0].tolist()}
+
+
+def _device_busy_ms(prof) -> tuple[float, list[tuple[str, float, int]]]:
+    """Summed kernel time (ms) of a profiler window and its top kernels
+    (name, ms, calls)."""
+    rows = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = [r for r in rows if r[1] > 0]
+    rows.sort(key=lambda r: -r[1])
+    return sum(r[1] for r in rows), rows[:8]
+
+
+def profile_serve(dev, steps: int = 4):
+    """Where a full-width Hymba serve step spends its time: one warm
+    prefill and ``steps`` decode steps under ``torch.profiler``, each
+    against its host-clock wall time; device idle share = 1 - busy/wall."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    cfg = configs.get("hymba-1.5b")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = T.init_model(cfg, gen, device=dev)
+    toks = torch.randint(0, cfg.vocab, (4, 2048 + steps), generator=gen, device=dev)
+    T.forward_prefill(model, {"tokens": toks[:, :2048]}, pad_to=2048 + steps)   # warm-up
+    out = {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, cache = T.forward_prefill(model, {"tokens": toks[:, :2048]}, pad_to=2048 + steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, top = _device_busy_ms(prof)
+    out["prefill"] = {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+                      "idle_share": 1.0 - busy / (wall * 1e3), "top_kernels": top,
+                      "kernel_launches": sum(e.count for e in prof.key_averages()
+                                             if e.device_type == torch.autograd.DeviceType.CUDA)}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            pos = torch.full((4,), 2048 + i, dtype=torch.long, device=dev)
+            T.forward_decode(model, {"tokens": toks[:, 2048 + i:2049 + i],
+                                     "positions": pos}, cache)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, top = _device_busy_ms(prof)
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    out["decode"] = {"wall_ms_per_token": wall * 1e3 / steps,
+                     "device_busy_ms_per_token": busy / steps,
+                     "idle_share": 1.0 - busy / (wall * 1e3), "top_kernels": top,
+                     "kernel_launches_per_token": launches / steps}
+    return out
 
 
 def main() -> int:
@@ -347,6 +565,18 @@ def main() -> int:
         dev, np.tile(rng.integers(1, 50, (1, 47)), (4096, 1)), GAMMA))
     checks["affine_warp"].append(check_warp(dev, CLIENTS * pad, 28, 28, 1, gen))
     checks["affine_warp"].append(check_warp(dev, 4096, 32, 32, 3, gen))
+    # the serve path's shapes: Hymba prefill, b=4, s=2048 = 2W
+    hy = dict(b=4, sq=2048, skv=2048, h=25, kv=5, d=64)
+    checks["flash_attention"] = [
+        check_flash(dev, gen, **hy, dtype=torch.bfloat16, window=1024),
+        check_flash(dev, gen, **hy, dtype=torch.float32, window=1024),
+        check_flash(dev, gen, **hy, dtype=torch.bfloat16, window=None),
+        check_flash(dev, gen, **{**hy, "sq": 64}, dtype=torch.bfloat16, window=1024,
+                    q_offset=1984),
+        check_flash(dev, gen, **{**hy, "kv": 25}, dtype=torch.bfloat16, window=1024)]
+    ssd = dict(b=4, nc=32, L=64, h=25, p=64, n=16)
+    checks["ssd_chunk"] = [check_ssd(dev, gen, **ssd, dtype=torch.float32),
+                           check_ssd(dev, gen, **ssd, dtype=torch.bfloat16)]
     def fmt(x):
         return "n/a" if x is None else f"{x:.4f}"
     log("[kernel] times in ms per call: CUDA events (device time from the profiler)")
@@ -372,12 +602,45 @@ def main() -> int:
         log(f"{name:10s} {m['accuracy']:7.4f} {m['loss']:7.4f} "
             f"{m['traffic_mb']:11.3f} {np.mean(m['round_seconds']):8.3f}")
 
+    # ---- 6. serving: card vs CPU on a reduced Hymba
+    serve_agree = serve_agreement(dev)
+    log(f"[serve-agree] reduced hymba (GQA 4:2, f32), prompt "
+        f"{serve_agree['prompt']} + {serve_agree['decode_steps']} decode steps: "
+        f"logits max rel err {serve_agree['max_rel_err']:.3e} "
+        f"(tol {serve_agree['tol_rel']})")
+
+    # ---- 7. the serving path at full width
+    served = serve_path(dev)
+    launches.update({k: served["launches"][k] for k in ("flash_attention", "ssd_chunk")})
+    log(f"[serve] hymba-1.5b {served['params']:,} params bf16, batch 4, prompt 2048, "
+        f"16 tokens: prefill {served['prefill_s']:.3f} s, decode "
+        f"{served['decode_ms_per_token']:.2f} ms/token, peak "
+        f"{served['peak_mem_gb']:.2f} GB")
+    log(f"[serve] prefill launches {served['prefill_launches']}; decode launches "
+        f"{served['decode_launches']}; all logits finite")
+    served["profile"] = prof = profile_serve(dev)
+    pf, dc = prof["prefill"], prof["decode"]
+    log(f"[serve-profile] prefill (warm, profiled): wall {pf['wall_ms']:.1f} ms, device "
+        f"busy {pf['device_busy_ms']:.1f} ms, idle {100 * pf['idle_share']:.1f} %, "
+        f"{pf['kernel_launches']} kernels")
+    for name, ms, calls in pf["top_kernels"]:
+        log(f"[serve-profile]   prefill {ms:9.3f} ms {calls:5d}x {name[:90]}")
+    log(f"[serve-profile] decode (profiled): {dc['wall_ms_per_token']:.2f} ms/token wall, "
+        f"{dc['device_busy_ms_per_token']:.2f} ms device, idle "
+        f"{100 * dc['idle_share']:.1f} %, {dc['kernel_launches_per_token']:.0f} kernels/token")
+    for name, ms, calls in dc["top_kernels"]:
+        log(f"[serve-profile]   decode {ms:9.3f} ms {calls:5d}x {name[:90]}")
+
     source = {"fedavg_agg": "src/repro_torch/kernels/csrc/fedavg_agg.cu",
               "kld_greedy_picks": "src/repro_torch/kernels/csrc/kld_greedy.cu",
-              "affine_warp": "src/repro_torch/kernels/csrc/affine_warp.cu"}
+              "affine_warp": "src/repro_torch/kernels/csrc/affine_warp.cu",
+              "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "ssd_chunk": "src/repro_torch/kernels/csrc/ssd_chunk.cu"}
     replaces = {"fedavg_agg": "src/repro/kernels/fedavg_agg.py:68",
                 "kld_greedy_picks": "src/repro/kernels/kld_score.py:215",
-                "affine_warp": "src/repro/kernels/affine_warp.py:82"}
+                "affine_warp": "src/repro/kernels/affine_warp.py:82",
+                "flash_attention": "src/repro/kernels/flash_attention.py:95",
+                "ssd_chunk": "src/repro/kernels/ssd_chunk.py:88"}
     summary = []
     for name, rs in checks.items():
         r = rs[0]                      # the main path's shape
@@ -392,6 +655,7 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "torch": torch.__version__, "build_seconds": build_s,
          "checks": checks, "agreement": agree, "main_path": rows,
+         "serve_agreement": serve_agree, "serve": served,
          "launches": launches, "kernels": summary}, indent=1, default=str))
     log(json.dumps({"kernels": summary}))
     log(json.dumps({"ok": True, "device": {

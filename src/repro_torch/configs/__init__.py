@@ -1,0 +1,25 @@
+"""Architecture configs of the port's model zoo.
+
+``ArchConfig`` keeps every field of the reference's config, so a family
+that joins the port later adds registry entries, not a new class.
+``get(arch_id)`` resolves the architectures the port runs; any other id
+raises ``KeyError``, as the reference does for an unknown id.
+``reduced(cfg)`` is the CPU smoke variant of the same family.
+"""
+from repro_torch.configs.base import ArchConfig, reduced
+from repro_torch.configs.hymba_1_5b import CONFIG as HYMBA_1_5B
+
+_REGISTRY = {
+    "hymba-1.5b": HYMBA_1_5B,
+}
+
+ARCH_IDS = list(_REGISTRY)
+
+
+def get(arch_id: str) -> ArchConfig:
+    if arch_id not in _REGISTRY:
+        raise KeyError(f"unknown arch {arch_id!r}; the port runs: {ARCH_IDS}")
+    return _REGISTRY[arch_id]
+
+
+__all__ = ["ARCH_IDS", "ArchConfig", "get", "reduced"]

@@ -1,0 +1,108 @@
+"""``ArchConfig`` and the CPU smoke reduction, as plain Python."""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import torch
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    arch_type: str                       # dense|moe|ssm|vlm|audio|hybrid
+    n_layers: int
+    d_model: int
+    n_heads: int                         # 0 for attention-free
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int | None = None          # default d_model // n_heads
+    # attention features
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    sliding_window: int | None = None
+    rope_theta: float = 1e4
+    # mlp
+    activation: str = "silu"             # silu (SwiGLU) | gelu (GeGLU)
+    # moe
+    n_experts: int = 0
+    top_k: int = 0
+    moe_group: int = 512
+    capacity_factor: float = 1.25
+    moe_token_parallel: bool = False
+    # ssm (mamba2 SSD)
+    ssm_state: int = 0
+    ssm_heads: int = 0
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 64
+    conv_kernel: int = 4
+    # enc-dec (audio)
+    encoder_layers: int = 0
+    source_positions: int = 1536
+    # vlm
+    vision_tokens: int = 0
+    # misc
+    norm: str = "rms"                    # rms | ln
+    pos: str = "rope"                    # rope | learned
+    tie_embeddings: bool = False
+    embed_scale: bool = False            # embeddings * sqrt(d)
+    norm_eps: float = 1e-6
+    dtype: str = "bfloat16"
+    remat: bool = True
+    blockwise_train: bool = True
+
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim is not None:
+            return self.head_dim
+        return self.d_model // max(self.n_heads, 1)
+
+    @property
+    def ssm_inner(self) -> int:
+        return self.ssm_heads * self.ssm_head_dim
+
+    @property
+    def has_attention(self) -> bool:
+        return self.arch_type != "ssm"
+
+    @property
+    def has_ssm(self) -> bool:
+        return self.arch_type in ("ssm", "hybrid")
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    @property
+    def sub_quadratic(self) -> bool:
+        return self.arch_type == "ssm" or self.sliding_window is not None
+
+    def torch_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
+
+
+def reduced(cfg: ArchConfig, d_model: int = 256) -> ArchConfig:
+    """The CPU smoke variant: 2 layers, d_model<=512, <=4 experts -- same
+    family (``repro/configs/base.py::reduced``)."""
+    n_heads = min(cfg.n_heads, 4) if cfg.n_heads else 0
+    kv = min(cfg.n_kv_heads, n_heads) if n_heads else 0
+    upd = dict(
+        n_layers=2, d_model=d_model,
+        n_heads=n_heads, n_kv_heads=max(kv, 1) if n_heads else 0,
+        head_dim=64 if cfg.n_heads else None,
+        d_ff=max(cfg.d_ff // 16, 64) if not cfg.is_moe else 128,
+        vocab=512,
+        n_experts=min(cfg.n_experts, 4), top_k=min(cfg.top_k, 2),
+        moe_group=64,
+        ssm_state=min(cfg.ssm_state, 32) if cfg.ssm_state else 0,
+        ssm_heads=min(cfg.ssm_heads, 4) if cfg.ssm_heads else 0,
+        ssm_head_dim=32 if cfg.ssm_heads else cfg.ssm_head_dim,
+        encoder_layers=2 if cfg.encoder_layers else 0,
+        source_positions=64 if cfg.encoder_layers else cfg.source_positions,
+        vision_tokens=16 if cfg.vision_tokens else 0,
+        sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window else None,
+        dtype="float32", remat=False,
+        name=cfg.name + "-smoke",
+    )
+    return dataclasses.replace(cfg, **upd)

@@ -24,7 +24,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("fedavg_agg.cu", "kld_greedy.cu", "affine_warp.cu")
+SOURCES = ("fedavg_agg.cu", "kld_greedy.cu", "affine_warp.cu",
+           "flash_attention.cu", "ssd_chunk.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -32,12 +33,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I = ctypes.c_int
+_F = ctypes.c_float
 # entry point -> argument types (every one returns an int error code)
 SIGNATURES = {
     "fedavg_agg_f32": (_P, _P, _P, _I64, _I64, _P),
     "fedavg_agg_bf16": (_P, _P, _P, _I64, _I64, _P),
     "kld_greedy_picks": (_P, _P, _I, _I, _I, _P),
     "affine_warp_f32": (_P, _P, _P, _P, _I64, _I, _I, _I, _P),
+    "flash_attention_f32": (_P, _P, _P, _P, *(_I,) * 9, _F, _P),
+    "flash_attention_bf16": (_P, _P, _P, _P, *(_I,) * 9, _F, _P),
+    "ssd_chunk_f32": (*(_P,) * 8, *(_I,) * 6, _P),
+    "ssd_chunk_bf16": (*(_P,) * 8, *(_I,) * 6, _P),
 }
 
 

@@ -11,18 +11,28 @@ The kernel library is built on the first CUDA call (``kernels/build.py``).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.kernels import ref
 
 # kernel launches since the last reset, per kernel (main-path evidence)
 LAUNCHES: dict[str, int] = {"fedavg_agg": 0, "kld_greedy_picks": 0,
-                            "affine_warp": 0}
+                            "affine_warp": 0, "flash_attention": 0,
+                            "ssd_chunk": 0}
 
 # single-CTA limits of the greedy kernel (pick mask and histogram live in
 # shared memory; a multi-CTA pass for larger K is later work)
 GREEDY_MAX_K = 16_384
 GREEDY_MAX_C = 1_024
+
+# head dims the flash kernel is instantiated for (Hymba 64, danube 80,
+# qwen3 128)
+FLASH_HEAD_DIMS = (64, 80, 128)
+# a block's dynamic shared memory on Hopper (the SSD block keeps B, C, w,
+# x, the (L, L) decay matrix and two (L,) vectors there, fp32)
+MAX_SMEM_BYTES = 232_448
 
 
 def reset_launches() -> None:
@@ -140,3 +150,84 @@ def affine_warp(images: torch.Tensor, mats: torch.Tensor,
     _launch("affine_warp", "affine_warp_f32", images.device, images.data_ptr(),
             mats.data_ptr(), trans.data_ptr(), out.data_ptr(), b, h, w, c)
     return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Attention in the model layout: ``q (b, sq, H, d)``, ``k, v
+    (b, skv, KV, d)``, ``H % KV == 0``; query head ``h`` reads KV head
+    ``h // (H/KV)``.  f32 or bf16, one dtype; fp32 softmax statistics and
+    accumulator; returns ``(b, sq, H, d)`` in ``q``'s dtype.  ``window``
+    keeps keys with ``qpos - window < kpos``; ``q_offset`` is the absolute
+    position of ``q[:, 0]`` against ``k[:, 0]``."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"expected q (b, sq, H, d) and k, v (b, skv, KV, d), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, sq, h, d = q.shape
+    _, skv, kv, dk = k.shape
+    if k.shape[0] != b or dk != d or kv < 1 or h % kv:
+        raise ValueError(f"q {tuple(q.shape)} does not match k/v {tuple(k.shape)}")
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"head dim {d} not supported; the kernel takes {FLASH_HEAD_DIMS}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v must share float32 or bfloat16, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1 or None, got {window}")
+    if not _on_cuda(q, k, v):
+        return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
+    out = torch.empty_like(q)
+    entry = "flash_attention_f32" if q.dtype == torch.float32 else "flash_attention_bf16"
+    _launch("flash_attention", entry, q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), b, sq, skv, h, kv, d, int(causal),
+            0 if window is None else int(window), int(q_offset),
+            1.0 / math.sqrt(d))
+    return out
+
+
+def ssd_chunk_smem_bytes(L: int, p: int, n: int) -> int:
+    """Dynamic shared memory of one SSD block (``csrc/ssd_chunk.cu``)."""
+    return 4 * (3 * L * n + L * (L + 1) + L * p + 2 * L)
+
+
+def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+              B: torch.Tensor, C: torch.Tensor):
+    """Mamba-2 intra-chunk block: ``x (b, nc, L, h, p)``, ``dt (b, nc, L,
+    h)``, ``A (h,)``, ``B, C (b, nc, L, n)`` -> ``y_diag (b, nc, L, h, p)``
+    in ``x``'s dtype, ``S (b, nc, h, n, p)`` f32, ``g (b, nc, h)`` f32.
+    ``x``, ``B``, ``C`` share float32 or bfloat16; ``dt`` and ``A`` are
+    float32."""
+    if x.dim() != 5 or dt.dim() != 4 or A.dim() != 1 or B.dim() != 4 \
+            or B.shape != C.shape:
+        raise ValueError("expected x (b, nc, L, h, p), dt (b, nc, L, h), A (h,), "
+                         f"B, C (b, nc, L, n); got {tuple(x.shape)}, "
+                         f"{tuple(dt.shape)}, {tuple(A.shape)}, {tuple(B.shape)}, "
+                         f"{tuple(C.shape)}")
+    b, nc, L, h, p = x.shape
+    n = B.shape[-1]
+    if dt.shape != (b, nc, L, h) or A.shape != (h,) or B.shape[:3] != (b, nc, L):
+        raise ValueError(f"inconsistent shapes: x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, A {tuple(A.shape)}, B {tuple(B.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16) or B.dtype != x.dtype \
+            or C.dtype != x.dtype:
+        raise ValueError(f"x, B, C must share float32 or bfloat16, got "
+                         f"{x.dtype}, {B.dtype}, {C.dtype}")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise ValueError(f"dt and A must be float32, got {dt.dtype}, {A.dtype}")
+    if ssd_chunk_smem_bytes(L, p, n) > MAX_SMEM_BYTES:
+        raise ValueError(f"chunk L={L}, p={p}, n={n} needs "
+                         f"{ssd_chunk_smem_bytes(L, p, n)} B of shared memory, "
+                         f"over {MAX_SMEM_BYTES}")
+    if not _on_cuda(x, dt, A, B, C):
+        return ref.ssd_chunk(x, dt, A, B, C)
+    y = torch.empty_like(x)
+    S = torch.empty(b, nc, h, n, p, dtype=torch.float32, device=x.device)
+    g = torch.empty(b, nc, h, dtype=torch.float32, device=x.device)
+    entry = "ssd_chunk_f32" if x.dtype == torch.float32 else "ssd_chunk_bf16"
+    _launch("ssd_chunk", entry, x.device, x.data_ptr(), dt.data_ptr(),
+            A.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(), S.data_ptr(),
+            g.data_ptr(), b, nc, L, h, p, n)
+    return y, S, g

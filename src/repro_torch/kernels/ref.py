@@ -1,10 +1,12 @@
-"""Plain PyTorch versions of the port's three CUDA kernels.
+"""Plain PyTorch versions of the port's CUDA kernels.
 
 Each function computes what its kernel computes, with ordinary tensor ops
 on whatever device its inputs are on.  ``ops`` takes them for CPU tensors;
 on the card they are the yardstick each kernel is held against.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -89,3 +91,75 @@ def affine_warp(images: torch.Tensor, mats: torch.Tensor,
         tap = torch.gather(flat, 1, src.reshape(b, h * w, 1).expand(b, h * w, c))
         out = out + wgt.reshape(b, h * w, 1) * tap
     return out.reshape(b, h, w, c)
+
+
+def attention_mask(sq: int, skv: int, *, causal: bool, window: int | None,
+                   q_offset: int, device) -> torch.Tensor:
+    """``(sq, skv)`` bool: key ``j`` is visible to query ``i`` (absolute
+    position ``q_offset + i``) under the causal and sliding-window masks."""
+    qpos = torch.arange(sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(skv, device=device)[None, :]
+    mask = torch.ones(sq, skv, dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Attention in the model layout: ``q (b, sq, H, d)``, ``k, v
+    (b, skv, KV, d)`` with query head ``h`` reading KV head ``h // (H/KV)``.
+    Returns ``(b, sq, H, d)`` in ``q``'s dtype.
+
+    The flash kernel's arithmetic on the whole row at once: fp32 scores
+    scaled by ``1/sqrt(d)``, masked scores ``-1e30``, ``p = exp(s - max)``
+    with masked ``p`` set to 0, fp32 ``p @ v``, denominator
+    ``max(l, 1e-30)`` (a row with no visible key gives zeros)."""
+    b, sq, h, d = q.shape
+    kv = k.shape[2]
+    rep = h // kv
+    qf = q.to(torch.float32).reshape(b, sq, kv, rep, d)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qf, k.to(torch.float32)) * (1.0 / math.sqrt(d))
+    mask = attention_mask(sq, k.shape[1], causal=causal, window=window,
+                          q_offset=q_offset, device=q.device)
+    s = torch.where(mask, s, -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    p = torch.where(mask, p, 0.0)
+    denom = p.sum(-1).clamp_min(1e-30)                          # (b, g, r, q)
+    out = torch.einsum("bgrqk,bkgd->bgrqd", p, v.to(torch.float32))
+    out = out / denom[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+
+
+def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+              B: torch.Tensor, C: torch.Tensor):
+    """Mamba-2 intra-chunk block for every (batch, chunk, head), fp32.
+
+    ``x (b, nc, L, h, p)``, ``dt (b, nc, L, h)``, ``A (h,)``, ``B, C
+    (b, nc, L, n)`` -> ``y_diag (b, nc, L, h, p)`` in ``x``'s dtype,
+    ``S (b, nc, h, n, p)`` f32, ``g (b, nc, h)`` f32:
+
+        cum       = cumsum(dt * A[h])
+        y_diag_i  = sum_{j<=i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j
+        S         = sum_l exp(cum_L - cum_l) dt_l B_l x_l^T
+        g         = exp(cum_L)
+
+    The decay is masked to ``-inf`` above the diagonal before ``exp``, so
+    it stays finite whatever the segment sums."""
+    f32 = torch.float32
+    xf, dtf, Bf, Cf = x.to(f32), dt.to(f32), B.to(f32), C.to(f32)
+    L = x.shape[2]
+    cum = torch.cumsum(dtf * A.to(f32), dim=2)                  # (b, nc, L, h)
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]         # (b, nc, i, j, h)
+    tril = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
+    decay = torch.exp(torch.where(tril[:, :, None], seg, -math.inf))
+    scores = torch.einsum("bcin,bcjn->bcij", Cf, Bf)
+    dx = dtf[..., None] * xf                                    # (b, nc, L, h, p)
+    y = torch.einsum("bcijh,bcjhp->bcihp", scores[..., None] * decay, dx)
+    w = (torch.exp(cum[:, :, -1:, :] - cum) * dtf)[..., None] * Bf[:, :, :, None, :]
+    S = torch.einsum("bclhn,bclhp->bchnp", w, xf)
+    g = torch.exp(cum[:, :, -1, :])
+    return y.to(x.dtype), S, g

@@ -6,14 +6,18 @@ Imports torch and the port only (no JAX), so it runs on a GPU machine:
 
 Without a CUDA device every test here skips: the kernels have no CPU mode.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 torch.set_num_threads(1)
 
+from repro_torch import configs                                   # noqa: E402
 from repro_torch.core import scheduling                           # noqa: E402
 from repro_torch.kernels import ops, ref                          # noqa: E402
+from repro_torch.models import transformer as T                   # noqa: E402
 
 
 @pytest.fixture
@@ -81,3 +85,104 @@ def test_wrappers_refuse_non_contiguous_cuda_input(dev):
     d = torch.randn(8, 4, device=dev).t()
     with pytest.raises(ValueError):
         ops.fedavg_agg(d, torch.ones(4, device=dev))
+
+
+def _err_scale(out, plain):
+    return (float((out.double() - plain.double()).abs().max()),
+            max(float(plain.double().abs().max()), 1.0))
+
+
+# (b, sq, skv, H, KV, d, causal, window, q_offset): the Hymba prefill
+# layer, ragged tiles, no window, q_offset, GQA 1:1, head dims 80 and 128
+FLASH_CARD_CASES = [
+    (4, 2048, 2048, 25, 5, 64, True, 1024, 0),
+    (2, 200, 200, 4, 2, 64, True, 64, 0),
+    (1, 130, 130, 5, 5, 80, True, None, 0),
+    (1, 64, 192, 8, 2, 128, True, None, 128),
+    (2, 100, 100, 4, 1, 64, False, None, 0),
+    (1, 40, 300, 4, 4, 64, True, 100, 260),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CARD_CASES)
+def test_flash_attention_kernel(dev, dtype, case):
+    """fp32: online softmax against the whole-row plain version, sums in
+    other orders, |err| <= 1e-5 of the output scale; bf16: one bf16 ulp
+    (2^-7 of the output scale)."""
+    b, sq, skv, h, kv, d, causal, window, off = case
+    g = torch.Generator(device=dev).manual_seed(sq + skv + d)
+    q = torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
+    k = torch.randn(b, skv, kv, d, generator=g, device=dev).to(dtype)
+    v = torch.randn(b, skv, kv, d, generator=g, device=dev).to(dtype)
+    before = ops.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(q, k, v, causal=causal, window=window, q_offset=off)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    err, scale = _err_scale(out, ref.flash_attention(q, k, v, causal=causal,
+                                                     window=window, q_offset=off))
+    assert err <= (1e-5 if dtype == torch.float32 else 2 ** -7) * scale
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_row_without_keys_is_zero(dev):
+    q, k, v = (torch.randn(1, 8, 2, 64, device=dev) for _ in range(3))
+    out = ops.flash_attention(q, k, v, causal=True, q_offset=-4)
+    assert torch.equal(out[:, :4], torch.zeros_like(out[:, :4]))
+    assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,nc,L,h,p,n", [(4, 32, 64, 25, 64, 16), (2, 3, 32, 3, 16, 8),
+                                          (1, 2, 64, 4, 64, 128), (1, 2, 16, 2, 8, 8)])
+def test_ssd_chunk_kernel(dev, dtype, b, nc, L, h, p, n):
+    """y_diag, S and g against the plain version: fp32 sums in another
+    order, 1e-5 of each output's scale (y_diag in bf16: one bf16 ulp)."""
+    g = torch.Generator(device=dev).manual_seed(L * h + n)
+    x = torch.randn(b, nc, L, h, p, generator=g, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(b, nc, L, h, generator=g, device=dev))
+    A = -torch.exp(0.3 * torch.randn(h, generator=g, device=dev))
+    B = (0.5 * torch.randn(b, nc, L, n, generator=g, device=dev)).to(dtype)
+    C = (0.5 * torch.randn(b, nc, L, n, generator=g, device=dev)).to(dtype)
+    before = ops.LAUNCHES["ssd_chunk"]
+    got = ops.ssd_chunk(x, dt, A, B, C)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_chunk"] == before + 1
+    want = ref.ssd_chunk(x, dt, A, B, C)
+    for i, (o, w) in enumerate(zip(got, want)):
+        assert o.dtype == w.dtype and o.shape == w.shape
+        err, scale = _err_scale(o, w)
+        tol = 2 ** -7 if (i == 0 and dtype == torch.bfloat16) else 1e-5
+        assert err <= tol * scale, (i, err, scale)
+
+
+@pytest.mark.cuda
+def test_hymba_prefill_and_decode_on_card_match_cpu(dev):
+    """Reduced Hymba (GQA 4:2, f32 weights from one seed), prompt 2W:
+    every prefill runs one flash and one SSD launch per layer; logits of
+    the prefill and of 4 teacher-forced decode steps agree with the CPU's
+    plain versions within 2e-4 of the logit scale (fp32 sums in other
+    orders, amplified by the init's large activations)."""
+    cfg = dataclasses.replace(configs.reduced(configs.get("hymba-1.5b")), n_kv_heads=2)
+    cpu = T.init_model(cfg, torch.Generator().manual_seed(0))
+    card = T.Transformer(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.randint(0, cfg.vocab, (2, 132), generator=torch.Generator().manual_seed(1))
+    ops.reset_launches()
+    lc, cc = T.forward_prefill(cpu, {"tokens": toks[:, :128]}, pad_to=132)
+    lg, cg = T.forward_prefill(card, {"tokens": toks[:, :128].to(dev)}, pad_to=132)
+    assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert ops.LAUNCHES["ssd_chunk"] == cfg.n_layers
+    err, scale = _err_scale(lg.cpu(), lc)
+    assert err <= 2e-4 * scale
+    for i in range(4):
+        pos = 128 + i
+        tok = toks[:, pos:pos + 1]
+        lc, cc = T.forward_decode(cpu, {"tokens": tok, "positions": torch.full((2,), pos)}, cc)
+        lg, cg = T.forward_decode(card, {"tokens": tok.to(dev),
+                                         "positions": torch.full((2,), pos, device=dev)}, cg)
+        err, scale = _err_scale(lg.cpu(), lc)
+        assert err <= 2e-4 * scale

@@ -1,6 +1,7 @@
-"""Port parity: the plain versions of the three CUDA kernels against the
-JAX reference's non-Pallas oracles, and the ``ops`` wrappers' CPU routing
-and checks.  tests/test_torch_cuda.py holds the kernels themselves against
+"""Port parity: the plain versions of the CUDA kernels against the JAX
+reference (its non-Pallas oracles, and the flash-attention and SSD Pallas
+kernels in interpret mode), and the ``ops`` wrappers' CPU routing and
+checks.  tests/test_torch_cuda.py holds the kernels themselves against
 these plain versions on a card."""
 import jax
 import jax.numpy as jnp
@@ -14,6 +15,7 @@ from repro.core import distribution as jdist                      # noqa: E402
 from repro.core import fl as jfl                                  # noqa: E402
 from repro.core import scheduling as jsched                       # noqa: E402
 from repro.core.augmentation import warp_params                   # noqa: E402
+from repro.kernels import ops as jops                             # noqa: E402
 from repro.kernels import ref as jref                             # noqa: E402
 
 from repro_torch.core import distribution as dist                 # noqa: E402
@@ -261,4 +263,160 @@ def test_cpu_calls_launch_nothing():
     ops.fedavg_agg(torch.ones(2, 3), torch.ones(2))
     ops.kld_greedy_picks(torch.ones(3, 2), 2)
     ops.affine_warp(torch.ones(1, 4, 4, 1), torch.eye(2)[None], torch.zeros(1, 2))
-    assert ops.LAUNCHES == {"fedavg_agg": 0, "kld_greedy_picks": 0, "affine_warp": 0}
+    ops.flash_attention(torch.ones(1, 3, 2, 64), torch.ones(1, 3, 1, 64),
+                        torch.ones(1, 3, 1, 64))
+    ops.ssd_chunk(torch.ones(1, 1, 4, 1, 2), torch.ones(1, 1, 4, 1), -torch.ones(1),
+                  torch.ones(1, 1, 4, 3), torch.ones(1, 1, 4, 3))
+    assert ops.LAUNCHES == {"fedavg_agg": 0, "kld_greedy_picks": 0, "affine_warp": 0,
+                            "flash_attention": 0, "ssd_chunk": 0}
+
+
+# ---------------------------------------------------------------- attention
+
+def _attn_inputs(seed, b, sq, skv, h, kv, d=64, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, sq, h, d)).astype(np.float32)
+    k = rng.normal(size=(b, skv, kv, d)).astype(np.float32)
+    v = rng.normal(size=(b, skv, kv, d)).astype(np.float32)
+    return q, k, v
+
+
+# (b, sq, skv, H, KV, causal, window, q_offset): causal, window, q_offset,
+# GQA 2:1 and 1:1, ragged lengths (not multiples of the kernel's 64-row
+# tiles); s <= 128 because the Pallas kernel runs in interpret mode
+FLASH_CASES = [
+    (1, 64, 64, 2, 2, True, None, 0),
+    (2, 96, 96, 4, 2, True, 16, 0),
+    (1, 100, 100, 4, 2, True, 33, 0),
+    (1, 50, 50, 2, 1, False, None, 0),
+    (1, 32, 96, 4, 2, True, None, 64),
+    (2, 40, 120, 4, 2, True, 24, 80),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_matches_reference(case):
+    """The wrapper's plain version (model layout, KV heads mapped by index)
+    against the Pallas kernel in interpret mode through the reference's GQA
+    wrapper, and against the reference's oracle in kernel layout.  fp32:
+    the sums run in other orders, |err| <= 2e-6 on unit-scale inputs."""
+    b, sq, skv, h, kv, causal, window, off = case
+    q, k, v = _attn_inputs(sq + skv, b, sq, skv, h, kv)
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=causal, window=window,
+                              q_offset=off).numpy()
+    pallas = jops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  causal=causal, window=window, q_offset=off)
+    np.testing.assert_allclose(got, np.asarray(pallas), rtol=0, atol=2e-6)
+    rep = h // kv
+    kr, vr = (jnp.repeat(jnp.asarray(t), rep, axis=2) for t in (k, v))
+    oracle = jref.flash_attention(jnp.swapaxes(jnp.asarray(q), 1, 2), jnp.swapaxes(kr, 1, 2),
+                                  jnp.swapaxes(vr, 1, 2), causal=causal, window=window,
+                                  q_offset=off)
+    np.testing.assert_allclose(got, np.asarray(jnp.swapaxes(oracle, 1, 2)), rtol=0,
+                               atol=2e-6)
+
+
+def test_flash_attention_bf16_matches_reference_kernel():
+    """bf16 in and out, fp32 inside in both: the two fp32 results may round
+    to neighbouring bf16 values, so |err| <= one bf16 ulp of the output
+    (2^-7 relative to the largest output)."""
+    q, k, v = _attn_inputs(3, 2, 96, 96, 4, 2)
+    tq, tk, tv = (torch.from_numpy(t).to(torch.bfloat16) for t in (q, k, v))
+    got = ops.flash_attention(tq, tk, tv, causal=True, window=40)
+    assert got.dtype == torch.bfloat16
+    jq, jk, jv = (jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (tq, tk, tv))
+    pallas = np.asarray(jops.flash_attention(jq, jk, jv, causal=True, window=40),
+                        np.float32)
+    scale = np.abs(pallas).max()
+    np.testing.assert_allclose(got.float().numpy(), pallas, rtol=0, atol=2 ** -7 * scale)
+
+
+def test_flash_attention_row_without_keys_is_zero():
+    q, k, v = (torch.from_numpy(t) for t in _attn_inputs(4, 1, 8, 8, 2, 2))
+    out = ops.flash_attention(q, k, v, causal=True, q_offset=-4)
+    assert torch.equal(out[:, :4], torch.zeros_like(out[:, :4]))
+    assert torch.isfinite(out).all() and out[:, 4:].abs().sum() > 0
+
+
+def test_flash_attention_wrapper_checks():
+    q, k, v = (torch.from_numpy(t) for t in _attn_inputs(5, 1, 8, 8, 4, 2))
+    with pytest.raises(ValueError):                     # head dim 32
+        ops.flash_attention(q[..., :32], k[..., :32], v[..., :32])
+    with pytest.raises(ValueError):                     # 4 heads over 3 KV heads
+        ops.flash_attention(q, torch.cat([k, k[:, :, :1]], 2), torch.cat([v, v[:, :, :1]], 2))
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k.double(), v.double())
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, v, window=0)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, v[:, :4])
+
+
+# ---------------------------------------------------------------- SSD chunk
+
+def _ssd_inputs(seed, b=2, nc=3, L=32, h=4, p=16, n=8):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, nc, L, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.normal(size=(b, nc, L, h)))).astype(np.float32)
+    A = (-np.exp(rng.normal(size=(h,)) * 0.3)).astype(np.float32)
+    B = (rng.normal(size=(b, nc, L, n)) * 0.5).astype(np.float32)
+    C = (rng.normal(size=(b, nc, L, n)) * 0.5).astype(np.float32)
+    return x, dt, A, B, C
+
+
+@pytest.mark.parametrize("L,h,p,n", [(8, 1, 8, 8), (16, 3, 64, 32), (64, 2, 64, 16),
+                                     (32, 4, 16, 8)])
+def test_ssd_chunk_matches_reference(L, h, p, n):
+    """Plain ``ssd_chunk`` against the Pallas kernel in interpret mode and
+    the reference's oracle, fp32: relative 3e-5 of each output's scale
+    (sums in another order; exp of the rounded segment sums)."""
+    arrays = _ssd_inputs(L * 100 + h, L=L, h=h, p=p, n=n)
+    got = ops.ssd_chunk(*(torch.from_numpy(a) for a in arrays))
+    for want in (jops.ssd_chunk(*map(jnp.asarray, arrays)),
+                 jref.ssd_chunk(*map(jnp.asarray, arrays))):
+        for g, w in zip(got, want):
+            w = np.asarray(w)
+            assert g.shape == w.shape and g.dtype == torch.float32
+            np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                       atol=3e-5 * max(np.abs(w).max(), 1.0))
+
+
+def test_ssd_chunk_bf16_inputs_match_reference():
+    """bf16 x, B, C (fp32 dt, A), as tests/test_ssd_kernel.py feeds the
+    Pallas kernel: y_diag in bf16 within one bf16 ulp of the largest
+    output, S and g fp32 within 3e-5 relative."""
+    x, dt, A, B, C = _ssd_inputs(11)
+    tx, tB, tC = (torch.from_numpy(a).to(torch.bfloat16) for a in (x, B, C))
+    y, S, g = ops.ssd_chunk(tx, torch.from_numpy(dt), torch.from_numpy(A), tB, tC)
+    assert y.dtype == torch.bfloat16 and S.dtype == torch.float32
+    jx, jB, jC = (jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (tx, tB, tC))
+    yr, Sr, gr = (np.asarray(t, np.float32)
+                  for t in jops.ssd_chunk(jx, jnp.asarray(dt), jnp.asarray(A), jB, jC))
+    np.testing.assert_allclose(y.float().numpy(), yr, rtol=0,
+                               atol=2 ** -7 * np.abs(yr).max())
+    np.testing.assert_allclose(S.numpy(), Sr, rtol=0, atol=3e-5 * np.abs(Sr).max())
+    np.testing.assert_allclose(g.numpy(), gr, rtol=3e-5, atol=0)
+
+
+def test_ssd_chunk_decay_stays_finite_for_steep_segments():
+    """Segment sums far below -88 (exp underflow) and above +88 on the
+    upper triangle must leave every output finite."""
+    x, dt, A, B, C = _ssd_inputs(12)
+    dt = dt * 400.0
+    y, S, g = ops.ssd_chunk(*(torch.from_numpy(a) for a in (x, dt, A, B, C)))
+    assert all(torch.isfinite(t).all() for t in (y, S, g))
+
+
+def test_ssd_chunk_wrapper_checks():
+    x, dt, A, B, C = (torch.from_numpy(a) for a in _ssd_inputs(13))
+    with pytest.raises(ValueError):
+        ops.ssd_chunk(x, dt.double(), A, B, C)
+    with pytest.raises(ValueError):
+        ops.ssd_chunk(x, dt, A, B.bfloat16(), C)
+    with pytest.raises(ValueError):
+        ops.ssd_chunk(x, dt[..., :2], A, B, C)
+    with pytest.raises(ValueError):                     # (L, L) decay over 227 KB
+        big = torch.zeros(1, 1, 256, 1, 8)
+        ops.ssd_chunk(big, torch.zeros(1, 1, 256, 1), A[:1], torch.zeros(1, 1, 256, 8),
+                      torch.zeros(1, 1, 256, 8))
