@@ -6,21 +6,33 @@
 Phases, each fatal on failure:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: the five CUDA kernels with ``nvcc`` for sm_90a, one process per
-   source, all started together;
+2. build: the six CUDA sources (seven kernels) with ``nvcc`` for sm_90a,
+   one process per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes and at a large one, with CUDA-event times of the
+   the main paths' shapes and at a large one, with CUDA-event times of the
    kernel, the plain version and a one-call PyTorch yardstick, beside the
    least time the card could take (H100 SXM peaks);
-4. agreement: a small Astraea run on the card against the same run on the
-   CPU (plain versions), same params and draws;
+4. agreement: small Astraea runs on the card against the same runs on the
+   CPU (plain versions), same params and draws: EMNIST (8 classes, 16 px)
+   and a reduced CINIC (16 px, width 8), 2 rounds each;
 5. main path: FedAvg then Astraea at the paper's EMNIST width (68,873
    parameters), 3 rounds each, with every kernel launch count reset just
    before and read just after; the WAN ledger must equal the CommMeter
    formula and accuracy must be finite;
-6. serving agreement: a reduced Hymba (GQA 4:2, f32 weights from one seed)
+6. Path A, Alg. 3 step by step: ``reschedule(impl="loop")`` on the card
+   over 1,024 integer histograms (one ``kld_score`` launch per pick) and
+   the (mediator x client) score sweep of its schedule (one
+   ``kld_score_matrix`` launch), counts reset before and read after; the
+   picks must equal the one-launch greedy kernel's, and on the CINIC
+   cohort's post-augmentation counts the CPU loop's up to float ties;
+7. Path B, the CINIC-10 arm at the paper's width (``cinic_cnn``, 2,168,362
+   parameters, 32x32x3): FedAvg and Astraea, 3 rounds each, counts reset
+   before and read after; WAN ledger exactly 794.078 / 992.600 MiB; then
+   one materialized-Alg. 2 Astraea round (its warp launches and extra
+   storage);
+8. serving agreement: a reduced Hymba (GQA 4:2, f32 weights from one seed)
    prefilled and decoded on the card against the same run on the CPU;
-7. serving path: ``repro_torch.launch.serve.serve`` on hymba-1.5b at full
+9. serving path: ``repro_torch.launch.serve.serve`` on hymba-1.5b at full
    width (1,393,625,120 parameters, bf16), batch 4, a 2,048-token prompt
    and 16 new tokens, with the launch counts reset just before and read
    just after: 32 flash-attention and 32 SSD launches in the prefill;
@@ -63,8 +75,12 @@ BF16_FLOPS_PER_S = 989e12
 FED_KW = dict(num_clients=64, total_samples=6400, test_samples=2350,
               sizes="instagram", global_dist="letterfreq", local="random",
               seed=0)
+CINIC_FED_KW = dict(num_clients=64, total_samples=6400, test_samples=1000,
+                    sizes="instagram", global_dist="normal", local="random",
+                    seed=0)
 CLIENTS, GAMMA, ROUNDS, ALPHA = 16, 4, 3, 0.67
 FL_KERNELS = ("fedavg_agg", "kld_greedy_picks", "affine_warp")
+CINIC_PARAMS = 2_168_362
 
 
 def log(*a):
@@ -171,6 +187,56 @@ def check_greedy(dev, counts_np, gamma):
                  "first_divergence": div, "bound_ms": b_ms, "bound_by": by},
                 ms=(lambda: ops.kld_greedy_picks(counts, gamma), 50.0),
                 plain_ms=(lambda: ref.kld_greedy_picks(counts, gamma), 1.0))
+    row["library_ms"] = row["library_device_ms"] = None
+    return row
+
+
+def _score_bound(m, k, c):
+    # each count read once, each score written once; ~8 f32 operations per
+    # class and pair (merge, total, divide, clamp, log, subtract, multiply,
+    # accumulate), the greedy row's rule
+    return bound((m + k) * c * 4 + m * k * 4, 8.0 * m * k * c)
+
+
+def check_score(dev, med, cand):
+    """``kld_score`` on ``med (C,)``, ``cand (K, C)`` against its plain
+    version: within 1e-6 absolute (sums in another order)."""
+    from repro_torch.kernels import ops, ref
+    med = torch.as_tensor(med, dtype=torch.float32, device=dev).contiguous()
+    cand = torch.as_tensor(cand, dtype=torch.float32, device=dev).contiguous()
+    out, plain = ops.kld_score(med, cand), ref.kld_score(med, cand)
+    err = float((out.double() - plain.double()).abs().max())
+    if not err <= 1e-6:
+        raise AssertionError(f"kld_score K={cand.shape[0]}: err {err} > 1e-6")
+    k, c = cand.shape
+    b_ms, by = _score_bound(1, k, c)
+    row = timed({"shape": f"K={k} C={c}", "max_abs_err": err, "tol": 1e-6,
+                 "bound_ms": b_ms, "bound_by": by},
+                ms=(lambda: ops.kld_score(med, cand), 50.0),
+                plain_ms=(lambda: ref.kld_score(med, cand), 50.0))
+    row["library_ms"] = row["library_device_ms"] = None
+    return row
+
+
+def check_score_matrix(dev, meds, cand):
+    """``kld_score_matrix`` against its plain version (1e-6 absolute); every
+    row must equal the single-mediator kernel's bit for bit (one device
+    function)."""
+    from repro_torch.kernels import ops, ref
+    meds = torch.as_tensor(meds, dtype=torch.float32, device=dev).contiguous()
+    cand = torch.as_tensor(cand, dtype=torch.float32, device=dev).contiguous()
+    out, plain = ops.kld_score_matrix(meds, cand), ref.kld_score_matrix(meds, cand)
+    err = float((out.double() - plain.double()).abs().max())
+    if not err <= 1e-6:
+        raise AssertionError(f"kld_score_matrix M={meds.shape[0]}: err {err} > 1e-6")
+    if not torch.equal(out[-1], ops.kld_score(meds[-1].contiguous(), cand)):
+        raise AssertionError("kld_score_matrix row differs from kld_score's bits")
+    (m, c), k = meds.shape, cand.shape[0]
+    b_ms, by = _score_bound(m, k, c)
+    row = timed({"shape": f"M={m} K={k} C={c}", "max_abs_err": err, "tol": 1e-6,
+                 "bound_ms": b_ms, "bound_by": by},
+                ms=(lambda: ops.kld_score_matrix(meds, cand), 50.0),
+                plain_ms=(lambda: ref.kld_score_matrix(meds, cand), 50.0))
     row["library_ms"] = row["library_device_ms"] = None
     return row
 
@@ -299,28 +365,35 @@ class _DrawsOn:
     def permutation(self, epoch, n):
         return self.inner.permutation(epoch, n).to(self.device)
 
-    def keep_masks(self, epoch, step, shapes):
-        return [k.to(self.device) for k in self.inner.keep_masks(epoch, step, shapes)]
+    def keep_masks(self, epoch, step, sites):
+        return [k.to(self.device) for k in self.inner.keep_masks(epoch, step, sites)]
 
     def augment(self, rnd, row, slot, weights):
         return tuple(t.to(self.device) for t in
                      self.inner.augment(rnd, row, slot, weights.cpu()))
 
 
-def agreement_check(dev):
+def agreement_check(dev, cinic: bool = False):
+    """Astraea for 2 rounds on the card and on the CPU from the same params
+    and draws: EMNIST (8 classes, 16 px) or the reduced CINIC arm (10
+    classes, 16x16x3, ``cinic_cnn`` width 8)."""
     from repro_torch.core import AstraeaTrainer, LocalSpec
     from repro_torch.core.draws import SeededDraws
-    from repro_torch.data.federated import EMNIST_LIKE, partition
-    from repro_torch.models.cnn import emnist_cnn, init_params
+    from repro_torch.data.federated import CINIC_LIKE, EMNIST_LIKE, partition
+    from repro_torch.models.cnn import cinic_cnn, emnist_cnn, init_params
     from repro_torch.optim import adam
-    spec = dataclasses.replace(EMNIST_LIKE, num_classes=8, image_size=16)
+    if cinic:
+        spec = dataclasses.replace(CINIC_LIKE, image_size=16, noise=0.5, distort=0.35)
+        make, gd = (lambda: cinic_cnn(10, 16, 3, 8)), "normal"
+    else:
+        spec = dataclasses.replace(EMNIST_LIKE, num_classes=8, image_size=16)
+        make, gd = (lambda: emnist_cnn(8, 16)), "letterfreq"
     fed = partition(spec, num_clients=12, total_samples=300, test_samples=80,
-                    sizes="instagram", global_dist="letterfreq", local="random",
-                    seed=0)
-    init = init_params(emnist_cnn(8, 16), 0)
+                    sizes="instagram", global_dist=gd, local="random", seed=0)
+    init = init_params(make(), 0)
     runs = []
     for where in ("cpu", dev):
-        tr = AstraeaTrainer(emnist_cnn(8, 16), adam(1e-3), fed, clients_per_round=8,
+        tr = AstraeaTrainer(make(), adam(1e-3), fed, clients_per_round=8,
                             gamma=4, local=LocalSpec(10, 1), alpha=ALPHA, seed=0,
                             device=where, init_params=init,
                             draws=_DrawsOn(SeededDraws(1, "cpu"), where))
@@ -336,22 +409,23 @@ def agreement_check(dev):
     return {"groups": g_dev, "params_max_abs_err": err, "tol": 1e-4}
 
 
-def main_path(fed, dev):
+def main_path(fed, dev, make_model, n_params):
+    """FedAvg then Astraea for ``ROUNDS`` rounds each at full width; the
+    launch counts are reset before and read after."""
     from repro_torch.core import AstraeaTrainer, FedAvgTrainer, LocalSpec
     from repro_torch.kernels import ops
-    from repro_torch.models.cnn import emnist_cnn
     from repro_torch.optim import adam
     local = LocalSpec(20, 2)
-    n_params = 68_873
     rows = {}
+    torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launches()
     for name in ("FedAvg", "Astraea"):
         if name == "FedAvg":
-            tr = FedAvgTrainer(emnist_cnn(47, 28), adam(1e-3), fed,
+            tr = FedAvgTrainer(make_model(), adam(1e-3), fed,
                                clients_per_round=CLIENTS, local=local, seed=0,
                                device=dev)
         else:
-            tr = AstraeaTrainer(emnist_cnn(47, 28), adam(1e-3), fed,
+            tr = AstraeaTrainer(make_model(), adam(1e-3), fed,
                                 clients_per_round=CLIENTS, gamma=GAMMA,
                                 local=local, mediator_epochs=1, alpha=ALPHA,
                                 seed=0, device=dev)
@@ -383,11 +457,101 @@ def main_path(fed, dev):
             expect = [plan_bytes + per_round * (r + 1) for r in range(ROUNDS)]
         if tr.comm.round_log != expect:
             raise AssertionError(f"{name}: WAN ledger {tr.comm.round_log} != {expect}")
+        m["wan_mib"] = tr.comm.total_bytes / 2 ** 20
     launches = {k: ops.LAUNCHES[k] for k in FL_KERNELS}
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}: {launches}")
-    return rows, launches
+    return rows, launches, torch.cuda.max_memory_allocated(dev) / 1e9
+
+
+def cinic_cohort_counts(fed):
+    """Astraea's first CINIC cohort as the engine packs it: the selection of
+    default_rng(seed).choice at the expected post-augmentation counts."""
+    from repro_torch.core.augmentation import augmentation_plan
+    counts = fed.client_counts()
+    sel = np.random.default_rng(0).choice(fed.num_clients, CLIENTS, replace=False)
+    return counts[sel] * (1.0 + augmentation_plan(counts.sum(0), ALPHA))
+
+
+def path_a(dev, cohort):
+    """Alg. 3 step by step on the card: the loop over 1,024 integer
+    histograms plus the (mediator x client) sweep of its schedule, counts
+    reset before and read after; then the checks against the one-launch
+    greedy kernel and, on the CINIC cohort's fractional counts, the CPU."""
+    from repro_torch.core import scheduling
+    from repro_torch.kernels import ops
+    counts = np.random.default_rng(1).integers(0, 200, (1024, 47))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    loop = scheduling.reschedule(counts, GAMMA, impl="loop", device=dev)
+    loop_s = time.perf_counter() - t0
+    sweep = scheduling.mediator_client_scores(loop, counts, device=dev)
+    launches = {k: ops.LAUNCHES[k] for k in ("kld_score", "kld_score_matrix")}
+    if launches != {"kld_score": 1024, "kld_score_matrix": 1}:
+        raise AssertionError(f"Path A launched {launches}; expected 1,024 kld_score "
+                             "(one per pick) and 1 kld_score_matrix")
+    batched = scheduling.reschedule(counts, GAMMA, impl="batched", device=dev)
+    if scheduling.picks_of(loop).tolist() != scheduling.picks_of(batched).tolist():
+        raise AssertionError("the card loop's picks differ from kld_greedy_picks: "
+                             f"{scheduling.first_divergence(counts, GAMMA, scheduling.picks_of(batched), scheduling.picks_of(loop))}")
+    if sweep.shape != (256, 1024) or not np.isfinite(sweep).all():
+        raise AssertionError(f"score sweep {sweep.shape} not finite")
+    t0 = time.perf_counter()
+    scheduling.reschedule(counts, GAMMA, impl="batched", device=dev)
+    batched_s = time.perf_counter() - t0
+    ops.reset_launches()
+    card = scheduling.reschedule(cohort, GAMMA, impl="loop", device=dev)
+    if ops.LAUNCHES["kld_score"] != len(cohort):
+        raise AssertionError(f"{ops.LAUNCHES['kld_score']} kld_score launches "
+                             f"for {len(cohort)} picks")
+    cpu = scheduling.reschedule(cohort, GAMMA, impl="loop", device="cpu")
+    div = scheduling.first_divergence(cohort, GAMMA, scheduling.picks_of(cpu),
+                                      scheduling.picks_of(card))
+    if div is not None and not div["tie"]:
+        raise AssertionError(f"card loop vs CPU loop on the CINIC cohort: {div}")
+    return {"launches": launches, "loop_s": loop_s, "batched_s": batched_s,
+            "picks_equal_greedy": True, "cinic_cohort_divergence": div,
+            "cinic_cohort_groups": [m.clients for m in card]}
+
+
+def materialized_round(fed, dev):
+    """One full-width CINIC Astraea round with the materialized Alg. 2
+    phase: its warp launches (the whole federation in one) and the extra
+    storage it costs."""
+    from repro_torch.core import AstraeaTrainer, LocalSpec
+    from repro_torch.kernels import ops
+    from repro_torch.models.cnn import cinic_cnn
+    from repro_torch.optim import adam
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    tr = AstraeaTrainer(cinic_cnn(10, 32, 3, 32), adam(1e-3), fed,
+                        clients_per_round=CLIENTS, gamma=GAMMA, local=LocalSpec(20, 2),
+                        alpha=ALPHA, aug_mode="materialized", seed=0, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    warps = ops.LAUNCHES["affine_warp"]
+    t0 = time.perf_counter()
+    tr.run_round()
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    launches = {k: ops.LAUNCHES[k] for k in FL_KERNELS}
+    if warps != 1 or launches != {"fedavg_agg": 1, "kld_greedy_picks": 1,
+                                  "affine_warp": 1}:
+        raise AssertionError(f"materialized round launched {launches} "
+                             f"({warps} warps in the phase); expected 1 each")
+    added = sum(x.shape[0] for x in tr.data.client_images) - \
+        sum(x.shape[0] for x in fed.client_images)
+    if not (tr.extra_storage_frac > 0 and added > 0):
+        raise AssertionError("the materialized phase added no samples")
+    m = tr.evaluate()
+    if not (math.isfinite(m["accuracy"]) and math.isfinite(m["loss"])):
+        raise AssertionError(f"materialized round: non-finite metrics {m}")
+    return {"setup_s": setup_s, "round_s": round_s, "launches": launches,
+            "extra_storage_frac": tr.extra_storage_frac, "added_samples": added,
+            "accuracy": m["accuracy"], "loss": m["loss"]}
 
 
 def serve_agreement(dev):
@@ -516,14 +680,15 @@ def main() -> int:
         return 2
     from repro_torch import resolve_device
     from repro_torch.core.augmentation import augmentation_plan
-    from repro_torch.data.federated import EMNIST_LIKE, partition
+    from repro_torch.data.federated import CINIC_LIKE, EMNIST_LIKE, partition
     from repro_torch.kernels import build
+    from repro_torch.models.cnn import cinic_cnn, emnist_cnn
 
     # ---- 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    log(f"[device] {smi}")
+    log(smi)
     dev = resolve_device()
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -539,15 +704,18 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line or "nvcc" in line:
             log(f"[build]   {line.strip()}")
 
-    # the main path's federation (its pad sets the warp's batch)
+    # the main paths' federations (the EMNIST pad sets the warp's batch)
     fed = partition(dataclasses.replace(EMNIST_LIKE, num_classes=47), **FED_KW)
+    cinic_fed = partition(dataclasses.replace(CINIC_LIKE, noise=0.5, distort=0.35),
+                          **CINIC_FED_KW)
     sizes = [x.shape[0] for x in fed.client_images]
     pad = -(-max(sizes) // 20) * 20
 
     # ---- 3. kernels against their plain versions
     gen = torch.Generator(device=dev).manual_seed(0)
     rng = np.random.default_rng(0)
-    checks = {"fedavg_agg": [], "kld_greedy_picks": [], "affine_warp": []}
+    checks = {"fedavg_agg": [], "kld_greedy_picks": [], "kld_score": [],
+              "kld_score_matrix": [], "affine_warp": []}
     for m in (16, 4):
         for dt in (torch.float32, torch.bfloat16):
             checks["fedavg_agg"].append(
@@ -563,6 +731,17 @@ def main() -> int:
         dev, rng.integers(0, 200, (4096, 47)), GAMMA))
     checks["kld_greedy_picks"].append(check_greedy(
         dev, np.tile(rng.integers(1, 50, (1, 47)), (4096, 1)), GAMMA))
+    # the scoring kernels: the CINIC cohort (its first pick's histogram as
+    # the open mediator), the JAX bench's shapes (uniform * 100 mediators,
+    # uniform * 50 clients) and a large sweep
+    cohort = cinic_cohort_counts(cinic_fed)
+    checks["kld_score"].append(check_score(dev, cohort[0], cohort))
+    for k in (512, 4096):
+        checks["kld_score"].append(check_score(
+            dev, rng.random(47) * 100, rng.random((k, 47)) * 50))
+    for m, k in ((16, 512), (256, 4096)):
+        checks["kld_score_matrix"].append(check_score_matrix(
+            dev, rng.random((m, 47)) * 100, rng.random((k, 47)) * 50))
     checks["affine_warp"].append(check_warp(dev, CLIENTS * pad, 28, 28, 1, gen))
     checks["affine_warp"].append(check_warp(dev, 4096, 32, 32, 3, gen))
     # the serve path's shapes: Hymba prefill, b=4, s=2048 = 2W
@@ -586,32 +765,60 @@ def main() -> int:
                 f"kernel {fmt(r['ms'])} ({fmt(r['device_ms'])})  "
                 f"plain {fmt(r['plain_ms'])} ({fmt(r['plain_device_ms'])})  "
                 f"library {fmt(r['library_ms'])} ({fmt(r['library_device_ms'])})  "
-                f"bound {r['bound_ms']:.4f} ({r['bound_by']})")
+                f"bound {r['bound_ms']:.6f} ({r['bound_by']})")
 
-    # ---- 4. card vs CPU on a small Astraea run
-    agree = agreement_check(dev)
-    log(f"[agree] card vs CPU Astraea (8 classes, 16px, 2 rounds): params "
-        f"max abs err {agree['params_max_abs_err']:.3e}, schedules equal")
+    # ---- 4. card vs CPU on small Astraea runs
+    agree = {"emnist": agreement_check(dev), "cinic": agreement_check(dev, cinic=True)}
+    for name, a in agree.items():
+        log(f"[agree] card vs CPU Astraea ({name}, 16px, 2 rounds): params "
+            f"max abs err {a['params_max_abs_err']:.3e}, schedules equal")
 
-    # ---- 5. the main path at full width
-    rows, launches = main_path(fed, dev)
-    log(f"[main] launches {launches}")
+    # ---- 5. the EMNIST main path at full width
+    rows, launches, peak = main_path(fed, dev, lambda: emnist_cnn(47, 28), 68_873)
+    path_launches = {"emnist": dict(launches)}
+    log(f"[main] emnist launches {launches}, peak {peak:.3f} GB")
     log(f"\n{'method':10s} {'top1':>7s} {'loss':>7s} {'traffic MB':>11s} "
         f"{'s/round':>8s}")
     for name, m in rows.items():
         log(f"{name:10s} {m['accuracy']:7.4f} {m['loss']:7.4f} "
             f"{m['traffic_mb']:11.3f} {np.mean(m['round_seconds']):8.3f}")
 
-    # ---- 6. serving: card vs CPU on a reduced Hymba
+    # ---- 6. Path A: Alg. 3 step by step on the card
+    alg3 = path_a(dev, cohort)
+    path_launches["alg3_loop"] = alg3["launches"]
+    log(f"[path-a] loop over K=1,024 C=47 on the card: {alg3['loop_s']:.4f} s "
+        f"(one-launch greedy pass {alg3['batched_s']:.4f} s), launches "
+        f"{alg3['launches']}, picks equal the greedy kernel's; CINIC cohort "
+        f"divergence from the CPU loop: {alg3['cinic_cohort_divergence']}")
+
+    # ---- 7. Path B: the CINIC-10 arm at the paper's width
+    cinic_rows, cinic_launches, cinic_peak = main_path(
+        cinic_fed, dev, lambda: cinic_cnn(10, 32, 3, 32), CINIC_PARAMS)
+    path_launches["cinic"] = dict(cinic_launches)
+    log(f"[cinic] cinic_cnn {CINIC_PARAMS:,} params, 32x32x3: launches "
+        f"{cinic_launches}, peak {cinic_peak:.3f} GB")
+    for name, m in cinic_rows.items():
+        log(f"[cinic] {name:8s} top1 {m['accuracy']:.4f} loss {m['loss']:.4f} "
+            f"WAN {m['wan_mib']:.3f} MiB s/round "
+            f"{' '.join(f'{x:.3f}' for x in m['round_seconds'])}")
+    materialized = materialized_round(cinic_fed, dev)
+    path_launches["cinic_materialized"] = dict(materialized["launches"])
+    log(f"[cinic] materialized Alg. 2: {materialized['added_samples']} warped copies "
+        f"(extra storage {materialized['extra_storage_frac']:.4f}) in "
+        f"{materialized['setup_s']:.3f} s, round {materialized['round_s']:.3f} s, "
+        f"launches {materialized['launches']}")
+
+    # ---- 8. serving: card vs CPU on a reduced Hymba
     serve_agree = serve_agreement(dev)
     log(f"[serve-agree] reduced hymba (GQA 4:2, f32), prompt "
         f"{serve_agree['prompt']} + {serve_agree['decode_steps']} decode steps: "
         f"logits max rel err {serve_agree['max_rel_err']:.3e} "
         f"(tol {serve_agree['tol_rel']})")
 
-    # ---- 7. the serving path at full width
+    # ---- 9. the serving path at full width
     served = serve_path(dev)
-    launches.update({k: served["launches"][k] for k in ("flash_attention", "ssd_chunk")})
+    path_launches["serve"] = {k: served["launches"][k]
+                              for k in ("flash_attention", "ssd_chunk")}
     log(f"[serve] hymba-1.5b {served['params']:,} params bf16, batch 4, prompt 2048, "
         f"16 tokens: prefill {served['prefill_s']:.3f} s, decode "
         f"{served['decode_ms_per_token']:.2f} ms/token, peak "
@@ -631,13 +838,24 @@ def main() -> int:
     for name, ms, calls in dc["top_kernels"]:
         log(f"[serve-profile]   decode {ms:9.3f} ms {calls:5d}x {name[:90]}")
 
+    # every kernel's launches over the paths that drive it (each path's
+    # counts were reset just before it and read just after)
+    launches = {name: sum(p.get(name, 0) for p in path_launches.values())
+                for name in checks}
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"no path launched {missing}: {path_launches}")
     source = {"fedavg_agg": "src/repro_torch/kernels/csrc/fedavg_agg.cu",
               "kld_greedy_picks": "src/repro_torch/kernels/csrc/kld_greedy.cu",
+              "kld_score": "src/repro_torch/kernels/csrc/kld_score.cu",
+              "kld_score_matrix": "src/repro_torch/kernels/csrc/kld_score.cu",
               "affine_warp": "src/repro_torch/kernels/csrc/affine_warp.cu",
               "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
               "ssd_chunk": "src/repro_torch/kernels/csrc/ssd_chunk.cu"}
     replaces = {"fedavg_agg": "src/repro/kernels/fedavg_agg.py:68",
                 "kld_greedy_picks": "src/repro/kernels/kld_score.py:215",
+                "kld_score": "src/repro/kernels/kld_score.py:80",
+                "kld_score_matrix": "src/repro/kernels/kld_score.py:116",
                 "affine_warp": "src/repro/kernels/affine_warp.py:82",
                 "flash_attention": "src/repro/kernels/flash_attention.py:95",
                 "ssd_chunk": "src/repro/kernels/ssd_chunk.py:88"}
@@ -655,8 +873,11 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "torch": torch.__version__, "build_seconds": build_s,
          "checks": checks, "agreement": agree, "main_path": rows,
+         "main_path_peak_mem_gb": peak, "alg3_loop": alg3, "cinic": cinic_rows,
+         "cinic_peak_mem_gb": cinic_peak, "cinic_materialized": materialized,
          "serve_agreement": serve_agree, "serve": served,
-         "launches": launches, "kernels": summary}, indent=1, default=str))
+         "path_launches": path_launches, "launches": launches,
+         "kernels": summary}, indent=1, default=str))
     log(json.dumps({"kernels": summary}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,13 @@ for through a small interface, addressed by where it happens:
 * ``RoundDraws.augment(round, row, slot, weights)`` -> the online Alg. 2
   draws of one padded client batch: source indices ``idx`` (categorical
   over ``weights``), uniforms ``u`` (warp-or-not), and the warp's
-  ``mats``/``trans``.
+  ``mats``/``trans``;
+* ``RoundDraws.rebalance(client, n)`` -> the materialized Alg. 2 draws of
+  one client: the seed of its numpy ``Generator`` (the shuffle) and its
+  ``n`` augmentations' warp ``mats``/``trans``.
+
+Keep-masks come one per dropout site, each at its site's keep probability
+``1 - rate`` (``model.dropout_sites``).
 
 ``SeededDraws`` is the port's own source: a ``torch.Generator`` per
 address, seeded from ``(seed, round, row, ...)``, so a run is
@@ -24,16 +30,16 @@ import numpy as np
 import torch
 
 from repro_torch.core.augmentation import warp_params
-from repro_torch.models.cnn import DROPOUT_RATE
+from repro_torch.models.cnn import Site
 
-_CLIENT, _AUG = 0x636C, 0x617567        # "cl", "aug": stream salts
+_CLIENT, _AUG, _REBAL = 0x636C, 0x617567, 0x7262    # "cl", "aug", "rb": salts
 
 
 class ClientDraws(Protocol):
     def permutation(self, epoch: int, n: int) -> torch.Tensor: ...
 
     def keep_masks(self, epoch: int, step: int,
-                   shapes: Sequence[tuple[int, ...]]) -> list[torch.Tensor]: ...
+                   sites: Sequence[Site]) -> list[torch.Tensor]: ...
 
 
 class RoundDraws(Protocol):
@@ -42,6 +48,9 @@ class RoundDraws(Protocol):
 
     def augment(self, rnd: int, row: int, slot: int, weights: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]: ...
+
+    def rebalance(self, client: int, n: int
+                  ) -> tuple[int, torch.Tensor, torch.Tensor]: ...
 
 
 class SeededDraws:
@@ -71,6 +80,13 @@ class SeededDraws:
         mats, trans = warp_params(n, generator=gen, device=self.device)
         return idx, u, mats, trans
 
+    def rebalance(self, client, n):
+        gen = self.generator(_REBAL, client)
+        seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen,
+                                 device=self.device))
+        mats, trans = warp_params(n, generator=gen, device=self.device)
+        return seed, mats, trans
+
 
 class _SeededClient:
     def __init__(self, owner: SeededDraws, address: tuple[int, ...]):
@@ -80,7 +96,7 @@ class _SeededClient:
         gen = self.owner.generator(*self.address, epoch)
         return torch.randperm(n, generator=gen, device=self.owner.device)
 
-    def keep_masks(self, epoch, step, shapes):
+    def keep_masks(self, epoch, step, sites):
         gen = self.owner.generator(*self.address, epoch, step + 1)
-        return [torch.rand(s, generator=gen, device=self.owner.device)
-                >= DROPOUT_RATE for s in shapes]
+        return [torch.rand(shape, generator=gen, device=self.owner.device)
+                >= rate for shape, rate in sites]

@@ -33,7 +33,7 @@ from repro_torch.core import scheduling
 from repro_torch.core.augmentation import online_augment_rows
 from repro_torch.core.comm import CommMeter
 from repro_torch.core.draws import RoundDraws, SeededDraws
-from repro_torch.core.fl import LocalSpec, client_update, evaluate
+from repro_torch.core.fl import LocalSpec, LossFn, client_update, evaluate
 from repro_torch.core.mediator import mediator_update
 from repro_torch.data.federated import FederatedDataset
 from repro_torch.device import resolve_device
@@ -92,14 +92,17 @@ class FLRoundEngine:
 
     ``init_params`` (a state-dict-keyed dict) replaces the seeded He init;
     ``draws`` replaces the seeded ``torch.Generator`` draws
-    (``core/draws.py``)."""
+    (``core/draws.py``); ``loss_fn(model, params, x, y, mask, keep)``
+    replaces the masked cross-entropy of local training (``core/fl.py``)."""
 
     def __init__(self, model, opt: Optimizer, data: FederatedDataset,
                  cfg: EngineConfig, *, aug_plan: np.ndarray | None = None,
                  device: str | torch.device | None = None,
                  init_params: Params | None = None,
-                 draws: RoundDraws | None = None):
+                 draws: RoundDraws | None = None,
+                 loss_fn: LossFn | None = None):
         self.model, self.opt, self.data, self.cfg = model, opt, data, cfg
+        self.loss_fn = loss_fn
         self.device = dev = resolve_device(device)
         sizes = [x.shape[0] for x in data.client_images]
         self.pad = _pad_multiple(max(sizes), cfg.local.batch_size)
@@ -218,13 +221,14 @@ class FLRoundEngine:
             if cfg.aggregate == "weights":
                 out = client_update(self.model, self.opt, cfg.local, self.params,
                                     xs[r, 0], ys[r, 0], ms[r, 0],
-                                    self.draws.client(self._round, r, 0, 0))
+                                    self.draws.client(self._round, r, 0, 0),
+                                    self.loss_fn)
             else:
                 out = mediator_update(
                     self.model, self.opt, cfg.local, cfg.mediator_epochs,
                     self.params, xs[r], ys[r], ms[r],
                     lambda e, s, r=r: self.draws.client(self._round, r, e, s),
-                    active=slot_np[r] > 0)
+                    active=slot_np[r] > 0, loss_fn=self.loss_fn)
             for k, v in out.items():
                 stacked[k][r] = v
         agg = ops.fedavg_agg_tree(stacked, weights)

@@ -4,13 +4,14 @@ Each round: sample ``c`` clients, train each for E local epochs from the
 same global weights, and average their weights with n_k / n (Eq. 6).  It is
 the ``gamma=1`` + random-singleton-schedule + weight-aggregation
 configuration of ``core.engine.FLRoundEngine``.  ``alpha`` enables the
-augmentation-only ablation (Alg. 2 without mediators).
+augmentation-only ablation (Alg. 2 without mediators), online or
+materialized as in ``core.astraea``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
-from repro_torch.core.astraea import online_plan
+from repro_torch.core.astraea import charge_materialized_plan, rebalancing_phase
 from repro_torch.core.engine import EngineConfig, FLRoundEngine
 from repro_torch.core.fl import LocalSpec
 from repro_torch.data.federated import FederatedDataset
@@ -25,18 +26,18 @@ class FedAvgTrainer:
     clients_per_round: int           # c
     local: LocalSpec                 # B, E
     alpha: float | None = None       # Alg. 2 factor; None = plain FedAvg
-    aug_mode: str | None = "online"  # "online" | None
+    aug_mode: str | None = "online"  # "online" | "materialized" | None
     # padded row count; defaults to c
     pad_mediators_to: int | None = None
     seed: int = 0
     device: object = None            # None = the CUDA device
     init_params: dict | None = None
     draws: object = None
+    loss_fn: object = None           # optional custom local loss
     history: list[dict] = field(default_factory=list)
 
     def __post_init__(self):
-        self.augmentation_plan, engine_plan = online_plan(
-            self.data, self.alpha, self.aug_mode)
+        phase = rebalancing_phase(self)
         pad_m = self.pad_mediators_to or \
             min(self.clients_per_round, self.data.num_clients)
         self.engine = FLRoundEngine(
@@ -44,8 +45,9 @@ class FedAvgTrainer:
             EngineConfig.fedavg(clients_per_round=self.clients_per_round,
                                 local=self.local, pad_mediators_to=pad_m,
                                 seed=self.seed),
-            aug_plan=engine_plan, device=self.device,
-            init_params=self.init_params, draws=self.draws)
+            aug_plan=phase.engine_plan, device=self.device,
+            init_params=self.init_params, draws=self.draws, loss_fn=self.loss_fn)
+        charge_materialized_plan(self.engine, phase)
         self.history = self.engine.history
 
     @property

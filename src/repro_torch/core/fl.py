@@ -10,6 +10,7 @@ weights bitwise unchanged (fresh Adam moments stay zero).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable
 
 import numpy as np
 import torch
@@ -27,31 +28,43 @@ class LocalSpec:
     epochs: int
 
 
-def _grads(model, params: Params, x, y, mask, keep) -> Params:
+# loss_fn(model, params, x, y, mask, keep) -> scalar loss
+LossFn = Callable[..., torch.Tensor]
+
+
+def masked_ce_loss(model, params: Params, x, y, mask, keep) -> torch.Tensor:
+    """The default local loss: masked cross-entropy of the training-mode
+    logits (dropout keep-masks ``keep``)."""
+    return cross_entropy_loss(model.apply(params, x, keep), y, mask)
+
+
+def _grads(model, params: Params, x, y, mask, keep, loss_fn: LossFn) -> Params:
     with torch.enable_grad():
         leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
-        loss = cross_entropy_loss(model.apply(leaves, x, keep), y, mask)
+        loss = loss_fn(model, leaves, x, y, mask, keep)
         grads = torch.autograd.grad(loss, list(leaves.values()))
     return dict(zip(leaves, grads))
 
 
 def client_update(model, opt: Optimizer, spec: LocalSpec, params: Params,
                   x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
-                  draws: ClientDraws) -> Params:
+                  draws: ClientDraws, loss_fn: LossFn | None = None) -> Params:
     """``spec.epochs`` epochs of mini-batch steps over ``x (pad, H, W, C)``,
-    ``y (pad,)``, ``mask (pad,)``; returns the new weights."""
+    ``y (pad,)``, ``mask (pad,)``; returns the new weights.  ``loss_fn``
+    replaces the masked cross-entropy (``core/reweighting.py``)."""
     n_pad, bsz = x.shape[0], spec.batch_size
     if n_pad % bsz:
         raise ValueError(f"pad {n_pad} is not a multiple of batch_size {bsz}")
+    loss_fn = loss_fn or masked_ce_loss
     state = opt.init(params)
-    shapes = model.dropout_shapes(bsz)
+    sites = model.dropout_sites(bsz)
     for epoch in range(spec.epochs):
         perm = draws.permutation(epoch, n_pad)
         xs, ys, ms = x[perm], y[perm], mask[perm]
         for step in range(n_pad // bsz):
             sl = slice(step * bsz, (step + 1) * bsz)
-            keep = draws.keep_masks(epoch, step, shapes)
-            grads = _grads(model, params, xs[sl], ys[sl], ms[sl], keep)
+            keep = draws.keep_masks(epoch, step, sites)
+            grads = _grads(model, params, xs[sl], ys[sl], ms[sl], keep, loss_fn)
             updates, state = opt.update(grads, state, params)
             params = apply_updates(params, updates)
     return params

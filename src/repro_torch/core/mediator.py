@@ -13,7 +13,7 @@ from typing import Callable, Sequence
 import torch
 
 from repro_torch.core.draws import ClientDraws
-from repro_torch.core.fl import LocalSpec, client_update
+from repro_torch.core.fl import LocalSpec, LossFn, client_update
 from repro_torch.models.cnn import Params
 from repro_torch.optim.optimizers import Optimizer
 
@@ -22,9 +22,11 @@ def mediator_update(model, opt: Optimizer, local: LocalSpec,
                     mediator_epochs: int, params: Params, xs: torch.Tensor,
                     ys: torch.Tensor, masks: torch.Tensor,
                     draws_for: Callable[[int, int], ClientDraws],
-                    active: Sequence[bool] | None = None) -> Params:
+                    active: Sequence[bool] | None = None,
+                    loss_fn: LossFn | None = None) -> Params:
     """``xs (gamma, pad, H, W, C)``, ``ys``/``masks (gamma, pad)``;
-    ``draws_for(mediator_epoch, slot)`` gives each client update's draws.
+    ``draws_for(mediator_epoch, slot)`` gives each client update's draws;
+    ``loss_fn`` replaces the masked cross-entropy (``core/fl.py``).
     Returns ``trained - params``."""
     gamma = xs.shape[0]
     w = params
@@ -33,5 +35,5 @@ def mediator_update(model, opt: Optimizer, local: LocalSpec,
             if active is not None and not active[slot]:
                 continue
             w = client_update(model, opt, local, w, xs[slot], ys[slot],
-                              masks[slot], draws_for(epoch, slot))
+                              masks[slot], draws_for(epoch, slot), loss_fn)
     return {k: w[k] - params[k] for k in params}

@@ -11,8 +11,12 @@ client id among equal scores):
 * ``impl="batched"`` -- the whole pass in one call to
   ``kernels.ops.kld_greedy_picks``: the one-CTA CUDA kernel for a CUDA
   device, its plain PyTorch masked-argmin loop on the CPU.
-* ``impl="loop"`` -- the numpy greedy loop, scoring each step with
-  ``distribution.merged_kld_scores`` (the oracle).
+* ``impl="loop"`` -- the paper's per-step Alg. 3: a Python loop with a
+  numpy argmin on the host that scores each step with one
+  ``kernels.ops.kld_score`` call on the unassigned rows (the CUDA kernel
+  on a CUDA device, ``distribution.merged_kld_scores`` on the CPU, where
+  it is the oracle).  The kernel scores with the greedy pass's device
+  function, so on integer histograms both forms give the same picks.
 
 Scores are f32 over integer counts.  Clients whose histograms are
 permutations of each other tie in real arithmetic but may round apart in
@@ -56,8 +60,10 @@ def reschedule(client_counts: np.ndarray, gamma: int, *, impl: str = "batched",
     """Alg. 3: partition clients into mediators of size <= gamma.
 
     ``client_counts (K, C)`` are the clients' label histograms.  ``device``
-    is where the batched pass runs (the card unless ``"cpu"``); the loop
-    always runs on the host.  Every client appears in exactly one
+    is where the scores are computed (the card unless ``"cpu"``): the
+    batched pass runs there whole; the loop keeps its argmin on the host,
+    moves the counts to ``device`` once and launches one ``kld_score`` per
+    absorbed client there.  Every client appears in exactly one
     mediator."""
     if impl not in IMPLS:
         raise ValueError(f"unknown reschedule impl {impl!r}; expected one of {IMPLS}")
@@ -65,25 +71,41 @@ def reschedule(client_counts: np.ndarray, gamma: int, *, impl: str = "batched",
     num_clients, num_classes = client_counts.shape
     if num_clients == 0:
         return []
+    dev = resolve_device(device)
+    counts = torch.as_tensor(client_counts, dtype=torch.float32, device=dev)
     if impl == "batched":
-        counts = torch.as_tensor(client_counts, dtype=torch.float32,
-                                 device=resolve_device(device))
         picks = ops.kld_greedy_picks(counts, int(gamma)).cpu().numpy()
         return _groups(client_counts, picks.astype(np.int64), gamma)
-    cand_all = torch.as_tensor(client_counts, dtype=torch.float32)
     unassigned = list(range(num_clients))
     mediators: list[Mediator] = []
     while unassigned:
         med = Mediator(counts=np.zeros(num_classes))
         while unassigned and len(med.clients) < gamma:
-            scores = dist.merged_kld_scores(
-                torch.as_tensor(med.counts, dtype=torch.float32),
-                cand_all[unassigned]).numpy()
+            rows = torch.as_tensor(unassigned, dtype=torch.int64, device=dev)
+            scores = ops.kld_score(
+                torch.as_tensor(med.counts, dtype=torch.float32, device=dev),
+                counts[rows]).cpu().numpy()
             cid = unassigned.pop(int(np.argmin(scores)))
             med.clients.append(cid)
             med.counts = med.counts + client_counts[cid]
         mediators.append(med)
     return mediators
+
+
+def mediator_client_scores(mediators: list[Mediator], client_counts: np.ndarray,
+                           device: str | torch.device | None = None) -> np.ndarray:
+    """The Alg. 3 score of every (mediator, client) pair, ``(M, K)``: how
+    far each client would move each mediator's merged histogram from
+    uniform.  A diagnostic sweep (placement, rebalancing what-ifs) in one
+    ``kernels.ops.kld_score_matrix`` call on ``device``."""
+    dev = resolve_device(device)
+    meds = np.stack([np.asarray(m.counts, np.float64) for m in mediators]) \
+        if mediators else np.zeros((0, np.shape(client_counts)[1]))
+    out = ops.kld_score_matrix(
+        torch.as_tensor(meds, dtype=torch.float32, device=dev),
+        torch.as_tensor(np.asarray(client_counts, np.float64), dtype=torch.float32,
+                        device=dev))
+    return out.cpu().numpy()
 
 
 def picks_of(mediators: list[Mediator]) -> np.ndarray:

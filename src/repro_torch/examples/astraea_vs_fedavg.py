@@ -4,44 +4,67 @@ WAN traffic ledger.
 
   PYTHONPATH=src python -m repro_torch.examples.astraea_vs_fedavg            # small
   PYTHONPATH=src python -m repro_torch.examples.astraea_vs_fedavg --full     # 47-class EMNIST width
+  PYTHONPATH=src python -m repro_torch.examples.astraea_vs_fedavg --cinic    # CINIC-like
+  PYTHONPATH=src python -m repro_torch.examples.astraea_vs_fedavg --cinic --full
   PYTHONPATH=src python -m repro_torch.examples.astraea_vs_fedavg --device cpu
 
 The default configuration is the JAX example's (10 classes at 16x16, 16
 clients, 8 per round); ``--full`` is the paper's EMNIST width: 47 classes
-at 28x28 (68,873 parameters), 64 clients, 16 per round.
+at 28x28 (68,873 parameters), 64 clients, 16 per round.  ``--cinic`` is
+the JAX example's CINIC arm (10 classes at 16x16x3, ``cinic_cnn`` at width
+16, a normal global distribution); ``--cinic --full`` is the paper's
+CINIC-10 model: 32x32x3, width 32 (2,168,362 parameters), 64 clients, 16
+per round.
 """
 import argparse
 import dataclasses
 
 from repro_torch.core import AstraeaTrainer, FedAvgTrainer, LocalSpec
-from repro_torch.data.federated import EMNIST_LIKE, partition
-from repro_torch.models.cnn import emnist_cnn
+from repro_torch.data.federated import CINIC_LIKE, EMNIST_LIKE, partition
+from repro_torch.models.cnn import cinic_cnn, emnist_cnn
 from repro_torch.optim import adam
+
+
+def configuration(cinic: bool, full: bool):
+    """``(federation, model, clients per round, the paper's top-1 gain)``
+    of one arm of the experiment."""
+    if cinic:
+        spec = dataclasses.replace(CINIC_LIKE, image_size=32 if full else 16,
+                                   noise=0.5, distort=0.35)
+        model = cinic_cnn(spec.num_classes, image_size=spec.image_size,
+                          width=32 if full else 16)
+        gd, paper = "normal", "+0.0589"
+    elif full:
+        spec = dataclasses.replace(EMNIST_LIKE, num_classes=47)
+        model = emnist_cnn(47, 28)
+        gd, paper = "letterfreq", "+0.0559"
+    else:
+        spec = dataclasses.replace(EMNIST_LIKE, num_classes=10, image_size=16,
+                                   noise=0.45, distort=0.35)
+        model = emnist_cnn(10, 16)
+        gd, paper = "letterfreq", "+0.0559"
+    if full:
+        fed = partition(spec, num_clients=64, total_samples=6400,
+                        test_samples=1000 if cinic else 2350, sizes="instagram",
+                        global_dist=gd, local="random", seed=0)
+        return fed, model, 16, paper
+    fed = partition(spec, num_clients=16, total_samples=1600, test_samples=600,
+                    sizes="instagram", global_dist=gd, local="random", seed=0)
+    return fed, model, 8, paper
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--rounds", type=int, default=10)
+    ap.add_argument("--cinic", action="store_true",
+                    help="the CINIC-10 arm (cinic_cnn, 32x32x3 with --full)")
     ap.add_argument("--full", action="store_true",
-                    help="47 classes at 28x28, 64 clients, 16 per round")
+                    help="the paper's width: 64 clients, 16 per round")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
     args = ap.parse_args()
 
-    if args.full:
-        spec = dataclasses.replace(EMNIST_LIKE, num_classes=47)
-        fed = partition(spec, num_clients=64, total_samples=6400,
-                        test_samples=2350, sizes="instagram",
-                        global_dist="letterfreq", local="random", seed=0)
-        c = 16
-    else:
-        spec = dataclasses.replace(EMNIST_LIKE, num_classes=10, image_size=16,
-                                   noise=0.45, distort=0.35)
-        fed = partition(spec, num_clients=16, total_samples=1600,
-                        test_samples=600, sizes="instagram",
-                        global_dist="letterfreq", local="random", seed=0)
-        c = 8
-    model = emnist_cnn(spec.num_classes, image_size=spec.image_size)
+    fed, model, c, paper = configuration(args.cinic, args.full)
     local = LocalSpec(20, 2)
     common = dict(clients_per_round=c, local=local, seed=0, device=args.device)
 
@@ -59,7 +82,8 @@ def main():
     for name, h in rows:
         print(f"{name:26s} {h['accuracy']:7.3f} {h['traffic_mb']:11.1f}")
     f, a = rows[0][1], rows[2][1]
-    print(f"\nAstraea - FedAvg = {a['accuracy'] - f['accuracy']:+.3f}")
+    print(f"\nAstraea - FedAvg = {a['accuracy'] - f['accuracy']:+.3f} "
+          f"(paper: {paper})")
     print(f"WAN traffic ratio Astraea/FedAvg = "
           f"{a['traffic_mb'] / f['traffic_mb']:.2f}x per round")
 

@@ -1,7 +1,8 @@
 """Where a round's time goes on the card: one warm-up round, then one round
-of each trainer under ``torch.profiler`` at the paper's EMNIST width.
+of each trainer under ``torch.profiler`` at the paper's EMNIST width, or
+with ``--cinic`` at its CINIC-10 width (``cinic_cnn``, 32x32x3, width 32).
 
-  PYTHONPATH=src python -m repro_torch.examples.profile_round [--out DIR]
+  PYTHONPATH=src python -m repro_torch.examples.profile_round [--cinic] [--out DIR]
 
 Prints, per trainer: the round's wall seconds, the summed device time of
 all kernels, the device idle share (1 - device time / wall time, kernels
@@ -9,7 +10,6 @@ serialized on one stream), the launch count, and the top kernels by
 device time.  ``--out`` also writes each trainer's Chrome trace there.
 """
 import argparse
-import dataclasses
 import json
 import time
 from pathlib import Path
@@ -18,8 +18,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.core import AstraeaTrainer, FedAvgTrainer, LocalSpec
-from repro_torch.data.federated import EMNIST_LIKE, partition
-from repro_torch.models.cnn import emnist_cnn
+from repro_torch.examples.astraea_vs_fedavg import configuration
 from repro_torch.optim import adam
 
 
@@ -32,15 +31,13 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, help="directory for Chrome traces")
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--cinic", action="store_true", help="the CINIC-10 arm")
     args = ap.parse_args()
-    spec = dataclasses.replace(EMNIST_LIKE, num_classes=47)
-    fed = partition(spec, num_clients=64, total_samples=6400, test_samples=2350,
-                    sizes="instagram", global_dist="letterfreq", local="random",
-                    seed=0)
-    common = dict(clients_per_round=16, local=LocalSpec(20, 2), seed=0)
+    fed, model, c, _ = configuration(args.cinic, full=True)
+    common = dict(clients_per_round=c, local=LocalSpec(20, 2), seed=0)
     trainers = {
-        "FedAvg": FedAvgTrainer(emnist_cnn(47, 28), adam(1e-3), fed, **common),
-        "Astraea": AstraeaTrainer(emnist_cnn(47, 28), adam(1e-3), fed, gamma=4,
+        "FedAvg": FedAvgTrainer(model, adam(1e-3), fed, **common),
+        "Astraea": AstraeaTrainer(model, adam(1e-3), fed, gamma=4,
                                   alpha=0.67, **common),
     }
     report = {}

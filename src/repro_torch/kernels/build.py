@@ -24,8 +24,10 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("fedavg_agg.cu", "kld_greedy.cu", "affine_warp.cu",
+SOURCES = ("fedavg_agg.cu", "kld_greedy.cu", "kld_score.cu", "affine_warp.cu",
            "flash_attention.cu", "ssd_chunk.cu")
+# headers the sources include (hashed into the library's name with them)
+HEADERS = ("kld_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -39,6 +41,8 @@ SIGNATURES = {
     "fedavg_agg_f32": (_P, _P, _P, _I64, _I64, _P),
     "fedavg_agg_bf16": (_P, _P, _P, _I64, _I64, _P),
     "kld_greedy_picks": (_P, _P, _I, _I, _I, _P),
+    "kld_score_f32": (_P, _P, _P, _I, _I, _P),
+    "kld_score_matrix_f32": (_P, _P, _P, _I, _I, _I, _P),
     "affine_warp_f32": (_P, _P, _P, _P, _I64, _I, _I, _I, _P),
     "flash_attention_f32": (_P, _P, _P, _P, *(_I,) * 9, _F, _P),
     "flash_attention_bf16": (_P, _P, _P, _P, *(_I,) * 9, _F, _P),
@@ -61,7 +65,7 @@ def nvcc_path() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

@@ -14,8 +14,8 @@
 // kernel becomes this loop.  The open mediator's (C,) histogram and the
 // (K,) pick mask live in shared memory.  Per step every thread scores its
 // candidates (i = tid, tid + 1024, ... ascending), each score one row summed
-// sequentially over ascending classes in f32 with the op order of
-// distribution.merged_kld_scores, keeping the first minimum.  A warp-shuffle
+// sequentially over ascending classes in f32 (kld_common.cuh::score_row, the
+// scorer kld_score.cu shares), keeping the first minimum.  A warp-shuffle
 // then shared-memory argmin over (score, index) breaks ties toward the lower
 // index, so the pick is the first minimum over all clients, as in the numpy
 // loop.  Thread 0 commits the pick; all threads fold its row into the
@@ -25,12 +25,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "kld_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr int kNone = 0x7fffffff;
-constexpr float kEps = 1e-12f;
 
 // (score, index) order: a real index beats none; then lower score; then
 // lower index.
@@ -49,24 +50,6 @@ __device__ __forceinline__ void warp_argmin(float& best, int& bidx) {
   }
 }
 
-// D_KL(normalize(med + row) || U), merged_kld_scores' op order in f32.
-__device__ float score_row(const float* __restrict__ row,
-                           const float* __restrict__ med, int c, float log_q) {
-  float total = 0.f;
-  for (int j = 0; j < c; ++j)
-    total = __fadd_rn(total, __fadd_rn(med[j], __ldg(row + j)));
-  const float denom = fmaxf(total, kEps);
-  float s = 0.f;
-  for (int j = 0; j < c; ++j) {
-    const float p = __fdiv_rn(__fadd_rn(med[j], __ldg(row + j)), denom);
-    if (p > 0.f) {
-      const float ratio = __fsub_rn(logf(fmaxf(p, kEps)), log_q);
-      s = __fadd_rn(s, __fmul_rn(p, ratio));
-    }
-  }
-  return s;
-}
-
 __global__ void __launch_bounds__(kThreads)
 kld_greedy_kernel(const float* __restrict__ counts, int32_t* __restrict__ picks,
                   int k, int c, int gamma) {
@@ -80,8 +63,7 @@ kld_greedy_kernel(const float* __restrict__ counts, int32_t* __restrict__ picks,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int j = tid; j < c; j += kThreads) med[j] = 0.f;
   for (int i = tid; i < k; i += kThreads) picked[i] = 0;
-  // q = 1/C as the reference builds it: 1.0 / C in double, stored as f32
-  const float log_q = logf(fmaxf(static_cast<float>(1.0 / c), kEps));
+  const float log_q = repro_kld::uniform_log_q(c);
   int fill = 0;
   __syncthreads();
 
@@ -90,7 +72,7 @@ kld_greedy_kernel(const float* __restrict__ counts, int32_t* __restrict__ picks,
     int bidx = kNone;
     for (int i = tid; i < k; i += kThreads) {
       if (picked[i]) continue;
-      const float s = score_row(counts + static_cast<int64_t>(i) * c, med, c, log_q);
+      const float s = repro_kld::score_row(counts + static_cast<int64_t>(i) * c, med, c, log_q);
       if (better(s, i, best, bidx)) { best = s; bidx = i; }
     }
     warp_argmin(best, bidx);

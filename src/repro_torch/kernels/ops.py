@@ -19,6 +19,7 @@ from repro_torch.kernels import ref
 
 # kernel launches since the last reset, per kernel (main-path evidence)
 LAUNCHES: dict[str, int] = {"fedavg_agg": 0, "kld_greedy_picks": 0,
+                            "kld_score": 0, "kld_score_matrix": 0,
                             "affine_warp": 0, "flash_attention": 0,
                             "ssd_chunk": 0}
 
@@ -26,6 +27,10 @@ LAUNCHES: dict[str, int] = {"fedavg_agg": 0, "kld_greedy_picks": 0,
 # shared memory; a multi-CTA pass for larger K is later work)
 GREEDY_MAX_K = 16_384
 GREEDY_MAX_C = 1_024
+# classes the scoring kernels take (a matrix tile keeps 8 mediator rows in
+# shared memory) and mediators the matrix grid's y axis holds (65,535 x 8)
+SCORE_MAX_C = 1_024
+SCORE_MAX_M = 524_280
 
 # head dims the flash kernel is instantiated for (Hymba 64, danube 80,
 # qwen3 128)
@@ -130,6 +135,57 @@ def kld_greedy_picks(client_counts: torch.Tensor, gamma: int) -> torch.Tensor:
     _launch("kld_greedy_picks", "kld_greedy_picks", client_counts.device,
             client_counts.data_ptr(), picks.data_ptr(), k, c, int(gamma))
     return picks
+
+
+def _score_inputs(meds: torch.Tensor, cand: torch.Tensor, med_dim: int) -> None:
+    if meds.dim() != med_dim or cand.dim() != 2 or meds.shape[-1] != cand.shape[1]:
+        lead = "(C,)" if med_dim == 1 else "(M, C)"
+        raise ValueError(f"expected mediator counts {lead} and candidates (K, C), "
+                         f"got {tuple(meds.shape)} and {tuple(cand.shape)}")
+    if meds.dtype != torch.float32 or cand.dtype != torch.float32:
+        raise ValueError(f"counts must be float32, got {meds.dtype} and {cand.dtype}")
+
+
+def kld_score(mediator_counts: torch.Tensor,
+              client_counts: torch.Tensor) -> torch.Tensor:
+    """Alg. 3 scores of one open mediator: ``(C,)`` and ``(K, C)`` float32
+    -> ``(K,)`` float32, ``D_KL(normalize(med + c_k) || U)``.  The kernel
+    scores with the greedy pass's device function, so its bits equal
+    that pass's scores."""
+    _score_inputs(mediator_counts, client_counts, 1)
+    if not _on_cuda(mediator_counts, client_counts):
+        return ref.kld_score(mediator_counts, client_counts)
+    k, c = client_counts.shape
+    if c > SCORE_MAX_C:
+        raise ValueError(f"the scoring kernel takes C <= {SCORE_MAX_C}, got C={c}")
+    out = torch.empty(k, dtype=torch.float32, device=client_counts.device)
+    if k == 0:
+        return out
+    _launch("kld_score", "kld_score_f32", client_counts.device,
+            mediator_counts.data_ptr(), client_counts.data_ptr(), out.data_ptr(),
+            k, c)
+    return out
+
+
+def kld_score_matrix(mediator_counts: torch.Tensor,
+                     client_counts: torch.Tensor) -> torch.Tensor:
+    """Alg. 3 scores of every (mediator, candidate) pair: ``(M, C)`` and
+    ``(K, C)`` float32 -> ``(M, K)`` float32 in one launch."""
+    _score_inputs(mediator_counts, client_counts, 2)
+    if not _on_cuda(mediator_counts, client_counts):
+        return ref.kld_score_matrix(mediator_counts, client_counts)
+    m, c = mediator_counts.shape
+    k = client_counts.shape[0]
+    if c > SCORE_MAX_C or m > SCORE_MAX_M:
+        raise ValueError(f"the scoring kernel takes C <= {SCORE_MAX_C} and "
+                         f"M <= {SCORE_MAX_M}, got M={m}, C={c}")
+    out = torch.empty(m, k, dtype=torch.float32, device=client_counts.device)
+    if m == 0 or k == 0:
+        return out
+    _launch("kld_score_matrix", "kld_score_matrix_f32", client_counts.device,
+            mediator_counts.data_ptr(), client_counts.data_ptr(), out.data_ptr(),
+            m, k, c)
+    return out
 
 
 def affine_warp(images: torch.Tensor, mats: torch.Tensor,

@@ -10,7 +10,7 @@ import math
 
 import torch
 
-from repro_torch.core.distribution import merged_kld_scores
+from repro_torch.core.distribution import kld_to_uniform, merged_kld_scores
 
 
 def normalized_weights(weights: torch.Tensor) -> torch.Tensor:
@@ -25,6 +25,22 @@ def fedavg_agg(deltas: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     ``weights (M,)`` raw sizes."""
     wn = normalized_weights(weights)
     return (wn[:, None] * deltas.to(torch.float32)).sum(0).to(deltas.dtype)
+
+
+def kld_score(mediator_counts: torch.Tensor,
+              client_counts: torch.Tensor) -> torch.Tensor:
+    """Alg. 3 scores ``D_KL(normalize(med + c_k) || U)``: ``(C,)`` and
+    ``(K, C)`` -> ``(K,)`` float32 (``merged_kld_scores``)."""
+    return merged_kld_scores(mediator_counts, client_counts)
+
+
+def kld_score_matrix(mediator_counts: torch.Tensor,
+                     client_counts: torch.Tensor) -> torch.Tensor:
+    """``kld_score`` of every mediator row: ``(M, C)`` and ``(K, C)`` ->
+    ``(M, K)`` float32."""
+    merged = mediator_counts.to(torch.float32)[:, None, :] \
+        + client_counts.to(torch.float32)[None, :, :]
+    return kld_to_uniform(merged)
 
 
 def kld_greedy_picks(client_counts: torch.Tensor, gamma: int) -> torch.Tensor:

@@ -1,17 +1,25 @@
-"""The paper's EMNIST CNN (Section II-B) in PyTorch.
+"""The paper's CNN classifiers in PyTorch.
 
-Three VALID-padded convolutions (12ch 5x5/s2, 18ch 3x3/s2, 24ch 2x2/s1),
-dropout 0.5 after the first two, dense 150 ReLU and a linear head: 68,873
-parameters at 47 classes and 28x28 inputs, as in ``repro/models/cnn.py``.
+* ``emnist_cnn`` (Section II-B): three VALID-padded convolutions (12ch
+  5x5/s2, 18ch 3x3/s2, 24ch 2x2/s1), dropout 0.5 after the first two,
+  dense 150 ReLU and a linear head: 68,873 parameters at 47 classes and
+  28x28 inputs.
+* ``cinic_cnn`` (the Keras CIFAR-10 example the paper cites for CINIC-10):
+  two blocks of two SAME-padded 3x3 convolutions and a 2x2 max-pool, at
+  ``width`` and ``2 * width`` channels, each block followed by dropout
+  0.25, then dense ``512 * width // 32`` ReLU, dropout 0.5 and a linear
+  head: 2,168,362 parameters at 10 classes, 32x32x3 and width 32.
 
-The public layout is the reference's NHWC ``(B, H, W, C)``.  Inside, the
-input is permuted to NCHW for ``F.conv2d`` and permuted back to NHWC before
-the flatten, so ``dense1``'s input rows keep the reference's order.
+Both mirror ``repro/models/cnn.py``.  The public layout is the reference's
+NHWC ``(B, H, W, C)``.  Inside, the input is permuted to NCHW for
+``F.conv2d`` and permuted back to NHWC before the flatten, so ``dense1``'s
+input rows keep the reference's order.
 
 Training code calls the model functionally, ``model.apply(params, x,
 keep=...)`` with ``params`` a dict keyed like ``state_dict()``.  Dropout
-takes its keep-masks from the caller as ``(B, H, W, C)`` booleans, one per
-dropout site (``dropout_shapes``), so the draws can be injected.
+takes its keep-masks from the caller, one boolean mask per dropout site in
+the site's NHWC (or ``(B, features)``) shape; ``dropout_sites(batch)``
+lists each site's ``(shape, rate)``, so the draws can be injected.
 """
 from __future__ import annotations
 
@@ -22,8 +30,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 Params = dict[str, torch.Tensor]
-
-DROPOUT_RATE = 0.5
+Site = tuple[tuple[int, ...], float]
 
 
 def _shapes(h: int) -> tuple[int, int, int]:
@@ -33,10 +40,12 @@ def _shapes(h: int) -> tuple[int, int, int]:
     return h1, h2, h3
 
 
-def _dropout(x_nchw: torch.Tensor, keep_nhwc: torch.Tensor) -> torch.Tensor:
-    keep = keep_nhwc.permute(0, 3, 1, 2)
-    return torch.where(keep, x_nchw / (1.0 - DROPOUT_RATE),
-                       torch.zeros((), device=x_nchw.device))
+def _dropout(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
+    """Inverted dropout of ``x`` (NCHW or ``(B, F)``) with a keep-mask in
+    the public layout (NHWC or ``(B, F)``): kept values over ``1 - rate``."""
+    if keep.dim() == 4:
+        keep = keep.permute(0, 3, 1, 2)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), device=x.device))
 
 
 class EmnistCNN(nn.Module):
@@ -52,25 +61,29 @@ class EmnistCNN(nn.Module):
         self.dense1 = nn.Linear(h3 * h3 * 24, 150)
         self.out = nn.Linear(150, num_classes)
 
-    def dropout_shapes(self, batch: int) -> list[tuple[int, ...]]:
-        """NHWC shapes of the two dropout sites' keep-masks."""
+    DROPOUT_RATES = (0.5, 0.5)
+
+    def dropout_sites(self, batch: int) -> list[Site]:
+        """NHWC keep-mask shape and rate of each dropout site."""
         h1, h2 = self._act_hw
-        return [(batch, h1, h1, 12), (batch, h2, h2, 18)]
+        return list(zip([(batch, h1, h1, 12), (batch, h2, h2, 18)],
+                        self.DROPOUT_RATES))
 
     @staticmethod
     def apply(params: Params, x: torch.Tensor,
               keep: list[torch.Tensor] | None = None) -> torch.Tensor:
         """Logits of NHWC images ``x``; ``keep`` = dropout keep-masks
         (training), ``None`` = inference."""
+        rates = EmnistCNN.DROPOUT_RATES
         x = x.permute(0, 3, 1, 2)
         x = F.relu(F.conv2d(x, params["conv1.weight"], params["conv1.bias"],
                             stride=2))
         if keep is not None:
-            x = _dropout(x, keep[0])
+            x = _dropout(x, keep[0], rates[0])
         x = F.relu(F.conv2d(x, params["conv2.weight"], params["conv2.bias"],
                             stride=2))
         if keep is not None:
-            x = _dropout(x, keep[1])
+            x = _dropout(x, keep[1], rates[1])
         x = F.relu(F.conv2d(x, params["conv3.weight"], params["conv3.bias"]))
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
         x = F.relu(F.linear(x, params["dense1.weight"], params["dense1.bias"]))
@@ -83,6 +96,64 @@ class EmnistCNN(nn.Module):
 
 def emnist_cnn(num_classes: int = 47, image_size: int = 28) -> EmnistCNN:
     return EmnistCNN(num_classes, image_size)
+
+
+class CinicCNN(nn.Module):
+    def __init__(self, num_classes: int = 10, image_size: int = 32,
+                 channels: int = 3, width: int = 32):
+        super().__init__()
+        w1, w2, hidden = width, 2 * width, 512 * width // 32
+        self.num_classes = num_classes
+        self.input_shape = (image_size, image_size, channels)
+        self._pooled = (image_size // 2, image_size // 4)
+        self._widths = (w1, w2, hidden)
+        self.conv1a = nn.Conv2d(channels, w1, 3, padding=1)
+        self.conv1b = nn.Conv2d(w1, w1, 3, padding=1)
+        self.conv2a = nn.Conv2d(w1, w2, 3, padding=1)
+        self.conv2b = nn.Conv2d(w2, w2, 3, padding=1)
+        self.dense1 = nn.Linear(self._pooled[1] ** 2 * w2, hidden)
+        self.out = nn.Linear(hidden, num_classes)
+
+    DROPOUT_RATES = (0.25, 0.25, 0.5)
+
+    def dropout_sites(self, batch: int) -> list[Site]:
+        """Keep-mask shape and rate of each dropout site: after each pooled
+        block (NHWC) and after ``dense1`` (``(B, hidden)``)."""
+        (h1, h2), (w1, w2, hidden) = self._pooled, self._widths
+        return list(zip([(batch, h1, h1, w1), (batch, h2, h2, w2), (batch, hidden)],
+                        self.DROPOUT_RATES))
+
+    @staticmethod
+    def apply(params: Params, x: torch.Tensor,
+              keep: list[torch.Tensor] | None = None) -> torch.Tensor:
+        """Logits of NHWC images ``x``; ``keep`` = dropout keep-masks
+        (training), ``None`` = inference."""
+        def conv(x, name):
+            return F.relu(F.conv2d(x, params[f"{name}.weight"],
+                                   params[f"{name}.bias"], padding=1))
+        rates = CinicCNN.DROPOUT_RATES
+        x = x.permute(0, 3, 1, 2)
+        x = F.max_pool2d(conv(conv(x, "conv1a"), "conv1b"), 2)
+        if keep is not None:
+            x = _dropout(x, keep[0], rates[0])
+        x = F.max_pool2d(conv(conv(x, "conv2a"), "conv2b"), 2)
+        if keep is not None:
+            x = _dropout(x, keep[1], rates[1])
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        x = F.relu(F.linear(x, params["dense1.weight"], params["dense1.bias"]))
+        if keep is not None:
+            x = _dropout(x, keep[2], rates[2])
+        return F.linear(x, params["out.weight"], params["out.bias"])
+
+    def forward(self, x: torch.Tensor,
+                keep: list[torch.Tensor] | None = None) -> torch.Tensor:
+        return self.apply(dict(self.named_parameters()), x, keep)
+
+
+def cinic_cnn(num_classes: int = 10, image_size: int = 32, channels: int = 3,
+              width: int = 32) -> CinicCNN:
+    """``width`` scales the channel counts (32 = the paper's model)."""
+    return CinicCNN(num_classes, image_size, channels, width)
 
 
 def init_params(model: nn.Module, seed: int = 0,

@@ -9,9 +9,11 @@ The calling convention is the reference's (``repro/optim/optimizers.py``):
 
 Adam is written out as the reference computes it, op for op in fp32:
 ``u = -lr * mhat / (sqrt(vhat) + eps)`` with ``mhat = m / (1 - b1**t)`` and
-``vhat = v / (1 - b2**t)``, the bias corrections in fp32.  The list ops are
-``torch._foreach_*`` so a step costs a few launches on the card, each a
-separately rounded elementwise op as in the reference.
+``vhat = v / (1 - b2**t)``, the bias corrections in fp32; AdamW then
+subtracts ``lr * weight_decay * p``.  The list ops are ``torch._foreach_*``
+so a step costs a few launches on the card, each a separately rounded
+elementwise op as in the reference.  A learning rate may be a schedule,
+``step -> lr`` (``optim/schedules.py``), read at the 1-based step.
 """
 from __future__ import annotations
 
@@ -21,6 +23,14 @@ from typing import Callable
 import torch
 
 Params = dict[str, torch.Tensor]
+LearningRate = float | Callable[[int], torch.Tensor]
+
+
+def _lr_at(learning_rate: LearningRate, step: int) -> float:
+    """The rate at ``step`` as the fp32 value the reference multiplies by."""
+    if callable(learning_rate):
+        return float(torch.as_tensor(learning_rate(step), dtype=torch.float32))
+    return learning_rate
 
 
 @dataclass(frozen=True)
@@ -36,7 +46,7 @@ def apply_updates(params: Params, updates: Params) -> Params:
     return dict(zip(keys, new))
 
 
-def sgd(learning_rate: float, momentum: float = 0.0,
+def sgd(learning_rate: LearningRate, momentum: float = 0.0,
         nesterov: bool = False) -> Optimizer:
     def init(params):
         mom = {k: torch.zeros_like(p) for k, p in params.items()} \
@@ -55,15 +65,18 @@ def sgd(learning_rate: float, momentum: float = 0.0,
             new_mom = dict(zip(keys, mom))
         else:
             eff, new_mom = g, None
-        updates = torch._foreach_mul(eff, -learning_rate)
+        # the reference reads a schedule at the 0-based step here
+        updates = torch._foreach_mul(eff, -_lr_at(learning_rate, state["step"]))
         return dict(zip(keys, updates)), {"step": state["step"] + 1,
                                           "momentum": new_mom}
 
     return Optimizer(init, update)
 
 
-def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
-         eps: float = 1e-8) -> Optimizer:
+def adam(learning_rate: LearningRate, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8, weight_decay: float = 0.0) -> Optimizer:
+    """Adam, or AdamW with ``weight_decay`` (decoupled: ``u -= lr * wd * p``,
+    which needs ``params`` in ``update``)."""
     def init(params):
         return {"step": 0,
                 "mu": {k: torch.zeros_like(p) for k, p in params.items()},
@@ -87,10 +100,31 @@ def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
         mhat = torch._foreach_div(mu, bc1)
         vhat = torch._foreach_div(nu, bc2)
         denom = torch._foreach_add(torch._foreach_sqrt(vhat), eps)
-        updates = torch._foreach_div(torch._foreach_mul(mhat, -learning_rate),
-                                     denom)
+        lr = _lr_at(learning_rate, step)
+        updates = torch._foreach_div(torch._foreach_mul(mhat, -lr), denom)
+        if weight_decay and params is not None:
+            # lr * wd as the reference rounds it: in fp32 when lr is a
+            # schedule's fp32 value, as one double product otherwise
+            coef = float(torch.tensor(lr, dtype=torch.float32) * weight_decay) \
+                if callable(learning_rate) else lr * weight_decay
+            updates = torch._foreach_sub(
+                updates, torch._foreach_mul([params[k] for k in keys], coef))
         return dict(zip(keys, updates)), {"step": step,
                                           "mu": dict(zip(keys, mu)),
                                           "nu": dict(zip(keys, nu))}
 
     return Optimizer(init, update)
+
+
+def adamw(learning_rate: LearningRate, weight_decay: float = 0.01,
+          **kw) -> Optimizer:
+    return adam(learning_rate, weight_decay=weight_decay, **kw)
+
+
+def clip_by_global_norm(grads: Params, max_norm: float) -> Params:
+    """Scale every gradient by ``min(1, max_norm / ||g||)`` with ``||g||``
+    the fp32 norm over all leaves."""
+    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                           for g in grads.values()))
+    scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+    return {k: (g * scale).to(g.dtype) for k, g in grads.items()}

@@ -71,6 +71,53 @@ def test_kld_greedy_kernel(dev, k, tied):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k,c", [(16, 10), (1, 47), (300, 47), (4096, 47)])
+def test_kld_score_kernel(dev, k, c):
+    """Within 1e-6 of the plain scores; a zero mediator against a zero row
+    scores exactly 0."""
+    rng = np.random.default_rng(k + c)
+    med = torch.as_tensor(rng.integers(0, 80, c), dtype=torch.float32, device=dev)
+    cand = torch.as_tensor(rng.integers(0, 60, (k, c)), dtype=torch.float32, device=dev)
+    cand[0] = 0.0
+    before = ops.LAUNCHES["kld_score"]
+    out = ops.kld_score(med, cand)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["kld_score"] == before + 1
+    torch.testing.assert_close(out, ref.kld_score(med, cand), rtol=0, atol=1e-6)
+    zero = ops.kld_score(torch.zeros(c, device=dev), cand)
+    assert float(zero[0]) == 0.0
+    assert ops.kld_score(med, cand[:0]).shape == (0,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,c", [(1, 1, 10), (16, 512, 47), (19, 77, 47), (256, 4096, 47)])
+def test_kld_score_matrix_kernel(dev, m, k, c):
+    """Within 1e-6 of the plain scores, and every row bit for bit the
+    single-mediator kernel's (one device function)."""
+    rng = np.random.default_rng(m * k)
+    meds = torch.as_tensor(rng.integers(0, 80, (m, c)), dtype=torch.float32, device=dev)
+    cand = torch.as_tensor(rng.integers(0, 60, (k, c)), dtype=torch.float32, device=dev)
+    out = ops.kld_score_matrix(meds, cand)
+    torch.testing.assert_close(out, ref.kld_score_matrix(meds, cand), rtol=0, atol=1e-6)
+    for i in (0, m - 1):
+        assert torch.equal(out[i], ops.kld_score(meds[i].contiguous(), cand))
+    assert ops.kld_score_matrix(meds[:0], cand).shape == (0, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,gamma", [(16, 4), (300, 4), (1024, 4), (64, 5)])
+def test_loop_with_kld_score_equals_greedy_kernel(dev, k, gamma):
+    """On integer histograms the per-step loop (one kld_score launch per
+    pick) takes exactly the one-launch greedy kernel's picks."""
+    counts = np.random.default_rng(k).integers(0, 200, (k, 47))
+    ops.reset_launches()
+    loop = scheduling.reschedule(counts, gamma, impl="loop", device=dev)
+    assert ops.LAUNCHES["kld_score"] == k
+    batched = scheduling.reschedule(counts, gamma, impl="batched", device=dev)
+    assert [m.clients for m in loop] == [m.clients for m in batched]
+
+
+@pytest.mark.cuda
 def test_affine_warp_kernel(dev):
     g = torch.Generator(device=dev).manual_seed(2)
     imgs = torch.randn(64, 28, 28, 3, generator=g, device=dev)

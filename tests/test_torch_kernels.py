@@ -224,7 +224,8 @@ def test_all_tied_picks_are_in_client_order():
     picks = ops.kld_greedy_picks(torch.ones(10, 4), 3)
     np.testing.assert_array_equal(picks.numpy(), np.arange(10))
     assert picks.dtype == torch.int32
-    assert [m.clients for m in scheduling.reschedule(counts, 3, impl="loop")] \
+    assert [m.clients for m in scheduling.reschedule(counts, 3, impl="loop",
+                                                      device="cpu")] \
         == [[0, 1, 2], [3, 4, 5], [6, 7, 8], [9]]
 
 
@@ -262,12 +263,15 @@ def test_cpu_calls_launch_nothing():
     ops.reset_launches()
     ops.fedavg_agg(torch.ones(2, 3), torch.ones(2))
     ops.kld_greedy_picks(torch.ones(3, 2), 2)
+    ops.kld_score(torch.ones(2), torch.ones(3, 2))
+    ops.kld_score_matrix(torch.ones(4, 2), torch.ones(3, 2))
     ops.affine_warp(torch.ones(1, 4, 4, 1), torch.eye(2)[None], torch.zeros(1, 2))
     ops.flash_attention(torch.ones(1, 3, 2, 64), torch.ones(1, 3, 1, 64),
                         torch.ones(1, 3, 1, 64))
     ops.ssd_chunk(torch.ones(1, 1, 4, 1, 2), torch.ones(1, 1, 4, 1), -torch.ones(1),
                   torch.ones(1, 1, 4, 3), torch.ones(1, 1, 4, 3))
-    assert ops.LAUNCHES == {"fedavg_agg": 0, "kld_greedy_picks": 0, "affine_warp": 0,
+    assert ops.LAUNCHES == {"fedavg_agg": 0, "kld_greedy_picks": 0, "kld_score": 0,
+                            "kld_score_matrix": 0, "affine_warp": 0,
                             "flash_attention": 0, "ssd_chunk": 0}
 
 

@@ -70,9 +70,9 @@ def test_train_logits_with_injected_dropout_match():
     expect = np.asarray(jcnn.emnist_cnn(NC, HW).apply(
         tree, jnp.asarray(x), train=True, rngs=key))
     d1, d2 = jax.random.split(key)
-    shapes = model.dropout_shapes(5)
-    keep = [torch.from_numpy(np.array(jax.random.bernoulli(d, 0.5, s)))
-            for d, s in zip((d1, d2), shapes)]
+    sites = model.dropout_sites(5)
+    keep = [torch.from_numpy(np.array(jax.random.bernoulli(d, 1.0 - rate, s)))
+            for d, (s, rate) in zip((d1, d2), sites)]
     got = model.apply(params_from_jax(tree), torch.from_numpy(x), keep)
     np.testing.assert_allclose(got.numpy(), expect, rtol=1e-5, atol=1e-5)
 
@@ -161,7 +161,7 @@ def test_mediator_update_matches_reference_and_empty_slot_is_noop():
     def draws_for(epoch, slot):
         ekey = jax.random.split(key, e_m)[epoch]
         return JaxClientDraws(jax.random.split(ekey, gamma)[slot], epochs=2,
-                              batch=10, n=40, shapes=model.dropout_shapes(10))
+                              batch=10, n=40, sites=model.dropout_sites(10))
 
     params = params_from_jax(tree)
     args = (model, adam(1e-3), LocalSpec(10, 2), e_m, params,
@@ -180,7 +180,7 @@ def test_all_zero_mask_client_leaves_params_bitwise_unchanged():
     params = params_from_jax(_jax_params(8))
     x, y, _ = _client_batch(5)
     draws = JaxClientDraws(jax.random.PRNGKey(0), epochs=2, batch=10, n=40,
-                           shapes=model.dropout_shapes(10))
+                           sites=model.dropout_sites(10))
     out = client_update(model, adam(1e-3), LocalSpec(10, 2), params,
                         torch.from_numpy(x), torch.from_numpy(y),
                         torch.zeros(40), draws)

@@ -9,12 +9,17 @@ draws to the port as torch tensors, through the port's draw interface
 * Astraea rows: ``split(split(row_key, E_m)[e], gamma)[slot]`` per client
   (``repro/core/mediator.py``); FedAvg rows use the row key itself;
 * a client update: ``split(key, E)[e]`` -> ``perm_key, *step_keys``;
-  ``permutation(perm_key, pad)``; per step ``d1, d2 = split(step_key)``
-  and ``bernoulli(d, 0.5, shape)`` (``repro/core/fl.py``,
-  ``repro/models/cnn.py``);
+  ``permutation(perm_key, pad)``; per step ``split(step_key, n_sites)``
+  and ``bernoulli(d_i, 1 - rate_i, shape_i)`` for each dropout site
+  (``repro/core/fl.py``, ``repro/models/cnn.py``: two sites at 0.5 in
+  ``emnist_cnn``, three at 0.25 / 0.25 / 0.5 in ``cinic_cnn``);
 * online augmentation: ``fold_in(row_key, AUG_SALT)``, split over the
   slots for Astraea, then ``k_sel, k_flag, k_warp = split(key, 3)``
-  (``repro/core/augmentation.py::online_augment_batch``).
+  (``repro/core/augmentation.py::online_augment_batch``);
+* materialized augmentation: client ``i``'s key ``fold_in(fold_in(
+  PRNGKey(seed), 17), i)``, its shuffle seed ``randint(key, (), 0,
+  2**31 - 1)`` and its warps ``_affine_params`` of ``split(key,
+  next_pow2(n))[:n]`` (``repro/core/augmentation.py::rebalance_client``).
 """
 from __future__ import annotations
 
@@ -25,28 +30,39 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from repro.core.augmentation import AUG_SALT, warp_params
+from repro.core import augmentation as jaug
+from repro.core import fl as jfl
+from repro.core import scheduling as jsched
+from repro.core.comm import CommMeter as JCommMeter
+from repro.core.mediator import make_mediator_update
+from repro.models import cnn as jcnn
+from repro.optim import adam as jadam
+
+from repro.core.augmentation import AUG_SALT, _affine_params, _next_pow2, warp_params
 from repro_torch.convert import params_to_jax
-from repro_torch.models.cnn import emnist_cnn, init_params
+from repro_torch.models.cnn import cinic_cnn, emnist_cnn, init_params
 
 
-@functools.partial(jax.jit, static_argnames=("epochs", "n", "bsz", "shapes"))
-def _client_draws(key, *, epochs, n, bsz, shapes):
+@functools.partial(jax.jit, static_argnames=("epochs", "n", "bsz", "sites"))
+def _client_draws(key, *, epochs, n, bsz, sites):
+    """Per-epoch permutations ``(E, n)`` and, per dropout site ``(shape,
+    rate)``, the keep-masks of every step ``(E, n // bsz, *shape)``."""
     nb = n // bsz
 
     def keep_masks(step_key):
-        d1, d2 = jax.random.split(step_key)
-        return (jax.random.bernoulli(d1, 0.5, shapes[0]),
-                jax.random.bernoulli(d2, 0.5, shapes[1]))
+        ds = jax.random.split(step_key, len(sites))
+        return tuple(jax.random.bernoulli(d, 1.0 - rate, shape)
+                     for d, (shape, rate) in zip(ds, sites))
 
     def one_epoch(ekey):
         perm_key, *step_keys = jax.random.split(ekey, nb + 1)
         perm = jax.random.permutation(perm_key, n)
-        keep1, keep2 = jax.vmap(keep_masks)(jnp.stack(step_keys))
-        return perm, keep1, keep2
+        return perm, jax.vmap(keep_masks)(jnp.stack(step_keys))
 
     outs = [one_epoch(k) for k in jax.random.split(key, epochs)]
-    return tuple(jnp.stack(x) for x in zip(*outs))
+    perms = jnp.stack([o[0] for o in outs])
+    keeps = tuple(jnp.stack([o[1][i] for o in outs]) for i in range(len(sites)))
+    return perms, keeps
 
 
 @functools.partial(jax.jit, static_argnames=("n",))
@@ -78,6 +94,17 @@ def reference_params(num_classes: int, image_size: int, seed: int = 0):
     return params_to_jax(init_params(emnist_cnn(num_classes, image_size), seed))
 
 
+def cinic_reference_params(num_classes: int, image_size: int, width: int,
+                           seed: int = 0):
+    """``cinic_cnn`` params (3 channels) in the reference's layout."""
+    return params_to_jax(init_params(cinic_cnn(num_classes, image_size, 3, width),
+                                     seed))
+
+
+def _sites_key(sites):
+    return tuple((tuple(shape), float(rate)) for shape, rate in sites)
+
+
 def _t(a, dtype=None):
     return torch.from_numpy(np.array(a, dtype=dtype))
 
@@ -85,18 +112,19 @@ def _t(a, dtype=None):
 class JaxClientDraws:
     """One client update's permutations and keep-masks, drawn up front."""
 
-    def __init__(self, key, *, epochs: int, batch: int, n: int, shapes):
-        perms, keep1, keep2 = _client_draws(
-            key, epochs=epochs, n=n, bsz=batch,
-            shapes=tuple(tuple(s) for s in shapes))
+    def __init__(self, key, *, epochs: int, batch: int, n: int, sites):
+        self.sites = _sites_key(sites)
+        perms, keeps = _client_draws(key, epochs=epochs, n=n, bsz=batch,
+                                     sites=self.sites)
         self._perms = np.asarray(perms)
-        self._keeps = (np.asarray(keep1), np.asarray(keep2))
+        self._keeps = [np.asarray(k) for k in keeps]
 
     def permutation(self, epoch, n):
         assert n == self._perms.shape[1]
         return _t(self._perms[epoch], np.int64)
 
-    def keep_masks(self, epoch, step, shapes):
+    def keep_masks(self, epoch, step, sites):
+        assert _sites_key(sites) == self.sites
         return [_t(k[epoch, step]) for k in self._keeps]
 
 
@@ -111,7 +139,7 @@ class JaxDraws:
         self.seed, self.mode, self.m_real, self.gamma = seed, mode, m_real, gamma
         self.mediator_epochs, self.local_epochs = mediator_epochs, local_epochs
         self.batch, self.pad = batch, pad
-        self.shapes = model.dropout_shapes(batch)
+        self.sites = model.dropout_sites(batch)
 
     def _keys(self, rnd, row, e, slot):
         return _keys(self.seed, rnd, row, e, slot, m_real=self.m_real,
@@ -121,7 +149,10 @@ class JaxDraws:
     def client(self, rnd, row, mediator_epoch, slot):
         return JaxClientDraws(self._keys(rnd, row, mediator_epoch, slot)[0],
                               epochs=self.local_epochs, batch=self.batch,
-                              n=self.pad, shapes=self.shapes)
+                              n=self.pad, sites=self.sites)
+
+    def rebalance(self, client, n):
+        return rebalance_draws(self.seed, client, n)
 
     def augment(self, rnd, row, slot, weights):
         key = self._keys(rnd, row, 0, slot)[1]
@@ -129,6 +160,35 @@ class JaxDraws:
         idx, u, mats, trans = aug_draws(key, w, n=int(w.shape[0]))
         return (_t(idx, np.int64), _t(u, np.float32), _t(mats, np.float32),
                 _t(trans, np.float32))
+
+
+def rebalance_draws(seed: int, client: int, n: int):
+    """The reference's materialized Alg. 2 draws of one client (see the
+    module docstring): ``(shuffle seed, mats (n, 2, 2), trans (n, 2))``."""
+    key = jax.random.fold_in(jax.random.fold_in(jax.random.PRNGKey(seed), 17), client)
+    return rebalance_draws_of_key(key, n)
+
+
+def rebalance_draws_of_key(key, n: int):
+    """``rebalance_client(key, ...)``'s draws for ``n`` augmentations."""
+    shuffle_seed = int(jax.random.randint(key, (), 0, 2 ** 31 - 1))
+    if n == 0:
+        return shuffle_seed, torch.zeros(0, 2, 2), torch.zeros(0, 2)
+    keys = jax.random.split(key, _next_pow2(n))[:n]
+    mats, trans = jax.vmap(lambda k: _affine_params(
+        k, shift=3.0, rot=0.3, shear=0.2, zoom=0.15))(keys)
+    return shuffle_seed, _t(mats, np.float32), _t(trans, np.float32)
+
+
+class JaxRebalanceDraws:
+    """Only the materialized draws, for ``resolve_aug_mode``/trainers seeded
+    like the reference's ``resolve_aug_mode(..., seed)``."""
+
+    def __init__(self, seed: int):
+        self.seed = seed
+
+    def rebalance(self, client, n):
+        return rebalance_draws(self.seed, client, n)
 
 
 def float64_tie_free(counts: np.ndarray, gamma: int, rel: float = 1e-9) -> bool:
@@ -153,3 +213,115 @@ def float64_tie_free(counts: np.ndarray, gamma: int, rel: float = 1e-9) -> bool:
         if fill == gamma:
             med, fill = np.zeros(c), 0
     return True
+
+
+# ---------------------------------------------------------------- whole slice
+#
+# The reference trainers route Eq. 6 through a mesh-sharded ``tensordot``
+# that JAX 0.9.0 rejects (``ShardingTypeError`` at ``core/engine.py:245``
+# -> ``core/fl.py:95``), so the loops below compose the parts that run
+# unsharded: selection through ``np.random.default_rng(seed).choice``,
+# ``scheduling.reschedule`` (the jitted batched pass, equal to
+# ``impl="loop"``), the round keys of ``engine._round_keys``,
+# ``online_augment_batch`` with the map_coordinates warp, jitted
+# ``make_mediator_update`` / ``make_client_update``,
+# ``fl.weighted_average`` and ``CommMeter``.
+
+@jax.jit
+def _stack_average(outs, weights):
+    stacked = jax.tree.map(lambda *a: jnp.stack(a), *outs)
+    return jfl.weighted_average(stacked, jnp.stack(weights))
+
+
+@jax.jit
+def _fold_deltas(params, deltas, weights):
+    return jax.tree.map(lambda p, d: p + d, params, _stack_average(deltas, weights))
+
+
+def _round_keys(seed, rnd, m_real):
+    return jax.random.split(jax.random.fold_in(jax.random.PRNGKey(seed + 1), rnd),
+                            m_real)
+
+
+def padded_size(fed, batch: int) -> int:
+    n = max(x.shape[0] for x in fed.client_images)
+    return -(-n // batch) * batch
+
+
+def max_param_diff(port_params, tree) -> float:
+    back = params_to_jax(port_params)
+    return max(float(np.max(np.abs(back[l][k] - np.asarray(tree[l][k]))))
+               for l in tree for k in tree[l])
+
+
+def reference_astraea(jmodel, params, fed, *, clients: int, gamma: int, batch: int,
+                      epochs: int, mediator_epochs: int, alpha: float, rounds: int,
+                      seed: int):
+    """The reference's Astraea rounds (online Alg. 2, Alg. 3 once, Eq. 6
+    over mediator deltas).  Returns ``(params, groups, comm, sched_counts,
+    plan)``."""
+    pad = padded_size(fed, batch)
+    xs, ys, mask = fed.padded(pad)
+    raw = fed.client_counts()
+    plan = jaug.augmentation_plan(raw.sum(0), alpha)
+    sel = np.random.default_rng(seed).choice(fed.num_clients, size=clients,
+                                             replace=False)
+    sched_counts = raw[sel] * (1.0 + plan)
+    meds = jsched.reschedule(sched_counts, gamma, impl="batched")
+    groups = [[int(sel[i]) for i in m.clients] for m in meds]
+    med_update = make_mediator_update(jmodel, jadam(1e-3),
+                                      jfl.LocalSpec(batch, epochs), mediator_epochs)
+    jplan = jnp.asarray(plan, jnp.int32)
+
+    @jax.jit
+    def row_program(params, x, y, m, key):
+        # the engine's per-row program: online Alg. 2 per slot, then the
+        # mediator update; Eq. 6 weight = expected post-augmentation size
+        aks = jax.random.split(jax.random.fold_in(key, jaug.AUG_SALT), gamma)
+        ax, ay = jax.vmap(lambda k, xx, yy, mm: jaug.online_augment_batch(
+            k, xx, yy, mm, jplan, impl="reference"))(aks, x, y, m)
+        weight = (m * (1.0 + jplan.astype(jnp.float32)[y])).sum()
+        return med_update(params, ax, ay, m, key), weight
+
+    comm = JCommMeter(jcnn.count_params(params))
+    if plan.any():
+        comm.plan_broadcast(plan.size, fed.num_clients)
+    for rnd in range(rounds):
+        keys = _round_keys(seed, rnd, len(groups))
+        deltas, weights = [], []
+        for r, g in enumerate(groups):
+            idx = np.zeros(gamma, np.int64)
+            slot = np.zeros(gamma, np.float32)
+            idx[:len(g)], slot[:len(g)] = g, 1.0
+            delta, weight = row_program(params, xs[idx], ys[idx],
+                                        mask[idx] * slot[:, None], keys[r])
+            deltas.append(delta)
+            weights.append(weight)
+        params = _fold_deltas(params, deltas, weights)
+        comm.astraea_round(clients, gamma, mediator_epochs)
+        comm.end_round()
+    return params, groups, comm, sched_counts, plan
+
+
+def reference_fedavg(jmodel, params, fed, *, clients: int, batch: int, epochs: int,
+                     rounds: int, seed: int, loss_fn=None):
+    """The reference's FedAvg rounds (a fresh selection every round, Eq. 6
+    over client weights).  Returns ``(params, selections, comm)``."""
+    pad = padded_size(fed, batch)
+    xs, ys, mask = fed.padded(pad)
+    update = jax.jit(jfl.make_client_update(jmodel, jadam(1e-3),
+                                            jfl.LocalSpec(batch, epochs),
+                                            loss_fn=loss_fn))
+    rng = np.random.default_rng(seed)
+    comm = JCommMeter(jcnn.count_params(params))
+    selections = []
+    for rnd in range(rounds):
+        sel = rng.choice(fed.num_clients, size=clients, replace=False)
+        selections.append([[int(k)] for k in sel])
+        keys = _round_keys(seed, rnd, clients)
+        outs = [update(params, xs[k], ys[k], mask[k], keys[r])
+                for r, k in enumerate(sel)]
+        params = _stack_average(outs, [jnp.float32(mask[k].sum()) for k in sel])
+        comm.fedavg_round(clients)
+        comm.end_round()
+    return params, selections, comm
