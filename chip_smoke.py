@@ -11,7 +11,8 @@ Phases, each fatal on failure:
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes and at a large one, with CUDA-event times of the
    kernel, the plain version and a one-call PyTorch yardstick, beside the
-   least time the card could take (H100 SXM peaks);
+   least time the card could take (H100 SXM peaks), and the device kernels
+   per call (Eq. 6 must be one);
 4. agreement: small Astraea runs on the card against the same runs on the
    CPU (plain versions), same params and draws: EMNIST (8 classes, 16 px)
    and a reduced CINIC (16 px, width 8), 2 rounds each;
@@ -38,11 +39,13 @@ Phases, each fatal on failure:
    just after: 32 flash-attention and 32 SSD launches in the prefill;
    every logit must be finite.  Then one warm prefill and 4 decode steps
    of the same model under ``torch.profiler``: device busy time, idle
-   share and the top kernels of each.
+   share, flash attention's share of the prefill and the top kernels of
+   each.
 
 Phase 3 also holds the flash-attention and SSD kernels against their plain
 versions at the serve shapes (bf16 and f32), with a no-window, a
-``q_offset`` and a GQA 1:1 attention row, and times
+``q_offset`` and a GQA 1:1 attention row and bf16 rows at head dims 80
+and 128, and times
 ``F.scaled_dot_product_attention`` with an explicit mask as attention's
 one-call yardstick (the port never calls it).
 
@@ -87,48 +90,16 @@ def log(*a):
     print(*a, flush=True)
 
 
-def time_ms(fn, min_ms: float = 50.0, max_reps: int = 4096) -> float:
-    """Mean device time of ``fn`` over enough back-to-back calls to span
-    ``min_ms`` (CUDA events), after one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    reps = 1
-    while True:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        total = start.elapsed_time(end)
-        if total >= min_ms or reps >= max_reps:
-            return total / reps
-        reps = min(max_reps, reps * max(2, int(math.ceil(min_ms / max(total, 1e-3)))))
-
-
-def device_ms(fn, event_ms: float) -> float | None:
-    """Mean device time per call of the kernels ``fn`` launches, summed,
-    from ``torch.profiler`` (CUPTI): the kernel work without the host's
-    dispatch cost.  None if the profiler records no device time."""
-    from torch.profiler import ProfilerActivity, profile
-    calls = max(1, min(20, int(200.0 / max(event_ms, 1e-3))))
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(getattr(e, "self_device_time_total", 0.0)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    return total_us / calls / 1e3 if total_us > 0 else None
-
-
 def timed(row: dict, **fns) -> dict:
     """Add ``<name>`` (CUDA-event ms per call, host dispatch included) and
-    ``<name>_device`` (profiler device ms) for each callable."""
+    ``<name>_device`` (profiler device ms) for each callable, and the
+    device kernels per call of the kernel's own wrapper (``ms``)."""
+    from repro_torch.examples.kernel_times import device_profile, time_ms
     for name, (fn, min_ms) in fns.items():
         row[name] = time_ms(fn, min_ms=min_ms)
-        row[name.replace("ms", "device_ms")] = device_ms(fn, row[name])
+        row[name.replace("ms", "device_ms")], kernels = device_profile(fn, row[name])
+        if name == "ms":
+            row["kernels_per_call"] = kernels
     return row
 
 
@@ -156,11 +127,17 @@ def check_fedavg(dev, m, n, dtype, gen):
     wn = ref.normalized_weights(w).to(dtype)
     esize = d.element_size()
     b_ms, by = bound(m * n * esize + m * 4 + n * esize, 2 * m * n)
-    return timed({"shape": f"M={m} N={n} {str(dtype).split('.')[-1]}",
-                  "max_abs_err": err, "tol": tol, "bound_ms": b_ms, "bound_by": by},
-                 ms=(lambda: ops.fedavg_agg(d, w), 50.0),
-                 plain_ms=(lambda: ref.fedavg_agg(d, w), 50.0),
-                 library_ms=(lambda: wn @ d, 50.0))
+    row = timed({"shape": f"M={m} N={n} {str(dtype).split('.')[-1]}",
+                 "max_abs_err": err, "tol": tol, "bound_ms": b_ms, "bound_by": by},
+                ms=(lambda: ops.fedavg_agg(d, w), 50.0),
+                plain_ms=(lambda: ref.fedavg_agg(d, w), 50.0),
+                library_ms=(lambda: wn @ d, 50.0))
+    # one launch from the raw weights: no normalizing op before the kernel
+    # (the mean over the profiled calls; CUPTI may miss one at the window's edge)
+    if round(row["kernels_per_call"]) != 1:
+        raise AssertionError(f"fedavg_agg M={m} N={n}: {row['kernels_per_call']} "
+                             "device kernels per call, expected 1")
+    return row
 
 
 def check_greedy(dev, counts_np, gamma):
@@ -621,14 +598,14 @@ def serve_path(dev):
 
 
 def _device_busy_ms(prof) -> tuple[float, list[tuple[str, float, int]]]:
-    """Summed kernel time (ms) of a profiler window and its top kernels
-    (name, ms, calls)."""
+    """Summed kernel time (ms) of a profiler window and its kernels (name,
+    ms, calls), largest first."""
     rows = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     rows = [r for r in rows if r[1] > 0]
     rows.sort(key=lambda r: -r[1])
-    return sum(r[1] for r in rows), rows[:8]
+    return sum(r[1] for r in rows), rows
 
 
 def profile_serve(dev, steps: int = 4):
@@ -650,9 +627,12 @@ def profile_serve(dev, steps: int = 4):
         _, cache = T.forward_prefill(model, {"tokens": toks[:, :2048]}, pad_to=2048 + steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy, top = _device_busy_ms(prof)
+    busy, kernels = _device_busy_ms(prof)
+    flash = sum(ms for name, ms, _ in kernels if "flash" in name)
     out["prefill"] = {"wall_ms": wall * 1e3, "device_busy_ms": busy,
-                      "idle_share": 1.0 - busy / (wall * 1e3), "top_kernels": top,
+                      "idle_share": 1.0 - busy / (wall * 1e3), "top_kernels": kernels[:8],
+                      "flash_device_ms": flash, "flash_share": flash / busy,
+                      "ssd_device_ms": sum(ms for name, ms, _ in kernels if "ssd" in name),
                       "kernel_launches": sum(e.count for e in prof.key_averages()
                                              if e.device_type == torch.autograd.DeviceType.CUDA)}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -664,7 +644,8 @@ def profile_serve(dev, steps: int = 4):
                                      "positions": pos}, cache)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy, top = _device_busy_ms(prof)
+    busy, kernels = _device_busy_ms(prof)
+    top = kernels[:8]
     launches = sum(e.count for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     out["decode"] = {"wall_ms_per_token": wall * 1e3 / steps,
@@ -684,6 +665,14 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.models.cnn import cinic_cnn, emnist_cnn
 
+    t_start = time.perf_counter()
+    phase_s: dict[str, float] = {}
+
+    def lap(name: str) -> None:
+        """Log the seconds since the previous lap (the script's time budget)."""
+        phase_s[name] = time.perf_counter() - t_start - sum(phase_s.values())
+        log(f"[time] {name}: {phase_s[name]:.1f} s")
+
     # ---- 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -693,12 +682,15 @@ def main() -> int:
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
+    lap("1 device")
+
     # ---- 2. build
     t0 = time.perf_counter()
     build_log: list[str] = []
     build.build(build_log)
     build.library()
     build_s = time.perf_counter() - t0
+    lap("2 build")
     log(f"[build] {build_s:.2f} s -> {build.library_path().name}")
     for line in "\n".join(build_log).splitlines():
         if "registers" in line or "Compiling entry" in line or "nvcc" in line:
@@ -720,17 +712,9 @@ def main() -> int:
         for dt in (torch.float32, torch.bfloat16):
             checks["fedavg_agg"].append(
                 check_fedavg(dev, m, 68_873, dt, gen))
+    checks["fedavg_agg"].append(check_fedavg(dev, 16, CINIC_PARAMS, torch.float32, gen))
     checks["fedavg_agg"].append(check_fedavg(dev, 16, 2 ** 24, torch.float32, gen))
-    # Astraea's first cohort as the engine schedules it: the selection of
-    # default_rng(seed).choice, at the expected post-augmentation counts
-    counts = fed.client_counts()
-    sel = np.random.default_rng(0).choice(64, CLIENTS, replace=False)
-    main_counts = counts[sel] * (1.0 + augmentation_plan(counts.sum(0), ALPHA))
-    checks["kld_greedy_picks"].append(check_greedy(dev, main_counts, GAMMA))
-    checks["kld_greedy_picks"].append(check_greedy(
-        dev, rng.integers(0, 200, (4096, 47)), GAMMA))
-    checks["kld_greedy_picks"].append(check_greedy(
-        dev, np.tile(rng.integers(1, 50, (1, 47)), (4096, 1)), GAMMA))
+    lap("3 fedavg_agg")
     # the scoring kernels: the CINIC cohort (its first pick's histogram as
     # the open mediator), the JAX bench's shapes (uniform * 100 mediators,
     # uniform * 50 clients) and a large sweep
@@ -744,6 +728,7 @@ def main() -> int:
             dev, rng.random((m, 47)) * 100, rng.random((k, 47)) * 50))
     checks["affine_warp"].append(check_warp(dev, CLIENTS * pad, 28, 28, 1, gen))
     checks["affine_warp"].append(check_warp(dev, 4096, 32, 32, 3, gen))
+    lap("3 scoring and warp")
     # the serve path's shapes: Hymba prefill, b=4, s=2048 = 2W
     hy = dict(b=4, sq=2048, skv=2048, h=25, kv=5, d=64)
     checks["flash_attention"] = [
@@ -752,17 +737,39 @@ def main() -> int:
         check_flash(dev, gen, **hy, dtype=torch.bfloat16, window=None),
         check_flash(dev, gen, **{**hy, "sq": 64}, dtype=torch.bfloat16, window=1024,
                     q_offset=1984),
-        check_flash(dev, gen, **{**hy, "kv": 25}, dtype=torch.bfloat16, window=1024)]
+        check_flash(dev, gen, **{**hy, "kv": 25}, dtype=torch.bfloat16, window=1024),
+        # the zoo's other head dims: danube's (d=80, SWA 4096) and qwen3's
+        # (d=128, full causal) heads, 32 over 8 KV heads
+        check_flash(dev, gen, b=1, sq=2048, skv=2048, h=32, kv=8, d=80,
+                    dtype=torch.bfloat16, window=4096),
+        check_flash(dev, gen, b=1, sq=2048, skv=2048, h=32, kv=8, d=128,
+                    dtype=torch.bfloat16, window=None)]
+    lap("3 flash_attention")
     ssd = dict(b=4, nc=32, L=64, h=25, p=64, n=16)
     checks["ssd_chunk"] = [check_ssd(dev, gen, **ssd, dtype=torch.float32),
                            check_ssd(dev, gen, **ssd, dtype=torch.bfloat16)]
+    lap("3 ssd_chunk")
+    # Astraea's first cohort as the engine schedules it: the selection of
+    # default_rng(seed).choice, at the expected post-augmentation counts.
+    # The greedy rows come last: their quarter-second kernels have left the
+    # profiler recording no device time for the rows after them.
+    counts = fed.client_counts()
+    sel = np.random.default_rng(0).choice(64, CLIENTS, replace=False)
+    main_counts = counts[sel] * (1.0 + augmentation_plan(counts.sum(0), ALPHA))
+    checks["kld_greedy_picks"].append(check_greedy(dev, main_counts, GAMMA))
+    checks["kld_greedy_picks"].append(check_greedy(
+        dev, rng.integers(0, 200, (4096, 47)), GAMMA))
+    checks["kld_greedy_picks"].append(check_greedy(
+        dev, np.tile(rng.integers(1, 50, (1, 47)), (4096, 1)), GAMMA))
+    lap("3 kld_greedy_picks")
     def fmt(x):
         return "n/a" if x is None else f"{x:.4f}"
     log("[kernel] times in ms per call: CUDA events (device time from the profiler)")
     for name, rows in checks.items():
         for r in rows:
             log(f"[kernel] {name:17s} {r['shape']:24s} err {r['max_abs_err']:.3e} "
-                f"kernel {fmt(r['ms'])} ({fmt(r['device_ms'])})  "
+                f"kernel {fmt(r['ms'])} ({fmt(r['device_ms'])}, "
+                f"{r['kernels_per_call']:g} kernels/call)  "
                 f"plain {fmt(r['plain_ms'])} ({fmt(r['plain_device_ms'])})  "
                 f"library {fmt(r['library_ms'])} ({fmt(r['library_device_ms'])})  "
                 f"bound {r['bound_ms']:.6f} ({r['bound_by']})")
@@ -772,6 +779,8 @@ def main() -> int:
     for name, a in agree.items():
         log(f"[agree] card vs CPU Astraea ({name}, 16px, 2 rounds): params "
             f"max abs err {a['params_max_abs_err']:.3e}, schedules equal")
+
+    lap("4 agreement")
 
     # ---- 5. the EMNIST main path at full width
     rows, launches, peak = main_path(fed, dev, lambda: emnist_cnn(47, 28), 68_873)
@@ -783,6 +792,8 @@ def main() -> int:
         log(f"{name:10s} {m['accuracy']:7.4f} {m['loss']:7.4f} "
             f"{m['traffic_mb']:11.3f} {np.mean(m['round_seconds']):8.3f}")
 
+    lap("5 EMNIST path")
+
     # ---- 6. Path A: Alg. 3 step by step on the card
     alg3 = path_a(dev, cohort)
     path_launches["alg3_loop"] = alg3["launches"]
@@ -790,6 +801,8 @@ def main() -> int:
         f"(one-launch greedy pass {alg3['batched_s']:.4f} s), launches "
         f"{alg3['launches']}, picks equal the greedy kernel's; CINIC cohort "
         f"divergence from the CPU loop: {alg3['cinic_cohort_divergence']}")
+
+    lap("6 Path A")
 
     # ---- 7. Path B: the CINIC-10 arm at the paper's width
     cinic_rows, cinic_launches, cinic_peak = main_path(
@@ -808,12 +821,16 @@ def main() -> int:
         f"{materialized['setup_s']:.3f} s, round {materialized['round_s']:.3f} s, "
         f"launches {materialized['launches']}")
 
+    lap("7 Path B")
+
     # ---- 8. serving: card vs CPU on a reduced Hymba
     serve_agree = serve_agreement(dev)
     log(f"[serve-agree] reduced hymba (GQA 4:2, f32), prompt "
         f"{serve_agree['prompt']} + {serve_agree['decode_steps']} decode steps: "
         f"logits max rel err {serve_agree['max_rel_err']:.3e} "
         f"(tol {serve_agree['tol_rel']})")
+
+    lap("8 serve agreement")
 
     # ---- 9. the serving path at full width
     served = serve_path(dev)
@@ -829,7 +846,9 @@ def main() -> int:
     pf, dc = prof["prefill"], prof["decode"]
     log(f"[serve-profile] prefill (warm, profiled): wall {pf['wall_ms']:.1f} ms, device "
         f"busy {pf['device_busy_ms']:.1f} ms, idle {100 * pf['idle_share']:.1f} %, "
-        f"{pf['kernel_launches']} kernels")
+        f"{pf['kernel_launches']} kernels; flash {pf['flash_device_ms']:.2f} ms "
+        f"({100 * pf['flash_share']:.1f} % of device time), SSD "
+        f"{pf['ssd_device_ms']:.2f} ms")
     for name, ms, calls in pf["top_kernels"]:
         log(f"[serve-profile]   prefill {ms:9.3f} ms {calls:5d}x {name[:90]}")
     log(f"[serve-profile] decode (profiled): {dc['wall_ms_per_token']:.2f} ms/token wall, "
@@ -837,6 +856,8 @@ def main() -> int:
         f"{100 * dc['idle_share']:.1f} %, {dc['kernel_launches_per_token']:.0f} kernels/token")
     for name, ms, calls in dc["top_kernels"]:
         log(f"[serve-profile]   decode {ms:9.3f} ms {calls:5d}x {name[:90]}")
+
+    lap("9 serve path")
 
     # every kernel's launches over the paths that drive it (each path's
     # counts were reset just before it and read just after)
@@ -876,7 +897,7 @@ def main() -> int:
          "main_path_peak_mem_gb": peak, "alg3_loop": alg3, "cinic": cinic_rows,
          "cinic_peak_mem_gb": cinic_peak, "cinic_materialized": materialized,
          "serve_agreement": serve_agree, "serve": served,
-         "path_launches": path_launches, "launches": launches,
+         "path_launches": path_launches, "launches": launches, "phase_seconds": phase_s,
          "kernels": summary}, indent=1, default=str))
     log(json.dumps({"kernels": summary}))
     log(json.dumps({"ok": True, "device": {

@@ -10,24 +10,56 @@
 // Bound on the H100: operations.  Each visible (query, key) pair costs a
 // d-long dot product and a d-long update of the output (4d flops) on
 // inputs read once, e.g. ~40 GFLOP on 52 MB per Hymba prefill layer (b=4,
-// H=25, s=2048, d=64, window 1024), far above the card's ridge point.
+// H=25, s=2048, d=64, window 1024): 0.041 ms at the tensor cores' 989
+// TFLOP/s in bf16, 0.60 ms at the CUDA cores' 67 TFLOP/s in fp32.
 //
-// Design: this first kernel runs on the fp32 CUDA cores, not the tensor
-// cores (a wgmma/TMA design is later work).  One block of 256 threads per
-// (64-query tile, query head, batch) loops over 64-key tiles staged in
-// shared memory as fp32, with the running max m, denominator l and the
-// (64, d) accumulator in registers, all fp32.  KV tiles that the causal and
-// window masks leave empty for the whole query tile are skipped, which is
-// exact and halves the work at s = 2W.  Query head h reads KV head
-// h / (H / KV) directly from the model layout (b, s, KV, d): the GQA repeat
-// is never materialized and no transpose is needed.  Thread (ty, tx) owns
-// score rows ty + 16i and key columns tx + 16j (i, j < 4), and output
-// columns tx + 16j (j < d/16); with rows padded to d+1 floats every shared
-// read in the two inner loops is conflict-free or a broadcast.  The ragged
-// edges are masked (zero-filled loads, keys >= skv masked, rows >= sq not
-// stored).  Semantics follow the TPU kernel: scores scaled by 1/sqrt(d),
-// masked scores -1e30, masked p set to 0, output acc / max(l, 1e-30), so a
-// row that sees no key is zero.  Head dims 64, 80 and 128 are instantiated.
+// Both kernels share the semantics of the TPU kernel: scores q.k^T scaled
+// by 1/sqrt(d) and accumulated in fp32, masked scores -1e30, masked p set to
+// 0, fp32 running max, denominator and accumulator, output
+// acc / max(l, 1e-30), so a row that sees no key is zero.  Query head h
+// reads KV head h / (H / KV) directly from the model layout (b, s, KV, d):
+// the GQA repeat is never materialized and no transpose is needed.  KV
+// tiles that the causal and window masks leave empty for the whole query
+// tile are skipped (exact; it halves the work at s = 2W).  Head dims 64, 80
+// and 128 are instantiated.
+//
+// bf16 (flash_bf16_tc_kernel): the tensor cores, through wgmma.  One CTA
+// per (64-query tile, query head, batch) holds one consumer warpgroup and
+// one producer warp.  The producer's elected lane loads the Q tile once and
+// the K and V tiles into a 2-stage ring by TMA (cp.async.bulk.tensor over
+// the (d, heads, s, b) view, 128-byte swizzle, mbarrier completion), so the
+// next tile's loads are in flight while the consumers compute.  The
+// consumers run S = Q K^T as wgmma m64n64k16 with both operands in shared
+// memory (K's natural (key, d) rows are the K-major B operand), then the
+// online softmax on the fp32 accumulator fragment, then O += P V as wgmma
+// with P from registers (the S fragment of 16 keys is exactly the A
+// fragment) and V from shared memory with the transpose bit, so V is never
+// transposed in memory.  P is rounded to bf16 for that product, as in
+// FlashAttention-2/3; l is summed from the unrounded fp32 p.  The rounding
+// (8 significant bits) changes each term p.v by at most 2^-8 of p.|v|; the
+// terms' errors are independent and mostly cancel, so the output stays
+// under one bf16 ulp of its scale, the card tolerance 2^-7 (an emulation of
+// this arithmetic in tests/test_torch_kernels.py reaches 0.81 of it).  A
+// head dim of 80 is loaded as two 64-column boxes; TMA zero-fills columns
+// 80..127, which change neither q.k^T (the product walks only 80 columns)
+// nor the stored columns.  Rows and keys past the sequence are zero-filled
+// by TMA too.  Only KV tiles that a mask cuts take the per-element mask;
+// full tiles take none.  The query tiles are launched heaviest first
+// (reversed tile order on the grid's slow axis), so the light early tiles
+// of a causal + window pass fill the tail.  The dynamic shared memory size
+// is set once per instantiation, not per launch.
+//
+// fp32 (flash_fwd_kernel): the CUDA cores (fp32 must stay fp32 here; TF32
+// is off).  One block of 256 threads per (64-query tile, query head,
+// batch) loops over 64-key tiles staged in shared memory, with the running
+// max m, denominator l and the (64, d) accumulator in registers.  Thread
+// (ty, tx) owns score rows ty + 16i and key columns tx + 16j (i, j < 4),
+// and output columns tx + 16j (j < d/16); with rows padded to d+1 floats
+// every shared read in the two inner loops is conflict-free or a
+// broadcast.  The ragged edges are masked (zero-filled loads, keys >= skv
+// masked, rows >= sq not stored).
+#include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -41,28 +73,10 @@ constexpr int kRows = kBlockQ / 16;    // score rows per thread
 constexpr int kCols = kBlockK / 16;    // score columns per thread
 constexpr float kMasked = -1e30f;
 
-__device__ __forceinline__ float bf16_to_f32(uint16_t bits) {
-  return __uint_as_float(static_cast<uint32_t>(bits) << 16);
-}
-
-// Round to nearest even, NaN -> canonical quiet NaN (torch's rule).
-__device__ __forceinline__ uint16_t f32_to_bf16(float f) {
-  uint32_t x = __float_as_uint(f);
-  if ((x & 0x7fffffffu) > 0x7f800000u) return 0x7fc0u;
-  x += 0x7fffu + ((x >> 16) & 1u);
-  return static_cast<uint16_t>(x >> 16);
-}
-
 struct F32 {
   using T = float;
   __device__ static float load(const T* p) { return __ldg(p); }
   __device__ static void store(T* p, float v) { *p = v; }
-};
-
-struct BF16 {
-  using T = uint16_t;
-  __device__ static float load(const T* p) { return bf16_to_f32(__ldg(p)); }
-  __device__ static void store(T* p, float v) { *p = f32_to_bf16(v); }
 };
 
 constexpr size_t smem_bytes(int d) {
@@ -214,40 +228,472 @@ flash_fwd_kernel(const typename Tr::T* __restrict__ q,
   }
 }
 
-template <typename Tr, int D>
-int launch_d(const void* q, const void* k, const void* v, void* out, int b,
-             int sq, int skv, int n_heads, int n_kv, int causal, int window,
-             int q_offset, float scale, cudaStream_t stream) {
-  using T = typename Tr::T;
-  auto kern = flash_fwd_kernel<Tr, D>;
+// Raises a kernel's dynamic shared memory limit once per instantiation (a
+// function-local static: set on the first launch, thread-safe).
+template <auto kKernel>
+cudaError_t smem_limit_once(size_t bytes) {
+  static const cudaError_t err = cudaFuncSetAttribute(
+      kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  return err;
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* out, int b,
+               int sq, int skv, int n_heads, int n_kv, int causal, int window,
+               int q_offset, float scale, cudaStream_t stream) {
+  auto kern = flash_fwd_kernel<F32, D>;
   const size_t smem = smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  const cudaError_t err = smem_limit_once<flash_fwd_kernel<F32, D>>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + kBlockQ - 1) / kBlockQ, n_heads, b);
   kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), sq, skv, n_heads, n_kv, causal, window, q_offset, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), sq, skv, n_heads,
+      n_kv, causal, window, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename Tr>
-int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int sq, int skv, int n_heads, int n_kv, int d, int causal,
-           int window, int q_offset, float scale, void* stream) {
+// ------------------------------------------------------------------ bf16
+namespace tc {
+
+constexpr int kRowsQ = 64;                  // query rows per CTA: one warpgroup
+constexpr int kKeys = 64;                   // keys per KV tile
+constexpr int kStages = 2;                  // K/V ring depth
+constexpr int kConsumers = 128;             // the consumer warpgroup
+constexpr int kThreadsTc = kConsumers + 32; // + the producer warp
+constexpr int kSubBytes = 64 * 64 * 2;      // a 64 x 64 bf16 box, 128-byte rows
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct Shape {
+  static constexpr int kSubs = (D + 63) / 64;        // 64-column boxes per row
+  static constexpr int kTileBytes = kSubs * kSubBytes;
+  static constexpr int kQkSteps = D / 16;            // k16 steps of Q K^T
+  // 1 KB of slack to align the swizzled tiles, Q, the K and V rings, and
+  // 1 + 3 * kStages mbarriers
+  static constexpr size_t kSmem =
+      1024 + static_cast<size_t>(kTileBytes) * (1 + 2 * kStages) + 8 * (1 + 3 * kStages);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Spins until the barrier's phase with parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  }
+}
+
+// One 4-D TMA box (c0 fastest) into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: rows of
+// 128 bytes, 8-row groups 1,024 bytes apart.  Both byte offsets are set to
+// that group stride: it is the only stride these m64n64k16 operands use
+// (a K-major k16 slice lies inside one 128-byte row; an MN-major one spans
+// exactly one 64-element swizzle atom).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  constexpr uint64_t kGroup = 1024 >> 4;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (kGroup << 16) |
+         (kGroup << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma boundary.
+__device__ __forceinline__ void fence_regs(float (&r)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// d (64 x 64, fp32 fragment) += A (64 x 16, smem) * B (16 x 64, smem),
+// both K-major; scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64) += A (64 x 16, bf16 pairs in registers) * B (16 x 64, smem,
+// MN-major: the transpose bit is set).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Accumulator fragment of m64nNk16 (fp32): register i of thread (warp w,
+// lane l) holds row 16w + l/4 + 8*((i/2)%2), column 8*(i/4) + 2*(l%4) + i%2.
+template <int D>
+__global__ void __launch_bounds__(kThreadsTc)
+flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     __nv_bfloat16* __restrict__ out, int sq, int skv, int n_heads,
+                     int n_kv, int causal, int window, int q_offset,
+                     float scale_log2) {
+  using S = Shape<D>;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  uint8_t* q_s = smem_raw + (((raw + 1023u) & ~1023u) - raw);   // 1 KB aligned
+  uint8_t* k_s = q_s + S::kTileBytes;
+  uint8_t* v_s = k_s + kStages * S::kTileBytes;
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(v_s + kStages * S::kTileBytes);
+  uint64_t* full_k = full_q + 1;
+  uint64_t* full_v = full_k + kStages;
+  uint64_t* empty = full_v + kStages;
+
+  const int b = blockIdx.x / n_heads;
+  const int h = blockIdx.x - b * n_heads;
+  const int g = h / (n_heads / n_kv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRowsQ;   // heaviest tiles first
+
+  // keys any row of this tile can see: [k_begin, k_end), in whole tiles
+  const int q_first = q0 + q_offset;
+  const int q_last = min(q0 + kRowsQ, sq) - 1 + q_offset;
+  int k_begin = 0, k_end = skv;
+  if (causal) k_end = min(skv, q_last + 1);
+  if (window > 0) k_begin = max(0, q_first - window + 1);
+  const int kt0 = (k_begin / kKeys) * kKeys;
+  const int n_tiles = k_end > kt0 ? (k_end - kt0 + kKeys - 1) / kKeys : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k + s, 1);
+      mbar_init(full_v + s, 1);
+      mbar_init(empty + s, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (warp == kConsumers / 32) {
+    // ---- producer: one elected lane issues every TMA load
+    if (lane == 0) {
+      mbar_expect_tx(full_q, S::kTileBytes);
+#pragma unroll
+      for (int j = 0; j < S::kSubs; ++j)
+        tma_load_4d(q_s + j * kSubBytes, &qmap, full_q, 64 * j, h, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kStages;
+        if (t >= kStages) mbar_wait(empty + st, ((t / kStages) - 1) & 1);
+        const int k0 = kt0 + t * kKeys;
+        uint8_t* kd = k_s + st * S::kTileBytes;
+        uint8_t* vd = v_s + st * S::kTileBytes;
+        mbar_expect_tx(full_k + st, S::kTileBytes);
+#pragma unroll
+        for (int j = 0; j < S::kSubs; ++j)
+          tma_load_4d(kd + j * kSubBytes, &kmap, full_k + st, 64 * j, g, k0, b);
+        mbar_expect_tx(full_v + st, S::kTileBytes);
+#pragma unroll
+        for (int j = 0; j < S::kSubs; ++j)
+          tma_load_4d(vd + j * kSubBytes, &vmap, full_v + st, 64 * j, g, k0, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: the warpgroup owns the tile's 64 query rows
+  const int row0 = warp * 16 + lane / 4;   // this thread's rows: row0, row0 + 8
+  const int col0 = 2 * (lane % 4);
+  float o[S::kSubs][32];
+#pragma unroll
+  for (int j = 0; j < S::kSubs; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[j][i] = 0.f;
+  float m_r[2] = {kMasked, kMasked};
+  float l_r[2] = {0.f, 0.f};              // this thread's columns only
+  const uint32_t q_addr = smem_u32(q_s);
+  mbar_wait(full_q, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % kStages;
+    const uint32_t parity = (t / kStages) & 1;
+    const int k0 = kt0 + t * kKeys;
+    const uint32_t k_addr = smem_u32(k_s + st * S::kTileBytes);
+    const uint32_t v_addr = smem_u32(v_s + st * S::kTileBytes);
+
+    // S = Q K^T, fp32
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    mbar_wait(full_k + st, parity);
+    fence_regs(s);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < S::kQkSteps; ++kk) {
+      const uint32_t off = (kk / 4) * kSubBytes + (kk % 4) * 32;
+      wgmma_ss(s, sw128_desc(q_addr + off), sw128_desc(k_addr + off), kk > 0);
+    }
+    wg_commit();
+    wg_wait_all();
+    fence_regs(s);
+
+    // the per-element mask only where a mask cuts this tile
+    const bool full = k0 + kKeys <= skv &&
+                      (!causal || k0 + kKeys - 1 <= q0 + q_offset) &&
+                      (window <= 0 || k0 > q0 + kRowsQ - 1 + q_offset - window);
+    uint32_t vis = 0xffffffffu;
+    float mx[2] = {m_r[0], m_r[1]};
+    if (full) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        s[i] *= scale_log2;
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int qpos = q0 + row0 + 8 * ((i >> 1) & 1) + q_offset;
+        const int kpos = k0 + 8 * (i >> 2) + col0 + (i & 1);
+        bool ok = kpos < skv;
+        if (causal) ok = ok && kpos <= qpos;
+        if (window > 0) ok = ok && kpos > qpos - window;
+        if (!ok) vis &= ~(1u << i);
+        s[i] = ok ? s[i] * scale_log2 : kMasked;
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+      }
+    }
+    // a row's 64 columns live in the 4 lanes of a quad
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      corr[r] = exp2f(m_r[r] - mx[r]);
+      m_r[r] = mx[r];
+      l_r[r] *= corr[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      const float p = ((vis >> i) & 1u) ? exp2f(s[i] - m_r[r]) : 0.f;
+      s[i] = p;
+      l_r[r] += p;                          // l from the unrounded p
+    }
+#pragma unroll
+    for (int j = 0; j < S::kSubs; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[j][i] *= corr[(i >> 1) & 1];
+    // P in bf16: the S fragment of keys [16kk, 16kk + 16) is the A fragment
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        pa[kk][x] = pack_bf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
+
+    // O += P V
+    mbar_wait(full_v + st, parity);
+#pragma unroll
+    for (int j = 0; j < S::kSubs; ++j) fence_regs(o[j]);
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < S::kSubs; ++j)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(o[j], pa[kk], sw128_desc(v_addr + j * kSubBytes + kk * 16 * 128));
+    wg_commit();
+    wg_wait_all();
+#pragma unroll
+    for (int j = 0; j < S::kSubs; ++j) fence_regs(o[j]);
+    mbar_arrive(empty + st);               // this stage's K and V are free
+  }
+
+  float den[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+    den[r] = fmaxf(l_r[r], 1e-30f);
+  }
+#pragma unroll
+  for (int j = 0; j < S::kSubs; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int r = (i >> 1) & 1;
+      const int row = q0 + row0 + 8 * r;
+      const int col = 64 * j + 8 * (i >> 2) + col0;
+      if (row < sq && col < D) {
+        __nv_bfloat16* dst =
+            out + ((static_cast<int64_t>(b) * sq + row) * n_heads + h) * D + col;
+        *reinterpret_cast<uint32_t*>(dst) =
+            pack_bf16(o[j][i] / den[r], o[j][i + 1] / den[r]);
+      }
+    }
+}
+
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+// libcuda's cuTensorMapEncodeTiled, looked up once through the runtime's
+// entry-point query (no -lcuda on the link line); null if it is missing.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// TMA map of a (b, s, heads, d) bf16 tensor as the 4-D (d, heads, s, b)
+// view, 64 x 1 x 64 x 1 boxes, 128-byte swizzle, zero fill out of bounds.
+bool make_map(CUtensorMap* map, const void* ptr, int d, int heads, int s, int b) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(s), static_cast<cuuint64_t>(b)};
+  const cuuint64_t row = static_cast<cuuint64_t>(d) * 2;
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * s};
+  const cuuint32_t box[4] = {64, 1, kKeys, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, int b, int sq,
+           int skv, int n_heads, int n_kv, int causal, int window, int q_offset,
+           float scale, cudaStream_t stream) {
+  if (skv <= 0) {                           // no key: every row is zero
+    cudaMemsetAsync(out, 0, static_cast<size_t>(b) * sq * n_heads * D * 2, stream);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int q_tiles = (sq + kRowsQ - 1) / kRowsQ;
+  if (q_tiles > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  CUtensorMap qmap, kmap, vmap;
+  if (!make_map(&qmap, q, D, n_heads, sq, b) || !make_map(&kmap, k, D, n_kv, skv, b) ||
+      !make_map(&vmap, v, D, n_kv, skv, b))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = flash_bf16_tc_kernel<D>;
+  const cudaError_t err = smem_limit_once<flash_bf16_tc_kernel<D>>(Shape<D>::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(b) * n_heads, q_tiles);
+  kern<<<grid, kThreadsTc, Shape<D>::kSmem, stream>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), sq, skv, n_heads, n_kv,
+      causal, window, q_offset, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
+// window <= 0 means no sliding window; causal is 0 or 1.
+template <bool kBf16>
+int dispatch(const void* q, const void* k, const void* v, void* out, int b, int sq,
+             int skv, int n_heads, int n_kv, int d, int causal, int window,
+             int q_offset, float scale, void* stream) {
   if (b <= 0 || sq <= 0 || n_heads <= 0) return static_cast<int>(cudaGetLastError());
   if (n_kv <= 0 || n_heads % n_kv != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64:
-      return launch_d<Tr, 64>(q, k, v, out, b, sq, skv, n_heads, n_kv, causal,
-                              window, q_offset, scale, s);
+      return kBf16 ? tc::launch<64>(q, k, v, out, b, sq, skv, n_heads, n_kv, causal,
+                                    window, q_offset, scale, s)
+                   : launch_f32<64>(q, k, v, out, b, sq, skv, n_heads, n_kv, causal,
+                                    window, q_offset, scale, s);
     case 80:
-      return launch_d<Tr, 80>(q, k, v, out, b, sq, skv, n_heads, n_kv, causal,
-                              window, q_offset, scale, s);
+      return kBf16 ? tc::launch<80>(q, k, v, out, b, sq, skv, n_heads, n_kv, causal,
+                                    window, q_offset, scale, s)
+                   : launch_f32<80>(q, k, v, out, b, sq, skv, n_heads, n_kv, causal,
+                                    window, q_offset, scale, s);
     case 128:
-      return launch_d<Tr, 128>(q, k, v, out, b, sq, skv, n_heads, n_kv, causal,
-                               window, q_offset, scale, s);
+      return kBf16 ? tc::launch<128>(q, k, v, out, b, sq, skv, n_heads, n_kv, causal,
+                                     window, q_offset, scale, s)
+                   : launch_f32<128>(q, k, v, out, b, sq, skv, n_heads, n_kv, causal,
+                                     window, q_offset, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -255,14 +701,13 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
 
 }  // namespace
 
-// window <= 0 means no sliding window; causal is 0 or 1.
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
                                    void* out, int b, int sq, int skv,
                                    int n_heads, int n_kv, int d, int causal,
                                    int window, int q_offset, float scale,
                                    void* stream) {
-  return launch<F32>(q, k, v, out, b, sq, skv, n_heads, n_kv, d, causal, window,
-                     q_offset, scale, stream);
+  return dispatch<false>(q, k, v, out, b, sq, skv, n_heads, n_kv, d, causal, window,
+                         q_offset, scale, stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
@@ -270,6 +715,6 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
                                     int n_heads, int n_kv, int d, int causal,
                                     int window, int q_offset, float scale,
                                     void* stream) {
-  return launch<BF16>(q, k, v, out, b, sq, skv, n_heads, n_kv, d, causal, window,
-                      q_offset, scale, stream);
+  return dispatch<true>(q, k, v, out, b, sq, skv, n_heads, n_kv, d, causal, window,
+                        q_offset, scale, stream);
 }

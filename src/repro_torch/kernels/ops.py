@@ -15,7 +15,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import build, ref
 
 # kernel launches since the last reset, per kernel (main-path evidence)
 LAUNCHES: dict[str, int] = {"fedavg_agg": 0, "kld_greedy_picks": 0,
@@ -35,6 +35,9 @@ SCORE_MAX_M = 524_280
 # head dims the flash kernel is instantiated for (Hymba 64, danube 80,
 # qwen3 128)
 FLASH_HEAD_DIMS = (64, 80, 128)
+# mediator rows Eq. 6 takes (its CTAs keep the normalized weights in 48 KB
+# of shared memory)
+FEDAVG_MAX_M = 12_288
 # a block's dynamic shared memory on Hopper (the SSD block keeps B, C, w,
 # x, the (L, L) decay matrix and two (L,) vectors there, fp32)
 MAX_SMEM_BYTES = 232_448
@@ -63,19 +66,25 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
 
 
 def _launch(name: str, entry: str, device: torch.device, *args) -> None:
-    from repro_torch.kernels import build
-    lib = build.library()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        code = getattr(lib, entry)(*args, stream)
+    """Call ``entry`` on ``device``'s current stream.  The raw stream and
+    device queries skip ``torch.cuda``'s Python layer (host cost per call);
+    the device context is entered only when ``device`` is not current."""
+    fn = getattr(build.library(), entry)
+    index = device.index
+    if index == torch._C._cuda_getDevice():
+        code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     build.check(code, entry)
     LAUNCHES[name] += 1
 
 
 def fedavg_agg(deltas: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Eq. 6: ``deltas (M, N)`` f32 or bf16, raw ``weights (M,)`` ->
-    ``(N,)`` in ``deltas``' dtype, fp32 accumulate.  Weights are normalized
-    before the kernel, so zero-weight rows are exact no-ops."""
+    ``(N,)`` in ``deltas``' dtype, fp32 accumulate.  The weights are
+    normalized (``w / max(sum w, 1e-12)``) inside the one launch, so
+    zero-weight rows are exact no-ops; on the card they must be float32."""
     if deltas.dim() != 2 or weights.shape != (deltas.shape[0],):
         raise ValueError(f"expected deltas (M, N) and weights (M,), got "
                          f"{tuple(deltas.shape)} and {tuple(weights.shape)}")
@@ -84,11 +93,14 @@ def fedavg_agg(deltas: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     if not _on_cuda(deltas, weights):
         return ref.fedavg_agg(deltas, weights)
     m, n = deltas.shape
-    wn = ref.normalized_weights(weights).contiguous()
-    out = torch.empty(n, dtype=deltas.dtype, device=deltas.device)
+    if weights.dtype != torch.float32:
+        raise ValueError(f"the kernel takes float32 weights, got {weights.dtype}")
+    if not 1 <= m <= FEDAVG_MAX_M:
+        raise ValueError(f"the kernel takes 1 <= M <= {FEDAVG_MAX_M} rows, got M={m}")
+    out = deltas.new_empty(n)
     entry = "fedavg_agg_f32" if deltas.dtype == torch.float32 else "fedavg_agg_bf16"
     _launch("fedavg_agg", entry, deltas.device, deltas.data_ptr(),
-            wn.data_ptr(), out.data_ptr(), m, n)
+            weights.data_ptr(), out.data_ptr(), m, n)
     return out
 
 

@@ -31,7 +31,8 @@ def dev():
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-6), (torch.bfloat16, 2 ** -7)])
 @pytest.mark.parametrize("n", [68_873, 1 << 16])
 def test_fedavg_agg_kernel(dev, dtype, rtol, n):
-    """Odd N takes the one-column path, aligned N the vector path."""
+    """One launch from the raw weights; every N takes the vector body (odd N
+    realigns each row's 16-byte loads by a warp shuffle)."""
     g = torch.Generator(device=dev).manual_seed(0)
     d = torch.randn(16, n, generator=g, device=dev).to(dtype)
     w = torch.rand(16, generator=g, device=dev)
@@ -41,6 +42,52 @@ def test_fedavg_agg_kernel(dev, dtype, rtol, n):
     assert ops.LAUNCHES["fedavg_agg"] == before + 1
     torch.testing.assert_close(out.double(), ref.fedavg_agg(d, w).double(),
                                rtol=rtol, atol=1e-6)
+
+
+def _device_kernels_per_call(fn) -> int:
+    """Device kernels the profiler sees in one call of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+# N = 0..3 mod 4 (f32 rows), 0..7 mod 8 (bf16 rows), and the main paths'
+# widths (EMNIST 68,873 = 1 mod 4, CINIC 2,168,362 = 2 mod 4)
+FEDAVG_WIDTHS = [64, 65, 66, 67, *range(1032, 1040), 68_873, 2_168_362]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("n", FEDAVG_WIDTHS)
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-6), (torch.bfloat16, 2 ** -7)])
+def test_fedavg_agg_kernel_every_width(dev, dtype, rtol, n, offset):
+    """M = 7 rows (one 4-row batch and a remainder), a zero-weight row, and
+    a deltas view ``offset`` elements into its buffer (offset 1 and 3 start
+    it off a 16-byte boundary): within the plain version's tolerance."""
+    g = torch.Generator(device=dev).manual_seed(n + offset)
+    buf = torch.randn(7 * n + offset, generator=g, device=dev).to(dtype)
+    d = buf[offset:].view(7, n)
+    assert (d.data_ptr() % 16 != 0) == (offset != 0)
+    w = torch.rand(7, generator=g, device=dev)
+    w[2] = 0.0
+    out = ops.fedavg_agg(d, w)
+    torch.testing.assert_close(out.double(), ref.fedavg_agg(d, w).double(),
+                               rtol=rtol, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [68_873, 2_168_362])
+def test_fedavg_agg_is_one_kernel_per_call(dev, n):
+    d = torch.randn(16, n, device=dev)
+    w = torch.rand(16, device=dev)
+    before = ops.LAUNCHES["fedavg_agg"]
+    assert _device_kernels_per_call(lambda: ops.fedavg_agg(d, w)) == 1
+    assert ops.LAUNCHES["fedavg_agg"] == before + 2
 
 
 @pytest.mark.cuda
@@ -140,7 +187,8 @@ def _err_scale(out, plain):
 
 
 # (b, sq, skv, H, KV, d, causal, window, q_offset): the Hymba prefill
-# layer, ragged tiles, no window, q_offset, GQA 1:1, head dims 80 and 128
+# layer, ragged tiles, no window, q_offset, GQA 1:1, head dims 80 and 128,
+# window edges that cut through a 64-key tile, a negative q_offset
 FLASH_CARD_CASES = [
     (4, 2048, 2048, 25, 5, 64, True, 1024, 0),
     (2, 200, 200, 4, 2, 64, True, 64, 0),
@@ -148,6 +196,9 @@ FLASH_CARD_CASES = [
     (1, 64, 192, 8, 2, 128, True, None, 128),
     (2, 100, 100, 4, 1, 64, False, None, 0),
     (1, 40, 300, 4, 4, 64, True, 100, 260),
+    (1, 100, 100, 4, 2, 64, True, 50, 0),
+    (2, 77, 77, 6, 2, 80, True, 40, -9),
+    (1, 150, 260, 8, 2, 128, True, 70, 110),
 ]
 
 
@@ -179,6 +230,15 @@ def test_flash_attention_kernel_row_without_keys_is_zero(dev):
     out = ops.flash_attention(q, k, v, causal=True, q_offset=-4)
     assert torch.equal(out[:, :4], torch.zeros_like(out[:, :4]))
     assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 80, 128])
+def test_flash_attention_bf16_row_without_keys_is_zero(dev, d):
+    q, k, v = (torch.randn(1, 70, 2, d, device=dev).to(torch.bfloat16) for _ in range(3))
+    out = ops.flash_attention(q, k, v, causal=True, q_offset=-6)
+    assert torch.equal(out[:, :6], torch.zeros_like(out[:, :6]))
+    assert bool(torch.isfinite(out.float()).all()) and out[:, 6:].abs().sum() > 0
 
 
 @pytest.mark.cuda

@@ -3,6 +3,8 @@ reference (its non-Pallas oracles, and the flash-attention and SSD Pallas
 kernels in interpret mode), and the ``ops`` wrappers' CPU routing and
 checks.  tests/test_torch_cuda.py holds the kernels themselves against
 these plain versions on a card."""
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +23,7 @@ from repro.kernels import ref as jref                             # noqa: E402
 from repro_torch.core import distribution as dist                 # noqa: E402
 from repro_torch.core import scheduling                           # noqa: E402
 from repro_torch.core.fl import weighted_average                  # noqa: E402
-from repro_torch.kernels import ops                               # noqa: E402
+from repro_torch.kernels import ops, ref                          # noqa: E402
 
 
 # ---------------------------------------------------------------- Eq. 6
@@ -334,6 +336,60 @@ def test_flash_attention_bf16_matches_reference_kernel():
                         np.float32)
     scale = np.abs(pallas).max()
     np.testing.assert_allclose(got.float().numpy(), pallas, rtol=0, atol=2 ** -7 * scale)
+
+
+def _tensor_core_flash(q, k, v, *, causal, window, q_offset, tile):
+    """The bf16 card kernel's arithmetic, emulated here: bf16 inputs, fp32
+    ``q.k^T``, online softmax over ``tile``-key tiles with fp32 running max,
+    denominator and accumulator, ``P`` rounded to bf16 before ``P.V``, ``l``
+    summed from the unrounded ``p``."""
+    b, sq, h, d = q.shape
+    skv, kv = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, sq, kv, h // kv, d)
+    kf, vf = k.float(), v.float()
+    mask = ref.attention_mask(sq, skv, causal=causal, window=window,
+                              q_offset=q_offset, device="cpu")
+    m = torch.full((b, kv, h // kv, sq), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(b, kv, h // kv, sq, d)
+    for k0 in range(0, skv, tile):
+        vis = mask[:, k0:k0 + tile]
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qf, kf[:, k0:k0 + tile]) / math.sqrt(d)
+        s = torch.where(vis, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.where(vis, torch.exp(s - m_new[..., None]), 0.0)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bgrqk,bkgd->bgrqd", p.to(torch.bfloat16).float(), vf[:, k0:k0 + tile])
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(torch.bfloat16)
+
+
+# FLASH_CASES at d=64, plus head dims 80 and 128 (window, q_offset < 0, GQA 4:1)
+TC_FLASH_CASES = [(*c, 64) for c in FLASH_CASES] + [
+    (1, 100, 100, 4, 2, True, 33, 0, 80),
+    (1, 90, 90, 2, 2, True, 40, -7, 80),
+    (2, 70, 130, 4, 1, True, None, 60, 128),
+]
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("case", TC_FLASH_CASES)
+def test_tensor_core_flash_numerics_within_card_tolerance(case, tile):
+    """The card's bf16 tolerance, 2^-7 * max(|plain|, 1), admits the
+    tensor-core kernel's arithmetic (P rounded to bf16 before P.V) against
+    the plain version ``ref.flash_attention``, on three seeds."""
+    b, sq, skv, h, kv, causal, window, off, d = case
+    kw = dict(causal=causal, window=window, q_offset=off)
+    for seed in range(3):
+        q, k, v = (torch.from_numpy(t).to(torch.bfloat16)
+                   for t in _attn_inputs(seed, b, sq, skv, h, kv, d))
+        got = _tensor_core_flash(q, k, v, tile=tile, **kw)
+        plain = ref.flash_attention(q, k, v, **kw)
+        err = float((got.double() - plain.double()).abs().max())
+        assert err <= 2 ** -7 * max(float(plain.double().abs().max()), 1.0), (seed, err)
 
 
 def test_flash_attention_row_without_keys_is_zero():
