@@ -12,7 +12,9 @@ Phases, each fatal on failure:
    the main paths' shapes and at a large one, with CUDA-event times of the
    kernel, the plain version and a one-call PyTorch yardstick, beside the
    least time the card could take (H100 SXM peaks), and the device kernels
-   per call (Eq. 6 must be one);
+   per call (Eq. 6 and the warp must be one); the warp also at H != W, the
+   greedy pass also past what one CTA's shared memory holds (K = 16,385;
+   C = 1,100), with its cluster launch plan;
 4. agreement: small Astraea runs on the card against the same runs on the
    CPU (plain versions), same params and draws: EMNIST (8 classes, 16 px)
    and a reduced CINIC (16 px, width 8), 2 rounds each;
@@ -70,10 +72,11 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM data-sheet peaks (dense, no sparsity) at the 700 W limit
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
-BF16_FLOPS_PER_S = 989e12
+# the least time the card could take (H100 SXM peaks), shared with the
+# kernel-times script
+from repro_torch.examples.kernel_times import (BF16_FLOPS_PER_S,  # noqa: E402
+                                               FP32_FLOPS_PER_S, bound,
+                                               greedy_bound)
 
 FED_KW = dict(num_clients=64, total_samples=6400, test_samples=2350,
               sizes="instagram", global_dist="letterfreq", local="random",
@@ -101,12 +104,6 @@ def timed(row: dict, **fns) -> dict:
         if name == "ms":
             row["kernels_per_call"] = kernels
     return row
-
-
-def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS_PER_S
-          ) -> tuple[float, str]:
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / peak
-    return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -140,31 +137,61 @@ def check_fedavg(dev, m, n, dtype, gen):
     return row
 
 
-def check_greedy(dev, counts_np, gamma):
+# relative gap of two float64 scores that float32 cannot order: the plain
+# version sums a row's classes in another order than the kernel, so each
+# f32 score carries ~C/2 roundings of 2^-24
+F32_NEAR_TIE = 2.0 ** -20
+
+
+def check_greedy(dev, counts_np, gamma, *, loop_exact=False):
+    """The one-launch pass against its plain version: picks equal, or
+    diverging first where the two candidates' float64 scores tie (to 1e-9
+    relative).  With ``loop_exact`` (the rows past what one CTA's shared
+    memory holds, where a K-step pass meets near-ties often) the picks must
+    equal the card's per-step loop exactly (``reschedule(impl="loop")``,
+    one ``kld_score`` launch per pick through the same scorer), and may
+    leave the plain version's only at a float32 near-tie (F32_NEAR_TIE)."""
     from repro_torch.core import scheduling
     from repro_torch.kernels import ops, ref
     counts = torch.as_tensor(counts_np, dtype=torch.float32, device=dev)
     kp = ops.kld_greedy_picks(counts, gamma).cpu().numpy()
-    pp = ref.kld_greedy_picks(counts, gamma).cpu().numpy()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    pp = ref.kld_greedy_picks(counts, gamma)
+    end.record()
+    torch.cuda.synchronize()
+    pp = pp.cpu().numpy()
     if sorted(kp.tolist()) != list(range(len(kp))):
         raise AssertionError("kld_greedy_picks is not a permutation")
     div = scheduling.first_divergence(counts_np, gamma, pp, kp)
-    # picks must be equal; they may differ only where the two candidates'
-    # float64 scores tie (to 1e-9 relative)
     if div is not None and not div["tie"]:
-        raise AssertionError(f"kld_greedy_picks disagrees: {div}")
+        gap = abs(div["score_a"] - div["score_b"]) / max(abs(div["score_a"]),
+                                                         abs(div["score_b"]), 1e-300)
+        if not (loop_exact and gap <= F32_NEAR_TIE):
+            raise AssertionError(f"kld_greedy_picks disagrees: {div}")
+    if loop_exact:
+        loop = scheduling.picks_of(scheduling.reschedule(counts_np, gamma, impl="loop",
+                                                         device=dev))
+        if loop.tolist() != kp.tolist():
+            raise AssertionError("kld_greedy_picks differs from the card loop: "
+                                 f"{scheduling.first_divergence(counts_np, gamma, loop, kp)}")
     k, c = counts_np.shape
     err = 0.0 if div is None else abs(div["score_a"] - div["score_b"])
-    # data-dependent work: step s scores the K - s unpicked clients, ~8 f32
-    # operations per class (merge, total, divide, clamp, log, subtract,
-    # multiply, accumulate)
-    scorings = k * (k + 1) // 2
-    b_ms, by = bound(k * c * 4 + k * 4, 8.0 * scorings * c)
+    b_ms, by = greedy_bound(k, c, gamma)
+    fns = {"ms": (lambda: ops.kld_greedy_picks(counts, gamma), 50.0)}
+    if k <= 1024:
+        fns["plain_ms"] = (lambda: ref.kld_greedy_picks(counts, gamma), 1.0)
     row = timed({"shape": f"K={k} C={c} gamma={gamma}", "max_abs_err": err,
-                 "first_divergence": div, "bound_ms": b_ms, "bound_by": by},
-                ms=(lambda: ops.kld_greedy_picks(counts, gamma), 50.0),
-                plain_ms=(lambda: ref.kld_greedy_picks(counts, gamma), 1.0))
+                 "first_divergence": div, "bound_ms": b_ms, "bound_by": by,
+                 "plan": ops.kld_greedy_plan(k, c)}, **fns)
+    if k > 1024:
+        # the plain version's K-step host loop (seconds), timed once by
+        # events: its checked call above; a profile of its ~10 K launches
+        # costs tens of seconds and stops the profiler recording later
+        # windows, so its device time is not measured
+        row["plain_ms"], row["plain_device_ms"] = start.elapsed_time(end), None
     row["library_ms"] = row["library_device_ms"] = None
+    row["us_per_step"] = 1e3 * row["ms"] / k
     return row
 
 
@@ -219,33 +246,29 @@ def check_score_matrix(dev, meds, cand):
 
 
 def check_warp(dev, b, h, w, c, gen):
-    from repro_torch.core.augmentation import affine_from_uniform
+    from repro_torch.examples.kernel_times import grid_sample, warp_inputs
     from repro_torch.kernels import ops, ref
-    imgs = torch.randn(b, h, w, c, generator=gen, device=dev)
-    u = torch.rand(b, 6, generator=gen, device=dev)
-    mats, trans = affine_from_uniform(u)
-    mats, trans = mats.contiguous(), trans.contiguous()
+    # yardstick: grid_sample on the same inverse map
+    imgs, mats, trans, nchw, grid = warp_inputs(b, h, w, c, gen, dev)
     out, plain = ops.affine_warp(imgs, mats, trans), ref.affine_warp(imgs, mats, trans)
     err = float((out - plain).abs().max())
     if not err <= 1e-5:          # same op order, no FMA: ulp-level only
         raise AssertionError(f"affine_warp B={b} {h}x{w}x{c}: err {err} > 1e-5")
-    # yardstick: grid_sample on the same inverse map (align_corners=True
-    # puts -1/+1 on the edge pixel centres, the warp's convention)
-    sy, sx = ref.warp_coords(h, w, mats, trans)
-    grid = torch.stack([2 * sx / (w - 1) - 1, 2 * sy / (h - 1) - 1], -1)
-    nchw = imgs.permute(0, 3, 1, 2).contiguous()
-    gs = F.grid_sample(nchw, grid, mode="bilinear", padding_mode="zeros",
-                       align_corners=True).permute(0, 2, 3, 1)
+    gs = grid_sample(nchw, grid).permute(0, 2, 3, 1)
     pix = b * h * w
     b_ms, by = bound(2 * pix * c * 4 + b * 6 * 4, pix * (20 + 8 * c))
-    return timed({"shape": f"B={b} {h}x{w}x{c}", "max_abs_err": err,
-                  "grid_sample_err": float((gs - plain).abs().max()),
-                  "bound_ms": b_ms, "bound_by": by},
-                 ms=(lambda: ops.affine_warp(imgs, mats, trans), 50.0),
-                 plain_ms=(lambda: ref.affine_warp(imgs, mats, trans), 50.0),
-                 library_ms=(lambda: F.grid_sample(
-                     nchw, grid, mode="bilinear", padding_mode="zeros",
-                     align_corners=True), 50.0))
+    row = timed({"shape": f"B={b} {h}x{w}x{c}", "max_abs_err": err,
+                 "grid_sample_err": float((gs - plain).abs().max()),
+                 "stages": ops.affine_warp_stages(imgs, out),
+                 "bound_ms": b_ms, "bound_by": by},
+                ms=(lambda: ops.affine_warp(imgs, mats, trans), 50.0),
+                plain_ms=(lambda: ref.affine_warp(imgs, mats, trans), 50.0),
+                library_ms=(lambda: grid_sample(nchw, grid), 50.0))
+    # one launch per call (the mean over the profiled calls, as for Eq. 6)
+    if round(row["kernels_per_call"]) != 1:
+        raise AssertionError(f"affine_warp B={b} {h}x{w}x{c}: "
+                             f"{row['kernels_per_call']} device kernels per call")
+    return row
 
 
 def _dname(dtype):
@@ -728,6 +751,7 @@ def main() -> int:
             dev, rng.random((m, 47)) * 100, rng.random((k, 47)) * 50))
     checks["affine_warp"].append(check_warp(dev, CLIENTS * pad, 28, 28, 1, gen))
     checks["affine_warp"].append(check_warp(dev, 4096, 32, 32, 3, gen))
+    checks["affine_warp"].append(check_warp(dev, CLIENTS * pad, 20, 36, 3, gen))
     lap("3 scoring and warp")
     # the serve path's shapes: Hymba prefill, b=4, s=2048 = 2W
     hy = dict(b=4, sq=2048, skv=2048, h=25, kv=5, d=64)
@@ -756,11 +780,16 @@ def main() -> int:
     counts = fed.client_counts()
     sel = np.random.default_rng(0).choice(64, CLIENTS, replace=False)
     main_counts = counts[sel] * (1.0 + augmentation_plan(counts.sum(0), ALPHA))
+    big = [rng.integers(0, 200, (4096, 47)), np.tile(rng.integers(1, 50, (1, 47)), (4096, 1))]
     checks["kld_greedy_picks"].append(check_greedy(dev, main_counts, GAMMA))
+    # past what one CTA's shared memory holds (K > 16,384, C > 1,024),
+    # before the rows whose plain versions are profiled
     checks["kld_greedy_picks"].append(check_greedy(
-        dev, rng.integers(0, 200, (4096, 47)), GAMMA))
+        dev, rng.integers(0, 200, (16_385, 47)), GAMMA, loop_exact=True))
     checks["kld_greedy_picks"].append(check_greedy(
-        dev, np.tile(rng.integers(1, 50, (1, 47)), (4096, 1)), GAMMA))
+        dev, rng.integers(0, 200, (512, 1100)), GAMMA, loop_exact=True))
+    for counts_big in big:
+        checks["kld_greedy_picks"].append(check_greedy(dev, counts_big, GAMMA))
     lap("3 kld_greedy_picks")
     def fmt(x):
         return "n/a" if x is None else f"{x:.4f}"
@@ -773,6 +802,12 @@ def main() -> int:
                 f"plain {fmt(r['plain_ms'])} ({fmt(r['plain_device_ms'])})  "
                 f"library {fmt(r['library_ms'])} ({fmt(r['library_device_ms'])})  "
                 f"bound {r['bound_ms']:.6f} ({r['bound_by']})")
+    for r in checks["kld_greedy_picks"]:
+        log(f"[kernel] kld_greedy_picks {r['shape']}: cluster {r['plan']}, "
+            f"{r['us_per_step']:.3f} us per step")
+    for r in checks["affine_warp"]:
+        log(f"[kernel] affine_warp {r['shape']}: {r['stages']} stages, "
+            f"{r['ms'] / r['library_ms']:.3f}x grid_sample's event time")
 
     # ---- 4. card vs CPU on small Astraea runs
     agree = {"emnist": agreement_check(dev), "cinic": agreement_check(dev, cinic=True)}

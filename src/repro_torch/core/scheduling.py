@@ -9,7 +9,7 @@ Two implementations, one tie-break (the first minimum, i.e. the lowest
 client id among equal scores):
 
 * ``impl="batched"`` -- the whole pass in one call to
-  ``kernels.ops.kld_greedy_picks``: the one-CTA CUDA kernel for a CUDA
+  ``kernels.ops.kld_greedy_picks``: the cluster CUDA kernel for a CUDA
   device, its plain PyTorch masked-argmin loop on the CPU.
 * ``impl="loop"`` -- the paper's per-step Alg. 3: a Python loop with a
   numpy argmin on the host that scores each step with one

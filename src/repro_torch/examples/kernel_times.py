@@ -1,26 +1,63 @@
-"""Time the port's Eq. 6 and bf16 flash-attention wrappers on the card, at
-the main paths' shapes and the zoo's other head dims, for the
-``repro_torch`` of any source tree (to compare two commits in one run):
+"""Time the port's Eq. 6, bf16 flash-attention, Alg. 2 warp and Alg. 3
+greedy-pass wrappers on the card, at the main paths' shapes (and the zoo's
+other head dims), for the ``repro_torch`` of any source tree (to compare
+two commits in one run):
 
   python3 src/repro_torch/examples/kernel_times.py [--src TREE/src] [--label NAME] [--out FILE]
+  python3 src/repro_torch/examples/kernel_times.py --profiler-sessions 100
 
 ``--src`` puts that tree's ``src`` first on ``sys.path`` before
 ``repro_torch`` is imported (its kernels are built into that tree's
 ``build/``); the default is this file's own tree.  Per shape it prints the
 CUDA-event ms per call (host dispatch included), the profiler's device ms
 per call, the device kernels per call and the largest error against the
-plain version.  ``chip_smoke.py`` uses the timing helpers below.
+plain version (for the greedy pass: 0 where the picks are equal, else the
+score gap at the first divergence, with a digest of the picks to compare
+two trees' passes, and the least time the card could take); the warp
+rows add ``F.grid_sample``'s event ms on the same inputs.
+``chip_smoke.py`` uses the timing and bound helpers below.
+``--profiler-sessions N`` instead counts the device kernels the profiler
+records in N sessions of one ``fedavg_agg`` call each (the one-kernel
+check of ``tests/test_torch_cuda.py``), to tell a missed record from an
+extra kernel.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
 import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
+
+# H100 SXM data-sheet peaks (dense, no sparsity) at the 700 W limit
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
+
+
+def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS_PER_S
+          ) -> tuple[float, str]:
+    """The least ms the card could take for a function that moves
+    ``nbytes`` and does ``flops`` operations at ``peak`` per second, and
+    which of the two sets it ("bytes" or "operations")."""
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / peak
+    return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
+
+
+def greedy_bound(k: int, c: int, gamma: int) -> tuple[float, str]:
+    """The greedy pass's bound: its (K, C) counts read once and K picks
+    written, and ~8 f32 operations per class (merge, total, divide, clamp,
+    log, subtract, multiply, accumulate) for each scoring the pass needs:
+    every candidate once against an empty mediator (its static score,
+    which each step that opens a mediator, 1 in gamma, takes as it is),
+    then the K - s unpicked candidates at every other step s."""
+    scorings = k + sum(k - s for s in range(k) if s % gamma)
+    return bound(k * c * 4 + k * 4, 8.0 * scorings * c)
 
 
 def time_ms(fn, min_ms: float = 50.0, max_reps: int = 4096) -> float:
@@ -75,6 +112,34 @@ FEDAVG_SHAPES = [(16, 68_873, torch.float32), (16, 68_873, torch.bfloat16),
 # (b, s, H, KV, d, window) in bf16: the Hymba layer, danube's and qwen3's heads
 FLASH_SHAPES = [(4, 2048, 25, 5, 64, 1024), (1, 2048, 32, 8, 80, 4096),
                 (1, 2048, 32, 8, 128, None)]
+# (B, H, W, C) of the warp: the EMNIST round's slots (16 clients x 460), the
+# CINIC batch of phase 3, a rectangular image
+WARP_SHAPES = [(7360, 28, 28, 1), (4096, 32, 32, 3), (7360, 20, 36, 3)]
+# (K, C, gamma) of the greedy pass: the FL cohort's size, Path A's pass,
+# the large row, and the large row with every step opening a mediator
+# (gamma 1: no step scores, so its time per step is the pass's
+# synchronization floor)
+GREEDY_SHAPES = [(16, 47, 4), (1024, 47, 4), (4096, 47, 4), (4096, 47, 1)]
+
+
+def warp_inputs(b, h, w, c, gen, dev):
+    """Images, the Alg. 2 maps, and ``grid_sample``'s NCHW images and grid
+    for the same inverse map (align_corners=True puts -1/+1 on the edge
+    pixel centres, the warp's convention)."""
+    from repro_torch.core.augmentation import affine_from_uniform
+    from repro_torch.kernels import ref
+    imgs = torch.randn(b, h, w, c, generator=gen, device=dev)
+    mats, trans = affine_from_uniform(torch.rand(b, 6, generator=gen, device=dev))
+    mats, trans = mats.contiguous(), trans.contiguous()
+    sy, sx = ref.warp_coords(h, w, mats, trans)
+    grid = torch.stack([2 * sx / (w - 1) - 1, 2 * sy / (h - 1) - 1], -1)
+    return imgs, mats, trans, imgs.permute(0, 3, 1, 2).contiguous(), grid
+
+
+def grid_sample(nchw, grid):
+    import torch.nn.functional as F
+    return F.grid_sample(nchw, grid, mode="bilinear", padding_mode="zeros",
+                         align_corners=True)
 
 
 def measure() -> list[dict]:
@@ -105,7 +170,63 @@ def measure() -> list[dict]:
                      "shape": f"b={b} s={s} H={h} KV={kv} d={d} W={window} bfloat16",
                      "ms": ms, "device_ms": dev_ms, "kernels_per_call": kernels,
                      "max_abs_err": err})
+    for b, h, w, c in WARP_SHAPES:
+        imgs, mats, trans, nchw, grid = warp_inputs(b, h, w, c, gen, dev)
+        err = float((ops.affine_warp(imgs, mats, trans)
+                     - ref.affine_warp(imgs, mats, trans)).abs().max())
+        call = lambda: ops.affine_warp(imgs, mats, trans)          # noqa: E731
+        ms = time_ms(call)
+        dev_ms, kernels = device_profile(call, ms)
+        lib = lambda: grid_sample(nchw, grid)                      # noqa: E731
+        lib_ms = time_ms(lib)
+        rows.append({"kernel": "affine_warp", "shape": f"B={b} {h}x{w}x{c}",
+                     "ms": ms, "device_ms": dev_ms, "kernels_per_call": kernels,
+                     "max_abs_err": err, "grid_sample_ms": lib_ms,
+                     "grid_sample_device_ms": device_profile(lib, lib_ms)[0]})
+    from repro_torch.core import scheduling
+    rng = np.random.default_rng(0)
+    for k, c, gamma in GREEDY_SHAPES:
+        counts_np = rng.integers(0, 200, (k, c))
+        counts = torch.as_tensor(counts_np, dtype=torch.float32, device=dev)
+        kp = ops.kld_greedy_picks(counts, gamma).cpu().numpy()
+        div = scheduling.first_divergence(counts_np, gamma,
+                                          ref.kld_greedy_picks(counts, gamma).cpu().numpy(),
+                                          kp)
+        call = lambda: ops.kld_greedy_picks(counts, gamma)         # noqa: E731
+        ms = time_ms(call)
+        dev_ms, kernels = device_profile(call, ms)
+        b_ms, by = greedy_bound(k, c, gamma)
+        # the picks' digest tells two trees' passes apart without the picks
+        rows.append({"kernel": "kld_greedy_picks", "shape": f"K={k} C={c} gamma={gamma}",
+                     "ms": ms, "device_ms": dev_ms, "kernels_per_call": kernels,
+                     "bound_ms": b_ms, "bound_by": by,
+                     "max_abs_err": 0.0 if div is None else abs(div["score_a"] - div["score_b"]),
+                     "first_divergence_from_plain": div, "us_per_step": 1e3 * ms / k,
+                     "picks_sha256": hashlib.sha256(kp.astype(np.int32).tobytes()).hexdigest()})
     return rows
+
+
+def profiler_sessions(sessions: int) -> dict[int, dict[int, int]]:
+    """Per Eq. 6 width of the main paths: {device kernels recorded: number
+    of profiler sessions}, over ``sessions`` sessions of one call each."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    out = {}
+    for n in (68_873, 2_168_362):
+        d = torch.randn(16, n, device="cuda")
+        w = torch.rand(16, device="cuda")
+        seen: dict[int, int] = {}
+        for _ in range(sessions):
+            ops.fedavg_agg(d, w)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                ops.fedavg_agg(d, w)
+                torch.cuda.synchronize()
+            kernels = sum(e.count for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA)
+            seen[kernels] = seen.get(kernels, 0) + 1
+        out[n] = dict(sorted(seen.items()))
+    return out
 
 
 def main() -> int:
@@ -114,16 +235,27 @@ def main() -> int:
                     help="the src directory whose repro_torch is timed")
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--out", default=None, help="JSON file for the rows")
+    ap.add_argument("--profiler-sessions", type=int, default=0,
+                    help="count the kernels recorded in this many one-call sessions")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(args.src).resolve()))
+    if args.profiler_sessions:
+        for n, seen in profiler_sessions(args.profiler_sessions).items():
+            print(f"[{args.label}] fedavg_agg M=16 N={n}: sessions by device kernels "
+                  f"recorded {seen}", flush=True)
+        return 0
     rows = measure()
     for r in rows:
-        print(f"[{args.label}] {r['kernel']:15s} {r['shape']:36s} event {r['ms']:.4f} ms "
+        extra = (f", grid_sample {r['grid_sample_ms']:.4f} ms "
+                 f"(device {r['grid_sample_device_ms']})" if "grid_sample_ms" in r else "")
+        if "bound_ms" in r:
+            extra += f", bound {r['bound_ms']:.6f} ms ({r['bound_by']})"
+        print(f"[{args.label}] {r['kernel']:16s} {r['shape']:36s} event {r['ms']:.4f} ms "
               f"device {r['device_ms']} ms, {r['kernels_per_call']:g} kernels/call, "
-              f"err {r['max_abs_err']:.3e}", flush=True)
+              f"err {r['max_abs_err']:.3e}{extra}", flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({"label": args.label, "src": args.src,

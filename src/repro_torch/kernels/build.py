@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fedavg_agg.cu", "kld_greedy.cu", "kld_score.cu", "affine_warp.cu",
            "flash_attention.cu", "ssd_chunk.cu")
 # headers the sources include (hashed into the library's name with them)
-HEADERS = ("kld_common.cuh",)
+HEADERS = ("kld_common.cuh", "mbarrier.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -40,7 +40,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "fedavg_agg_f32": (_P, _P, _P, _I64, _I64, _P),
     "fedavg_agg_bf16": (_P, _P, _P, _I64, _I64, _P),
-    "kld_greedy_picks": (_P, _P, _I, _I, _I, _P),
+    "kld_greedy_picks": (_P, _P, _P, _I, _I, _I, _P),
     "kld_score_f32": (_P, _P, _P, _I, _I, _P),
     "kld_score_matrix_f32": (_P, _P, _P, _I, _I, _I, _P),
     "affine_warp_f32": (_P, _P, _P, _P, _I64, _I, _I, _I, _P),
@@ -123,6 +123,12 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = list(args)
         fn.restype = ctypes.c_int
+    # launch-plan queries (no launch)
+    lib.kld_greedy_plan.argtypes = [_I, _I] + [ctypes.POINTER(_I)] * 7 \
+        + [ctypes.POINTER(_I64)]
+    lib.kld_greedy_plan.restype = ctypes.c_int
+    lib.affine_warp_stages.argtypes = [_P, _P, _I, _I, _I]
+    lib.affine_warp_stages.restype = ctypes.c_int
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -24,8 +24,9 @@
 // shared-memory broadcast) and reads 32 candidate rows.  Each thread walks
 // its row at stride C, so neighbouring threads do not read neighbouring
 // addresses; staging a tile of candidate rows in shared memory is the
-// later fix.  Limits: C <= 1,024 (the wrapper checks it), so the matrix
-// tile's mediators take at most 32 KB of shared memory.
+// later fix.  Limits (the wrapper checks them): C <= 12,288 for one
+// mediator and C <= 1,024 for the matrix, so the mediator row or the
+// matrix tile's 8 rows fit in 48 KB of shared memory.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>

@@ -23,14 +23,17 @@ LAUNCHES: dict[str, int] = {"fedavg_agg": 0, "kld_greedy_picks": 0,
                             "affine_warp": 0, "flash_attention": 0,
                             "ssd_chunk": 0}
 
-# single-CTA limits of the greedy kernel (pick mask and histogram live in
-# shared memory; a multi-CTA pass for larger K is later work)
-GREEDY_MAX_K = 16_384
-GREEDY_MAX_C = 1_024
-# classes the scoring kernels take (a matrix tile keeps 8 mediator rows in
-# shared memory) and mediators the matrix grid's y axis holds (65,535 x 8)
-SCORE_MAX_C = 1_024
+# classes the scoring kernels take (one mediator row, or a matrix tile's 8,
+# in 48 KB of shared memory) and mediators the matrix grid's y axis holds
+# (65,535 x 8)
+SCORE_MAX_C = 12_288
+MATRIX_MAX_C = 1_024
 SCORE_MAX_M = 524_280
+
+# (device index, K, C) -> floats of global scratch the greedy pass's plan
+# needs: 0 where every CTA's per-candidate state and mediator fit in its
+# shared memory
+_GREEDY_SCRATCH: dict[tuple[int, int, int], int] = {}
 
 # head dims the flash kernel is instantiated for (Hymba 64, danube 80,
 # qwen3 128)
@@ -140,13 +143,40 @@ def kld_greedy_picks(client_counts: torch.Tensor, gamma: int) -> torch.Tensor:
     if not _on_cuda(client_counts):
         return ref.kld_greedy_picks(client_counts, gamma)
     k, c = client_counts.shape
-    if k > GREEDY_MAX_K or c > GREEDY_MAX_C:
-        raise ValueError(f"the single-CTA greedy kernel takes K <= {GREEDY_MAX_K} "
-                         f"and C <= {GREEDY_MAX_C}, got K={k}, C={c}")
-    picks = torch.empty(k, dtype=torch.int32, device=client_counts.device)
-    _launch("kld_greedy_picks", "kld_greedy_picks", client_counts.device,
-            client_counts.data_ptr(), picks.data_ptr(), k, c, int(gamma))
+    if c < 1:
+        raise ValueError("client_counts must have at least one class")
+    dev = client_counts.device
+    picks = torch.empty(k, dtype=torch.int32, device=dev)
+    if k == 0:
+        return picks
+    key = (dev.index, k, c)
+    floats = _GREEDY_SCRATCH.get(key)
+    if floats is None:
+        floats = _GREEDY_SCRATCH[key] = kld_greedy_plan(k, c, dev)["scratch_floats"]
+    # each CTA's per-candidate state and mediator where they do not fit in
+    # its shared memory (the kernel initializes what it uses); else none
+    scratch = torch.empty(floats, dtype=torch.float32, device=dev) if floats else None
+    _launch("kld_greedy_picks", "kld_greedy_picks", dev, client_counts.data_ptr(),
+            picks.data_ptr(), None if scratch is None else scratch.data_ptr(), k, c,
+            int(gamma))
     return picks
+
+
+def kld_greedy_plan(k: int, c: int, device: torch.device | None = None) -> dict:
+    """The cluster launch a ``(k, c)`` greedy pass gets on ``device``: CTAs
+    in the cluster, threads per CTA, lanes per candidate, candidate rows
+    each CTA keeps in shared memory, its dynamic shared memory in bytes,
+    whether the per-candidate state and the open mediator live in shared
+    memory (1) or in a global scratch (0), and that scratch's floats (0
+    when everything fits).  No launch."""
+    import ctypes
+    out = [ctypes.c_int() for _ in range(7)] + [ctypes.c_int64()]
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        build.check(build.library().kld_greedy_plan(k, c, *map(ctypes.byref, out)),
+                    "kld_greedy_plan")
+    return dict(zip(("ctas", "threads", "lanes", "rows_in_smem", "smem_bytes",
+                     "state_in_smem", "med_in_smem", "scratch_floats"),
+                    (v.value for v in out)))
 
 
 def _score_inputs(meds: torch.Tensor, cand: torch.Tensor, med_dim: int) -> None:
@@ -188,8 +218,8 @@ def kld_score_matrix(mediator_counts: torch.Tensor,
         return ref.kld_score_matrix(mediator_counts, client_counts)
     m, c = mediator_counts.shape
     k = client_counts.shape[0]
-    if c > SCORE_MAX_C or m > SCORE_MAX_M:
-        raise ValueError(f"the scoring kernel takes C <= {SCORE_MAX_C} and "
+    if c > MATRIX_MAX_C or m > SCORE_MAX_M:
+        raise ValueError(f"the scoring kernel takes C <= {MATRIX_MAX_C} and "
                          f"M <= {SCORE_MAX_M}, got M={m}, C={c}")
     out = torch.empty(m, k, dtype=torch.float32, device=client_counts.device)
     if m == 0 or k == 0:
@@ -215,9 +245,22 @@ def affine_warp(images: torch.Tensor, mats: torch.Tensor,
     if not _on_cuda(images, mats, trans):
         return ref.affine_warp(images, mats, trans)
     out = torch.empty_like(images)
+    if out.numel() == 0:
+        return out
+    if h * w * c >= 2 ** 31:
+        raise ValueError(f"the kernel indexes an image with int32, got {h}x{w}x{c}")
     _launch("affine_warp", "affine_warp_f32", images.device, images.data_ptr(),
             mats.data_ptr(), trans.data_ptr(), out.data_ptr(), b, h, w, c)
     return out
+
+
+def affine_warp_stages(images: torch.Tensor, out: torch.Tensor) -> int:
+    """The path an ``affine_warp`` call on ``images`` into ``out`` takes:
+    the staged path's input stages (2: whole images staged in
+    shared memory by bulk copies), or 0 for the direct path (images too
+    large for shared memory, or not 16-byte aligned).  No launch."""
+    _, h, w, c = images.shape
+    return build.library().affine_warp_stages(images.data_ptr(), out.data_ptr(), h, w, c)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

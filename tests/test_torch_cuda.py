@@ -117,8 +117,110 @@ def test_kld_greedy_kernel(dev, k, tied):
         np.testing.assert_array_equal(kp, np.arange(k))
 
 
+def _greedy_matches_plain(counts, gamma, dev):
+    """Kernel picks against the plain version's: equal, or diverging only
+    where the two candidates' float64 scores tie (first_divergence)."""
+    t = torch.as_tensor(counts, dtype=torch.float32, device=dev)
+    before = ops.LAUNCHES["kld_greedy_picks"]
+    kp = ops.kld_greedy_picks(t, gamma).cpu().numpy()
+    assert ops.LAUNCHES["kld_greedy_picks"] == before + 1
+    pp = ref.kld_greedy_picks(t, gamma).cpu().numpy()
+    assert sorted(kp.tolist()) == list(range(len(kp)))
+    div = scheduling.first_divergence(counts, gamma, pp, kp)
+    assert div is None or div["tie"], div
+    return kp
+
+
+# (K, C, gamma): the FL cohort, Path A, the K = 4,096 row, past what one
+# CTA's shared memory holds (K > 16,384, C > 1,024), every gamma case (1: every step
+# opens a mediator; 5: K not a multiple; gamma > K: one mediator)
+GREEDY_CARD_CASES = [(16, 47, 4), (1024, 47, 4), (4096, 47, 4), (16_385, 47, 4),
+                     (16, 1100, 4), (512, 1100, 4), (300, 47, 1), (300, 47, 5),
+                     (40, 47, 64), (1024, 47, 5)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,c", [(16, 10), (1, 47), (300, 47), (4096, 47)])
+@pytest.mark.parametrize("k,c,gamma", GREEDY_CARD_CASES)
+def test_kld_greedy_kernel_every_shape(dev, k, c, gamma):
+    _greedy_matches_plain(np.random.default_rng(k + c).integers(0, 200, (k, c)), gamma, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [16, 1024, 4096])
+def test_kld_greedy_kernel_tied_and_empty_histograms(dev, k):
+    """All-tied and all-zero histograms: every score ties, so the picks are
+    the clients in order."""
+    tied = np.tile(np.random.default_rng(k).integers(1, 9, (1, 47)), (k, 1))
+    for counts in (tied, np.zeros((k, 47))):
+        np.testing.assert_array_equal(_greedy_matches_plain(counts, 4, dev), np.arange(k))
+
+
+@pytest.mark.cuda
+def test_kld_greedy_runs_on_a_cluster(dev):
+    """At K = 4,096 the pass spreads over several SMs (one CTA each); at
+    the main paths' shapes everything lives in shared memory, so the call
+    needs no global scratch."""
+    plan = ops.kld_greedy_plan(4096, 47)
+    assert plan["ctas"] > 1 and plan["rows_in_smem"] * plan["ctas"] >= 4096, plan
+    assert plan["scratch_floats"] == 0, plan
+    small = ops.kld_greedy_plan(16, 47)
+    assert small["ctas"] == 1 and small["scratch_floats"] == 0, small
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [16, 64])
+def test_kld_greedy_kernel_mediator_in_global_scratch(dev, k):
+    """C = 60,000: the open mediator does not fit in a CTA's shared memory
+    and lives in the plan's global scratch, and every row is read from
+    global memory; the picks still equal the plain version's.  Each client
+    holds 50 of the classes, as a client of a many-class task would."""
+    c = 60_000
+    plan = ops.kld_greedy_plan(k, c)
+    assert (plan["med_in_smem"], plan["state_in_smem"], plan["rows_in_smem"]) == (0, 1, 0), plan
+    assert plan["scratch_floats"] > 0, plan
+    rng = np.random.default_rng(k)
+    counts = np.zeros((k, c))
+    for row in counts:
+        row[rng.choice(c, 50, replace=False)] = rng.integers(1, 200, 50)
+    _greedy_matches_plain(counts, 4, dev)
+
+
+@pytest.mark.cuda
+def test_kld_greedy_kernel_state_in_global_scratch(dev):
+    """K = 300,400: each CTA's per-candidate state (static scores, the list
+    of its unpicked candidates and their positions, ~18,800 candidates)
+    does not fit in its shared memory and lives in the global scratch.  At
+    gamma = 1 every pick comes from the static scores, so the picks are the
+    stable order of ``kld_score``'s scores against an empty mediator (the
+    same scorer, the same bits); at gamma = 4 tied histograms give the
+    clients in order."""
+    k, c = 300_400, 2
+    plan = ops.kld_greedy_plan(k, c)
+    assert plan["state_in_smem"] == 0 and plan["scratch_floats"] > 0, plan
+    counts = torch.as_tensor(np.random.default_rng(0).integers(0, 200, (k, c)),
+                             dtype=torch.float32, device=dev)
+    static = ops.kld_score(torch.zeros(c, device=dev), counts).cpu().numpy()
+    np.testing.assert_array_equal(ops.kld_greedy_picks(counts, 1).cpu().numpy(),
+                                  np.lexsort((np.arange(k), static)))
+    tied = torch.tensor([[3.0, 5.0]], device=dev).expand(k, c).contiguous()
+    np.testing.assert_array_equal(ops.kld_greedy_picks(tied, 4).cpu().numpy(), np.arange(k))
+
+
+@pytest.mark.cuda
+def test_kld_greedy_refused_launch_raises(dev):
+    """A call the kernel refuses returns its CUDA error and the wrapper's
+    launch helper raises; nothing is counted."""
+    t = torch.ones(4, 1, device=dev)
+    out = torch.empty(4, dtype=torch.int32, device=dev)
+    before = ops.LAUNCHES["kld_greedy_picks"]
+    with pytest.raises(RuntimeError):
+        ops._launch("kld_greedy_picks", "kld_greedy_picks", t.device, t.data_ptr(),
+                    out.data_ptr(), t.data_ptr(), 4, 0, 2)
+    assert ops.LAUNCHES["kld_greedy_picks"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,c", [(16, 10), (1, 47), (300, 47), (4096, 47), (64, 1100)])
 def test_kld_score_kernel(dev, k, c):
     """Within 1e-6 of the plain scores; a zero mediator against a zero row
     scores exactly 0."""
@@ -165,6 +267,18 @@ def test_loop_with_kld_score_equals_greedy_kernel(dev, k, gamma):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k,c", [(16_385, 47), (512, 1100)])
+def test_loop_equals_greedy_kernel_at_large_k_and_c(dev, k, c):
+    """Past what one CTA's shared memory holds (K > 16,384, C > 1,024):
+    the per-step loop (one kld_score launch per pick, the same scorer)
+    takes exactly the cluster kernel's picks on integer histograms."""
+    counts = np.random.default_rng(k + c).integers(0, 200, (k, c))
+    loop = scheduling.reschedule(counts, 4, impl="loop", device=dev)
+    batched = scheduling.reschedule(counts, 4, impl="batched", device=dev)
+    assert [m.clients for m in loop] == [m.clients for m in batched]
+
+
+@pytest.mark.cuda
 def test_affine_warp_kernel(dev):
     g = torch.Generator(device=dev).manual_seed(2)
     imgs = torch.randn(64, 28, 28, 3, generator=g, device=dev)
@@ -172,6 +286,43 @@ def test_affine_warp_kernel(dev):
     trans = 3 * torch.randn(64, 2, generator=g, device=dev)
     torch.testing.assert_close(ops.affine_warp(imgs, mats, trans),
                                ref.affine_warp(imgs, mats, trans), rtol=0, atol=1e-5)
+
+
+# (B, H, W, C, stages): H != W at C in {1, 3, 4}, empty and single
+# batches, a batch one past the EMNIST round's; stages 2 = the staged
+# path, 0 = the direct path (an image over 48 KB, or one whose bytes are
+# not a multiple of 16)
+WARP_CARD_CASES = [(7361, 20, 36, 1, 2), (64, 20, 36, 3, 2), (64, 36, 20, 4, 2),
+                   (0, 20, 36, 3, 2), (1, 20, 36, 3, 2), (7361, 28, 28, 1, 2),
+                   (5, 96, 160, 1, 0), (3, 100, 140, 3, 0), (33, 5, 7, 1, 0),
+                   (17, 5, 7, 3, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,stages", WARP_CARD_CASES)
+def test_affine_warp_kernel_every_shape(dev, b, h, w, c, stages):
+    g = torch.Generator(device=dev).manual_seed(b + h + c)
+    imgs = torch.randn(b, h, w, c, generator=g, device=dev)
+    mats = torch.randn(b, 2, 2, generator=g, device=dev)
+    trans = 3 * torch.randn(b, 2, generator=g, device=dev)
+    out = ops.affine_warp(imgs, mats, trans)
+    torch.testing.assert_close(out, ref.affine_warp(imgs, mats, trans), rtol=0, atol=1e-5)
+    assert ops.affine_warp_stages(imgs, out) == stages
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,c", [(20, 36, 3), (28, 28, 1), (100, 140, 3)])
+def test_affine_warp_kernel_all_taps_outside(dev, h, w, c):
+    """Maps that put every tap of every pixel outside the image: zeros."""
+    b = 9
+    imgs = torch.randn(b, h, w, c, device=dev)
+    mats = torch.eye(2, device=dev).repeat(b, 1, 1)
+    trans = torch.tensor([[1e4, 0.0], [0.0, -1e4], [float(h), 0.0], [-h - 1.0, 0.0],
+                          [0.0, float(w)], [0.0, -w - 1.0], [1e9, 1e9], [-2.0 * h, 3.0 * w],
+                          [h + 0.5, -w - 0.5]], device=dev)
+    out = ops.affine_warp(imgs, mats, trans)
+    torch.testing.assert_close(out, ref.affine_warp(imgs, mats, trans), rtol=0, atol=1e-5)
+    assert not bool(out.any())
 
 
 @pytest.mark.cuda

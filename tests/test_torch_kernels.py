@@ -86,18 +86,28 @@ _jax_warp = jax.jit(jref.affine_warp)
 _jax_warp_params = jax.jit(lambda key: warp_params(key, 3))
 
 
-@pytest.mark.parametrize("case", range(4))
+# (H, W) of the rectangular cases: wide, tall, and a width no tile divides
+RECT_SIZES = [(20, 36), (36, 20), (7, 13)]
+
+
+@pytest.mark.parametrize("case", range(6))
 def test_affine_warp_matches_map_coordinates(case):
-    """Ten seeded batches per case (40 in all), including far out-of-bounds
-    maps.  atol 5e-5: the four-tap arithmetic and map_coordinates round
-    the source coordinate in a different order."""
+    """Ten seeded batches per case (60 in all), including far out-of-bounds
+    maps; cases 0-3 square images, 4-5 rectangular ones (H != W).  atol
+    5e-5: the four-tap arithmetic and map_coordinates round the source
+    coordinate in a different order."""
     worst = 0.0
     for j in range(10):
         seed = case * 10 + j
         rng = np.random.default_rng(seed)
-        b, hw, c = 3, [8, 16, 28][seed % 3], [1, 3][seed % 2]
+        if case < 4:
+            hw = [8, 16, 28][seed % 3]
+            h, w = hw, hw
+        else:
+            h, w = RECT_SIZES[seed % 3]
+        b, c = 3, [1, 3][seed % 2]
         scale = 0.5 + 2.0 * rng.random()
-        imgs = rng.normal(size=(b, hw, hw, c)).astype(np.float32)
+        imgs = rng.normal(size=(b, h, w, c)).astype(np.float32)
         mats, trans = _jax_warp_params(jax.random.PRNGKey(seed))
         mats = np.asarray(mats) * scale
         trans = np.asarray(trans) * scale
@@ -219,6 +229,17 @@ def test_greedy_random_cases_match_strictly():
         expect = jsched.reschedule(counts, 4, impl="loop")
         got = scheduling.reschedule(counts, 4, impl="batched", device="cpu")
         assert [m.clients for m in got] == [m.clients for m in expect]
+
+
+@pytest.mark.parametrize("gamma", [1, 4, 9])
+def test_greedy_picks_above_a_thousand_classes_match_reference_loop(gamma):
+    """C = 1,100 classes, K = 8 clients: the wrapper's pass equals the
+    reference's numpy loop exactly; gamma 9 > K never closes a mediator
+    early."""
+    counts = np.random.default_rng(gamma).integers(0, 30, (K, 1100))
+    expect = jsched.reschedule(counts, gamma, impl="loop")
+    picks = ops.kld_greedy_picks(torch.as_tensor(counts, dtype=torch.float32), gamma)
+    assert picks.tolist() == [c for m in expect for c in m.clients]
 
 
 def test_all_tied_picks_are_in_client_order():
