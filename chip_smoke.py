@@ -14,7 +14,9 @@ Phases, each fatal on failure:
    least time the card could take (H100 SXM peaks), and the device kernels
    per call (Eq. 6 and the warp must be one); the warp also at H != W, the
    greedy pass also past what one CTA's shared memory holds (K = 16,385;
-   C = 1,100), with its cluster launch plan;
+   C = 1,100), with its cluster launch plan, and the scoring kernels past
+   their former class limits (``kld_score`` at C = 60,000, the matrix at
+   C = 2,000);
 4. agreement: small Astraea runs on the card against the same runs on the
    CPU (plain versions), same params and draws: EMNIST (8 classes, 16 px)
    and a reduced CINIC (16 px, width 8), 2 rounds each;
@@ -76,7 +78,8 @@ sys.path.insert(0, str(ROOT / "src"))
 # kernel-times script
 from repro_torch.examples.kernel_times import (BF16_FLOPS_PER_S,  # noqa: E402
                                                FP32_FLOPS_PER_S, bound,
-                                               greedy_bound)
+                                               greedy_bound, score_bound,
+                                               ssd_bound, ssd_inputs)
 
 FED_KW = dict(num_clients=64, total_samples=6400, test_samples=2350,
               sizes="instagram", global_dist="letterfreq", local="random",
@@ -195,13 +198,6 @@ def check_greedy(dev, counts_np, gamma, *, loop_exact=False):
     return row
 
 
-def _score_bound(m, k, c):
-    # each count read once, each score written once; ~8 f32 operations per
-    # class and pair (merge, total, divide, clamp, log, subtract, multiply,
-    # accumulate), the greedy row's rule
-    return bound((m + k) * c * 4 + m * k * 4, 8.0 * m * k * c)
-
-
 def check_score(dev, med, cand):
     """``kld_score`` on ``med (C,)``, ``cand (K, C)`` against its plain
     version: within 1e-6 absolute (sums in another order)."""
@@ -213,7 +209,7 @@ def check_score(dev, med, cand):
     if not err <= 1e-6:
         raise AssertionError(f"kld_score K={cand.shape[0]}: err {err} > 1e-6")
     k, c = cand.shape
-    b_ms, by = _score_bound(1, k, c)
+    b_ms, by = score_bound(1, k, c)
     row = timed({"shape": f"K={k} C={c}", "max_abs_err": err, "tol": 1e-6,
                  "bound_ms": b_ms, "bound_by": by},
                 ms=(lambda: ops.kld_score(med, cand), 50.0),
@@ -236,7 +232,7 @@ def check_score_matrix(dev, meds, cand):
     if not torch.equal(out[-1], ops.kld_score(meds[-1].contiguous(), cand)):
         raise AssertionError("kld_score_matrix row differs from kld_score's bits")
     (m, c), k = meds.shape, cand.shape[0]
-    b_ms, by = _score_bound(m, k, c)
+    b_ms, by = score_bound(m, k, c)
     row = timed({"shape": f"M={m} K={k} C={c}", "max_abs_err": err, "tol": 1e-6,
                  "bound_ms": b_ms, "bound_by": by},
                 ms=(lambda: ops.kld_score_matrix(meds, cand), 50.0),
@@ -316,11 +312,7 @@ def check_flash(dev, gen, *, b, sq, skv, h, kv, d, dtype, window, q_offset=0,
 
 def check_ssd(dev, gen, *, b, nc, L, h, p, n, dtype):
     from repro_torch.kernels import ops, ref
-    x = torch.randn(b, nc, L, h, p, generator=gen, device=dev).to(dtype)
-    dt = F.softplus(torch.randn(b, nc, L, h, generator=gen, device=dev) - 1.0)
-    A = -torch.exp(torch.randn(h, generator=gen, device=dev))
-    B = torch.randn(b, nc, L, n, generator=gen, device=dev).to(dtype)
-    C = torch.randn(b, nc, L, n, generator=gen, device=dev).to(dtype)
+    x, dt, A, B, C = ssd_inputs(b, nc, L, h, p, n, dtype, gen, dev)
     got, want = ops.ssd_chunk(x, dt, A, B, C), ref.ssd_chunk(x, dt, A, B, C)
     errs = []
     for i, (o, w) in enumerate(zip(got, want)):
@@ -332,15 +324,7 @@ def check_ssd(dev, gen, *, b, nc, L, h, p, n, dtype):
         if not err <= tol:
             raise AssertionError(f"ssd_chunk output {i} {dtype}: err {err} > {tol}")
         errs.append(err)
-    tiles, tri = b * nc * h, L * (L + 1) // 2
-    # C.B over n, y_diag over p, the decay exp, on the lower triangle; the
-    # outgoing state; w and the chunk cumsum
-    flops = tiles * (tri * (2 * n + 2 * p + 2) + 2 * L * n * p + 3 * L * n + 2 * L)
-    esize = x.element_size()
-    nbytes = (esize * (2 * x.numel() + B.numel() + C.numel()) + 4 * (dt.numel() + h)
-              + 4 * (got[1].numel() + got[2].numel()))
-    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
-    b_ms, by = bound(nbytes, flops, peak)
+    b_ms, by = ssd_bound(b, nc, L, h, p, n, dtype)
     row = timed({"shape": f"b={b} nc={nc} L={L} h={h} p={p} n={n} {_dname(dtype)}",
                  "max_abs_err": max(errs), "errs_y_S_g": errs,
                  "bound_ms": b_ms, "bound_by": by},
@@ -749,6 +733,13 @@ def main() -> int:
     for m, k in ((16, 512), (256, 4096)):
         checks["kld_score_matrix"].append(check_score_matrix(
             dev, rng.random((m, 47)) * 100, rng.random((k, 47)) * 50))
+    # past the old class limits (12,288 one mediator, 1,024 the matrix):
+    # the mediator read from global memory, the matrix tile too at C > 1,536
+    wide = np.random.default_rng(1)
+    checks["kld_score"].append(check_score(
+        dev, wide.random(60_000) * 100, wide.random((16, 60_000)) * 50))
+    checks["kld_score_matrix"].append(check_score_matrix(
+        dev, wide.random((16, 2_000)) * 100, wide.random((512, 2_000)) * 50))
     checks["affine_warp"].append(check_warp(dev, CLIENTS * pad, 28, 28, 1, gen))
     checks["affine_warp"].append(check_warp(dev, 4096, 32, 32, 3, gen))
     checks["affine_warp"].append(check_warp(dev, CLIENTS * pad, 20, 36, 3, gen))

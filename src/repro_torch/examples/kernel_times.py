@@ -1,7 +1,8 @@
-"""Time the port's Eq. 6, bf16 flash-attention, Alg. 2 warp and Alg. 3
-greedy-pass wrappers on the card, at the main paths' shapes (and the zoo's
-other head dims), for the ``repro_torch`` of any source tree (to compare
-two commits in one run):
+"""Time the port's Eq. 6, bf16 flash-attention, Alg. 2 warp, Alg. 3
+greedy-pass, Alg. 3 step-scorer (``kld_score``) and Mamba-2 SSD-block
+wrappers on the card, at the main paths' shapes (and the zoo's other head
+dims and SSD widths), for the ``repro_torch`` of any source tree (to
+compare two commits in one run):
 
   python3 src/repro_torch/examples/kernel_times.py [--src TREE/src] [--label NAME] [--out FILE]
   python3 src/repro_torch/examples/kernel_times.py --profiler-sessions 100
@@ -14,7 +15,9 @@ per call, the device kernels per call and the largest error against the
 plain version (for the greedy pass: 0 where the picks are equal, else the
 score gap at the first divergence, with a digest of the picks to compare
 two trees' passes, and the least time the card could take); the warp
-rows add ``F.grid_sample``'s event ms on the same inputs.
+rows add ``F.grid_sample``'s event ms on the same inputs; the greedy,
+scoring and SSD rows give the least time the card could take.  A shape
+a tree's wrapper refuses gets a row with its error and no times.
 ``chip_smoke.py`` uses the timing and bound helpers below.
 ``--profiler-sessions N`` instead counts the device kernels the profiler
 records in N sessions of one ``fedavg_agg`` call each (the one-kernel
@@ -60,6 +63,43 @@ def greedy_bound(k: int, c: int, gamma: int) -> tuple[float, str]:
     return bound(k * c * 4 + k * 4, 8.0 * scorings * c)
 
 
+def score_bound(m: int, k: int, c: int) -> tuple[float, str]:
+    """``kld_score`` (m = 1) and ``kld_score_matrix``: each count read once,
+    each score written once; ~8 f32 operations per class and pair (merge,
+    total, divide, clamp, log, subtract, multiply, accumulate), the greedy
+    pass's rule."""
+    return bound((m + k) * c * 4 + m * k * 4, 8.0 * m * k * c)
+
+
+def ssd_bound(b: int, nc: int, L: int, h: int, p: int, n: int,
+              dtype: torch.dtype) -> tuple[float, str]:
+    """The SSD block: x read and y written in x's dtype, B and C read in
+    it, dt, A, S and g in f32; C.B over n on the lower triangle once per
+    (batch, chunk), as B and C have no head axis; per head y_diag over p
+    and the decay exp on the lower triangle, the outgoing state, w and the
+    cumsum; at the dtype's peak."""
+    esize = torch.finfo(dtype).bits // 8
+    tiles, tri = b * nc * h, L * (L + 1) // 2
+    flops = (b * nc * tri * 2 * n
+             + tiles * (tri * (2 * p + 2) + 2 * L * n * p + 3 * L * n + 2 * L))
+    x_elems, bc_elems = b * nc * L * h * p, b * nc * L * n
+    nbytes = (esize * (2 * x_elems + 2 * bc_elems) + 4 * (b * nc * L * h + h)
+              + 4 * (b * nc * h * n * p + b * nc * h))
+    return bound(nbytes, flops, BF16_FLOPS_PER_S if dtype == torch.bfloat16
+                 else FP32_FLOPS_PER_S)
+
+
+def ssd_inputs(b, nc, L, h, p, n, dtype, gen, dev):
+    """Random SSD inputs at Mamba-2's scales: softplus steps, A = -exp."""
+    import torch.nn.functional as F
+    x = torch.randn(b, nc, L, h, p, generator=gen, device=dev).to(dtype)
+    dt = F.softplus(torch.randn(b, nc, L, h, generator=gen, device=dev) - 1.0)
+    A = -torch.exp(torch.randn(h, generator=gen, device=dev))
+    B = torch.randn(b, nc, L, n, generator=gen, device=dev).to(dtype)
+    C = torch.randn(b, nc, L, n, generator=gen, device=dev).to(dtype)
+    return x, dt, A, B, C
+
+
 def time_ms(fn, min_ms: float = 50.0, max_reps: int = 4096) -> float:
     """Mean device time of ``fn`` over enough back-to-back calls to span
     ``min_ms`` (CUDA events), after synchronized warm-up calls spanning 20
@@ -89,18 +129,23 @@ def time_ms(fn, min_ms: float = 50.0, max_reps: int = 4096) -> float:
 def device_profile(fn, event_ms: float) -> tuple[float | None, float]:
     """Mean device ms per call of the kernels ``fn`` launches, summed, and
     the mean number of device kernels per call, from ``torch.profiler``
-    (CUPTI): the kernel work without the host's dispatch cost.  The ms is
-    None if the profiler records no device time."""
+    (CUPTI): the kernel work without the host's dispatch cost.  A window
+    that records no device kernel at all (the profiler sometimes drops a
+    whole window, though ``fn`` launched) is profiled again, up to three
+    in all; the ms is None if none records device time."""
     from torch.profiler import ProfilerActivity, profile
     calls = max(1, min(20, int(200.0 / max(event_ms, 1e-3))))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(3):
         torch.cuda.synchronize()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
     total_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
     kernels = sum(e.count for e in events) / calls
     return (total_us / calls / 1e3 if total_us > 0 else None), kernels
@@ -120,6 +165,17 @@ WARP_SHAPES = [(7360, 28, 28, 1), (4096, 32, 32, 3), (7360, 20, 36, 3)]
 # (gamma 1: no step scores, so its time per step is the pass's
 # synchronization floor)
 GREEDY_SHAPES = [(16, 47, 4), (1024, 47, 4), (4096, 47, 4), (4096, 47, 1)]
+# (K, C) of the per-step scorer: the CINIC cohort's width, Path A's K at
+# its first steps, its largest K, a large K, the widest C held in
+# registers, C = 1,100 (the greedy pass's wide row), 2,000, and many
+# classes (the error rows show where a sum's rounding drifts with C)
+SCORE_SHAPES = [(16, 10), (512, 47), (1024, 47), (4096, 47), (512, 256), (512, 1_100),
+                (512, 2_000), (16, 60_000)]
+# (b, nc, L, h, p, n, dtype) of the SSD block: the Hymba prefill layer in
+# f32 and bf16, and mamba2-370m's block (32 heads of 64, state 128, chunk
+# 64: src/repro/configs/mamba2_370m.py) over one 2,048-token sequence
+SSD_SHAPES = [(4, 32, 64, 25, 64, 16, torch.float32), (4, 32, 64, 25, 64, 16, torch.bfloat16),
+              (1, 32, 64, 32, 64, 128, torch.float32)]
 
 
 def warp_inputs(b, h, w, c, gen, dev):
@@ -203,7 +259,45 @@ def measure() -> list[dict]:
                      "max_abs_err": 0.0 if div is None else abs(div["score_a"] - div["score_b"]),
                      "first_divergence_from_plain": div, "us_per_step": 1e3 * ms / k,
                      "picks_sha256": hashlib.sha256(kp.astype(np.int32).tobytes()).hexdigest()})
+    for k, c in SCORE_SHAPES:
+        med = torch.as_tensor(rng.random(c) * 100, dtype=torch.float32, device=dev)
+        cand = torch.as_tensor(rng.random((k, c)) * 50, dtype=torch.float32, device=dev)
+        b_ms, by = score_bound(1, k, c)
+        row = {"kernel": "kld_score", "shape": f"K={k} C={c}", "bound_ms": b_ms,
+               "bound_by": by}
+        if hasattr(ops, "kld_score_plan"):          # absent in older trees
+            row["plan"] = ops.kld_score_plan(k, c)
+        rows.append(_timed_row(row, lambda: ops.kld_score(med, cand),
+                               lambda: ref.kld_score(med, cand)))
+    for b, nc, L, h, p, n, dtype in SSD_SHAPES:
+        args = ssd_inputs(b, nc, L, h, p, n, dtype, gen, dev)
+        b_ms, by = ssd_bound(b, nc, L, h, p, n, dtype)
+        row = {"kernel": "ssd_chunk", "shape": f"b={b} nc={nc} L={L} h={h} p={p} n={n} "
+                                               f"{str(dtype)[6:]}",
+               "bound_ms": b_ms, "bound_by": by}
+        rows.append(_timed_row(row, lambda: ops.ssd_chunk(*args), lambda: ref.ssd_chunk(*args)))
     return rows
+
+
+def _timed_row(row: dict, call, plain) -> dict:
+    """``row`` with the call's largest error against ``plain`` (each output's
+    absolute error, and over its scale), event and device ms, kernels per
+    call; or the error a wrapper raised for a shape it refuses (a
+    ValueError; a failed build or launch stops the run)."""
+    try:
+        got = call()
+    except ValueError as e:
+        return {**row, "refused": str(e), "ms": None, "device_ms": None,
+                "kernels_per_call": 0, "max_abs_err": float("nan")}
+    want = plain()
+    got, want = (got,) if torch.is_tensor(got) else got, (want,) if torch.is_tensor(want) else want
+    errs = [float((o.double() - w.double()).abs().max()) for o, w in zip(got, want)]
+    scales = [max(float(w.double().abs().max()), 1.0) for w in want]
+    row["max_abs_err"] = max(errs)
+    row["err_over_scale"] = max(e / s for e, s in zip(errs, scales))
+    row["ms"] = time_ms(call)
+    row["device_ms"], row["kernels_per_call"] = device_profile(call, row["ms"])
+    return row
 
 
 def profiler_sessions(sessions: int) -> dict[int, dict[int, int]]:
@@ -249,10 +343,18 @@ def main() -> int:
         return 0
     rows = measure()
     for r in rows:
+        if "refused" in r:
+            print(f"[{args.label}] {r['kernel']:16s} {r['shape']:36s} refused: {r['refused']}",
+                  flush=True)
+            continue
         extra = (f", grid_sample {r['grid_sample_ms']:.4f} ms "
                  f"(device {r['grid_sample_device_ms']})" if "grid_sample_ms" in r else "")
         if "bound_ms" in r:
             extra += f", bound {r['bound_ms']:.6f} ms ({r['bound_by']})"
+            if r["device_ms"]:
+                extra += f", {100 * r['bound_ms'] / r['device_ms']:.1f} % of it by device time"
+        if "plan" in r:
+            extra += f", plan {r['plan']}"
         print(f"[{args.label}] {r['kernel']:16s} {r['shape']:36s} event {r['ms']:.4f} ms "
               f"device {r['device_ms']} ms, {r['kernels_per_call']:g} kernels/call, "
               f"err {r['max_abs_err']:.3e}{extra}", flush=True)

@@ -129,6 +129,11 @@ def library() -> ctypes.CDLL:
     lib.kld_greedy_plan.restype = ctypes.c_int
     lib.affine_warp_stages.argtypes = [_P, _P, _I, _I, _I]
     lib.affine_warp_stages.restype = ctypes.c_int
+    lib.kld_score_plan.argtypes = [_I, _I] + [ctypes.POINTER(_I)] * 5
+    lib.kld_score_plan.restype = ctypes.c_int
+    lib.ssd_chunk_plan.argtypes = [_I] * 5 + [ctypes.POINTER(_I)] * 3 \
+        + [ctypes.POINTER(_I64)]
+    lib.ssd_chunk_plan.restype = ctypes.c_int
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -23,11 +23,7 @@ LAUNCHES: dict[str, int] = {"fedavg_agg": 0, "kld_greedy_picks": 0,
                             "affine_warp": 0, "flash_attention": 0,
                             "ssd_chunk": 0}
 
-# classes the scoring kernels take (one mediator row, or a matrix tile's 8,
-# in 48 KB of shared memory) and mediators the matrix grid's y axis holds
-# (65,535 x 8)
-SCORE_MAX_C = 12_288
-MATRIX_MAX_C = 1_024
+# mediators the matrix grid's y axis holds (65,535 x 8)
 SCORE_MAX_M = 524_280
 
 # (device index, K, C) -> floats of global scratch the greedy pass's plan
@@ -41,8 +37,8 @@ FLASH_HEAD_DIMS = (64, 80, 128)
 # mediator rows Eq. 6 takes (its CTAs keep the normalized weights in 48 KB
 # of shared memory)
 FEDAVG_MAX_M = 12_288
-# a block's dynamic shared memory on Hopper (the SSD block keeps B, C, w,
-# x, the (L, L) decay matrix and two (L,) vectors there, fp32)
+# a block's dynamic shared memory on Hopper (the SSD block keeps B, C, x,
+# the (L, L) decay matrix beside W, and (L,) vectors there, fp32)
 MAX_SMEM_BYTES = 232_448
 
 
@@ -191,15 +187,13 @@ def _score_inputs(meds: torch.Tensor, cand: torch.Tensor, med_dim: int) -> None:
 def kld_score(mediator_counts: torch.Tensor,
               client_counts: torch.Tensor) -> torch.Tensor:
     """Alg. 3 scores of one open mediator: ``(C,)`` and ``(K, C)`` float32
-    -> ``(K,)`` float32, ``D_KL(normalize(med + c_k) || U)``.  The kernel
-    scores with the greedy pass's device function, so its bits equal
-    that pass's scores."""
+    -> ``(K,)`` float32, ``D_KL(normalize(med + c_k) || U)``, any K and
+    C.  The kernel scores with the greedy pass's device function, so its
+    bits equal that pass's scores."""
     _score_inputs(mediator_counts, client_counts, 1)
     if not _on_cuda(mediator_counts, client_counts):
         return ref.kld_score(mediator_counts, client_counts)
     k, c = client_counts.shape
-    if c > SCORE_MAX_C:
-        raise ValueError(f"the scoring kernel takes C <= {SCORE_MAX_C}, got C={c}")
     out = torch.empty(k, dtype=torch.float32, device=client_counts.device)
     if k == 0:
         return out
@@ -209,18 +203,30 @@ def kld_score(mediator_counts: torch.Tensor,
     return out
 
 
+def kld_score_plan(k: int, c: int) -> dict:
+    """The launch a ``(k, c)`` ``kld_score`` call makes: lanes per
+    candidate row, classes each lane holds in registers (0: the row is
+    streamed twice), threads per CTA, CTAs, and whether the mediator is
+    staged in shared memory.  No launch."""
+    import ctypes
+    out = [ctypes.c_int() for _ in range(5)]
+    build.check(build.library().kld_score_plan(k, c, *map(ctypes.byref, out)),
+                "kld_score_plan")
+    return dict(zip(("lanes", "rounds", "threads", "ctas", "med_in_smem"),
+                    (v.value for v in out)))
+
+
 def kld_score_matrix(mediator_counts: torch.Tensor,
                      client_counts: torch.Tensor) -> torch.Tensor:
     """Alg. 3 scores of every (mediator, candidate) pair: ``(M, C)`` and
-    ``(K, C)`` float32 -> ``(M, K)`` float32 in one launch."""
+    ``(K, C)`` float32 -> ``(M, K)`` float32 in one launch, any C."""
     _score_inputs(mediator_counts, client_counts, 2)
     if not _on_cuda(mediator_counts, client_counts):
         return ref.kld_score_matrix(mediator_counts, client_counts)
     m, c = mediator_counts.shape
     k = client_counts.shape[0]
-    if c > MATRIX_MAX_C or m > SCORE_MAX_M:
-        raise ValueError(f"the scoring kernel takes C <= {MATRIX_MAX_C} and "
-                         f"M <= {SCORE_MAX_M}, got M={m}, C={c}")
+    if m > SCORE_MAX_M:
+        raise ValueError(f"the scoring kernel takes M <= {SCORE_MAX_M}, got M={m}")
     out = torch.empty(m, k, dtype=torch.float32, device=client_counts.device)
     if m == 0 or k == 0:
         return out
@@ -300,8 +306,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def ssd_chunk_smem_bytes(L: int, p: int, n: int) -> int:
-    """Dynamic shared memory of one SSD block (``csrc/ssd_chunk.cu``)."""
-    return 4 * (3 * L * n + L * (L + 1) + L * p + 2 * L)
+    """Dynamic shared memory of one SSD CTA in the kernel's least layout
+    (``csrc/ssd_chunk.cu`` ``make_layout`` with one fp32 x stage and C B^T
+    recomputed per head; L and n rounded up to 8, p to 4): B, C transposed,
+    the (L, L + n) block of the decay matrix and W, x, cum and dt.  A shape
+    runs when it fits; ``ssd_chunk_plan`` gives the layout a call takes."""
+    lp, np8, pp = -(-L // 8) * 8, -(-n // 8) * 8, -(-p // 4) * 4
+    return 4 * (3 * lp * np8 + lp * lp + lp * pp + 2 * lp)
+
+
+def ssd_chunk_plan(L: int, p: int, n: int, esize: int = 4, xvec: bool = True) -> dict:
+    """The layout an SSD call takes (``choose_layout``): the first that fits
+    of two x stages (the next head's x prefetched by cp.async, so 16-byte x
+    rows only, ``xvec``) with C B^T cached, two stages recomputing C B^T
+    per head, one stage cached, one stage recomputing; its bytes and
+    threads per CTA.  No launch."""
+    import ctypes
+    cache, stages, threads = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    nbytes = ctypes.c_int64()
+    build.check(build.library().ssd_chunk_plan(
+        L, p, n, esize, int(xvec), *map(ctypes.byref, (cache, stages, threads, nbytes))),
+        "ssd_chunk_plan")
+    return {"cache_cb": bool(cache.value), "stages": stages.value,
+            "smem_bytes": nbytes.value, "threads": threads.value}
 
 
 def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

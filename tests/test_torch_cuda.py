@@ -219,8 +219,16 @@ def test_kld_greedy_refused_launch_raises(dev):
     assert ops.LAUNCHES["kld_greedy_picks"] == before
 
 
+# (K, C): every lane width the host picks (C = 1, 2 -> 1 lane; 6 -> 2; 10
+# -> 4; 20 -> 8; 47, 64 -> 16; 200 -> 32 holding 8 classes a lane), rows
+# streamed from global memory (C = 1,100) and the mediator read from
+# global memory past 48 KB (C = 60,000)
+SCORE_CARD_CASES = [(16, 10), (1, 47), (300, 47), (4096, 47), (64, 1100), (16, 1),
+                    (33, 2), (40, 6), (300, 20), (300, 64), (130, 200), (16, 60_000)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,c", [(16, 10), (1, 47), (300, 47), (4096, 47), (64, 1100)])
+@pytest.mark.parametrize("k,c", SCORE_CARD_CASES)
 def test_kld_score_kernel(dev, k, c):
     """Within 1e-6 of the plain scores; a zero mediator against a zero row
     scores exactly 0."""
@@ -239,7 +247,24 @@ def test_kld_score_kernel(dev, k, c):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,c", [(1, 1, 10), (16, 512, 47), (19, 77, 47), (256, 4096, 47)])
+def test_kld_score_plan(dev):
+    """Lanes per row from C (each lane <= 4 classes up to C = 128, 8 up to
+    256, then streamed); K = 512 at C = 47 runs as 64 CTAs, K = 1,024 as
+    128; the mediator is staged in shared memory only on the streamed path
+    while it fits in 48 KB."""
+    lanes = {c: ops.kld_score_plan(16, c)["lanes"] for c in (1, 2, 6, 10, 20, 47, 64, 65, 200)}
+    assert lanes == {1: 1, 2: 1, 6: 2, 10: 4, 20: 8, 47: 16, 64: 16, 65: 32, 200: 32}
+    assert ops.kld_score_plan(512, 47) == {"lanes": 16, "rounds": 4, "threads": 128,
+                                           "ctas": 64, "med_in_smem": 0}
+    assert ops.kld_score_plan(1024, 47)["ctas"] == 128
+    assert ops.kld_score_plan(16, 200)["rounds"] == 8
+    assert ops.kld_score_plan(16, 1100)["med_in_smem"] == 1
+    assert ops.kld_score_plan(16, 60_000)["med_in_smem"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,c", [(1, 1, 10), (16, 512, 47), (19, 77, 47), (256, 4096, 47),
+                                   (9, 40, 1100), (3, 5, 60_000)])
 def test_kld_score_matrix_kernel(dev, m, k, c):
     """Within 1e-6 of the plain scores, and every row bit for bit the
     single-mediator kernel's (one device function)."""
@@ -267,11 +292,13 @@ def test_loop_with_kld_score_equals_greedy_kernel(dev, k, gamma):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,c", [(16_385, 47), (512, 1100)])
+@pytest.mark.parametrize("k,c", [(16_385, 47), (512, 1100), (16, 10), (16, 60_000)])
 def test_loop_equals_greedy_kernel_at_large_k_and_c(dev, k, c):
-    """Past what one CTA's shared memory holds (K > 16,384, C > 1,024):
-    the per-step loop (one kld_score launch per pick, the same scorer)
-    takes exactly the cluster kernel's picks on integer histograms."""
+    """Past what one CTA's shared memory holds (K > 16,384, C > 1,024), at
+    C = 10 (4 lanes per row in kld_score) and at C = 60,000 (both kernels'
+    mediator in global memory): the per-step loop (one kld_score launch
+    per pick, the same scorer) takes exactly the cluster kernel's picks on
+    integer histograms."""
     counts = np.random.default_rng(k + c).integers(0, 200, (k, c))
     loop = scheduling.reschedule(counts, 4, impl="loop", device=dev)
     batched = scheduling.reschedule(counts, 4, impl="batched", device=dev)
@@ -392,29 +419,91 @@ def test_flash_attention_bf16_row_without_keys_is_zero(dev, d):
     assert bool(torch.isfinite(out.float()).all()) and out[:, 6:].abs().sum() > 0
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,nc,L,h,p,n", [(4, 32, 64, 25, 64, 16), (2, 3, 32, 3, 16, 8),
-                                          (1, 2, 64, 4, 64, 128), (1, 2, 16, 2, 8, 8)])
-def test_ssd_chunk_kernel(dev, dtype, b, nc, L, h, p, n):
-    """y_diag, S and g against the plain version: fp32 sums in another
-    order, 1e-5 of each output's scale (y_diag in bf16: one bf16 ulp)."""
+# (b, nc, L, h, p, n): the Hymba layer, small and mamba2-370m-like
+# blocks, head counts no CTA's range divides (25, 3), L in {16, 32, 64,
+# 128}, L, p, n not multiples of 8 (scalar loads and stores), p = 12 (fp32
+# rows in 16-byte pieces, bf16 rows not: x loaded at each head's start),
+# and in fp32 each of the four layouts: two x stages with C B^T cached
+# (Hymba), two stages recomputing it ((128, 128, 16)), one stage cached
+# ((128, 128, 32)) and one recomputing ((128, 128, 64))
+SSD_CARD_CASES = [(4, 32, 64, 25, 64, 16), (2, 3, 32, 3, 16, 8), (1, 2, 64, 4, 64, 128),
+                  (1, 2, 16, 2, 8, 8), (2, 3, 16, 25, 16, 16), (1, 5, 32, 3, 64, 16),
+                  (1, 3, 64, 25, 64, 16), (1, 2, 128, 3, 64, 16), (2, 2, 30, 3, 10, 6),
+                  (1, 3, 64, 5, 12, 16), (1, 2, 128, 3, 128, 16), (1, 2, 128, 3, 128, 32),
+                  (1, 2, 128, 2, 128, 64), (1, 2, 128, 2, 130, 64)]
+
+
+def _ssd_inputs(dev, dtype, b, nc, L, h, p, n, dt_scale=1.0):
     g = torch.Generator(device=dev).manual_seed(L * h + n)
     x = torch.randn(b, nc, L, h, p, generator=g, device=dev).to(dtype)
     dt = torch.nn.functional.softplus(torch.randn(b, nc, L, h, generator=g, device=dev))
     A = -torch.exp(0.3 * torch.randn(h, generator=g, device=dev))
     B = (0.5 * torch.randn(b, nc, L, n, generator=g, device=dev)).to(dtype)
     C = (0.5 * torch.randn(b, nc, L, n, generator=g, device=dev)).to(dtype)
-    before = ops.LAUNCHES["ssd_chunk"]
-    got = ops.ssd_chunk(x, dt, A, B, C)
-    torch.cuda.synchronize()
-    assert ops.LAUNCHES["ssd_chunk"] == before + 1
-    want = ref.ssd_chunk(x, dt, A, B, C)
+    return x, dt * dt_scale, A, B, C
+
+
+def _ssd_matches_plain(got, want, dtype):
     for i, (o, w) in enumerate(zip(got, want)):
         assert o.dtype == w.dtype and o.shape == w.shape
         err, scale = _err_scale(o, w)
         tol = 2 ** -7 if (i == 0 and dtype == torch.bfloat16) else 1e-5
         assert err <= tol * scale, (i, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,nc,L,h,p,n", SSD_CARD_CASES)
+def test_ssd_chunk_kernel(dev, dtype, b, nc, L, h, p, n):
+    """y_diag, S and g against the plain version: fp32 sums in another
+    order, 1e-5 of each output's scale (y_diag in bf16: one bf16 ulp)."""
+    x, dt, A, B, C = _ssd_inputs(dev, dtype, b, nc, L, h, p, n)
+    before = ops.LAUNCHES["ssd_chunk"]
+    got = ops.ssd_chunk(x, dt, A, B, C)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_chunk"] == before + 1
+    _ssd_matches_plain(got, ref.ssd_chunk(x, dt, A, B, C), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_kernel_steep_segments(dev, dtype):
+    """dt 400 times larger: exp(cum_i - cum_j) underflows below the
+    diagonal (segment sums far below -88) and would overflow above it;
+    every output is finite and within the plain version's tolerance."""
+    x, dt, A, B, C = _ssd_inputs(dev, dtype, 2, 3, 64, 5, 64, 16, dt_scale=400.0)
+    got = ops.ssd_chunk(x, dt, A, B, C)
+    assert all(bool(torch.isfinite(t.float()).all()) for t in got)
+    _ssd_matches_plain(got, ref.ssd_chunk(x, dt, A, B, C), dtype)
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_layout_matches_library(dev):
+    """The library's plan for every case above, both dtypes, 16-byte x rows
+    or not, fits in 227 KB; where it is the least layout (one x stage, C B^T
+    recomputed), its bytes are ``ops.ssd_chunk_smem_bytes`` (the wrapper's
+    shared-memory check); the four layouts are all picked; a shape the
+    wrapper refuses has no plan; Hymba's keeps C B^T and two x stages in
+    74,496 B with 160 threads in fp32 and 58,112 B in bf16, three CTAs to
+    an SM."""
+    seen = set()
+    for _, _, L, _, p, n in SSD_CARD_CASES:
+        for esize in (4, 2):
+            for xvec in (True, False):
+                plan = ops.ssd_chunk_plan(L, p, n, esize, xvec)
+                assert plan["smem_bytes"] <= ops.MAX_SMEM_BYTES, (L, p, n, esize, xvec)
+                if (plan["cache_cb"], plan["stages"]) == (False, 1):
+                    assert plan["smem_bytes"] == ops.ssd_chunk_smem_bytes(L, p, n)
+                seen.add((plan["cache_cb"], plan["stages"]))
+    assert seen == {(True, 2), (False, 2), (True, 1), (False, 1)}
+    assert ops.ssd_chunk_plan(128, 130, 64) == {
+        "cache_cb": False, "stages": 1, "smem_bytes": ops.ssd_chunk_smem_bytes(128, 130, 64),
+        "threads": 256}
+    with pytest.raises(RuntimeError):
+        ops.ssd_chunk_plan(128, 136, 60)
+    assert ops.ssd_chunk_plan(64, 64, 16) == {"cache_cb": True, "stages": 2,
+                                              "smem_bytes": 74_496, "threads": 160}
+    assert ops.ssd_chunk_plan(64, 64, 16, esize=2)["smem_bytes"] == 58_112
 
 
 @pytest.mark.cuda

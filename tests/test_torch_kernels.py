@@ -490,6 +490,15 @@ def test_ssd_chunk_decay_stays_finite_for_steep_segments():
 
 
 def test_ssd_chunk_wrapper_checks():
+    """Shapes, dtypes, and the shared-memory check: the kernel's least
+    layout (one fp32 x stage, C B^T recomputed per head) takes a little
+    less than the per-head kernel did for L and n that are multiples of 8
+    (the Hymba block 45,568 B against 45,824; (128, 128, 64) 230,400 B
+    against 230,912, just under 227 KB); a shape over 227 KB is
+    refused."""
+    assert ops.ssd_chunk_smem_bytes(64, 64, 16) == 45_568
+    assert ops.ssd_chunk_smem_bytes(128, 128, 64) == 230_400 <= ops.MAX_SMEM_BYTES
+    assert ops.ssd_chunk_smem_bytes(256, 8, 8) > ops.MAX_SMEM_BYTES
     x, dt, A, B, C = (torch.from_numpy(a) for a in _ssd_inputs(13))
     with pytest.raises(ValueError):
         ops.ssd_chunk(x, dt.double(), A, B, C)
@@ -501,3 +510,19 @@ def test_ssd_chunk_wrapper_checks():
         big = torch.zeros(1, 1, 256, 1, 8)
         ops.ssd_chunk(big, torch.zeros(1, 1, 256, 1), A[:1], torch.zeros(1, 1, 256, 8),
                       torch.zeros(1, 1, 256, 8))
+
+
+def test_ssd_chunk_padding_near_the_limit():
+    """p is padded to 4 only, so (L, p, n) = (128, 130, 64) fits in exactly
+    227 KB and runs; n is padded to 8, so (128, 136, 60), which the per-head
+    kernel took in 228,864 B, needs 234,496 B and is refused."""
+    assert ops.ssd_chunk_smem_bytes(128, 130, 64) == ops.MAX_SMEM_BYTES == 232_448
+    x, dt, A, B, C = (torch.from_numpy(a) for a in _ssd_inputs(14, b=1, nc=1, L=128, h=1,
+                                                                 p=130, n=64))
+    y, S, g = ops.ssd_chunk(x, dt, A, B, C)
+    assert y.shape == x.shape and S.shape == (1, 1, 1, 64, 130) and g.shape == (1, 1, 1)
+    assert ops.ssd_chunk_smem_bytes(128, 136, 60) == 234_496 > ops.MAX_SMEM_BYTES
+    x, dt, A, B, C = (torch.from_numpy(a) for a in _ssd_inputs(15, b=1, nc=1, L=128, h=1,
+                                                                 p=136, n=60))
+    with pytest.raises(ValueError):
+        ops.ssd_chunk(x, dt, A, B, C)

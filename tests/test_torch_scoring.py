@@ -37,6 +37,8 @@ SCORE_CASES = {
     "one_candidate": (_counts(3, 10), _counts(4, 1, 10)),
     "one_class": (_counts(5, 1), _counts(6, 7, 1)),
     "fractional": (_counts(7, 10) * np.float32(2.5), _counts(8, 16, 10) * np.float32(1.75)),
+    # one class past what the kernel once refused (C <= 12,288)
+    "many_classes": (_counts(9, 12_289, hi=200), _counts(10, 8, 12_289)),
 }
 
 
@@ -54,7 +56,8 @@ def test_kld_score_matches_reference(case):
         assert got[0] == 0.0            # p = 0 / eps = 0: every term masked
 
 
-@pytest.mark.parametrize("m,k,c", [(1, 1, 10), (1, 33, 47), (6, 1, 8), (16, 512, 47)])
+@pytest.mark.parametrize("m,k,c", [(1, 1, 10), (1, 33, 47), (6, 1, 8), (16, 512, 47),
+                                   (3, 5, 1100)])
 def test_kld_score_matrix_matches_reference(m, k, c):
     meds, cand = _counts(m, m, c, hi=200), _counts(k, k, c)
     meds[0] = 0.0
