@@ -35,23 +35,34 @@ Phases, each fatal on failure:
    before and read after; WAN ledger exactly 794.078 / 992.600 MiB; then
    one materialized-Alg. 2 Astraea round (its warp launches and extra
    storage);
-8. serving agreement: a reduced Hymba (GQA 4:2, f32 weights from one seed)
-   prefilled and decoded on the card against the same run on the CPU;
-9. serving path: ``repro_torch.launch.serve.serve`` on hymba-1.5b at full
-   width (1,393,625,120 parameters, bf16), batch 4, a 2,048-token prompt
-   and 16 new tokens, with the launch counts reset just before and read
-   just after: 32 flash-attention and 32 SSD launches in the prefill;
-   every logit must be finite.  Then one warm prefill and 4 decode steps
-   of the same model under ``torch.profiler``: device busy time, idle
-   share, flash attention's share of the prefill and the top kernels of
-   each.
+8. serving agreement: a reduced Hymba (GQA 4:2) and a reduced gemma at its
+   full head dim of 256 (f32 weights from one seed) prefilled and decoded
+   on the card against the same runs on the CPU;
+9. serving paths: ``repro_torch.launch.serve.serve`` at full width (bf16,
+   weights from seed 0), one model at a time, with the launch counts reset
+   just before each and read just after (``SERVE_RUNS``): hymba-1.5b
+   (1,393,625,120 parameters; 32 flash-attention and 32 SSD launches per
+   prefill) and gemma-2b (2,506,172,416; 18 flash launches at head dim
+   256), batch 4, a 2,048-token prompt and 16 new tokens; qwen3-4b
+   (4,022,468,096; 36 flash at 128), h2o-danube-1.8b (1,831,201,280; 24
+   flash at 80, window 4096) and mamba2-370m (368,338,432; 48 SSD at state
+   128), batch 1, a 512-token prompt and 4 new tokens.  No kernel launches
+   in decode; every logit must be finite.  Each model is built once; after
+   its run it serves one warm prefill and 4 decode steps under
+   ``torch.profiler``: device busy time, idle share, flash attention's and
+   SSD's share of the prefill and the top kernels of each.  Every kernel
+   signature (shape, dtype, mask) the run called and phase 3 did not hold
+   (``recorded_kernel_calls``) is then held against its plain version.
 
 Phase 3 also holds the flash-attention and SSD kernels against their plain
 versions at the serve shapes (bf16 and f32), with a no-window, a
-``q_offset`` and a GQA 1:1 attention row and bf16 rows at head dims 80
-and 128, and times
-``F.scaled_dot_product_attention`` with an explicit mask as attention's
-one-call yardstick (the port never calls it).
+``q_offset`` and a GQA 1:1 attention row, bf16 rows at head dims 80
+and 128, and gemma's layer (MQA 8:1, head dim 256) in bf16 and f32, and
+times ``F.scaled_dot_product_attention`` with an explicit mask as
+attention's one-call yardstick (the port never calls it).  A bf16
+attention row is held per element too: against the plain version in fp32
+on the same inputs, within 2^-8 (|exact| + sum p|v| / l), one bf16
+rounding of the output and of every probability weight.
 
 Prints the kernels' JSON summary, then as the last line
 ``{"ok": true, "device": {...}}``.  Full results go to
@@ -59,6 +70,7 @@ Prints the kernels' JSON summary, then as the last line
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -76,8 +88,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # the least time the card could take (H100 SXM peaks), shared with the
 # kernel-times script
-from repro_torch.examples.kernel_times import (BF16_FLOPS_PER_S,  # noqa: E402
-                                               FP32_FLOPS_PER_S, bound,
+from repro_torch.examples.kernel_times import (bound, flash_bound,  # noqa: E402
                                                greedy_bound, score_bound,
                                                ssd_bound, ssd_inputs)
 
@@ -271,6 +282,24 @@ def _dname(dtype):
     return str(dtype).split(".")[-1]
 
 
+# the kernel signatures phase 3 (and phase 9, for the serving paths' own)
+# has held against the plain versions: ("flash_attention", q shape, k shape,
+# dtype, causal, window, q_offset) and ("ssd_chunk", x shape, n, dtype)
+CHECKED: set[tuple] = set()
+
+
+def flash_key(q, k, causal, window, q_offset):
+    return ("flash_attention", tuple(q.shape), tuple(k.shape), q.dtype, causal, window,
+            q_offset)
+
+
+def ssd_key(x, B):
+    if B.dtype != x.dtype:
+        raise AssertionError(f"ssd_chunk called with x {x.dtype} and B {B.dtype}; the "
+                             f"check draws both in one dtype")
+    return ("ssd_chunk", tuple(x.shape), B.shape[-1], x.dtype)
+
+
 def check_flash(dev, gen, *, b, sq, skv, h, kv, d, dtype, window, q_offset=0,
                 causal=True):
     from repro_torch.kernels import ops, ref
@@ -287,11 +316,27 @@ def check_flash(dev, gen, *, b, sq, skv, h, kv, d, dtype, window, q_offset=0,
     if not err <= tol:
         raise AssertionError(f"flash_attention {tuple(q.shape)} {dtype} {kw}: "
                              f"err {err} > {tol}")
+    extra = {}
+    if dtype == torch.bfloat16:
+        # and per element, against the plain version in fp32 on the same
+        # bf16 inputs: one bf16 rounding of the output (2^-8 of |exact|) and
+        # one of every probability weight p (2^-9 of sum p|v| / l, doubled
+        # for the fp32 sums' order), so a late row that drops or misweights
+        # a 64-key tile fails where the scale's 2^-7 would not see it
+        qf, kf, vf = q.float(), k.float(), v.float()
+        exact = ref.flash_attention(qf, kf, vf, **kw)
+        bound = 2 ** -8 * (exact.abs() + ref.flash_attention(qf, kf, vf.abs(), **kw))
+        gap = (out.float() - exact).abs()
+        worst = float((gap / bound.clamp_min(1e-30)).max())
+        if not bool((gap <= bound).all()):
+            raise AssertionError(f"flash_attention {tuple(q.shape)} bf16 {kw}: an element "
+                                 f"is {worst:.3f} x its bound 2^-8 (|exact| + sum p|v| / l)")
+        extra = {"per_element_worst_over_bound": worst}
+        del qf, kf, vf, exact, bound, gap
+    CHECKED.add(flash_key(q, k, causal, window, q_offset))
     mask = ref.attention_mask(sq, skv, device=dev, **kw)
     pairs = int(mask.sum()) * b * h                  # visible (query, key) pairs
-    esize = q.element_size()
-    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
-    b_ms, by = bound(esize * (2 * q.numel() + k.numel() + v.numel()), 4.0 * d * pairs, peak)
+    b_ms, by = flash_bound(q, k, mask)
     # yardstick: SDPA in its (b, H, s, d) layout with the same boolean mask
     # and the KV heads repeated, prepared outside the timed call
     qt = q.transpose(1, 2).contiguous()
@@ -300,7 +345,7 @@ def check_flash(dev, gen, *, b, sq, skv, h, kv, d, dtype, window, q_offset=0,
     sdpa = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask).transpose(1, 2)
     row = timed({"shape": f"b={b} sq={sq} skv={skv} H={h} KV={kv} d={d} "
                           f"W={window} off={q_offset} {_dname(dtype)}",
-                 "max_abs_err": err, "tol": tol, "pairs": pairs,
+                 "max_abs_err": err, "tol": tol, **extra, "pairs": pairs,
                  "sdpa_err": float((sdpa.double() - plain.double()).abs().max()),
                  "bound_ms": b_ms, "bound_by": by},
                 ms=(lambda: ops.flash_attention(q, k, v, **kw), 50.0),
@@ -324,6 +369,7 @@ def check_ssd(dev, gen, *, b, nc, L, h, p, n, dtype):
         if not err <= tol:
             raise AssertionError(f"ssd_chunk output {i} {dtype}: err {err} > {tol}")
         errs.append(err)
+    CHECKED.add(ssd_key(x, B))
     b_ms, by = ssd_bound(b, nc, L, h, p, n, dtype)
     row = timed({"shape": f"b={b} nc={nc} L={L} h={h} p={p} n={n} {_dname(dtype)}",
                  "max_abs_err": max(errs), "errs_y_S_g": errs,
@@ -538,20 +584,18 @@ def materialized_round(fed, dev):
             "accuracy": m["accuracy"], "loss": m["loss"]}
 
 
-def serve_agreement(dev):
-    """Reduced Hymba with GQA 4:2 (``reduced`` alone gives 4:4), f32
-    weights from one seed: prefill of a 2W-token prompt (window mask and
-    ring wrap) and 8 teacher-forced decode steps on the card against the
-    CPU's plain versions.  Tolerance 2e-4 of the logit scale: fp32 sums in
-    other orders (cuBLAS, the kernels) amplified by the reference init's
-    large activations, as in tests/test_torch_serve.py."""
-    from repro_torch import configs
+def serve_agreement(dev, cfg):
+    """A reduced model, f32 weights from one seed: prefill of a prompt of 2W
+    (window mask and ring wrap; 128 without a window) and 8 teacher-forced
+    decode steps on the card against the CPU's plain versions.  Tolerance
+    2e-4 of the logit scale: fp32 sums in other orders (cuBLAS, the
+    kernels) amplified by the reference init's large activations, as in
+    tests/test_torch_serve.py."""
     from repro_torch.models import transformer as T
-    cfg = dataclasses.replace(configs.reduced(configs.get("hymba-1.5b")), n_kv_heads=2)
     cpu = T.init_model(cfg, torch.Generator().manual_seed(0))
     card = T.Transformer(cfg, device=dev)
     card.load_state_dict(cpu.state_dict())
-    s, steps = 2 * cfg.sliding_window, 8
+    s, steps = 2 * (cfg.sliding_window or 64), 8
     toks = torch.randint(0, cfg.vocab, (2, s + steps),
                          generator=torch.Generator().manual_seed(1))
     lc, cc = T.forward_prefill(cpu, {"tokens": toks[:, :s]}, pad_to=s + steps)
@@ -569,39 +613,107 @@ def serve_agreement(dev):
                                          "positions": torch.full((2,), pos, device=dev)}, cg)
     rel = max(e / sc for e, sc in zip(errs, scales))
     if not rel <= 2e-4:
-        raise AssertionError(f"serving card vs CPU: logits errors {errs} (scales {scales})")
+        raise AssertionError(f"serving {cfg.name} card vs CPU: logits errors {errs} "
+                             f"(scales {scales})")
     return {"logits_max_abs_err": errs, "logit_scale": scales, "max_rel_err": rel,
-            "tol_rel": 2e-4, "prompt": s, "decode_steps": steps}
+            "tol_rel": 2e-4, "prompt": s, "decode_steps": steps,
+            "head_dim": cfg.resolved_head_dim}
 
 
-def serve_path(dev):
-    """hymba-1.5b at full width through the serving entry point."""
+# the serving runs at full width: (arch, batch, prompt, new tokens,
+# parameters, flash and SSD launches per prefill); Hymba and gemma at
+# Hymba's traffic, the other three short, so the script stays well inside
+# its time limit
+SERVE_RUNS = (
+    ("hymba-1.5b", 4, 2048, 16, 1_393_625_120, 32, 32),
+    ("gemma-2b", 4, 2048, 16, 2_506_172_416, 18, 0),
+    ("qwen3-4b", 1, 512, 4, 4_022_468_096, 36, 0),
+    ("h2o-danube-1.8b", 1, 512, 4, 1_831_201_280, 24, 0),
+    ("mamba2-370m", 1, 512, 4, 368_338_432, 0, 48),
+)
+
+
+@contextlib.contextmanager
+def recorded_kernel_calls(seen: dict):
+    """While open, every ``ops.flash_attention`` and ``ops.ssd_chunk`` call
+    on the card adds its signature (``flash_key``/``ssd_key``) to ``seen``,
+    with the keyword arguments that rebuild it in ``check_flash`` or
+    ``check_ssd``.  The wrappers themselves run and count as always."""
+    from repro_torch.kernels import ops
+    flash, ssd = ops.flash_attention, ops.ssd_chunk
+
+    def flash_rec(q, k, v, *, causal=True, window=None, q_offset=0):
+        if q.is_cuda:
+            b, sq, h, d = q.shape
+            seen[flash_key(q, k, causal, window, q_offset)] = ("flash_attention", dict(
+                b=b, sq=sq, skv=k.shape[1], h=h, kv=k.shape[2], d=d, dtype=q.dtype,
+                causal=causal, window=window, q_offset=q_offset))
+        return flash(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+    def ssd_rec(x, dt, A, B, C):
+        if x.is_cuda:
+            b, nc, L, h, p = x.shape
+            seen[ssd_key(x, B)] = ("ssd_chunk", dict(b=b, nc=nc, L=L, h=h, p=p,
+                                                     n=B.shape[-1], dtype=x.dtype))
+        return ssd(x, dt, A, B, C)
+
+    ops.flash_attention, ops.ssd_chunk = flash_rec, ssd_rec
+    try:
+        yield seen
+    finally:
+        ops.flash_attention, ops.ssd_chunk = flash, ssd
+
+
+def serve_path(dev, arch, batch, prompt, tokens, params, flash, ssd):
+    """``arch`` at full width through the serving entry point, the launch
+    counts reset just before and read just after: ``flash`` and ``ssd``
+    launches in the prefill, none in decode, finite logits, ``(batch,
+    tokens)`` tokens.  The model is built once (weights from seed 0), served
+    and then profiled (``profile_serve``).  Returns the run's record and the
+    kernel signatures it called (``recorded_kernel_calls``)."""
     from repro_torch import configs
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve
-    cfg = configs.get("hymba-1.5b")
+    from repro_torch.models import transformer as T
+    cfg = configs.get(arch)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    model = T.init_model(cfg, gen, device=dev)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    torch.cuda.reset_peak_memory_stats(dev)
+    seen: dict = {}
     ops.reset_launches()
-    r = serve(cfg, batch=4, prompt_len=2048, tokens=16, device=dev,
-              generator=torch.Generator(device=dev).manual_seed(0))
+    with recorded_kernel_calls(seen):
+        r = serve(cfg, batch=batch, prompt_len=prompt, tokens=tokens, device=dev,
+                  generator=gen, model=model)
     launches = dict(ops.LAUNCHES)
-    pre = r["prefill_launches"]
-    if r["params"] != 1_393_625_120:
-        raise AssertionError(f"hymba-1.5b has {r['params']} params")
-    if pre["flash_attention"] != cfg.n_layers or pre["ssd_chunk"] != cfg.n_layers:
-        raise AssertionError(f"prefill launched {pre}; expected {cfg.n_layers} "
-                             f"flash_attention and {cfg.n_layers} ssd_chunk")
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    pre, dec = r["prefill_launches"], r["decode_launches"]
+    if r["params"] != params:
+        raise AssertionError(f"{arch} has {r['params']} params, expected {params}")
+    if (pre["flash_attention"], pre["ssd_chunk"]) != (flash, ssd) or \
+            dec["flash_attention"] or dec["ssd_chunk"]:
+        raise AssertionError(f"{arch}: prefill launched {pre}, decode {dec}; expected "
+                             f"{flash} flash_attention and {ssd} ssd_chunk in the prefill")
     if not r["logits_finite"]:
-        raise AssertionError("hymba-1.5b serve: non-finite logits")
-    if tuple(r["tokens"].shape) != (4, 16):
-        raise AssertionError(f"generated {tuple(r['tokens'].shape)} tokens")
+        raise AssertionError(f"{arch} serve: non-finite logits")
+    if tuple(r["tokens"].shape) != (batch, tokens):
+        raise AssertionError(f"{arch}: generated {tuple(r['tokens'].shape)} tokens")
     steps = r["decode_step_s"]
-    return {"prefill_s": r["prefill_s"], "decode_step_s": steps,
-            "decode_ms_per_token": 1e3 * sum(steps) / len(steps),
-            "prefill_launches": pre, "decode_launches": r["decode_launches"],
-            "launches": launches, "params": r["params"],
-            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-            "sample": r["tokens"][0].tolist()}
+    out = {"arch": arch, "batch": batch, "prompt": prompt, "tokens": tokens,
+           "init_s": init_s, "init_peak_mem_gb": init_peak,
+           "prefill_s": r["prefill_s"], "decode_step_s": steps,
+           "decode_ms_per_token": 1e3 * sum(steps) / len(steps),
+           "prefill_launches": pre, "decode_launches": dec,
+           "launches": launches, "params": r["params"], "peak_mem_gb": peak,
+           "sample": r["tokens"][0].tolist()}
+    del r
+    out["profile"] = profile_serve(dev, model, batch, prompt)
+    return out, seen
 
 
 def _device_busy_ms(prof) -> tuple[float, list[tuple[str, float, int]]]:
@@ -615,23 +727,22 @@ def _device_busy_ms(prof) -> tuple[float, list[tuple[str, float, int]]]:
     return sum(r[1] for r in rows), rows
 
 
-def profile_serve(dev, steps: int = 4):
-    """Where a full-width Hymba serve step spends its time: one warm
+def profile_serve(dev, model, batch, prompt, steps: int = 4):
+    """Where a full-width serve step of ``model`` spends its time: one warm
     prefill and ``steps`` decode steps under ``torch.profiler``, each
     against its host-clock wall time; device idle share = 1 - busy/wall."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch import configs
     from repro_torch.models import transformer as T
-    cfg = configs.get("hymba-1.5b")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    model = T.init_model(cfg, gen, device=dev)
-    toks = torch.randint(0, cfg.vocab, (4, 2048 + steps), generator=gen, device=dev)
-    T.forward_prefill(model, {"tokens": toks[:, :2048]}, pad_to=2048 + steps)   # warm-up
+    gen = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, model.cfg.vocab, (batch, prompt + steps), generator=gen,
+                         device=dev)
+    T.forward_prefill(model, {"tokens": toks[:, :prompt]}, pad_to=prompt + steps)  # warm-up
     out = {}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, cache = T.forward_prefill(model, {"tokens": toks[:, :2048]}, pad_to=2048 + steps)
+        _, cache = T.forward_prefill(model, {"tokens": toks[:, :prompt]},
+                                     pad_to=prompt + steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy, kernels = _device_busy_ms(prof)
@@ -646,8 +757,8 @@ def profile_serve(dev, steps: int = 4):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for i in range(steps):
-            pos = torch.full((4,), 2048 + i, dtype=torch.long, device=dev)
-            T.forward_decode(model, {"tokens": toks[:, 2048 + i:2049 + i],
+            pos = torch.full((batch,), prompt + i, dtype=torch.long, device=dev)
+            T.forward_decode(model, {"tokens": toks[:, prompt + i:prompt + i + 1],
                                      "positions": pos}, cache)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -759,6 +870,11 @@ def main() -> int:
                     dtype=torch.bfloat16, window=4096),
         check_flash(dev, gen, b=1, sq=2048, skv=2048, h=32, kv=8, d=128,
                     dtype=torch.bfloat16, window=None)]
+    # gemma-2b's prefill layer: 8 query heads over one KV head of 256, full
+    # causal, in bf16 (the tensor cores) and f32 (the CUDA cores)
+    gemma = dict(b=4, sq=2048, skv=2048, h=8, kv=1, d=256, window=None)
+    checks["flash_attention"] += [check_flash(dev, gen, **gemma, dtype=torch.bfloat16),
+                                  check_flash(dev, gen, **gemma, dtype=torch.float32)]
     lap("3 flash_attention")
     ssd = dict(b=4, nc=32, L=64, h=25, p=64, n=16)
     checks["ssd_chunk"] = [check_ssd(dev, gen, **ssd, dtype=torch.float32),
@@ -793,6 +909,10 @@ def main() -> int:
                 f"plain {fmt(r['plain_ms'])} ({fmt(r['plain_device_ms'])})  "
                 f"library {fmt(r['library_ms'])} ({fmt(r['library_device_ms'])})  "
                 f"bound {r['bound_ms']:.6f} ({r['bound_by']})")
+    for r in checks["flash_attention"]:
+        if "per_element_worst_over_bound" in r:
+            log(f"[kernel] flash_attention {r['shape']}: worst element "
+                f"{r['per_element_worst_over_bound']:.3f} of 2^-8 (|exact| + sum p|v| / l)")
     for r in checks["kld_greedy_picks"]:
         log(f"[kernel] kld_greedy_picks {r['shape']}: cluster {r['plan']}, "
             f"{r['us_per_step']:.3f} us per step")
@@ -849,41 +969,69 @@ def main() -> int:
 
     lap("7 Path B")
 
-    # ---- 8. serving: card vs CPU on a reduced Hymba
-    serve_agree = serve_agreement(dev)
-    log(f"[serve-agree] reduced hymba (GQA 4:2, f32), prompt "
-        f"{serve_agree['prompt']} + {serve_agree['decode_steps']} decode steps: "
-        f"logits max rel err {serve_agree['max_rel_err']:.3e} "
-        f"(tol {serve_agree['tol_rel']})")
+    # ---- 8. serving: card vs CPU on a reduced Hymba and a reduced gemma at
+    # its full head dim (``reduced`` sets 64)
+    from repro_torch import configs
+    serve_agree = {
+        "hymba": serve_agreement(dev, dataclasses.replace(
+            configs.reduced(configs.get("hymba-1.5b")), n_kv_heads=2)),
+        "gemma": serve_agreement(dev, dataclasses.replace(
+            configs.reduced(configs.get("gemma-2b")), head_dim=256))}
+    for name, a in serve_agree.items():
+        log(f"[serve-agree] reduced {name} (f32, head dim {a['head_dim']}), prompt "
+            f"{a['prompt']} + {a['decode_steps']} decode steps: logits max rel err "
+            f"{a['max_rel_err']:.3e} (tol {a['tol_rel']})")
 
     lap("8 serve agreement")
 
-    # ---- 9. the serving path at full width
-    served = serve_path(dev)
-    path_launches["serve"] = {k: served["launches"][k]
-                              for k in ("flash_attention", "ssd_chunk")}
-    log(f"[serve] hymba-1.5b {served['params']:,} params bf16, batch 4, prompt 2048, "
-        f"16 tokens: prefill {served['prefill_s']:.3f} s, decode "
-        f"{served['decode_ms_per_token']:.2f} ms/token, peak "
-        f"{served['peak_mem_gb']:.2f} GB")
-    log(f"[serve] prefill launches {served['prefill_launches']}; decode launches "
-        f"{served['decode_launches']}; all logits finite")
-    served["profile"] = prof = profile_serve(dev)
-    pf, dc = prof["prefill"], prof["decode"]
-    log(f"[serve-profile] prefill (warm, profiled): wall {pf['wall_ms']:.1f} ms, device "
-        f"busy {pf['device_busy_ms']:.1f} ms, idle {100 * pf['idle_share']:.1f} %, "
-        f"{pf['kernel_launches']} kernels; flash {pf['flash_device_ms']:.2f} ms "
-        f"({100 * pf['flash_share']:.1f} % of device time), SSD "
-        f"{pf['ssd_device_ms']:.2f} ms")
-    for name, ms, calls in pf["top_kernels"]:
-        log(f"[serve-profile]   prefill {ms:9.3f} ms {calls:5d}x {name[:90]}")
-    log(f"[serve-profile] decode (profiled): {dc['wall_ms_per_token']:.2f} ms/token wall, "
-        f"{dc['device_busy_ms_per_token']:.2f} ms device, idle "
-        f"{100 * dc['idle_share']:.1f} %, {dc['kernel_launches_per_token']:.0f} kernels/token")
-    for name, ms, calls in dc["top_kernels"]:
-        log(f"[serve-profile]   decode {ms:9.3f} ms {calls:5d}x {name[:90]}")
-
-    lap("9 serve path")
+    # ---- 9. the serving paths at full width, one model at a time (each
+    # freed before the next loads), each profiled after its run
+    served = {}
+    for arch, batch, prompt, tokens, params, flash, ssd in SERVE_RUNS:
+        r, seen = serve_path(dev, arch, batch, prompt, tokens, params, flash, ssd)
+        served[arch] = r
+        path_launches[f"serve {arch}"] = {k: r["launches"][k]
+                                          for k in ("flash_attention", "ssd_chunk")}
+        log(f"[serve] {arch} {r['params']:,} params bf16, batch {batch}, prompt {prompt}, "
+            f"{tokens} tokens: prefill {r['prefill_s']:.3f} s, decode "
+            f"{r['decode_ms_per_token']:.2f} ms/token, peak {r['peak_mem_gb']:.2f} GB")
+        log(f"[serve] {arch} prefill launches {r['prefill_launches']}; decode launches "
+            f"{r['decode_launches']}; all logits finite")
+        pf, dc = r["profile"]["prefill"], r["profile"]["decode"]
+        log(f"[serve-profile] {arch} prefill (warm, profiled): wall {pf['wall_ms']:.1f} ms, "
+            f"device busy {pf['device_busy_ms']:.1f} ms, idle "
+            f"{100 * pf['idle_share']:.1f} %, {pf['kernel_launches']} kernels; flash "
+            f"{pf['flash_device_ms']:.2f} ms ({100 * pf['flash_share']:.1f} % of device "
+            f"time), SSD {pf['ssd_device_ms']:.2f} ms")
+        for name, ms, calls in pf["top_kernels"]:
+            log(f"[serve-profile]   prefill {ms:9.3f} ms {calls:5d}x {name[:90]}")
+        log(f"[serve-profile] {arch} decode (profiled): {dc['wall_ms_per_token']:.2f} "
+            f"ms/token wall, {dc['device_busy_ms_per_token']:.2f} ms device, idle "
+            f"{100 * dc['idle_share']:.1f} %, {dc['kernel_launches_per_token']:.0f} "
+            f"kernels/token")
+        for name, ms, calls in dc["top_kernels"]:
+            log(f"[serve-profile]   decode {ms:9.3f} ms {calls:5d}x {name[:90]}")
+        # every kernel signature this run called, held against its plain
+        # version on fresh inputs (the model freed), unless phase 3 already did
+        r["kernel_signatures"] = [str(key) for key in seen]
+        for key, (name, kw) in seen.items():
+            if key in CHECKED:
+                continue
+            if name == "flash_attention":
+                row = check_flash(dev, gen, **kw)
+            else:
+                row = check_ssd(dev, gen, **kw)
+            row["path"] = f"serve {arch}"
+            checks[name].append(row)
+            log(f"[serve-check] {arch} {name} {row['shape']}: err {row['max_abs_err']:.3e} "
+                f"(tol {row.get('tol', 'per output')}"
+                + (f", per element {row['per_element_worst_over_bound']:.3f} of its bound"
+                   if "per_element_worst_over_bound" in row else "")
+                + f"), kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                f"bound {row['bound_ms']:.6f} ms")
+        if any(key not in CHECKED for key in seen):
+            raise AssertionError(f"{arch}: kernel signatures left unchecked")
+        lap(f"9 serve {arch}")
 
     # every kernel's launches over the paths that drive it (each path's
     # counts were reset just before it and read just after)

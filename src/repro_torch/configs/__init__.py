@@ -7,10 +7,18 @@ raises ``KeyError``, as the reference does for an unknown id.
 ``reduced(cfg)`` is the CPU smoke variant of the same family.
 """
 from repro_torch.configs.base import ArchConfig, reduced
+from repro_torch.configs.gemma_2b import CONFIG as GEMMA_2B
+from repro_torch.configs.h2o_danube_1_8b import CONFIG as H2O_DANUBE_1_8B
 from repro_torch.configs.hymba_1_5b import CONFIG as HYMBA_1_5B
+from repro_torch.configs.mamba2_370m import CONFIG as MAMBA2_370M
+from repro_torch.configs.qwen3_4b import CONFIG as QWEN3_4B
 
 _REGISTRY = {
     "hymba-1.5b": HYMBA_1_5B,
+    "gemma-2b": GEMMA_2B,
+    "qwen3-4b": QWEN3_4B,
+    "h2o-danube-1.8b": H2O_DANUBE_1_8B,
+    "mamba2-370m": MAMBA2_370M,
 }
 
 ARCH_IDS = list(_REGISTRY)

@@ -89,6 +89,18 @@ def ssd_bound(b: int, nc: int, L: int, h: int, p: int, n: int,
                  else FP32_FLOPS_PER_S)
 
 
+def flash_bound(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor
+                ) -> tuple[float, str]:
+    """Attention of ``q (b, sq, H, d)`` over ``k, v (b, skv, KV, d)`` under
+    ``mask (sq, skv)``: 4d operations per visible (query, key) pair at the
+    type's peak (tensor cores for bf16, CUDA cores for fp32); q, k and v
+    read once, the output written once."""
+    b, _, h, d = q.shape
+    pairs = int(mask.sum()) * b * h
+    peak = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    return bound(q.element_size() * (2 * q.numel() + 2 * k.numel()), 4.0 * d * pairs, peak)
+
+
 def ssd_inputs(b, nc, L, h, p, n, dtype, gen, dev):
     """Random SSD inputs at Mamba-2's scales: softplus steps, A = -exp."""
     import torch.nn.functional as F
@@ -156,7 +168,7 @@ FEDAVG_SHAPES = [(16, 68_873, torch.float32), (16, 68_873, torch.bfloat16),
                  (16, 2_168_362, torch.float32), (16, 2 ** 24, torch.float32)]
 # (b, s, H, KV, d, window) in bf16: the Hymba layer, danube's and qwen3's heads
 FLASH_SHAPES = [(4, 2048, 25, 5, 64, 1024), (1, 2048, 32, 8, 80, 4096),
-                (1, 2048, 32, 8, 128, None)]
+                (1, 2048, 32, 8, 128, None), (4, 2048, 8, 1, 256, None)]
 # (B, H, W, C) of the warp: the EMNIST round's slots (16 clients x 460), the
 # CINIC batch of phase 3, a rectangular image
 WARP_SHAPES = [(7360, 28, 28, 1), (4096, 32, 32, 3), (7360, 20, 36, 3)]
@@ -217,15 +229,13 @@ def measure() -> list[dict]:
         q = torch.randn(b, s, h, d, generator=gen, device=dev).to(torch.bfloat16)
         k = torch.randn(b, s, kv, d, generator=gen, device=dev).to(torch.bfloat16)
         v = torch.randn(b, s, kv, d, generator=gen, device=dev).to(torch.bfloat16)
-        err = float((ops.flash_attention(q, k, v, window=window).double()
-                     - ref.flash_attention(q, k, v, window=window).double()).abs().max())
-        call = lambda: ops.flash_attention(q, k, v, window=window)   # noqa: E731
-        ms = time_ms(call)
-        dev_ms, kernels = device_profile(call, ms)
-        rows.append({"kernel": "flash_attention",
-                     "shape": f"b={b} s={s} H={h} KV={kv} d={d} W={window} bfloat16",
-                     "ms": ms, "device_ms": dev_ms, "kernels_per_call": kernels,
-                     "max_abs_err": err})
+        b_ms, by = flash_bound(q, k, ref.attention_mask(s, s, causal=True, window=window,
+                                                        q_offset=0, device=dev))
+        row = {"kernel": "flash_attention",
+               "shape": f"b={b} s={s} H={h} KV={kv} d={d} W={window} bfloat16",
+               "bound_ms": b_ms, "bound_by": by}
+        rows.append(_timed_row(row, lambda: ops.flash_attention(q, k, v, window=window),
+                               lambda: ref.flash_attention(q, k, v, window=window)))
     for b, h, w, c in WARP_SHAPES:
         imgs, mats, trans, nchw, grid = warp_inputs(b, h, w, c, gen, dev)
         err = float((ops.affine_warp(imgs, mats, trans)

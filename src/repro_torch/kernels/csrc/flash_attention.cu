@@ -20,8 +20,8 @@
 // reads KV head h / (H / KV) directly from the model layout (b, s, KV, d):
 // the GQA repeat is never materialized and no transpose is needed.  KV
 // tiles that the causal and window masks leave empty for the whole query
-// tile are skipped (exact; it halves the work at s = 2W).  Head dims 64, 80
-// and 128 are instantiated.
+// tile are skipped (exact; it halves the work at s = 2W).  Head dims 64, 80,
+// 128 and 256 are instantiated.
 //
 // bf16 (flash_bf16_tc_kernel): the tensor cores, through wgmma.  One CTA
 // per (64-query tile, query head, batch) holds one consumer warpgroup and
@@ -43,16 +43,22 @@
 // head dim of 80 is loaded as two 64-column boxes; TMA zero-fills columns
 // 80..127, which change neither q.k^T (the product walks only 80 columns)
 // nor the stored columns.  Rows and keys past the sequence are zero-filled
-// by TMA too.  Only KV tiles that a mask cuts take the per-element mask;
-// full tiles take none.  The query tiles are launched heaviest first
-// (reversed tile order on the grid's slow axis), so the light early tiles
-// of a causal + window pass fill the tail.  The dynamic shared memory size
-// is set once per instantiation, not per launch.
+// by TMA too.  A head dim of 256 is four boxes (32 KB a tile): Q and the
+// two-stage K/V ring take 164,920 bytes of shared memory, so one CTA runs
+// per SM, and O's accumulator is 4 x 32 fp32 registers of each consumer
+// thread beside S (32) and the packed P (16); ptxas fits it in 199
+// registers without spilling, so O stays one warpgroup's.  Only KV tiles
+// that a mask cuts take the per-element mask; full tiles take none.  The
+// query tiles are launched heaviest first (reversed tile order on the
+// grid's slow axis), so the light early tiles of a causal + window pass
+// fill the tail.  The dynamic shared memory size is set once per
+// instantiation, not per launch.
 //
 // fp32 (flash_fwd_kernel): the CUDA cores (fp32 must stay fp32 here; TF32
 // is off).  One block of 256 threads per (64-query tile, query head,
-// batch) loops over 64-key tiles staged in shared memory, with the running
-// max m, denominator l and the (64, d) accumulator in registers.  Thread
+// batch) loops over 64-key tiles staged in shared memory (214,016 bytes at
+// d=256: one block per SM), with the running max m, denominator l and the
+// (64, d) accumulator in registers.  Thread
 // (ty, tx) owns score rows ty + 16i and key columns tx + 16j (i, j < 4),
 // and output columns tx + 16j (j < d/16); with rows padded to d+1 floats
 // every shared read in the two inner loops is conflict-free or a
@@ -663,6 +669,11 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int b, int 
       return kBf16 ? tc::launch<128>(q, k, v, out, b, sq, skv, n_heads, n_kv, causal,
                                      window, q_offset, scale, s)
                    : launch_f32<128>(q, k, v, out, b, sq, skv, n_heads, n_kv, causal,
+                                     window, q_offset, scale, s);
+    case 256:
+      return kBf16 ? tc::launch<256>(q, k, v, out, b, sq, skv, n_heads, n_kv, causal,
+                                     window, q_offset, scale, s)
+                   : launch_f32<256>(q, k, v, out, b, sq, skv, n_heads, n_kv, causal,
                                      window, q_offset, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -32,8 +32,8 @@ SCORE_MAX_M = 524_280
 _GREEDY_SCRATCH: dict[tuple[int, int, int], int] = {}
 
 # head dims the flash kernel is instantiated for (Hymba 64, danube 80,
-# qwen3 128)
-FLASH_HEAD_DIMS = (64, 80, 128)
+# qwen3 128, gemma 256); the plain version takes any
+FLASH_HEAD_DIMS = (64, 80, 128, 256)
 # mediator rows Eq. 6 takes (its CTAs keep the normalized weights in 48 KB
 # of shared memory)
 FEDAVG_MAX_M = 12_288
@@ -277,7 +277,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``h // (H/KV)``.  f32 or bf16, one dtype; fp32 softmax statistics and
     accumulator; returns ``(b, sq, H, d)`` in ``q``'s dtype.  ``window``
     keeps keys with ``qpos - window < kpos``; ``q_offset`` is the absolute
-    position of ``q[:, 0]`` against ``k[:, 0]``."""
+    position of ``q[:, 0]`` against ``k[:, 0]``.  Any head dim on the CPU;
+    on the card the head dims of ``FLASH_HEAD_DIMS``, others raise."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"expected q (b, sq, H, d) and k, v (b, skv, KV, d), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -285,8 +286,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _, skv, kv, dk = k.shape
     if k.shape[0] != b or dk != d or kv < 1 or h % kv:
         raise ValueError(f"q {tuple(q.shape)} does not match k/v {tuple(k.shape)}")
-    if d not in FLASH_HEAD_DIMS:
-        raise ValueError(f"head dim {d} not supported; the kernel takes {FLASH_HEAD_DIMS}")
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must share float32 or bfloat16, got "
@@ -296,6 +295,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not _on_cuda(q, k, v):
         return ref.flash_attention(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset)
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"head dim {d} not supported on the card; the kernel takes "
+                         f"{FLASH_HEAD_DIMS}")
     out = torch.empty_like(q)
     entry = "flash_attention_f32" if q.dtype == torch.float32 else "flash_attention_bf16"
     _launch("flash_attention", entry, q.device, q.data_ptr(), k.data_ptr(),

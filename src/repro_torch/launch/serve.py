@@ -2,10 +2,12 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve                 # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b --device cpu
 
-The CLI serves the reduced (CPU smoke) variant of ``--arch`` with random
-weights, as the reference's ``repro.launch.serve`` does; ``serve(cfg, ...)``
-takes any config, e.g. ``configs.get("hymba-1.5b")`` at full width.
+The CLI serves the reduced (CPU smoke) variant of ``--arch`` (any id of
+``configs.ARCH_IDS``) with random weights, as the reference's
+``repro.launch.serve`` does; ``serve(cfg, ...)`` takes any config, e.g.
+``configs.get("gemma-2b")`` at full width.
 """
 from __future__ import annotations
 
@@ -27,18 +29,21 @@ def _sync(dev: torch.device) -> None:
 
 
 def serve(cfg: C.ArchConfig, *, batch: int, prompt_len: int, tokens: int,
-          device=None, generator: torch.Generator | None = None) -> dict:
-    """Random weights and prompts from ``generator`` (one seeded with 0 on
-    the device when not given), a ``batch x prompt_len`` prefill into a
-    cache sized for ``prompt_len + tokens``, then ``tokens - 1`` greedy
-    decode steps.  Returns the generated tokens ``(batch, tokens)``,
+          device=None, generator: torch.Generator | None = None,
+          model: T.Transformer | None = None) -> dict:
+    """Random weights (unless ``model``, built for ``cfg`` on ``device``, is
+    given) and prompts from ``generator`` (one seeded with 0 on the device
+    when not given), a ``batch x prompt_len`` prefill into a cache sized
+    for ``prompt_len + tokens``, then ``tokens - 1`` greedy decode steps.
+    Returns the generated tokens ``(batch, tokens)``,
     whether every logit of every step was finite, the prefill and
     per-step decode seconds (host clock around synchronized work) and the
     kernel launches of the prefill and of the decode steps."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    model = T.init_model(cfg, generator, device=dev)
+    if model is None:
+        model = T.init_model(cfg, generator, device=dev)
     prompts = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=generator,
                             device=dev)
     prefill = make_prefill_step(model, pad_to=prompt_len + tokens)

@@ -377,6 +377,13 @@ FLASH_CARD_CASES = [
     (1, 100, 100, 4, 2, 64, True, 50, 0),
     (2, 77, 77, 6, 2, 80, True, 40, -9),
     (1, 150, 260, 8, 2, 128, True, 70, 110),
+    # head dim 256: gemma-2b's prefill layer (MQA 8:1), a window, a
+    # q_offset with ragged sq != skv, GQA 4:2 without a causal mask
+    (4, 2048, 2048, 8, 1, 256, True, None, 0),
+    (2, 130, 130, 4, 2, 256, True, 50, 0),
+    (1, 70, 260, 8, 1, 256, True, 90, 190),
+    (1, 100, 100, 4, 2, 256, False, None, 0),
+    (1, 200, 200, 8, 1, 256, True, None, 0),
 ]
 
 
@@ -386,7 +393,10 @@ FLASH_CARD_CASES = [
 def test_flash_attention_kernel(dev, dtype, case):
     """fp32: online softmax against the whole-row plain version, sums in
     other orders, |err| <= 1e-5 of the output scale; bf16: one bf16 ulp
-    (2^-7 of the output scale)."""
+    (2^-7 of the output scale), and per element, against the plain version
+    in fp32 on the same bf16 inputs, one bf16 rounding of the output
+    (2^-8 of |exact|) and one of every probability weight (2^-9 of
+    sum p|v| / l, doubled for the fp32 sums' order)."""
     b, sq, skv, h, kv, d, causal, window, off = case
     g = torch.Generator(device=dev).manual_seed(sq + skv + d)
     q = torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
@@ -400,18 +410,38 @@ def test_flash_attention_kernel(dev, dtype, case):
     err, scale = _err_scale(out, ref.flash_attention(q, k, v, causal=causal,
                                                      window=window, q_offset=off))
     assert err <= (1e-5 if dtype == torch.float32 else 2 ** -7) * scale
+    if dtype == torch.bfloat16:
+        kw = dict(causal=causal, window=window, q_offset=off)
+        qf, kf, vf = q.float(), k.float(), v.float()
+        exact = ref.flash_attention(qf, kf, vf, **kw)
+        bound = 2 ** -8 * (exact.abs() + ref.flash_attention(qf, kf, vf.abs(), **kw))
+        assert bool(((out.float() - exact).abs() <= bound).all())
 
 
 @pytest.mark.cuda
-def test_flash_attention_kernel_row_without_keys_is_zero(dev):
-    q, k, v = (torch.randn(1, 8, 2, 64, device=dev) for _ in range(3))
+@pytest.mark.parametrize("d", [64, 256])
+def test_flash_attention_kernel_row_without_keys_is_zero(dev, d):
+    q, k, v = (torch.randn(1, 8, 2, d, device=dev) for _ in range(3))
     out = ops.flash_attention(q, k, v, causal=True, q_offset=-4)
     assert torch.equal(out[:, :4], torch.zeros_like(out[:, :4]))
     assert bool(torch.isfinite(out).all())
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_refuses_other_head_dims(dev, dtype):
+    """A head dim the kernel is not built for raises on the card (the CPU
+    takes it through the plain version); nothing is launched."""
+    q, k, v = (torch.randn(1, 16, 2, 96, device=dev).to(dtype) for _ in range(3))
+    before = ops.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="head dim 96"):
+        ops.flash_attention(q, k, v)
+    assert ops.LAUNCHES["flash_attention"] == before
+    assert ops.flash_attention(q.cpu(), k.cpu(), v.cpu()).shape == q.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
 def test_flash_attention_bf16_row_without_keys_is_zero(dev, d):
     q, k, v = (torch.randn(1, 70, 2, d, device=dev).to(torch.bfloat16) for _ in range(3))
     out = ops.flash_attention(q, k, v, causal=True, q_offset=-6)
@@ -506,14 +536,13 @@ def test_ssd_chunk_layout_matches_library(dev):
     assert ops.ssd_chunk_plan(64, 64, 16, esize=2)["smem_bytes"] == 58_112
 
 
-@pytest.mark.cuda
-def test_hymba_prefill_and_decode_on_card_match_cpu(dev):
-    """Reduced Hymba (GQA 4:2, f32 weights from one seed), prompt 2W:
-    every prefill runs one flash and one SSD launch per layer; logits of
-    the prefill and of 4 teacher-forced decode steps agree with the CPU's
-    plain versions within 2e-4 of the logit scale (fp32 sums in other
-    orders, amplified by the init's large activations)."""
-    cfg = dataclasses.replace(configs.reduced(configs.get("hymba-1.5b")), n_kv_heads=2)
+def _card_matches_cpu(dev, cfg):
+    """``cfg`` with f32 weights from one seed, prompt 128, on the card and
+    on the CPU: one flash launch per attention layer and one SSD launch per
+    SSM layer in the card's prefill; the logits of the prefill and of 4
+    teacher-forced decode steps agree within 2e-4 of the logit scale
+    (fp32 sums in other orders, amplified by the init's large
+    activations)."""
     cpu = T.init_model(cfg, torch.Generator().manual_seed(0))
     card = T.Transformer(cfg, device=dev)
     card.load_state_dict(cpu.state_dict())
@@ -521,8 +550,8 @@ def test_hymba_prefill_and_decode_on_card_match_cpu(dev):
     ops.reset_launches()
     lc, cc = T.forward_prefill(cpu, {"tokens": toks[:, :128]}, pad_to=132)
     lg, cg = T.forward_prefill(card, {"tokens": toks[:, :128].to(dev)}, pad_to=132)
-    assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
-    assert ops.LAUNCHES["ssd_chunk"] == cfg.n_layers
+    assert ops.LAUNCHES["flash_attention"] == (cfg.n_layers if cfg.has_attention else 0)
+    assert ops.LAUNCHES["ssd_chunk"] == (cfg.n_layers if cfg.has_ssm else 0)
     err, scale = _err_scale(lg.cpu(), lc)
     assert err <= 2e-4 * scale
     for i in range(4):
@@ -533,3 +562,27 @@ def test_hymba_prefill_and_decode_on_card_match_cpu(dev):
                                          "positions": torch.full((2,), pos, device=dev)}, cg)
         err, scale = _err_scale(lg.cpu(), lc)
         assert err <= 2e-4 * scale
+
+
+@pytest.mark.cuda
+def test_hymba_prefill_and_decode_on_card_match_cpu(dev):
+    """Reduced Hymba (GQA 4:2), prompt 2W."""
+    _card_matches_cpu(dev, dataclasses.replace(configs.reduced(configs.get("hymba-1.5b")),
+                                               n_kv_heads=2))
+
+
+# (arch, head dim override): the reduced zoo families the serving path
+# registers; gemma at its full head dim 256 (``reduced`` sets 64)
+ZOO_CARD_CASES = [("gemma-2b", 256), ("qwen3-4b", None), ("h2o-danube-1.8b", None),
+                  ("mamba2-370m", None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,head_dim", ZOO_CARD_CASES)
+def test_zoo_prefill_and_decode_on_card_match_cpu(dev, arch, head_dim):
+    """Each registered family, reduced: prompt 128 is 2W for danube's
+    reduced window and two SSD chunks for mamba2."""
+    cfg = configs.reduced(configs.get(arch))
+    if head_dim is not None:
+        cfg = dataclasses.replace(cfg, head_dim=head_dim)
+    _card_matches_cpu(dev, cfg)

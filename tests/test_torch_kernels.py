@@ -344,6 +344,35 @@ def test_flash_attention_matches_reference(case):
                                atol=2e-6)
 
 
+# (b, sq, skv, H, KV, causal, window, q_offset) at head dims the card's
+# kernel is not built for (96) and gemma's 256: MQA 4:1, a window, a
+# q_offset, no causal mask, lengths not multiples of 64
+ANY_D_FLASH_CASES = [
+    (1, 100, 100, 4, 1, True, None, 0),
+    (2, 96, 96, 4, 1, True, 24, 0),
+    (1, 40, 120, 4, 1, True, 33, 80),
+    (1, 50, 50, 4, 2, False, None, 0),
+]
+
+
+@pytest.mark.parametrize("d", [256, 96])
+@pytest.mark.parametrize("case", ANY_D_FLASH_CASES)
+def test_flash_attention_any_head_dim_matches_reference(case, d):
+    """On the CPU the wrapper takes any head dim, as the reference does:
+    its plain version against the Pallas kernel in interpret mode, fp32,
+    within 1e-5 of the output's scale."""
+    b, sq, skv, h, kv, causal, window, off = case
+    q, k, v = _attn_inputs(sq + skv + d, b, sq, skv, h, kv, d)
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=causal, window=window,
+                              q_offset=off).numpy()
+    pallas = np.asarray(jops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                             causal=causal, window=window, q_offset=off))
+    scale = max(float(np.abs(pallas).max()), 1.0)
+    assert got.shape == (b, sq, h, d)
+    np.testing.assert_allclose(got, pallas, rtol=0, atol=1e-5 * scale)
+
+
 def test_flash_attention_bf16_matches_reference_kernel():
     """bf16 in and out, fp32 inside in both: the two fp32 results may round
     to neighbouring bf16 values, so |err| <= one bf16 ulp of the output
@@ -388,11 +417,13 @@ def _tensor_core_flash(q, k, v, *, causal, window, q_offset, tile):
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(torch.bfloat16)
 
 
-# FLASH_CASES at d=64, plus head dims 80 and 128 (window, q_offset < 0, GQA 4:1)
+# FLASH_CASES at d=64, plus head dims 80, 128 and 256 (window, q_offset, GQA 4:1, MQA)
 TC_FLASH_CASES = [(*c, 64) for c in FLASH_CASES] + [
     (1, 100, 100, 4, 2, True, 33, 0, 80),
     (1, 90, 90, 2, 2, True, 40, -7, 80),
     (2, 70, 130, 4, 1, True, None, 60, 128),
+    (1, 130, 130, 8, 1, True, None, 0, 256),
+    (1, 70, 150, 4, 2, True, 50, 80, 256),
 ]
 
 
@@ -422,8 +453,10 @@ def test_flash_attention_row_without_keys_is_zero():
 
 def test_flash_attention_wrapper_checks():
     q, k, v = (torch.from_numpy(t) for t in _attn_inputs(5, 1, 8, 8, 4, 2))
-    with pytest.raises(ValueError):                     # head dim 32
-        ops.flash_attention(q[..., :32], k[..., :32], v[..., :32])
+    # head dim 32: the CPU takes any head dim (the card raises, see
+    # tests/test_torch_cuda.py)
+    q32, k32, v32 = q[..., :32].contiguous(), k[..., :32].contiguous(), v[..., :32].contiguous()
+    assert torch.equal(ops.flash_attention(q32, k32, v32), ref.flash_attention(q32, k32, v32))
     with pytest.raises(ValueError):                     # 4 heads over 3 KV heads
         ops.flash_attention(q, torch.cat([k, k[:, :, :1]], 2), torch.cat([v, v[:, :, :1]], 2))
     with pytest.raises(ValueError):

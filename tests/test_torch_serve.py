@@ -80,9 +80,26 @@ def test_configs_match_reference():
         dataclasses.asdict(RC.reduced(RC.get("hymba-1.5b")))
     assert full.torch_dtype() == torch.bfloat16
     assert PC.reduced(full).torch_dtype() == torch.float32
-    for arch in ("gemma-2b", "no-such-arch"):
+    for arch in ("granite-moe-3b-a800m", "no-such-arch"):
         with pytest.raises(KeyError):
             PC.get(arch)
+
+
+# the families the serving path registers beside Hymba, with their
+# parameter counts at full width
+ZOO = {"gemma-2b": 2_506_172_416, "qwen3-4b": 4_022_468_096,
+       "h2o-danube-1.8b": 1_831_201_280, "mamba2-370m": 368_338_432}
+
+
+@pytest.mark.parametrize("arch", list(ZOO))
+def test_zoo_configs_match_reference(arch):
+    """Every field of the full and the reduced config equals the
+    reference's; the parameter count too, at full width."""
+    full = PC.get(arch)
+    assert arch in PC.ARCH_IDS and full.name == arch
+    assert dataclasses.asdict(full) == dataclasses.asdict(RC.get(arch))
+    assert dataclasses.asdict(PC.reduced(full)) == dataclasses.asdict(RC.reduced(RC.get(arch)))
+    assert PT.param_count(full) == RT.param_count(RC.get(arch)) == ZOO[arch]
 
 
 @pytest.mark.parametrize("variant", ["hymba", "reduced", "ssm", "dense-bias-qknorm-tied"])
@@ -123,8 +140,15 @@ def test_unported_families_raise(arch_type, upd):
 
 # ---------------------------------------------------------------- params
 
-def test_transformer_params_round_trip(hymba):
-    rcfg, pcfg, params, model = hymba
+def _zoo_pair(arch):
+    """(reference cfg, port cfg): the reduced family; gemma at its full
+    head dim 256 (``reduced`` sets 64) in both packages."""
+    upd = dict(head_dim=256) if arch == "gemma-2b" else {}
+    return (dataclasses.replace(RC.reduced(RC.get(arch)), **upd),
+            dataclasses.replace(PC.reduced(PC.get(arch)), **upd))
+
+
+def _round_trip(params, model):
     tree = jax.tree.map(np.asarray, params)
     state = transformer_params_from_jax(tree)
     assert set(state) == set(model.state_dict())
@@ -134,6 +158,28 @@ def test_transformer_params_round_trip(hymba):
     assert jax.tree.structure(back) == jax.tree.structure(tree)
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
         np.testing.assert_array_equal(a, b)
+    return state
+
+
+def test_transformer_params_round_trip(hymba):
+    rcfg, pcfg, params, model = hymba
+    _round_trip(params, model)
+
+
+@pytest.mark.parametrize("arch", list(ZOO))
+def test_zoo_params_round_trip(arch):
+    """The reference's weights carried across and back for each family:
+    tied embeddings (no ``lm_head``; danube keeps its own), qwen3's qk-norm
+    scales, mamba2's attention-free SSM stack."""
+    rcfg, pcfg = _zoo_pair(arch)
+    params = RT.init_params(jax.random.PRNGKey(1), rcfg)
+    state = _round_trip(params, _port_model(pcfg, params))
+    assert ("lm_head" in state) == (arch == "h2o-danube-1.8b") != pcfg.tie_embeddings
+    assert ("layers.0.attn.q_norm" in state) == (arch == "qwen3-4b")
+    assert ("layers.1.attn.wq" in state) == (arch != "mamba2-370m")
+    assert ("layers.1.ssm.A_log" in state) == (arch == "mamba2-370m")
+    if arch == "gemma-2b":
+        assert state["layers.0.attn.wk"].shape == (pcfg.d_model, 256)
 
 
 def test_transformer_params_bf16_round_trip():
@@ -327,22 +373,11 @@ def test_decode_after_short_prompt_matches_full_prefix_prefill(hymba):
     assert ref_errs[0] < 1e-3 < max(ref_errs[1:]), ref_errs
 
 
-@pytest.mark.parametrize("family", ["dense", "ssm"])
-def test_other_families_prefill_and_decode_match_reference(family):
-    """The dense and SSM branches of the stack, on variants of the reduced
-    Hymba: dense with QKV bias, qk-norm, tied and scaled embeddings, GeGLU
-    and full attention (the cache grows to ``pad_to``); SSM attention-free.
-    Prefill logits and cache, then 3 decode steps, against the reference."""
-    upd = dict(arch_type="ssm", n_heads=0, n_kv_heads=0) if family == "ssm" else \
-        dict(arch_type="dense", qkv_bias=True, qk_norm=True, tie_embeddings=True,
-             embed_scale=True, activation="gelu", sliding_window=None, ssm_heads=0,
-             ssm_state=0)
-    rcfg = dataclasses.replace(RC.reduced(RC.get("hymba-1.5b")), **upd)
-    pcfg = PC.ArchConfig(**dataclasses.asdict(rcfg))
-    params = RT.init_params(jax.random.PRNGKey(5), rcfg)
-    model = _port_model(pcfg, params)
-    b, prompt, steps = 2, 64, 3
-    toks = np.random.default_rng(9).integers(0, rcfg.vocab, (b, prompt + steps))
+def _match_prefill_and_decode(rcfg, params, model, *, prompt, steps, seed):
+    """Prefill logits and cache, ``steps`` teacher-forced decode steps'
+    logits, and the cache after them: the port against the reference."""
+    b = 2
+    toks = np.random.default_rng(seed).integers(0, rcfg.vocab, (b, prompt + steps))
     lr, cr = RT.forward_prefill(params, rcfg, {"tokens": jnp.asarray(toks[:, :prompt],
                                                                      jnp.int32)},
                                 pad_to=prompt + steps)
@@ -363,6 +398,43 @@ def test_other_families_prefill_and_decode_match_reference(family):
         lp, cp = PT.forward_decode(model, {"tokens": _t(tok),
                                            "positions": torch.full((b,), pos)}, cp)
         _close(lp, lr)
+    port_leaves = {k: v for blk in cp.values() for k, v in blk.items()}
+    ref_leaves = {k: cr[k] for k in ("k", "v", "state", "conv") if k in cr}
+    ref_leaves.update({k: v for blk in ("attn", "ssm") for k, v in cr.get(blk, {}).items()})
+    for k in ref_leaves:
+        _close(port_leaves[k], ref_leaves[k])
+
+
+@pytest.mark.parametrize("family", ["dense", "ssm"])
+def test_other_families_prefill_and_decode_match_reference(family):
+    """The dense and SSM branches of the stack, on variants of the reduced
+    Hymba: dense with QKV bias, qk-norm, tied and scaled embeddings, GeGLU
+    and full attention (the cache grows to ``pad_to``); SSM attention-free.
+    Prefill logits and cache, then 3 decode steps, against the reference."""
+    upd = dict(arch_type="ssm", n_heads=0, n_kv_heads=0) if family == "ssm" else \
+        dict(arch_type="dense", qkv_bias=True, qk_norm=True, tie_embeddings=True,
+             embed_scale=True, activation="gelu", sliding_window=None, ssm_heads=0,
+             ssm_state=0)
+    rcfg = dataclasses.replace(RC.reduced(RC.get("hymba-1.5b")), **upd)
+    pcfg = PC.ArchConfig(**dataclasses.asdict(rcfg))
+    params = RT.init_params(jax.random.PRNGKey(5), rcfg)
+    _match_prefill_and_decode(rcfg, params, _port_model(pcfg, params), prompt=64, steps=3,
+                              seed=9)
+
+
+@pytest.mark.parametrize("arch", list(ZOO))
+def test_zoo_prefill_and_decode_match_reference(arch):
+    """Each registered family, reduced, on the reference's weights: prefill
+    logits and every cache leaf, then 4 teacher-forced decode steps,
+    against ``forward_prefill``/``forward_decode``.  Gemma at head dim 256
+    (the flash wrapper's plain version at that width); danube's prompt is
+    2W (128 for the reduced window of 64), since the reference's decode
+    after a prompt shorter than W is wrong (see the short-prompt test
+    above); mamba2's is two whole chunks."""
+    rcfg, pcfg = _zoo_pair(arch)
+    params = RT.init_params(jax.random.PRNGKey(2), rcfg)
+    _match_prefill_and_decode(rcfg, params, _port_model(pcfg, params), prompt=128, steps=4,
+                              seed=11)
 
 
 def test_prefill_cache_budget_and_checks(hymba):
@@ -396,10 +468,32 @@ def test_serve_runs_on_cpu():
     assert torch.equal(again["tokens"], r["tokens"])
 
 
+def test_serve_takes_a_built_model():
+    """A model built from the generator and handed in serves the same
+    tokens as one ``serve`` builds from that generator itself."""
+    cfg = dataclasses.replace(PC.reduced(PC.get("hymba-1.5b")), n_kv_heads=2)
+    kw = dict(batch=2, prompt_len=64, tokens=3, device="cpu")
+    r = pserve.serve(cfg, generator=torch.Generator().manual_seed(2), **kw)
+    gen = torch.Generator().manual_seed(2)
+    model = PT.init_model(cfg, gen, device="cpu")
+    again = pserve.serve(cfg, generator=gen, model=model, **kw)
+    assert torch.equal(again["tokens"], r["tokens"])
+
+
 def test_serve_cli_on_cpu(capsys):
     r = pserve.main(["--device", "cpu", "--batch", "2", "--prompt-len", "64",
                      "--tokens", "3"])
     assert r["tokens"].shape == (2, 3)
+    assert "decode:" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", list(ZOO))
+def test_serve_cli_serves_each_family_on_cpu(arch, capsys):
+    """``--arch`` takes every registered family (its reduced variant)."""
+    r = pserve.main(["--arch", arch, "--device", "cpu", "--batch", "2",
+                     "--prompt-len", "64", "--tokens", "3"])
+    assert r["tokens"].shape == (2, 3) and r["logits_finite"]
+    assert r["params"] == PT.param_count(PC.reduced(PC.get(arch)))
     assert "decode:" in capsys.readouterr().out
 
 
