@@ -16,7 +16,9 @@ Phases, each fatal on failure:
    greedy pass also past what one CTA's shared memory holds (K = 16,385;
    C = 1,100), with its cluster launch plan, and the scoring kernels past
    their former class limits (``kld_score`` at C = 60,000, the matrix at
-   C = 2,000);
+   C = 2,000); the matrix also at Path A's 256 x 1,024, each matrix row
+   with its launch plan and its first, middle and last rows bit for bit
+   ``kld_score``'s;
 4. agreement: small Astraea runs on the card against the same runs on the
    CPU (plain versions), same params and draws: EMNIST (8 classes, 16 px)
    and a reduced CINIC (16 px, width 8), 2 rounds each;
@@ -56,8 +58,9 @@ Phases, each fatal on failure:
 
 Phase 3 also holds the flash-attention and SSD kernels against their plain
 versions at the serve shapes (bf16 and f32), with a no-window, a
-``q_offset`` and a GQA 1:1 attention row, bf16 rows at head dims 80
-and 128, and gemma's layer (MQA 8:1, head dim 256) in bf16 and f32, and
+``q_offset`` and a GQA 1:1 attention row, rows at head dims 80 and 128
+in bf16 and f32, and gemma's layer (MQA 8:1, head dim 256) in bf16 and
+f32, and
 times ``F.scaled_dot_product_attention`` with an explicit mask as
 attention's one-call yardstick (the port never calls it).  A bf16
 attention row is held per element too: against the plain version in fp32
@@ -230,9 +233,9 @@ def check_score(dev, med, cand):
 
 
 def check_score_matrix(dev, meds, cand):
-    """``kld_score_matrix`` against its plain version (1e-6 absolute); every
-    row must equal the single-mediator kernel's bit for bit (one device
-    function)."""
+    """``kld_score_matrix`` against its plain version (1e-6 absolute); the
+    first, a middle and the last row must equal the single-mediator
+    kernel's bit for bit (one device function)."""
     from repro_torch.kernels import ops, ref
     meds = torch.as_tensor(meds, dtype=torch.float32, device=dev).contiguous()
     cand = torch.as_tensor(cand, dtype=torch.float32, device=dev).contiguous()
@@ -240,12 +243,15 @@ def check_score_matrix(dev, meds, cand):
     err = float((out.double() - plain.double()).abs().max())
     if not err <= 1e-6:
         raise AssertionError(f"kld_score_matrix M={meds.shape[0]}: err {err} > 1e-6")
-    if not torch.equal(out[-1], ops.kld_score(meds[-1].contiguous(), cand)):
-        raise AssertionError("kld_score_matrix row differs from kld_score's bits")
     (m, c), k = meds.shape, cand.shape[0]
+    for i in (0, m // 2, m - 1):
+        if not torch.equal(out[i], ops.kld_score(meds[i].contiguous(), cand)):
+            raise AssertionError(f"kld_score_matrix M={m} K={k} C={c}: row {i} differs "
+                                 "from kld_score's bits")
     b_ms, by = score_bound(m, k, c)
     row = timed({"shape": f"M={m} K={k} C={c}", "max_abs_err": err, "tol": 1e-6,
-                 "bound_ms": b_ms, "bound_by": by},
+                 "bound_ms": b_ms, "bound_by": by,
+                 "plan": ops.kld_score_matrix_plan(m, k, c, meds, cand)},
                 ms=(lambda: ops.kld_score_matrix(meds, cand), 50.0),
                 plain_ms=(lambda: ref.kld_score_matrix(meds, cand), 50.0))
     row["library_ms"] = row["library_device_ms"] = None
@@ -841,11 +847,14 @@ def main() -> int:
     for k in (512, 4096):
         checks["kld_score"].append(check_score(
             dev, rng.random(47) * 100, rng.random((k, 47)) * 50))
-    for m, k in ((16, 512), (256, 4096)):
+    # the matrix: Path A's sweep (256 x 1,024, its main path's shape, first),
+    # a CINIC-size one and a large one
+    for m, k in ((256, 1024), (16, 512), (256, 4096)):
         checks["kld_score_matrix"].append(check_score_matrix(
             dev, rng.random((m, 47)) * 100, rng.random((k, 47)) * 50))
     # past the old class limits (12,288 one mediator, 1,024 the matrix):
-    # the mediator read from global memory, the matrix tile too at C > 1,536
+    # the mediator read from global memory; the matrix in f64 sums, its
+    # tiles still staged (two fit in 96 KB up to C = 2,048 at its 4 lanes)
     wide = np.random.default_rng(1)
     checks["kld_score"].append(check_score(
         dev, wide.random(60_000) * 100, wide.random((16, 60_000)) * 50))
@@ -869,7 +878,12 @@ def main() -> int:
         check_flash(dev, gen, b=1, sq=2048, skv=2048, h=32, kv=8, d=80,
                     dtype=torch.bfloat16, window=4096),
         check_flash(dev, gen, b=1, sq=2048, skv=2048, h=32, kv=8, d=128,
-                    dtype=torch.bfloat16, window=None)]
+                    dtype=torch.bfloat16, window=None),
+        # and in fp32 on the CUDA cores (the reduced configs serve in fp32)
+        check_flash(dev, gen, b=1, sq=2048, skv=2048, h=32, kv=8, d=80,
+                    dtype=torch.float32, window=4096),
+        check_flash(dev, gen, b=1, sq=2048, skv=2048, h=32, kv=8, d=128,
+                    dtype=torch.float32, window=None)]
     # gemma-2b's prefill layer: 8 query heads over one KV head of 256, full
     # causal, in bf16 (the tensor cores) and f32 (the CUDA cores)
     gemma = dict(b=4, sq=2048, skv=2048, h=8, kv=1, d=256, window=None)
@@ -916,6 +930,8 @@ def main() -> int:
     for r in checks["kld_greedy_picks"]:
         log(f"[kernel] kld_greedy_picks {r['shape']}: cluster {r['plan']}, "
             f"{r['us_per_step']:.3f} us per step")
+    for r in checks["kld_score_matrix"]:
+        log(f"[kernel] kld_score_matrix {r['shape']}: plan {r['plan']}")
     for r in checks["affine_warp"]:
         log(f"[kernel] affine_warp {r['shape']}: {r['stages']} stages, "
             f"{r['ms'] / r['library_ms']:.3f}x grid_sample's event time")

@@ -1,11 +1,12 @@
-"""Time the port's Eq. 6, bf16 flash-attention, Alg. 2 warp, Alg. 3
-greedy-pass, Alg. 3 step-scorer (``kld_score``) and Mamba-2 SSD-block
-wrappers on the card, at the main paths' shapes (and the zoo's other head
-dims and SSD widths), for the ``repro_torch`` of any source tree (to
-compare two commits in one run):
+"""Time the port's Eq. 6, bf16 and fp32 flash-attention, Alg. 2 warp, Alg.
+3 greedy-pass, Alg. 3 scorers (``kld_score``, ``kld_score_matrix``) and
+Mamba-2 SSD-block wrappers on the card, at the main paths' shapes (and the
+zoo's other head dims and SSD widths), for the ``repro_torch`` of any
+source tree (to compare two commits in one run):
 
   python3 src/repro_torch/examples/kernel_times.py [--src TREE/src] [--label NAME] [--out FILE]
   python3 src/repro_torch/examples/kernel_times.py --profiler-sessions 100
+  python3 src/repro_torch/examples/kernel_times.py --ptxas --sass
 
 ``--src`` puts that tree's ``src`` first on ``sys.path`` before
 ``repro_torch`` is imported (its kernels are built into that tree's
@@ -15,27 +16,39 @@ per call, the device kernels per call and the largest error against the
 plain version (for the greedy pass: 0 where the picks are equal, else the
 score gap at the first divergence, with a digest of the picks to compare
 two trees' passes, and the least time the card could take); the warp
-rows add ``F.grid_sample``'s event ms on the same inputs; the greedy,
-scoring and SSD rows give the least time the card could take.  A shape
+rows add ``F.grid_sample``'s event ms on the same inputs, the fp32 flash
+rows SDPA's (fp32, explicit mask, KV heads repeated outside the call);
+the greedy, scoring and SSD rows give the least time the card could take,
+and the scoring rows the launch plan where the tree has one.  A shape
 a tree's wrapper refuses gets a row with its error and no times.
 ``chip_smoke.py`` uses the timing and bound helpers below.
 ``--profiler-sessions N`` instead counts the device kernels the profiler
 records in N sessions of one ``fedavg_agg`` call each (the one-kernel
 check of ``tests/test_torch_cuda.py``), to tell a missed record from an
-extra kernel.
+extra kernel.  ``--ptxas`` builds the library once more into a temporary
+directory and prints, from its ``-Xptxas=-v`` log, the fp32 flash and
+matrix kernels' registers and spills; ``--sass`` counts the SASS
+instructions of the matrix scorer's one-lane kernel in the built library
+(``cuobjdump -sass``), and the float instructions among them, and the
+issue-rate floors they imply at the matrix rows' shapes.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import hashlib
 import json
 import math
+import re
+import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 # H100 SXM data-sheet peaks (dense, no sparsity) at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -103,7 +116,6 @@ def flash_bound(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor
 
 def ssd_inputs(b, nc, L, h, p, n, dtype, gen, dev):
     """Random SSD inputs at Mamba-2's scales: softplus steps, A = -exp."""
-    import torch.nn.functional as F
     x = torch.randn(b, nc, L, h, p, generator=gen, device=dev).to(dtype)
     dt = F.softplus(torch.randn(b, nc, L, h, generator=gen, device=dev) - 1.0)
     A = -torch.exp(torch.randn(h, generator=gen, device=dev))
@@ -166,7 +178,8 @@ def device_profile(fn, event_ms: float) -> tuple[float | None, float]:
 # (M, N, dtype) of Eq. 6: the EMNIST and CINIC models' widths and a large one
 FEDAVG_SHAPES = [(16, 68_873, torch.float32), (16, 68_873, torch.bfloat16),
                  (16, 2_168_362, torch.float32), (16, 2 ** 24, torch.float32)]
-# (b, s, H, KV, d, window) in bf16: the Hymba layer, danube's and qwen3's heads
+# (b, s, H, KV, d, window), timed in bf16 and fp32: the Hymba layer,
+# danube's and qwen3's heads, gemma's layer
 FLASH_SHAPES = [(4, 2048, 25, 5, 64, 1024), (1, 2048, 32, 8, 80, 4096),
                 (1, 2048, 32, 8, 128, None), (4, 2048, 8, 1, 256, None)]
 # (B, H, W, C) of the warp: the EMNIST round's slots (16 clients x 460), the
@@ -183,6 +196,9 @@ GREEDY_SHAPES = [(16, 47, 4), (1024, 47, 4), (4096, 47, 4), (4096, 47, 1)]
 # classes (the error rows show where a sum's rounding drifts with C)
 SCORE_SHAPES = [(16, 10), (512, 47), (1024, 47), (4096, 47), (512, 256), (512, 1_100),
                 (512, 2_000), (16, 60_000)]
+# (M, K, C) of the matrix scorer: the CINIC-size sweep, Path A's sweep
+# (256 mediators x 1,024 clients), a large sweep and many classes
+MATRIX_SHAPES = [(16, 512, 47), (256, 1024, 47), (256, 4096, 47), (16, 512, 2000)]
 # (b, nc, L, h, p, n, dtype) of the SSD block: the Hymba prefill layer in
 # f32 and bf16, and mamba2-370m's block (32 heads of 64, state 128, chunk
 # 64: src/repro/configs/mamba2_370m.py) over one 2,048-token sequence
@@ -205,7 +221,6 @@ def warp_inputs(b, h, w, c, gen, dev):
 
 
 def grid_sample(nchw, grid):
-    import torch.nn.functional as F
     return F.grid_sample(nchw, grid, mode="bilinear", padding_mode="zeros",
                          align_corners=True)
 
@@ -225,17 +240,31 @@ def measure() -> list[dict]:
         rows.append({"kernel": "fedavg_agg", "shape": f"M={m} N={n} {str(dtype)[6:]}",
                      "ms": ms, "device_ms": dev_ms, "kernels_per_call": kernels,
                      "max_abs_err": err})
-    for b, s, h, kv, d, window in FLASH_SHAPES:
-        q = torch.randn(b, s, h, d, generator=gen, device=dev).to(torch.bfloat16)
-        k = torch.randn(b, s, kv, d, generator=gen, device=dev).to(torch.bfloat16)
-        v = torch.randn(b, s, kv, d, generator=gen, device=dev).to(torch.bfloat16)
-        b_ms, by = flash_bound(q, k, ref.attention_mask(s, s, causal=True, window=window,
-                                                        q_offset=0, device=dev))
-        row = {"kernel": "flash_attention",
-               "shape": f"b={b} s={s} H={h} KV={kv} d={d} W={window} bfloat16",
-               "bound_ms": b_ms, "bound_by": by}
-        rows.append(_timed_row(row, lambda: ops.flash_attention(q, k, v, window=window),
-                               lambda: ref.flash_attention(q, k, v, window=window)))
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, s, h, kv, d, window in FLASH_SHAPES:
+            q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
+            k = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
+            v = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
+            mask = ref.attention_mask(s, s, causal=True, window=window, q_offset=0,
+                                      device=dev)
+            b_ms, by = flash_bound(q, k, mask)
+            row = {"kernel": "flash_attention",
+                   "shape": f"b={b} s={s} H={h} KV={kv} d={d} W={window} {str(dtype)[6:]}",
+                   "bound_ms": b_ms, "bound_by": by}
+            row = _timed_row(row, lambda: ops.flash_attention(q, k, v, window=window),
+                             lambda: ref.flash_attention(q, k, v, window=window))
+            if dtype == torch.float32 and row["ms"] is not None:
+                # the library's fp32 attention on the same inputs and mask
+                qt = q.transpose(1, 2).contiguous()
+                kt, vt = (t.repeat_interleave(h // kv, dim=2).transpose(1, 2).contiguous()
+                          for t in (k, v))
+                sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    qt, kt, vt, attn_mask=mask)
+                row["sdpa_ms"] = time_ms(sdpa)
+                row["sdpa_device_ms"] = device_profile(sdpa, row["sdpa_ms"])[0]
+                del qt, kt, vt
+            rows.append(row)
+            del q, k, v
     for b, h, w, c in WARP_SHAPES:
         imgs, mats, trans, nchw, grid = warp_inputs(b, h, w, c, gen, dev)
         err = float((ops.affine_warp(imgs, mats, trans)
@@ -279,6 +308,16 @@ def measure() -> list[dict]:
             row["plan"] = ops.kld_score_plan(k, c)
         rows.append(_timed_row(row, lambda: ops.kld_score(med, cand),
                                lambda: ref.kld_score(med, cand)))
+    for m, k, c in MATRIX_SHAPES:
+        meds = torch.as_tensor(rng.random((m, c)) * 100, dtype=torch.float32, device=dev)
+        cand = torch.as_tensor(rng.random((k, c)) * 50, dtype=torch.float32, device=dev)
+        b_ms, by = score_bound(m, k, c)
+        row = {"kernel": "kld_score_matrix", "shape": f"M={m} K={k} C={c}",
+               "bound_ms": b_ms, "bound_by": by}
+        if hasattr(ops, "kld_score_matrix_plan"):   # absent in older trees
+            row["plan"] = ops.kld_score_matrix_plan(m, k, c, meds, cand)
+        rows.append(_timed_row(row, lambda: ops.kld_score_matrix(meds, cand),
+                               lambda: ref.kld_score_matrix(meds, cand)))
     for b, nc, L, h, p, n, dtype in SSD_SHAPES:
         args = ssd_inputs(b, nc, L, h, p, n, dtype, gen, dev)
         b_ms, by = ssd_bound(b, nc, L, h, p, n, dtype)
@@ -308,6 +347,95 @@ def _timed_row(row: dict, call, plain) -> dict:
     row["ms"] = time_ms(call)
     row["device_ms"], row["kernels_per_call"] = device_profile(call, row["ms"])
     return row
+
+
+def ptxas_report(names=("flash_f32_kernel", "kld_score_matrix_kernel")) -> list[str]:
+    """Registers and spills ptxas reports for every kernel whose mangled
+    name holds one of ``names``, from the build log of the library built
+    once more into a temporary directory."""
+    from repro_torch.kernels import build
+    log: list[str] = []
+    with tempfile.TemporaryDirectory() as tmp:
+        build.build(log, Path(tmp))
+    lines, entry = [], None
+    for line in "\n".join(log).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1) if any(n in m.group(1) for n in names) else None
+        elif entry and ("registers" in line or "spill" in line):
+            lines.append(f"{entry}: {line.split('info    :')[-1].strip()}")
+    return lines
+
+
+# opcodes that compute on floating-point values (FFMA, FADD, FMUL, FSETP,
+# FSEL, FMNMX, FCHK, F2F, MUFU, DADD, I2F, ...)
+FLOAT_OPCODES = ("F", "MUFU", "D", "I2F")
+
+
+def sass_counts() -> dict:
+    """SASS instructions per class of the matrix scorer, from its one-lane
+    kernel (which streams the rows) in the built library (``cuobjdump
+    -sass``): its innermost loops (a branch back to an earlier address with
+    no other such branch inside) are its two sums, per path (staged: the
+    loops that read shared memory, LDS; direct: the others) and per type
+    (f32 up to 64 classes, f64 past that: the loops with DADD), each
+    unrolled over some classes, which read two counts each (so a loop's
+    classes are its loads over 2); the slow paths of the division and the
+    logarithm lie outside the loops.  Per (path, type): the two sums'
+    instructions per class added, the float instructions among them (the
+    merge, the adds of both sums, the division, the clamp, the logarithm,
+    the subtract and the multiply: what the function's op order needs;
+    the rest are loads, address arithmetic, loop control and the
+    logarithm's few integer steps), and the commonest opcodes."""
+    from repro_torch.kernels import build
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(build.build())], capture_output=True,
+                          text=True, check=True).stdout
+    ins, name = [], None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*)", line)
+        if m and name and "kld_score_matrix_kernel" in name and "ILi1EE" in name \
+                and not m.group(2).startswith("NOP"):
+            ins.append((int(m.group(1), 16), m.group(2), m.group(3), name))
+    backs = []
+    for addr, op, rest, _ in ins:
+        t = re.search(r"0x([0-9a-f]+)", rest)
+        if op.startswith("BRA") and t and int(t.group(1), 16) < addr:
+            backs.append((int(t.group(1), 16), addr))
+    inner = [(lo, hi) for lo, hi in backs
+             if not any(lo <= lo2 and hi2 < hi for lo2, hi2 in backs if (lo2, hi2) != (lo, hi))]
+    groups = collections.defaultdict(list)
+    for lo, hi in inner:
+        body = [op for a, op, _, _ in ins if lo <= a <= hi]
+        loads = sum(op.startswith(("LD.", "LDS", "LDG")) or op == "LD" for op in body)
+        if loads and any(op.startswith(("FADD", "DADD")) for op in body):
+            path = "staged" if any(op.startswith("LDS") for op in body) else "direct"
+            wide = any(op.startswith("DADD") for op in body)
+            groups[(path, "f64" if wide else "f32")].append((len(body), loads // 2, body))
+    out = {}
+    for key, loops in groups.items():
+        sums = sorted(loops, key=lambda x: x[0])[-2:]
+        if len(sums) == 2:
+            ops_seen = collections.Counter(op.split(".")[0] for _, _, b in sums for op in b)
+            out[key] = {"function": ins[0][3],
+                        "loops": [(n, cls) for n, cls, _ in sums],
+                        "per_class": sum(n / cls for n, cls, _ in sums),
+                        "float_per_class": sum(sum(op.startswith(FLOAT_OPCODES) for op in b)
+                                               / cls for _, cls, b in sums),
+                        "top_opcodes": ops_seen.most_common(8)}
+    return out
+
+
+def issue_floor_ms(m: int, k: int, c: int, per_class: float, sm_mhz: float,
+                   sms: int) -> float:
+    """The least ms ``sms`` SMs need to issue ``per_class`` instructions for
+    every class of every pair, one pair a lane, 32 lanes a warp
+    instruction, 4 warp instructions a cycle on each SM at ``sm_mhz``."""
+    return m * k * c * per_class / 32 / (4 * sms * sm_mhz * 1e6) * 1e3
 
 
 def profiler_sessions(sessions: int) -> dict[int, dict[int, int]]:
@@ -341,6 +469,10 @@ def main() -> int:
     ap.add_argument("--out", default=None, help="JSON file for the rows")
     ap.add_argument("--profiler-sessions", type=int, default=0,
                     help="count the kernels recorded in this many one-call sessions")
+    ap.add_argument("--ptxas", action="store_true",
+                    help="print the fp32 flash and matrix kernels' registers and spills")
+    ap.add_argument("--sass", action="store_true",
+                    help="count the matrix scorer's SASS instructions per class")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device available", file=sys.stderr)
@@ -350,6 +482,31 @@ def main() -> int:
         for n, seen in profiler_sessions(args.profiler_sessions).items():
             print(f"[{args.label}] fedavg_agg M=16 N={n}: sessions by device kernels "
                   f"recorded {seen}", flush=True)
+        return 0
+    if args.ptxas or args.sass:
+        if args.ptxas:
+            for line in ptxas_report():
+                print(f"[{args.label}] ptxas {line}", flush=True)
+        if args.sass:
+            mhz = float(subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                capture_output=True, text=True, check=True).stdout.split()[0])
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            counts = sass_counts()
+            for (path, key), r in sorted(counts.items()):
+                print(f"[{args.label}] sass {path} {key} sums {r['function']}: (instructions, "
+                      f"classes) per loop {r['loops']}, {r['per_class']:.2f} per class, "
+                      f"{r['float_per_class']:.2f} of them float; top {r['top_opcodes']}",
+                      flush=True)
+            for m, k, c in MATRIX_SHAPES:
+                r = counts.get(("staged", "f32" if c <= 64 else "f64"))
+                if r and r["per_class"]:
+                    print(f"[{args.label}] sass floor M={m} K={k} C={c} (staged path, "
+                          f"{sms} SMs at {mhz:.0f} MHz): float instructions "
+                          f"{issue_floor_ms(m, k, c, r['float_per_class'], mhz, sms):.6f} ms "
+                          f"({r['float_per_class']:.2f} a class), the whole loop "
+                          f"{issue_floor_ms(m, k, c, r['per_class'], mhz, sms):.6f} ms "
+                          f"({r['per_class']:.2f} a class)", flush=True)
         return 0
     rows = measure()
     for r in rows:
@@ -365,6 +522,8 @@ def main() -> int:
                 extra += f", {100 * r['bound_ms'] / r['device_ms']:.1f} % of it by device time"
         if "plan" in r:
             extra += f", plan {r['plan']}"
+        if "sdpa_ms" in r:
+            extra += f", SDPA fp32 {r['sdpa_ms']:.4f} ms (device {r['sdpa_device_ms']})"
         print(f"[{args.label}] {r['kernel']:16s} {r['shape']:36s} event {r['ms']:.4f} ms "
               f"device {r['device_ms']} ms, {r['kernels_per_call']:g} kernels/call, "
               f"err {r['max_abs_err']:.3e}{extra}", flush=True)

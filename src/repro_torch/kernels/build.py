@@ -75,17 +75,17 @@ def library_path() -> Path:
     return BUILD_DIR / f"libreprotorch_{_digest()}.so"
 
 
-def build(log: list[str] | None = None) -> Path:
-    """Compile and link the kernels unless the current library exists.
-    Appends the compiler's output (``-Xptxas=-v`` register/smem report)
-    and the build seconds to ``log`` when given."""
-    out = library_path()
+def build(log: list[str] | None = None, build_dir: Path = BUILD_DIR) -> Path:
+    """Compile and link the kernels into ``build_dir`` unless the current
+    library is there.  Appends the compiler's output (``-Xptxas=-v``
+    register/smem report) and the build seconds to ``log`` when given."""
+    out = Path(build_dir) / library_path().name
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
         objs, procs = [], []
         for name in SOURCES:
             obj = Path(tmp) / (Path(name).stem + ".o")
@@ -131,6 +131,9 @@ def library() -> ctypes.CDLL:
     lib.affine_warp_stages.restype = ctypes.c_int
     lib.kld_score_plan.argtypes = [_I, _I] + [ctypes.POINTER(_I)] * 5
     lib.kld_score_plan.restype = ctypes.c_int
+    lib.kld_score_matrix_plan.argtypes = [_I, _I, _I, _P, _P] + [ctypes.POINTER(_I)] * 4 \
+        + [ctypes.POINTER(_I64)] + [ctypes.POINTER(_I)] * 2
+    lib.kld_score_matrix_plan.restype = ctypes.c_int
     lib.ssd_chunk_plan.argtypes = [_I] * 5 + [ctypes.POINTER(_I)] * 3 \
         + [ctypes.POINTER(_I64)]
     lib.ssd_chunk_plan.restype = ctypes.c_int

@@ -54,16 +54,36 @@
 // fill the tail.  The dynamic shared memory size is set once per
 // instantiation, not per launch.
 //
-// fp32 (flash_fwd_kernel): the CUDA cores (fp32 must stay fp32 here; TF32
-// is off).  One block of 256 threads per (64-query tile, query head,
-// batch) loops over 64-key tiles staged in shared memory (214,016 bytes at
-// d=256: one block per SM), with the running max m, denominator l and the
-// (64, d) accumulator in registers.  Thread
-// (ty, tx) owns score rows ty + 16i and key columns tx + 16j (i, j < 4),
-// and output columns tx + 16j (j < d/16); with rows padded to d+1 floats
-// every shared read in the two inner loops is conflict-free or a
-// broadcast.  The ragged edges are masked (zero-filled loads, keys >= skv
-// masked, rows >= sq not stored).
+// fp32 (flash_f32_kernel): the CUDA cores (fp32 must stay fp32 here; TF32
+// is off, and no TF32 split is used), so the bound is 67 TFLOP/s of FMAs.
+// Shared memory and load stalls are what keep a kernel from that rate
+// (scalar reads give 2 FMAs a word, half of it; loads between block-wide
+// barriers stop all compute).  So a CTA of four warps owns 64 query rows,
+// and the tiles come by TMA (32-column fp32 boxes, 128-byte swizzle, zero
+// fill past the sequence and past d=80's 80 columns): Q once, then K_0, V_0,
+// K_1, V_1, ... into a ring of two tile buffers.  Each warp says when it
+// has read a buffer by taking a ticket (a shared atomic); the warp whose
+// ticket completes a tile's four issues the load of the tile after next
+// into that buffer, so no warp ever waits for another, K_{t+1} loads while
+// P V_t runs and V_{t+1} while Q K_{t+1}^T runs.  (A producer warp, as in
+// the bf16 kernel, made five warps a CTA, which cost the consumers
+// registers on the SM's sub-partitions and spilled.)  At d=256 a 64-key
+// fp32 tile is 64 KB, and Q plus the two buffers (192 KB) is what fits.
+// Thread (ty, tx) holds an 8 x 4 block of scores (rows ty + 8i, keys tx +
+// 16j) and the matching 8 x d/16 block of O (columns 4(tx + 16c) .. +3, and
+// 64 + tx at d=80).  Per 16-byte chunk of d, Q K^T takes 4 + 8 float4
+// loads for 128 FMAs; P V, per 4 keys, 8 float4 loads of P and d/64 float4
+// loads of V per key for 8 d/16 FMAs per key.  The swizzle keeps every
+// such load free of bank conflicts (8 rows at one chunk, or one row's
+// chunks, hit 8 distinct 16-byte bank groups).  A row's 16 lanes are one
+// half-warp, so P passes through shared memory (32-key slices, one 64-key
+// slice at d=256) with __syncwarp only: no block-wide barrier in the
+// loop.  Per CTA 58,400 B of shared memory at d=64 (3 CTAs an SM), 82,976
+// at 80 and 107,552 at 128 (2), 214,048 at 256 (1); the unroll of Q K^T
+// is set per head dim so that ptxas spills nothing.  The semantics are the
+// TPU kernel's: scale 1/sqrt(d) on the fp32 scores, masked scores -1e30
+// and p = 0, m and l in fp32 (l summed from p per lane, reduced at the
+// end), output acc / max(l, 1e-30).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,167 +96,7 @@ namespace {
 
 using namespace repro_ptx;
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 256;          // 16 x 16
-constexpr int kRows = kBlockQ / 16;    // score rows per thread
-constexpr int kCols = kBlockK / 16;    // score columns per thread
 constexpr float kMasked = -1e30f;
-
-struct F32 {
-  using T = float;
-  __device__ static float load(const T* p) { return __ldg(p); }
-  __device__ static void store(T* p, float v) { *p = v; }
-};
-
-constexpr size_t smem_bytes(int d) {
-  return (3 * static_cast<size_t>(kBlockK) * (d + 1) +
-          static_cast<size_t>(kBlockQ) * (kBlockK + 1)) * sizeof(float);
-}
-
-// Loads rows [row0, row0 + 64) of head `head` from a (b, s, heads, D)
-// tensor into dst[64][D + 1] as fp32; rows >= s are zero.
-template <typename Tr, int D>
-__device__ __forceinline__ void load_tile(float* dst, const typename Tr::T* src,
-                                          int batch, int row0, int s, int heads,
-                                          int head) {
-  for (int idx = threadIdx.x; idx < 64 * D; idx += kThreads) {
-    const int r = idx / D;
-    const int c = idx - r * D;
-    const int row = row0 + r;
-    float v = 0.f;
-    if (row < s)
-      v = Tr::load(src + ((static_cast<int64_t>(batch) * s + row) * heads + head) * D + c);
-    dst[r * (D + 1) + c] = v;
-  }
-}
-
-template <typename Tr, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const typename Tr::T* __restrict__ q,
-                 const typename Tr::T* __restrict__ k,
-                 const typename Tr::T* __restrict__ v,
-                 typename Tr::T* __restrict__ out, int sq, int skv, int n_heads,
-                 int n_kv, int causal, int window, int q_offset, float scale) {
-  constexpr int kDCols = D / 16;       // output columns per thread
-  constexpr int kLd = D + 1;
-  extern __shared__ float smem[];
-  float* Qs = smem;                    // [64][D + 1]
-  float* Ks = Qs + kBlockQ * kLd;      // [64][D + 1]
-  float* Vs = Ks + kBlockK * kLd;      // [64][D + 1]
-  float* Ps = Vs + kBlockK * kLd;      // [64][65]
-
-  const int q0 = blockIdx.x * kBlockQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int g = h / (n_heads / n_kv);
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-
-  load_tile<Tr, D>(Qs, q, b, q0, sq, n_heads, h);
-
-  float m_i[kRows], l_i[kRows], acc[kRows][kDCols];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m_i[i] = kMasked;
-    l_i[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kDCols; ++j) acc[i][j] = 0.f;
-  }
-
-  // Keys any row of this tile can see: [k_begin, k_end).
-  const int q_first = q0 + q_offset;
-  const int q_last = min(q0 + kBlockQ, sq) - 1 + q_offset;
-  int k_begin = 0, k_end = skv;
-  if (causal) k_end = min(skv, q_last + 1);
-  if (window > 0) k_begin = max(0, q_first - window + 1);
-
-  for (int k0 = (k_begin / kBlockK) * kBlockK; k0 < k_end; k0 += kBlockK) {
-    __syncthreads();                   // the previous tile's Ks/Vs/Ps are free
-    load_tile<Tr, D>(Ks, k, b, k0, skv, n_kv, g);
-    load_tile<Tr, D>(Vs, v, b, k0, skv, n_kv, g);
-    __syncthreads();
-
-    float s[kRows][kCols];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[kRows], kv[kCols];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) qv[i] = Qs[(ty + 16 * i) * kLd + d];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) kv[j] = Ks[(tx + 16 * j) * kLd + d];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int qpos = q0 + ty + 16 * i + q_offset;
-      bool ok[kCols];
-      float mx = kMasked;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        bool vis = kpos < skv;
-        if (causal) vis = vis && kpos <= qpos;
-        if (window > 0) vis = vis && kpos > qpos - window;
-        ok[j] = vis;
-        s[i][j] = vis ? s[i][j] * scale : kMasked;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      // the 16 threads of a row are one half-warp
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_i[i], mx);
-      const float corr = expf(m_i[i] - m_new);
-      float rowsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        Ps[(ty + 16 * i) * (kBlockK + 1) + tx + 16 * j] = p;
-        rowsum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rowsum += __shfl_xor_sync(0xffffffffu, rowsum, off);
-      l_i[i] = corr * l_i[i] + rowsum;
-      m_i[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < kDCols; ++j) acc[i][j] *= corr;
-    }
-    __syncthreads();                   // Ps complete
-
-#pragma unroll 4
-    for (int kk = 0; kk < kBlockK; ++kk) {
-      float pv[kRows], vv[kDCols];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) pv[i] = Ps[(ty + 16 * i) * (kBlockK + 1) + kk];
-#pragma unroll
-      for (int j = 0; j < kDCols; ++j) vv[j] = Vs[kk * kLd + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kDCols; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= sq) continue;
-    const float denom = fmaxf(l_i[i], 1e-30f);
-    typename Tr::T* o = out + ((static_cast<int64_t>(b) * sq + row) * n_heads + h) * D;
-#pragma unroll
-    for (int j = 0; j < kDCols; ++j) Tr::store(o + tx + 16 * j, acc[i][j] / denom);
-  }
-}
 
 // Raises a kernel's dynamic shared memory limit once per instantiation (a
 // function-local static: set on the first launch, thread-safe).
@@ -245,22 +105,6 @@ cudaError_t smem_limit_once(size_t bytes) {
   static const cudaError_t err = cudaFuncSetAttribute(
       kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   return err;
-}
-
-template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int b,
-               int sq, int skv, int n_heads, int n_kv, int causal, int window,
-               int q_offset, float scale, cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<F32, D>;
-  const size_t smem = smem_bytes(D);
-  const cudaError_t err = smem_limit_once<flash_fwd_kernel<F32, D>>(smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((sq + kBlockQ - 1) / kBlockQ, n_heads, b);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), sq, skv, n_heads,
-      n_kv, causal, window, q_offset, scale);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // ------------------------------------------------------------------ bf16
@@ -646,6 +490,327 @@ int launch(const void* q, const void* k, const void* v, void* out, int b, int sq
 
 }  // namespace tc
 
+// ------------------------------------------------------------------ fp32
+namespace f32 {
+
+constexpr int kRowsQ = 64;                  // query rows per CTA
+constexpr int kKeys = 64;                   // keys per K or V tile
+constexpr int kThreadsF32 = 128;            // four warps, no producer warp
+constexpr int kBox = 32;                    // fp32 columns per TMA box: one 128-byte row
+constexpr int kBoxBytes = kKeys * 128;      // a 64-row box, 128-byte swizzle
+constexpr int kSmemPerSm = 233472;          // an SM's shared memory (228 KB)
+
+template <int D>
+struct Shape {
+  static constexpr int kBoxes = (D + kBox - 1) / kBox;   // d=80: 3, cols 80..95 zero
+  static constexpr int kTileBytes = kBoxes * kBoxBytes;
+  static constexpr int kChunks = D / 4;                  // 16-byte d chunks of a row
+  static constexpr int kVec = D / 64;                    // float4 output chunks per thread
+  static constexpr int kScalar = (D % 64) / 16;          // + one scalar column (d=80)
+  static constexpr int kCols = 4 * kVec + kScalar;
+  // keys of P staged at a time, and chunks of Q K^T unrolled (registers)
+  static constexpr int kSlice = D == 256 ? 64 : 32;
+  static constexpr int kQkUnroll = D == 256 ? 4 : 2;
+  // 1 KB of slack to align the swizzled tiles; Q, the two-buffer K/V ring,
+  // a (64, kSlice) slice of P, 3 mbarriers and 2 tickets
+  static constexpr size_t kSmem = 1024 + 3 * static_cast<size_t>(kTileBytes) +
+                                  kRowsQ * kSlice * 4 + 8 * 3 + 8;
+  // CTAs an SM holds at this size (1 KB reserved per CTA), at most 3
+  static constexpr int kPerSm =
+      kSmemPerSm / (kSmem + 1024) < 3 ? static_cast<int>(kSmemPerSm / (kSmem + 1024)) : 3;
+};
+
+// Byte offset of 16-byte chunk `c` of row `r` in a tile of 128B-swizzled
+// boxes (TMA's pattern: chunk c of a 128-byte row r sits at c ^ (r % 8)).
+// `rsw` is 16 * (r % 8), which the callers hoist.
+__device__ __forceinline__ uint32_t sw_off(int r, int c, uint32_t rsw) {
+  return static_cast<uint32_t>((c >> 3) * kBoxBytes + r * 128) +
+         ((16u * static_cast<uint32_t>(c & 7)) ^ rsw);
+}
+
+// One K or V tile into a ring buffer by TMA, completing on `bar`.
+template <int D>
+__device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int g, int k0, int b) {
+  mbar_expect_tx(bar, Shape<D>::kTileBytes);
+#pragma unroll
+  for (int j = 0; j < Shape<D>::kBoxes; ++j)
+    tc::tma_load_4d(dst + j * kBoxBytes, map, bar, kBox * j, g, k0, b);
+}
+
+// A warp is done reading ring buffer `buf`: the last of the four warps to
+// say so for this tile (its ticket ends a group of four) refills it with
+// the tile after next, if any.  Nobody waits.
+template <int D>
+__device__ __forceinline__ void release(uint32_t* ticket, int buf, int lane, uint8_t* dst,
+                                        const CUtensorMap* map, uint64_t* bar, int g,
+                                        int k0, int b, bool more) {
+  __syncwarp();                             // the warp's reads of the buffer are done
+  if (lane == 0) {
+    __threadfence_block();
+    if ((atomicAdd(ticket + buf, 1u) & 3u) == 3u && more) {
+      __threadfence_block();
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      load_tile<D>(dst, map, bar, g, k0, b);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsF32, Shape<D>::kPerSm)
+flash_f32_kernel(const __grid_constant__ CUtensorMap qmap,
+                 const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap, float* __restrict__ out,
+                 int sq, int skv, int n_heads, int n_kv, int causal, int window,
+                 int q_offset, float scale) {
+  using S = Shape<D>;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  uint8_t* q_s = smem_raw + (((raw + 1023u) & ~1023u) - raw);   // 1 KB aligned
+  uint8_t* k_s = q_s + S::kTileBytes;        // ring buffer 0: K tiles
+  uint8_t* v_s = k_s + S::kTileBytes;        // ring buffer 1: V tiles
+  float* p_s = reinterpret_cast<float*>(v_s + S::kTileBytes);     // (64, kSlice)
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(p_s + kRowsQ * S::kSlice);
+  uint64_t* full = full_q + 1;               // [K, V]
+  uint32_t* ticket = reinterpret_cast<uint32_t*>(full + 2);       // [K, V]
+
+  const int b = blockIdx.x / n_heads;
+  const int h = blockIdx.x - b * n_heads;
+  const int g = h / (n_heads / n_kv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRowsQ;   // heaviest tiles first
+
+  // keys any row of this tile can see: [k_begin, k_end), in whole tiles
+  const int q_first = q0 + q_offset;
+  const int q_last = min(q0 + kRowsQ, sq) - 1 + q_offset;
+  int k_begin = 0, k_end = skv;
+  if (causal) k_end = min(skv, q_last + 1);
+  if (window > 0) k_begin = max(0, q_first - window + 1);
+  const int kt0 = (k_begin / kKeys) * kKeys;
+  const int n_tiles = k_end > kt0 ? (k_end - kt0 + kKeys - 1) / kKeys : 0;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(full_q + i, 1);
+    ticket[0] = ticket[1] = 0;
+    mbar_init_fence();
+    mbar_expect_tx(full_q, S::kTileBytes);
+#pragma unroll
+    for (int j = 0; j < S::kBoxes; ++j)
+      tc::tma_load_4d(q_s + j * kBoxBytes, &qmap, full_q, kBox * j, h, q0, b);
+    if (n_tiles > 0) {
+      load_tile<D>(k_s, &kmap, full + 0, g, kt0, b);
+      load_tile<D>(v_s, &vmap, full + 1, g, kt0, b);
+    }
+  }
+  __syncthreads();
+
+  // thread (ty, tx) owns query rows ty + 8i (i < 8), score keys tx + 16j
+  // (j < 4) and output columns 4(tx + 16c) .. +3 (c < kVec), plus 64 kVec
+  // + tx at d=80.  The 16 lanes of a row are one half-warp, so P goes
+  // between them through shared memory with __syncwarp only.
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int ty = warp * 2 + (lane >> 4);
+  const int tx = lane & 15;
+  const uint32_t qsw = 16u * static_cast<uint32_t>(ty & 7);   // rows ty + 8i
+  const uint32_t ksw = 16u * static_cast<uint32_t>(tx & 7);   // keys tx + 16j
+  const int psw = 16 * (ty & 1);                              // P's key swizzle
+
+  float acc[8][S::kCols];
+  float m_r[8], l_r[8];                     // l_r: this lane's keys only
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m_r[i] = kMasked;
+    l_r[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < S::kCols; ++c) acc[i][c] = 0.f;
+  }
+  mbar_wait(full_q, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = kt0 + t * kKeys;
+    const uint32_t parity = t & 1;
+    const bool more = t + 1 < n_tiles;
+
+    // S = Q K^T: per 16-byte d chunk, 4 + 8 vector loads for 128 FMAs
+    float s[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    mbar_wait(full + 0, parity);
+#pragma unroll (S::kQkUnroll)
+    for (int c = 0; c < S::kChunks; ++c) {
+      float4 kf[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        kf[j] = *reinterpret_cast<const float4*>(k_s + sw_off(tx + 16 * j, c, ksw));
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 qf = *reinterpret_cast<const float4*>(q_s + sw_off(ty + 8 * i, c, qsw));
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qf.x, kf[j].x, s[i][j]);
+          s[i][j] = fmaf(qf.y, kf[j].y, s[i][j]);
+          s[i][j] = fmaf(qf.z, kf[j].z, s[i][j]);
+          s[i][j] = fmaf(qf.w, kf[j].w, s[i][j]);
+        }
+      }
+    }
+    release<D>(ticket, 0, lane, k_s, &kmap, full + 0, g, k0 + kKeys, b, more);
+
+    // online softmax; the per-element mask only where a mask cuts the tile
+    const bool full_tile = k0 + kKeys <= skv &&
+                           (!causal || k0 + kKeys - 1 <= q0 + q_offset) &&
+                           (window <= 0 || k0 > q0 + kRowsQ - 1 + q_offset - window);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int qpos = q0 + ty + 8 * i + q_offset;
+      bool vis[4];
+      float mx = m_r[i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kpos = k0 + tx + 16 * j;
+        bool ok = full_tile || kpos < skv;
+        if (!full_tile && causal) ok = ok && kpos <= qpos;
+        if (!full_tile && window > 0) ok = ok && kpos > qpos - window;
+        vis[j] = ok;
+        s[i][j] = ok ? s[i][j] * scale : kMasked;
+        mx = fmaxf(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)   // a row's 16 lanes
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float corr = expf(m_r[i] - mx);
+      m_r[i] = mx;
+      l_r[i] *= corr;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = vis[j] ? expf(s[i][j] - mx) : 0.f;
+        s[i][j] = p;
+        l_r[i] += p;                        // l from p
+      }
+#pragma unroll
+      for (int c = 0; c < S::kCols; ++c) acc[i][c] *= corr;
+    }
+
+    // O += P V, in slices of kSlice keys through this half-warp's rows of P
+    mbar_wait(full + 1, parity);
+#pragma unroll 1
+    for (int hh = 0; hh < kKeys / S::kSlice; ++hh) {
+      __syncwarp();                         // the last slice's reads are done
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int jj = 0; jj < S::kSlice / 16; ++jj)
+          p_s[(ty + 8 * i) * S::kSlice + ((tx + 16 * jj) ^ psw)] =
+              S::kSlice == kKeys ? s[i][jj] : hh ? s[i][2 + (jj & 1)] : s[i][jj & 1];
+      __syncwarp();
+#pragma unroll 1
+      for (int k8 = 0; k8 < S::kSlice; k8 += 8)
+#pragma unroll
+      for (int kk = k8; kk < k8 + 8; kk += 4) {
+        float4 pf[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          pf[i] = *reinterpret_cast<const float4*>(p_s + (ty + 8 * i) * S::kSlice +
+                                                   (kk ^ psw));
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int key = S::kSlice * hh + kk + u;
+          const uint32_t vsw = 16u * static_cast<uint32_t>((kk - k8 + u) & 7);  // key % 8
+          const uint8_t* vrow = v_s + key * 128;
+          float pu[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            pu[i] = u == 0 ? pf[i].x : u == 1 ? pf[i].y : u == 2 ? pf[i].z : pf[i].w;
+#pragma unroll
+          for (int c = 0; c < S::kVec; ++c) {
+            const int chunk = tx + 16 * c;
+            const float4 vf = *reinterpret_cast<const float4*>(
+                vrow + (chunk >> 3) * kBoxBytes + ((16u * (chunk & 7)) ^ vsw));
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              acc[i][4 * c + 0] = fmaf(pu[i], vf.x, acc[i][4 * c + 0]);
+              acc[i][4 * c + 1] = fmaf(pu[i], vf.y, acc[i][4 * c + 1]);
+              acc[i][4 * c + 2] = fmaf(pu[i], vf.z, acc[i][4 * c + 2]);
+              acc[i][4 * c + 3] = fmaf(pu[i], vf.w, acc[i][4 * c + 3]);
+            }
+          }
+          if constexpr (S::kScalar > 0) {
+            // column 64 kVec + tx: box 2 kVec, chunk tx / 4, word tx % 4
+            const float vv = *reinterpret_cast<const float*>(
+                vrow + 2 * S::kVec * kBoxBytes + ((16u * (tx >> 2)) ^ vsw) + 4 * (tx & 3));
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+              acc[i][4 * S::kVec] = fmaf(pu[i], vv, acc[i][4 * S::kVec]);
+          }
+        }
+      }
+    }
+    release<D>(ticket, 1, lane, v_s, &vmap, full + 1, g, k0 + kKeys, b, more);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float l = l_r[i];
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+    const float den = fmaxf(l, 1e-30f);
+    const int row = q0 + ty + 8 * i;
+    if (row >= sq) continue;
+    float* o = out + ((static_cast<int64_t>(b) * sq + row) * n_heads + h) * D;
+#pragma unroll
+    for (int c = 0; c < S::kVec; ++c)
+      *reinterpret_cast<float4*>(o + 4 * (tx + 16 * c)) =
+          make_float4(acc[i][4 * c] / den, acc[i][4 * c + 1] / den,
+                      acc[i][4 * c + 2] / den, acc[i][4 * c + 3] / den);
+    if constexpr (S::kScalar > 0) o[64 * S::kVec + tx] = acc[i][4 * S::kVec] / den;
+  }
+}
+
+// TMA map of a (b, s, heads, d) fp32 tensor as the 4-D (d, heads, s, b)
+// view, 32 x 1 x 64 x 1 boxes, 128-byte swizzle, zero fill out of bounds.
+bool make_map(CUtensorMap* map, const void* ptr, int d, int heads, int s, int b) {
+  const tc::EncodeTiled fn = tc::encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(s), static_cast<cuuint64_t>(b)};
+  const cuuint64_t row = static_cast<cuuint64_t>(d) * 4;
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * s};
+  const cuuint32_t box[4] = {kBox, 1, kKeys, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(ptr), dims,
+            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, int b, int sq,
+           int skv, int n_heads, int n_kv, int causal, int window, int q_offset,
+           float scale, cudaStream_t stream) {
+  if (skv <= 0) {                           // no key: every row is zero
+    cudaMemsetAsync(out, 0, static_cast<size_t>(b) * sq * n_heads * D * 4, stream);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int q_tiles = (sq + kRowsQ - 1) / kRowsQ;
+  if (q_tiles > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  CUtensorMap qmap, kmap, vmap;
+  if (!make_map(&qmap, q, D, n_heads, sq, b) || !make_map(&kmap, k, D, n_kv, skv, b) ||
+      !make_map(&vmap, v, D, n_kv, skv, b))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = flash_f32_kernel<D>;
+  const cudaError_t err = smem_limit_once<flash_f32_kernel<D>>(Shape<D>::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(b) * n_heads, q_tiles);
+  kern<<<grid, kThreadsF32, Shape<D>::kSmem, stream>>>(
+      qmap, kmap, vmap, static_cast<float*>(out), sq, skv, n_heads, n_kv, causal,
+      window, q_offset, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace f32
+
 // window <= 0 means no sliding window; causal is 0 or 1.
 template <bool kBf16>
 int dispatch(const void* q, const void* k, const void* v, void* out, int b, int sq,
@@ -658,22 +823,22 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int b, int 
     case 64:
       return kBf16 ? tc::launch<64>(q, k, v, out, b, sq, skv, n_heads, n_kv, causal,
                                     window, q_offset, scale, s)
-                   : launch_f32<64>(q, k, v, out, b, sq, skv, n_heads, n_kv, causal,
+                   : f32::launch<64>(q, k, v, out, b, sq, skv, n_heads, n_kv, causal,
                                     window, q_offset, scale, s);
     case 80:
       return kBf16 ? tc::launch<80>(q, k, v, out, b, sq, skv, n_heads, n_kv, causal,
                                     window, q_offset, scale, s)
-                   : launch_f32<80>(q, k, v, out, b, sq, skv, n_heads, n_kv, causal,
+                   : f32::launch<80>(q, k, v, out, b, sq, skv, n_heads, n_kv, causal,
                                     window, q_offset, scale, s);
     case 128:
       return kBf16 ? tc::launch<128>(q, k, v, out, b, sq, skv, n_heads, n_kv, causal,
                                      window, q_offset, scale, s)
-                   : launch_f32<128>(q, k, v, out, b, sq, skv, n_heads, n_kv, causal,
+                   : f32::launch<128>(q, k, v, out, b, sq, skv, n_heads, n_kv, causal,
                                      window, q_offset, scale, s);
     case 256:
       return kBf16 ? tc::launch<256>(q, k, v, out, b, sq, skv, n_heads, n_kv, causal,
                                      window, q_offset, scale, s)
-                   : launch_f32<256>(q, k, v, out, b, sq, skv, n_heads, n_kv, causal,
+                   : f32::launch<256>(q, k, v, out, b, sq, skv, n_heads, n_kv, causal,
                                      window, q_offset, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

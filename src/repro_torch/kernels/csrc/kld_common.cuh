@@ -153,11 +153,4 @@ __device__ __forceinline__ float score_lanes(const float* __restrict__ row,
                     : score_lanes_in<L, R, float>(row, med, c, log_q, q);
 }
 
-// One thread scores one row (kld_score.cu's matrix kernel).
-__device__ __forceinline__ float score_row(const float* __restrict__ row,
-                                           const float* __restrict__ med, int c,
-                                           float log_q) {
-  return score_lanes<1>(row, med, c, log_q, 0);
-}
-
 }  // namespace repro_kld

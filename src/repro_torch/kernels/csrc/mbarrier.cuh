@@ -1,7 +1,7 @@
 // Shared-memory mbarrier helpers (PTX, sm_90) of the kernels that wait on
 // asynchronous copies or stores: flash_attention.cu (TMA tiles),
-// affine_warp.cu (bulk image copies) and kld_greedy.cu (st.async keys
-// between the CTAs of a cluster).
+// affine_warp.cu (bulk image copies), kld_score.cu (bulk tile copies) and
+// kld_greedy.cu (st.async keys between the CTAs of a cluster).
 #pragma once
 
 #include <cuda_runtime.h>

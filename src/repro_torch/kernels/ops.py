@@ -23,7 +23,8 @@ LAUNCHES: dict[str, int] = {"fedavg_agg": 0, "kld_greedy_picks": 0,
                             "affine_warp": 0, "flash_attention": 0,
                             "ssd_chunk": 0}
 
-# mediators the matrix grid's y axis holds (65,535 x 8)
+# mediators the matrix grid's y axis holds (65,535 tiles of 8; a call
+# tiles by 4 only at a few thousand pairs, see kld_score_matrix_plan)
 SCORE_MAX_M = 524_280
 
 # (device index, K, C) -> floats of global scratch the greedy pass's plan
@@ -219,7 +220,9 @@ def kld_score_plan(k: int, c: int) -> dict:
 def kld_score_matrix(mediator_counts: torch.Tensor,
                      client_counts: torch.Tensor) -> torch.Tensor:
     """Alg. 3 scores of every (mediator, candidate) pair: ``(M, C)`` and
-    ``(K, C)`` float32 -> ``(M, K)`` float32 in one launch, any C."""
+    ``(K, C)`` float32 -> ``(M, K)`` float32 in one launch, any C.  The
+    kernel scores with ``kld_score``'s device function, so row ``i`` equals
+    ``kld_score(mediator_counts[i], client_counts)`` bit for bit."""
     _score_inputs(mediator_counts, client_counts, 2)
     if not _on_cuda(mediator_counts, client_counts):
         return ref.kld_score_matrix(mediator_counts, client_counts)
@@ -234,6 +237,32 @@ def kld_score_matrix(mediator_counts: torch.Tensor,
             mediator_counts.data_ptr(), client_counts.data_ptr(), out.data_ptr(),
             m, k, c)
     return out
+
+
+def kld_score_matrix_plan(m: int, k: int, c: int,
+                          mediator_counts: torch.Tensor | None = None,
+                          client_counts: torch.Tensor | None = None) -> dict:
+    """The launch an ``(m, k, c)`` ``kld_score_matrix`` call makes on the
+    tensors' card (the current one without them): lanes per (mediator,
+    candidate) pair (from C and from the pairs against the card's SM
+    count), classes each lane holds in registers (always 0: every group
+    streams its rows), the tile of mediators x candidates a CTA scores,
+    threads per CTA, CTAs, whether the tiles are staged in shared memory
+    by bulk copies (1) or read from global memory (0: the direct path, for
+    tiles past 96 KB or a base pointer that is not 16-byte aligned;
+    without the tensors the pointers count as aligned), and the staged
+    bytes.  No launch."""
+    import ctypes
+    ptrs = [None if t is None else t.data_ptr() for t in (mediator_counts, client_counts)]
+    out = [ctypes.c_int() for _ in range(4)] + [ctypes.c_int64()] \
+        + [ctypes.c_int() for _ in range(2)]
+    index = torch.cuda.current_device() if client_counts is None else client_counts.device.index
+    with torch.cuda.device(index):
+        code = build.library().kld_score_matrix_plan(m, k, c, *ptrs, *map(ctypes.byref, out))
+    build.check(code, "kld_score_matrix_plan")
+    plan = dict(zip(("lanes", "tile_m", "tile_k", "threads", "ctas", "tiles_in_smem",
+                     "smem_bytes"), (v.value for v in out)))
+    return {"lanes": plan.pop("lanes"), "rounds": 0, **plan}
 
 
 def affine_warp(images: torch.Tensor, mats: torch.Tensor,
@@ -278,7 +307,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     accumulator; returns ``(b, sq, H, d)`` in ``q``'s dtype.  ``window``
     keeps keys with ``qpos - window < kpos``; ``q_offset`` is the absolute
     position of ``q[:, 0]`` against ``k[:, 0]``.  Any head dim on the CPU;
-    on the card the head dims of ``FLASH_HEAD_DIMS``, others raise."""
+    on the card the head dims of ``FLASH_HEAD_DIMS`` and 16-byte aligned
+    inputs, others raise."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"expected q (b, sq, H, d) and k, v (b, skv, KV, d), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -298,6 +328,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if d not in FLASH_HEAD_DIMS:
         raise ValueError(f"head dim {d} not supported on the card; the kernel takes "
                          f"{FLASH_HEAD_DIMS}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the kernel loads q, k and v by TMA: they must be 16-byte aligned")
     out = torch.empty_like(q)
     entry = "flash_attention_f32" if q.dtype == torch.float32 else "flash_attention_bf16"
     _launch("flash_attention", entry, q.device, q.data_ptr(), k.data_ptr(),

@@ -273,9 +273,75 @@ def test_kld_score_matrix_kernel(dev, m, k, c):
     cand = torch.as_tensor(rng.integers(0, 60, (k, c)), dtype=torch.float32, device=dev)
     out = ops.kld_score_matrix(meds, cand)
     torch.testing.assert_close(out, ref.kld_score_matrix(meds, cand), rtol=0, atol=1e-6)
-    for i in (0, m - 1):
+    for i in (0, m // 2, m - 1):
         assert torch.equal(out[i], ops.kld_score(meds[i].contiguous(), cand))
     assert ops.kld_score_matrix(meds[:0], cand).shape == (0, k)
+
+
+# (M, K, C, path): M and K ragged against every tile the plan picks (16 x
+# 16 at one lane per pair, 8 x 8, 8 x 4, 4 x 4), last tiles whose bytes
+# end past a 16-byte boundary (floats copied by threads), every lane count
+# (1, 2, 4, 8, 16, 32) with C below, at and past a multiple of the lanes'
+# rounds, C = 64 (f32 sums) and 65 (f64), the staging limit (two tiles of
+# 96 KB) met and passed at 1 lane and at 4, and the direct path of a row
+# slice that is not 16-byte aligned ("slice": cand[1:] at odd C)
+MATRIX_TILE_CASES = [(19, 77, 64, "staged"), (21, 75, 65, "staged"), (37, 1001, 47, "staged"),
+                     (5, 13, 64, "staged"), (3, 7, 65, "staged"), (40, 700, 8, "staged"),
+                     (40, 700, 10, "staged"), (20, 700, 16, "staged"), (20, 700, 30, "staged"),
+                     (10, 700, 30, "staged"), (8, 500, 100, "staged"), (4, 600, 100, "staged"),
+                     (160, 160, 768, "staged"),
+                     (160, 160, 769, "direct"), (16, 512, 2048, "staged"),
+                     (16, 512, 2049, "direct"), (33, 130, 47, "slice"), (7, 9, 65, "slice")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,c,path", MATRIX_TILE_CASES)
+def test_kld_score_matrix_kernel_tiles_and_paths(dev, m, k, c, path):
+    """Within 1e-6 of the plain scores on the path the plan reports, and
+    the first, a middle and the last row bit for bit ``kld_score``'s."""
+    rng = np.random.default_rng(m + k + c)
+    meds = torch.as_tensor(rng.integers(0, 80, (m, c)), dtype=torch.float32, device=dev)
+    cand = torch.as_tensor(rng.integers(0, 60, (k + 1, c)), dtype=torch.float32, device=dev)
+    cand = cand[1:] if path == "slice" else cand[:k].contiguous()
+    assert cand.is_contiguous() and (cand.data_ptr() % 16 != 0) == (path == "slice")
+    plan = ops.kld_score_matrix_plan(m, k, c, meds, cand)
+    assert plan["tiles_in_smem"] == (path == "staged"), plan
+    before = ops.LAUNCHES["kld_score_matrix"]
+    out = ops.kld_score_matrix(meds, cand)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["kld_score_matrix"] == before + 1
+    torch.testing.assert_close(out, ref.kld_score_matrix(meds, cand), rtol=0, atol=1e-6)
+    for i in (0, m // 2, m - 1):
+        assert torch.equal(out[i], ops.kld_score(meds[i].contiguous(), cand))
+
+
+@pytest.mark.cuda
+def test_kld_score_matrix_plan(dev):
+    """The fewest lanes per pair that put ~12 warps on every SM: one from
+    ~50k pairs up on an H100 (Path A's sweep, 256 x 4,096); 8 at 16 x 512
+    x 47, whose 4 x 4 tiles fill the card (at least a CTA per SM); 4 at 16
+    x 512 x 2,000 (fewer lanes past 64 classes); never more than
+    kld_score's lanes for C; every group streams its rows; tiles staged
+    while two fit in 96 KB and the pointers are 16-byte aligned."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    small = ops.kld_score_matrix_plan(16, 512, 47)
+    assert small["ctas"] >= sms
+    if sms == 132:
+        assert small == {"lanes": 8, "rounds": 0, "tile_m": 4, "tile_k": 4, "threads": 128,
+                         "ctas": 512, "tiles_in_smem": 1, "smem_bytes": 8 * 47 * 4}
+        for m, k in ((256, 1024), (256, 4096)):
+            plan = ops.kld_score_matrix_plan(m, k, 47)
+            assert (plan["lanes"], plan["tile_m"], plan["tile_k"]) == (1, 16, 16)
+            assert plan["ctas"] == (m // 16) * (k // 16)
+        wide = ops.kld_score_matrix_plan(16, 512, 2000)
+        assert (wide["lanes"], wide["tiles_in_smem"]) == (4, 1)
+        lanes = [ops.kld_score_matrix_plan(m, k, c)["lanes"] for m, k, c in
+                 ((40, 700, 8), (20, 700, 16), (10, 700, 30), (5, 13, 64), (3, 7, 65))]
+        assert lanes == [2, 4, 8, 16, 32]
+    assert ops.kld_score_matrix_plan(3, 5, 60_000)["tiles_in_smem"] == 0
+    assert ops.kld_score_matrix_plan(1, 1, 10)["lanes"] == 4       # C = 10: kld_score's 4
+    assert all(ops.kld_score_matrix_plan(m, k, c)["rounds"] == 0
+               for m, k, c in ((16, 512, 47), (5, 13, 64), (1, 1, 10), (256, 1024, 47)))
 
 
 @pytest.mark.cuda
@@ -416,6 +482,45 @@ def test_flash_attention_kernel(dev, dtype, case):
         exact = ref.flash_attention(qf, kf, vf, **kw)
         bound = 2 ** -8 * (exact.abs() + ref.flash_attention(qf, kf, vf.abs(), **kw))
         assert bool(((out.float() - exact).abs() <= bound).all())
+
+
+# (b, sq, skv, H, KV, causal, window, q_offset): a last key tile of 3, 33
+# and 61 keys (skv not a multiple of 64) with and without masks, GQA 2:1
+F32_RAGGED_CASES = [(2, 70, 131, 4, 2, True, None, 61), (1, 33, 97, 2, 1, False, None, 0),
+                    (1, 100, 189, 4, 4, True, 50, 89)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
+@pytest.mark.parametrize("case", F32_RAGGED_CASES)
+def test_flash_attention_f32_ragged_key_tile(dev, d, case):
+    """fp32 at every head dim with a ragged last key tile (TMA zero-fills
+    the keys past skv, the mask drops them): within 1e-5 of the output
+    scale."""
+    b, sq, skv, h, kv, causal, window, off = case
+    g = torch.Generator(device=dev).manual_seed(sq + skv + d)
+    q = torch.randn(b, sq, h, d, generator=g, device=dev)
+    k = torch.randn(b, skv, kv, d, generator=g, device=dev)
+    v = torch.randn(b, skv, kv, d, generator=g, device=dev)
+    kw = dict(causal=causal, window=window, q_offset=off)
+    out = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err, scale = _err_scale(out, ref.flash_attention(q, k, v, **kw))
+    assert err <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_refuses_misaligned_inputs(dev, dtype):
+    """The kernels load q, k and v by TMA: a contiguous view that is not
+    16-byte aligned raises, with no launch."""
+    base = torch.randn(1 + 2 * 8 * 64, device=dev).to(dtype)
+    q = base[1:].view(1, 8, 2, 64)
+    k = v = torch.randn(1, 8, 2, 64, device=dev).to(dtype)
+    before = ops.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.flash_attention(q, k, v)
+    assert ops.LAUNCHES["flash_attention"] == before
 
 
 @pytest.mark.cuda

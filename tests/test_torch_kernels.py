@@ -388,11 +388,13 @@ def test_flash_attention_bf16_matches_reference_kernel():
     np.testing.assert_allclose(got.float().numpy(), pallas, rtol=0, atol=2 ** -7 * scale)
 
 
-def _tensor_core_flash(q, k, v, *, causal, window, q_offset, tile):
-    """The bf16 card kernel's arithmetic, emulated here: bf16 inputs, fp32
-    ``q.k^T``, online softmax over ``tile``-key tiles with fp32 running max,
-    denominator and accumulator, ``P`` rounded to bf16 before ``P.V``, ``l``
-    summed from the unrounded ``p``."""
+def _online_flash(q, k, v, *, causal, window, q_offset, tile, bf16_p):
+    """A card kernel's arithmetic, emulated here: fp32 ``q.k^T`` scaled by
+    ``1/sqrt(d)``, online softmax over ``tile``-key tiles in key order with
+    fp32 running max, denominator and accumulator, ``l`` summed from the
+    unrounded ``p``; ``bf16_p`` rounds ``P`` to bf16 before ``P.V`` (the
+    tensor-core kernel), else ``P.V`` stays fp32 (the CUDA-core kernel).
+    Returns fp32."""
     b, sq, h, d = q.shape
     skv, kv = k.shape[1], k.shape[2]
     qf = q.float().reshape(b, sq, kv, h // kv, d)
@@ -410,11 +412,19 @@ def _tensor_core_flash(q, k, v, *, causal, window, q_offset, tile):
         corr = torch.exp(m - m_new)
         p = torch.where(vis, torch.exp(s - m_new[..., None]), 0.0)
         l = l * corr + p.sum(-1)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bgrqk,bkgd->bgrqd", p.to(torch.bfloat16).float(), vf[:, k0:k0 + tile])
+        pv = p.to(torch.bfloat16).float() if bf16_p else p
+        acc = acc * corr[..., None] + torch.einsum("bgrqk,bkgd->bgrqd", pv,
+                                                   vf[:, k0:k0 + tile])
         m = m_new
     out = acc / l.clamp_min(1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(torch.bfloat16)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d)
+
+
+def _tensor_core_flash(q, k, v, *, causal, window, q_offset, tile):
+    """The bf16 card kernel's arithmetic: bf16 inputs, ``P`` rounded to bf16
+    before ``P.V``, bf16 output."""
+    return _online_flash(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                         tile=tile, bf16_p=True).to(torch.bfloat16)
 
 
 # FLASH_CASES at d=64, plus head dims 80, 128 and 256 (window, q_offset, GQA 4:1, MQA)
@@ -442,6 +452,33 @@ def test_tensor_core_flash_numerics_within_card_tolerance(case, tile):
         plain = ref.flash_attention(q, k, v, **kw)
         err = float((got.double() - plain.double()).abs().max())
         assert err <= 2 ** -7 * max(float(plain.double().abs().max()), 1.0), (seed, err)
+
+
+# FLASH_CASES at d=64, ANY_D_FLASH_CASES at gemma's d=256, and d=80 and 128
+# rows (window, q_offset, GQA 4:1, MQA)
+F32_FLASH_CASES = [(*c, 64) for c in FLASH_CASES] + [(*c, 256) for c in ANY_D_FLASH_CASES] + [
+    (1, 100, 100, 4, 2, True, 33, 0, 80),
+    (1, 90, 90, 2, 2, True, 40, -7, 80),
+    (2, 70, 120, 4, 1, True, None, 50, 128),
+]
+
+
+@pytest.mark.parametrize("case", F32_FLASH_CASES)
+def test_cuda_core_flash_numerics_within_card_tolerance(case):
+    """The fp32 card kernel's arithmetic (online softmax over its 64-key
+    tiles in key order, fp32 throughout) against the reference's Pallas
+    kernel in interpret mode, within the card's fp32 tolerance 1e-5 *
+    max(|out|, 1)."""
+    b, sq, skv, h, kv, causal, window, off, d = case
+    q, k, v = _attn_inputs(sq + skv + d, b, sq, skv, h, kv, d)
+    got = _online_flash(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                        causal=causal, window=window, q_offset=off, tile=64,
+                        bf16_p=False).numpy()
+    pallas = np.asarray(jops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                             causal=causal, window=window, q_offset=off))
+    assert got.shape == pallas.shape == (b, sq, h, d)
+    np.testing.assert_allclose(got, pallas, rtol=0,
+                               atol=1e-5 * max(float(np.abs(pallas).max()), 1.0))
 
 
 def test_flash_attention_row_without_keys_is_zero():

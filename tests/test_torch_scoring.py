@@ -74,6 +74,48 @@ def test_kld_score_matrix_matches_reference(m, k, c):
             rtol=0, atol=1e-6)
 
 
+def _score_lanes_emulation(meds, cand):
+    """``kld_common.cuh::score_lanes``' op order for every (mediator,
+    candidate) pair, in numpy: merged counts ``med_j + row_j`` in f32; the
+    total summed in ascending j, one separately rounded add at a time, in
+    f32 up to 64 classes and in f64 past that (rounded to f32 once);
+    ``p_j = m_j / max(total, 1e-12)``; the score summed the same way over
+    ``p_j * (log(max(p_j, 1e-12)) - log(max(1/C, 1e-12)))`` where ``p_j > 0``
+    (-0.0 elsewhere), every op a separately rounded f32 op."""
+    f32 = np.float32
+    c = meds.shape[1]
+    acc_t = np.float32 if c <= 64 else np.float64
+    merged = meds[:, None, :].astype(f32) + cand[None, :, :].astype(f32)   # (M, K, C)
+    total = np.zeros(merged.shape[:2], acc_t)
+    for j in range(c):
+        total = total + merged[..., j].astype(acc_t)
+    denom = np.maximum(total.astype(f32), f32(1e-12))
+    log_q = np.log(np.maximum(f32(1.0 / c), f32(1e-12)))
+    score = np.zeros(merged.shape[:2], acc_t)
+    with np.errstate(divide="ignore"):
+        for j in range(c):
+            p = merged[..., j] / denom
+            term = np.where(p > 0, p * (np.log(np.maximum(p, f32(1e-12))) - log_q), f32(-0.0))
+            score = score + term.astype(f32).astype(acc_t)
+    return score.astype(f32)
+
+
+@pytest.mark.parametrize("c", [10, 47, 64, 65, 1100])
+def test_score_lanes_op_order_matches_reference(c):
+    """The card's scorer sums in ascending class order one add at a time
+    (f32 up to 64 classes, f64 past), not in the reference's tree order:
+    emulated here, its matrix stays within 1e-6 of ``ref.kld_score_matrix``
+    (zero rows included)."""
+    meds, cand = _counts(c, 6, c, hi=200), _counts(c + 1, 40, c)
+    meds[0] = 0.0
+    cand[0] = 0.0
+    got = _score_lanes_emulation(meds, cand)
+    want = np.asarray(jref.kld_score_matrix(jnp.asarray(meds), jnp.asarray(cand)))
+    assert got.dtype == np.float32 and got.shape == want.shape == (6, 40)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    assert got[0, 0] == 0.0
+
+
 def test_empty_score_shapes():
     assert ops.kld_score(torch.ones(4), torch.ones(0, 4)).shape == (0,)
     assert ops.kld_score_matrix(torch.ones(0, 4), torch.ones(3, 4)).shape == (0, 3)
