@@ -23,9 +23,15 @@ Phases, each fatal on failure:
    CPU (plain versions), same params and draws: EMNIST (8 classes, 16 px)
    and a reduced CINIC (16 px, width 8), 2 rounds each;
 5. main path: FedAvg then Astraea at the paper's EMNIST width (68,873
-   parameters), 3 rounds each, with every kernel launch count reset just
-   before and read just after; the WAN ledger must equal the CommMeter
-   formula and accuracy must be finite;
+   parameters), 3 rounds each, the mediator rows in lockstep
+   (``row_exec="vmap"``) and each round's local training one CUDA graph
+   (``num_round_traces`` must be 1), with every kernel launch count reset
+   just before and read just after; the WAN ledger must equal the
+   CommMeter formula and accuracy must be finite.  Then, per trainer, one
+   more round profiled, and one ``row_exec="map"`` round (rows one by
+   one, eagerly) from the same seed, held to the first lockstep round
+   (``row_exec_check``), timed and profiled: seconds, host launches,
+   device kernels and device busy and idle per round of both paths;
 6. Path A, Alg. 3 step by step: ``reschedule(impl="loop")`` on the card
    over 1,024 integer histograms (one ``kld_score`` launch per pick) and
    the (mediator x client) score sweep of its schedule (one
@@ -33,9 +39,10 @@ Phases, each fatal on failure:
    picks must equal the one-launch greedy kernel's, and on the CINIC
    cohort's post-augmentation counts the CPU loop's up to float ties;
 7. Path B, the CINIC-10 arm at the paper's width (``cinic_cnn``, 2,168,362
-   parameters, 32x32x3): FedAvg and Astraea, 3 rounds each, counts reset
-   before and read after; WAN ledger exactly 794.078 / 992.600 MiB; then
-   one materialized-Alg. 2 Astraea round (its warp launches and extra
+   parameters, 32x32x3): FedAvg and Astraea, 3 rounds each as in phase
+   5, counts reset before and read after; WAN ledger exactly 794.078 /
+   992.600 MiB; the same ``"map"`` rounds and profiles; then one
+   materialized-Alg. 2 Astraea round (its warp launches and extra
    storage);
 8. serving agreement: a reduced Hymba (GQA 4:2) and a reduced gemma at its
    full head dim of 256 (f32 weights from one seed) prefilled and decoded
@@ -401,8 +408,8 @@ class _DrawsOn:
     def permutation(self, epoch, n):
         return self.inner.permutation(epoch, n).to(self.device)
 
-    def keep_masks(self, epoch, step, sites):
-        return [k.to(self.device) for k in self.inner.keep_masks(epoch, step, sites)]
+    def epoch_keep_masks(self, epoch, steps, sites):
+        return [k.to(self.device) for k in self.inner.epoch_keep_masks(epoch, steps, sites)]
 
     def augment(self, rnd, row, slot, weights):
         return tuple(t.to(self.device) for t in
@@ -445,42 +452,53 @@ def agreement_check(dev, cinic: bool = False):
     return {"groups": g_dev, "params_max_abs_err": err, "tol": 1e-4}
 
 
-def main_path(fed, dev, make_model, n_params):
-    """FedAvg then Astraea for ``ROUNDS`` rounds each at full width; the
-    launch counts are reset before and read after."""
+def fl_trainer(name, fed, dev, make_model, row_exec="vmap", init_params=None):
+    """The main path's FedAvg or Astraea trainer, seed 0, at ``row_exec``."""
     from repro_torch.core import AstraeaTrainer, FedAvgTrainer, LocalSpec
-    from repro_torch.kernels import ops
     from repro_torch.optim import adam
-    local = LocalSpec(20, 2)
-    rows = {}
+    common = dict(clients_per_round=CLIENTS, local=LocalSpec(20, 2), seed=0,
+                  device=dev, row_exec=row_exec, init_params=init_params)
+    if name == "FedAvg":
+        return FedAvgTrainer(make_model(), adam(1e-3), fed, **common)
+    return AstraeaTrainer(make_model(), adam(1e-3), fed, gamma=GAMMA,
+                          mediator_epochs=1, alpha=ALPHA, **common)
+
+
+def main_path(fed, dev, make_model, n_params):
+    """FedAvg then Astraea for ``ROUNDS`` rounds each at full width, the
+    rows in lockstep and each round's local training one CUDA graph; the
+    launch counts are reset before and read after.  Returns the rows, the
+    launches, the peak memory and, per trainer, the trainer and its
+    weights after round 1 (for ``row_exec_check``)."""
+    from repro_torch.kernels import ops
+    rows, trainers = {}, {}
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launches()
     for name in ("FedAvg", "Astraea"):
-        if name == "FedAvg":
-            tr = FedAvgTrainer(make_model(), adam(1e-3), fed,
-                               clients_per_round=CLIENTS, local=local, seed=0,
-                               device=dev)
-        else:
-            tr = AstraeaTrainer(make_model(), adam(1e-3), fed,
-                                clients_per_round=CLIENTS, gamma=GAMMA,
-                                local=local, mediator_epochs=1, alpha=ALPHA,
-                                seed=0, device=dev)
+        tr = fl_trainer(name, fed, dev, make_model)
         secs = []
-        for _ in range(ROUNDS):
+        for r in range(ROUNDS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             tr.run_round()
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
+            if r == 0:
+                trainers[name] = (tr, {k: v.clone() for k, v in tr.params.items()})
         m = tr.evaluate()
         m["round_seconds"] = secs
         m["pad"] = tr.engine.pad
         m["mediators"] = tr.engine.last_groups
+        m["num_round_traces"] = tr.engine.num_round_traces
         rows[name] = m
         if not (math.isfinite(m["accuracy"]) and math.isfinite(m["loss"])):
             raise AssertionError(f"{name}: non-finite metrics {m}")
         if not all(bool(torch.isfinite(p).all()) for p in tr.params.values()):
             raise AssertionError(f"{name}: non-finite params")
+        if tr.engine.num_round_traces != 1 or tr.engine._program.graph is None:
+            raise AssertionError(f"{name}: round program built "
+                                 f"{tr.engine.num_round_traces} times, graph "
+                                 f"{tr.engine._program.graph}; expected one capture")
         n = sum(p.numel() for p in tr.params.values())
         if n != n_params:
             raise AssertionError(f"{name}: {n} params, expected {n_params}")
@@ -498,7 +516,77 @@ def main_path(fed, dev, make_model, n_params):
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}: {launches}")
-    return rows, launches, torch.cuda.max_memory_allocated(dev) / 1e9
+    return rows, launches, torch.cuda.max_memory_allocated(dev) / 1e9, trainers
+
+
+def row_exec_check(fed, dev, make_model, vmap_runs):
+    """Per trainer: one more lockstep round under ``torch.profiler``; then
+    the same trainer with ``row_exec="map"`` from the same seed: its first
+    round timed and held to the lockstep trainer's first round, its second
+    round profiled.
+
+    The hold: after one full-width round the two paths (fp32 sums in
+    other orders, carried through the round's Adam steps) must lie no
+    further apart, in L2 over the round's own update, than twice the
+    distance at which the loop itself lands from weights perturbed by
+    1e-7 (a third trainer): CINIC-10's rounds amplify any such difference
+    to a tenth of the update or more, EMNIST's do not.  Returns per
+    trainer both paths' seconds, launches and device busy and idle."""
+    from repro_torch.examples.profile_round import profile_round
+    from repro_torch.models.cnn import init_params
+    out = {}
+    for name, (tr, first) in vmap_runs.items():
+        vmap_prof = profile_round(tr, top=6)
+        if tr.engine.num_round_traces != 1:
+            raise AssertionError(f"{name}: the profiled round rebuilt the round program")
+        mp = fl_trainer(name, fed, dev, make_model, row_exec="map")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mp.run_round()
+        torch.cuda.synchronize()
+        map_s = time.perf_counter() - t0
+        init = init_params(make_model(), 0, dev)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        noisy = fl_trainer(name, fed, dev, make_model, row_exec="map", init_params={
+            k: v + 1e-7 * torch.randn(v.shape, generator=gen, device=dev)
+            for k, v in init.items()})
+        noisy.run_round()
+
+        def flat(p):
+            return torch.cat([p[k].flatten() for k in init])
+        update = float((flat(first) - flat(init)).norm())
+        rel = float((flat(mp.params) - flat(first)).norm()) / update
+        rel_noise = float((flat(mp.params) - flat(noisy.params)).norm()) / update
+        if not rel <= 2 * rel_noise:
+            raise AssertionError(f"{name}: the map round lies {rel:.3e} of the update from "
+                                 f"the vmap round, more than twice the {rel_noise:.3e} a "
+                                 "1e-7 perturbation of the weights moves it")
+        max_abs = float((flat(mp.params) - flat(first)).abs().max())
+        map_prof = profile_round(mp, top=6)
+        out[name] = {"map_round_s": map_s, "rel_l2_vs_vmap": rel,
+                     "rel_l2_perturbed": rel_noise, "max_abs_vs_vmap": max_abs,
+                     "vmap_profile": vmap_prof, "map_profile": map_prof,
+                     "num_round_traces": tr.engine.num_round_traces}
+        del mp, noisy
+    return out
+
+
+def log_row_exec(arm, rows, check):
+    for name, c in check.items():
+        v, m = c["vmap_profile"], c["map_profile"]
+        secs = rows[name]["round_seconds"]
+        log(f"[rows] {arm} {name}: num_round_traces {c['num_round_traces']}; vmap "
+            f"s/round {' '.join(f'{x:.4f}' for x in secs)} (first includes the "
+            f"capture), map {c['map_round_s']:.4f}; map vs vmap after one round: "
+            f"{c['rel_l2_vs_vmap']:.3e} of the update (L2; the loop from weights "
+            f"perturbed by 1e-7: {c['rel_l2_perturbed']:.3e}), max abs "
+            f"{c['max_abs_vs_vmap']:.3e}")
+        for path, p in (("vmap", v), ("map", m)):
+            log(f"[rows] {arm} {name} {path} (profiled round): wall {p['wall_s']:.4f} s, "
+                f"device busy {p['busy_s']:.4f} s, idle {100 * p['idle_share']:.1f} % "
+                f"(kernel time summed {p['kernel_s']:.4f} s), "
+                f"{p['host_launches']} host launches ({p['graph_launches']} graph), "
+                f"{p['device_kernels']} device kernels")
 
 
 def cinic_cohort_counts(fed):
@@ -945,7 +1033,7 @@ def main() -> int:
     lap("4 agreement")
 
     # ---- 5. the EMNIST main path at full width
-    rows, launches, peak = main_path(fed, dev, lambda: emnist_cnn(47, 28), 68_873)
+    rows, launches, peak, runs = main_path(fed, dev, lambda: emnist_cnn(47, 28), 68_873)
     path_launches = {"emnist": dict(launches)}
     log(f"[main] emnist launches {launches}, peak {peak:.3f} GB")
     log(f"\n{'method':10s} {'top1':>7s} {'loss':>7s} {'traffic MB':>11s} "
@@ -953,6 +1041,9 @@ def main() -> int:
     for name, m in rows.items():
         log(f"{name:10s} {m['accuracy']:7.4f} {m['loss']:7.4f} "
             f"{m['traffic_mb']:11.3f} {np.mean(m['round_seconds']):8.3f}")
+    rows_check = {"emnist": row_exec_check(fed, dev, lambda: emnist_cnn(47, 28), runs)}
+    log_row_exec("emnist", rows, rows_check["emnist"])
+    del runs
 
     lap("5 EMNIST path")
 
@@ -967,7 +1058,7 @@ def main() -> int:
     lap("6 Path A")
 
     # ---- 7. Path B: the CINIC-10 arm at the paper's width
-    cinic_rows, cinic_launches, cinic_peak = main_path(
+    cinic_rows, cinic_launches, cinic_peak, runs = main_path(
         cinic_fed, dev, lambda: cinic_cnn(10, 32, 3, 32), CINIC_PARAMS)
     path_launches["cinic"] = dict(cinic_launches)
     log(f"[cinic] cinic_cnn {CINIC_PARAMS:,} params, 32x32x3: launches "
@@ -976,6 +1067,11 @@ def main() -> int:
         log(f"[cinic] {name:8s} top1 {m['accuracy']:.4f} loss {m['loss']:.4f} "
             f"WAN {m['wan_mib']:.3f} MiB s/round "
             f"{' '.join(f'{x:.3f}' for x in m['round_seconds'])}")
+    rows_check["cinic"] = row_exec_check(cinic_fed, dev, lambda: cinic_cnn(10, 32, 3, 32),
+                                         runs)
+    log_row_exec("cinic", cinic_rows, rows_check["cinic"])
+    del runs
+    torch.cuda.empty_cache()
     materialized = materialized_round(cinic_fed, dev)
     path_launches["cinic_materialized"] = dict(materialized["launches"])
     log(f"[cinic] materialized Alg. 2: {materialized['added_samples']} warped copies "
@@ -1086,6 +1182,7 @@ def main() -> int:
          "checks": checks, "agreement": agree, "main_path": rows,
          "main_path_peak_mem_gb": peak, "alg3_loop": alg3, "cinic": cinic_rows,
          "cinic_peak_mem_gb": cinic_peak, "cinic_materialized": materialized,
+         "row_exec": rows_check,
          "serve_agreement": serve_agree, "serve": served,
          "path_launches": path_launches, "launches": launches, "phase_seconds": phase_s,
          "kernels": summary}, indent=1, default=str))

@@ -9,14 +9,16 @@ mediator trains its clients sequentially for E_m epochs, and Eq. 6
 averages the mediator deltas with weights n_m / n.
 
 The trainer presents the reference's arguments (``repro/core/astraea.py``)
-where they apply to a synchronous single-device engine, plus ``device``,
-``init_params``, ``draws`` and ``loss_fn`` (see ``core/engine.py``).
+where they apply to a synchronous single-device engine, plus ``row_exec``
+(the engine's, ``EngineConfig.row_exec``), ``device``, ``init_params``,
+``draws`` and ``loss_fn`` (see ``core/engine.py``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
-from repro_torch.core.augmentation import AugPhase, resolve_aug_mode
+from repro_torch.core.augmentation import (AugPhase, resolve_aug_mode,
+                                           resolve_engine_plan)
 from repro_torch.core.draws import SeededDraws
 from repro_torch.core.engine import EngineConfig, FLRoundEngine
 from repro_torch.core.fl import LocalSpec
@@ -59,10 +61,15 @@ class AstraeaTrainer:
     mediator_epochs: int = 1                # E_m
     alpha: float | None = 0.67              # augmentation factor; None = NoAug
     aug_mode: str | None = "online"         # "online" | "materialized" | None
+    # per-round adaptive rebalancing: recompute the Alg. 2 plan from the
+    # selected cohort's label histograms at every reschedule (online mode
+    # only; the refreshed plan is re-broadcast and metered per reschedule)
+    adaptive_plan: bool = False
     reschedule_every_round: bool = False    # static client data -> schedule once
     # padded mediator count; defaults to ceil(c / gamma), Alg. 3's output size
     pad_mediators_to: int | None = None
     seed: int = 0
+    row_exec: str = "vmap"                  # "vmap" (lockstep rows) | "map"
     device: object = None                   # None = the CUDA device
     init_params: dict | None = None
     draws: object = None
@@ -71,6 +78,8 @@ class AstraeaTrainer:
 
     def __post_init__(self):
         phase = rebalancing_phase(self)
+        engine_plan, adaptive_alpha = resolve_engine_plan(
+            phase, self.adaptive_plan, self.alpha)
         c_eff = min(self.clients_per_round, self.data.num_clients)
         pad_m = self.pad_mediators_to or -(-c_eff // self.gamma)
         self.engine = FLRoundEngine(
@@ -79,8 +88,9 @@ class AstraeaTrainer:
                 clients_per_round=self.clients_per_round, gamma=self.gamma,
                 local=self.local, mediator_epochs=self.mediator_epochs,
                 reschedule_every_round=self.reschedule_every_round,
-                pad_mediators_to=pad_m, seed=self.seed),
-            aug_plan=phase.engine_plan, device=self.device,
+                pad_mediators_to=pad_m, seed=self.seed, row_exec=self.row_exec),
+            aug_plan=engine_plan, adaptive_aug_alpha=adaptive_alpha,
+            device=self.device,
             init_params=self.init_params, draws=self.draws, loss_fn=self.loss_fn)
         charge_materialized_plan(self.engine, phase)
         self.history = self.engine.history

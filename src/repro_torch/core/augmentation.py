@@ -268,3 +268,20 @@ def resolve_aug_mode(data, alpha: float | None, aug_mode: str | None, *,
     plan = augmentation_plan(counts, alpha)
     return AugPhase(data, plan, plan if plan.any() else None, 0.0, planned_frac,
                     mode)
+
+
+def resolve_engine_plan(phase: AugPhase, adaptive_plan: bool,
+                        alpha: float | None
+                        ) -> tuple[np.ndarray | None, float | None]:
+    """Both trainers' adaptive-plan resolution: ``(engine_plan,
+    adaptive_aug_alpha)`` for the engine.  Adaptive mode needs the online
+    pipeline and installs the in-round plan even when the initial plan is
+    all zero (a later cohort may need one); the static path keeps the
+    zero-plan fast path (no plan, no resample)."""
+    if not adaptive_plan:
+        return phase.engine_plan, None
+    if phase.mode != "online":
+        raise ValueError("adaptive_plan requires aug_mode='online' with "
+                         "alpha set (the plan must live inside the round "
+                         "to be refreshed)")
+    return phase.plan, alpha

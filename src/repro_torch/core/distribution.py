@@ -60,3 +60,22 @@ def merged_kld_scores(mediator_counts: torch.Tensor,
     merged = mediator_counts.to(torch.float32)[None, :] \
         + client_counts.to(torch.float32)
     return kld_to_uniform(merged)
+
+
+def global_histogram(client_counts: torch.Tensor) -> torch.Tensor:
+    """Union distribution over all clients: the sum of per-client counts."""
+    return torch.as_tensor(client_counts, dtype=torch.float32).sum(dim=0)
+
+
+def imbalance_summary(client_counts) -> dict[str, torch.Tensor]:
+    """The three imbalance types of ``(K, C)`` client counts: ``size_cv``
+    (scalar: std / mean of the client sizes), ``local_kld_mean`` (local:
+    the mean client KLD to uniform) and ``global_kld`` (global: the KLD of
+    the union histogram to uniform)."""
+    counts = torch.as_tensor(client_counts, dtype=torch.float32)
+    sizes = counts.sum(dim=-1)
+    return {
+        "size_cv": sizes.std(correction=0) / sizes.mean().clamp_min(_EPS),
+        "local_kld_mean": kld_to_uniform(counts).mean(),
+        "global_kld": kld_to_uniform(global_histogram(counts)),
+    }

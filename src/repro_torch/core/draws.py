@@ -4,8 +4,8 @@ torch cannot replay ``jax.random``, so every draw of the round is asked
 for through a small interface, addressed by where it happens:
 
 * ``RoundDraws.client(round, row, mediator_epoch, slot)`` -> the
-  ``ClientDraws`` of one client update: the per-epoch batch permutation
-  and the per-step dropout keep-masks;
+  ``ClientDraws`` of one client update: per epoch, the batch permutation
+  and the dropout keep-masks of all its steps;
 * ``RoundDraws.augment(round, row, slot, weights)`` -> the online Alg. 2
   draws of one padded client batch: source indices ``idx`` (categorical
   over ``weights``), uniforms ``u`` (warp-or-not), and the warp's
@@ -15,7 +15,8 @@ for through a small interface, addressed by where it happens:
   ``n`` augmentations' warp ``mats``/``trans``.
 
 Keep-masks come one per dropout site, each at its site's keep probability
-``1 - rate`` (``model.dropout_sites``).
+``1 - rate`` (``model.dropout_sites``), an epoch's steps at once: ``(steps,
+*site)``.
 
 ``SeededDraws`` is the port's own source: a ``torch.Generator`` per
 address, seeded from ``(seed, round, row, ...)``, so a run is
@@ -38,8 +39,8 @@ _CLIENT, _AUG, _REBAL = 0x636C, 0x617567, 0x7262    # "cl", "aug", "rb": salts
 class ClientDraws(Protocol):
     def permutation(self, epoch: int, n: int) -> torch.Tensor: ...
 
-    def keep_masks(self, epoch: int, step: int,
-                   sites: Sequence[Site]) -> list[torch.Tensor]: ...
+    def epoch_keep_masks(self, epoch: int, steps: int,
+                         sites: Sequence[Site]) -> list[torch.Tensor]: ...
 
 
 class RoundDraws(Protocol):
@@ -96,7 +97,7 @@ class _SeededClient:
         gen = self.owner.generator(*self.address, epoch)
         return torch.randperm(n, generator=gen, device=self.owner.device)
 
-    def keep_masks(self, epoch, step, sites):
-        gen = self.owner.generator(*self.address, epoch, step + 1)
-        return [torch.rand(shape, generator=gen, device=self.owner.device)
-                >= rate for shape, rate in sites]
+    def epoch_keep_masks(self, epoch, steps, sites):
+        gen = self.owner.generator(*self.address, epoch, 1)
+        return [torch.rand((steps,) + tuple(shape), generator=gen,
+                           device=self.owner.device) >= rate for shape, rate in sites]

@@ -14,27 +14,47 @@ of the batch size (the replicated store).  A schedule is an ``(M_pad,
 gamma)`` gather index plus a 0/1 slot mask; rows past the real mediators
 are dummies with zero Eq. 6 weight.  Client selection draws from
 ``np.random.default_rng(cfg.seed).choice``, the reference's stream, so the
-selections, schedules and WAN ledger equal the reference's.
+selections, schedules and WAN ledger equal the reference's.  With
+``adaptive_aug_alpha`` set, every reschedule recomputes the Alg. 2 plan
+from the selected cohort's raw counts, charges its broadcast to the cohort
+and packs Alg. 3 by the refreshed post-augmentation counts.
 
-The path through the kernels: Alg. 3 is one ``kld_greedy_picks`` launch per
-reschedule; the online Alg. 2 warp is one ``affine_warp`` launch per round
-over every scheduled slot; Eq. 6 is one ``fedavg_agg`` launch per round
-(``fedavg_agg_tree``).  Mediator rows run one after another; a dummy row or
-an empty slot is an exact no-op and is skipped.
+Rows run one of two ways (``EngineConfig.row_exec``, the reference's
+name):
+
+* ``"vmap"`` (default): every row in lockstep (``fl.client_update_rows``,
+  ``mediator.mediator_update_rows``).  The round's local training reads
+  static buffers -- the weights, the ``(M_pad, gamma, pad)`` client data
+  and the round's draws, filled before it runs -- and writes each row's
+  output into one flat ``(M_pad, N)`` buffer.  On a CUDA device it is
+  captured once as a CUDA graph and replayed every round; a failed
+  capture raises.  ``num_round_traces`` counts how often this round
+  program was built: once while ``M_pad``, gamma and pad stay fixed.
+* ``"map"``: rows one after another through ``client_update`` /
+  ``mediator_update``, each writing its row of the same buffer; a dummy
+  row or an empty slot is an exact no-op and is skipped.  The oracle.
+
+The path through the kernels, outside any graph: Alg. 3 is one
+``kld_greedy_picks`` launch per reschedule; the online Alg. 2 warp is one
+``affine_warp`` launch per round over every scheduled slot; Eq. 6 is one
+``fedavg_agg`` launch per round (``fedavg_agg_flat``) over the flat
+buffer.
 """
 from __future__ import annotations
 
+import gc
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from repro_torch.core import scheduling
-from repro_torch.core.augmentation import online_augment_rows
+from repro_torch.core.augmentation import augmentation_plan, online_augment_rows
 from repro_torch.core.comm import CommMeter
 from repro_torch.core.draws import RoundDraws, SeededDraws
-from repro_torch.core.fl import LocalSpec, LossFn, client_update, evaluate
-from repro_torch.core.mediator import mediator_update
+from repro_torch.core.fl import (LocalSpec, LossFn, client_update, client_update_rows,
+                                 evaluate)
+from repro_torch.core.mediator import mediator_update, mediator_update_rows
 from repro_torch.data.federated import FederatedDataset
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
@@ -61,8 +81,11 @@ class EngineConfig:
     # floor for the padded mediator count (dummy rows carry zero weight)
     pad_mediators_to: int | None = None
     seed: int = 0
+    row_exec: str = "vmap"                  # "vmap" (lockstep) | "map" (loop)
 
     def __post_init__(self):
+        if self.row_exec not in ("vmap", "map"):
+            raise ValueError(f"unknown row_exec {self.row_exec!r}")
         if self.schedule not in ("kld", "random"):
             raise ValueError(f"unknown schedule {self.schedule!r}")
         if self.aggregate not in ("delta", "weights"):
@@ -93,16 +116,22 @@ class FLRoundEngine:
     ``init_params`` (a state-dict-keyed dict) replaces the seeded He init;
     ``draws`` replaces the seeded ``torch.Generator`` draws
     (``core/draws.py``); ``loss_fn(model, params, x, y, mask, keep)``
-    replaces the masked cross-entropy of local training (``core/fl.py``)."""
+    replaces the masked cross-entropy of local training (``core/fl.py``);
+    ``adaptive_aug_alpha`` refreshes ``aug_plan`` at every reschedule (see
+    the module docstring)."""
 
     def __init__(self, model, opt: Optimizer, data: FederatedDataset,
                  cfg: EngineConfig, *, aug_plan: np.ndarray | None = None,
+                 adaptive_aug_alpha: float | None = None,
                  device: str | torch.device | None = None,
                  init_params: Params | None = None,
                  draws: RoundDraws | None = None,
                  loss_fn: LossFn | None = None):
         self.model, self.opt, self.data, self.cfg = model, opt, data, cfg
         self.loss_fn = loss_fn
+        if adaptive_aug_alpha is not None and aug_plan is None:
+            raise ValueError("adaptive_aug_alpha requires an initial aug_plan")
+        self._adaptive_alpha = adaptive_aug_alpha
         self.device = dev = resolve_device(device)
         sizes = [x.shape[0] for x in data.client_images]
         self.pad = _pad_multiple(max(sizes), cfg.local.batch_size)
@@ -123,22 +152,34 @@ class FLRoundEngine:
         self.params: Params = init
         self.comm = CommMeter(count_params(self.params))
         self.draws = draws if draws is not None else SeededDraws(cfg.seed + 1, dev)
+        self._layout = ops.FlatLayout(self.params)
 
         self._plan = None
+        self.last_plan: np.ndarray | None = None
         if aug_plan is not None:
             plan_np = np.asarray(aug_plan)
             if plan_np.shape != (data.num_classes,):
                 raise ValueError(
                     f"aug_plan shape {plan_np.shape} != ({data.num_classes},)")
-            self._plan = torch.as_tensor(plan_np, dtype=torch.float32, device=dev)
-            # Alg. 3 packs by the expected post-augmentation histograms
-            self._counts = self._raw_counts * (1.0 + plan_np.astype(np.float64))
+            self._install_plan(plan_np)
+            # adaptive refreshes re-broadcast to each cohort (_pack_schedule)
             self.comm.plan_broadcast(plan_np.size, data.num_clients)
         self.history: list[dict] = []
         self.last_schedule_stats: dict | None = None
         self.last_groups: list[list[int]] | None = None
         self._schedule: tuple | None = None
         self._round = 0
+        self._rows: torch.Tensor | None = None      # the (M_pad, N) row outputs
+        self._program: _RoundProgram | None = None
+        self.num_round_traces = 0                    # round programs built
+
+    def _install_plan(self, plan_np: np.ndarray) -> None:
+        """(Re)place the Alg. 2 plan and rescale the Alg. 3 counts: Alg. 3
+        packs by the expected post-augmentation histograms."""
+        plan_np = np.asarray(plan_np)
+        self.last_plan = plan_np
+        self._plan = torch.as_tensor(plan_np, dtype=torch.float32, device=self.device)
+        self._counts = self._raw_counts * (1.0 + plan_np.astype(np.float64))
 
     # ------------------------------------------------------------------
     # scheduling (host side: tiny integer work)
@@ -159,6 +200,12 @@ class FLRoundEngine:
         return [[int(sel[i]) for i in m.clients] for m in meds]
 
     def _pack_schedule(self, sel: np.ndarray) -> tuple:
+        if self._adaptive_alpha is not None:
+            # the plan of the cohort this round trains on, re-broadcast to it
+            plan_np = augmentation_plan(self._raw_counts[sel].sum(axis=0),
+                                        self._adaptive_alpha)
+            self._install_plan(plan_np)
+            self.comm.plan_broadcast(plan_np.size, len(sel))
         groups = self._groups_for(sel)
         self.last_groups = groups
         m_real = len(groups)
@@ -197,6 +244,49 @@ class FLRoundEngine:
         return online_augment_rows(xs, ys, self._plan, idx, u,
                                    mats.reshape(-1, 2, 2), trans.reshape(-1, 2))
 
+    def _row_buffer(self, m_pad: int) -> torch.Tensor:
+        """The ``(m_pad, N)`` float32 buffer the rows' outputs land in (Eq.
+        6 reads it whole), allocated when ``m_pad`` changes."""
+        if self._rows is None or self._rows.shape[0] != m_pad:
+            self._rows = torch.zeros((m_pad, self._layout.total),
+                                     dtype=torch.float32, device=self.device)
+        return self._rows
+
+    def _rows_map(self, xs, ys, ms, slot_np, m_real) -> None:
+        """Each real row through ``client_update`` / ``mediator_update``;
+        dummy rows stay zero."""
+        cfg = self.cfg
+        buf = self._row_buffer(slot_np.shape[0])
+        buf[m_real:].zero_()
+        for r in range(m_real):
+            if cfg.aggregate == "weights":
+                out = client_update(self.model, self.opt, cfg.local, self.params,
+                                    xs[r, 0], ys[r, 0], ms[r, 0],
+                                    self.draws.client(self._round, r, 0, 0),
+                                    self.loss_fn)
+            else:
+                out = mediator_update(
+                    self.model, self.opt, cfg.local, cfg.mediator_epochs,
+                    self.params, xs[r], ys[r], ms[r],
+                    lambda e, s, r=r: self.draws.client(self._round, r, e, s),
+                    active=slot_np[r] > 0, loss_fn=self.loss_fn)
+            for k, v in self._layout.views(buf[r]).items():
+                v.copy_(out[k])
+
+    def _rows_vmap(self, xs, ys, ms, slot_np) -> None:
+        """Every row in lockstep through the round program, built (and on
+        the card captured) once per ``M_pad``."""
+        m_pad = slot_np.shape[0]
+        prog = self._program
+        fresh = prog is None or prog.m != m_pad
+        if fresh:
+            prog = self._program = _RoundProgram(self, self._row_buffer(m_pad))
+            self.num_round_traces += 1
+        prog.load(self.params, xs, ys, ms, slot_np > 0, self._round)
+        if fresh and self.device.type == "cuda":
+            prog.capture()
+        prog.run()
+
     def run_round(self) -> None:
         cfg = self.cfg
         c = min(cfg.clients_per_round, self.data.num_clients)
@@ -214,24 +304,11 @@ class FLRoundEngine:
                                    ys.reshape(flat), mult.reshape(flat))
             xs, ys = ax.reshape(xs.shape), ay.reshape(ys.shape)
 
-        stacked = {k: torch.zeros((m_pad,) + p.shape, dtype=p.dtype,
-                                  device=self.device)
-                   for k, p in self.params.items()}
-        for r in range(m_real):
-            if cfg.aggregate == "weights":
-                out = client_update(self.model, self.opt, cfg.local, self.params,
-                                    xs[r, 0], ys[r, 0], ms[r, 0],
-                                    self.draws.client(self._round, r, 0, 0),
-                                    self.loss_fn)
-            else:
-                out = mediator_update(
-                    self.model, self.opt, cfg.local, cfg.mediator_epochs,
-                    self.params, xs[r], ys[r], ms[r],
-                    lambda e, s, r=r: self.draws.client(self._round, r, e, s),
-                    active=slot_np[r] > 0, loss_fn=self.loss_fn)
-            for k, v in out.items():
-                stacked[k][r] = v
-        agg = ops.fedavg_agg_tree(stacked, weights)
+        if cfg.row_exec == "map":
+            self._rows_map(xs, ys, ms, slot_np, m_real)
+        else:
+            self._rows_vmap(xs, ys, ms, slot_np)
+        agg = ops.fedavg_agg_flat(self._rows, weights, self._layout)
         if cfg.aggregate == "weights":
             self.params = agg
             self.comm.fedavg_round(c)
@@ -256,3 +333,115 @@ class FLRoundEngine:
                 self.history.append(self.evaluate())
         return self.history
 
+
+
+class _RoundProgram:
+    """The lockstep round's local training over fixed ``(M_pad, gamma,
+    pad)`` rows.  It reads only its static buffers -- the stacked weights
+    ``p0``, the client data ``x``/``y``/``mask`` and the draws ``perms``
+    ``(M, gamma, E_m, E, pad)`` and ``keeps`` (per dropout site ``(M,
+    gamma, E_m, E, pad / B, *site)``) -- and writes each row's output (the
+    new weights for FedAvg, the delta for Astraea) into the engine's ``(M,
+    N)`` row buffer.  ``load`` fills the buffers before each round; on a
+    CUDA device ``capture`` records the body once as a CUDA graph and
+    ``run`` replays it.  It holds no reference to its engine, so a
+    finished engine frees its graph at once rather than whenever the
+    garbage collector runs (which may be inside another capture)."""
+
+    def __init__(self, engine: FLRoundEngine, rows: torch.Tensor):
+        cfg, dev = engine.cfg, engine.device
+        self.model, self.opt, self.loss_fn = engine.model, engine.opt, engine.loss_fn
+        self.local, self.draws, self.device = cfg.local, engine.draws, dev
+        self.graph = None
+        self.m, self.gamma = rows.shape[0], cfg.gamma
+        self.weights_out = cfg.aggregate == "weights"
+        self.mediator_epochs = 1 if self.weights_out else cfg.mediator_epochs
+        self.lead = (self.m, self.gamma, self.mediator_epochs, cfg.local.epochs)
+        self.sites = engine.model.dropout_sites(cfg.local.batch_size)
+        self.pad = engine.pad
+        shape = (self.m, self.gamma, engine.pad)
+        self.p0 = {k: torch.zeros((self.m,) + p.shape, dtype=p.dtype, device=dev)
+                   for k, p in engine.params.items()}
+        self.x = torch.zeros(shape + engine._xs.shape[2:], dtype=engine._xs.dtype,
+                             device=dev)
+        self.y = torch.zeros(shape, dtype=engine._ys.dtype, device=dev)
+        self.mask = torch.zeros(shape, dtype=torch.float32, device=dev)
+        # an inactive (row, slot) keeps whatever indices it holds: its mask
+        # is zero, so any valid permutation gives the same no-op
+        self.perms = torch.zeros(self.lead + (engine.pad,), dtype=torch.int64,
+                                 device=dev)
+        self.keeps = [torch.ones(self.lead + (engine.pad // cfg.local.batch_size,)
+                                 + tuple(site), dtype=torch.bool, device=dev)
+                      for site, _ in self.sites]
+        self.out = engine._layout.views(rows)
+
+    def load(self, params, xs, ys, ms, active: np.ndarray, rnd: int) -> None:
+        """Fill the static buffers for round ``rnd``: the weights broadcast
+        to every row, the (augmented) client data, and the draws of every
+        active ``(row, slot)`` at the addresses ``"map"`` asks for."""
+        for k, p in params.items():
+            self.p0[k].copy_(p.expand_as(self.p0[k]))
+        self.x.copy_(xs)
+        self.y.copy_(ys)
+        self.mask.copy_(ms)
+        steps = self.keeps[0].shape[4]
+        for r, s in zip(*np.nonzero(active)):
+            for e in range(self.mediator_epochs):
+                d = self.draws.client(rnd, int(r), e, int(s))
+                for ep in range(self.lead[3]):
+                    self.perms[r, s, e, ep].copy_(d.permutation(ep, self.pad))
+                    for buf, k in zip(self.keeps,
+                                      d.epoch_keep_masks(ep, steps, self.sites)):
+                        buf[r, s, e, ep].copy_(k)
+
+    def _body(self) -> None:
+        if self.weights_out:
+            out = client_update_rows(
+                self.model, self.opt, self.local, self.p0, self.x[:, 0],
+                self.y[:, 0], self.mask[:, 0], self.perms[:, 0, 0],
+                [k[:, 0, 0] for k in self.keeps], self.loss_fn)
+        else:
+            out = mediator_update_rows(
+                self.model, self.opt, self.local, self.mediator_epochs, self.p0,
+                self.x, self.y, self.mask, self.perms, self.keeps, self.loss_fn)
+        for k, v in self.out.items():
+            v.copy_(out[k])
+
+    def capture(self) -> None:
+        """Record ``_body`` as a CUDA graph after one eager run of it on a
+        side stream (so the libraries set themselves up outside the
+        capture).  The capture is relaxed and runs with the cyclic garbage
+        collector off: a library that still sets something up (cuDNN
+        building a plan it had not cached, an allocation), or an object the
+        collector frees, may call the CUDA runtime mid-capture, which a
+        strict capture turns into a failure (the card tests met such
+        failures, now and then, at ``cinic_cnn``'s width).  Reading a
+        device value or synchronizing the stream still fails the capture,
+        and then this raises: the round never falls back to eager."""
+        dev = self.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._body()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        collecting = gc.isenabled()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+                gc.disable()
+                self._body()
+        except RuntimeError as err:
+            raise RuntimeError("capturing the round's local training as a CUDA "
+                               "graph failed (row_exec='vmap' has no eager "
+                               "fallback on the card; row_exec='map' runs "
+                               "eagerly)") from err
+        finally:
+            if collecting:
+                gc.enable()
+        self.graph = graph
+
+    def run(self) -> None:
+        if self.graph is None:
+            self._body()
+        else:
+            self.graph.replay()

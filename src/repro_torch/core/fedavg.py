@@ -12,6 +12,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 from repro_torch.core.astraea import charge_materialized_plan, rebalancing_phase
+from repro_torch.core.augmentation import resolve_engine_plan
 from repro_torch.core.engine import EngineConfig, FLRoundEngine
 from repro_torch.core.fl import LocalSpec
 from repro_torch.data.federated import FederatedDataset
@@ -27,9 +28,14 @@ class FedAvgTrainer:
     local: LocalSpec                 # B, E
     alpha: float | None = None       # Alg. 2 factor; None = plain FedAvg
     aug_mode: str | None = "online"  # "online" | "materialized" | None
+    # recompute the plan from each round's cohort histograms (see
+    # AstraeaTrainer.adaptive_plan; FedAvg reschedules every round, so the
+    # plan drifts with the per-round client sample)
+    adaptive_plan: bool = False
     # padded row count; defaults to c
     pad_mediators_to: int | None = None
     seed: int = 0
+    row_exec: str = "vmap"           # "vmap" (lockstep rows) | "map"
     device: object = None            # None = the CUDA device
     init_params: dict | None = None
     draws: object = None
@@ -38,14 +44,17 @@ class FedAvgTrainer:
 
     def __post_init__(self):
         phase = rebalancing_phase(self)
+        engine_plan, adaptive_alpha = resolve_engine_plan(
+            phase, self.adaptive_plan, self.alpha)
         pad_m = self.pad_mediators_to or \
             min(self.clients_per_round, self.data.num_clients)
         self.engine = FLRoundEngine(
             self.model, self.opt, self.data,
             EngineConfig.fedavg(clients_per_round=self.clients_per_round,
                                 local=self.local, pad_mediators_to=pad_m,
-                                seed=self.seed),
-            aug_plan=phase.engine_plan, device=self.device,
+                                seed=self.seed, row_exec=self.row_exec),
+            aug_plan=engine_plan, adaptive_aug_alpha=adaptive_alpha,
+            device=self.device,
             init_params=self.init_params, draws=self.draws, loss_fn=self.loss_fn)
         charge_materialized_plan(self.engine, phase)
         self.history = self.engine.history

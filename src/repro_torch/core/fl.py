@@ -6,6 +6,12 @@ Each epoch applies one permutation of the padded rows and then takes
 ``pad / B`` steps.  A fully masked batch has zero loss, so its gradients
 are exactly zero; a client whose mask is all zero therefore leaves the
 weights bitwise unchanged (fresh Adam moments stay zero).
+
+``client_update`` trains one client; ``client_update_rows`` trains ``M``
+clients in lockstep, one per row of stacked ``(M, ...)`` weights, with
+``torch.func.vmap`` over the rows' gradients and Adam on the stacked
+leaves (elementwise, and every row takes the same step count).  Its draws
+arrive as tensors, so the whole update can be captured as a CUDA graph.
 """
 from __future__ import annotations
 
@@ -61,10 +67,52 @@ def client_update(model, opt: Optimizer, spec: LocalSpec, params: Params,
     for epoch in range(spec.epochs):
         perm = draws.permutation(epoch, n_pad)
         xs, ys, ms = x[perm], y[perm], mask[perm]
+        keeps = draws.epoch_keep_masks(epoch, n_pad // bsz, sites)
         for step in range(n_pad // bsz):
             sl = slice(step * bsz, (step + 1) * bsz)
-            keep = draws.keep_masks(epoch, step, sites)
+            keep = [k[step] for k in keeps]
             grads = _grads(model, params, xs[sl], ys[sl], ms[sl], keep, loss_fn)
+            updates, state = opt.update(grads, state, params)
+            params = apply_updates(params, updates)
+    return params
+
+
+def row_grads(model, loss_fn: LossFn | None = None):
+    """``grads(params, x, y, mask, keep)`` over stacked rows: params
+    ``(M, ...)`` leaves, ``x (M, B, H, W, C)``, ``y``/``mask (M, B)``, each
+    keep-mask ``(M, *site)``; row ``m``'s gradient is the gradient of its
+    own loss (``torch.func.vmap`` of ``torch.func.grad``)."""
+    loss_fn = loss_fn or masked_ce_loss
+
+    def row_loss(params, x, y, mask, keep):
+        return loss_fn(model, params, x, y, mask, keep)
+
+    return torch.func.vmap(torch.func.grad(row_loss))
+
+
+def client_update_rows(model, opt: Optimizer, spec: LocalSpec, params: Params,
+                       x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
+                       perms: torch.Tensor, keeps: list[torch.Tensor],
+                       loss_fn: LossFn | None = None) -> Params:
+    """``client_update`` of ``M`` clients in lockstep: ``params`` stacked
+    ``(M, ...)``, ``x (M, pad, H, W, C)``, ``y``/``mask (M, pad)``; the
+    draws as tensors, ``perms (M, E, pad)`` (row ``m``'s permutation of
+    epoch ``e``) and per dropout site ``keeps[i] (M, E, pad / B, *site)``.
+    Returns the stacked new weights.  Nothing here reads a device value on
+    the host, so the update can run inside a CUDA graph capture."""
+    m, n_pad = y.shape
+    bsz = spec.batch_size
+    if n_pad % bsz:
+        raise ValueError(f"pad {n_pad} is not a multiple of batch_size {bsz}")
+    grads_of = row_grads(model, loss_fn)
+    state = opt.init(params)
+    rows = torch.arange(m, device=y.device)[:, None]
+    for epoch in range(spec.epochs):
+        for step in range(n_pad // bsz):
+            idx = perms[:, epoch, step * bsz:(step + 1) * bsz]
+            keep = [k[:, epoch, step] for k in keeps]
+            grads = grads_of(params, x[rows, idx], y[rows, idx], mask[rows, idx],
+                             keep)
             updates, state = opt.update(grads, state, params)
             params = apply_updates(params, updates)
     return params

@@ -5,6 +5,12 @@ starts from client i's weights -- for ``E_m`` mediator epochs; the mediator
 returns the weight delta relative to the weights it received.  Slots run
 in order; a slot the schedule left empty (``active[slot]`` false) is an
 exact no-op and is skipped.
+
+``mediator_update_rows`` runs ``M`` mediators in lockstep: slot ``s`` of
+every row trains together (``fl.client_update_rows``), each slot with a
+fresh Adam state.  An empty slot or a dummy row is run, not skipped: its
+zero mask gives exactly zero gradients, so with Adam it leaves the
+weights bitwise unchanged, as in the reference.
 """
 from __future__ import annotations
 
@@ -13,7 +19,7 @@ from typing import Callable, Sequence
 import torch
 
 from repro_torch.core.draws import ClientDraws
-from repro_torch.core.fl import LocalSpec, LossFn, client_update
+from repro_torch.core.fl import LocalSpec, LossFn, client_update, client_update_rows
 from repro_torch.models.cnn import Params
 from repro_torch.optim.optimizers import Optimizer
 
@@ -36,4 +42,23 @@ def mediator_update(model, opt: Optimizer, local: LocalSpec,
                 continue
             w = client_update(model, opt, local, w, xs[slot], ys[slot],
                               masks[slot], draws_for(epoch, slot), loss_fn)
+    return {k: w[k] - params[k] for k in params}
+
+
+def mediator_update_rows(model, opt: Optimizer, local: LocalSpec,
+                         mediator_epochs: int, params: Params, xs: torch.Tensor,
+                         ys: torch.Tensor, masks: torch.Tensor,
+                         perms: torch.Tensor, keeps: list[torch.Tensor],
+                         loss_fn: LossFn | None = None) -> Params:
+    """``mediator_update`` of ``M`` rows at once: ``params`` stacked ``(M,
+    ...)``, ``xs (M, gamma, pad, H, W, C)``, ``ys``/``masks (M, gamma,
+    pad)``; the draws ``perms (M, gamma, E_m, E, pad)`` and per dropout
+    site ``keeps[i] (M, gamma, E_m, E, pad / B, *site)``.  Returns the
+    stacked ``trained - params``."""
+    w = params
+    for epoch in range(mediator_epochs):
+        for slot in range(xs.shape[1]):
+            w = client_update_rows(model, opt, local, w, xs[:, slot], ys[:, slot],
+                                   masks[:, slot], perms[:, slot, epoch],
+                                   [k[:, slot, epoch] for k in keeps], loss_fn)
     return {k: w[k] - params[k] for k in params}

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.fedavg import FedAvgTrainer
+from repro_torch.device import resolve_device
 
 
 def inverse_frequency_weights(global_counts: np.ndarray, *,
@@ -52,8 +53,11 @@ class ReweightedFedAvgTrainer(FedAvgTrainer):
 
     def __post_init__(self):
         counts = self.data.client_counts().sum(0)
+        # the weights live on the training device: a captured round must
+        # not copy them from the host
+        self.device = resolve_device(self.device)
         wce = weighted_cross_entropy(
-            torch.from_numpy(inverse_frequency_weights(counts)))
+            torch.from_numpy(inverse_frequency_weights(counts)).to(self.device))
 
         def loss_fn(model, params, x, y, mask, keep):
             return wce(model.apply(params, x, keep), y, mask)

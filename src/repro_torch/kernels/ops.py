@@ -129,6 +129,41 @@ def fedavg_agg_tree(deltas: dict[str, torch.Tensor],
     return {k: out[k] for k in deltas}
 
 
+class FlatLayout:
+    """Where each leaf of a float32 parameter dict lies in one flat buffer
+    of ``total`` columns: leaf ``names[i]`` of shape ``shapes[i]`` at
+    columns ``[offsets[i], offsets[i] + numel)``, in the dict's order (the
+    order ``fedavg_agg_tree`` concatenates in)."""
+
+    def __init__(self, params: dict[str, torch.Tensor]):
+        for k, v in params.items():
+            if v.dtype != torch.float32:
+                raise ValueError(f"leaf {k!r} is {v.dtype}; the flat buffer is float32")
+        self.names = tuple(params)
+        self.shapes = tuple(tuple(v.shape) for v in params.values())
+        sizes = [math.prod(s) for s in self.shapes]
+        self.offsets = tuple(sum(sizes[:i]) for i in range(len(sizes)))
+        self.total = sum(sizes)
+
+    def views(self, flat: torch.Tensor) -> dict[str, torch.Tensor]:
+        """The leaves as views of ``flat (..., total)``: ``(..., *shape)``."""
+        lead = flat.shape[:-1]
+        return {k: flat[..., o:o + math.prod(s)].view(*lead, *s)
+                for k, s, o in zip(self.names, self.shapes, self.offsets)}
+
+
+def fedavg_agg_flat(rows: torch.Tensor, weights: torch.Tensor,
+                    layout: FlatLayout) -> dict[str, torch.Tensor]:
+    """Eq. 6 straight from one ``(M, layout.total)`` float32 buffer whose
+    row ``m`` holds mediator ``m``'s leaves at ``layout``'s columns: one
+    ``fedavg_agg`` call, the leaves returned as views of its ``(total,)``
+    result.  Equal bit for bit to ``fedavg_agg_tree`` over the same leaves
+    stacked (the same columns, reduced independently)."""
+    if rows.dim() != 2 or rows.shape[1] != layout.total:
+        raise ValueError(f"expected rows (M, {layout.total}), got {tuple(rows.shape)}")
+    return layout.views(fedavg_agg(rows, weights))
+
+
 def kld_greedy_picks(client_counts: torch.Tensor, gamma: int) -> torch.Tensor:
     """The whole Alg. 3 pass: ``(K, C)`` float32 histograms -> ``(K,)``
     int32 absorption order (mediator ``i`` holds picks ``[i*gamma,

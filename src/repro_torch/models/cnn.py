@@ -11,9 +11,11 @@
   head: 2,168,362 parameters at 10 classes, 32x32x3 and width 32.
 
 Both mirror ``repro/models/cnn.py``.  The public layout is the reference's
-NHWC ``(B, H, W, C)``.  Inside, the input is permuted to NCHW for
-``F.conv2d`` and permuted back to NHWC before the flatten, so ``dense1``'s
-input rows keep the reference's order.
+NHWC ``(B, H, W, C)``.  Inside, the input is copied to contiguous NCHW
+for ``F.conv2d`` (on the card a view with NHWC strides made cuDNN
+transpose around every grouped convolution of the lockstep rows) and
+permuted back to NHWC before the flatten, so ``dense1``'s input rows keep
+the reference's order.
 
 Training code calls the model functionally, ``model.apply(params, x,
 keep=...)`` with ``params`` a dict keyed like ``state_dict()``.  Dropout
@@ -75,7 +77,7 @@ class EmnistCNN(nn.Module):
         """Logits of NHWC images ``x``; ``keep`` = dropout keep-masks
         (training), ``None`` = inference."""
         rates = EmnistCNN.DROPOUT_RATES
-        x = x.permute(0, 3, 1, 2)
+        x = x.permute(0, 3, 1, 2).contiguous()
         x = F.relu(F.conv2d(x, params["conv1.weight"], params["conv1.bias"],
                             stride=2))
         if keep is not None:
@@ -132,7 +134,7 @@ class CinicCNN(nn.Module):
             return F.relu(F.conv2d(x, params[f"{name}.weight"],
                                    params[f"{name}.bias"], padding=1))
         rates = CinicCNN.DROPOUT_RATES
-        x = x.permute(0, 3, 1, 2)
+        x = x.permute(0, 3, 1, 2).contiguous()
         x = F.max_pool2d(conv(conv(x, "conv1a"), "conv1b"), 2)
         if keep is not None:
             x = _dropout(x, keep[0], rates[0])

@@ -14,6 +14,11 @@ subtracts ``lr * weight_decay * p``.  The list ops are ``torch._foreach_*``
 so a step costs a few launches on the card, each a separately rounded
 elementwise op as in the reference.  A learning rate may be a schedule,
 ``step -> lr`` (``optim/schedules.py``), read at the 1-based step.
+
+The step count, the bias corrections and the rate are host floats, and no
+step reads a device value, so an update can be captured in a CUDA graph
+(``core/engine.py``): the capture bakes those floats in, which is right
+because every replay runs the same steps from a fresh state.
 """
 from __future__ import annotations
 
@@ -123,7 +128,8 @@ def adamw(learning_rate: LearningRate, weight_decay: float = 0.01,
 
 def clip_by_global_norm(grads: Params, max_norm: float) -> Params:
     """Scale every gradient by ``min(1, max_norm / ||g||)`` with ``||g||``
-    the fp32 norm over all leaves."""
+    the fp32 norm over all leaves -- of one model: over stacked ``(M, ...)``
+    rows it would mix the rows' norms (the lockstep rows do not clip)."""
     gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
                            for g in grads.values()))
     scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-12), max=1.0)

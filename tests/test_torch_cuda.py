@@ -691,3 +691,125 @@ def test_zoo_prefill_and_decode_on_card_match_cpu(dev, arch, head_dim):
     if head_dim is not None:
         cfg = dataclasses.replace(cfg, head_dim=head_dim)
     _card_matches_cpu(dev, cfg)
+
+
+# ---------------------------------------------------------------- the round engine
+
+def _small_federation(cinic: bool):
+    """The small EMNIST (8 classes, 16 px) or CINIC (16x16x3, width 8)
+    federation of ``chip_smoke.py``'s agreement check, and a model maker."""
+    from repro_torch.data.federated import CINIC_LIKE, EMNIST_LIKE, partition
+    from repro_torch.models.cnn import cinic_cnn, emnist_cnn
+    if cinic:
+        spec = dataclasses.replace(CINIC_LIKE, image_size=16, noise=0.5, distort=0.35)
+        make, gd = (lambda: cinic_cnn(10, 16, 3, 8)), "normal"
+    else:
+        spec = dataclasses.replace(EMNIST_LIKE, num_classes=8, image_size=16)
+        make, gd = (lambda: emnist_cnn(8, 16)), "letterfreq"
+    fed = partition(spec, num_clients=12, total_samples=300, test_samples=80,
+                    sizes="instagram", global_dist=gd, local="random", seed=0)
+    return fed, make
+
+
+def _small_trainer(dev, cinic, kind, row_exec, **kw):
+    from repro_torch.core import AstraeaTrainer, FedAvgTrainer, LocalSpec
+    from repro_torch.models.cnn import init_params
+    from repro_torch.optim import adam
+    fed, make = _small_federation(cinic)
+    common = dict(clients_per_round=8, local=LocalSpec(10, 1), seed=0, device=dev,
+                  init_params=init_params(make(), 0), row_exec=row_exec)
+    if kind == "fedavg":
+        return FedAvgTrainer(make(), adam(1e-3), fed, **common, **kw)
+    return AstraeaTrainer(make(), adam(1e-3), fed, gamma=4, alpha=0.67, **common, **kw)
+
+
+@pytest.fixture
+def plain_convolutions():
+    """ATen's own convolutions in place of cuDNN's for one test.  The two
+    row paths make cuDNN pick other algorithms (grouped against single
+    convolutions), and at CINIC's width some of its fp32 algorithms sum
+    the weight gradients far less exactly than fp32 in another order
+    would: the rounds then part by 5.9e-4 at cuDNN's deterministic
+    algorithms, twenty-seven times what perturbing the weights by 1e-7
+    does to the loop."""
+    before = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    yield
+    torch.backends.cudnn.enabled = before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fedavg", "astraea"])
+@pytest.mark.parametrize("cinic", [False, True])
+def test_captured_vmap_round_equals_eager_map_round(dev, plain_convolutions, cinic,
+                                                    kind):
+    """A round with the rows in lockstep, captured as one CUDA graph and
+    replayed, against the same round row by row, eagerly, from the same
+    params and seeded draws (the same numbers on one card), both through
+    ATen's convolutions: equal schedules and WAN ledger, params within
+    1e-4 (fp32 sums batched in another order, as phase 4 holds the card
+    to the CPU)."""
+    runs = {}
+    for row_exec in ("map", "vmap"):
+        tr = _small_trainer(dev, cinic, kind, row_exec)
+        tr.run_round()
+        runs[row_exec] = tr
+    m, v = runs["map"], runs["vmap"]
+    assert v.engine._program.graph is not None and v.engine.num_round_traces == 1
+    assert m.engine.num_round_traces == 0
+    assert m.engine.last_groups == v.engine.last_groups
+    assert m.comm.round_log == v.comm.round_log
+    err = max(float((m.params[k] - v.params[k]).abs().max()) for k in m.params)
+    assert err <= 1e-4, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fedavg", "astraea"])
+def test_round_program_built_once_and_kernels_per_round(dev, kind):
+    """Three FedAvg rounds (a fresh selection each) and three adaptive
+    Astraea rounds (a fresh cohort, plan and Alg. 3 pass each): the round
+    program is built and captured once; per round one Eq. 6 launch, one
+    warp launch (the online plan) and, for Astraea, one greedy pass."""
+    kw = {"alpha": 0.67} if kind == "fedavg" else \
+        {"adaptive_plan": True, "reschedule_every_round": True}
+    tr = _small_trainer(dev, False, kind, "vmap", **kw)
+    plans = []
+    for _ in range(3):
+        ops.reset_launches()
+        tr.run_round()
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["fedavg_agg"] == 1
+        assert ops.LAUNCHES["affine_warp"] == 1
+        assert ops.LAUNCHES["kld_greedy_picks"] == (kind == "astraea")
+        plans.append(tr.engine.last_plan)
+    assert tr.engine.num_round_traces == 1
+    assert all(bool(torch.isfinite(p).all()) for p in tr.params.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fedavg", "astraea"])
+def test_round_capture_holds_every_time(dev, kind):
+    """Eight fresh CINIC trainers in a row, each capturing its round (a
+    strict capture failed now and then at this width): every capture
+    holds and every round's weights are finite."""
+    for _ in range(8):
+        tr = _small_trainer(dev, True, kind, "vmap")
+        tr.run_round()
+        assert tr.engine._program.graph is not None
+        assert all(bool(torch.isfinite(p).all()) for p in tr.params.values())
+        del tr
+
+
+@pytest.mark.cuda
+def test_failed_round_capture_raises(dev):
+    """A local loss that synchronizes its stream runs eagerly but cannot be
+    captured: the round raises instead of running eagerly."""
+    from repro_torch.core.fl import masked_ce_loss
+
+    def syncing_loss(model, params, x, y, mask, keep):
+        torch.cuda.current_stream().synchronize()   # illegal inside a capture
+        return masked_ce_loss(model, params, x, y, mask, keep)
+
+    tr = _small_trainer(dev, False, "fedavg", "vmap", loss_fn=syncing_loss)
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        tr.run_round()

@@ -98,9 +98,12 @@ def test_seeded_draws_are_reproducible_and_address_keyed():
                        d2.client(0, 1, 0, 2).permutation(0, 30))
     assert not torch.equal(d1.client(0, 1, 0, 2).permutation(0, 30),
                            d1.client(0, 1, 0, 3).permutation(0, 30))
-    keep = d1.client(1, 0, 0, 0).keep_masks(0, 4, [((2, 3, 3, 4), 0.5), ((2, 6), 0.25)])
-    assert keep[0].dtype == torch.bool and keep[0].shape == (2, 3, 3, 4)
-    assert keep[1].shape == (2, 6)
+    sites = [((2, 3, 3, 4), 0.5), ((2, 6), 0.25)]
+    keep = d1.client(1, 0, 0, 0).epoch_keep_masks(0, 5, sites)
+    assert keep[0].dtype == torch.bool and keep[0].shape == (5, 2, 3, 3, 4)
+    assert keep[1].shape == (5, 2, 6)
+    assert all(torch.equal(a, b) for a, b in
+               zip(keep, d2.client(1, 0, 0, 0).epoch_keep_masks(0, 5, sites)))
     w = torch.tensor([0.0, 2.0, 1.0, 0.0])
     idx, u, mats, trans = d1.augment(0, 0, 1, w)
     assert set(idx.tolist()) <= {1, 2} and u.shape == (4,)

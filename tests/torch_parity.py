@@ -123,9 +123,9 @@ class JaxClientDraws:
         assert n == self._perms.shape[1]
         return _t(self._perms[epoch], np.int64)
 
-    def keep_masks(self, epoch, step, sites):
-        assert _sites_key(sites) == self.sites
-        return [_t(k[epoch, step]) for k in self._keeps]
+    def epoch_keep_masks(self, epoch, steps, sites):
+        assert _sites_key(sites) == self.sites and steps == self._keeps[0].shape[1]
+        return [_t(k[epoch]) for k in self._keeps]
 
 
 class JaxDraws:
@@ -254,29 +254,42 @@ def max_param_diff(port_params, tree) -> float:
                for l in tree for k in tree[l])
 
 
+def _reference_eval(jmodel, params, fed, rnd, comm, stats=None) -> dict:
+    """The engine's history entry (``repro/core/engine.py::fit``)."""
+    m = jfl.evaluate(jmodel, params, fed.test_images, fed.test_labels)
+    m.update(round=rnd, traffic_mb=comm.megabytes)
+    if stats is not None:
+        m["mediator_kld_mean"] = stats["kld_mean"]
+    return m
+
+
 def reference_astraea(jmodel, params, fed, *, clients: int, gamma: int, batch: int,
                       epochs: int, mediator_epochs: int, alpha: float, rounds: int,
-                      seed: int):
-    """The reference's Astraea rounds (online Alg. 2, Alg. 3 once, Eq. 6
-    over mediator deltas).  Returns ``(params, groups, comm, sched_counts,
-    plan)``."""
+                      seed: int, eval_every: int | None = None, adaptive: bool = False,
+                      reschedule_every_round: bool = False, out: dict | None = None):
+    """The reference's Astraea rounds (online Alg. 2, Alg. 3 once or every
+    round, Eq. 6 over mediator deltas).  ``adaptive`` recomputes the plan
+    from each reschedule's cohort and re-broadcasts it to the cohort
+    (``repro/core/engine.py::_pack_schedule``).  Returns ``(params,
+    groups, comm, sched_counts, plan)`` of the last reschedule; ``out``,
+    if given, receives ``history`` (evaluations every ``eval_every``
+    rounds and at the last, the engine's keys), ``plans`` and
+    ``groups`` (one per reschedule)."""
     pad = padded_size(fed, batch)
     xs, ys, mask = fed.padded(pad)
     raw = fed.client_counts()
     plan = jaug.augmentation_plan(raw.sum(0), alpha)
-    sel = np.random.default_rng(seed).choice(fed.num_clients, size=clients,
-                                             replace=False)
-    sched_counts = raw[sel] * (1.0 + plan)
-    meds = jsched.reschedule(sched_counts, gamma, impl="batched")
-    groups = [[int(sel[i]) for i in m.clients] for m in meds]
+    augment = adaptive or plan.any()
+    rng = np.random.default_rng(seed)
     med_update = make_mediator_update(jmodel, jadam(1e-3),
                                       jfl.LocalSpec(batch, epochs), mediator_epochs)
-    jplan = jnp.asarray(plan, jnp.int32)
 
     @jax.jit
-    def row_program(params, x, y, m, key):
+    def row_program(params, x, y, m, key, jplan):
         # the engine's per-row program: online Alg. 2 per slot, then the
         # mediator update; Eq. 6 weight = expected post-augmentation size
+        if not augment:
+            return med_update(params, x, y, m, key), m.sum()
         aks = jax.random.split(jax.random.fold_in(key, jaug.AUG_SALT), gamma)
         ax, ay = jax.vmap(lambda k, xx, yy, mm: jaug.online_augment_batch(
             k, xx, yy, mm, jplan, impl="reference"))(aks, x, y, m)
@@ -284,9 +297,22 @@ def reference_astraea(jmodel, params, fed, *, clients: int, gamma: int, batch: i
         return med_update(params, ax, ay, m, key), weight
 
     comm = JCommMeter(jcnn.count_params(params))
-    if plan.any():
+    if augment:
         comm.plan_broadcast(plan.size, fed.num_clients)
+    record = {"history": [], "plans": [], "groups": []}
     for rnd in range(rounds):
+        if rnd == 0 or reschedule_every_round:
+            sel = rng.choice(fed.num_clients, size=clients, replace=False)
+            if adaptive:
+                plan = jaug.augmentation_plan(raw[sel].sum(0), alpha)
+                comm.plan_broadcast(plan.size, len(sel))
+            sched_counts = raw[sel] * (1.0 + plan)
+            meds = jsched.reschedule(sched_counts, gamma, impl="batched")
+            groups = [[int(sel[i]) for i in m.clients] for m in meds]
+            stats = jsched.schedule_stats(meds)
+            jplan = jnp.asarray(plan, jnp.int32)
+            record["plans"].append(plan)
+            record["groups"].append(groups)
         keys = _round_keys(seed, rnd, len(groups))
         deltas, weights = [], []
         for r, g in enumerate(groups):
@@ -294,19 +320,27 @@ def reference_astraea(jmodel, params, fed, *, clients: int, gamma: int, batch: i
             slot = np.zeros(gamma, np.float32)
             idx[:len(g)], slot[:len(g)] = g, 1.0
             delta, weight = row_program(params, xs[idx], ys[idx],
-                                        mask[idx] * slot[:, None], keys[r])
+                                        mask[idx] * slot[:, None], keys[r], jplan)
             deltas.append(delta)
             weights.append(weight)
         params = _fold_deltas(params, deltas, weights)
         comm.astraea_round(clients, gamma, mediator_epochs)
         comm.end_round()
+        if eval_every and ((rnd + 1) % eval_every == 0 or rnd + 1 == rounds):
+            record["history"].append(_reference_eval(jmodel, params, fed, rnd + 1,
+                                                     comm, stats))
+    if out is not None:
+        out.update(record)
     return params, groups, comm, sched_counts, plan
 
 
 def reference_fedavg(jmodel, params, fed, *, clients: int, batch: int, epochs: int,
-                     rounds: int, seed: int, loss_fn=None):
+                     rounds: int, seed: int, loss_fn=None, eval_every: int | None = None,
+                     out: dict | None = None):
     """The reference's FedAvg rounds (a fresh selection every round, Eq. 6
-    over client weights).  Returns ``(params, selections, comm)``."""
+    over client weights).  Returns ``(params, selections, comm)``; ``out``,
+    if given, receives ``history`` (evaluations every ``eval_every`` rounds
+    and at the last)."""
     pad = padded_size(fed, batch)
     xs, ys, mask = fed.padded(pad)
     update = jax.jit(jfl.make_client_update(jmodel, jadam(1e-3),
@@ -314,7 +348,7 @@ def reference_fedavg(jmodel, params, fed, *, clients: int, batch: int, epochs: i
                                             loss_fn=loss_fn))
     rng = np.random.default_rng(seed)
     comm = JCommMeter(jcnn.count_params(params))
-    selections = []
+    selections, history = [], []
     for rnd in range(rounds):
         sel = rng.choice(fed.num_clients, size=clients, replace=False)
         selections.append([[int(k)] for k in sel])
@@ -324,4 +358,8 @@ def reference_fedavg(jmodel, params, fed, *, clients: int, batch: int, epochs: i
         params = _stack_average(outs, [jnp.float32(mask[k].sum()) for k in sel])
         comm.fedavg_round(clients)
         comm.end_round()
+        if eval_every and ((rnd + 1) % eval_every == 0 or rnd + 1 == rounds):
+            history.append(_reference_eval(jmodel, params, fed, rnd + 1, comm))
+    if out is not None:
+        out["history"] = history
     return params, selections, comm
