@@ -63,6 +63,23 @@ Phases, each fatal on failure:
    signature (shape, dtype, mask) the run called and phase 3 did not hold
    (``recorded_kernel_calls``) is then held against its plain version.
 
+10. async rounds, client stores and checkpoints, at phase 5's EMNIST arm
+    (Astraea, 3 rounds a run, launch counts reset before each run and read
+    after; runs held to each other bit for bit use cuDNN's deterministic
+    algorithms, as its default ones are not): S=0 with a wave per mediator
+    behind a 4x straggler -- masked dispatch bitwise the sync ``"vmap"``
+    run, overlapped under ``"map"`` bitwise the sync ``"map"`` run, one
+    Eq. 6 launch per commit and one warp per round; S=2 in turns (blocking
+    baseline, masked, overlapped): seconds per round, ``overlap_frac``,
+    graphs built and their bytes, ``sim_speedup``, the staleness
+    histogram, the WAN ledger equal to ``2|w|(c E_m + ceil(c/gamma))`` per
+    round plus the plan; the graphs of an async CINIC-10 engine and their
+    bytes; replicated, host and spilled stores bitwise equal; a spilled
+    ``StreamingFederation`` of 1,000,000 clients at prefetch depth 1 and 2
+    (device bytes ``U_cap`` x bytes per client, as over 1,000 clients); a
+    checkpoint after round 2 restored on the card, its round 3 bitwise the
+    uninterrupted one's.
+
 Phase 3 also holds the flash-attention and SSD kernels against their plain
 versions at the serve shapes (bf16 and f32), with a no-window, a
 ``q_offset`` and a GQA 1:1 attention row, rows at head dims 80 and 128
@@ -80,6 +97,7 @@ Prints the kernels' JSON summary, then as the last line
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -640,6 +658,346 @@ def path_a(dev, cohort):
             "cinic_cohort_groups": [m.clients for m in card]}
 
 
+# ---------------------------------------------------------------- phase 10
+
+# the JAX example's fleet: a wave per mediator, one mediator in three 4x slower
+FLEET = dict(model="fixed", straggler_frac=0.34, slowdown=4.0, seed=0)
+MILLION = 1_000_000
+
+
+@contextlib.contextmanager
+def deterministic_convolutions():
+    """cuDNN's deterministic algorithms, for runs held to each other bit
+    for bit: at this width its default algorithms are not deterministic
+    (``cudnn_spread`` measures how far two identical runs part), so no two
+    runs could be held bitwise under them."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def p10_trainer(fed, dev, row_exec="vmap", **kw):
+    """Astraea at phase 5's EMNIST arm (c=16, gamma=4, B=20, E=2, alpha=0.67
+    online, seed 0), with the store or async spec of ``kw``."""
+    from repro_torch.core import AstraeaTrainer, LocalSpec
+    from repro_torch.models.cnn import emnist_cnn
+    from repro_torch.optim import adam
+    return AstraeaTrainer(emnist_cnn(47, 28), adam(1e-3), fed, clients_per_round=CLIENTS,
+                          gamma=GAMMA, local=LocalSpec(20, 2), mediator_epochs=1,
+                          alpha=ALPHA, seed=0, device=dev, row_exec=row_exec, **kw)
+
+
+def run_timed(tr, rounds=ROUNDS, label=""):
+    """``rounds`` rounds, each timed by the host clock between two device
+    syncs, with the FL kernel launches counted from 0; an async trainer
+    flushes its pending waves after the last (untimed)."""
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    secs = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        tr.run_round()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    if tr.runner is not tr.engine:
+        tr.runner.flush()
+    torch.cuda.synchronize()
+    launches = {k: ops.LAUNCHES[k] for k in FL_KERNELS}
+    if not all(bool(torch.isfinite(p).all()) for p in tr.params.values()):
+        raise AssertionError(f"{label}: non-finite params")
+    return secs, launches
+
+
+def same_params(a, b) -> bool:
+    return all(torch.equal(a.params[k], b.params[k]) for k in a.params)
+
+
+def expected_wan(fed, rounds=ROUNDS):
+    w = 4 * 68_873
+    plan = 4 * fed.num_classes * fed.num_clients
+    per_round = 2 * w * (CLIENTS * 1 + math.ceil(CLIENTS / GAMMA))
+    return [plan + per_round * (r + 1) for r in range(rounds)]
+
+
+def cudnn_spread(fed, dev) -> float:
+    """Two identical sync "vmap" Astraea runs of 2 rounds under cuDNN's
+    default algorithms: the largest parameter difference between them."""
+    runs = []
+    for _ in range(2):
+        tr = p10_trainer(fed, dev)
+        for _ in range(2):
+            tr.run_round()
+        runs.append(tr)
+    torch.cuda.synchronize()
+    a, b = runs
+    return max(float((a.params[k] - b.params[k]).abs().max()) for k in a.params)
+
+
+def async_s0(fed, dev):
+    """S=0 with a wave per mediator behind the 4x straggler: masked async
+    bitwise the sync "vmap" run, overlapped async under "map" bitwise the
+    sync "map" run; one Eq. 6 launch per commit, one warp per round."""
+    from repro_torch.core import AsyncSpec, StragglerSpec
+    out = {}
+    for row_exec, dispatch in (("vmap", "masked"), ("map", "overlapped")):
+        sync = p10_trainer(fed, dev, row_exec)
+        sync_s, sync_l = run_timed(sync, label=f"sync {row_exec}")
+        spec = AsyncSpec(staleness_bound=0, wave_size=1, dispatch=dispatch,
+                         straggler=StragglerSpec(**FLEET))
+        tr = p10_trainer(fed, dev, row_exec, async_spec=spec)
+        secs, launches = run_timed(tr, label=f"async S=0 {dispatch} {row_exec}")
+        commits = tr.runner.num_commits
+        if not same_params(tr, sync):
+            err = max(float((tr.params[k] - sync.params[k]).abs().max()) for k in sync.params)
+            raise AssertionError(f"S=0 {dispatch} under {row_exec!r} differs from the sync "
+                                 f"run by {err:.3e}; expected bit for bit")
+        if launches["fedavg_agg"] != commits or launches["affine_warp"] != ROUNDS:
+            raise AssertionError(f"S=0 {dispatch}: launches {launches} for {commits} "
+                                 f"commits and {ROUNDS} rounds")
+        if not tr.comm.round_log == sync.comm.round_log == expected_wan(fed):
+            raise AssertionError(f"S=0 {dispatch}: WAN ledger {tr.comm.round_log}")
+        out[f"{dispatch} {row_exec}"] = {
+            "bitwise": True, "launches": launches, "sync_launches": sync_l,
+            "round_seconds": secs, "sync_round_seconds": sync_s, "commits": commits,
+            "graphs_built": tr.engine.num_round_traces}
+        del sync, tr
+    return out
+
+
+def async_s2(fed, dev):
+    """S=2, a wave per mediator, the 4x straggler: the blocking baseline
+    (masked, the host waits for every wave), masked and overlapped in
+    turns; seconds per round, overlap share, graphs and their bytes,
+    simulated speedup, the staleness histogram and, for the non-blocking
+    modes, one profiled round more; the WAN ledger equal to the round
+    formula in every mode."""
+    from repro_torch.core import AsyncSpec, StragglerSpec
+    from repro_torch.examples.profile_round import profile_round
+    modes = (("blocking", dict(dispatch="masked", block_each_wave=True)),
+             ("masked", dict(dispatch="masked")), ("overlapped", dict(dispatch="overlapped")))
+    out = {}
+    for name, kw in modes:
+        spec = AsyncSpec(staleness_bound=2, wave_size=1,
+                         straggler=StragglerSpec(**FLEET), **kw)
+        tr = p10_trainer(fed, dev, async_spec=spec)
+        secs, launches = run_timed(tr, label=f"S=2 {name}")
+        run = tr.runner
+        if tr.comm.round_log != expected_wan(fed):
+            raise AssertionError(f"S=2 {name}: WAN ledger {tr.comm.round_log} != "
+                                 f"{expected_wan(fed)}")
+        if launches["fedavg_agg"] != run.num_commits or \
+                launches["affine_warp"] != ROUNDS:
+            raise AssertionError(f"S=2 {name}: launches {launches}")
+        stales = [s for c in run.commit_log for s in c["staleness"]]
+        if max(stales) > 2 or len(stales) != ROUNDS * math.ceil(CLIENTS / GAMMA):
+            raise AssertionError(f"S=2 {name}: staleness {stales}")
+        m = tr.evaluate()
+        if not (math.isfinite(m["accuracy"]) and math.isfinite(m["loss"])):
+            raise AssertionError(f"S=2 {name}: non-finite metrics {m}")
+        row = {"round_seconds": secs, "overlap_frac": run.overlap_frac,
+               "graphs_built": tr.engine.num_round_traces,
+               "programs": tr.engine.programs(), "sim_speedup": run.sim_speedup,
+               "staleness_hist": dict(sorted(collections.Counter(stales).items())),
+               "commits": run.num_commits, "launches": launches,
+               "accuracy": m["accuracy"]}
+        # then, but for the baseline, one more round under the profiler
+        # (device busy, idle and launches; its ~10^5 events take seconds)
+        row["profile"] = None if kw.get("block_each_wave") else profile_round(tr, top=4)
+        out[name] = row
+        del tr, run
+    return out
+
+
+def cinic_graph_bytes(fed, dev):
+    """The graphs an async CINIC-10 Astraea engine builds at the paper's
+    width (``cinic_cnn(10, 32, 3, 32)``): one masked round (the full-width
+    round program) and one overlapped round with a wave per mediator (a
+    width-1 program); each program's static buffers and graph pool."""
+    from repro_torch.core import AstraeaTrainer, AsyncSpec, LocalSpec, StragglerSpec
+    from repro_torch.models.cnn import cinic_cnn
+    from repro_torch.optim import adam
+    out = {}
+    for dispatch in ("masked", "overlapped"):
+        spec = AsyncSpec(staleness_bound=2, wave_size=1, dispatch=dispatch,
+                         straggler=StragglerSpec(**FLEET))
+        tr = AstraeaTrainer(cinic_cnn(10, 32, 3, 32), adam(1e-3), fed,
+                            clients_per_round=CLIENTS, gamma=GAMMA, local=LocalSpec(20, 2),
+                            alpha=ALPHA, seed=0, device=dev, async_spec=spec)
+        tr.run_round()
+        torch.cuda.synchronize()
+        out[dispatch] = tr.engine.programs()
+        del tr
+        torch.cuda.empty_cache()
+    return out
+
+
+def store_runs(fed, dev):
+    """Replicated, host and spilled stores, a reschedule every round: the
+    same params bit for bit; streamed MiB per reschedule, s/round."""
+    out, runs = {}, {}
+    for policy in ("replicated", "host", "spilled"):
+        tr = p10_trainer(fed, dev, store=policy, reschedule_every_round=True)
+        secs, launches = run_timed(tr, label=f"store {policy}")
+        st = tr.engine.store.stats()
+        runs[policy] = tr
+        out[policy] = {"round_seconds": secs, "launches": launches,
+                       "streamed_mib_per_reschedule":
+                           st["streamed_bytes"] / max(st["num_streams"], 1) / 2 ** 20,
+                       "device_mib": st["per_device_bytes"] / 2 ** 20,
+                       "intra_pod_bytes": tr.comm.intra_pod_bytes,
+                       "wan_bytes": tr.comm.total_bytes}
+    rep = runs["replicated"]
+    for policy, tr in runs.items():
+        if not same_params(tr, rep) or tr.comm.round_log != rep.comm.round_log:
+            raise AssertionError(f"the {policy} store's run differs from the replicated one")
+    if not runs["host"].engine.store._staging[0][0].is_pinned():
+        raise AssertionError("the host store's staging buffers are not pinned")
+    return out
+
+
+def million_clients(dev):
+    """A spilled ``StreamingFederation`` of 1,000,000 clients at the EMNIST
+    shape (47 classes, 28x28x1), 3 rounds at prefetch depth 1 and 2: the
+    store's device bytes U_cap x bytes per client, the same as over 1,000
+    clients; seconds per round, LRU evictions, finite accuracy."""
+    from repro_torch.data.synthetic import StreamingFederation, federation_counts
+    from repro_torch.data.federated import EMNIST_LIKE
+    spec = dataclasses.replace(EMNIST_LIKE, num_classes=47)
+    t0 = time.perf_counter()
+    big = StreamingFederation(spec, federation_counts(MILLION, 47, seed=0),
+                              batch_size=20, seed=0)
+    setup_s = time.perf_counter() - t0
+    small = StreamingFederation(spec, federation_counts(1_000, 47, seed=0),
+                                batch_size=20, seed=0)
+    held = {}
+    tr = p10_trainer(small, dev, store="spilled", reschedule_every_round=True)
+    tr.run_round()
+    held[1_000] = sum(t.nbytes for t in tr.engine.store._dev)
+    del tr
+    out = {"setup_s": setup_s, "pad": big.pad, "bytes_per_client": big.nbytes_per_client}
+    for depth in (1, 2):
+        tr = p10_trainer(big, dev, store="spilled", reschedule_every_round=True,
+                         store_prefetch_depth=depth)
+        secs, launches = run_timed(tr, label=f"1M spilled depth {depth}")
+        st = tr.engine.store.stats()
+        held[MILLION] = sum(t.nbytes for t in tr.engine.store._dev)
+        m = tr.evaluate()
+        if not (math.isfinite(m["accuracy"]) and math.isfinite(m["loss"])):
+            raise AssertionError(f"1M clients: non-finite metrics {m}")
+        if not held[MILLION] == st["per_device_bytes"] == CLIENTS * big.nbytes_per_client \
+                == held[1_000]:
+            raise AssertionError(f"1M clients: device bytes {held} vs "
+                                 f"{CLIENTS} x {big.nbytes_per_client}")
+        out[f"depth {depth}"] = {
+            "round_seconds": secs, "launches": launches, "device_bytes": held[MILLION],
+            "device_bytes_k1000": held[1_000], "lru_evictions": st["lru_evictions"],
+            "prefetch_hits": st["prefetch_hits"], "tier_rows": st["tier_rows"],
+            "cache_hit_rows": st["cache_hit_rows"], "accuracy": m["accuracy"],
+            "streamed_bytes": st["streamed_bytes"]}
+        del tr
+    return out
+
+
+def checkpoint_resume(fed, dev):
+    """The sync trainer saved after 2 rounds and loaded into a fresh
+    trainer on the card: its round 3 equals the uninterrupted trainer's
+    round 3 bit for bit."""
+    import tempfile
+    from repro_torch.core import load_trainer, save_trainer
+    tr = p10_trainer(fed, dev)
+    for _ in range(2):
+        tr.run_round()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        path = str(Path(tmp) / "astraea.ckpt")
+        save_trainer(path, tr)
+        nbytes = Path(path).stat().st_size
+        fresh = load_trainer(path, p10_trainer(fed, dev))
+    if not same_params(fresh, tr) or fresh._round != 2:
+        raise AssertionError("the restored trainer's params differ from the saved ones")
+    tr.run_round()
+    fresh.run_round()
+    torch.cuda.synchronize()
+    if not same_params(fresh, tr) or fresh.comm.total_bytes != tr.comm.total_bytes:
+        raise AssertionError("round 3 after a restore differs from the uninterrupted one")
+    return {"bitwise": True, "file_bytes": nbytes, "round": fresh._round}
+
+
+def phase10(fed, cinic_fed, dev, path_launches: dict, lap) -> dict:
+    """Phase 10 (module docstring): async rounds, client stores and
+    checkpoints at phase 5's EMNIST arm, each run's launch counts reset
+    just before it and read after; the async and 1M paths' counts join
+    ``path_launches``; ``lap(name)`` logs each part's seconds."""
+    torch.cuda.empty_cache()
+    spread = cudnn_spread(fed, dev)
+    log(f"[async] cuDNN's default algorithms: two identical sync runs of 2 rounds part "
+        f"by {spread:.3e} (the bitwise checks below use its deterministic ones)")
+    with deterministic_convolutions():
+        s0 = async_s0(fed, dev)
+    for name, r in s0.items():
+        log(f"[async] S=0 {name}: bitwise equal to the sync run; launches {r['launches']} "
+            f"({r['commits']} commits); s/round "
+            f"{' '.join(f'{x:.4f}' for x in r['round_seconds'])} (sync "
+            f"{' '.join(f'{x:.4f}' for x in r['sync_round_seconds'])}); graphs "
+            f"{r['graphs_built']}")
+    lap("10 async S=0")
+    s2 = async_s2(fed, dev)
+    path_launches["async S=2 overlapped"] = dict(s2["overlapped"]["launches"])
+    for name, t in s2.items():
+        progs = ", ".join(f"{k} (width {v['width']}): buffers "
+                          f"{v['buffer_bytes'] / 2 ** 20:.2f} MiB, pool "
+                          f"{v['graph_pool_bytes'] / 2 ** 20:.2f} MiB"
+                          for k, v in t["programs"].items())
+        log(f"[async] S=2 {name:10s}: s/round "
+            f"{' '.join(f'{x:.4f}' for x in t['round_seconds'])}, overlap_frac "
+            f"{t['overlap_frac']:.3f}, sim_speedup {t['sim_speedup']:.3f}, staleness "
+            f"{t['staleness_hist']}, graphs {t['graphs_built']} [{progs}]")
+        p = t["profile"]
+        if p is None:
+            continue
+        log(f"[async] S=2 {name:10s} (profiled round): wall {p['wall_s']:.4f} s, "
+            f"device busy {p['busy_s']:.4f} s, idle {100 * p['idle_share']:.1f} %, "
+            f"{p['host_launches']} host launches ({p['graph_launches']} graph), "
+            f"{p['device_kernels']} device kernels")
+    lap("10 async S=2")
+    graphs = cinic_graph_bytes(cinic_fed, dev)
+    for dispatch, progs in graphs.items():
+        for k, v in progs.items():
+            log(f"[async] CINIC-10 {dispatch}: {k} width {v['width']}: buffers "
+                f"{v['buffer_bytes'] / 2 ** 20:.2f} MiB, graph pool "
+                f"{v['graph_pool_bytes'] / 2 ** 20:.2f} MiB")
+    lap("10 CINIC graphs")
+    with deterministic_convolutions():
+        stores = store_runs(fed, dev)
+    for policy, r in stores.items():
+        log(f"[store] {policy:10s}: s/round {' '.join(f'{x:.4f}' for x in r['round_seconds'])}"
+            f", streamed {r['streamed_mib_per_reschedule']:.3f} MiB per reschedule, "
+            f"device {r['device_mib']:.3f} MiB; params bitwise equal across stores")
+    million = million_clients(dev)
+    path_launches["spilled 1M"] = dict(million["depth 2"]["launches"])
+    for depth in ("depth 1", "depth 2"):
+        r = million[depth]
+        log(f"[store] spilled {MILLION:,} clients, prefetch {depth}: s/round "
+            f"{' '.join(f'{x:.4f}' for x in r['round_seconds'])}, device "
+            f"{r['device_bytes']:,} B (K=1,000: {r['device_bytes_k1000']:,} B), LRU "
+            f"evictions {r['lru_evictions']}, prefetch hits {r['prefetch_hits']}, "
+            f"top1 {r['accuracy']:.4f}")
+    log(f"[store] the 1M federation's histograms in {million['setup_s']:.2f} s, pad "
+        f"{million['pad']}, {million['bytes_per_client']:,} B per client")
+    lap("10 stores")
+    with deterministic_convolutions():
+        ckpt = checkpoint_resume(fed, dev)
+    log(f"[ckpt] saved after 2 rounds ({ckpt['file_bytes']:,} B), restored on the card: "
+        "round 3 bitwise equal to the uninterrupted run")
+    lap("10 checkpoint")
+
+    return {"cudnn_default_spread": spread, "async_s0": s0, "async_s2": s2, "cinic_graphs": graphs, "stores": stores,
+            "million_clients": million, "checkpoint": ckpt}
+
+
 def materialized_round(fed, dev):
     """One full-width CINIC Astraea round with the materialized Alg. 2
     phase: its warp launches (the whole federation in one) and the extra
@@ -1145,6 +1503,9 @@ def main() -> int:
             raise AssertionError(f"{arch}: kernel signatures left unchecked")
         lap(f"9 serve {arch}")
 
+    # ---- 10. async rounds, client stores and checkpoints
+    p10 = phase10(fed, cinic_fed, dev, path_launches, lap)
+
     # every kernel's launches over the paths that drive it (each path's
     # counts were reset just before it and read just after)
     launches = {name: sum(p.get(name, 0) for p in path_launches.values())
@@ -1184,6 +1545,7 @@ def main() -> int:
          "cinic_peak_mem_gb": cinic_peak, "cinic_materialized": materialized,
          "row_exec": rows_check,
          "serve_agreement": serve_agree, "serve": served,
+         "phase10": p10,
          "path_launches": path_launches, "launches": launches, "phase_seconds": phase_s,
          "kernels": summary}, indent=1, default=str))
     log(json.dumps({"kernels": summary}))

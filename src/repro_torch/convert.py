@@ -17,27 +17,38 @@ import torch
 
 
 def params_from_jax(tree) -> dict[str, torch.Tensor]:
-    """Reference params (nested dict of arrays, e.g. numpy) -> state dict."""
+    """Reference params (nested dict of arrays, e.g. numpy) -> state dict.
+    Array leaves become float32; tensor leaves (a checkpoint read by
+    ``checkpoint.load_pytree``) keep their dtype, bf16 included."""
     out = {}
     for layer, leaves in tree.items():
-        w = np.asarray(leaves["w"], np.float32)
-        w = w.transpose(3, 2, 0, 1) if w.ndim == 4 else w.T
-        out[f"{layer}.weight"] = torch.from_numpy(np.ascontiguousarray(w))
-        out[f"{layer}.bias"] = torch.from_numpy(np.asarray(leaves["b"], np.float32).copy())
+        w, b = (_leaf(leaves[k]) for k in ("w", "b"))
+        w = w.permute(3, 2, 0, 1) if w.dim() == 4 else w.T
+        out[f"{layer}.weight"] = w.contiguous()
+        out[f"{layer}.bias"] = b.clone()
     return out
 
 
+def _leaf(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu()
+    return torch.from_numpy(np.array(a, np.float32))
+
+
 def params_to_jax(state: dict[str, torch.Tensor]) -> dict[str, dict[str, np.ndarray]]:
-    """Inverse of ``params_from_jax``: state dict -> nested numpy dict."""
+    """Inverse of ``params_from_jax``: state dict -> nested dict of numpy
+    arrays, or of CPU tensors for dtypes numpy lacks (bf16, fp8), which
+    ``checkpoint.save_pytree`` writes by name."""
     out: dict[str, dict[str, np.ndarray]] = {}
     for name, t in state.items():
         layer, kind = name.rsplit(".", 1)
-        a = t.detach().cpu().numpy()
+        t = t.detach().cpu()
         if kind == "weight":
-            out.setdefault(layer, {})["w"] = np.ascontiguousarray(
-                a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T)
-        else:
-            out.setdefault(layer, {})["b"] = a.copy()
+            t = t.permute(2, 3, 1, 0) if t.dim() == 4 else t.T
+        t = t.contiguous().clone()
+        native = t.dtype not in (torch.bfloat16, torch.float8_e4m3fn, torch.float8_e5m2)
+        out.setdefault(layer, {})["w" if kind == "weight" else "b"] = \
+            t.numpy() if native else t
     return out
 
 

@@ -9,9 +9,13 @@ mediator trains its clients sequentially for E_m epochs, and Eq. 6
 averages the mediator deltas with weights n_m / n.
 
 The trainer presents the reference's arguments (``repro/core/astraea.py``)
-where they apply to a synchronous single-device engine, plus ``row_exec``
-(the engine's, ``EngineConfig.row_exec``), ``device``, ``init_params``,
-``draws`` and ``loss_fn`` (see ``core/engine.py``).
+where they apply to a single-device engine -- with ``store`` (and the
+spilled store's ``store_prefetch_depth``/``store_lru_rows``) and
+``async_spec`` (bounded-staleness waves, ``core/async_engine.py``) -- plus
+``row_exec`` (the engine's, ``EngineConfig.row_exec``), ``device``,
+``init_params``, ``draws`` and ``loss_fn`` (see ``core/engine.py``).
+``params`` and ``_round`` can be set, as ``checkpoint.load_trainer``
+does.
 """
 from __future__ import annotations
 
@@ -50,6 +54,21 @@ def charge_materialized_plan(engine: FLRoundEngine, phase: AugPhase) -> None:
         engine.comm.plan_broadcast(engine.data.num_classes, engine.data.num_clients)
 
 
+def store_config(trainer) -> dict:
+    """Both trainers' client-store fields, as ``EngineConfig`` keywords."""
+    return dict(store=trainer.store, store_prefetch_depth=trainer.store_prefetch_depth,
+                store_lru_rows=trainer.store_lru_rows)
+
+
+def async_runner(engine: FLRoundEngine, spec):
+    """What drives the trainer's rounds: the engine itself, or with an
+    ``AsyncSpec`` the bounded-staleness wave engine around it."""
+    if spec is None:
+        return engine
+    from repro_torch.core.async_engine import AsyncRoundEngine
+    return AsyncRoundEngine(engine, spec)
+
+
 @dataclass
 class AstraeaTrainer:
     model: object
@@ -66,8 +85,15 @@ class AstraeaTrainer:
     # only; the refreshed plan is re-broadcast and metered per reschedule)
     adaptive_plan: bool = False
     reschedule_every_round: bool = False    # static client data -> schedule once
+    store: str = "replicated"               # client-store placement policy
     # padded mediator count; defaults to ceil(c / gamma), Alg. 3's output size
     pad_mediators_to: int | None = None
+    # bounded-staleness async rounds (core/async_engine.py); None = the
+    # synchronous barrier engine
+    async_spec: object = None
+    # spilled store: reschedules prefetched ahead; LRU rows (None = 2x c)
+    store_prefetch_depth: int = 1
+    store_lru_rows: int | None = None
     seed: int = 0
     row_exec: str = "vmap"                  # "vmap" (lockstep rows) | "map"
     device: object = None                   # None = the CUDA device
@@ -88,16 +114,30 @@ class AstraeaTrainer:
                 clients_per_round=self.clients_per_round, gamma=self.gamma,
                 local=self.local, mediator_epochs=self.mediator_epochs,
                 reschedule_every_round=self.reschedule_every_round,
-                pad_mediators_to=pad_m, seed=self.seed, row_exec=self.row_exec),
+                pad_mediators_to=pad_m, seed=self.seed, row_exec=self.row_exec,
+                **store_config(self)),
             aug_plan=engine_plan, adaptive_aug_alpha=adaptive_alpha,
             device=self.device,
             init_params=self.init_params, draws=self.draws, loss_fn=self.loss_fn)
         charge_materialized_plan(self.engine, phase)
-        self.history = self.engine.history
+        self.runner = async_runner(self.engine, self.async_spec)
+        self.history = self.runner.history
 
     @property
     def params(self):
         return self.engine.params
+
+    @params.setter
+    def params(self, value):
+        self.engine.load_params(value)
+
+    @property
+    def _round(self):
+        return self.engine._round
+
+    @_round.setter
+    def _round(self, value):
+        self.engine._round = value
 
     @property
     def comm(self):
@@ -108,10 +148,10 @@ class AstraeaTrainer:
         return self.engine.last_schedule_stats
 
     def run_round(self) -> None:
-        self.engine.run_round()
+        self.runner.run_round()
 
     def evaluate(self) -> dict:
-        return self.engine.evaluate()
+        return self.runner.evaluate()
 
     def fit(self, rounds: int, eval_every: int = 10) -> list[dict]:
-        return self.engine.fit(rounds, eval_every)
+        return self.runner.fit(rounds, eval_every)

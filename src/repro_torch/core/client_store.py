@@ -1,0 +1,451 @@
+"""Client data placement: where the packed ``(K, pad, ...)`` federation lives.
+
+The round engine never touches raw client arrays; it talks to a
+``ClientStore`` that owns the packed per-client rows and turns a host-side
+schedule (``idx (M_pad, gamma)`` client ids + 0/1 ``slot`` mask) into
+per-slot device tensors.  Three placement policies, as in the JAX
+package's ``core/client_store.py``:
+
+===========  ====================  =========================================
+policy       device bytes          traffic
+===========  ====================  =========================================
+replicated   K * slice             none (gathers are device-local)
+host         U_cap * slice         per RESCHEDULE, host->device copy of the
+             (U_cap = min(K, c))   <= c unique scheduled clients
+spilled      U_cap * slice         the ``host`` stream, but the federation
+             (+ an LRU row cache   lives in a disk/mmap tier (or a lazy
+             on the host, default  per-client synthesizer); up to
+             2 * U_cap rows)       ``prefetch_depth`` future reschedules'
+                                   clients are read on background threads
+                                   while the card computes, and rows reused
+                                   across schedules come from the LRU cache
+===========  ====================  =========================================
+
+The reference's fourth policy, ``sharded``, partitions the client axis
+over a mesh of devices and needs ``torch.distributed`` across processes;
+``build_client_store`` raises ``NotImplementedError`` for it.
+
+On the card the streaming stores keep two pinned host staging buffers and
+one compact device buffer of ``U_cap`` rows, all allocated once.  A
+reschedule fills a staging buffer on the host and copies it into the
+device buffer with ``non_blocking=True`` on a copy stream; the copy first
+waits for the work already enqueued on the round's stream (which may still
+read the device buffer), and the round's stream then waits on the copy's
+event -- no host sync.  A staging buffer is refilled only after the event
+of its previous copy (two reschedules back) has completed.  On the CPU the
+same copies run in order.
+
+All policies are bit-identical: gathers and copies move exact values, and
+an inactive slot (mask zero) is a no-op whichever row it gathers.  The
+spill tier's prefetch changes *when* bytes move, never which bytes: a
+prefetched stage and a synchronous read take the same path.  Every
+host->device copy is reported through ``last_stream_bytes``; the engine
+charges it to the intra-pod ledger (``CommMeter.store_stream``), never to
+the WAN ledger.
+"""
+from __future__ import annotations
+
+import os
+import tempfile
+import threading
+from collections import deque
+
+import numpy as np
+import torch
+
+from repro_torch.device import to_device
+
+POLICIES = ("replicated", "sharded", "host", "spilled")
+
+
+def _bytes(*arrays) -> int:
+    return int(sum(a.nbytes for a in arrays))
+
+
+# --------------------------------------------------------------------------
+# Row sources: where the packed federation physically lives.  The streaming
+# stores read batches of client rows through this protocol -- ``num_clients``,
+# ``row_specs`` (trailing shape + dtype per x/y/mask array),
+# ``nbytes_per_client`` and ``rows(ids)`` -- so the same store code serves
+# RAM arrays, a disk/mmap spill tier, or a lazy synthesizer
+# (``data.synthetic.StreamingFederation``).
+# --------------------------------------------------------------------------
+
+class PackedClients:
+    """The packed ``(K, pad, ...)`` federation held in host RAM."""
+
+    def __init__(self, xs, ys, mask):
+        self._arrays = (np.asarray(xs), np.asarray(ys), np.asarray(mask))
+
+    @property
+    def num_clients(self) -> int:
+        return int(self._arrays[0].shape[0])
+
+    @property
+    def row_specs(self) -> tuple:
+        return tuple((a.shape[1:], a.dtype) for a in self._arrays)
+
+    @property
+    def nbytes_per_client(self) -> int:
+        return _bytes(*(a[:1] for a in self._arrays))
+
+    def rows(self, ids: np.ndarray) -> tuple:
+        return tuple(a[ids] for a in self._arrays)
+
+
+class MmapClients:
+    """Disk/mmap tier: the packed federation spilled to per-array memmaps.
+
+    Construction writes each packed array once; row reads fancy-index the
+    memmaps, touching only the requested clients' pages."""
+
+    def __init__(self, xs, ys, mask, spill_dir: str | None = None):
+        self.spill_dir = spill_dir or tempfile.mkdtemp(prefix="astraea-spill-")
+        os.makedirs(self.spill_dir, exist_ok=True)
+        self._maps = []
+        for name, a in (("x", xs), ("y", ys), ("m", mask)):
+            a = np.asarray(a)
+            mm = np.memmap(os.path.join(self.spill_dir, f"clients_{name}.mmap"),
+                           dtype=a.dtype, mode="w+", shape=a.shape)
+            mm[:] = a
+            mm.flush()
+            self._maps.append(mm)
+
+    @property
+    def num_clients(self) -> int:
+        return int(self._maps[0].shape[0])
+
+    @property
+    def row_specs(self) -> tuple:
+        return tuple((a.shape[1:], a.dtype) for a in self._maps)
+
+    @property
+    def nbytes_per_client(self) -> int:
+        return _bytes(*(a[:1] for a in self._maps))
+
+    def rows(self, ids: np.ndarray) -> tuple:
+        return tuple(np.asarray(a[ids]) for a in self._maps)
+
+
+class ClientStore:
+    """The engine-facing contract.
+
+    * ``plan(idx, slot)``: schedule-time remapping, once per reschedule;
+      returns ``(data, index)``, the device arrays and the device gather
+      index ``(M_pad, gamma)`` into them.
+    * ``slot_data(data, index)``: the ``(M_pad, gamma, pad, ...)`` x / y /
+      mask slot tensors (the mask not yet scaled by the slot mask).
+    * ``row_specs``: each array's per-client shape and numpy dtype.
+    * ``last_stream_bytes``: what the latest ``plan`` copied host->device.
+    """
+
+    policy: str
+    last_stream_bytes: int = 0
+
+    def plan(self, idx: np.ndarray, slot: np.ndarray):
+        raise NotImplementedError
+
+    @staticmethod
+    def slot_data(data, index):
+        x_all, y_all, m_all = data
+        return x_all[index], y_all[index], m_all[index]
+
+    def per_device_bytes(self) -> int:
+        raise NotImplementedError
+
+    def stats(self) -> dict:
+        """Residency and traffic with one key set for every policy (a
+        policy without a feature reports 0 or None), as the reference's
+        ``ClientStore.stats`` without the mesh keys."""
+        return {
+            "policy": self.policy,
+            "per_device_bytes": self.per_device_bytes(),
+            "streamed_bytes": getattr(self, "_streamed_bytes", 0),
+            "num_streams": getattr(self, "num_streams", 0),
+            "prefetch_hits": getattr(self, "prefetch_hits", 0),
+            "prefetch_misses": getattr(self, "prefetch_misses", 0),
+            "prefetch_depth": getattr(self, "prefetch_depth", 0),
+            "cache_hit_rows": getattr(self, "cache_hit_rows", 0),
+            "tier_rows": getattr(self, "tier_rows", 0),
+            "lru_rows": getattr(self, "lru_rows", 0),
+            "lru_evictions": getattr(self, "lru_evictions", 0),
+            "spill_dir": getattr(getattr(self, "_src", None), "spill_dir", None),
+        }
+
+
+class ReplicatedStore(ClientStore):
+    """The whole packed federation resident on the device."""
+
+    policy = "replicated"
+
+    def __init__(self, xs, ys, mask, device: torch.device):
+        self._arrays = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                             for a in (xs, ys, mask))
+        self.row_specs = tuple((tuple(a.shape[1:]), np.asarray(a).dtype)
+                               for a in (xs, ys, mask))
+        self.device = device
+
+    def plan(self, idx, slot):
+        return self._arrays, to_device(idx, self.device)
+
+    def per_device_bytes(self) -> int:
+        return _bytes(*self._arrays)
+
+
+class HostStore(ClientStore):
+    """Host-RAM federation; each reschedule's unique clients streamed to
+    the device into a fixed ``U_cap``-row compact buffer (the gather index
+    remapped into it), so shapes never change with the schedule."""
+
+    policy = "host"
+
+    def __init__(self, xs, ys, mask, device: torch.device, capacity: int, *,
+                 source=None):
+        self._src = source if source is not None else PackedClients(xs, ys, mask)
+        self._cap = max(1, min(self._src.num_clients, capacity))
+        self.device = device
+        self.row_specs = tuple((tuple(s), np.dtype(d)) for s, d in self._src.row_specs)
+        shapes = [((self._cap,) + s, torch.from_numpy(np.zeros(0, d)).dtype)
+                  for s, d in self.row_specs]
+        self._dev = tuple(torch.zeros(s, dtype=d, device=device) for s, d in shapes)
+        on_card = device.type == "cuda"
+        # two staging sets, alternated: one may still be copying out while
+        # the host fills the other
+        self._staging = [tuple(torch.zeros(s, dtype=d, pin_memory=on_card)
+                               for s, d in shapes) for _ in range(2)]
+        self._copied = [None, None]        # each staging set's last copy event
+        self._turn = 0
+        self._copy_stream = torch.cuda.Stream(device) if on_card else None
+        self._streamed_bytes = 0
+        self.num_streams = 0
+
+    def _staged_rows(self, uniq: np.ndarray, out: tuple) -> None:
+        """Fill the staging arrays ``out`` (capacity rows) with ``uniq``'s
+        rows, zeros past them (the spill tier overrides this with its
+        cache/prefetch path)."""
+        rows = self._src.rows(uniq) if uniq.size else None
+        for i, buf in enumerate(out):
+            if rows is not None:
+                buf[:uniq.size] = rows[i]
+            buf[uniq.size:] = 0
+
+    def plan(self, idx, slot):
+        uniq = np.unique(idx[slot > 0])
+        if uniq.size > self._cap:
+            raise ValueError(f"schedule touches {uniq.size} unique clients; "
+                             f"{self.policy} store capacity is {self._cap}")
+        # compact remap by binary search over the sorted uniques; inactive
+        # slots read row 0 (their mask is zero)
+        idx_c = np.where(slot > 0, np.searchsorted(uniq, idx), 0)
+        turn = self._turn
+        self._turn ^= 1
+        if self._copied[turn] is not None:
+            self._copied[turn].synchronize()    # its previous copy is done
+        staging = self._staging[turn]
+        self._staged_rows(uniq, tuple(t.numpy() for t in staging))
+        if self._copy_stream is None:
+            for dst, src in zip(self._dev, staging):
+                dst.copy_(src)
+        else:
+            compute = torch.cuda.current_stream(self.device)
+            # the device buffer may still be read by enqueued rounds
+            self._copy_stream.wait_stream(compute)
+            with torch.cuda.stream(self._copy_stream):
+                for dst, src in zip(self._dev, staging):
+                    dst.copy_(src, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(self._copy_stream)
+            compute.wait_event(done)
+            self._copied[turn] = done
+        moved = _bytes(*self._dev)
+        self._streamed_bytes += moved
+        self.last_stream_bytes = moved
+        self.num_streams += 1
+        return self._dev, to_device(idx_c, self.device)
+
+    def per_device_bytes(self) -> int:
+        return self._cap * self._src.nbytes_per_client
+
+
+class _RowLRU:
+    """Fixed-capacity per-client-id row cache with LRU eviction.
+
+    Rows live in preallocated host buffers; lookups and inserts are
+    vectorized over the resident ids.  Main thread only: the prefetch
+    workers never touch the cache (cached rows are copied out before a
+    background stage starts), so no lock is needed."""
+
+    def __init__(self, rows: int, specs):
+        self.capacity = int(rows)
+        n = max(self.capacity, 1)
+        self._bufs = tuple(np.zeros((n,) + tuple(shape), dtype)
+                           for shape, dtype in specs)
+        self._ids = np.full(n, -1, np.int64)      # -1 = empty slot
+        self._last_used = np.zeros(n, np.int64)
+        self._tick = 0
+        self.evictions = 0
+
+    def lookup(self, uniq: np.ndarray, out: tuple) -> np.ndarray:
+        """Copy cached rows for ``uniq`` into ``out`` (position-aligned with
+        ``uniq``); returns the hit mask.  Hits get their recency bumped."""
+        if self.capacity == 0 or uniq.size == 0:
+            return np.zeros(uniq.size, bool)
+        order = np.argsort(self._ids, kind="stable")
+        sorted_ids = self._ids[order]
+        pos = np.minimum(np.searchsorted(sorted_ids, uniq), sorted_ids.size - 1)
+        hit = sorted_ids[pos] == uniq
+        slots = order[pos[hit]]
+        where = np.flatnonzero(hit)
+        for buf, cbuf in zip(out, self._bufs):
+            buf[where] = cbuf[slots]
+        self._tick += 1
+        self._last_used[slots] = self._tick
+        return hit
+
+    def insert(self, ids: np.ndarray, rows: tuple) -> None:
+        """Insert rows for ``ids`` (unique), evicting the least recently
+        used; ids already resident are skipped (a deep prefetch pipeline
+        can stage one client twice -- same bytes)."""
+        if self.capacity == 0 or ids.size == 0:
+            return
+        fresh = np.flatnonzero(~np.isin(ids, self._ids))
+        n = min(fresh.size, self.capacity)
+        if n == 0:
+            return
+        fresh = fresh[:n]
+        victims = np.argsort(self._last_used, kind="stable")[:n]
+        self.evictions += int((self._ids[victims] >= 0).sum())
+        self._ids[victims] = ids[fresh]
+        self._tick += 1
+        self._last_used[victims] = self._tick
+        for cbuf, rbuf in zip(self._bufs, rows):
+            cbuf[victims] = rbuf[fresh]
+
+
+class SpilledHostStore(HostStore):
+    """Disk/mmap-tier federation with an LRU row cache and pipelined
+    prefetch (the reference's ``SpilledHostStore``).
+
+    * **LRU row cache**: ``lru_rows`` client rows (default ``2 * U_cap``)
+      kept in host RAM by client id; reused clients are copied from RAM
+      instead of re-read from the tier (``stats()["lru_evictions"]``).
+    * **Pipelined prefetch**: ``prefetch(ids)`` stages a future
+      reschedule's clients into numpy arrays on a daemon thread, up to
+      ``prefetch_depth`` stages in flight; the engine fills the queue with
+      its pre-drawn selections.  ``plan`` consumes stages in FIFO order:
+      it joins the front stage's thread before using its rows (and so
+      before the device copy starts), and discards a stage whose ids do
+      not match (``prefetch_misses``), reading synchronously through the
+      same path instead.
+    """
+
+    policy = "spilled"
+
+    def __init__(self, xs, ys, mask, device: torch.device, capacity: int, *,
+                 source=None, spill_dir: str | None = None, prefetch_depth: int = 1,
+                 lru_rows: int | None = None):
+        if prefetch_depth < 1:
+            raise ValueError("prefetch_depth must be >= 1")
+        if lru_rows is not None and lru_rows < 0:
+            raise ValueError("lru_rows must be >= 0")
+        if source is None:
+            source = MmapClients(xs, ys, mask, spill_dir)
+        super().__init__(None, None, None, device, capacity, source=source)
+        self.prefetch_depth = int(prefetch_depth)
+        self.lru_rows = int(lru_rows) if lru_rows is not None else 2 * self._cap
+        self._lru = _RowLRU(self.lru_rows, self.row_specs)
+        # FIFO of background stages: (thread, uniq, box, bufs, cached, miss)
+        self._prefetched: deque = deque()
+        self.prefetch_hits = 0
+        self.prefetch_misses = 0
+        self.cache_hit_rows = 0
+        self.tier_rows = 0
+
+    @property
+    def lru_evictions(self) -> int:
+        return self._lru.evictions
+
+    def _stage(self, uniq: np.ndarray) -> tuple:
+        """Allocate a stage's arrays and serve the LRU hits (main thread):
+        ``(bufs, cached_rows, miss_positions)``."""
+        bufs = tuple(np.zeros((self._cap,) + shape, dtype)
+                     for shape, dtype in self.row_specs)
+        hit = self._lru.lookup(uniq, bufs)
+        return bufs, int(hit.sum()), np.flatnonzero(~hit)
+
+    def _read_tier(self, uniq: np.ndarray, bufs: tuple, miss: np.ndarray) -> None:
+        if miss.size:
+            for buf, rows in zip(bufs, self._src.rows(uniq[miss])):
+                buf[miss] = rows
+
+    def prefetch(self, ids: np.ndarray) -> None:
+        """Queue a background stage of a future reschedule's clients."""
+        uniq = np.unique(np.asarray(ids))
+        if uniq.size > self._cap:
+            return                        # plan() will raise; nothing to stage
+        bufs, cached, miss = self._stage(uniq)
+        box: dict = {}
+
+        def work():
+            self._read_tier(uniq, bufs, miss)
+            box["done"] = True
+
+        thread = threading.Thread(target=work, daemon=True,
+                                  name="astraea-spill-prefetch")
+        thread.start()
+        self._prefetched.append((thread, uniq, box, bufs, cached, miss))
+
+    def _staged_rows(self, uniq: np.ndarray, out: tuple) -> None:
+        staged = None
+        while self._prefetched and staged is None:
+            thread, pre_uniq, box, bufs, cached, miss = self._prefetched.popleft()
+            thread.join()
+            if box.get("done") and np.array_equal(pre_uniq, uniq):
+                staged = (bufs, cached, miss)
+                self.prefetch_hits += 1
+            else:
+                self.prefetch_misses += 1
+        if staged is None:
+            bufs, cached, miss = self._stage(uniq)
+            self._read_tier(uniq, bufs, miss)
+            staged = (bufs, cached, miss)
+        bufs, cached, miss = staged
+        self.cache_hit_rows += cached
+        self.tier_rows += int(miss.size)
+        if miss.size:                     # tier reads feed the LRU
+            self._lru.insert(uniq[miss], tuple(b[miss] for b in bufs))
+        for dst, src in zip(out, bufs):
+            np.copyto(dst, src)
+
+
+def build_client_store(policy: str, xs=None, ys=None, mask=None, *,
+                       device: torch.device, capacity: int | None = None,
+                       spill_dir: str | None = None, source=None,
+                       prefetch_depth: int = 1,
+                       lru_rows: int | None = None) -> ClientStore:
+    """The packed client store under ``policy`` (module docstring) on
+    ``device``.  ``xs/ys/mask`` are the packed host arrays; the streaming
+    policies (``host``/``spilled``) take ``source`` instead, a row source
+    that is never materialized as one array (the million-client path)."""
+    if policy not in POLICIES:
+        raise ValueError(f"unknown client-store policy {policy!r}; "
+                         f"expected one of {POLICIES}")
+    if policy == "sharded":
+        raise NotImplementedError(
+            "the 'sharded' client store (the client axis partitioned over "
+            "devices, with scheduling.place_mediators and the ragged "
+            "exchange) needs torch.distributed across processes and is not "
+            "ported yet: ROADMAP.md, Queue 1 item 1")
+    if source is not None and policy not in ("host", "spilled"):
+        raise ValueError(f"client-store policy {policy!r} needs the packed "
+                         "arrays; streaming row sources require the 'host' "
+                         "or 'spilled' policy")
+    if policy == "replicated":
+        return ReplicatedStore(xs, ys, mask, device)
+    if capacity is None:
+        capacity = source.num_clients if source is not None else xs.shape[0]
+    if policy == "host":
+        return HostStore(xs, ys, mask, device, capacity, source=source)
+    return SpilledHostStore(xs, ys, mask, device, capacity, source=source,
+                            spill_dir=spill_dir, prefetch_depth=prefetch_depth,
+                            lru_rows=lru_rows)

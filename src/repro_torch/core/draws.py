@@ -101,3 +101,20 @@ class _SeededClient:
         gen = self.owner.generator(*self.address, epoch, 1)
         return [torch.rand((steps,) + tuple(shape), generator=gen,
                            device=self.owner.device) >= rate for shape, rate in sites]
+
+
+class EmptySlotDraws:
+    """The draws of a client update whose mask is all zero (an empty slot):
+    the identity permutation and every unit kept.  Its gradients are zero
+    whatever it draws, so it asks the round's source for nothing, as the
+    lockstep rows ask for no draw of an inactive slot."""
+
+    def __init__(self, device: torch.device | str = "cpu"):
+        self.device = torch.device(device)
+
+    def permutation(self, epoch, n):
+        return torch.arange(n, device=self.device)
+
+    def epoch_keep_masks(self, epoch, steps, sites):
+        return [torch.ones((steps,) + tuple(shape), dtype=torch.bool,
+                           device=self.device) for shape, _ in sites]

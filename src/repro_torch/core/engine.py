@@ -32,17 +32,44 @@ name):
   program was built: once while ``M_pad``, gamma and pad stay fixed.
 * ``"map"``: rows one after another through ``client_update`` /
   ``mediator_update``, each writing its row of the same buffer; a dummy
-  row or an empty slot is an exact no-op and is skipped.  The oracle.
+  row is skipped (left zero), an empty slot runs with its zero mask and
+  draws nothing (``draws.EmptySlotDraws``).  The oracle.
 
 The path through the kernels, outside any graph: Alg. 3 is one
 ``kld_greedy_picks`` launch per reschedule; the online Alg. 2 warp is one
 ``affine_warp`` launch per round over every scheduled slot; Eq. 6 is one
 ``fedavg_agg`` launch per round (``fedavg_agg_flat``) over the flat
 buffer.
+
+The client data live in a ``ClientStore`` (``core/client_store.py``,
+``EngineConfig.store``): replicated on the device, or streamed from host
+RAM (``"host"``) or a disk/lazy tier (``"spilled"``) once per reschedule
+into a ``min(K, c)``-row device buffer, the copy charged to the intra-pod
+ledger.  The engine also takes a *streaming federation* -- ``data``
+without ``client_images`` but with the row-source protocol
+(``data.synthetic.StreamingFederation``) -- for those two stores, so the
+device footprint is fixed by ``c``, never by ``K``.  With a prefetching
+store and a reschedule every round, ``ensure_schedule`` pre-draws the
+next ``store_prefetch_depth`` selections (the rng is called in the same
+order at any depth) and hands them to ``store.prefetch``.
+
+A round is three steps, shared with the async engine
+(``core/async_engine.py``):
+
+* ``prepare_round``: the schedule, the gather, the Eq. 6 sizes and the
+  warp -- once per round, whatever waves later run its rows;
+* ``run_rows`` (the round program over every ``M_pad`` row, rows outside
+  a wave masked to no-ops) or ``run_rows_sliced`` (a program over just a
+  wave's rows, one per distinct width, built once and cached; each
+  counts in ``num_round_traces``): the local training;
+* ``fold``: Eq. 6 over a stack of rows and the delta or weights fold, one
+  function for the sync round and the async commit, so an async run at
+  staleness 0 stays bitwise the sync one.
 """
 from __future__ import annotations
 
 import gc
+from collections import deque
 from dataclasses import dataclass
 
 import numpy as np
@@ -50,13 +77,14 @@ import torch
 
 from repro_torch.core import scheduling
 from repro_torch.core.augmentation import augmentation_plan, online_augment_rows
+from repro_torch.core.client_store import POLICIES, build_client_store
 from repro_torch.core.comm import CommMeter
-from repro_torch.core.draws import RoundDraws, SeededDraws
+from repro_torch.core.draws import EmptySlotDraws, RoundDraws, SeededDraws
 from repro_torch.core.fl import (LocalSpec, LossFn, client_update, client_update_rows,
                                  evaluate)
 from repro_torch.core.mediator import mediator_update, mediator_update_rows
 from repro_torch.data.federated import FederatedDataset
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_device
 from repro_torch.kernels import ops
 from repro_torch.models.cnn import Params, count_params
 from repro_torch.models.cnn import init_params as seeded_params
@@ -82,10 +110,22 @@ class EngineConfig:
     pad_mediators_to: int | None = None
     seed: int = 0
     row_exec: str = "vmap"                  # "vmap" (lockstep) | "map" (loop)
+    store: str = "replicated"               # client-store placement policy
+    # spilled store: reschedules pre-drawn and prefetched ahead, and its
+    # host LRU row cache in rows (None = twice the capacity)
+    store_prefetch_depth: int = 1
+    store_lru_rows: int | None = None
 
     def __post_init__(self):
         if self.row_exec not in ("vmap", "map"):
             raise ValueError(f"unknown row_exec {self.row_exec!r}")
+        if self.store not in POLICIES:
+            raise ValueError(f"unknown client-store policy {self.store!r}; "
+                             f"expected one of {POLICIES}")
+        if self.store_prefetch_depth < 1:
+            raise ValueError("store_prefetch_depth must be >= 1")
+        if self.store_lru_rows is not None and self.store_lru_rows < 0:
+            raise ValueError("store_lru_rows must be >= 0")
         if self.schedule not in ("kld", "random"):
             raise ValueError(f"unknown schedule {self.schedule!r}")
         if self.aggregate not in ("delta", "weights"):
@@ -108,6 +148,21 @@ class EngineConfig:
         kw.setdefault("reschedule_every_round", True)
         return cls(clients_per_round=clients_per_round, gamma=1, local=local,
                    schedule="random", aggregate="weights", **kw)
+
+
+@dataclass
+class RoundInputs:
+    """One round's prepared inputs (``FLRoundEngine.prepare_round``):
+    the ``(M_pad, gamma)`` slot mask and real row count, the (augmented)
+    client data ``xs``/``ys (M_pad, gamma, pad, ...)``, the masks ``ms``
+    scaled by the slot mask, and the Eq. 6 sizes ``weights (M_pad,)``."""
+    rnd: int
+    slot: np.ndarray
+    m_real: int
+    xs: torch.Tensor
+    ys: torch.Tensor
+    ms: torch.Tensor
+    weights: torch.Tensor
 
 
 class FLRoundEngine:
@@ -133,17 +188,32 @@ class FLRoundEngine:
             raise ValueError("adaptive_aug_alpha requires an initial aug_plan")
         self._adaptive_alpha = adaptive_aug_alpha
         self.device = dev = resolve_device(device)
-        sizes = [x.shape[0] for x in data.client_images]
-        self.pad = _pad_multiple(max(sizes), cfg.local.batch_size)
-        xs, ys, mask = data.padded(self.pad)
-        self._xs = torch.from_numpy(xs).to(dev)
-        self._ys = torch.from_numpy(ys).to(dev)
-        self._mask = torch.from_numpy(mask).to(dev)
+        capacity = min(cfg.clients_per_round, data.num_clients)
+        store_kw = dict(device=dev, capacity=capacity,
+                        prefetch_depth=cfg.store_prefetch_depth,
+                        lru_rows=cfg.store_lru_rows)
+        if hasattr(data, "client_images"):
+            sizes = [x.shape[0] for x in data.client_images]
+            self.pad = _pad_multiple(max(sizes), cfg.local.batch_size)
+            self.store = build_client_store(cfg.store, *data.padded(self.pad),
+                                            **store_kw)
+        else:
+            # a streaming federation: rows fetched or synthesized on demand,
+            # never materialized, so only the O(c) stores can serve it
+            if cfg.store not in ("host", "spilled"):
+                raise ValueError(f"streaming federations require the 'host' or "
+                                 f"'spilled' client store, got {cfg.store!r}")
+            if data.pad % cfg.local.batch_size:
+                raise ValueError(f"streaming federation pad {data.pad} is not a "
+                                 f"multiple of batch_size {cfg.local.batch_size}")
+            self.pad = data.pad
+            self.store = build_client_store(cfg.store, source=data, **store_kw)
         self._test_x = torch.from_numpy(np.asarray(data.test_images, np.float32)).to(dev)
         self._test_y = torch.from_numpy(np.asarray(data.test_labels)).to(dev)
         self._raw_counts = data.client_counts()
         self._counts = self._raw_counts
         self._rng = np.random.default_rng(cfg.seed)
+        self._pending_sels: deque = deque()     # pre-drawn selections
         if init_params is None:
             init = seeded_params(model, cfg.seed, dev)
         else:
@@ -171,7 +241,21 @@ class FLRoundEngine:
         self._round = 0
         self._rows: torch.Tensor | None = None      # the (M_pad, N) row outputs
         self._program: _RoundProgram | None = None
+        self._wave_programs: dict[int, _RoundProgram] = {}   # width -> sliced
         self.num_round_traces = 0                    # round programs built
+
+    def load_params(self, params: Params) -> None:
+        """Replace the weights with ``params`` (the same keys and shapes),
+        moved to this engine's device and dtypes."""
+        if set(params) != set(self.params):
+            raise ValueError(f"params keys {sorted(params)} != the model's "
+                             f"{sorted(self.params)}")
+        new = {k: torch.as_tensor(params[k]).to(device=self.device, dtype=p.dtype)
+               .contiguous() for k, p in self.params.items()}
+        bad = [k for k in new if new[k].shape != self.params[k].shape]
+        if bad:
+            raise ValueError(f"params shapes differ from the model's at {bad}")
+        self.params = new
 
     def _install_plan(self, plan_np: np.ndarray) -> None:
         """(Re)place the Alg. 2 plan and rescale the Alg. 3 counts: Alg. 3
@@ -218,16 +302,34 @@ class FLRoundEngine:
         for r, g in enumerate(groups):
             idx[r, :len(g)] = g
             slot[r, :len(g)] = 1.0
-        return idx, slot, m_real
+        data, index = self.store.plan(idx, slot)
+        if self.store.last_stream_bytes:
+            # host->device streaming is pod-side traffic: the intra-pod
+            # ledger only, so the WAN bytes stay invariant to placement
+            self.comm.store_stream(self.store.last_stream_bytes)
+        return data, index, slot, m_real
 
     def ensure_schedule(self) -> tuple:
         """(Re)draw the selection and (re)pack the schedule if this round
-        needs one: every round for FedAvg, once for Astraea."""
+        needs one: every round for FedAvg, once for Astraea.  With a
+        prefetching store and a reschedule every round, the next
+        selections are pre-drawn, up to the store's depth ahead, and staged
+        in the background; round r's selection is still the (r+1)-th
+        ``choice`` call, so the depth never changes a trajectory."""
         cfg = self.cfg
         c = min(cfg.clients_per_round, self.data.num_clients)
         if cfg.reschedule_every_round or self._schedule is None:
-            sel = self._rng.choice(self.data.num_clients, size=c, replace=False)
+            if self._pending_sels:
+                sel = self._pending_sels.popleft()
+            else:
+                sel = self._rng.choice(self.data.num_clients, size=c, replace=False)
             self._schedule = self._pack_schedule(sel)
+            if cfg.reschedule_every_round and hasattr(self.store, "prefetch"):
+                while len(self._pending_sels) < self.store.prefetch_depth:
+                    nxt = self._rng.choice(self.data.num_clients, size=c,
+                                           replace=False)
+                    self._pending_sels.append(nxt)
+                    self.store.prefetch(nxt)
         return self._schedule
 
     # ------------------------------------------------------------------
@@ -252,50 +354,14 @@ class FLRoundEngine:
                                      dtype=torch.float32, device=self.device)
         return self._rows
 
-    def _rows_map(self, xs, ys, ms, slot_np, m_real) -> None:
-        """Each real row through ``client_update`` / ``mediator_update``;
-        dummy rows stay zero."""
-        cfg = self.cfg
-        buf = self._row_buffer(slot_np.shape[0])
-        buf[m_real:].zero_()
-        for r in range(m_real):
-            if cfg.aggregate == "weights":
-                out = client_update(self.model, self.opt, cfg.local, self.params,
-                                    xs[r, 0], ys[r, 0], ms[r, 0],
-                                    self.draws.client(self._round, r, 0, 0),
-                                    self.loss_fn)
-            else:
-                out = mediator_update(
-                    self.model, self.opt, cfg.local, cfg.mediator_epochs,
-                    self.params, xs[r], ys[r], ms[r],
-                    lambda e, s, r=r: self.draws.client(self._round, r, e, s),
-                    active=slot_np[r] > 0, loss_fn=self.loss_fn)
-            for k, v in self._layout.views(buf[r]).items():
-                v.copy_(out[k])
-
-    def _rows_vmap(self, xs, ys, ms, slot_np) -> None:
-        """Every row in lockstep through the round program, built (and on
-        the card captured) once per ``M_pad``."""
-        m_pad = slot_np.shape[0]
-        prog = self._program
-        fresh = prog is None or prog.m != m_pad
-        if fresh:
-            prog = self._program = _RoundProgram(self, self._row_buffer(m_pad))
-            self.num_round_traces += 1
-        prog.load(self.params, xs, ys, ms, slot_np > 0, self._round)
-        if fresh and self.device.type == "cuda":
-            prog.capture()
-        prog.run()
-
-    def run_round(self) -> None:
-        cfg = self.cfg
-        c = min(cfg.clients_per_round, self.data.num_clients)
-        idx_np, slot_np, m_real = self.ensure_schedule()
-        m_pad, gamma = idx_np.shape
-        idx = torch.as_tensor(idx_np, device=self.device)
-        slot = torch.as_tensor(slot_np, device=self.device)
-        xs, ys = self._xs[idx], self._ys[idx]               # (M, gamma, pad, ...)
-        ms = self._mask[idx] * slot[..., None]
+    def prepare_round(self) -> RoundInputs:
+        """Round ``_round``'s schedule, gathered client data, Eq. 6 sizes
+        and -- with a plan -- its online warp, one launch over every
+        scheduled slot."""
+        data, index, slot_np, m_real = self.ensure_schedule()
+        m_pad, gamma = slot_np.shape
+        xs, ys, mask = self.store.slot_data(data, index)    # (M, gamma, pad, ...)
+        ms = mask * to_device(slot_np, self.device)[..., None]
         mult = ms if self._plan is None else ms * (1.0 + self._plan[ys.long()])
         weights = mult.sum(dim=(1, 2))                      # Eq. 6 sizes
         if self._plan is not None:
@@ -303,17 +369,132 @@ class FLRoundEngine:
             ax, ay = self._augment(xs.reshape(flat + xs.shape[3:]),
                                    ys.reshape(flat), mult.reshape(flat))
             xs, ys = ax.reshape(xs.shape), ay.reshape(ys.shape)
+        return RoundInputs(self._round, slot_np, m_real, xs, ys, ms, weights)
 
-        if cfg.row_exec == "map":
-            self._rows_map(xs, ys, ms, slot_np, m_real)
-        else:
-            self._rows_vmap(xs, ys, ms, slot_np)
-        agg = ops.fedavg_agg_flat(self._rows, weights, self._layout)
+    def _map_row(self, inp: RoundInputs, params, r: int, out: torch.Tensor) -> None:
+        """Schedule row ``r`` through ``client_update`` / ``mediator_update``
+        from ``params``, into the flat row ``out``."""
+        cfg = self.cfg
         if cfg.aggregate == "weights":
+            res = client_update(self.model, self.opt, cfg.local, params,
+                                inp.xs[r, 0], inp.ys[r, 0], inp.ms[r, 0],
+                                self.draws.client(inp.rnd, r, 0, 0), self.loss_fn)
+        else:
+            res = mediator_update(
+                self.model, self.opt, cfg.local, cfg.mediator_epochs, params,
+                inp.xs[r], inp.ys[r], inp.ms[r],
+                lambda e, s: self.draws.client(inp.rnd, r, e, s)
+                if inp.slot[r, s] > 0 else EmptySlotDraws(self.device),
+                loss_fn=self.loss_fn)
+        for k, v in self._layout.views(out).items():
+            v.copy_(res[k])
+
+    def run_rows(self, inp: RoundInputs, params,
+                 rows: np.ndarray | None = None) -> torch.Tensor:
+        """Local training of schedule ``rows`` (all real rows if None) from
+        ``params``, into the ``(M_pad, N)`` row buffer, which is returned.
+        Under ``"vmap"`` it is the round program over every row, built (and
+        on the card captured) once per ``M_pad``, the rows outside ``rows``
+        run as no-ops (zero masks); under ``"map"`` each real row in
+        ``rows`` runs alone and every other row of the buffer is zero."""
+        m_pad = inp.slot.shape[0]
+        buf = self._row_buffer(m_pad)
+        member = np.zeros(m_pad, bool)
+        member[:inp.m_real] = True
+        if rows is not None:
+            member[:] = False
+            member[rows] = True
+        if self.cfg.row_exec == "map":
+            buf.zero_()
+            for r in np.flatnonzero(member[:inp.m_real]):
+                self._map_row(inp, params, int(r), buf[r])
+            return buf
+        prog = self._program
+        fresh = prog is None or prog.m != m_pad
+        if fresh:
+            prog = self._program = _RoundProgram(self, buf)
+            self.num_round_traces += 1
+        ms = inp.ms
+        if rows is not None:
+            ms = ms * to_device(member.astype(np.float32), self.device)[:, None, None]
+        prog.load(params, inp.xs, inp.ys, ms, (inp.slot > 0) & member[:, None],
+                  inp.rnd)
+        if fresh and self.device.type == "cuda":
+            prog.capture()
+        prog.run()
+        return buf
+
+    def run_rows_sliced(self, inp: RoundInputs, params,
+                        rows: np.ndarray) -> torch.Tensor:
+        """Local training of just the real schedule ``rows`` from
+        ``params``: ``(len(rows), N)``, row ``i`` the output of schedule row
+        ``rows[i]``, whose draws it asks for.  Under ``"vmap"`` it is a
+        round program of that width, built (and on the card captured) at
+        its first use and cached for the engine's life; the result is its
+        static row buffer, which the next call of that width overwrites.
+        Under ``"map"`` the rows run one by one into a fresh buffer."""
+        rows = np.asarray(rows, np.int64)
+        n = int(rows.size)
+        if self.cfg.row_exec == "map":
+            out = torch.empty((n, self._layout.total), dtype=torch.float32,
+                              device=self.device)
+            for i, r in enumerate(rows):
+                self._map_row(inp, params, int(r), out[i])
+            return out
+        prog = self._wave_programs.get(n)
+        fresh = prog is None
+        if fresh:
+            prog = _RoundProgram(self, torch.zeros((n, self._layout.total),
+                                                   dtype=torch.float32,
+                                                   device=self.device))
+            self._wave_programs[n] = prog
+            self.num_round_traces += 1
+        pick = to_device(rows, self.device)
+        prog.load(params, inp.xs[pick], inp.ys[pick], inp.ms[pick],
+                  inp.slot[rows] > 0, inp.rnd, row_ids=rows)
+        if fresh and self.device.type == "cuda":
+            prog.capture()
+        prog.run()
+        return prog.rows
+
+    def programs(self) -> dict:
+        """The round programs built, by width (``M_pad`` for the round's,
+        a wave's width for a sliced one): their static buffer bytes and
+        their graphs' pool bytes (0 off the card)."""
+        progs = ([("round", self._program)] if self._program is not None else []) + \
+            [(f"wave[{w}]", p) for w, p in sorted(self._wave_programs.items())]
+        return {name: {"width": p.m, "buffer_bytes": p.buffer_bytes,
+                       "graph_pool_bytes": p.pool_bytes} for name, p in progs}
+
+    def noop_rows(self, params, n: int) -> torch.Tensor:
+        """``n`` copies of a no-op row's output (an all-zero mask under
+        Adam): zero deltas, or the weights ``params`` themselves -- what the
+        round program writes for a dummy row.  Their Eq. 6 weight is 0."""
+        if self.cfg.aggregate == "weights":
+            flat = torch.cat([params[k].reshape(-1) for k in self._layout.names])
+            return flat.expand(n, -1).clone()
+        return torch.zeros((n, self._layout.total), dtype=torch.float32,
+                           device=self.device)
+
+    def fold(self, rows: torch.Tensor, weights: torch.Tensor) -> None:
+        """Eq. 6 over the stack ``rows (M, N)`` with ``weights (M,)`` (one
+        ``fedavg_agg`` launch), folded into the params: the aggregate
+        replaces them (FedAvg) or is added to them (Astraea).  The one tail
+        of the sync round and the async commit."""
+        agg = ops.fedavg_agg_flat(rows, weights, self._layout)
+        if self.cfg.aggregate == "weights":
             self.params = agg
-            self.comm.fedavg_round(c)
         else:
             self.params = {k: self.params[k] + agg[k] for k in self.params}
+
+    def run_round(self) -> None:
+        cfg = self.cfg
+        c = min(cfg.clients_per_round, self.data.num_clients)
+        inp = self.prepare_round()
+        self.fold(self.run_rows(inp, self.params), inp.weights)
+        if cfg.aggregate == "weights":
+            self.comm.fedavg_round(c)
+        else:
             self.comm.astraea_round(c, cfg.gamma, cfg.mediator_epochs)
         self.comm.end_round()
         self._round += 1
@@ -336,8 +517,8 @@ class FLRoundEngine:
 
 
 class _RoundProgram:
-    """The lockstep round's local training over fixed ``(M_pad, gamma,
-    pad)`` rows.  It reads only its static buffers -- the stacked weights
+    """The lockstep round's local training over fixed ``(M, gamma, pad)``
+    rows (``M`` the padded mediator count, or a wave's width).  It reads only its static buffers -- the stacked weights
     ``p0``, the client data ``x``/``y``/``mask`` and the draws ``perms``
     ``(M, gamma, E_m, E, pad)`` and ``keeps`` (per dropout site ``(M,
     gamma, E_m, E, pad / B, *site)``) -- and writes each row's output (the
@@ -353,6 +534,7 @@ class _RoundProgram:
         self.model, self.opt, self.loss_fn = engine.model, engine.opt, engine.loss_fn
         self.local, self.draws, self.device = cfg.local, engine.draws, dev
         self.graph = None
+        self.pool_bytes = 0           # the captured graph's private pool
         self.m, self.gamma = rows.shape[0], cfg.gamma
         self.weights_out = cfg.aggregate == "weights"
         self.mediator_epochs = 1 if self.weights_out else cfg.mediator_epochs
@@ -362,9 +544,11 @@ class _RoundProgram:
         shape = (self.m, self.gamma, engine.pad)
         self.p0 = {k: torch.zeros((self.m,) + p.shape, dtype=p.dtype, device=dev)
                    for k, p in engine.params.items()}
-        self.x = torch.zeros(shape + engine._xs.shape[2:], dtype=engine._xs.dtype,
-                             device=dev)
-        self.y = torch.zeros(shape, dtype=engine._ys.dtype, device=dev)
+        (x_shape, x_dtype), (_, y_dtype), _ = engine.store.row_specs
+        self.x = torch.zeros(shape + tuple(x_shape[1:]), device=dev,
+                             dtype=torch.from_numpy(np.zeros(0, x_dtype)).dtype)
+        self.y = torch.zeros(shape, device=dev,
+                             dtype=torch.from_numpy(np.zeros(0, y_dtype)).dtype)
         self.mask = torch.zeros(shape, dtype=torch.float32, device=dev)
         # an inactive (row, slot) keeps whatever indices it holds: its mask
         # is zero, so any valid permutation gives the same no-op
@@ -373,12 +557,16 @@ class _RoundProgram:
         self.keeps = [torch.ones(self.lead + (engine.pad // cfg.local.batch_size,)
                                  + tuple(site), dtype=torch.bool, device=dev)
                       for site, _ in self.sites]
+        self.rows = rows
         self.out = engine._layout.views(rows)
 
-    def load(self, params, xs, ys, ms, active: np.ndarray, rnd: int) -> None:
+    def load(self, params, xs, ys, ms, active: np.ndarray, rnd: int,
+             row_ids: np.ndarray | None = None) -> None:
         """Fill the static buffers for round ``rnd``: the weights broadcast
         to every row, the (augmented) client data, and the draws of every
-        active ``(row, slot)`` at the addresses ``"map"`` asks for."""
+        active ``(row, slot)`` at the addresses ``"map"`` asks for -- row
+        ``r`` of the program is schedule row ``row_ids[r]`` (``r`` itself
+        if None), so a mediator draws the same numbers in any wave."""
         for k, p in params.items():
             self.p0[k].copy_(p.expand_as(self.p0[k]))
         self.x.copy_(xs)
@@ -386,8 +574,9 @@ class _RoundProgram:
         self.mask.copy_(ms)
         steps = self.keeps[0].shape[4]
         for r, s in zip(*np.nonzero(active)):
+            row = int(r) if row_ids is None else int(row_ids[r])
             for e in range(self.mediator_epochs):
-                d = self.draws.client(rnd, int(r), e, int(s))
+                d = self.draws.client(rnd, row, e, int(s))
                 for ep in range(self.lead[3]):
                     self.perms[r, s, e, ep].copy_(d.permutation(ep, self.pad))
                     for buf, k in zip(self.keeps,
@@ -426,6 +615,10 @@ class _RoundProgram:
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         collecting = gc.isenabled()
+        # what the graph's private memory pool reserves: the capture's
+        # reservation, the warm-up's cached blocks released before it
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
         try:
             with torch.cuda.graph(graph, capture_error_mode="relaxed"):
                 gc.disable()
@@ -439,6 +632,13 @@ class _RoundProgram:
             if collecting:
                 gc.enable()
         self.graph = graph
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+
+    @property
+    def buffer_bytes(self) -> int:
+        """Device bytes of the static buffers the program reads and writes."""
+        return sum(t.nbytes for t in (*self.p0.values(), self.x, self.y, self.mask,
+                                      self.perms, *self.keeps, self.rows))
 
     def run(self) -> None:
         if self.graph is None:

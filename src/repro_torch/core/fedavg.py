@@ -11,7 +11,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
-from repro_torch.core.astraea import charge_materialized_plan, rebalancing_phase
+from repro_torch.core.astraea import (async_runner, charge_materialized_plan,
+                                      rebalancing_phase, store_config)
 from repro_torch.core.augmentation import resolve_engine_plan
 from repro_torch.core.engine import EngineConfig, FLRoundEngine
 from repro_torch.core.fl import LocalSpec
@@ -32,8 +33,15 @@ class FedAvgTrainer:
     # AstraeaTrainer.adaptive_plan; FedAvg reschedules every round, so the
     # plan drifts with the per-round client sample)
     adaptive_plan: bool = False
+    store: str = "replicated"        # client-store placement policy
     # padded row count; defaults to c
     pad_mediators_to: int | None = None
+    # bounded-staleness async rounds (core/async_engine.py); None = the
+    # synchronous barrier engine
+    async_spec: object = None
+    # spilled store: reschedules prefetched ahead; LRU rows (None = 2x c)
+    store_prefetch_depth: int = 1
+    store_lru_rows: int | None = None
     seed: int = 0
     row_exec: str = "vmap"           # "vmap" (lockstep rows) | "map"
     device: object = None            # None = the CUDA device
@@ -52,26 +60,40 @@ class FedAvgTrainer:
             self.model, self.opt, self.data,
             EngineConfig.fedavg(clients_per_round=self.clients_per_round,
                                 local=self.local, pad_mediators_to=pad_m,
-                                seed=self.seed, row_exec=self.row_exec),
+                                seed=self.seed, row_exec=self.row_exec,
+                                **store_config(self)),
             aug_plan=engine_plan, adaptive_aug_alpha=adaptive_alpha,
             device=self.device,
             init_params=self.init_params, draws=self.draws, loss_fn=self.loss_fn)
         charge_materialized_plan(self.engine, phase)
-        self.history = self.engine.history
+        self.runner = async_runner(self.engine, self.async_spec)
+        self.history = self.runner.history
 
     @property
     def params(self):
         return self.engine.params
+
+    @params.setter
+    def params(self, value):
+        self.engine.load_params(value)
+
+    @property
+    def _round(self):
+        return self.engine._round
+
+    @_round.setter
+    def _round(self, value):
+        self.engine._round = value
 
     @property
     def comm(self):
         return self.engine.comm
 
     def run_round(self) -> None:
-        self.engine.run_round()
+        self.runner.run_round()
 
     def evaluate(self) -> dict:
-        return self.engine.evaluate()
+        return self.runner.evaluate()
 
     def fit(self, rounds: int, eval_every: int = 10) -> list[dict]:
-        return self.engine.fit(rounds, eval_every)
+        return self.runner.fit(rounds, eval_every)

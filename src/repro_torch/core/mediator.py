@@ -3,18 +3,20 @@
 Within one mediator the assigned clients train sequentially -- client i+1
 starts from client i's weights -- for ``E_m`` mediator epochs; the mediator
 returns the weight delta relative to the weights it received.  Slots run
-in order; a slot the schedule left empty (``active[slot]`` false) is an
-exact no-op and is skipped.
+in order, every one of the ``gamma`` slots, as the reference's scan does
+(``repro/core/mediator.py``): a slot the schedule left empty has a zero
+mask, so its gradients are exactly zero -- a no-op under Adam, while
+AdamW's decoupled decay ``-lr * wd * p`` still applies at each of its
+steps, in both packages.
 
 ``mediator_update_rows`` runs ``M`` mediators in lockstep: slot ``s`` of
 every row trains together (``fl.client_update_rows``), each slot with a
-fresh Adam state.  An empty slot or a dummy row is run, not skipped: its
-zero mask gives exactly zero gradients, so with Adam it leaves the
-weights bitwise unchanged, as in the reference.
+fresh Adam state; an empty slot or a dummy row runs with its zero mask,
+as in ``mediator_update``.
 """
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable
 
 import torch
 
@@ -28,7 +30,6 @@ def mediator_update(model, opt: Optimizer, local: LocalSpec,
                     mediator_epochs: int, params: Params, xs: torch.Tensor,
                     ys: torch.Tensor, masks: torch.Tensor,
                     draws_for: Callable[[int, int], ClientDraws],
-                    active: Sequence[bool] | None = None,
                     loss_fn: LossFn | None = None) -> Params:
     """``xs (gamma, pad, H, W, C)``, ``ys``/``masks (gamma, pad)``;
     ``draws_for(mediator_epoch, slot)`` gives each client update's draws;
@@ -38,8 +39,6 @@ def mediator_update(model, opt: Optimizer, local: LocalSpec,
     w = params
     for epoch in range(mediator_epochs):
         for slot in range(gamma):
-            if active is not None and not active[slot]:
-                continue
             w = client_update(model, opt, local, w, xs[slot], ys[slot],
                               masks[slot], draws_for(epoch, slot), loss_fn)
     return {k: w[k] - params[k] for k in params}

@@ -11,6 +11,7 @@ mantissas on the card, as the float32 reference computes them.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -33,3 +34,14 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A small host array (an index, a mask) as a tensor on ``device``.  On
+    the card it goes through pinned memory with ``non_blocking=True``: the
+    copy queues behind the work already on the stream instead of making the
+    host wait for it, as a copy from pageable memory would."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t

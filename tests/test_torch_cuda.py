@@ -813,3 +813,102 @@ def test_failed_round_capture_raises(dev):
     tr = _small_trainer(dev, False, "fedavg", "vmap", loss_fn=syncing_loss)
     with pytest.raises(RuntimeError, match="CUDA graph"):
         tr.run_round()
+
+
+# ---------------------------------------------------------------- async rounds, stores, checkpoints
+
+def _fleet():
+    from repro_torch.core import StragglerSpec
+    return StragglerSpec(model="fixed", straggler_frac=0.5, slowdown=4.0, seed=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row_exec,dispatch", [("vmap", "masked"), ("map", "masked"),
+                                               ("map", "overlapped")])
+def test_async_s0_equals_sync_on_card(dev, row_exec, dispatch):
+    """S=0, a wave per mediator behind a 4x straggler, two rounds on the
+    card: bit for bit the sync run (masked: the sync round's graph, the
+    rows outside a wave masked; "map": the same row program), the same
+    WAN ledger; one Eq. 6 launch per commit, one warp per round."""
+    from repro_torch.core import AsyncSpec
+    sync = _small_trainer(dev, False, "astraea", row_exec)
+    for _ in range(2):
+        sync.run_round()
+    spec = AsyncSpec(staleness_bound=0, wave_size=1, straggler=_fleet(), dispatch=dispatch)
+    tr = _small_trainer(dev, False, "astraea", row_exec, async_spec=spec)
+    ops.reset_launches()
+    for _ in range(2):
+        tr.run_round()
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fedavg_agg"] == tr.runner.num_commits == 2
+    assert ops.LAUNCHES["affine_warp"] == 2
+    assert all(torch.equal(tr.params[k], sync.params[k]) for k in sync.params)
+    assert tr.comm.round_log == sync.comm.round_log
+
+
+@pytest.mark.cuda
+def test_one_graph_per_wave_width_on_card(dev):
+    """A FedAvg cohort of 8 in waves of 3 (widths 3, 3, 2), overlapped: one
+    captured graph per width, reused the next round; within 1e-4 of the
+    sync run (S=0; the sliced programs batch other widths)."""
+    from repro_torch.core import AsyncSpec
+    spec = AsyncSpec(wave_size=3, straggler=_fleet(), dispatch="overlapped")
+    tr = _small_trainer(dev, False, "fedavg", "vmap", async_spec=spec)
+    sync = _small_trainer(dev, False, "fedavg", "vmap")
+    tr.run_round()
+    progs = dict(tr.engine._wave_programs)
+    assert sorted(progs) == [2, 3] and all(p.graph is not None for p in progs.values())
+    tr.run_round()
+    for _ in range(2):
+        sync.run_round()
+    assert tr.engine._wave_programs == progs and tr.engine.num_round_traces == 2
+    assert all(p.pool_bytes > 0 for p in progs.values())
+    err = max(float((tr.params[k] - sync.params[k]).abs().max()) for k in sync.params)
+    assert err <= 1e-4, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["host", "spilled"])
+def test_pinned_store_equals_replicated_on_card(dev, policy):
+    """A reschedule every round: the host and spilled stores (pinned
+    staging, non-blocking copies on a copy stream) give the replicated
+    store's params bit for bit, and charge U_cap rows per reschedule to
+    the intra-pod ledger only."""
+    kw = dict(reschedule_every_round=True)
+    rep = _small_trainer(dev, False, "astraea", "vmap", **kw)
+    tr = _small_trainer(dev, False, "astraea", "vmap", store=policy, **kw)
+    for _ in range(3):
+        rep.run_round()
+        tr.run_round()
+    store = tr.engine.store
+    assert all(t.is_pinned() for t in store._staging[0] + store._staging[1])
+    assert all(torch.equal(tr.params[k], rep.params[k]) for k in rep.params)
+    assert tr.comm.round_log == rep.comm.round_log
+    assert tr.comm.store_stream_bytes == 3 * sum(t.nbytes for t in store._dev) > 0
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_card(dev, tmp_path):
+    """A CUDA trainer saved after two rounds and loaded into a fresh one:
+    params bit for bit on the card, and round 3 equal to the uninterrupted
+    run's; a tree of bf16 CUDA tensors written and read back bit for bit."""
+    from repro_torch.core import load_pytree, load_trainer, save_pytree, save_trainer
+    tr = _small_trainer(dev, False, "astraea", "vmap")
+    for _ in range(2):
+        tr.run_round()
+    path = str(tmp_path / "tr.ckpt")
+    save_trainer(path, tr)
+    fresh = load_trainer(path, _small_trainer(dev, False, "astraea", "vmap"))
+    assert all(v.device.type == "cuda" for v in fresh.params.values())
+    assert all(torch.equal(fresh.params[k], tr.params[k]) for k in tr.params)
+    tr.run_round()
+    fresh.run_round()
+    assert all(torch.equal(fresh.params[k], tr.params[k]) for k in tr.params)
+    g = torch.Generator(device=dev).manual_seed(0)
+    tree = {"w": torch.randn(64, 48, generator=g, device=dev).to(torch.bfloat16),
+            "b": [torch.randn(48, generator=g, device=dev).to(torch.bfloat16)]}
+    save_pytree(str(tmp_path / "bf16.ckpt"), tree)
+    back = load_pytree(str(tmp_path / "bf16.ckpt"))
+    assert back["w"].dtype == torch.bfloat16
+    assert torch.equal(back["w"], tree["w"].cpu()) and torch.equal(back["b"][0],
+                                                                   tree["b"][0].cpu())

@@ -266,9 +266,11 @@ def _reference_eval(jmodel, params, fed, rnd, comm, stats=None) -> dict:
 def reference_astraea(jmodel, params, fed, *, clients: int, gamma: int, batch: int,
                       epochs: int, mediator_epochs: int, alpha: float, rounds: int,
                       seed: int, eval_every: int | None = None, adaptive: bool = False,
-                      reschedule_every_round: bool = False, out: dict | None = None):
+                      reschedule_every_round: bool = False, out: dict | None = None,
+                      opt=None):
     """The reference's Astraea rounds (online Alg. 2, Alg. 3 once or every
-    round, Eq. 6 over mediator deltas).  ``adaptive`` recomputes the plan
+    round, Eq. 6 over mediator deltas); ``opt`` is the reference optimizer
+    of local training (default ``adam(1e-3)``).  ``adaptive`` recomputes the plan
     from each reschedule's cohort and re-broadcasts it to the cohort
     (``repro/core/engine.py::_pack_schedule``).  Returns ``(params,
     groups, comm, sched_counts, plan)`` of the last reschedule; ``out``,
@@ -281,7 +283,7 @@ def reference_astraea(jmodel, params, fed, *, clients: int, gamma: int, batch: i
     plan = jaug.augmentation_plan(raw.sum(0), alpha)
     augment = adaptive or plan.any()
     rng = np.random.default_rng(seed)
-    med_update = make_mediator_update(jmodel, jadam(1e-3),
+    med_update = make_mediator_update(jmodel, opt or jadam(1e-3),
                                       jfl.LocalSpec(batch, epochs), mediator_epochs)
 
     @jax.jit
@@ -363,3 +365,127 @@ def reference_fedavg(jmodel, params, fed, *, clients: int, batch: int, epochs: i
     if out is not None:
         out["history"] = history
     return params, selections, comm
+
+
+def reference_async(jmodel, params, fed, *, kind: str, clients: int, batch: int,
+                    epochs: int, rounds: int, seed: int, staleness_bound: int = 0,
+                    wave_size: int = 0, straggler=None, policy: str = "polynomial",
+                    policy_alpha: float = 0.5, adaptive=None, gamma: int = 1,
+                    mediator_epochs: int = 1, alpha: float | None = None):
+    """The reference's bounded-staleness async rounds
+    (``repro/core/async_engine.py``) as a mesh-free loop over the
+    reference's own parts: ``staleness.StragglerModel`` /
+    ``make_staleness_policy`` / ``AdaptiveStaleness``,
+    ``scheduling.partition_waves``, ``CommMeter``'s wave charges and the
+    update closures of ``reference_astraea`` (``kind="astraea"``, Alg. 3
+    once, online Alg. 2 with ``alpha``) and ``reference_fedavg``
+    (``kind="fedavg"``, a fresh selection every round, no plan).  Every
+    wave of a round trains from the round's snapshot; one commit per round
+    folds the waves landed by then, a wave of round ``q`` at commit ``r``
+    with its Eq. 6 weights times ``float32(lambda(r - q))`` where that is
+    positive; the last round flushes.  ``straggler`` and ``adaptive`` are
+    the reference's ``StragglerSpec`` / ``AdaptiveStalenessSpec``.  Returns
+    ``(params, comm, commit_log)``, each log entry the round and the
+    staleness of every folded row."""
+    from repro.core.staleness import (AdaptiveStaleness, StragglerModel,
+                                      StragglerSpec, make_staleness_policy)
+    pad = padded_size(fed, batch)
+    xs, ys, mask = fed.padded(pad)
+    raw = fed.client_counts()
+    lam = make_staleness_policy(policy, policy_alpha)
+    ctrl = AdaptiveStaleness(adaptive) if adaptive is not None else None
+    comm = JCommMeter(jcnn.count_params(params))
+    if kind == "astraea":
+        plan = jaug.augmentation_plan(raw.sum(0), alpha)
+        jplan = jnp.asarray(plan, jnp.int32)
+        comm.plan_broadcast(plan.size, fed.num_clients)
+        med_update = make_mediator_update(jmodel, jadam(1e-3),
+                                          jfl.LocalSpec(batch, epochs), mediator_epochs)
+
+        @jax.jit
+        def row_program(p, x, y, m, key):
+            aks = jax.random.split(jax.random.fold_in(key, jaug.AUG_SALT), gamma)
+            ax, ay = jax.vmap(lambda k, xx, yy, mm: jaug.online_augment_batch(
+                k, xx, yy, mm, jplan, impl="reference"))(aks, x, y, m)
+            weight = (m * (1.0 + jplan.astype(jnp.float32)[y])).sum()
+            return med_update(p, ax, ay, m, key), weight
+
+        fold = _fold_deltas
+    else:
+        update = jax.jit(jfl.make_client_update(jmodel, jadam(1e-3),
+                                                jfl.LocalSpec(batch, epochs)))
+        fold = lambda p, outs, wts: _stack_average(outs, wts)   # noqa: E731
+    rng = np.random.default_rng(seed)
+    straggler_model, pending, log = None, [], []
+    vtime = 0.0
+
+    def commit(ready, r):
+        outs, wts, stales = [], [], []
+        for q in sorted({p["round"] for p in ready}):
+            ws = [p for p in ready if p["round"] == q]
+            rows = np.concatenate([p["rows"] for p in ws])
+            order = np.argsort(rows, kind="stable")
+            vals = [v for p in ws for v in p["vals"]]
+            w = [x for p in ws for x in p["wts"]]
+            s = r - q
+            for i in order:
+                wt = jnp.float32(w[i])
+                outs.append(vals[i])
+                wts.append(wt * jnp.float32(lam(s)) if s > 0 else wt)
+            stales.extend([s] * rows.size)
+        log.append({"round": r, "staleness": stales})
+        return fold(params, outs, wts)
+
+    for rnd in range(rounds):
+        if kind == "fedavg" or rnd == 0:
+            sel = rng.choice(fed.num_clients, size=clients, replace=False)
+            if kind == "astraea":
+                meds = jsched.reschedule(raw[sel] * (1.0 + plan), gamma, impl="batched")
+                groups = [[int(sel[i]) for i in m.clients] for m in meds]
+            else:
+                groups = [[int(k)] for k in sel]
+        keys = _round_keys(seed, rnd, len(groups))
+        outs, weights = [], []
+        for r, g in enumerate(groups):
+            if kind == "astraea":
+                idx = np.zeros(gamma, np.int64)
+                slot = np.zeros(gamma, np.float32)
+                idx[:len(g)], slot[:len(g)] = g, 1.0
+                out, weight = row_program(params, xs[idx], ys[idx],
+                                          mask[idx] * slot[:, None], keys[r])
+            else:
+                out = update(params, xs[g[0]], ys[g[0]], mask[g[0]], keys[r])
+                weight = mask[g[0]].sum()
+            outs.append(out)
+            weights.append(weight)
+        if straggler_model is None:
+            straggler_model = StragglerModel(straggler or StragglerSpec(), len(groups))
+        work = np.array([len(g) for g in groups], np.float64) * max(1, mediator_epochs)
+        waves, wst = jsched.partition_waves(straggler_model.durations(work), wave_size)
+        t0 = vtime
+        for wi, wave in enumerate(waves):
+            rows = np.sort(np.asarray(wave, np.int64))
+            n_clients = sum(len(groups[i]) for i in rows)
+            if kind == "astraea":
+                comm.astraea_wave(n_clients, len(rows), mediator_epochs)
+            else:
+                comm.fedavg_wave(n_clients)
+            pending.append({"round": rnd, "t_done": t0 + wst["wave_times"][wi],
+                            "rows": rows, "vals": [outs[i] for i in rows],
+                            "wts": [weights[i] for i in rows]})
+        comm.end_round()
+        bound = ctrl.bound if ctrl is not None else staleness_bound
+        due = [p["t_done"] for p in pending if p["round"] <= rnd - bound]
+        c_time = max(due + [t0 + wst["wave_times"][0]])
+        ready = [p for p in pending if p["t_done"] <= c_time]
+        pending = [p for p in pending if p["t_done"] > c_time]
+        if ctrl is not None:
+            for p in ready:
+                ctrl.observe(rnd - p["round"])
+            for p in pending:
+                ctrl.observe(rnd - p["round"] + 1)
+        params = commit(ready, rnd)
+        vtime = c_time
+    if pending:
+        params = commit(pending, rounds)
+    return params, comm, log
