@@ -6,7 +6,7 @@
 Phases, each fatal on failure:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: the six CUDA sources (seven kernels) with ``nvcc`` for sm_90a,
+2. build: the seven CUDA sources (eight kernels) with ``nvcc`` for sm_90a,
    one process per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes and at a large one, with CUDA-event times of the
@@ -79,6 +79,17 @@ Phases, each fatal on failure:
     (device bytes ``U_cap`` x bytes per client, as over 1,000 clients); a
     checkpoint after round 2 restored on the card, its round 3 bitwise the
     uninterrupted one's.
+11. training qwen3-4b at full width (bf16, weights from seed 0; 4,022,468,096
+    parameters), each run's launch counts reset before it and read after:
+    two AdamW steps of ``make_train_step`` at batch 4 x 128 (36 forward and
+    36 backward flash launches a step), a LoRA rank-16 round and a
+    full-delta round of ``make_fl_round`` over the 2 mediators Alg. 3 makes
+    of 8 synthetic clients (one ``kld_greedy_picks``; one ``fedavg_agg`` for
+    the LoRA round, one a leaf for the full-delta one), with seconds, peak
+    memory, the WAN ledger (the LoRA leg's 35,863,552 bytes, the reference
+    mapping's) and a profiled step of each; a reduced Hymba must refuse to
+    train on the card (no SSD backward kernel); then both training
+    launchers at their reduced defaults.
 
 Phase 3 also holds the flash-attention and SSD kernels against their plain
 versions at the serve shapes (bf16 and f32), with a no-window, a
@@ -86,7 +97,10 @@ versions at the serve shapes (bf16 and f32), with a no-window, a
 in bf16 and f32, and gemma's layer (MQA 8:1, head dim 256) in bf16 and
 f32, and
 times ``F.scaled_dot_product_attention`` with an explicit mask as
-attention's one-call yardstick (the port never calls it).  A bf16
+attention's one-call yardstick (the port never calls it).  It holds the
+attention backward kernel against its plain version at qwen3-4b's training
+layer, the reduced configs' layer, danube's head under a window with a
+query offset, and gemma's layer, in bf16 and f32, beside SDPA's backward.  A bf16
 attention row is held per element too: against the plain version in fp32
 on the same inputs, within 2^-8 (|exact| + sum p|v| / l), one bf16
 rounding of the output and of every probability weight.
@@ -117,7 +131,8 @@ sys.path.insert(0, str(ROOT / "src"))
 # the least time the card could take (H100 SXM peaks), shared with the
 # kernel-times script
 from repro_torch.examples.kernel_times import (bound, flash_bound,  # noqa: E402
-                                               greedy_bound, score_bound,
+                                               flash_bwd_bound, greedy_bound,
+                                               score_bound, sdpa_backward,
                                                ssd_bound, ssd_inputs)
 
 FED_KW = dict(num_clients=64, total_samples=6400, test_samples=2350,
@@ -150,11 +165,31 @@ def timed(row: dict, **fns) -> dict:
 
 # ---------------------------------------------------------------- phase 3
 
-def check_fedavg(dev, m, n, dtype, gen):
+def one_kernel_per_call(row: dict, fn, what: str) -> None:
+    """Hold a wrapper to one device kernel per call (the mean over the
+    profiled calls).  The wrapper launches its kernel on every call, so a
+    mean that rounds below one is CUPTI dropping records from the window
+    (0.35 a call once at Eq. 6's M=4 row): that window is profiled again,
+    up to three times, and its device ms replaces the row's.  More than one
+    kernel a call fails at once."""
+    from repro_torch.examples.kernel_times import device_profile
+    for _ in range(3):
+        if round(row["kernels_per_call"]) >= 1:
+            break
+        row["device_ms"], row["kernels_per_call"] = device_profile(fn, row["ms"])
+    if round(row["kernels_per_call"]) != 1:
+        raise AssertionError(f"{what}: {row['kernels_per_call']} device kernels per call, "
+                             "expected 1")
+
+
+def check_fedavg(dev, m, n, dtype, gen, *, dummy=True):
+    """``fedavg_agg`` on random ``(m, n)`` deltas against its plain version;
+    with ``dummy`` the last row weighs 0 (a padded mediator row)."""
     from repro_torch.kernels import ops, ref
     d = torch.randn(m, n, generator=gen, device=dev).to(dtype)
     w = torch.rand(m, generator=gen, device=dev) * 100 + 1
-    w[-1] = 0.0                                   # a dummy (zero-weight) row
+    if dummy:
+        w[-1] = 0.0
     out, plain = ops.fedavg_agg(d, w), ref.fedavg_agg(d, w)
     err = float((out.double() - plain.double()).abs().max())
     scale = float(plain.double().abs().max())
@@ -172,10 +207,7 @@ def check_fedavg(dev, m, n, dtype, gen):
                 plain_ms=(lambda: ref.fedavg_agg(d, w), 50.0),
                 library_ms=(lambda: wn @ d, 50.0))
     # one launch from the raw weights: no normalizing op before the kernel
-    # (the mean over the profiled calls; CUPTI may miss one at the window's edge)
-    if round(row["kernels_per_call"]) != 1:
-        raise AssertionError(f"fedavg_agg M={m} N={n}: {row['kernels_per_call']} "
-                             "device kernels per call, expected 1")
+    one_kernel_per_call(row, lambda: ops.fedavg_agg(d, w), f"fedavg_agg M={m} N={n}")
     return row
 
 
@@ -302,10 +334,8 @@ def check_warp(dev, b, h, w, c, gen):
                 ms=(lambda: ops.affine_warp(imgs, mats, trans), 50.0),
                 plain_ms=(lambda: ref.affine_warp(imgs, mats, trans), 50.0),
                 library_ms=(lambda: grid_sample(nchw, grid), 50.0))
-    # one launch per call (the mean over the profiled calls, as for Eq. 6)
-    if round(row["kernels_per_call"]) != 1:
-        raise AssertionError(f"affine_warp B={b} {h}x{w}x{c}: "
-                             f"{row['kernels_per_call']} device kernels per call")
+    one_kernel_per_call(row, lambda: ops.affine_warp(imgs, mats, trans),
+                        f"affine_warp B={b} {h}x{w}x{c}")
     return row
 
 
@@ -383,6 +413,51 @@ def check_flash(dev, gen, *, b, sq, skv, h, kv, d, dtype, window, q_offset=0,
                 plain_ms=(lambda: ref.flash_attention(q, k, v, **kw), 50.0),
                 library_ms=(lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=mask), 50.0))
+    return row
+
+
+def check_flash_bwd(dev, gen, *, b, sq, skv, h, kv, d, dtype, window, q_offset=0,
+                    causal=True):
+    """The attention backward kernel against ``ref.flash_attention_bwd`` at
+    ``out`` from the forward kernel: fp32 within 1e-5 of each gradient's
+    scale (sums in other orders); bf16 per element within one bf16
+    rounding of the plain version in fp32 on the same bf16 inputs (2^-8
+    of |exact|) plus 1e-5 of the gradient's scale for the fp32 sums'
+    order.  Timed beside the plain version and SDPA's backward."""
+    from repro_torch.kernels import ops, ref
+    q, dout = (torch.randn(b, sq, h, d, generator=gen, device=dev).to(dtype) for _ in range(2))
+    k, v = (torch.randn(b, skv, kv, d, generator=gen, device=dev).to(dtype) for _ in range(2))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out = ops.flash_attention(q, k, v, **kw)
+    got = ops.flash_attention_bwd(q, k, v, out, dout, **kw)
+    if dtype == torch.float32:
+        plain = ref.flash_attention_bwd(q, k, v, out, dout, **kw)
+        errs = [float((g.double() - w.double()).abs().max()) for g, w in zip(got, plain)]
+        tols = [1e-5 * max(float(w.double().abs().max()), 1e-30) for w in plain]
+        worst = max(e / t for e, t in zip(errs, tols))
+    else:
+        exact = ref.flash_attention_bwd(*(t.float() for t in (q, k, v, out, dout)), **kw)
+        errs, worst = [], 0.0
+        for g, e in zip(got, exact):
+            gap = (g.float() - e).abs()
+            bnd = 2 ** -8 * e.abs() + 1e-5 * float(e.abs().max())
+            errs.append(float(gap.max()))
+            worst = max(worst, float((gap / bnd.clamp_min(1e-30)).max()))
+        del exact
+        tols = None
+    if not worst <= 1.0:
+        raise AssertionError(f"flash_attention_bwd {tuple(q.shape)} {dtype} {kw}: errors "
+                             f"{errs} reach {worst:.3f} of their bound")
+    mask = ref.attention_mask(sq, skv, device=dev, **kw)
+    b_ms, by = flash_bwd_bound(q, k, mask)
+    lib = sdpa_backward(q, k, v, dout, mask)
+    row = timed({"shape": f"b={b} sq={sq} skv={skv} H={h} KV={kv} d={d} "
+                          f"W={window} off={q_offset} {_dname(dtype)}",
+                 "max_abs_err": max(errs), "errs_dq_dk_dv": errs, "tols": tols,
+                 "worst_over_bound": worst, "bound_ms": b_ms, "bound_by": by},
+                ms=(lambda: ops.flash_attention_bwd(q, k, v, out, dout, **kw), 50.0),
+                plain_ms=(lambda: ref.flash_attention_bwd(q, k, v, out, dout, **kw), 50.0),
+                library_ms=(lib, 50.0))
     return row
 
 
@@ -1225,6 +1300,319 @@ def profile_serve(dev, model, batch, prompt, steps: int = 4):
     return out
 
 
+# ---------------------------------------------------------------- phase 11
+
+# qwen3-4b at full width; the LoRA round's rank, its trainable values and
+# the bytes a leg carries in bf16 (the reference's own mapping gives the
+# same: tests/test_torch_lora.py)
+TRAIN_ARCH, TRAIN_PARAMS = "qwen3-4b", 4_022_468_096
+LORA_RANK, LORA_TRAINABLE, LORA_LEG_BYTES = 16, 17_931_776, 35_863_552
+# its largest leaf (the embedding, 151,936 x 2,560): phase 3 checks Eq. 6 there
+TRAIN_LARGEST_LEAF = 388_956_160
+# the federated runs' traffic: 8 synthetic clients of 128 tokens, gamma 4
+FL_CLIENTS, FL_GAMMA, FL_SEQ, FL_LR = 8, 4, 128, 5e-4
+
+
+def fl_client_streams(dev):
+    """The federated runs' clients: token streams and topic histograms."""
+    from repro_torch import configs
+    from repro_torch.launch import fl_train
+    return fl_train.synth_client_streams(torch.Generator(device=dev).manual_seed(1),
+                                         FL_CLIENTS, configs.get(TRAIN_ARCH).vocab, FL_SEQ)
+
+
+def fl_client_counts(dev):
+    return fl_client_streams(dev)[1]
+
+
+class HeldEq6:
+    """Within the block, every ``ops.fedavg_agg`` call (``fedavg_agg_tree``
+    reaches it too) is held against ``ref.fedavg_agg`` on the same deltas
+    and weights: within 1e-5 of the deltas' largest magnitude (fp32 sums
+    in another order; the normalized weights sum to 1).  The check's own
+    seconds are kept apart, so a timed run can leave them out."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops, ref
+        self.calls, self.worst, self.seconds = 0, 0.0, 0.0
+        kernel = self._kernel = ops.fedavg_agg
+
+        def held(deltas, weights):
+            out = kernel(deltas, weights)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain = ref.fedavg_agg(deltas, weights)
+            err = float((out.float() - plain.float()).abs().max())
+            scale = float(deltas.abs().max())
+            self.calls += 1
+            if not err <= 1e-5 * scale:
+                raise AssertionError(f"Eq. 6 on {tuple(deltas.shape)}: err {err} > "
+                                     f"1e-5 x {scale}")
+            self.worst = max(self.worst, err / max(scale, 1e-30))
+            del plain
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            return out
+        ops.fedavg_agg = held
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.fedavg_agg = self._kernel
+        return False
+
+
+def _peak_gb() -> float:
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def _sync_time(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+# the backward kernel's three passes, by the names the profiler records
+BWD_KERNELS = ("stats_kernel", "dkdv_kernel", "dq_kernel")
+
+
+def profile_call(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: host-clock wall, device
+    busy (summed kernel time), idle share, device kernels, the flash
+    backward's device ms and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    busy, kernels = _device_busy_ms(prof)
+    return {"wall_ms": wall, "device_busy_ms": busy, "idle_share": 1.0 - busy / wall,
+            "kernel_launches": sum(calls for _, _, calls in kernels),
+            "flash_bwd_ms": sum(ms for name, ms, _ in kernels
+                                if any(k in name for k in BWD_KERNELS)),
+            "top_kernels": kernels[:8]}
+
+
+def log_profile(label: str, prof: dict) -> None:
+    log(f"[train-profile] {label}: wall {prof['wall_ms']:.1f} ms, device busy "
+        f"{prof['device_busy_ms']:.1f} ms, idle {100 * prof['idle_share']:.1f} %, "
+        f"{prof['kernel_launches']} kernels, flash backward {prof['flash_bwd_ms']:.2f} ms")
+    for name, ms, calls in prof["top_kernels"]:
+        log(f"[train-profile]   {ms:9.3f} ms {calls:6d}x {name[:90]}")
+
+
+def phase11(dev, path_launches: dict, lap) -> dict:
+    """qwen3-4b at full width (bf16, weights from seed 0): two AdamW steps
+    of ``make_train_step`` at batch 4 x 128, a LoRA rank-16 round and a
+    full-delta round of ``make_fl_round`` over the 2 mediators Alg. 3 makes
+    of 8 synthetic clients (on the card's greedy kernel), each with its
+    launch counts reset just before and read just after, seconds, peak
+    memory and the WAN ledger, and every Eq. 6 launch of the two rounds
+    held to its plain version (``HeldEq6``; its seconds left out of the
+    rounds'); then a reduced Hymba's training raises (no
+    SSD backward kernel), and both launchers run at their reduced
+    defaults."""
+    from repro_torch import configs
+    from repro_torch.core import scheduling
+    from repro_torch.core.comm import CommMeter
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fl_train, steps, train
+    from repro_torch.models import lora
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw, schedules
+    cfg = configs.get(TRAIN_ARCH)
+    res: dict = {}
+    torch.cuda.empty_cache()
+    model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    params = T.train_params(model)
+    n_params = sum(p.numel() for p in params.values())
+    if n_params != TRAIN_PARAMS:
+        raise AssertionError(f"{TRAIN_ARCH}: {n_params} parameters, expected {TRAIN_PARAMS}")
+    layers = cfg.n_layers
+
+    def counts_ok(name, launches, flash, extra):
+        want = {k: 0 for k in ops.LAUNCHES}
+        want.update(flash_attention=flash, flash_attention_bwd=flash, **extra)
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches}, expected {want}")
+
+    # (a) AdamW steps: forward, backward, clipping, the leafwise update
+    opt = adamw(schedules.warmup_cosine(3e-4, 10, 20))
+    state = opt.init(params)
+    step = steps.make_train_step(model, opt)
+    shape = configs.InputShape("phase11", 128, 4, "train")
+    batches = []
+    for i in range(2):
+        b = configs.make_batch(cfg, shape, seed=1 + i, device=dev)["batch"]
+        b["labels"] = torch.roll(b["tokens"], -1, dims=1)
+        batches.append(b)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    secs, losses = [], []
+    for b in batches:
+        (params, state, loss), sec = _sync_time(lambda: step(params, state, b))
+        secs.append(sec)
+        losses.append(float(loss))
+    launches = dict(ops.LAUNCHES)
+    path_launches[f"train {TRAIN_ARCH}"] = launches
+    counts_ok("train step", launches, 2 * layers, {})
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train step losses {losses}")
+    res["train"] = {"s_per_step": secs, "losses": losses, "peak_gb": _peak_gb(),
+                    "launches": launches, "tokens": 4 * 128,
+                    "flop_bound_ms": 6 * n_params * 512 / 989e12 * 1e3,
+                    "profile": profile_call(lambda: step(params, state, batches[0]))}
+    log(f"[train] {TRAIN_ARCH} {n_params:,} params bf16, AdamW, batch 4 x 128: "
+        f"s/step {' '.join(f'{x:.4f}' for x in secs)} (6 N tokens at 989 TFLOP/s: "
+        f"{res['train']['flop_bound_ms']:.2f} ms), losses {losses}, peak "
+        f"{res['train']['peak_gb']:.2f} GB, launches {launches}")
+    log_profile("AdamW step (a third, profiled)", res["train"]["profile"])
+    del state, opt, step
+    torch.cuda.empty_cache()
+    lap("11 train step")
+
+    # the federation: Alg. 3 on the card (one greedy launch), 2 mediators
+    streams, counts = fl_client_streams(dev)
+    ops.reset_launches()
+    meds = scheduling.reschedule(counts, gamma=FL_GAMMA, device=dev)
+    sched = dict(ops.LAUNCHES)
+    path_launches["fl schedule"] = sched
+    if len(meds) != 2 or sched["kld_greedy_picks"] != 1:
+        raise AssertionError(f"Alg. 3: {len(meds)} mediators, launches {sched}")
+    tokens, labels, w, per_med = fl_train.pack_mediators(meds, streams, counts, FL_SEQ, 2)
+    steps_per_round = 2 * per_med
+
+    def eval_loss(p):
+        with torch.no_grad():
+            return float(T.forward_train(model, {"tokens": tokens[:2], "labels": labels[:2]},
+                                         p)[0])
+
+    def ledger(adapter_bytes):
+        meter = CommMeter(n_params, bytes_per_param=2)
+        meter.adapter_payload_bytes = adapter_bytes
+        meter.astraea_round(FL_CLIENTS, FL_GAMMA)
+        meter.end_round()
+        return meter
+
+    # (b) LoRA rank 16: only the adapter state trains and rides the WAN
+    mapping = T.adapter_mapping(cfg, LORA_RANK)
+    leg = lora.exchange_nbytes(mapping, 2)
+    if lora.num_trainable_params(mapping) != LORA_TRAINABLE or leg != LORA_LEG_BYTES:
+        raise AssertionError(f"rank {LORA_RANK}: {lora.num_trainable_params(mapping)} "
+                             f"trainable, {leg} bytes a leg")
+    a_tree = lora.init_adapter_A(lora.A_SALT, mapping, dev)
+    ad_state = lora.init_adapter_state(mapping, params)
+    fl = steps.make_fl_round(model, 2, learning_rate=FL_LR, local_steps=per_med,
+                             lora_mapping=mapping)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with HeldEq6() as held:
+        ad_state, sec = _sync_time(lambda: fl(params, a_tree, ad_state, tokens, labels, w))
+    sec -= held.seconds
+    launches = dict(ops.LAUNCHES)
+    path_launches[f"lora round {TRAIN_ARCH}"] = launches
+    counts_ok("LoRA round", launches, steps_per_round * layers, {"fedavg_agg": 1})
+    meter = ledger(leg)
+    loss = eval_loss(lora.merge_params(params, a_tree, ad_state, mapping))
+    ratio = meter.adapter_reduction_ratio
+    if not math.isfinite(loss) or abs(ratio - leg / (2 * n_params)) > 1e-12:
+        raise AssertionError(f"LoRA round: loss {loss}, ratio {ratio}")
+    one_step = steps.make_fl_round(model, 1, learning_rate=FL_LR, local_steps=1,
+                                   lora_mapping=mapping)
+    res["lora_round"] = {"s_per_round": sec, "loss": loss, "peak_gb": _peak_gb(),
+                         "launches": launches, "trainable": LORA_TRAINABLE,
+                         "eq6_held": {"calls": held.calls, "worst_rel": held.worst},
+                         "leg_bytes": leg, "ratio": ratio, "ledger": meter.ledger_totals(),
+                         "profile": profile_call(lambda: one_step(
+                             params, a_tree, ad_state, tokens[:1], labels[:1], w[:1]))}
+    log(f"[fl] LoRA rank {LORA_RANK} round, 2 mediators x {per_med} steps: "
+        f"{sec:.3f} s, loss {loss:.4f}, peak {_peak_gb():.2f} GB, launches {launches}; "
+        f"Eq. 6 held to its plain version: {held.calls} call, worst {held.worst:.2e} "
+        f"of the deltas' scale")
+    log(f"[fl] LoRA WAN: {LORA_TRAINABLE:,} trainable, {leg:,} B a leg (full "
+        f"{2 * n_params:,}), adapter/full ratio {ratio:.6f}; ledger {meter.ledger_totals()}")
+    log_profile("LoRA round of one mediator and one step (profiled)",
+                res["lora_round"]["profile"])
+    del a_tree, ad_state, fl, one_step
+    torch.cuda.empty_cache()
+    lap("11 LoRA round")
+
+    # (c) full delta: each mediator's weights in bf16, Eq. 6 leaf by leaf
+    largest = max(p.numel() for p in params.values())
+    if largest != TRAIN_LARGEST_LEAF:
+        raise AssertionError(f"largest leaf {largest}, phase 3 checks {TRAIN_LARGEST_LEAF}")
+    fl = steps.make_fl_round(model, 2, learning_rate=FL_LR, local_steps=per_med)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with HeldEq6() as held:
+        new, sec = _sync_time(lambda: fl(params, tokens, labels, w))
+    sec -= held.seconds
+    launches = dict(ops.LAUNCHES)
+    path_launches[f"full-delta round {TRAIN_ARCH}"] = launches
+    counts_ok("full-delta round", launches, steps_per_round * layers,
+              {"fedavg_agg": len(params)})
+    meter = ledger(None)
+    loss = eval_loss(new)
+    moved = max(float((new[k].float() - params[k].float()).abs().max()) for k in params)
+    if not math.isfinite(loss) or moved == 0.0:
+        raise AssertionError(f"full-delta round: loss {loss}, largest update {moved}")
+    del new
+    one_step = steps.make_fl_round(model, 1, learning_rate=FL_LR, local_steps=1)
+    res["full_round"] = {"s_per_round": sec, "loss": loss, "peak_gb": _peak_gb(),
+                         "launches": launches, "ledger": meter.ledger_totals(),
+                         "largest_update": moved,
+                         "eq6_held": {"calls": held.calls, "worst_rel": held.worst},
+                         "profile": profile_call(lambda: one_step(
+                             params, tokens[:1], labels[:1], w[:1]))}
+    log(f"[fl] full-delta round, 2 mediators x {per_med} steps: {sec:.3f} s, loss "
+        f"{loss:.4f}, peak {_peak_gb():.2f} GB, fedavg_agg launches "
+        f"{launches['fedavg_agg']} (one a leaf), WAN {meter.total_bytes:,.0f} B "
+        f"(adapter round: {res['lora_round']['ledger']['wan_bytes_total']:,.0f} B); "
+        f"Eq. 6 held to its plain version: {held.calls} calls, worst {held.worst:.2e}")
+    log_profile("full-delta round of one mediator and one step (profiled)",
+                res["full_round"]["profile"])
+    del fl, one_step, model, params
+    torch.cuda.empty_cache()
+    lap("11 full-delta round")
+
+    # (d) no SSD backward kernel: a hybrid layer does not train on the card
+    hy = configs.reduced(configs.get("hymba-1.5b"))
+    hmodel = T.init_model(hy, torch.Generator(device=dev).manual_seed(0), device=dev)
+    toks = torch.randint(0, hy.vocab, (1, 64), device=dev)
+    hp = {k: t.requires_grad_(True) for k, t in T.train_params(hmodel).items()}
+    try:
+        T.forward_train(hmodel, {"tokens": toks, "labels": toks}, hp)
+    except NotImplementedError as e:
+        res["hymba_train"] = str(e)
+    else:
+        raise AssertionError("training a reduced Hymba on the card did not raise")
+    log(f"[train] reduced Hymba on the card raises: {res['hymba_train']}")
+    del hmodel, hp
+
+    # (e) the launchers at their reduced defaults
+    ops.reset_launches()
+    tr = train.main([])
+    path_launches["launch.train"] = dict(ops.LAUNCHES)
+    ops.reset_launches()
+    ft = fl_train.main(["--lora-rank", "2"])
+    path_launches["launch.fl_train"] = dict(ops.LAUNCHES)
+    if not (all(math.isfinite(x) for x in tr["losses"] + ft["losses"])):
+        raise AssertionError(f"launchers: {tr['losses']} {ft['losses']}")
+    res["launchers"] = {"train_losses": tr["losses"], "fl_losses": ft["losses"],
+                        "fl_ratio": ft["ratio"], "launches": {
+                            k: path_launches[k] for k in ("launch.train", "launch.fl_train")}}
+    log(f"[launch] train (reduced {TRAIN_ARCH}, 20 steps): loss {tr['losses'][0]:.4f} -> "
+        f"{tr['losses'][-1]:.4f}; fl_train --lora-rank 2 (3 rounds): losses "
+        f"{ft['losses']}, ratio {ft['ratio']:.4f}; launches "
+        f"{path_launches['launch.train']} / {path_launches['launch.fl_train']}")
+    lap("11 launchers")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1284,6 +1672,11 @@ def main() -> int:
                 check_fedavg(dev, m, 68_873, dt, gen))
     checks["fedavg_agg"].append(check_fedavg(dev, 16, CINIC_PARAMS, torch.float32, gen))
     checks["fedavg_agg"].append(check_fedavg(dev, 16, 2 ** 24, torch.float32, gen))
+    # phase 11's Eq. 6 over its 2 mediators (fewer rows than the kernel's
+    # 4-row unroll): the full-delta round's largest leaf and the LoRA
+    # round's flat adapter buffer, both rows weighted
+    for n in (TRAIN_LARGEST_LEAF, LORA_TRAINABLE):
+        checks["fedavg_agg"].append(check_fedavg(dev, 2, n, torch.float32, gen, dummy=False))
     lap("3 fedavg_agg")
     # the scoring kernels: the CINIC cohort (its first pick's histogram as
     # the open mediator), the JAX bench's shapes (uniform * 100 mediators,
@@ -1336,6 +1729,17 @@ def main() -> int:
     checks["flash_attention"] += [check_flash(dev, gen, **gemma, dtype=torch.bfloat16),
                                   check_flash(dev, gen, **gemma, dtype=torch.float32)]
     lap("3 flash_attention")
+    # the attention backward: qwen3-4b's training layer (phase 11's shape,
+    # first), the reduced configs' layer, danube's head under a window with a
+    # query offset, gemma's layer (d=256, MQA 8:1), each in bf16 and f32
+    qwen_layer = dict(b=4, sq=128, skv=128, h=32, kv=8, d=128, window=None)
+    bwd_shapes = [qwen_layer, dict(b=4, sq=128, skv=128, h=4, kv=4, d=64, window=None),
+                  dict(b=1, sq=1024, skv=2048, h=32, kv=8, d=80, window=512, q_offset=1024),
+                  dict(b=4, sq=1024, skv=1024, h=8, kv=1, d=256, window=None)]
+    checks["flash_attention_bwd"] = [
+        check_flash_bwd(dev, gen, **shape, dtype=dt)
+        for shape in bwd_shapes for dt in (torch.bfloat16, torch.float32)]
+    lap("3 flash_attention_bwd")
     ssd = dict(b=4, nc=32, L=64, h=25, p=64, n=16)
     checks["ssd_chunk"] = [check_ssd(dev, gen, **ssd, dtype=torch.float32),
                            check_ssd(dev, gen, **ssd, dtype=torch.bfloat16)]
@@ -1349,6 +1753,8 @@ def main() -> int:
     main_counts = counts[sel] * (1.0 + augmentation_plan(counts.sum(0), ALPHA))
     big = [rng.integers(0, 200, (4096, 47)), np.tile(rng.integers(1, 50, (1, 47)), (4096, 1))]
     checks["kld_greedy_picks"].append(check_greedy(dev, main_counts, GAMMA))
+    # phase 11's schedule: its synthetic clients' topic histograms
+    checks["kld_greedy_picks"].append(check_greedy(dev, fl_client_counts(dev), FL_GAMMA))
     # past what one CTA's shared memory holds (K > 16,384, C > 1,024),
     # before the rows whose plain versions are profiled
     checks["kld_greedy_picks"].append(check_greedy(
@@ -1369,6 +1775,9 @@ def main() -> int:
                 f"plain {fmt(r['plain_ms'])} ({fmt(r['plain_device_ms'])})  "
                 f"library {fmt(r['library_ms'])} ({fmt(r['library_device_ms'])})  "
                 f"bound {r['bound_ms']:.6f} ({r['bound_by']})")
+    for r in checks["flash_attention_bwd"]:
+        log(f"[kernel] flash_attention_bwd {r['shape']}: worst gradient {r['worst_over_bound']:.3f} "
+            f"of its bound (fp32 1e-5 of the scale; bf16 2^-8 |exact| + 1e-5 of the scale)")
     for r in checks["flash_attention"]:
         if "per_element_worst_over_bound" in r:
             log(f"[kernel] flash_attention {r['shape']}: worst element "
@@ -1506,6 +1915,9 @@ def main() -> int:
     # ---- 10. async rounds, client stores and checkpoints
     p10 = phase10(fed, cinic_fed, dev, path_launches, lap)
 
+    # ---- 11. training qwen3-4b at full width, and the launchers
+    p11 = phase11(dev, path_launches, lap)
+
     # every kernel's launches over the paths that drive it (each path's
     # counts were reset just before it and read just after)
     launches = {name: sum(p.get(name, 0) for p in path_launches.values())
@@ -1519,6 +1931,7 @@ def main() -> int:
               "kld_score_matrix": "src/repro_torch/kernels/csrc/kld_score.cu",
               "affine_warp": "src/repro_torch/kernels/csrc/affine_warp.cu",
               "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "flash_attention_bwd": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
               "ssd_chunk": "src/repro_torch/kernels/csrc/ssd_chunk.cu"}
     replaces = {"fedavg_agg": "src/repro/kernels/fedavg_agg.py:68",
                 "kld_greedy_picks": "src/repro/kernels/kld_score.py:215",
@@ -1526,6 +1939,8 @@ def main() -> int:
                 "kld_score_matrix": "src/repro/kernels/kld_score.py:116",
                 "affine_warp": "src/repro/kernels/affine_warp.py:82",
                 "flash_attention": "src/repro/kernels/flash_attention.py:95",
+                # no pallas_call: the reference differentiates this attention in XLA
+                "flash_attention_bwd": "src/repro/kernels/ref.py:59",
                 "ssd_chunk": "src/repro/kernels/ssd_chunk.py:88"}
     summary = []
     for name, rs in checks.items():
@@ -1545,7 +1960,7 @@ def main() -> int:
          "cinic_peak_mem_gb": cinic_peak, "cinic_materialized": materialized,
          "row_exec": rows_check,
          "serve_agreement": serve_agree, "serve": served,
-         "phase10": p10,
+         "phase10": p10, "phase11": p11,
          "path_launches": path_launches, "launches": launches, "phase_seconds": phase_s,
          "kernels": summary}, indent=1, default=str))
     log(json.dumps({"kernels": summary}))

@@ -4,9 +4,10 @@
 that joins the port later adds registry entries, not a new class.
 ``get(arch_id)`` resolves the architectures the port runs; any other id
 raises ``KeyError``, as the reference does for an unknown id.
-``reduced(cfg)`` is the CPU smoke variant of the same family.
+``reduced(cfg)`` is the CPU smoke variant of the same family;
+``InputShape`` and ``make_batch`` give a family's training inputs.
 """
-from repro_torch.configs.base import ArchConfig, reduced
+from repro_torch.configs.base import ArchConfig, InputShape, make_batch, reduced
 from repro_torch.configs.gemma_2b import CONFIG as GEMMA_2B
 from repro_torch.configs.h2o_danube_1_8b import CONFIG as H2O_DANUBE_1_8B
 from repro_torch.configs.hymba_1_5b import CONFIG as HYMBA_1_5B
@@ -30,4 +31,4 @@ def get(arch_id: str) -> ArchConfig:
     return _REGISTRY[arch_id]
 
 
-__all__ = ["ARCH_IDS", "ArchConfig", "get", "reduced"]
+__all__ = ["ARCH_IDS", "ArchConfig", "InputShape", "get", "make_batch", "reduced"]

@@ -1,4 +1,5 @@
-"""``ArchConfig`` and the CPU smoke reduction, as plain Python."""
+"""``ArchConfig``, the CPU smoke reduction, and the input shapes and
+smoke batches of the ported families, as plain Python."""
 from __future__ import annotations
 
 import dataclasses
@@ -106,3 +107,27 @@ def reduced(cfg: ArchConfig, d_model: int = 256) -> ArchConfig:
         name=cfg.name + "-smoke",
     )
     return dataclasses.replace(cfg, **upd)
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # train | prefill | decode (the port's batches: train)
+
+
+def make_batch(cfg: ArchConfig, shape: InputShape, seed: int = 0, device=None) -> dict:
+    """A training batch of ``shape`` (``repro/configs/base.py::make_batch``
+    for the text families): ``{"batch": {"tokens", "labels"}}``, labels
+    equal to the tokens as the reference fills them (a trainer shifts
+    them).  Tokens are uniform over the vocab from a generator seeded with
+    ``seed`` (the reference draws them with ``jax.random``).  The serving
+    paths build their own prompts and caches."""
+    if shape.kind != "train":
+        raise ValueError(f"the port makes train batches only, not {shape.kind!r}")
+    dev = torch.device("cpu" if device is None else device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab, (shape.global_batch, shape.seq_len),
+                           generator=gen, device=dev)
+    return {"batch": {"tokens": tokens, "labels": tokens.clone()}}

@@ -8,7 +8,9 @@ reference does, so ``dense1``'s rows need no permutation.
 
 The reference's transformer params share the port's layouts (weights
 ``(d_in, d_out)``) and differ only in the stacked leading ``layers`` axis,
-which the port writes out as one module per layer.
+which the port writes out as one module per layer.  LoRA adapter trees
+(``A`` and the adapter state) keep the reference's flat ``/``-joined keys
+and stacked shapes in the port too, so they convert leaf for leaf.
 """
 from __future__ import annotations
 
@@ -112,3 +114,12 @@ def transformer_params_to_jax(state: dict[str, torch.Tensor]) -> dict:
             node = node.setdefault(key, {})
         node[leaf] = a
     return tree
+
+
+def adapter_tree_from_jax(tree) -> dict[str, torch.Tensor]:
+    """A reference LoRA tree (``lora.init_adapter_A``'s ``{path: A}`` or an
+    adapter state ``{path: B or dense value}``, leaves as numpy) -> the
+    port's: the same flat ``/``-joined keys and stacked ``(L, ...)``
+    shapes, as tensors (bfloat16 leaves stay bfloat16)."""
+    return {path: _to_torch(leaf) for path, leaf in tree.items()}
+

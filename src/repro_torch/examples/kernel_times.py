@@ -1,4 +1,5 @@
-"""Time the port's Eq. 6, bf16 and fp32 flash-attention, Alg. 2 warp, Alg.
+"""Time the port's Eq. 6, bf16 and fp32 flash-attention (forward and
+backward), Alg. 2 warp, Alg.
 3 greedy-pass, Alg. 3 scorers (``kld_score``, ``kld_score_matrix``) and
 Mamba-2 SSD-block wrappers on the card, at the main paths' shapes (and the
 zoo's other head dims and SSD widths), for the ``repro_torch`` of any
@@ -17,7 +18,9 @@ plain version (for the greedy pass: 0 where the picks are equal, else the
 score gap at the first divergence, with a digest of the picks to compare
 two trees' passes, and the least time the card could take); the warp
 rows add ``F.grid_sample``'s event ms on the same inputs, the fp32 flash
-rows SDPA's (fp32, explicit mask, KV heads repeated outside the call);
+rows SDPA's (fp32, explicit mask, KV heads repeated outside the call),
+the backward rows SDPA's backward in the same dtype (its forward graph
+built once outside the timed call);
 the greedy, scoring and SSD rows give the least time the card could take,
 and the scoring rows the launch plan where the tree has one.  A shape
 a tree's wrapper refuses gets a row with its error and no times.
@@ -114,6 +117,33 @@ def flash_bound(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor
     return bound(q.element_size() * (2 * q.numel() + 2 * k.numel()), 4.0 * d * pairs, peak)
 
 
+def flash_bwd_bound(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor
+                    ) -> tuple[float, str]:
+    """The attention backward of ``q (b, sq, H, d)`` over ``k, v (b, skv,
+    KV, d)`` under ``mask``: five d-long products per visible (query, key)
+    pair (S and dO V^T recomputed, then dV, dK and dQ), 2d operations each,
+    so half of the full square under a causal mask, at the type's peak; q,
+    k, v, out and dout read once, dq, dk and dv written once."""
+    b, _, h, d = q.shape
+    pairs = int(mask.sum()) * b * h
+    peak = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    return bound(q.element_size() * (4 * q.numel() + 4 * k.numel()), 10.0 * d * pairs, peak)
+
+
+def sdpa_backward(q, k, v, dout, mask):
+    """A callable that runs SDPA's backward (the library's attention
+    gradient, the yardstick of ``flash_attention_bwd``) on the same inputs
+    and mask, in its ``(b, H, s, d)`` layout with the KV heads repeated:
+    the forward graph is built once here, outside the timed call."""
+    h, kv = q.shape[2], k.shape[2]
+    qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+    kt, vt = (t.repeat_interleave(h // kv, dim=2).transpose(1, 2).contiguous()
+              .requires_grad_(True) for t in (k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    gt = dout.transpose(1, 2).contiguous()
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True)
+
+
 def ssd_inputs(b, nc, L, h, p, n, dtype, gen, dev):
     """Random SSD inputs at Mamba-2's scales: softplus steps, A = -exp."""
     x = torch.randn(b, nc, L, h, p, generator=gen, device=dev).to(dtype)
@@ -182,6 +212,11 @@ FEDAVG_SHAPES = [(16, 68_873, torch.float32), (16, 68_873, torch.bfloat16),
 # danube's and qwen3's heads, gemma's layer
 FLASH_SHAPES = [(4, 2048, 25, 5, 64, 1024), (1, 2048, 32, 8, 80, 4096),
                 (1, 2048, 32, 8, 128, None), (4, 2048, 8, 1, 256, None)]
+# (b, s, H, KV, d, window) of the attention backward, timed in bf16 and
+# fp32: qwen3-4b's training layer, the reduced configs' layer, danube's
+# head under a window, gemma's layer
+FLASH_BWD_SHAPES = [(4, 128, 32, 8, 128, None), (4, 128, 4, 4, 64, None),
+                    (1, 2048, 32, 8, 80, 1024), (4, 1024, 8, 1, 256, None)]
 # (B, H, W, C) of the warp: the EMNIST round's slots (16 clients x 460), the
 # CINIC batch of phase 3, a rectangular image
 WARP_SHAPES = [(7360, 28, 28, 1), (4096, 32, 32, 3), (7360, 20, 36, 3)]
@@ -265,6 +300,28 @@ def measure() -> list[dict]:
                 del qt, kt, vt
             rows.append(row)
             del q, k, v
+    if hasattr(ops, "flash_attention_bwd"):         # absent in older trees
+        for dtype in (torch.bfloat16, torch.float32):
+            for b, s, h, kv, d, window in FLASH_BWD_SHAPES:
+                q, dout = (torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
+                           for _ in range(2))
+                k, v = (torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
+                        for _ in range(2))
+                mask = ref.attention_mask(s, s, causal=True, window=window, q_offset=0,
+                                          device=dev)
+                out = ops.flash_attention(q, k, v, window=window)
+                b_ms, by = flash_bwd_bound(q, k, mask)
+                row = {"kernel": "flash_attention_bwd",
+                       "shape": f"b={b} s={s} H={h} KV={kv} d={d} W={window} "
+                                f"{str(dtype)[6:]}", "bound_ms": b_ms, "bound_by": by}
+                row = _timed_row(
+                    row, lambda: ops.flash_attention_bwd(q, k, v, out, dout, window=window),
+                    lambda: ref.flash_attention_bwd(q, k, v, out, dout, window=window))
+                lib = sdpa_backward(q, k, v, dout, mask)
+                row["sdpa_bwd_ms"] = time_ms(lib)
+                row["sdpa_bwd_device_ms"] = device_profile(lib, row["sdpa_bwd_ms"])[0]
+                rows.append(row)
+                del q, k, v, out, dout, lib
     for b, h, w, c in WARP_SHAPES:
         imgs, mats, trans, nchw, grid = warp_inputs(b, h, w, c, gen, dev)
         err = float((ops.affine_warp(imgs, mats, trans)
@@ -524,6 +581,9 @@ def main() -> int:
             extra += f", plan {r['plan']}"
         if "sdpa_ms" in r:
             extra += f", SDPA fp32 {r['sdpa_ms']:.4f} ms (device {r['sdpa_device_ms']})"
+        if "sdpa_bwd_ms" in r:
+            extra += (f", SDPA backward {r['sdpa_bwd_ms']:.4f} ms "
+                      f"(device {r['sdpa_bwd_device_ms']})")
         print(f"[{args.label}] {r['kernel']:16s} {r['shape']:36s} event {r['ms']:.4f} ms "
               f"device {r['device_ms']} ms, {r['kernels_per_call']:g} kernels/call, "
               f"err {r['max_abs_err']:.3e}{extra}", flush=True)

@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fedavg_agg.cu", "kld_greedy.cu", "kld_score.cu", "affine_warp.cu",
-           "flash_attention.cu", "ssd_chunk.cu")
+           "flash_attention.cu", "flash_attention_bwd.cu", "ssd_chunk.cu")
 # headers the sources include (hashed into the library's name with them)
 HEADERS = ("kld_common.cuh", "mbarrier.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -46,6 +46,8 @@ SIGNATURES = {
     "affine_warp_f32": (_P, _P, _P, _P, _I64, _I, _I, _I, _P),
     "flash_attention_f32": (_P, _P, _P, _P, *(_I,) * 9, _F, _P),
     "flash_attention_bf16": (_P, _P, _P, _P, *(_I,) * 9, _F, _P),
+    "flash_attention_bwd_f32": (*(_P,) * 9, *(_I,) * 9, _F, _P),
+    "flash_attention_bwd_bf16": (*(_P,) * 9, *(_I,) * 9, _F, _P),
     "ssd_chunk_f32": (*(_P,) * 8, *(_I,) * 6, _P),
     "ssd_chunk_bf16": (*(_P,) * 8, *(_I,) * 6, _P),
 }

@@ -21,7 +21,7 @@ from repro_torch.kernels import build, ref
 LAUNCHES: dict[str, int] = {"fedavg_agg": 0, "kld_greedy_picks": 0,
                             "kld_score": 0, "kld_score_matrix": 0,
                             "affine_warp": 0, "flash_attention": 0,
-                            "ssd_chunk": 0}
+                            "flash_attention_bwd": 0, "ssd_chunk": 0}
 
 # mediators the matrix grid's y axis holds (65,535 tiles of 8; a call
 # tiles by 4 only at a few thousand pairs, see kld_score_matrix_plan)
@@ -38,6 +38,12 @@ FLASH_HEAD_DIMS = (64, 80, 128, 256)
 # mediator rows Eq. 6 takes (its CTAs keep the normalized weights in 48 KB
 # of shared memory)
 FEDAVG_MAX_M = 12_288
+# why a gradient through ``ssd_chunk`` on the card raises (its outputs would
+# carry none): the kernel has no backward yet
+SSD_NO_BACKWARD = ("ssd_chunk has no backward kernel on the card, so an ssm or hybrid "
+                   "layer cannot train there yet (ROADMAP Queue 1 item 1: the SSD "
+                   "backward kernel); train on the CPU, where the plain version is "
+                   "differentiable")
 # a block's dynamic shared memory on Hopper (the SSD block keeps B, C, x,
 # the (L, L) decay matrix beside W, and (L,) vectors there, fp32)
 MAX_SMEM_BYTES = 232_448
@@ -333,17 +339,8 @@ def affine_warp_stages(images: torch.Tensor, out: torch.Tensor) -> int:
     return build.library().affine_warp_stages(images.data_ptr(), out.data_ptr(), h, w, c)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int | None = None,
-                    q_offset: int = 0) -> torch.Tensor:
-    """Attention in the model layout: ``q (b, sq, H, d)``, ``k, v
-    (b, skv, KV, d)``, ``H % KV == 0``; query head ``h`` reads KV head
-    ``h // (H/KV)``.  f32 or bf16, one dtype; fp32 softmax statistics and
-    accumulator; returns ``(b, sq, H, d)`` in ``q``'s dtype.  ``window``
-    keeps keys with ``qpos - window < kpos``; ``q_offset`` is the absolute
-    position of ``q[:, 0]`` against ``k[:, 0]``.  Any head dim on the CPU;
-    on the card the head dims of ``FLASH_HEAD_DIMS`` and 16-byte aligned
-    inputs, others raise."""
+def _flash_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                window: int | None) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"expected q (b, sq, H, d) and k, v (b, skv, KV, d), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -357,21 +354,104 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
-    if not _on_cuda(q, k, v):
-        return ref.flash_attention(q, k, v, causal=causal, window=window,
-                                   q_offset=q_offset)
+
+
+def _check_head_dim(d: int) -> None:
     if d not in FLASH_HEAD_DIMS:
         raise ValueError(f"head dim {d} not supported on the card; the kernel takes "
                          f"{FLASH_HEAD_DIMS}")
+
+
+def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                   window: int | None, q_offset: int) -> torch.Tensor:
+    if not _on_cuda(q, k, v):
+        return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
+    b, sq, h, d = q.shape
+    _check_head_dim(d)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("the kernel loads q, k and v by TMA: they must be 16-byte aligned")
     out = torch.empty_like(q)
     entry = "flash_attention_f32" if q.dtype == torch.float32 else "flash_attention_bf16"
     _launch("flash_attention", entry, q.device, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), b, sq, skv, h, kv, d, int(causal),
-            0 if window is None else int(window), int(q_offset),
+            v.data_ptr(), out.data_ptr(), b, sq, k.shape[1], h, k.shape[2], d,
+            int(causal), 0 if window is None else int(window), int(q_offset),
             1.0 / math.sqrt(d))
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with a gradient: the forward kernel as it is, and the
+    backward kernel (``csrc/flash_attention_bwd.cu``) on the card or
+    ``ref.flash_attention_bwd`` on the CPU, from the saved ``q, k, v`` and
+    the forward's output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        out = _flash_forward(q, k, v, causal, window, q_offset)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.mask = (causal, window, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        causal, window, q_offset = ctx.mask
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), causal=causal,
+                                         window=window, q_offset=q_offset)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Attention in the model layout: ``q (b, sq, H, d)``, ``k, v
+    (b, skv, KV, d)``, ``H % KV == 0``; query head ``h`` reads KV head
+    ``h // (H/KV)``.  f32 or bf16, one dtype; fp32 softmax statistics and
+    accumulator; returns ``(b, sq, H, d)`` in ``q``'s dtype.  ``window``
+    keeps keys with ``qpos - window < kpos``; ``q_offset`` is the absolute
+    position of ``q[:, 0]`` against ``k[:, 0]``.  Any head dim on the CPU;
+    on the card the head dims of ``FLASH_HEAD_DIMS`` and 16-byte aligned
+    inputs, others raise.  Differentiable when an input requires grad
+    (``_FlashAttention``: one forward and one backward launch a call)."""
+    _flash_args(q, k, v, window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window, q_offset)
+    return _flash_forward(q, k, v, causal, window, q_offset)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor, *, causal: bool = True,
+                        window: int | None = None, q_offset: int = 0
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of ``flash_attention(q, k, v)`` at its output ``out``
+    for the output gradient ``dout``: ``dq, dk, dv`` in the inputs' dtype,
+    fp32 accumulation, each KV head's gradient summed over its query heads
+    in a fixed order (no atomics: two runs agree bit for bit).  One launch
+    (a row-statistics pass, a dK/dV pass and a dQ pass) into fp32 scratch
+    of ``3 b H sq`` floats.  Head dims as ``flash_attention``."""
+    _flash_args(q, k, v, window)
+    if out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype \
+            or dout.dtype != q.dtype:
+        raise ValueError(f"out and dout must be {tuple(q.shape)} {q.dtype}, got "
+                         f"{tuple(out.shape)} {out.dtype} and {tuple(dout.shape)} "
+                         f"{dout.dtype}")
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    if not _on_cuda(q, k, v, out, dout):
+        return ref.flash_attention_bwd(q, k, v, out, dout, **kw)
+    b, sq, h, d = q.shape
+    _, skv, kv, _ = k.shape
+    _check_head_dim(d)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    scratch = torch.empty(3 * b * h * sq, dtype=torch.float32, device=q.device)
+    entry = "flash_attention_bwd_f32" if q.dtype == torch.float32 \
+        else "flash_attention_bwd_bf16"
+    _launch("flash_attention_bwd", entry, q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), scratch.data_ptr(), b, sq, skv, h, kv, d, int(causal),
+            0 if window is None else int(window), int(q_offset), 1.0 / math.sqrt(d))
+    return dq, dk, dv
 
 
 def ssd_chunk_smem_bytes(L: int, p: int, n: int) -> int:
@@ -430,6 +510,8 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f"over {MAX_SMEM_BYTES}")
     if not _on_cuda(x, dt, A, B, C):
         return ref.ssd_chunk(x, dt, A, B, C)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, B, C)):
+        raise NotImplementedError(SSD_NO_BACKWARD)
     y = torch.empty_like(x)
     S = torch.empty(b, nc, h, n, p, dtype=torch.float32, device=x.device)
     g = torch.empty(b, nc, h, dtype=torch.float32, device=x.device)

@@ -150,6 +150,39 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
 
 
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor, *, causal: bool = True,
+                        window: int | None = None, q_offset: int = 0
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of ``flash_attention`` from its formula, in fp32:
+    ``P = softmax(Q K^T / sqrt(d))`` under the forward's masks (a row with
+    no visible key has ``P = 0``), ``D = rowsum(dO * O)`` from the given
+    ``out``, ``dS = P * (dO V^T - D)``, ``dQ = dS K / sqrt(d)``, ``dK =
+    dS^T Q / sqrt(d)`` and ``dV = P^T dO``, each query head's share summed
+    into its KV head.  Returns ``dq, dk, dv`` in the inputs' dtypes."""
+    b, sq, h, d = q.shape
+    kv = k.shape[2]
+    rep = h // kv
+    f32 = torch.float32
+    scale = 1.0 / math.sqrt(d)
+    qf = q.to(f32).reshape(b, sq, kv, rep, d)
+    kf, vf = k.to(f32), v.to(f32)
+    do = dout.to(f32).reshape(b, sq, kv, rep, d)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qf, kf) * scale
+    mask = attention_mask(sq, k.shape[1], causal=causal, window=window,
+                          q_offset=q_offset, device=q.device)
+    s = torch.where(mask, s, -1e30)
+    p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    p = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    dsum = (do * out.to(f32).reshape(b, sq, kv, rep, d)).sum(-1)      # (b, q, g, r)
+    dp = torch.einsum("bqgrd,bkgd->bgrqk", do, vf)
+    ds = p * (dp - dsum.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bgrqk,bkgd->bqgrd", ds, kf) * scale
+    dk = torch.einsum("bgrqk,bqgrd->bkgd", ds, qf) * scale
+    dv = torch.einsum("bgrqk,bqgrd->bkgd", p, do)
+    return dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
               B: torch.Tensor, C: torch.Tensor):
     """Mamba-2 intra-chunk block for every (batch, chunk, head), fp32.

@@ -8,11 +8,18 @@ SSD heads in parallel on one input, Hymba-style).  ``moe``, ``audio`` and
 Each decoder layer is an ``nn.Module``; weights keep the reference's
 ``(d_in, d_out)`` layout and names, so a state dict key is the reference's
 pytree path with the stacked layer axis written out
-(``layers.3.attn.wq``).  Serving entry points:
+(``layers.3.attn.wq``).  Entry points:
 
+  ``forward_train``    full-sequence causal-LM loss, differentiable in the
+                       weights (``model(tokens)`` gives the fp32 logits)
   ``forward_prefill``  full sequence -> last-position logits + decode cache
   ``forward_decode``   one token + cache -> logits; the cache is updated in
                        place (the reference returns a new one)
+
+Training runs attention through the flash kernels' autograd function (one
+forward and one backward launch a layer).  The SSD kernel has no backward
+yet, so an ``ssm`` or ``hybrid`` layer trains on the CPU only (the plain
+version is differentiable); on the card it raises ``NotImplementedError``.
 
 The cache keeps the reference's layout, one stacked tensor per leaf with a
 leading layer axis: ``{"attn": {"k", "v": (L, b, S, KV, d)}, "ssm":
@@ -126,6 +133,13 @@ def param_count(cfg: ArchConfig) -> int:
     return sum(math.prod(s.shape) for s in param_specs(cfg).values())
 
 
+def adapter_mapping(cfg: ArchConfig, rank: int, alpha: float | None = None) -> dict:
+    """The LoRA mapping table over this architecture's specs
+    (``models/lora.py``), keyed like the reference's by ``/``-joined path."""
+    from repro_torch.models import lora
+    return lora.build_mapping(param_specs(cfg), rank, alpha)
+
+
 def _init_leaf(spec: Spec, generator: torch.Generator, device) -> torch.Tensor:
     """The reference's rule (``layers.py::LogicalParam.init``) on the shape
     it declares: fan-in scale ``1/sqrt(shape[0])`` -- for a stacked layer
@@ -148,8 +162,9 @@ def _init_leaf(spec: Spec, generator: torch.Generator, device) -> torch.Tensor:
 # ==========================================================================
 
 class _Params(nn.Module):
-    """A module whose parameters are named tensors of given shapes
-    (inference weights: no gradients)."""
+    """A module whose parameters are named tensors of given shapes.  They
+    carry no gradient: training differentiates a dict of them
+    (``forward_train(model, batch, params)``)."""
 
     def __init__(self, shapes: dict[str, tuple[tuple[int, ...], torch.dtype]], device):
         super().__init__()
@@ -161,9 +176,11 @@ class _Params(nn.Module):
 class Attention(_Params):
     def forward(self, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor, *,
                 mode: str, cache: dict | None = None) -> torch.Tensor:
-        """Prefill writes the layer's K/V into ``cache`` (ring-buffer slots
-        for a sliding window); decode writes one slot and attends over the
-        cache.  ``positions``: ``(b, s)`` for prefill, ``(b,)`` for decode."""
+        """Train attends over the full sequence with no cache; prefill also
+        writes the layer's K/V into ``cache`` (ring-buffer slots for a
+        sliding window); decode writes one slot and attends over the
+        cache.  ``positions``: ``(b, s)`` for train and prefill, ``(b,)``
+        for decode."""
         b, s, _ = x.shape
         hd, H, KV = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
         q, k, v = x @ self.wq, x @ self.wk, x @ self.wv
@@ -174,7 +191,7 @@ class Attention(_Params):
             q = L.rms_norm(q, self.q_norm, cfg.norm_eps)
             k = L.rms_norm(k, self.k_norm, cfg.norm_eps)
         W = cfg.sliding_window
-        if mode == "prefill":
+        if mode in ("train", "prefill"):
             q = L.apply_rope(q, positions, cfg.rope_theta)
             k = L.apply_rope(k, positions, cfg.rope_theta)
             out = L.gqa_attention(q, k, v, causal=True, window=W)
@@ -203,8 +220,9 @@ class Attention(_Params):
 class SSMBlock(_Params):
     def forward(self, cfg: ArchConfig, x: torch.Tensor, *, mode: str,
                 cache: dict | None = None) -> torch.Tensor:
-        """Mamba-2 block.  Prefill writes the final state and conv tail into
-        ``cache``; decode advances them in place."""
+        """Mamba-2 block.  Train runs the chunked scan with no cache;
+        prefill also writes the final state and conv tail into ``cache``;
+        decode advances them in place."""
         b, s, _ = x.shape
         di, n, h, pd = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
         proj = x @ self.in_proj
@@ -293,6 +311,17 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(DecoderLayer(cfg, specs, device)
                                     for _ in range(cfg.n_layers))
 
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Train mode: ``tokens (b, s)`` -> fp32 logits ``(b, s, vocab)`` of
+        every position, no cache (the reference's ``_embed_inputs``, the
+        layer stack, then ``_lm_head``)."""
+        b, s = tokens.shape
+        h = _embed(self, tokens)
+        positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+        for layer in self.layers:
+            h = layer(h, positions, mode="train", cache=None)
+        return _lm_head(self, h)
+
 
 def init_model(cfg: ArchConfig, generator: torch.Generator, device=None) -> Transformer:
     """A model with the reference's init rule drawn from ``generator``
@@ -354,6 +383,30 @@ def _lm_head(model: Transformer, h: torch.Tensor) -> torch.Tensor:
     h = L.rms_norm(h, model.final_norm, cfg.norm_eps)
     w = model.embed.t() if cfg.tie_embeddings else model.lm_head
     return (h @ w).to(torch.float32)
+
+
+def train_params(model: Transformer) -> dict[str, torch.Tensor]:
+    """The model's weights as a flat dict of tensors sharing its storage
+    (``layers.3.attn.wq`` ...): what the training steps differentiate and
+    update in place."""
+    return {name: p.detach() for name, p in model.named_parameters()}
+
+
+def forward_train(model: Transformer, batch: dict,
+                  params: dict[str, torch.Tensor] | None = None
+                  ) -> tuple[torch.Tensor, dict]:
+    """Causal-LM loss: the mean next-token NLL of ``batch["labels"]`` under
+    the fp32 logits of ``batch["tokens"]`` (both ``(b, s)``).  ``params``
+    (state-dict names -> tensors, e.g. ones that require grad, or LoRA-
+    merged weights) stand in for the model's own through
+    ``torch.func.functional_call``.  Returns ``(loss, {"loss", "aux"})``;
+    ``aux`` is 0 (no ported family is MoE)."""
+    tokens = batch["tokens"]
+    logits = model(tokens) if params is None else \
+        torch.func.functional_call(model, params, (tokens,))
+    loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           batch["labels"].reshape(-1).long())
+    return loss, {"loss": loss, "aux": torch.zeros((), device=loss.device)}
 
 
 @torch.no_grad()

@@ -912,3 +912,144 @@ def test_checkpoint_round_trip_on_card(dev, tmp_path):
     assert back["w"].dtype == torch.bfloat16
     assert torch.equal(back["w"], tree["w"].cpu()) and torch.equal(back["b"][0],
                                                                    tree["b"][0].cpu())
+
+
+# ---------------------------------------------------------------- training
+
+# (b, sq, skv, H, KV, d, causal, window, q_offset): the reduced configs'
+# layer (d=64), qwen3-4b's training layer (d=128, GQA 4:1), danube's head
+# (d=80) under a window, gemma's (d=256, MQA 8:1), ragged tiles with a
+# q_offset, no causal mask, and rows that see no key (window + offset)
+BWD_CARD_CASES = [(2, 64, 64, 4, 4, 64, True, None, 0),
+                  (4, 128, 128, 32, 8, 128, True, None, 0),
+                  (1, 300, 300, 32, 8, 80, True, 96, 0),
+                  (2, 256, 256, 8, 1, 256, True, None, 0),
+                  (1, 70, 131, 4, 2, 64, True, 50, 61),
+                  (1, 45, 77, 6, 3, 128, False, None, 0),
+                  (1, 40, 40, 2, 1, 80, True, 8, 45)]
+
+
+def _bwd_inputs(dev, dtype, case, seed):
+    b, sq, skv, h, kv, d, causal, window, off = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, dout = (torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype) for _ in range(2))
+    k, v = (torch.randn(b, skv, kv, d, generator=g, device=dev).to(dtype) for _ in range(2))
+    kw = dict(causal=causal, window=window, q_offset=off)
+    return q, k, v, ref.flash_attention(q, k, v, **kw).to(dtype).contiguous(), dout, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BWD_CARD_CASES)
+def test_flash_attention_bwd_kernel(dev, dtype, case):
+    """One launch; fp32: each gradient within 1e-5 of its scale of the
+    plain version (fp32 sums in other orders); bf16: per element within
+    one bf16 rounding of the plain version in fp32 on the same bf16 inputs
+    (2^-8 of |exact|) plus 1e-5 of the gradient's scale for the order of
+    the fp32 sums."""
+    q, k, v, out, dout, kw = _bwd_inputs(dev, dtype, case, sum(case[:6]))
+    before = ops.LAUNCHES["flash_attention_bwd"]
+    got = ops.flash_attention_bwd(q, k, v, out, dout, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention_bwd"] == before + 1
+    if dtype == torch.float32:
+        for g, p in zip(got, ref.flash_attention_bwd(q, k, v, out, dout, **kw)):
+            err, scale = _err_scale(g, p)
+            assert err <= 1e-5 * scale
+        return
+    exact = ref.flash_attention_bwd(*(t.float() for t in (q, k, v, out, dout)), **kw)
+    for g, e in zip(got, exact):
+        assert g.dtype == torch.bfloat16
+        bound = 2 ** -8 * e.abs() + 1e-5 * float(e.abs().max())
+        assert bool(((g.float() - e).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_kernel_is_bitwise_deterministic(dev, dtype):
+    """No atomics: two runs (and a run through autograd) agree bit for bit,
+    the KV heads' sums over their query heads included."""
+    q, k, v, out, dout, kw = _bwd_inputs(dev, dtype, BWD_CARD_CASES[1], 5)
+    first = ops.flash_attention_bwd(q, k, v, out, dout, **kw)
+    second = ops.flash_attention_bwd(q, k, v, out, dout, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = dict(ops.LAUNCHES)
+    fwd = ops.flash_attention(*leaves, **kw)
+    grads = torch.autograd.grad(fwd, leaves, dout)
+    assert ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert ops.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    third = ops.flash_attention_bwd(q, k, v, fwd.detach(), dout, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(grads, third))
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_kernel_refuses_other_head_dims(dev):
+    q, k, v = (torch.randn(1, 16, 2, 96, device=dev) for _ in range(3))
+    before = ops.LAUNCHES["flash_attention_bwd"]
+    with pytest.raises(ValueError, match="head dim 96"):
+        ops.flash_attention_bwd(q, k, v, q, q)
+    assert ops.LAUNCHES["flash_attention_bwd"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,upd", [("qwen3-4b", {}),
+                                      ("h2o-danube-1.8b", {"sliding_window": 16})])
+def test_reduced_dense_training_on_card_matches_cpu(dev, arch, upd):
+    """``forward_train`` of a reduced dense config (f32 weights from one
+    seed, each layer matrix rescaled from the reference init's
+    ``1/sqrt(L)`` to ``1/sqrt(d_in)``) on the card and on the CPU: one
+    forward and one backward flash launch per layer on the card; the loss
+    within 1e-5 and every gradient within 1e-3 of its scale (fp32 sums in
+    other orders); a two-step SGD round of ``make_fl_round`` on both within
+    1e-3 of each leaf's update scale.  The rescale: at the reference's own
+    init the CPU round alone, from weights perturbed by 1e-7, moves by up
+    to 9.4e-2 of the embedding's update scale (danube, window 16, two
+    steps, five perturbations), so card-vs-CPU agreement there tests
+    nothing; at the standard fan-in that spread is at most 4.7e-5
+    (``tests/test_torch_train.py::_perturbation_spread``)."""
+    from repro_torch.launch import steps as S
+    cfg = dataclasses.replace(configs.reduced(configs.get(arch)), **upd)
+    cpu = T.init_model(cfg, torch.Generator().manual_seed(0))
+    with torch.no_grad():                  # the standard fan-in (see the docstring)
+        for name, p in cpu.named_parameters():
+            if name.startswith("layers.") and p.dim() == 2:
+                p.mul_((cfg.n_layers / p.shape[0]) ** 0.5)
+    card = T.Transformer(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.randint(0, cfg.vocab, (4, 64), generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    dbatch = {k: t.to(dev) for k, t in batch.items()}
+    lc, gc = S._loss_and_grads(lambda p: T.forward_train(cpu, batch, p)[0], T.train_params(cpu))
+    ops.reset_launches()
+    lg, gg = S._loss_and_grads(lambda p: T.forward_train(card, dbatch, p)[0],
+                               T.train_params(card))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == ops.LAUNCHES["flash_attention_bwd"] == cfg.n_layers
+    assert abs(float(lg) - float(lc)) <= 1e-5 * abs(float(lc))
+    for name, g in gc.items():
+        err, scale = _err_scale(gg[name].cpu(), g)
+        assert err <= 1e-3 * scale, name
+    w = torch.full((4,), 64.0)
+    rc = S.make_fl_round(cpu, 1, learning_rate=0.05, local_steps=2)(
+        T.train_params(cpu), batch["tokens"], batch["labels"], w)
+    rg = S.make_fl_round(card, 1, learning_rate=0.05, local_steps=2)(
+        T.train_params(card), dbatch["tokens"], dbatch["labels"], w.to(dev))
+    start = T.train_params(cpu)
+    for name, p in rc.items():
+        d_cpu, d_card = p - start[name], rg[name].cpu() - start[name]
+        assert float((d_card - d_cpu).abs().max()) <= 1e-3 * float(d_cpu.abs().max()) + 1e-6
+
+
+@pytest.mark.cuda
+def test_ssm_training_on_card_raises(dev):
+    """The SSD kernel has no backward yet: training a hybrid or SSM layer on
+    the card raises and names the ROADMAP item; serving still runs."""
+    cfg = configs.reduced(configs.get("hymba-1.5b"))
+    model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    toks = torch.randint(0, cfg.vocab, (1, 64), device=dev)
+    params = {k: t.requires_grad_(True) for k, t in T.train_params(model).items()}
+    with pytest.raises(NotImplementedError, match="SSD backward kernel"):
+        T.forward_train(model, {"tokens": toks, "labels": toks}, params)
+    logits, _ = T.forward_prefill(model, {"tokens": toks})
+    assert bool(torch.isfinite(logits).all())

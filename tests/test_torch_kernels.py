@@ -291,11 +291,15 @@ def test_cpu_calls_launch_nothing():
     ops.affine_warp(torch.ones(1, 4, 4, 1), torch.eye(2)[None], torch.zeros(1, 2))
     ops.flash_attention(torch.ones(1, 3, 2, 64), torch.ones(1, 3, 1, 64),
                         torch.ones(1, 3, 1, 64))
+    ops.flash_attention_bwd(torch.ones(1, 3, 2, 64), torch.ones(1, 3, 1, 64),
+                            torch.ones(1, 3, 1, 64), torch.ones(1, 3, 2, 64),
+                            torch.ones(1, 3, 2, 64))
     ops.ssd_chunk(torch.ones(1, 1, 4, 1, 2), torch.ones(1, 1, 4, 1), -torch.ones(1),
                   torch.ones(1, 1, 4, 3), torch.ones(1, 1, 4, 3))
     assert ops.LAUNCHES == {"fedavg_agg": 0, "kld_greedy_picks": 0, "kld_score": 0,
                             "kld_score_matrix": 0, "affine_warp": 0,
-                            "flash_attention": 0, "ssd_chunk": 0}
+                            "flash_attention": 0, "flash_attention_bwd": 0,
+                            "ssd_chunk": 0}
 
 
 # ---------------------------------------------------------------- attention

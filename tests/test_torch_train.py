@@ -1,0 +1,411 @@
+"""Port slice 11 against the JAX reference: training the zoo on the CPU.
+
+The flash-attention gradient (``ref.flash_attention_bwd`` and the autograd
+function around the kernels), ``forward_train`` of each ported family,
+``make_train_step`` (AdamW, clipping, microbatches), ``suggest_microbatches``
+and the training launcher.  Inputs come from numpy seeds; the reference's
+own weights (``repro.models.transformer.init_params``) are carried across
+by ``convert``.  Tolerances are stated per test, relative to the compared
+tensor's largest magnitude (the reference's init takes a stacked weight's
+fan-in from the layer axis, so activations and gradients span several
+orders of magnitude and fp32 rounding of reordered sums shows at ~1e-6 of
+each tensor's scale).
+"""
+import dataclasses
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+import repro.configs as RC                                        # noqa: E402
+from repro.kernels import ref as jref                             # noqa: E402
+from repro.launch import steps as RS                              # noqa: E402
+from repro.models import transformer as RT                        # noqa: E402
+from repro.optim import adamw as radamw                           # noqa: E402
+from repro.optim import warmup_cosine as rwarmup                  # noqa: E402
+
+from repro_torch import configs as PC                             # noqa: E402
+from repro_torch.convert import transformer_params_from_jax       # noqa: E402
+from repro_torch.kernels import ops, ref                          # noqa: E402
+from repro_torch.launch import steps as PS                        # noqa: E402
+from repro_torch.launch import train as ptrain                    # noqa: E402
+from repro_torch.models import transformer as PT                  # noqa: E402
+from repro_torch.optim import adamw as padamw                     # noqa: E402
+from repro_torch.optim import schedules                           # noqa: E402
+
+
+def _rel_err(got, want) -> tuple[float, float]:
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return float(np.abs(got - want).max()), max(float(np.abs(want).max()), 1e-30)
+
+
+def _close(got, want, rel):
+    err, scale = _rel_err(got, want)
+    assert err <= rel * scale, f"max err {err} > {rel} x {scale}"
+
+
+# ---------------------------------------------------------------- attention
+
+# (b, sq, skv, H, KV, d, causal, window, q_offset): causal; a window with a
+# query offset (every row still sees keys); GQA 4:1; no mask at all
+BWD_CASES = [(2, 24, 24, 4, 4, 16, True, None, 0),
+             (1, 16, 48, 4, 2, 16, True, 8, 32),
+             (1, 20, 20, 8, 2, 32, True, None, 0),
+             (2, 12, 20, 3, 1, 8, False, None, 0)]
+
+
+def _attn_data(seed, b, sq, skv, h, kv, d):
+    rng = np.random.default_rng(seed)
+    q, dout = (rng.normal(size=(b, sq, h, d)).astype(np.float32) for _ in range(2))
+    k, v = (rng.normal(size=(b, skv, kv, d)).astype(np.float32) for _ in range(2))
+    return q, k, v, dout
+
+
+def _jax_attention_vjp(q, k, v, dout, **kw):
+    """``jax.vjp`` of the reference's ``kernels/ref.py::flash_attention``
+    (kernel layout, the KV heads repeated as ``gqa_attention`` does)."""
+    rep = q.shape[2] // k.shape[2]
+
+    def f(q, k, v):
+        kr, vr = jnp.repeat(k, rep, axis=2), jnp.repeat(v, rep, axis=2)
+        out = jref.flash_attention(jnp.swapaxes(q, 1, 2), jnp.swapaxes(kr, 1, 2),
+                                   jnp.swapaxes(vr, 1, 2), **kw)
+        return jnp.swapaxes(out, 1, 2)
+
+    out, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
+    return out, vjp(jnp.asarray(dout))
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_attention_bwd_matches_autograd_and_jax(case):
+    """The plain backward equals torch autograd through the plain forward
+    and ``jax.vjp`` of the reference's attention, within 1e-5 of each
+    gradient's scale (fp32, sums in other orders); the autograd function
+    around the kernels takes it on the CPU."""
+    b, sq, skv, h, kv, d, causal, window, off = case
+    kw = dict(causal=causal, window=window, q_offset=off)
+    q, k, v, dout = _attn_data(7, b, sq, skv, h, kv, d)
+    tq, tk, tv, tg = (torch.from_numpy(x) for x in (q, k, v, dout))
+    out = ref.flash_attention(tq, tk, tv, **kw)
+    got = ref.flash_attention_bwd(tq, tk, tv, out, tg, **kw)
+
+    leaves = [x.clone().requires_grad_(True) for x in (tq, tk, tv)]
+    auto = torch.autograd.grad(ref.flash_attention(*leaves, **kw), leaves, tg)
+    jout, jgrads = _jax_attention_vjp(q, k, v, dout, **kw)
+    _close(out, jout, 1e-5)
+    for g, a, j in zip(got, auto, jgrads):
+        _close(g, a, 1e-5)
+        _close(g, j, 1e-5)
+
+    leaves = [x.clone().requires_grad_(True) for x in (tq, tk, tv)]
+    ops.reset_launches()
+    fn_out = ops.flash_attention(*leaves, **kw)
+    fn_grads = torch.autograd.grad(fn_out, leaves, tg)
+    assert torch.equal(fn_out, out)
+    for g, f in zip(got, fn_grads):
+        assert torch.equal(g, f)
+    assert ops.LAUNCHES["flash_attention"] == ops.LAUNCHES["flash_attention_bwd"] == 0
+
+
+def test_flash_attention_bwd_row_without_keys_is_zero():
+    """A window with a query offset can leave a row no key: its output and
+    its share of every gradient are zero (the reference's softmax would
+    spread such a row uniformly, so this case is the port's own)."""
+    q, k, v, dout = (torch.from_numpy(x) for x in _attn_data(3, 1, 8, 8, 2, 1, 8))
+    kw = dict(causal=True, window=4, q_offset=20)
+    out = ref.flash_attention(q, k, v, **kw)
+    dq, dk, dv = ref.flash_attention_bwd(q, k, v, out, dout, **kw)
+    assert not out.any() and not dq.any() and not dk.any() and not dv.any()
+
+
+def test_flash_attention_bwd_wrapper_checks():
+    q, k, v, g = (torch.from_numpy(x) for x in _attn_data(0, 1, 4, 4, 2, 1, 8))
+    with pytest.raises(ValueError):
+        ops.flash_attention_bwd(q, k, v, q[:, :2], g)
+    with pytest.raises(ValueError):
+        ops.flash_attention_bwd(q, k, v, q, g.double())
+    with pytest.raises(ValueError):
+        ops.flash_attention_bwd(q, k, v.double(), q, g)
+
+
+# ---------------------------------------------------------------- forward_train
+
+# each ported family's reduced config; danube's window cut to 16 so that it
+# masks at seq 32 (the reduced 64 would not)
+FAMILIES = {"hymba-1.5b": {}, "gemma-2b": {}, "qwen3-4b": {},
+            "h2o-danube-1.8b": {"sliding_window": 16}, "mamba2-370m": {}}
+
+
+def _pair(arch, **upd):
+    rcfg = dataclasses.replace(RC.reduced(RC.get(arch)), **upd)
+    pcfg = dataclasses.replace(PC.reduced(PC.get(arch)), **upd)
+    assert dataclasses.asdict(rcfg) == dataclasses.asdict(pcfg)
+    return rcfg, pcfg
+
+
+def _fan_in(params):
+    """Each stacked layer matrix ``(L, d_in, d_out)`` rescaled from the
+    reference init's ``1/sqrt(L)`` to ``1/sqrt(d_in)`` (the conv taps keep
+    their explicit scale).  At the reference's scale the attention logits
+    of the families without qk-norm are so large that a 1e-7 relative
+    perturbation of the weights moves the port's own gradients by up to
+    1.4e-3 of their scale (hymba, gemma; 4.5e-6 for qwen3), so fp32
+    agreement there says nothing about the algorithm."""
+    def fix(path, a):
+        name = "/".join(str(getattr(k, "key", k)) for k in path)
+        if a.ndim == 3 and name.startswith("layers") and not name.endswith("conv_w"):
+            return a * np.float32(np.sqrt(a.shape[0] / a.shape[1]))
+        return a
+    return jax.tree_util.tree_map_with_path(fix, params)
+
+
+def _models(arch, fan_in=False, **upd):
+    rcfg, pcfg = _pair(arch, **upd)
+    params = RT.init_params(jax.random.PRNGKey(0), rcfg)
+    if fan_in:
+        params = _fan_in(params)
+    model = PT.Transformer(pcfg)
+    model.load_state_dict(transformer_params_from_jax(jax.tree.map(np.asarray, params)))
+    return rcfg, params, model
+
+
+def _lm_batch(seed, b, s, vocab):
+    toks = np.random.default_rng(seed).integers(0, vocab, (b, s)).astype(np.int32)
+    return {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
+
+
+def _tbatch(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("arch", list(FAMILIES))
+def test_forward_train_loss_and_grads_match_reference(arch):
+    """Loss and every parameter's gradient of the reduced config (weights
+    at the standard fan-in, ``_fan_in``) equal
+    ``jax.value_and_grad(forward_train)``: the loss within 1e-5, each
+    gradient within 1e-4 of its scale (fp32, sums in other orders through
+    two layers and a 512-way softmax; measured 1.5e-5 at worst).  Seq 64
+    for the SSD families (a multiple of their chunk), 32 otherwise."""
+    rcfg, params, model = _models(arch, fan_in=True, **FAMILIES[arch])
+    batch = _lm_batch(1, 2, 64 if rcfg.has_ssm else 32, rcfg.vocab)
+    rloss, rgrads = jax.value_and_grad(
+        lambda p: RT.forward_train(p, rcfg, {k: jnp.asarray(v) for k, v in batch.items()})[0]
+    )(params)
+    leaves = {k: t.clone().requires_grad_(True) for k, t in PT.train_params(model).items()}
+    loss, metrics = PT.forward_train(model, _tbatch(batch), leaves)
+    grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    assert abs(float(loss.detach()) - float(rloss)) <= 1e-5 * abs(float(rloss))
+    assert float(metrics["aux"]) == 0.0
+    want = transformer_params_from_jax(jax.tree.map(np.asarray, rgrads))
+    assert set(want) == set(grads)
+    for name, g in grads.items():
+        err, scale = _rel_err(g, want[name].numpy())
+        assert err <= 1e-4 * scale, f"{arch} {name}: {err} > 1e-4 x {scale}"
+
+
+def test_forward_train_is_differentiable_only_where_asked():
+    """``model(tokens)`` gives every position's fp32 logits (the last one
+    equal to prefill's within 1e-5 of the scale: the head's product runs
+    over another row count); without a params dict nothing requires grad
+    (the model's weights carry none)."""
+    _, pcfg = _pair("qwen3-4b")
+    model = PT.init_model(pcfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = _tbatch(_lm_batch(2, 2, 16, pcfg.vocab))
+    logits = model(batch["tokens"])
+    assert logits.shape == (2, 16, pcfg.vocab) and logits.dtype == torch.float32
+    loss, _ = PT.forward_train(model, batch)
+    assert not loss.requires_grad
+    prefill, _ = PT.forward_prefill(model, {"tokens": batch["tokens"]})
+    _close(prefill, logits[:, -1:], 1e-5)
+
+
+# ---------------------------------------------------------------- train step
+
+def _adam_delta_check(p_new, r_new, p_old, mu, r_mu, lr):
+    """AdamW's first step moves each weight by about ``lr * sign(g)``, so a
+    gradient near zero can flip between two correct implementations: hold
+    the moments within 1e-4 of their scale, the step within 1e-3 of ``lr``
+    where ``|g|`` is above 1e-3 of its leaf's largest, and within ``2 lr``
+    everywhere."""
+    for name in p_old:
+        _close(mu[name], r_mu[name], 1e-4)
+        d_port = (p_new[name] - p_old[name]).numpy()
+        d_ref = r_new[name].numpy() - p_old[name].numpy()
+        g = np.abs(np.asarray(r_mu[name], np.float32))
+        firm = g > 1e-3 * g.max()
+        err = np.abs(d_port - d_ref)
+        assert err.max() <= 2 * lr * 1.001 + 1e-6, name
+        assert (err[firm].max() if firm.any() else 0.0) <= 1e-3 * lr + 1e-6, name
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_train_step_matches_reference(microbatches):
+    """One AdamW step (warmup-cosine rate, clipping at 0.01 so that it
+    binds) of the reduced qwen3-4b equals the reference's
+    ``make_train_step`` under ``jax.jit``; ``microbatches=2`` accumulates
+    in fp32 in the reference's order.  The loss within 1e-5 relative."""
+    rcfg, params, model = _models("qwen3-4b")
+    batch = _lm_batch(3, 4, 16, rcfg.vocab)
+    lr = 1e-2
+    ropt = radamw(rwarmup(lr, 2, 20))
+    rstep = jax.jit(RS.make_train_step(rcfg, ropt, clip_norm=0.01, microbatches=microbatches))
+    r_params, r_state, r_loss = rstep(params, ropt.init(params),
+                                      {k: jnp.asarray(v) for k, v in batch.items()})
+
+    popt = padamw(schedules.warmup_cosine(lr, 2, 20))
+    p = {k: t.clone() for k, t in PT.train_params(model).items()}
+    p_old = {k: t.clone() for k, t in p.items()}
+    state = popt.init(p)
+    step = PS.make_train_step(model, popt, clip_norm=0.01, microbatches=microbatches)
+    p_new, state, loss = step(p, state, _tbatch(batch))
+    assert p_new is p and state["step"] == 1
+    assert abs(float(loss) - float(r_loss)) <= 1e-5 * abs(float(r_loss))
+    conv = lambda tree: transformer_params_from_jax(jax.tree.map(np.asarray, tree))  # noqa: E731
+    # the step's rate at step 1 of warmup 2 is lr / 2
+    _adam_delta_check(p_new, conv(r_params), p_old, state["mu"], conv(r_state["adam"].mu), lr / 2)
+    for name, nu in state["nu"].items():
+        _close(nu, conv(r_state["adam"].nu)[name], 2e-4)
+
+
+def test_train_step_leafwise_update_equals_whole_dict_update():
+    """The step's leaf-by-leaf update equals one ``opt.update`` over the
+    whole dict bit for bit (two steps, so the moments and the step count
+    carry over)."""
+    _, pcfg = _pair("qwen3-4b")
+    model = PT.init_model(pcfg, torch.Generator().manual_seed(0), device="cpu")
+    opt = padamw(schedules.warmup_cosine(1e-3, 2, 20))
+    p = {k: t.clone() for k, t in PT.train_params(model).items()}
+    state = opt.init(p)
+    step = PS.make_train_step(model, opt)
+    whole, wstate = {k: t.clone() for k, t in p.items()}, opt.init(p)
+    from repro_torch.optim import apply_updates, clip_by_global_norm
+    for seed in (4, 5):
+        batch = _tbatch(_lm_batch(seed, 2, 16, pcfg.vocab))
+        _, grads = PS._loss_and_grads(lambda q: PT.forward_train(model, batch, q)[0], whole)
+        upd, wstate = opt.update(clip_by_global_norm(grads, 1.0), wstate, whole)
+        whole = apply_updates(whole, upd)
+        p, state, _ = step(p, state, batch)
+    assert state["step"] == wstate["step"] == 2
+    for k in p:
+        assert torch.equal(p[k], whole[k]), k
+        assert torch.equal(state["mu"][k], wstate["mu"][k]), k
+        assert torch.equal(state["nu"][k], wstate["nu"][k]), k
+
+
+@pytest.mark.parametrize("arch,batch,seq,dp,tp", [
+    ("qwen3-4b", 256, 4096, 1, 1), ("qwen3-4b", 256, 4096, 16, 4),
+    ("gemma-2b", 64, 2048, 8, 1), ("hymba-1.5b", 32, 4096, 4, 3),
+    ("mamba2-370m", 8, 128, 1, 1)])
+def test_suggest_microbatches_equals_reference(arch, batch, seq, dp, tp):
+    mesh = types.SimpleNamespace(axis_names=("data", "model"),
+                                 shape={"data": dp, "model": tp})
+    want = RS.suggest_microbatches(RC.get(arch), batch, seq, mesh)
+    assert PS.suggest_microbatches(PC.get(arch), batch, seq, data_parallel=dp,
+                                   model_parallel=tp) == want
+
+
+def test_train_launcher_runs_on_cpu(tmp_path):
+    """``python -m repro_torch.launch.train --device cpu`` at the reduced
+    default model: finite losses, and a checkpoint in the reference's
+    format with stacked layers."""
+    from repro_torch.checkpoint import load_pytree
+    ckpt = tmp_path / "train.ckpt"
+    out = ptrain.main(["--device", "cpu", "--steps", "3", "--seq", "32",
+                       "--ckpt", str(ckpt)])
+    assert len(out["losses"]) == 3 and np.isfinite(out["losses"]).all()
+    tree = load_pytree(str(ckpt))
+    assert tree["step"] == 3
+    cfg = PC.reduced(PC.get("qwen3-4b"))
+    assert tuple(np.asarray(tree["params"]["layers"]["attn"]["wq"]).shape) == \
+        (cfg.n_layers, cfg.d_model, cfg.n_heads * cfg.resolved_head_dim)
+
+
+@pytest.mark.parametrize("arch", list(FAMILIES))
+def test_input_shapes_and_make_batch_match_reference(arch):
+    """``make_batch`` gives the reference's train batch: its keys and
+    shapes, tokens inside the vocab, labels equal to the tokens as the
+    reference fills them; the same seed gives the same batch; the serving
+    kinds, which the port's launchers build themselves, raise."""
+    from repro.configs.base import make_batch as r_make_batch
+    rcfg, pcfg = _pair(arch)
+    want = r_make_batch(rcfg, RC.InputShape("t", 16, 2, "train"))
+    shape = PC.InputShape("t", 16, 2, "train")
+    got = PC.make_batch(pcfg, shape, seed=3)
+    assert set(got) == set(want) == {"batch"}
+    assert set(got["batch"]) == set(want["batch"]) == {"tokens", "labels"}
+    for k, v in want["batch"].items():
+        assert tuple(got["batch"][k].shape) == tuple(v.shape), k
+    tokens = got["batch"]["tokens"]
+    assert int(tokens.min()) >= 0 and int(tokens.max()) < pcfg.vocab
+    assert torch.equal(got["batch"]["labels"], tokens)
+    assert torch.equal(PC.make_batch(pcfg, shape, seed=3)["batch"]["tokens"], tokens)
+    with pytest.raises(ValueError, match="train batches only"):
+        PC.make_batch(pcfg, PC.InputShape("t", 16, 2, "prefill"))
+
+
+def test_active_param_count_equals_reference():
+    """Every ported family is dense: the reference's count of the params a
+    token touches is the port's whole count."""
+    for arch in PC.ARCH_IDS:
+        assert PT.param_count(PC.get(arch)) == RT.active_param_count(RC.get(arch))
+
+
+def _perturbation_spread(init: str, n: int = 5, steps: int = 2) -> dict:
+    """The CPU's own spread of a ``steps``-step SGD round of ``make_fl_round``
+    (reduced danube, window 16, batch 4 x 64, lr 0.05) when the weights are
+    perturbed by 1e-7 relative, ``n`` times: per leaf, the largest change
+    of the update over the perturbations, over the update's scale.  With
+    ``init="fan_in"`` the stacked layer matrices are first rescaled from
+    the reference init's ``1/sqrt(L)`` to ``1/sqrt(d_in)`` (the card test
+    ``test_reduced_dense_training_on_card_matches_cpu`` runs that)."""
+    cfg = dataclasses.replace(PC.reduced(PC.get("h2o-danube-1.8b")), sliding_window=16)
+
+    def model():
+        m = PT.init_model(cfg, torch.Generator().manual_seed(0))
+        if init == "fan_in":
+            with torch.no_grad():
+                for name, p in m.named_parameters():
+                    if name.startswith("layers.") and p.dim() == 2:
+                        p.mul_((cfg.n_layers / p.shape[0]) ** 0.5)
+        return m
+
+    toks = torch.randint(0, cfg.vocab, (4, 64), generator=torch.Generator().manual_seed(1))
+    labels, w = torch.roll(toks, -1, 1), torch.full((4,), 64.0)
+
+    def update(m):
+        start = {k: t.detach().clone() for k, t in PT.train_params(m).items()}
+        new = PS.make_fl_round(m, 1, learning_rate=0.05, local_steps=steps)(
+            PT.train_params(m), toks, labels, w)
+        return {k: new[k] - start[k] for k in start}
+
+    base = update(model())
+    spread = {k: 0.0 for k in base}
+    for s in range(n):
+        m = model()
+        g = torch.Generator().manual_seed(101 + s)
+        with torch.no_grad():
+            for p in m.parameters():
+                p.mul_(1 + 1e-7 * torch.randn(p.shape, generator=g))
+        for k, d in update(m).items():
+            spread[k] = max(spread[k], float((d - base[k]).abs().max()))
+    return {k: spread[k] / max(float(base[k].abs().max()), 1e-30) for k in base}
+
+
+def test_round_perturbation_spread_at_reference_and_fan_in_init():
+    """Why the card-vs-CPU training test rescales the weights: at the
+    reference's init a 1e-7 weight perturbation moves the CPU round's
+    embedding update by more than 3 % of its scale (9.4 % measured
+    here), so fp32 agreement there says nothing about the algorithm; at
+    the standard fan-in every leaf stays within 1e-4 of its scale
+    (4.7e-5 measured)."""
+    ref_init = _perturbation_spread("reference")
+    assert ref_init["embed"] > 3e-2, ref_init["embed"]
+    fan_in = _perturbation_spread("fan_in")
+    assert max(fan_in.values()) <= 1e-4, max(fan_in.items(), key=lambda kv: kv[1])

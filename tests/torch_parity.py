@@ -489,3 +489,14 @@ def reference_async(jmodel, params, fed, *, kind: str, clients: int, batch: int,
     if pending:
         params = commit(pending, rounds)
     return params, comm, log
+
+
+def adapter_tree_to_jax(tree: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """Inverse of ``repro_torch.convert.adapter_tree_from_jax``: the port's
+    flat ``{path: tensor}`` LoRA tree as the reference's numpy leaves;
+    bfloat16 tensors come back as float32 arrays of the same values."""
+    out = {}
+    for path, t in tree.items():
+        t = t.detach().cpu()
+        out[path] = (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+    return out
