@@ -6,6 +6,7 @@ zoo's other head dims and SSD widths), for the ``repro_torch`` of any
 source tree (to compare two commits in one run):
 
   python3 src/repro_torch/examples/kernel_times.py [--src TREE/src] [--label NAME] [--out FILE]
+      [--only flash_attention,flash_attention_bwd]
   python3 src/repro_torch/examples/kernel_times.py --profiler-sessions 100
   python3 src/repro_torch/examples/kernel_times.py --ptxas --sass
 
@@ -20,11 +21,15 @@ two trees' passes, and the least time the card could take); the warp
 rows add ``F.grid_sample``'s event ms on the same inputs, the fp32 flash
 rows SDPA's (fp32, explicit mask, KV heads repeated outside the call),
 the backward rows SDPA's backward in the same dtype (its forward graph
-built once outside the timed call);
+built once outside the timed call) and, where the tree's wrapper takes
+the forward's log-sum-exp, the call with it (the training path), each of
+its kernels' device ms and in bf16 every head split of the dK/dV pass;
+the bf16 forward rows the forward writing that log-sum-exp;
 the greedy, scoring and SSD rows give the least time the card could take,
 and the scoring rows the launch plan where the tree has one.  A shape
 a tree's wrapper refuses gets a row with its error and no times.
-``chip_smoke.py`` uses the timing and bound helpers below.
+``--only`` times the named kernels' rows alone.  ``chip_smoke.py`` uses
+the timing and bound helpers below.
 ``--profiler-sessions N`` instead counts the device kernels the profiler
 records in N sessions of one ``fedavg_agg`` call each (the one-kernel
 check of ``tests/test_torch_cuda.py``), to tell a missed record from an
@@ -180,6 +185,25 @@ def time_ms(fn, min_ms: float = 50.0, max_reps: int = 4096) -> float:
         reps = min(max_reps, reps * max(2, int(math.ceil(min_ms / max(total, 1e-3)))))
 
 
+def kernel_breakdown(fn, event_ms: float) -> dict[str, float]:
+    """Mean device ms per call of each kernel ``fn`` launches, by its short
+    name (``bwd_dkdv_tc_kernel<128>``), from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    calls = max(1, min(20, int(200.0 / max(event_ms, 1e-3))))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = collections.defaultdict(float)
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            m = re.search(r"(\w+_kernel)(<[^>(]*>)?", e.key)
+            name = (m.group(1) + (m.group(2) or "")) if m else e.key[:60]
+            out[name] += getattr(e, "self_device_time_total", 0.0) / calls / 1e3
+    return dict(out)
+
+
 def device_profile(fn, event_ms: float) -> tuple[float | None, float]:
     """Mean device ms per call of the kernels ``fn`` launches, summed, and
     the mean number of device kernels per call, from ``torch.profiler``
@@ -212,11 +236,13 @@ FEDAVG_SHAPES = [(16, 68_873, torch.float32), (16, 68_873, torch.bfloat16),
 # danube's and qwen3's heads, gemma's layer
 FLASH_SHAPES = [(4, 2048, 25, 5, 64, 1024), (1, 2048, 32, 8, 80, 4096),
                 (1, 2048, 32, 8, 128, None), (4, 2048, 8, 1, 256, None)]
-# (b, s, H, KV, d, window) of the attention backward, timed in bf16 and
-# fp32: qwen3-4b's training layer, the reduced configs' layer, danube's
-# head under a window, gemma's layer
-FLASH_BWD_SHAPES = [(4, 128, 32, 8, 128, None), (4, 128, 4, 4, 64, None),
-                    (1, 2048, 32, 8, 80, 1024), (4, 1024, 8, 1, 256, None)]
+# (b, sq, skv, H, KV, d, window, q_offset) of the attention backward
+# (chip_smoke.py phase 3's), timed in bf16 and fp32: qwen3-4b's training
+# layer, the reduced configs' layer, danube's head under a window with a
+# query offset, gemma's layer
+FLASH_BWD_SHAPES = [(4, 128, 128, 32, 8, 128, None, 0), (4, 128, 128, 4, 4, 64, None, 0),
+                    (1, 1024, 2048, 32, 8, 80, 512, 1024),
+                    (4, 1024, 1024, 8, 1, 256, None, 0)]
 # (B, H, W, C) of the warp: the EMNIST round's slots (16 clients x 460), the
 # CINIC batch of phase 3, a rectangular image
 WARP_SHAPES = [(7360, 28, 28, 1), (4096, 32, 32, 3), (7360, 20, 36, 3)]
@@ -260,128 +286,184 @@ def grid_sample(nchw, grid):
                          align_corners=True)
 
 
-def measure() -> list[dict]:
+def _accepts(fn, name: str) -> bool:
+    """Whether ``fn`` (a tree's wrapper) takes the keyword ``name``."""
+    import inspect
+    return name in inspect.signature(fn).parameters
+
+
+def flash_bwd_rows(gen, dev) -> list[dict]:
+    """The attention backward at ``FLASH_BWD_SHAPES`` in bf16 and fp32: the
+    direct call (the tree's wrapper finds the row statistics itself)
+    beside its plain version, the bound, SDPA's backward and, where the
+    tree's wrapper takes them, the call with the forward's lse (the
+    training path) and its kernels' device ms, and in bf16 each head split
+    of the dK/dV pass."""
+    from repro_torch.kernels import ops, ref
+    rows = []
+    with_lse = _accepts(ops.flash_attention_bwd, "lse")
+    with_split = hasattr(ops, "_flash_bwd_launch")
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, sq, skv, h, kv, d, window, off in FLASH_BWD_SHAPES:
+            kw = dict(causal=True, window=window, q_offset=off)
+            q, dout = (torch.randn(b, sq, h, d, generator=gen, device=dev).to(dtype)
+                       for _ in range(2))
+            k, v = (torch.randn(b, skv, kv, d, generator=gen, device=dev).to(dtype)
+                    for _ in range(2))
+            mask = ref.attention_mask(sq, skv, device=dev, **kw)
+            out = ops.flash_attention(q, k, v, **kw)
+            b_ms, by = flash_bwd_bound(q, k, mask)
+            row = {"kernel": "flash_attention_bwd",
+                   "shape": f"b={b} sq={sq} skv={skv} H={h} KV={kv} d={d} W={window} "
+                            f"off={off} {str(dtype)[6:]}", "bound_ms": b_ms, "bound_by": by}
+            row = _timed_row(row, lambda: ops.flash_attention_bwd(q, k, v, out, dout, **kw),
+                             lambda: ref.flash_attention_bwd(q, k, v, out, dout, **kw))
+            if with_lse:
+                _, lse = ops._flash_forward(q, k, v, True, window, off, with_lse=True)
+                call = lambda: ops.flash_attention_bwd(  # noqa: E731
+                    q, k, v, out, dout, lse=lse, **kw)
+                row["lse_ms"] = time_ms(call)
+                row["lse_device_ms"] = device_profile(call, row["lse_ms"])[0]
+                row["lse_kernels_device_ms"] = kernel_breakdown(call, row["lse_ms"])
+                if with_split and dtype == torch.bfloat16:
+                    row["split"] = ops.flash_bwd_split(
+                        b, sq, skv, kv, h // kv, ops._sm_count(dev.index),
+                        keys=ops.flash_bwd_keys(d), **kw)
+                    row["split_ms"], row["split_device_ms"] = {}, {}
+                    for s in (s for s in range(1, h // kv + 1) if (h // kv) % s == 0):
+                        fn = lambda: ops._flash_bwd_launch(  # noqa: E731
+                            q, k, v, out, dout, lse, s, **kw)
+                        row["split_ms"][s] = time_ms(fn)
+                        row["split_device_ms"][s] = device_profile(fn, row["split_ms"][s])[0]
+                del lse
+            lib = sdpa_backward(q, k, v, dout, mask)
+            row["sdpa_bwd_ms"] = time_ms(lib)
+            row["sdpa_bwd_device_ms"] = device_profile(lib, row["sdpa_bwd_ms"])[0]
+            rows.append(row)
+            del q, k, v, out, dout, lib
+    return rows
+
+
+def measure(only: set[str] | None = None) -> list[dict]:
     from repro_torch.kernels import ops, ref
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
-    for m, n, dtype in FEDAVG_SHAPES:
-        d = torch.randn(m, n, generator=gen, device=dev).to(dtype)
-        w = torch.rand(m, generator=gen, device=dev) * 100 + 1
-        err = float((ops.fedavg_agg(d, w).double() - ref.fedavg_agg(d, w).double()).abs().max())
-        call = lambda: ops.fedavg_agg(d, w)      # noqa: E731
-        ms = time_ms(call)
-        dev_ms, kernels = device_profile(call, ms)
-        rows.append({"kernel": "fedavg_agg", "shape": f"M={m} N={n} {str(dtype)[6:]}",
-                     "ms": ms, "device_ms": dev_ms, "kernels_per_call": kernels,
-                     "max_abs_err": err})
-    for dtype in (torch.bfloat16, torch.float32):
-        for b, s, h, kv, d, window in FLASH_SHAPES:
-            q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
-            k = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
-            v = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
-            mask = ref.attention_mask(s, s, causal=True, window=window, q_offset=0,
-                                      device=dev)
-            b_ms, by = flash_bound(q, k, mask)
-            row = {"kernel": "flash_attention",
-                   "shape": f"b={b} s={s} H={h} KV={kv} d={d} W={window} {str(dtype)[6:]}",
-                   "bound_ms": b_ms, "bound_by": by}
-            row = _timed_row(row, lambda: ops.flash_attention(q, k, v, window=window),
-                             lambda: ref.flash_attention(q, k, v, window=window))
-            if dtype == torch.float32 and row["ms"] is not None:
-                # the library's fp32 attention on the same inputs and mask
-                qt = q.transpose(1, 2).contiguous()
-                kt, vt = (t.repeat_interleave(h // kv, dim=2).transpose(1, 2).contiguous()
-                          for t in (k, v))
-                sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                    qt, kt, vt, attn_mask=mask)
-                row["sdpa_ms"] = time_ms(sdpa)
-                row["sdpa_device_ms"] = device_profile(sdpa, row["sdpa_ms"])[0]
-                del qt, kt, vt
-            rows.append(row)
-            del q, k, v
-    if hasattr(ops, "flash_attention_bwd"):         # absent in older trees
+    rng = np.random.default_rng(0)
+
+    def want(name: str) -> bool:
+        return only is None or name in only
+
+    if want("fedavg_agg"):
+        for m, n, dtype in FEDAVG_SHAPES:
+            d = torch.randn(m, n, generator=gen, device=dev).to(dtype)
+            w = torch.rand(m, generator=gen, device=dev) * 100 + 1
+            err = float((ops.fedavg_agg(d, w).double() - ref.fedavg_agg(d, w).double()).abs().max())
+            call = lambda: ops.fedavg_agg(d, w)      # noqa: E731
+            ms = time_ms(call)
+            dev_ms, kernels = device_profile(call, ms)
+            rows.append({"kernel": "fedavg_agg", "shape": f"M={m} N={n} {str(dtype)[6:]}",
+                         "ms": ms, "device_ms": dev_ms, "kernels_per_call": kernels,
+                         "max_abs_err": err})
+    if want("flash_attention"):
         for dtype in (torch.bfloat16, torch.float32):
-            for b, s, h, kv, d, window in FLASH_BWD_SHAPES:
-                q, dout = (torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
-                           for _ in range(2))
-                k, v = (torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
-                        for _ in range(2))
+            for b, s, h, kv, d, window in FLASH_SHAPES:
+                q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
+                k = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
+                v = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
                 mask = ref.attention_mask(s, s, causal=True, window=window, q_offset=0,
                                           device=dev)
-                out = ops.flash_attention(q, k, v, window=window)
-                b_ms, by = flash_bwd_bound(q, k, mask)
-                row = {"kernel": "flash_attention_bwd",
-                       "shape": f"b={b} s={s} H={h} KV={kv} d={d} W={window} "
-                                f"{str(dtype)[6:]}", "bound_ms": b_ms, "bound_by": by}
-                row = _timed_row(
-                    row, lambda: ops.flash_attention_bwd(q, k, v, out, dout, window=window),
-                    lambda: ref.flash_attention_bwd(q, k, v, out, dout, window=window))
-                lib = sdpa_backward(q, k, v, dout, mask)
-                row["sdpa_bwd_ms"] = time_ms(lib)
-                row["sdpa_bwd_device_ms"] = device_profile(lib, row["sdpa_bwd_ms"])[0]
+                b_ms, by = flash_bound(q, k, mask)
+                row = {"kernel": "flash_attention",
+                       "shape": f"b={b} s={s} H={h} KV={kv} d={d} W={window} {str(dtype)[6:]}",
+                       "bound_ms": b_ms, "bound_by": by}
+                row = _timed_row(row, lambda: ops.flash_attention(q, k, v, window=window),
+                                 lambda: ref.flash_attention(q, k, v, window=window))
+                if _accepts(ops._flash_forward, "with_lse") and row["ms"] is not None:
+                    # what writing the backward's lse costs the forward
+                    fwd = lambda: ops._flash_forward(  # noqa: E731
+                        q, k, v, True, window, 0, with_lse=True)
+                    row["lse_ms"] = time_ms(fwd)
+                    row["lse_device_ms"] = device_profile(fwd, row["lse_ms"])[0]
+                if dtype == torch.float32 and row["ms"] is not None:
+                    # the library's fp32 attention on the same inputs and mask
+                    qt = q.transpose(1, 2).contiguous()
+                    kt, vt = (t.repeat_interleave(h // kv, dim=2).transpose(1, 2).contiguous()
+                              for t in (k, v))
+                    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                        qt, kt, vt, attn_mask=mask)
+                    row["sdpa_ms"] = time_ms(sdpa)
+                    row["sdpa_device_ms"] = device_profile(sdpa, row["sdpa_ms"])[0]
+                    del qt, kt, vt
                 rows.append(row)
-                del q, k, v, out, dout, lib
-    for b, h, w, c in WARP_SHAPES:
-        imgs, mats, trans, nchw, grid = warp_inputs(b, h, w, c, gen, dev)
-        err = float((ops.affine_warp(imgs, mats, trans)
-                     - ref.affine_warp(imgs, mats, trans)).abs().max())
-        call = lambda: ops.affine_warp(imgs, mats, trans)          # noqa: E731
-        ms = time_ms(call)
-        dev_ms, kernels = device_profile(call, ms)
-        lib = lambda: grid_sample(nchw, grid)                      # noqa: E731
-        lib_ms = time_ms(lib)
-        rows.append({"kernel": "affine_warp", "shape": f"B={b} {h}x{w}x{c}",
-                     "ms": ms, "device_ms": dev_ms, "kernels_per_call": kernels,
-                     "max_abs_err": err, "grid_sample_ms": lib_ms,
-                     "grid_sample_device_ms": device_profile(lib, lib_ms)[0]})
-    from repro_torch.core import scheduling
-    rng = np.random.default_rng(0)
-    for k, c, gamma in GREEDY_SHAPES:
-        counts_np = rng.integers(0, 200, (k, c))
-        counts = torch.as_tensor(counts_np, dtype=torch.float32, device=dev)
-        kp = ops.kld_greedy_picks(counts, gamma).cpu().numpy()
-        div = scheduling.first_divergence(counts_np, gamma,
-                                          ref.kld_greedy_picks(counts, gamma).cpu().numpy(),
-                                          kp)
-        call = lambda: ops.kld_greedy_picks(counts, gamma)         # noqa: E731
-        ms = time_ms(call)
-        dev_ms, kernels = device_profile(call, ms)
-        b_ms, by = greedy_bound(k, c, gamma)
-        # the picks' digest tells two trees' passes apart without the picks
-        rows.append({"kernel": "kld_greedy_picks", "shape": f"K={k} C={c} gamma={gamma}",
-                     "ms": ms, "device_ms": dev_ms, "kernels_per_call": kernels,
-                     "bound_ms": b_ms, "bound_by": by,
-                     "max_abs_err": 0.0 if div is None else abs(div["score_a"] - div["score_b"]),
-                     "first_divergence_from_plain": div, "us_per_step": 1e3 * ms / k,
-                     "picks_sha256": hashlib.sha256(kp.astype(np.int32).tobytes()).hexdigest()})
-    for k, c in SCORE_SHAPES:
-        med = torch.as_tensor(rng.random(c) * 100, dtype=torch.float32, device=dev)
-        cand = torch.as_tensor(rng.random((k, c)) * 50, dtype=torch.float32, device=dev)
-        b_ms, by = score_bound(1, k, c)
-        row = {"kernel": "kld_score", "shape": f"K={k} C={c}", "bound_ms": b_ms,
-               "bound_by": by}
-        if hasattr(ops, "kld_score_plan"):          # absent in older trees
-            row["plan"] = ops.kld_score_plan(k, c)
-        rows.append(_timed_row(row, lambda: ops.kld_score(med, cand),
-                               lambda: ref.kld_score(med, cand)))
-    for m, k, c in MATRIX_SHAPES:
-        meds = torch.as_tensor(rng.random((m, c)) * 100, dtype=torch.float32, device=dev)
-        cand = torch.as_tensor(rng.random((k, c)) * 50, dtype=torch.float32, device=dev)
-        b_ms, by = score_bound(m, k, c)
-        row = {"kernel": "kld_score_matrix", "shape": f"M={m} K={k} C={c}",
-               "bound_ms": b_ms, "bound_by": by}
-        if hasattr(ops, "kld_score_matrix_plan"):   # absent in older trees
-            row["plan"] = ops.kld_score_matrix_plan(m, k, c, meds, cand)
-        rows.append(_timed_row(row, lambda: ops.kld_score_matrix(meds, cand),
-                               lambda: ref.kld_score_matrix(meds, cand)))
-    for b, nc, L, h, p, n, dtype in SSD_SHAPES:
-        args = ssd_inputs(b, nc, L, h, p, n, dtype, gen, dev)
-        b_ms, by = ssd_bound(b, nc, L, h, p, n, dtype)
-        row = {"kernel": "ssd_chunk", "shape": f"b={b} nc={nc} L={L} h={h} p={p} n={n} "
-                                               f"{str(dtype)[6:]}",
-               "bound_ms": b_ms, "bound_by": by}
-        rows.append(_timed_row(row, lambda: ops.ssd_chunk(*args), lambda: ref.ssd_chunk(*args)))
+                del q, k, v
+    if want("flash_attention_bwd"):
+        if hasattr(ops, "flash_attention_bwd"):         # absent in older trees
+            rows += flash_bwd_rows(gen, dev)
+    if want("affine_warp"):
+        for b, h, w, c in WARP_SHAPES:
+            imgs, mats, trans, nchw, grid = warp_inputs(b, h, w, c, gen, dev)
+            err = float((ops.affine_warp(imgs, mats, trans)
+                         - ref.affine_warp(imgs, mats, trans)).abs().max())
+            call = lambda: ops.affine_warp(imgs, mats, trans)          # noqa: E731
+            ms = time_ms(call)
+            dev_ms, kernels = device_profile(call, ms)
+            lib = lambda: grid_sample(nchw, grid)                      # noqa: E731
+            lib_ms = time_ms(lib)
+            rows.append({"kernel": "affine_warp", "shape": f"B={b} {h}x{w}x{c}",
+                         "ms": ms, "device_ms": dev_ms, "kernels_per_call": kernels,
+                         "max_abs_err": err, "grid_sample_ms": lib_ms,
+                         "grid_sample_device_ms": device_profile(lib, lib_ms)[0]})
+    if want("kld_greedy_picks"):
+        from repro_torch.core import scheduling
+        for k, c, gamma in GREEDY_SHAPES:
+            counts_np = rng.integers(0, 200, (k, c))
+            counts = torch.as_tensor(counts_np, dtype=torch.float32, device=dev)
+            kp = ops.kld_greedy_picks(counts, gamma).cpu().numpy()
+            div = scheduling.first_divergence(counts_np, gamma,
+                                              ref.kld_greedy_picks(counts, gamma).cpu().numpy(),
+                                              kp)
+            call = lambda: ops.kld_greedy_picks(counts, gamma)         # noqa: E731
+            ms = time_ms(call)
+            dev_ms, kernels = device_profile(call, ms)
+            b_ms, by = greedy_bound(k, c, gamma)
+            # the picks' digest tells two trees' passes apart without the picks
+            rows.append({"kernel": "kld_greedy_picks", "shape": f"K={k} C={c} gamma={gamma}",
+                         "ms": ms, "device_ms": dev_ms, "kernels_per_call": kernels,
+                         "bound_ms": b_ms, "bound_by": by,
+                         "max_abs_err": 0.0 if div is None else abs(div["score_a"] - div["score_b"]),
+                         "first_divergence_from_plain": div, "us_per_step": 1e3 * ms / k,
+                         "picks_sha256": hashlib.sha256(kp.astype(np.int32).tobytes()).hexdigest()})
+    if want("kld_score"):
+        for k, c in SCORE_SHAPES:
+            med = torch.as_tensor(rng.random(c) * 100, dtype=torch.float32, device=dev)
+            cand = torch.as_tensor(rng.random((k, c)) * 50, dtype=torch.float32, device=dev)
+            b_ms, by = score_bound(1, k, c)
+            row = {"kernel": "kld_score", "shape": f"K={k} C={c}", "bound_ms": b_ms,
+                   "bound_by": by}
+            if hasattr(ops, "kld_score_plan"):          # absent in older trees
+                row["plan"] = ops.kld_score_plan(k, c)
+            rows.append(_timed_row(row, lambda: ops.kld_score(med, cand),
+                                   lambda: ref.kld_score(med, cand)))
+    if want("kld_score_matrix"):
+        for m, k, c in MATRIX_SHAPES:
+            meds = torch.as_tensor(rng.random((m, c)) * 100, dtype=torch.float32, device=dev)
+            cand = torch.as_tensor(rng.random((k, c)) * 50, dtype=torch.float32, device=dev)
+            b_ms, by = score_bound(m, k, c)
+            row = {"kernel": "kld_score_matrix", "shape": f"M={m} K={k} C={c}",
+                   "bound_ms": b_ms, "bound_by": by}
+            if hasattr(ops, "kld_score_matrix_plan"):   # absent in older trees
+                row["plan"] = ops.kld_score_matrix_plan(m, k, c, meds, cand)
+            rows.append(_timed_row(row, lambda: ops.kld_score_matrix(meds, cand),
+                                   lambda: ref.kld_score_matrix(meds, cand)))
+    if want("ssd_chunk"):
+        for b, nc, L, h, p, n, dtype in SSD_SHAPES:
+            args = ssd_inputs(b, nc, L, h, p, n, dtype, gen, dev)
+            b_ms, by = ssd_bound(b, nc, L, h, p, n, dtype)
+            row = {"kernel": "ssd_chunk", "shape": f"b={b} nc={nc} L={L} h={h} p={p} n={n} "
+                                                   f"{str(dtype)[6:]}",
+                   "bound_ms": b_ms, "bound_by": by}
+            rows.append(_timed_row(row, lambda: ops.ssd_chunk(*args), lambda: ref.ssd_chunk(*args)))
     return rows
 
 
@@ -530,6 +612,9 @@ def main() -> int:
                     help="print the fp32 flash and matrix kernels' registers and spills")
     ap.add_argument("--sass", action="store_true",
                     help="count the matrix scorer's SASS instructions per class")
+    ap.add_argument("--only", default=None,
+                    help="time only these kernels (comma-separated ops names, e.g. "
+                         "flash_attention,flash_attention_bwd)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device available", file=sys.stderr)
@@ -565,7 +650,7 @@ def main() -> int:
                           f"{issue_floor_ms(m, k, c, r['per_class'], mhz, sms):.6f} ms "
                           f"({r['per_class']:.2f} a class)", flush=True)
         return 0
-    rows = measure()
+    rows = measure(None if args.only is None else set(args.only.split(",")))
     for r in rows:
         if "refused" in r:
             print(f"[{args.label}] {r['kernel']:16s} {r['shape']:36s} refused: {r['refused']}",
@@ -581,6 +666,15 @@ def main() -> int:
             extra += f", plan {r['plan']}"
         if "sdpa_ms" in r:
             extra += f", SDPA fp32 {r['sdpa_ms']:.4f} ms (device {r['sdpa_device_ms']})"
+        if "lse_ms" in r:
+            extra += f", with lse {r['lse_ms']:.4f} ms (device {r['lse_device_ms']})"
+        if "lse_kernels_device_ms" in r:
+            extra += ", kernels " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                              r["lse_kernels_device_ms"].items())
+        if "split_device_ms" in r:
+            extra += (f", split {r['split']}; event (device) ms by split " + ", ".join(
+                f"{k}: {r['split_ms'][k]:.4f} ({r['split_device_ms'][k]})"
+                for k in r["split_ms"]))
         if "sdpa_bwd_ms" in r:
             extra += (f", SDPA backward {r['sdpa_bwd_ms']:.4f} ms "
                       f"(device {r['sdpa_bwd_device_ms']})")

@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fedavg_agg.cu", "kld_greedy.cu", "kld_score.cu", "affine_warp.cu",
            "flash_attention.cu", "flash_attention_bwd.cu", "ssd_chunk.cu")
 # headers the sources include (hashed into the library's name with them)
-HEADERS = ("kld_common.cuh", "mbarrier.cuh")
+HEADERS = ("flash_common.cuh", "kld_common.cuh", "mbarrier.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -44,10 +44,10 @@ SIGNATURES = {
     "kld_score_f32": (_P, _P, _P, _I, _I, _P),
     "kld_score_matrix_f32": (_P, _P, _P, _I, _I, _I, _P),
     "affine_warp_f32": (_P, _P, _P, _P, _I64, _I, _I, _I, _P),
-    "flash_attention_f32": (_P, _P, _P, _P, *(_I,) * 9, _F, _P),
-    "flash_attention_bf16": (_P, _P, _P, _P, *(_I,) * 9, _F, _P),
-    "flash_attention_bwd_f32": (*(_P,) * 9, *(_I,) * 9, _F, _P),
-    "flash_attention_bwd_bf16": (*(_P,) * 9, *(_I,) * 9, _F, _P),
+    "flash_attention_f32": (*(_P,) * 5, *(_I,) * 9, _F, _P),
+    "flash_attention_bf16": (*(_P,) * 5, *(_I,) * 9, _F, _P),
+    "flash_attention_bwd_f32": (*(_P,) * 11, *(_I,) * 10, _F, _P),
+    "flash_attention_bwd_bf16": (*(_P,) * 11, *(_I,) * 10, _F, _P),
     "ssd_chunk_f32": (*(_P,) * 8, *(_I,) * 6, _P),
     "ssd_chunk_bf16": (*(_P,) * 8, *(_I,) * 6, _P),
 }

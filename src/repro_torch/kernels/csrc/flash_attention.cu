@@ -21,7 +21,10 @@
 // the GQA repeat is never materialized and no transpose is needed.  KV
 // tiles that the causal and window masks leave empty for the whole query
 // tile are skipped (exact; it halves the work at s = 2W).  Head dims 64, 80,
-// 128 and 256 are instantiated.
+// 128 and 256 are instantiated.  Given an `lse` pointer (training asks,
+// serving passes null), both kernels also write each row's natural-log
+// log-sum-exp of its scaled visible scores, +inf for a row that sees no
+// key, for the backward (flash_attention_bwd.cu).
 //
 // bf16 (flash_bf16_tc_kernel): the tensor cores, through wgmma.  One CTA
 // per (64-query tile, query head, batch) holds one consumer warpgroup and
@@ -90,21 +93,30 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "flash_common.cuh"
 #include "mbarrier.cuh"
 
 namespace {
 
 using namespace repro_ptx;
+using namespace repro_flash;
 
 constexpr float kMasked = -1e30f;
 
-// Raises a kernel's dynamic shared memory limit once per instantiation (a
-// function-local static: set on the first launch, thread-safe).
-template <auto kKernel>
-cudaError_t smem_limit_once(size_t bytes) {
-  static const cudaError_t err = cudaFuncSetAttribute(
-      kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  return err;
+// Fills n floats with `value` (lse of rows that see no key: +inf).
+__global__ void fill_f32_kernel(float* __restrict__ p, int64_t n, float value) {
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < n;
+       i += static_cast<int64_t>(gridDim.x) * blockDim.x)
+    p[i] = value;
+}
+
+cudaError_t fill_f32(float* p, int64_t n, float value, cudaStream_t stream) {
+  if (n <= 0) return cudaGetLastError();
+  const int blocks = static_cast<int>(n / 256 + 1 < 1024 ? n / 256 + 1 : 1024);
+  fill_f32_kernel<<<blocks, 256, 0, stream>>>(p, n, value);
+  return cudaGetLastError();
 }
 
 // ------------------------------------------------------------------ bf16
@@ -115,8 +127,6 @@ constexpr int kKeys = 64;                   // keys per KV tile
 constexpr int kStages = 2;                  // K/V ring depth
 constexpr int kConsumers = 128;             // the consumer warpgroup
 constexpr int kThreadsTc = kConsumers + 32; // + the producer warp
-constexpr int kSubBytes = 64 * 64 * 2;      // a 64 x 64 bf16 box, 128-byte rows
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct Shape {
@@ -129,108 +139,20 @@ struct Shape {
       1024 + static_cast<size_t>(kTileBytes) * (1 + 2 * kStages) + 8 * (1 + 3 * kStages);
 };
 
-// One 4-D TMA box (c0 fastest) into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1, int c2,
-                                            int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: rows of
-// 128 bytes, 8-row groups 1,024 bytes apart.  Both byte offsets are set to
-// that group stride: it is the only stride these m64n64k16 operands use
-// (a K-major k16 slice lies inside one 128-byte row; an MN-major one spans
-// exactly one 64-element swizzle atom).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  constexpr uint64_t kGroup = 1024 >> 4;
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (kGroup << 16) |
-         (kGroup << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma boundary.
-__device__ __forceinline__ void fence_regs(float (&r)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-// d (64 x 64, fp32 fragment) += A (64 x 16, smem) * B (16 x 64, smem),
-// both K-major; scale_d = 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
-                                         int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d (64 x 64) += A (64 x 16, bf16 pairs in registers) * B (16 x 64, smem,
-// MN-major: the transpose bit is set).
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // Accumulator fragment of m64nNk16 (fp32): register i of thread (warp w,
 // lane l) holds row 16w + l/4 + 8*((i/2)%2), column 8*(i/4) + 2*(l%4) + i%2.
+//
+// `lse` (b, H, sq) fp32, or null: each row's natural-log log-sum-exp of its
+// scaled visible scores, (m + log2 l) ln 2 from the log2-domain running max
+// m and sum l, and +inf for a row that sees no key (so exp(s - lse) = 0
+// there).
 template <int D>
 __global__ void __launch_bounds__(kThreadsTc)
 flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap kmap,
                      const __grid_constant__ CUtensorMap vmap,
-                     __nv_bfloat16* __restrict__ out, int sq, int skv, int n_heads,
-                     int n_kv, int causal, int window, int q_offset,
+                     __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int sq,
+                     int skv, int n_heads, int n_kv, int causal, int window, int q_offset,
                      float scale_log2) {
   using S = Shape<D>;
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -299,7 +221,7 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   // ---- consumers: the warpgroup owns the tile's 64 query rows
   const int row0 = warp * 16 + lane / 4;   // this thread's rows: row0, row0 + 8
   const int col0 = 2 * (lane % 4);
-  float o[S::kSubs][32];
+  float o[S::kSubs][32];                   // O's 64-column boxes
 #pragma unroll
   for (int j = 0; j < S::kSubs; ++j)
 #pragma unroll
@@ -325,8 +247,8 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < S::kQkSteps; ++kk) {
-      const uint32_t off = (kk / 4) * kSubBytes + (kk % 4) * 32;
-      wgmma_ss(s, sw128_desc(q_addr + off), sw128_desc(k_addr + off), kk > 0);
+      wgmma_ss(s, sw128_desc(q_addr + kmajor_step(kk)), sw128_desc(k_addr + kmajor_step(kk)),
+               kk > 0);
     }
     wg_commit();
     wg_wait_all();
@@ -380,11 +302,7 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       for (int i = 0; i < 32; ++i) o[j][i] *= corr[(i >> 1) & 1];
     // P in bf16: the S fragment of keys [16kk, 16kk + 16) is the A fragment
     uint32_t pa[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int x = 0; x < 4; ++x)
-        pa[kk][x] = pack_bf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
+    pack_a(s, pa);
 
     // O += P V
     mbar_wait(full_v + st, parity);
@@ -400,7 +318,7 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     wg_wait_all();
 #pragma unroll
     for (int j = 0; j < S::kSubs; ++j) fence_regs(o[j]);
-    mbar_arrive(empty + st);               // this stage's K and V are free
+    mbar_arrive(empty + st);                 // this stage's K and V are free
   }
 
   float den[2];
@@ -409,6 +327,10 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
     den[r] = fmaxf(l_r[r], 1e-30f);
+    const int row = q0 + row0 + 8 * r;
+    if (lse != nullptr && col0 == 0 && row < sq)
+      lse[(static_cast<int64_t>(b) * n_heads + h) * sq + row] =
+          l_r[r] > 0.f ? (m_r[r] + log2f(l_r[r])) * (1.f / kLog2e) : INFINITY;
   }
 #pragma unroll
   for (int j = 0; j < S::kSubs; ++j)
@@ -426,64 +348,29 @@ flash_bf16_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     }
 }
 
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-// libcuda's cuTensorMapEncodeTiled, looked up once through the runtime's
-// entry-point query (no -lcuda on the link line); null if it is missing.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// TMA map of a (b, s, heads, d) bf16 tensor as the 4-D (d, heads, s, b)
-// view, 64 x 1 x 64 x 1 boxes, 128-byte swizzle, zero fill out of bounds.
-bool make_map(CUtensorMap* map, const void* ptr, int d, int heads, int s, int b) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(s), static_cast<cuuint64_t>(b)};
-  const cuuint64_t row = static_cast<cuuint64_t>(d) * 2;
-  const cuuint64_t strides[3] = {row, row * heads, row * heads * s};
-  const cuuint32_t box[4] = {64, 1, kKeys, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int b, int sq,
-           int skv, int n_heads, int n_kv, int causal, int window, int q_offset,
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int b,
+           int sq, int skv, int n_heads, int n_kv, int causal, int window, int q_offset,
            float scale, cudaStream_t stream) {
   if (skv <= 0) {                           // no key: every row is zero
     cudaMemsetAsync(out, 0, static_cast<size_t>(b) * sq * n_heads * D * 2, stream);
+    if (lse != nullptr)
+      return static_cast<int>(fill_f32(lse, static_cast<int64_t>(b) * n_heads * sq,
+                                       INFINITY, stream));
     return static_cast<int>(cudaGetLastError());
   }
   const int q_tiles = (sq + kRowsQ - 1) / kRowsQ;
   if (q_tiles > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
   CUtensorMap qmap, kmap, vmap;
-  if (!make_map(&qmap, q, D, n_heads, sq, b) || !make_map(&kmap, k, D, n_kv, skv, b) ||
-      !make_map(&vmap, v, D, n_kv, skv, b))
+  if (!make_map_bf16(&qmap, q, D, n_heads, sq, b) ||
+      !make_map_bf16(&kmap, k, D, n_kv, skv, b) ||
+      !make_map_bf16(&vmap, v, D, n_kv, skv, b))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = flash_bf16_tc_kernel<D>;
+  const dim3 grid(static_cast<unsigned>(b) * n_heads, q_tiles);
   const cudaError_t err = smem_limit_once<flash_bf16_tc_kernel<D>>(Shape<D>::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(b) * n_heads, q_tiles);
-  kern<<<grid, kThreadsTc, Shape<D>::kSmem, stream>>>(
-      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), sq, skv, n_heads, n_kv,
+  flash_bf16_tc_kernel<D><<<grid, kThreadsTc, Shape<D>::kSmem, stream>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), lse, sq, skv, n_heads, n_kv,
       causal, window, q_offset, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -535,7 +422,7 @@ __device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
   mbar_expect_tx(bar, Shape<D>::kTileBytes);
 #pragma unroll
   for (int j = 0; j < Shape<D>::kBoxes; ++j)
-    tc::tma_load_4d(dst + j * kBoxBytes, map, bar, kBox * j, g, k0, b);
+    tma_load_4d(dst + j * kBoxBytes, map, bar, kBox * j, g, k0, b);
 }
 
 // A warp is done reading ring buffer `buf`: the last of the four warps to
@@ -561,8 +448,8 @@ __global__ void __launch_bounds__(kThreadsF32, Shape<D>::kPerSm)
 flash_f32_kernel(const __grid_constant__ CUtensorMap qmap,
                  const __grid_constant__ CUtensorMap kmap,
                  const __grid_constant__ CUtensorMap vmap, float* __restrict__ out,
-                 int sq, int skv, int n_heads, int n_kv, int causal, int window,
-                 int q_offset, float scale) {
+                 float* __restrict__ lse, int sq, int skv, int n_heads, int n_kv,
+                 int causal, int window, int q_offset, float scale) {
   using S = Shape<D>;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -595,7 +482,7 @@ flash_f32_kernel(const __grid_constant__ CUtensorMap qmap,
     mbar_expect_tx(full_q, S::kTileBytes);
 #pragma unroll
     for (int j = 0; j < S::kBoxes; ++j)
-      tc::tma_load_4d(q_s + j * kBoxBytes, &qmap, full_q, kBox * j, h, q0, b);
+      tma_load_4d(q_s + j * kBoxBytes, &qmap, full_q, kBox * j, h, q0, b);
     if (n_tiles > 0) {
       load_tile<D>(k_s, &kmap, full + 0, g, kt0, b);
       load_tile<D>(v_s, &vmap, full + 1, g, kt0, b);
@@ -758,6 +645,10 @@ flash_f32_kernel(const __grid_constant__ CUtensorMap qmap,
     const float den = fmaxf(l, 1e-30f);
     const int row = q0 + ty + 8 * i;
     if (row >= sq) continue;
+    // the row's natural-log log-sum-exp, +inf where it sees no key
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<int64_t>(b) * n_heads + h) * sq + row] =
+          l > 0.f ? m_r[i] + logf(l) : INFINITY;
     float* o = out + ((static_cast<int64_t>(b) * sq + row) * n_heads + h) * D;
 #pragma unroll
     for (int c = 0; c < S::kVec; ++c)
@@ -771,7 +662,7 @@ flash_f32_kernel(const __grid_constant__ CUtensorMap qmap,
 // TMA map of a (b, s, heads, d) fp32 tensor as the 4-D (d, heads, s, b)
 // view, 32 x 1 x 64 x 1 boxes, 128-byte swizzle, zero fill out of bounds.
 bool make_map(CUtensorMap* map, const void* ptr, int d, int heads, int s, int b) {
-  const tc::EncodeTiled fn = tc::encode_tiled();
+  const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(s), static_cast<cuuint64_t>(b)};
@@ -786,11 +677,14 @@ bool make_map(CUtensorMap* map, const void* ptr, int d, int heads, int s, int b)
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int b, int sq,
-           int skv, int n_heads, int n_kv, int causal, int window, int q_offset,
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int b,
+           int sq, int skv, int n_heads, int n_kv, int causal, int window, int q_offset,
            float scale, cudaStream_t stream) {
   if (skv <= 0) {                           // no key: every row is zero
     cudaMemsetAsync(out, 0, static_cast<size_t>(b) * sq * n_heads * D * 4, stream);
+    if (lse != nullptr)
+      return static_cast<int>(fill_f32(lse, static_cast<int64_t>(b) * n_heads * sq,
+                                       INFINITY, stream));
     return static_cast<int>(cudaGetLastError());
   }
   const int q_tiles = (sq + kRowsQ - 1) / kRowsQ;
@@ -804,63 +698,55 @@ int launch(const void* q, const void* k, const void* v, void* out, int b, int sq
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(b) * n_heads, q_tiles);
   kern<<<grid, kThreadsF32, Shape<D>::kSmem, stream>>>(
-      qmap, kmap, vmap, static_cast<float*>(out), sq, skv, n_heads, n_kv, causal,
+      qmap, kmap, vmap, static_cast<float*>(out), lse, sq, skv, n_heads, n_kv, causal,
       window, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace f32
 
-// window <= 0 means no sliding window; causal is 0 or 1.
+// window <= 0 means no sliding window; causal is 0 or 1; lse may be null.
 template <bool kBf16>
-int dispatch(const void* q, const void* k, const void* v, void* out, int b, int sq,
-             int skv, int n_heads, int n_kv, int d, int causal, int window,
+int dispatch(const void* q, const void* k, const void* v, void* out, float* lse, int b,
+             int sq, int skv, int n_heads, int n_kv, int d, int causal, int window,
              int q_offset, float scale, void* stream) {
   if (b <= 0 || sq <= 0 || n_heads <= 0) return static_cast<int>(cudaGetLastError());
   if (n_kv <= 0 || n_heads % n_kv != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto go = [&](auto dim) {
+    constexpr int D = decltype(dim)::value;
+    return kBf16 ? tc::launch<D>(q, k, v, out, lse, b, sq, skv, n_heads, n_kv, causal,
+                                 window, q_offset, scale, s)
+                 : f32::launch<D>(q, k, v, out, lse, b, sq, skv, n_heads, n_kv, causal,
+                                  window, q_offset, scale, s);
+  };
   switch (d) {
-    case 64:
-      return kBf16 ? tc::launch<64>(q, k, v, out, b, sq, skv, n_heads, n_kv, causal,
-                                    window, q_offset, scale, s)
-                   : f32::launch<64>(q, k, v, out, b, sq, skv, n_heads, n_kv, causal,
-                                    window, q_offset, scale, s);
-    case 80:
-      return kBf16 ? tc::launch<80>(q, k, v, out, b, sq, skv, n_heads, n_kv, causal,
-                                    window, q_offset, scale, s)
-                   : f32::launch<80>(q, k, v, out, b, sq, skv, n_heads, n_kv, causal,
-                                    window, q_offset, scale, s);
-    case 128:
-      return kBf16 ? tc::launch<128>(q, k, v, out, b, sq, skv, n_heads, n_kv, causal,
-                                     window, q_offset, scale, s)
-                   : f32::launch<128>(q, k, v, out, b, sq, skv, n_heads, n_kv, causal,
-                                     window, q_offset, scale, s);
-    case 256:
-      return kBf16 ? tc::launch<256>(q, k, v, out, b, sq, skv, n_heads, n_kv, causal,
-                                     window, q_offset, scale, s)
-                   : f32::launch<256>(q, k, v, out, b, sq, skv, n_heads, n_kv, causal,
-                                     window, q_offset, scale, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case 64: return go(std::integral_constant<int, 64>());
+    case 80: return go(std::integral_constant<int, 80>());
+    case 128: return go(std::integral_constant<int, 128>());
+    case 256: return go(std::integral_constant<int, 256>());
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
+// lse: null, or (b, n_heads, sq) fp32 to receive each row's natural-log
+// log-sum-exp (+inf for a row with no visible key); serving passes null.
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
-                                   void* out, int b, int sq, int skv,
+                                   void* out, float* lse, int b, int sq, int skv,
                                    int n_heads, int n_kv, int d, int causal,
                                    int window, int q_offset, float scale,
                                    void* stream) {
-  return dispatch<false>(q, k, v, out, b, sq, skv, n_heads, n_kv, d, causal, window,
+  return dispatch<false>(q, k, v, out, lse, b, sq, skv, n_heads, n_kv, d, causal, window,
                          q_offset, scale, stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
-                                    void* out, int b, int sq, int skv,
+                                    void* out, float* lse, int b, int sq, int skv,
                                     int n_heads, int n_kv, int d, int causal,
                                     int window, int q_offset, float scale,
                                     void* stream) {
-  return dispatch<true>(q, k, v, out, b, sq, skv, n_heads, n_kv, d, causal, window,
+  return dispatch<true>(q, k, v, out, lse, b, sq, skv, n_heads, n_kv, d, causal, window,
                         q_offset, scale, stream);
 }

@@ -9,47 +9,87 @@
 // kernel.  The plain version is src/repro_torch/kernels/ref.py::
 // flash_attention_bwd, the formula
 //
-//   P = softmax(S), S = q k^T / sqrt(d) masked;   D_i = sum_c dO_ic O_ic
+//   P = exp(S - lse), S = q k^T / sqrt(d) masked;   D_i = sum_c dO_ic O_ic
 //   dS = P * (dO v^T - D);   dq = dS k / sqrt(d);   dk = dS^T q / sqrt(d);
 //   dv = P^T dO,  dk and dv summed over the H / KV query heads of a KV head.
 //
+// lse is each row's natural-log log-sum-exp of its scaled visible scores,
+// +inf for a row that sees no key (so its P is 0): the forward kernels
+// write it when asked (flash_attention.cu), and every launch here reads it
+// (the wrapper runs the forward first for a caller without one).  D comes
+// from the given out and dout.
+//
 // Bound on the H100: operations.  Five d-long products per visible (query,
 // key) pair (S and dO v^T recomputed, then dv, dk and dq), 10 d flops a
-// pair, on the CUDA cores here (fp32 FMAs, 67 TFLOP/s): e.g. qwen3-4b's
-// training layer (b=4, s=128, H=32, KV=8, d=128, causal) is 0.14 GFLOP.
+// pair: e.g. qwen3-4b's training layer (b=4, s=128, H=32, KV=8, d=128,
+// causal) is 1.4 GFLOP, 1.4 us at the tensor cores' 989 TFLOP/s in bf16,
+// under its bytes (6.3 us).  Keeping dq in a kernel of its own (no atomics)
+// recomputes S and dO v^T there: 7 products a pair against the bound's 5,
+// so the bf16 kernels reach at most 5/7 of the operations bound.
 //
-// A first design, simple and exact: fp32 arithmetic from f32 or bf16 inputs
-// (D from the bf16 values of out and dout, as the plain version computes
-// it), 32 x 32 tiles in shared memory with rows padded to d + 1 floats (so
-// a column read across rows hits distinct banks), 256 threads a CTA, no
-// tensor cores, no TMA and no atomics: every sum runs in one fixed order,
-// so two runs agree bit for bit.  Three kernels in one launch:
+// bf16: the tensor cores, three kernels in one launch, in the order (c),
+// (b), (d).
 //
-//   (a) stats: one CTA per (b, h, 32-query tile) recomputes each row's max
-//       m and 1 / l over its visible keys (the forward kernels write only
-//       out) and D; a row that sees no key gets 1 / l = 0, so its P is 0.
-//   (b) dk, dv: one CTA per (b, kv head, 32-key tile) holds k and v and
-//       loops over the H / KV query heads of its group and, for each, over
-//       the query tiles the masks leave visible; each thread owns d / 8
-//       columns of one key's dk and dv in registers.
-//   (c) dq: one CTA per (b, h, 32-query tile) loops over the visible key
-//       tiles; each thread owns d / 8 columns of one row's dq.
+//   (b) dK/dV: one CTA per (batch, KV head, key tile, head split).  One
+//       producer lane loads the K and V tiles once and streams the (Q, dO)
+//       tiles of its query heads through a 2-stage ring by TMA (128-byte
+//       swizzle, mbarriers, the forward's maps); each consumer warpgroup
+//       runs S^T = K Q^T and dP^T = V dO^T as wgmma m64n64k16 from shared
+//       memory (K, V, Q, dO all K-major in their natural (pos, d) rows),
+//       forms P^T = exp2(S^T scale log2 e - lse log2 e) and dS^T = P^T *
+//       (dP^T - D) in fp32 registers (the rows' lse and D staged in shared
+//       memory per tile), rounds both to bf16 (as FlashAttention-2/3 do),
+//       and runs dV += P^T dO and dK += dS^T Q with those fragments as the A
+//       operand from registers and dO, Q as MN-major B operands (the
+//       transpose bit, as the forward reads V): nothing is transposed in
+//       memory.  Only tiles that a mask or a sequence end cuts take the
+//       per-element mask; the query tiles no key of the tile sees are
+//       skipped.  Two consumer warpgroups (and a producer warpgroup that
+//       gives them its registers by setmaxnreg) share the CTA: below d =
+//       256 each owns 64 of its 128 keys; at d = 256 a 64-key tile's dK and
+//       dV (2 x 64 x 256 fp32) are more than one warpgroup's registers, so
+//       each owns 128 columns and both compute S^T and dP^T (6 products a
+//       pair there instead of 4).
+//   (c) dQ: one CTA per (batch, query head, 64-query tile) first forms D
+//       of its rows from the bf16 values of out and dout (and writes it for
+//       (b): no other CTA visits those rows), then walks its visible key
+//       tiles through a 2-stage (K, V) ring: S = Q K^T and dP = dO V^T by
+//       wgmma from shared memory, then dQ += dS K with dS from registers
+//       and K MN-major.
+//   (d) reduce (only when the query heads of a KV head are split over
+//       CTAs, to fill the card: the wrapper's split): (b) writes fp32
+//       partial dK, dV per split to scratch, and this pass sums them in
+//       split order and rounds to bf16.  (Summing them instead inside a
+//       thread-block cluster of the splits, through distributed shared
+//       memory, measured slower on an H100: 0.045 against 0.033 ms at
+//       qwen3-4b's training layer.)
 //
-// (b) and (c) both recompute P and dS of a (query tile, key tile) pair in
-// p_ds_tile: thread t owns query row t / 8 and keys t % 8 + 8 r.  Shared
-// memory: 2 tiles (a) or 4 tiles (b, c) of 32 (d + 1) floats, 140,416 bytes
-// at d = 256.  Head dims 64, 80, 128 and 256, the forward's, are
-// instantiated.
+// No atomics: every sum runs in one fixed order (the heads of a split in
+// order inside a CTA's accumulators, the splits in order), so two runs
+// agree bit for bit.  Rounding P and dS to bf16 changes each term of dv,
+// dk and dq by at most 2^-8 of it; the errors are independent and mostly
+// cancel, and an emulation of this arithmetic stays within 2^-7 of each
+// gradient's largest magnitude (tests/test_torch_train.py).  Head dims 64,
+// 80 (two 64-column boxes, TMA zero-fills columns 80..127), 128 and 256.
+//
+// fp32: the CUDA cores (no TF32), exact and simple: 32 x 32 tiles in
+// shared memory with rows padded to d + 1 floats, 256 threads a CTA, one
+// CTA per (b, kv head, 32-key tile) for dk and dv walking its group's query
+// heads in order, one per (b, h, 32-query tile) for dq, after a D pass (one
+// warp a row).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+#include "mbarrier.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 32;            // query rows and keys per tile
-constexpr int kPLd = kTile + 1;      // row stride of the P and dS tiles
+using namespace repro_ptx;
+using namespace repro_flash;
 
 struct Params {
   const void* q;
@@ -60,23 +100,12 @@ struct Params {
   void* dq;
   void* dk;
   void* dv;
-  float* m;        // (b, H, sq) row max of the scaled scores
-  float* inv_l;    // (b, H, sq) 1 / row sum of exp(s - m), 0 for a row with no key
-  float* dsum;     // (b, H, sq) D = rowsum(dO * O)
-  int b, sq, skv, n_heads, n_kv, causal, window, q_offset;
+  const float* lse;   // (b, H, sq) natural-log log-sum-exp, +inf for a row with no key
+  float* dsum;        // (b, H, sq) D = rowsum(dO * O)
+  float* part;        // (2, split, b, skv, KV, d) fp32 partial dk, dv; null at split 1
+  int b, sq, skv, n_heads, n_kv, causal, window, q_offset, split;
   float scale;
 };
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void put(float* p, float x) { *p = x; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -85,10 +114,10 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // key j is visible to query row i (absolute position q_offset + i)
-__device__ __forceinline__ bool visible(const Params& p, int i, int j) {
-  const int qpos = p.q_offset + i;
-  if (p.causal && j > qpos) return false;
-  if (p.window > 0 && j <= qpos - p.window) return false;
+__device__ __forceinline__ bool visible(int causal, int window, int q_offset, int i, int j) {
+  const int qpos = q_offset + i;
+  if (causal && j > qpos) return false;
+  if (window > 0 && j <= qpos - window) return false;
   return true;
 }
 
@@ -104,17 +133,47 @@ __device__ __forceinline__ void row_range(const Params& p, int j0, int j1, int* 
   *hi = p.window > 0 ? min(p.sq, j1 - 1 + p.window - p.q_offset) : p.sq;
 }
 
+// ---------------------------------------------------------------- fp32
+namespace f32 {
+
+constexpr int kThreads = 256;
+constexpr int kTile = 32;            // query rows and keys per tile
+constexpr int kPLd = kTile + 1;      // row stride of the P and dS tiles
+
+// D of row (b, h, i) into dsum[(b H + h) sq + i]: one warp a row, 4
+// columns a lane per step, fp32 sums in a fixed order.
+template <int D>
+__global__ void __launch_bounds__(256) bwd_dsum_f32_kernel(Params p) {
+  const int64_t row = (static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x) / 32;
+  const int lane = threadIdx.x & 31;
+  const int64_t rows = static_cast<int64_t>(p.b) * p.n_heads * p.sq;
+  if (row >= rows) return;                          // uniform across the warp
+  const int i = static_cast<int>(row % p.sq);
+  const int64_t bh = row / p.sq;
+  const int h = static_cast<int>(bh % p.n_heads);
+  const int64_t bi = bh / p.n_heads;
+  const int64_t base = ((bi * p.sq + i) * p.n_heads + h) * D;
+  const float* o = static_cast<const float*>(p.out) + base;
+  const float* g = static_cast<const float*>(p.dout) + base;
+  float acc = 0.f;
+#pragma unroll
+  for (int c = 4 * lane; c < D; c += 128)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc = fmaf(g[c + u], o[c + u], acc);
+  acc = warp_sum(acc);
+  if (lane == 0) p.dsum[row] = acc;
+}
+
 // rows row0 .. row0 + 31 of head hh of a (b, seq, heads, D) tensor into a
 // 32 x (D + 1) fp32 tile, zeros past the sequence
-template <int D, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int seq, int heads, int bi,
-                                          int hh, int row0) {
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int seq, int heads,
+                                          int bi, int hh, int row0) {
   for (int idx = threadIdx.x; idx < kTile * D; idx += kThreads) {
     const int r = idx / D, c = idx - r * D;
     const int pos = row0 + r;
     float x = 0.f;
-    if (pos < seq)
-      x = to_f(src[((static_cast<int64_t>(bi) * seq + pos) * heads + hh) * D + c]);
+    if (pos < seq) x = src[((static_cast<int64_t>(bi) * seq + pos) * heads + hh) * D + c];
     dst[r * (D + 1) + c] = x;
   }
 }
@@ -124,9 +183,9 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int seq, int
 // in column order.  Masked pairs and pairs past either sequence get 0.
 template <int D>
 __device__ __forceinline__ void p_ds_tile(const Params& p, const float* Qs, const float* dOs,
-                                          const float* Ks, const float* Vs, const float* ms,
-                                          const float* ils, const float* Ds, float* Ps,
-                                          float* dSs, int i0, int j0) {
+                                          const float* Ks, const float* Vs, const float* ls,
+                                          const float* Ds, float* Ps, float* dSs, int i0,
+                                          int j0) {
   const int i = threadIdx.x >> 3, jl = threadIdx.x & 7;
   float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
   const float* qrow = Qs + i * (D + 1);
@@ -146,112 +205,38 @@ __device__ __forceinline__ void p_ds_tile(const Params& p, const float* Qs, cons
   for (int r = 0; r < 4; ++r) {
     const int j = jl + 8 * r, kj = j0 + j;
     float pv = 0.f;
-    if (qi < p.sq && kj < p.skv && visible(p, qi, kj))
-      pv = expf(s[r] * p.scale - ms[i]) * ils[i];
+    if (qi < p.sq && kj < p.skv && visible(p.causal, p.window, p.q_offset, qi, kj))
+      pv = expf(s[r] * p.scale - ls[i]);
     Ps[i * kPLd + j] = pv;
     dSs[i * kPLd + j] = pv * (dp[r] - Ds[i]);
   }
 }
 
-// ---------------------------------------------------------------- (a) stats
-template <int D, typename T>
-__global__ void __launch_bounds__(kThreads) stats_kernel(Params p) {
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + kTile * (D + 1);
-  float* Ss = Ks + kTile * (D + 1);                 // 32 x kPLd scaled scores
-  const int bi = blockIdx.x / p.n_heads, h = blockIdx.x % p.n_heads;
-  const int kvh = h / (p.n_heads / p.n_kv);
-  const int i0 = blockIdx.y * kTile;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const T* q = static_cast<const T*>(p.q);
-  const T* k = static_cast<const T*>(p.k);
-  load_tile<D>(Qs, q, p.sq, p.n_heads, bi, h, i0);
-
-  // warp w keeps rows 4w .. 4w + 3; lane = key within the tile
-  float m_run[4], l_run[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m_run[r] = -INFINITY;
-    l_run[r] = 0.f;
-  }
-  int lo, hi;
-  key_range(p, i0, min(i0 + kTile, p.sq), &lo, &hi);
-  const int i = threadIdx.x >> 3, jl = threadIdx.x & 7;
-  for (int j0 = (lo / kTile) * kTile; j0 < hi; j0 += kTile) {
-    __syncthreads();                                // the previous tile's readers
-    load_tile<D>(Ks, k, p.skv, p.n_kv, bi, kvh, j0);
-    __syncthreads();
-    float s[4] = {0.f, 0.f, 0.f, 0.f};
-    const float* qrow = Qs + i * (D + 1);
-#pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      const float qv = qrow[c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) s[r] = fmaf(qv, Ks[(jl + 8 * r) * (D + 1) + c], s[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) Ss[i * kPLd + jl + 8 * r] = s[r] * p.scale;
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = 4 * warp + r, qi = i0 + row, kj = j0 + lane;
-      const bool vis = qi < p.sq && kj < p.skv && visible(p, qi, kj);
-      const float sv = vis ? Ss[row * kPLd + lane] : -INFINITY;
-      const float tmax = warp_max(sv);
-      if (tmax != -INFINITY) {                      // uniform across the warp
-        const float nm = fmaxf(m_run[r], tmax);
-        const float tsum = warp_sum(vis ? expf(sv - nm) : 0.f);
-        l_run[r] = l_run[r] * expf(m_run[r] - nm) + tsum;
-        m_run[r] = nm;
-      }
-    }
-  }
-
-  const T* o = static_cast<const T*>(p.out);
-  const T* g = static_cast<const T*>(p.dout);
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int qi = i0 + 4 * warp + r;
-    if (qi >= p.sq) continue;                       // uniform across the warp
-    const int64_t base = ((static_cast<int64_t>(bi) * p.sq + qi) * p.n_heads + h) * D;
-    float acc = 0.f;
-    for (int c = lane; c < D; c += 32) acc = fmaf(to_f(g[base + c]), to_f(o[base + c]), acc);
-    acc = warp_sum(acc);
-    if (lane == 0) {
-      const int64_t row = (static_cast<int64_t>(bi) * p.n_heads + h) * p.sq + qi;
-      const bool any = l_run[r] > 0.f;
-      p.m[row] = any ? m_run[r] : 0.f;
-      p.inv_l[row] = any ? 1.f / l_run[r] : 0.f;
-      p.dsum[row] = acc;
-    }
-  }
-}
-
-// the row statistics of query rows [i0, i0 + 32) of (bi, h) into shared
+// the lse and D of query rows [i0, i0 + 32) of (bi, h) into shared
 // memory, zeros past the sequence
-__device__ __forceinline__ void load_stats(const Params& p, float* ms, float* ils, float* Ds,
-                                           int bi, int h, int i0) {
+__device__ __forceinline__ void load_stats(const Params& p, float* ls, float* Ds, int bi,
+                                           int h, int i0) {
   if (threadIdx.x < kTile) {
     const int qi = i0 + threadIdx.x;
     const int64_t row = (static_cast<int64_t>(bi) * p.n_heads + h) * p.sq + qi;
     const bool in = qi < p.sq;
-    ms[threadIdx.x] = in ? p.m[row] : 0.f;
-    ils[threadIdx.x] = in ? p.inv_l[row] : 0.f;
+    ls[threadIdx.x] = in ? p.lse[row] : 0.f;
     Ds[threadIdx.x] = in ? p.dsum[row] : 0.f;
   }
 }
 
 template <int D>
 struct Smem {
-  static constexpr size_t kStatsBytes = (2 * kTile * (D + 1) + kTile * kPLd) * sizeof(float);
   static constexpr size_t kGradBytes =
-      (4 * kTile * (D + 1) + 2 * kTile * kPLd + 3 * kTile) * sizeof(float);
+      (4 * kTile * (D + 1) + 2 * kTile * kPLd + 2 * kTile) * sizeof(float);
 };
 
-// ---------------------------------------------------------------- (b) dk, dv
-template <int D, typename T>
-__global__ void __launch_bounds__(kThreads) dkdv_kernel(Params p) {
+// dk, dv: one CTA per (b, kv head, 32-key tile) holds k and v and loops over
+// the H / KV query heads of its group and, for each, over the query tiles
+// the masks leave visible; each thread owns d / 8 columns of one key's dk
+// and dv in registers.
+template <int D>
+__global__ void __launch_bounds__(kThreads) bwd_dkdv_f32_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;
   float* Vs = Ks + kTile * (D + 1);
@@ -259,17 +244,16 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(Params p) {
   float* dOs = Qs + kTile * (D + 1);
   float* Ps = dOs + kTile * (D + 1);
   float* dSs = Ps + kTile * kPLd;
-  float* ms = dSs + kTile * kPLd;
-  float* ils = ms + kTile;
-  float* Ds = ils + kTile;
+  float* ls = dSs + kTile * kPLd;
+  float* Ds = ls + kTile;
   constexpr int kCols = D / 8;                      // columns a thread owns
   const int bi = blockIdx.x / p.n_kv, kvh = blockIdx.x % p.n_kv;
   const int j0 = blockIdx.y * kTile;
   const int rep = p.n_heads / p.n_kv;
-  const T* q = static_cast<const T*>(p.q);
-  const T* g = static_cast<const T*>(p.dout);
-  load_tile<D>(Ks, static_cast<const T*>(p.k), p.skv, p.n_kv, bi, kvh, j0);
-  load_tile<D>(Vs, static_cast<const T*>(p.v), p.skv, p.n_kv, bi, kvh, j0);
+  const float* q = static_cast<const float*>(p.q);
+  const float* g = static_cast<const float*>(p.dout);
+  load_tile<D>(Ks, static_cast<const float*>(p.k), p.skv, p.n_kv, bi, kvh, j0);
+  load_tile<D>(Vs, static_cast<const float*>(p.v), p.skv, p.n_kv, bi, kvh, j0);
 
   const int jr = threadIdx.x >> 3, cl = threadIdx.x & 7;
   float dk[kCols], dv[kCols];
@@ -283,9 +267,9 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(Params p) {
       __syncthreads();                              // the previous tile's readers
       load_tile<D>(Qs, q, p.sq, p.n_heads, bi, h, i0);
       load_tile<D>(dOs, g, p.sq, p.n_heads, bi, h, i0);
-      load_stats(p, ms, ils, Ds, bi, h, i0);
+      load_stats(p, ls, Ds, bi, h, i0);
       __syncthreads();
-      p_ds_tile<D>(p, Qs, dOs, Ks, Vs, ms, ils, Ds, Ps, dSs, i0, j0);
+      p_ds_tile<D>(p, Qs, dOs, Ks, Vs, ls, Ds, Ps, dSs, i0, j0);
       __syncthreads();
       for (int i = 0; i < kTile; ++i) {
         const float pv = Ps[i * kPLd + jr], dsv = dSs[i * kPLd + jr];
@@ -303,20 +287,21 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(Params p) {
   const int kj = j0 + jr;
   if (kj < p.skv) {
     const int64_t base = ((static_cast<int64_t>(bi) * p.skv + kj) * p.n_kv + kvh) * D;
-    T* dkp = static_cast<T*>(p.dk);
-    T* dvp = static_cast<T*>(p.dv);
+    float* dkp = static_cast<float*>(p.dk);
+    float* dvp = static_cast<float*>(p.dv);
 #pragma unroll
     for (int u = 0; u < kCols; ++u) {
       const int c = cl + 8 * u;
-      put(dkp + base + c, dk[u] * p.scale);
-      put(dvp + base + c, dv[u]);
+      dkp[base + c] = dk[u] * p.scale;
+      dvp[base + c] = dv[u];
     }
   }
 }
 
-// ---------------------------------------------------------------- (c) dq
-template <int D, typename T>
-__global__ void __launch_bounds__(kThreads) dq_kernel(Params p) {
+// dq: one CTA per (b, h, 32-query tile) loops over the visible key tiles;
+// each thread owns d / 8 columns of one row's dq.
+template <int D>
+__global__ void __launch_bounds__(kThreads) bwd_dq_f32_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;
   float* Vs = Ks + kTile * (D + 1);
@@ -324,18 +309,17 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Params p) {
   float* dOs = Qs + kTile * (D + 1);
   float* Ps = dOs + kTile * (D + 1);
   float* dSs = Ps + kTile * kPLd;
-  float* ms = dSs + kTile * kPLd;
-  float* ils = ms + kTile;
-  float* Ds = ils + kTile;
+  float* ls = dSs + kTile * kPLd;
+  float* Ds = ls + kTile;
   constexpr int kCols = D / 8;
   const int bi = blockIdx.x / p.n_heads, h = blockIdx.x % p.n_heads;
   const int kvh = h / (p.n_heads / p.n_kv);
   const int i0 = blockIdx.y * kTile;
-  const T* k = static_cast<const T*>(p.k);
-  const T* v = static_cast<const T*>(p.v);
-  load_tile<D>(Qs, static_cast<const T*>(p.q), p.sq, p.n_heads, bi, h, i0);
-  load_tile<D>(dOs, static_cast<const T*>(p.dout), p.sq, p.n_heads, bi, h, i0);
-  load_stats(p, ms, ils, Ds, bi, h, i0);
+  const float* k = static_cast<const float*>(p.k);
+  const float* v = static_cast<const float*>(p.v);
+  load_tile<D>(Qs, static_cast<const float*>(p.q), p.sq, p.n_heads, bi, h, i0);
+  load_tile<D>(dOs, static_cast<const float*>(p.dout), p.sq, p.n_heads, bi, h, i0);
+  load_stats(p, ls, Ds, bi, h, i0);
 
   const int ir = threadIdx.x >> 3, cl = threadIdx.x & 7;
   float dq[kCols];
@@ -348,7 +332,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Params p) {
     load_tile<D>(Ks, k, p.skv, p.n_kv, bi, kvh, j0);
     load_tile<D>(Vs, v, p.skv, p.n_kv, bi, kvh, j0);
     __syncthreads();
-    p_ds_tile<D>(p, Qs, dOs, Ks, Vs, ms, ils, Ds, Ps, dSs, i0, j0);
+    p_ds_tile<D>(p, Qs, dOs, Ks, Vs, ls, Ds, Ps, dSs, i0, j0);
     __syncthreads();
     for (int j = 0; j < kTile; ++j) {
       const float dsv = dSs[ir * kPLd + j];
@@ -360,64 +344,548 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Params p) {
   const int qi = i0 + ir;
   if (qi < p.sq) {
     const int64_t base = ((static_cast<int64_t>(bi) * p.sq + qi) * p.n_heads + h) * D;
-    T* dqp = static_cast<T*>(p.dq);
+    float* dqp = static_cast<float*>(p.dq);
 #pragma unroll
-    for (int u = 0; u < kCols; ++u) put(dqp + base + cl + 8 * u, dq[u] * p.scale);
+    for (int u = 0; u < kCols; ++u) dqp[base + cl + 8 * u] = dq[u] * p.scale;
   }
 }
 
-// Raises a kernel's dynamic shared memory limit once per instantiation.
-template <auto kKernel>
-cudaError_t smem_limit_once(size_t bytes) {
-  static const cudaError_t err = cudaFuncSetAttribute(
-      kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  return err;
-}
-
-template <int D, typename T>
+template <int D>
 int launch(const Params& p, cudaStream_t stream) {
   const int q_tiles = (p.sq + kTile - 1) / kTile;
   const int k_tiles = (p.skv + kTile - 1) / kTile;
   if (q_tiles > 65535 || k_tiles > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  cudaError_t err = smem_limit_once<stats_kernel<D, T>>(Smem<D>::kStatsBytes);
-  if (err == cudaSuccess) err = smem_limit_once<dkdv_kernel<D, T>>(Smem<D>::kGradBytes);
-  if (err == cudaSuccess) err = smem_limit_once<dq_kernel<D, T>>(Smem<D>::kGradBytes);
+  cudaError_t err = smem_limit_once<bwd_dkdv_f32_kernel<D>>(Smem<D>::kGradBytes);
+  if (err == cudaSuccess) err = smem_limit_once<bwd_dq_f32_kernel<D>>(Smem<D>::kGradBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned bh = static_cast<unsigned>(p.b) * p.n_heads;
   const unsigned bkv = static_cast<unsigned>(p.b) * p.n_kv;
-  stats_kernel<D, T><<<dim3(bh, q_tiles), kThreads, Smem<D>::kStatsBytes, stream>>>(p);
+  const int64_t rows = static_cast<int64_t>(bh) * p.sq;
+  bwd_dsum_f32_kernel<D><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dkdv_kernel<D, T><<<dim3(bkv, k_tiles), kThreads, Smem<D>::kGradBytes, stream>>>(p);
+  bwd_dkdv_f32_kernel<D><<<dim3(bkv, k_tiles), kThreads, Smem<D>::kGradBytes, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dq_kernel<D, T><<<dim3(bh, q_tiles), kThreads, Smem<D>::kGradBytes, stream>>>(p);
+  bwd_dq_f32_kernel<D><<<dim3(bh, q_tiles), kThreads, Smem<D>::kGradBytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// window <= 0 means no sliding window; causal is 0 or 1.  scratch holds
-// 3 b H sq floats (m, 1 / l, D).
-template <typename T>
+}  // namespace f32
+
+// ---------------------------------------------------------------- bf16
+namespace tc {
+
+constexpr int kRows = 64;            // query rows per tile
+constexpr int kKeys = 64;            // keys per tile
+constexpr int kStages = 2;           // (Q, dO) or (K, V) ring depth
+
+template <int D>
+struct Shape {
+  static constexpr int kSubs = (D + 63) / 64;        // 64-column boxes per row
+  static constexpr int kTileBytes = kSubs * kSubBytes;
+  static constexpr int kSteps = D / 16;              // k16 steps of a d-long product
+  // The dK/dV CTA's two consumer warpgroups split its dK and dV by
+  // columns at d = 256 (a 64-key tile: its dK and dV are more than one
+  // warpgroup's registers), else by keys (a 128-key tile, 64 each, the
+  // (Q, dO) tiles shared).
+  static constexpr bool kColSplit = D == 256;
+  static constexpr int kWG = 2;                      // dK/dV consumer warpgroups
+  static constexpr int kKeysCta = kColSplit ? 64 : 128;
+  static constexpr int kKeyTiles = kKeysCta / 64;    // 64-key K and V tiles held
+  static constexpr int kOwn = kColSplit ? kSubs / 2 : kSubs;   // dK, dV boxes each owns
+  // + a producer warpgroup, so that setmaxnreg can move its registers to
+  // the consumers
+  static constexpr int kThreadsKV = 128 * kWG + 128;
+  static constexpr int kThreadsQ = 128 + 32;
+  // 1 KB of slack to align the swizzled tiles; K, V and a (Q, dO) ring, two
+  // (lse, D) row buffers per warpgroup, 1 + 2 kStages mbarriers
+  static constexpr size_t kSmemKV = 1024 +
+                                    static_cast<size_t>(kTileBytes) * (2 * kKeyTiles + 2 * kStages) +
+                                    kWG * 2 * 2 * kRows * 4 + 8 * (1 + 2 * kStages);
+  // Q, dO and a (K, V) ring, 1 + 2 kStages mbarriers
+  static constexpr size_t kSmemQ =
+      1024 + static_cast<size_t>(kTileBytes) * (2 + 2 * kStages) + 8 * (1 + 2 * kStages);
+};
+
+// the warpgroup's own barrier (id 1 + wg; 0 is __syncthreads); immediate
+// ids, so the kernel holds 3 of the SM's 16 named barriers, not all of them
+__device__ __forceinline__ void wg_barrier(int wg) {
+  if (wg == 0) asm volatile("bar.sync 1, 128;\n" ::: "memory");
+  else asm volatile("bar.sync 2, 128;\n" ::: "memory");
+}
+
+// Loads the `kSubs` 64-column boxes of one 64-row tile of (pos, head, b).
+template <int D>
+__device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
+                                          int head, int pos, int b) {
+#pragma unroll
+  for (int j = 0; j < Shape<D>::kSubs; ++j)
+    tma_load_4d(dst + j * kSubBytes, map, bar, 64 * j, head, pos, b);
+}
+
+// Accumulator fragment of m64n64k16 (fp32): register i of thread (warp w of
+// its warpgroup, lane l) holds row 16w + l/4 + 8*((i/2)%2), column 8*(i/4)
+// + 2*(l%4) + i%2.  Here the rows are keys and the columns query rows.
+template <int D>
+__global__ void __launch_bounds__(Shape<D>::kThreadsKV, 1)
+bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   const __grid_constant__ CUtensorMap domap, Params p, float scale_log2) {
+  using S = Shape<D>;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  uint8_t* k_s = smem_raw + (((raw + 1023u) & ~1023u) - raw);   // 1 KB aligned
+  uint8_t* v_s = k_s + S::kKeyTiles * S::kTileBytes;
+  uint8_t* q_s = v_s + S::kKeyTiles * S::kTileBytes;  // kStages tiles
+  uint8_t* do_s = q_s + kStages * S::kTileBytes;      // kStages tiles
+  float* stat_s = reinterpret_cast<float*>(do_s + kStages * S::kTileBytes);
+  uint64_t* full_kv = reinterpret_cast<uint64_t*>(stat_s + S::kWG * 2 * 2 * kRows);
+  uint64_t* full = full_kv + 1;
+  uint64_t* empty = full + kStages;
+
+  const int sp = blockIdx.x % p.split;
+  const int bg = blockIdx.x / p.split;
+  const int b = bg / p.n_kv, g = bg - b * p.n_kv;
+  const int j0 = blockIdx.y * S::kKeysCta;            // key tile 0 first (causal: heaviest)
+  const int per = p.n_heads / p.n_kv / p.split;       // query heads of this CTA
+  const int h0 = (g * p.split + sp) * per;
+  int lo, hi;
+  row_range(p, j0, min(j0 + S::kKeysCta, p.skv), &lo, &hi);
+  const int it0 = (lo / kRows) * kRows;
+  const int n_qt = hi > lo ? (hi - it0 + kRows - 1) / kRows : 0;
+  const int n = per * n_qt;                           // (head, query tile) steps, head-major
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 128 * S::kWG);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (warp >= 4 * S::kWG) {
+    // ---- producer: one elected lane issues every TMA load.  The CTA has
+    // 384 threads, 168 registers each at launch; the producer warpgroup
+    // gives its registers to the consumers: 24 + 2 x 240 per SM
+    // sub-partition's three warps.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (warp == 4 * S::kWG && lane == 0 && n > 0) {
+      mbar_expect_tx(full_kv, 2 * S::kKeyTiles * S::kTileBytes);
+#pragma unroll
+      for (int kt = 0; kt < S::kKeyTiles; ++kt) {
+        load_tile<D>(k_s + kt * S::kTileBytes, &kmap, full_kv, g, j0 + 64 * kt, b);
+        load_tile<D>(v_s + kt * S::kTileBytes, &vmap, full_kv, g, j0 + 64 * kt, b);
+      }
+      for (int t = 0; t < n; ++t) {
+        const int st = t % kStages;
+        if (t >= kStages) mbar_wait(empty + st, ((t / kStages) - 1) & 1);
+        const int h = h0 + t / n_qt, i0 = it0 + (t % n_qt) * kRows;
+        mbar_expect_tx(full + st, 2 * S::kTileBytes);
+        load_tile<D>(q_s + st * S::kTileBytes, &qmap, full + st, h, i0, b);
+        load_tile<D>(do_s + st * S::kTileBytes, &domap, full + st, h, i0, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns dK and dV columns [64 cb, 64 (cb +
+  // kOwn)) of keys [jw, jw + 64)
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int wg = warp / 4;
+  const int tw = threadIdx.x % 128;
+  const int cb = S::kColSplit ? wg * S::kOwn : 0;     // first column box
+  const int kw = S::kColSplit ? 0 : wg;               // key tile
+  const int jw = j0 + 64 * kw;
+  const int key0 = (warp % 4) * 16 + lane / 4;        // this thread's keys: key0, key0 + 8
+  const int qc0 = 2 * (lane % 4);
+  float* stat = stat_s + wg * 2 * 2 * kRows;          // [2 buffers][-lse log2 e | D]
+  float dk[S::kOwn][32], dv[S::kOwn][32];
+#pragma unroll
+  for (int j = 0; j < S::kOwn; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[j][i] = dv[j][i] = 0.f;
+  const uint32_t k_addr = smem_u32(k_s + kw * S::kTileBytes);
+  const uint32_t v_addr = smem_u32(v_s + kw * S::kTileBytes);
+  if (n > 0) mbar_wait(full_kv, 0);
+
+  for (int t = 0; t < n; ++t) {
+    const int st = t % kStages;
+    const uint32_t parity = (t / kStages) & 1;
+    const int h = h0 + t / n_qt, i0 = it0 + (t % n_qt) * kRows;
+    const uint32_t q_addr = smem_u32(q_s + st * S::kTileBytes);
+    const uint32_t do_addr = smem_u32(do_s + st * S::kTileBytes);
+
+    // the tile's rows' -lse log2 e and D into this warpgroup's buffer t % 2
+    // (the other buffer may still be read by the previous step)
+    float* sb = stat + (t & 1) * 2 * kRows;
+    {
+      const int r = tw & (kRows - 1), row = i0 + r;
+      const int64_t idx = (static_cast<int64_t>(b) * p.n_heads + h) * p.sq + row;
+      if (tw < kRows) sb[r] = row < p.sq ? -p.lse[idx] * kLog2e : 0.f;
+      else sb[kRows + r] = row < p.sq ? p.dsum[idx] : 0.f;
+    }
+
+    // S^T = K Q^T and dP^T = V dO^T, fp32
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    mbar_wait(full + st, parity);
+    fence_regs(s);
+    fence_regs(dp);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < S::kSteps; ++kk)
+      wgmma_ss(s, sw128_desc(k_addr + kmajor_step(kk)), sw128_desc(q_addr + kmajor_step(kk)),
+               kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < S::kSteps; ++kk)
+      wgmma_ss(dp, sw128_desc(v_addr + kmajor_step(kk)),
+               sw128_desc(do_addr + kmajor_step(kk)), kk > 0);
+    wg_commit();
+    wg_barrier(wg);                                  // sb written by the warpgroup
+    wg_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P^T and dS^T; the per-element mask only where a mask or an end cuts
+    const bool whole = jw + kKeys <= p.skv && i0 + kRows <= p.sq &&
+                       (!p.causal || jw + kKeys - 1 <= i0 + p.q_offset) &&
+                       (p.window <= 0 || jw > i0 + kRows - 1 + p.q_offset - p.window);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int qc = 8 * (i >> 2) + qc0 + (i & 1);
+      float pv = exp2f(fmaf(s[i], scale_log2, sb[qc]));
+      if (!whole) {
+        const int kpos = jw + key0 + 8 * ((i >> 1) & 1);
+        const bool ok = kpos < p.skv && i0 + qc < p.sq &&
+                        visible(p.causal, p.window, p.q_offset, i0 + qc, kpos);
+        pv = ok ? pv : 0.f;
+      }
+      s[i] = pv;
+      dp[i] = pv * (dp[i] - sb[kRows + qc]);
+    }
+    uint32_t pa[4][4], da[4][4];
+    pack_a(s, pa);
+    pack_a(dp, da);
+
+    // dV += P^T dO, dK += dS^T Q over this warpgroup's columns
+#pragma unroll
+    for (int j = 0; j < S::kOwn; ++j) {
+      fence_regs(dv[j]);
+      fence_regs(dk[j]);
+    }
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < S::kOwn; ++j)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(dv[j], pa[kk], sw128_desc(do_addr + (cb + j) * kSubBytes + kk * 16 * 128));
+#pragma unroll
+    for (int j = 0; j < S::kOwn; ++j)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(dk[j], da[kk], sw128_desc(q_addr + (cb + j) * kSubBytes + kk * 16 * 128));
+    wg_commit();
+    wg_wait_all();
+#pragma unroll
+    for (int j = 0; j < S::kOwn; ++j) {
+      fence_regs(dv[j]);
+      fence_regs(dk[j]);
+    }
+    mbar_arrive(empty + st);                         // this stage's Q and dO are free
+  }
+
+  // dK (scaled) and dV: bf16 at split 1, else this split's fp32 partials
+  const int64_t part_n = static_cast<int64_t>(p.b) * p.skv * p.n_kv * D;
+#pragma unroll
+  for (int j = 0; j < S::kOwn; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int key = jw + key0 + 8 * ((i >> 1) & 1);
+      const int col = 64 * (cb + j) + 8 * (i >> 2) + qc0;
+      if (key >= p.skv || col >= D) continue;
+      const int64_t at = ((static_cast<int64_t>(b) * p.skv + key) * p.n_kv + g) * D + col;
+      if (p.part == nullptr) {
+        *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(p.dk) + at) =
+            pack_bf16(dk[j][i] * p.scale, dk[j][i + 1] * p.scale);
+        *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(p.dv) + at) =
+            pack_bf16(dv[j][i], dv[j][i + 1]);
+      } else {
+        *reinterpret_cast<float2*>(p.part + sp * part_n + at) =
+            make_float2(dk[j][i], dk[j][i + 1]);
+        *reinterpret_cast<float2*>(p.part + (p.split + sp) * part_n + at) =
+            make_float2(dv[j][i], dv[j][i + 1]);
+      }
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(Shape<D>::kThreadsQ)
+bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+                 const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap,
+                 const __grid_constant__ CUtensorMap domap, Params p, float scale_log2) {
+  using S = Shape<D>;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  uint8_t* q_s = smem_raw + (((raw + 1023u) & ~1023u) - raw);   // 1 KB aligned
+  uint8_t* do_s = q_s + S::kTileBytes;
+  uint8_t* k_s = do_s + S::kTileBytes;                // kStages tiles
+  uint8_t* v_s = k_s + kStages * S::kTileBytes;       // kStages tiles
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(v_s + kStages * S::kTileBytes);
+  uint64_t* full = full_q + 1;
+  uint64_t* empty = full + kStages;
+
+  const int b = blockIdx.x / p.n_heads;
+  const int h = blockIdx.x - b * p.n_heads;
+  const int g = h / (p.n_heads / p.n_kv);
+  const int i0 = (gridDim.y - 1 - blockIdx.y) * kRows;   // heaviest tiles first
+  int k_begin, k_end;
+  key_range(p, i0, min(i0 + kRows, p.sq), &k_begin, &k_end);
+  const int kt0 = (k_begin / kKeys) * kKeys;
+  const int n_tiles = k_end > k_begin ? (k_end - kt0 + kKeys - 1) / kKeys : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 128);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (warp == 4) {
+    // ---- producer
+    if (lane == 0 && n_tiles > 0) {
+      mbar_expect_tx(full_q, 2 * S::kTileBytes);
+      load_tile<D>(q_s, &qmap, full_q, h, i0, b);
+      load_tile<D>(do_s, &domap, full_q, h, i0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kStages;
+        if (t >= kStages) mbar_wait(empty + st, ((t / kStages) - 1) & 1);
+        const int k0 = kt0 + t * kKeys;
+        mbar_expect_tx(full + st, 2 * S::kTileBytes);
+        load_tile<D>(k_s + st * S::kTileBytes, &kmap, full + st, g, k0, b);
+        load_tile<D>(v_s + st * S::kTileBytes, &vmap, full + st, g, k0, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: the warpgroup owns the tile's 64 query rows
+  const int row0 = warp * 16 + lane / 4;   // this thread's rows: row0, row0 + 8
+  const int col0 = 2 * (lane % 4);
+  // -lse log2 e and D of the two rows.  D from the bf16 out and dout: the
+  // row's quad of lanes takes its 16-byte chunks in turn, then sums the
+  // four lanes; this CTA is the only one that visits these rows, so it
+  // writes D for the dK/dV pass (launched after this one).
+  float nl[2], dd[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = i0 + row0 + 8 * r;
+    const int64_t idx = (static_cast<int64_t>(b) * p.n_heads + h) * p.sq + row;
+    nl[r] = row < p.sq ? -p.lse[idx] * kLog2e : 0.f;
+    float acc = 0.f;
+    if (row < p.sq) {
+      const int64_t base = ((static_cast<int64_t>(b) * p.sq + row) * p.n_heads + h) * D;
+      const uint4* o = reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(p.out) + base);
+      const uint4* g = reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(p.dout) + base);
+#pragma unroll
+      for (int c = lane % 4; c < D / 8; c += 4) {
+        const uint4 ov = o[c], gv = g[c];
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float2 of = __bfloat1622float2(o2[u]), gf = __bfloat1622float2(g2[u]);
+          acc = fmaf(gf.x, of.x, acc);
+          acc = fmaf(gf.y, of.y, acc);
+        }
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    dd[r] = acc;
+    if (row < p.sq && lane % 4 == 0) p.dsum[idx] = acc;
+  }
+  float dq[S::kSubs][32];
+#pragma unroll
+  for (int j = 0; j < S::kSubs; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[j][i] = 0.f;
+  const uint32_t q_addr = smem_u32(q_s), do_addr = smem_u32(do_s);
+  if (n_tiles > 0) mbar_wait(full_q, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % kStages;
+    const uint32_t parity = (t / kStages) & 1;
+    const int k0 = kt0 + t * kKeys;
+    const uint32_t k_addr = smem_u32(k_s + st * S::kTileBytes);
+    const uint32_t v_addr = smem_u32(v_s + st * S::kTileBytes);
+
+    // S = Q K^T and dP = dO V^T, fp32
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    mbar_wait(full + st, parity);
+    fence_regs(s);
+    fence_regs(dp);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < S::kSteps; ++kk)
+      wgmma_ss(s, sw128_desc(q_addr + kmajor_step(kk)), sw128_desc(k_addr + kmajor_step(kk)),
+               kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < S::kSteps; ++kk)
+      wgmma_ss(dp, sw128_desc(do_addr + kmajor_step(kk)),
+               sw128_desc(v_addr + kmajor_step(kk)), kk > 0);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // dS; the per-element mask only where a mask or the key end cuts
+    const bool whole = k0 + kKeys <= p.skv &&
+                       (!p.causal || k0 + kKeys - 1 <= i0 + p.q_offset) &&
+                       (p.window <= 0 || k0 > i0 + kRows - 1 + p.q_offset - p.window);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      float pv = exp2f(fmaf(s[i], scale_log2, nl[r]));
+      if (!whole) {
+        const int kpos = k0 + 8 * (i >> 2) + col0 + (i & 1);
+        const bool ok = kpos < p.skv &&
+                        visible(p.causal, p.window, p.q_offset, i0 + row0 + 8 * r, kpos);
+        pv = ok ? pv : 0.f;
+      }
+      dp[i] = pv * (dp[i] - dd[r]);
+    }
+    uint32_t da[4][4];
+    pack_a(dp, da);
+
+    // dQ += dS K
+#pragma unroll
+    for (int j = 0; j < S::kSubs; ++j) fence_regs(dq[j]);
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < S::kSubs; ++j)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(dq[j], da[kk], sw128_desc(k_addr + j * kSubBytes + kk * 16 * 128));
+    wg_commit();
+    wg_wait_all();
+#pragma unroll
+    for (int j = 0; j < S::kSubs; ++j) fence_regs(dq[j]);
+    mbar_arrive(empty + st);               // this stage's K and V are free
+  }
+
+#pragma unroll
+  for (int j = 0; j < S::kSubs; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int row = i0 + row0 + 8 * ((i >> 1) & 1);
+      const int col = 64 * j + 8 * (i >> 2) + col0;
+      if (row < p.sq && col < D) {
+        __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(p.dq) +
+                             ((static_cast<int64_t>(b) * p.sq + row) * p.n_heads + h) * D + col;
+        *reinterpret_cast<uint32_t*>(dst) = pack_bf16(dq[j][i] * p.scale, dq[j][i + 1] * p.scale);
+      }
+    }
+}
+
+// dk = scale * sum of the split partials, dv = their sum, in split order,
+// rounded to bf16; 4 elements a thread
+__global__ void __launch_bounds__(256) bwd_reduce_tc_kernel(const float* __restrict__ part,
+                                                            __nv_bfloat16* __restrict__ dk,
+                                                            __nv_bfloat16* __restrict__ dv,
+                                                            int64_t part_n, int split,
+                                                            float scale) {
+  for (int64_t e = 4 * (blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x);
+       e < part_n; e += 4 * static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    float4 sk = *reinterpret_cast<const float4*>(part + e);
+    float4 sv = *reinterpret_cast<const float4*>(part + split * part_n + e);
+    for (int s = 1; s < split; ++s) {
+      const float4 a = *reinterpret_cast<const float4*>(part + s * part_n + e);
+      const float4 c = *reinterpret_cast<const float4*>(part + (split + s) * part_n + e);
+      sk.x += a.x; sk.y += a.y; sk.z += a.z; sk.w += a.w;
+      sv.x += c.x; sv.y += c.y; sv.z += c.z; sv.w += c.w;
+    }
+    *reinterpret_cast<uint2*>(dk + e) =
+        make_uint2(pack_bf16(sk.x * scale, sk.y * scale), pack_bf16(sk.z * scale, sk.w * scale));
+    *reinterpret_cast<uint2*>(dv + e) = make_uint2(pack_bf16(sv.x, sv.y), pack_bf16(sv.z, sv.w));
+  }
+}
+
+template <int D>
+int launch(const Params& p, cudaStream_t stream) {
+  using S = Shape<D>;
+  const int q_tiles = (p.sq + kRows - 1) / kRows;
+  const int k_tiles = (p.skv + S::kKeysCta - 1) / S::kKeysCta;
+  if (q_tiles > 65535 || k_tiles > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (p.split < 1 || (p.n_heads / p.n_kv) % p.split != 0 || (p.split > 1) != (p.part != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap qmap, kmap, vmap, domap;
+  if (!make_map_bf16(&qmap, p.q, D, p.n_heads, p.sq, p.b) ||
+      !make_map_bf16(&kmap, p.k, D, p.n_kv, p.skv, p.b) ||
+      !make_map_bf16(&vmap, p.v, D, p.n_kv, p.skv, p.b) ||
+      !make_map_bf16(&domap, p.dout, D, p.n_heads, p.sq, p.b))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = smem_limit_once<bwd_dkdv_tc_kernel<D>>(S::kSmemKV);
+  if (err == cudaSuccess) err = smem_limit_once<bwd_dq_tc_kernel<D>>(S::kSmemQ);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float scale_log2 = p.scale * kLog2e;
+  bwd_dq_tc_kernel<D><<<dim3(static_cast<unsigned>(p.b) * p.n_heads, q_tiles), S::kThreadsQ,
+                        S::kSmemQ, stream>>>(qmap, kmap, vmap, domap, p, scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bwd_dkdv_tc_kernel<D><<<dim3(static_cast<unsigned>(p.b) * p.n_kv * p.split, k_tiles),
+                          S::kThreadsKV, S::kSmemKV, stream>>>(qmap, kmap, vmap, domap, p,
+                                                               scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.split == 1) return static_cast<int>(err);
+  const int64_t part_n = static_cast<int64_t>(p.b) * p.skv * p.n_kv * D;
+  const int64_t blocks = (part_n / 4 + 255) / 256;
+  bwd_reduce_tc_kernel<<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), 256, 0,
+                         stream>>>(p.part, static_cast<__nv_bfloat16*>(p.dk),
+                                   static_cast<__nv_bfloat16*>(p.dv), part_n, p.split,
+                                   p.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
+// window <= 0 means no sliding window; causal is 0 or 1.  lse: the
+// forward's b H sq floats (required).  dsum: b H sq floats.  part: 2 split b skv KV d floats when split > 1 (bf16 only; the
+// fp32 kernels take split 1), else null.
+template <bool kBf16>
 int dispatch(const void* q, const void* k, const void* v, const void* out, const void* dout,
-             void* dq, void* dk, void* dv, void* scratch, int b, int sq, int skv, int n_heads,
-             int n_kv, int d, int causal, int window, int q_offset, float scale,
-             void* stream) {
+             const float* lse, void* dq, void* dk, void* dv, float* dsum, float* part, int b, int sq, int skv, int n_heads, int n_kv, int d, int causal,
+             int window, int q_offset, int split, float scale, void* stream) {
   if (b <= 0 || sq <= 0 || n_heads <= 0) return static_cast<int>(cudaGetLastError());
   if (n_kv <= 0 || n_heads % n_kv != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (lse == nullptr || (!kBf16 && split != 1)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t esize = kBf16 ? 2 : 4;
   if (skv <= 0) {                                   // no key: dq is zero, dk and dv empty
-    cudaMemsetAsync(dq, 0, static_cast<size_t>(b) * sq * n_heads * d * sizeof(T), s);
+    cudaMemsetAsync(dq, 0, static_cast<size_t>(b) * sq * n_heads * d * esize, s);
     return static_cast<int>(cudaGetLastError());
   }
-  const size_t rows = static_cast<size_t>(b) * n_heads * sq;
-  float* f = static_cast<float*>(scratch);
-  const Params p{q, k, v, out, dout, dq, dk, dv, f, f + rows, f + 2 * rows,
-                 b, sq, skv, n_heads, n_kv, causal, window, q_offset, scale};
+  const Params p{q, k, v, out, dout, dq, dk, dv, lse, dsum, part,
+                 b, sq, skv, n_heads, n_kv, causal, window, q_offset, split, scale};
   switch (d) {
-    case 64: return launch<64, T>(p, s);
-    case 80: return launch<80, T>(p, s);
-    case 128: return launch<128, T>(p, s);
-    case 256: return launch<256, T>(p, s);
+    case 64: return kBf16 ? tc::launch<64>(p, s) : f32::launch<64>(p, s);
+    case 80: return kBf16 ? tc::launch<80>(p, s) : f32::launch<80>(p, s);
+    case 128: return kBf16 ? tc::launch<128>(p, s) : f32::launch<128>(p, s);
+    case 256: return kBf16 ? tc::launch<256>(p, s) : f32::launch<256>(p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -425,19 +893,23 @@ int dispatch(const void* q, const void* k, const void* v, const void* out, const
 }  // namespace
 
 extern "C" int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
-                                       const void* out, const void* dout, void* dq, void* dk,
-                                       void* dv, void* scratch, int b, int sq, int skv,
-                                       int n_heads, int n_kv, int d, int causal, int window,
-                                       int q_offset, float scale, void* stream) {
-  return dispatch<float>(q, k, v, out, dout, dq, dk, dv, scratch, b, sq, skv, n_heads, n_kv,
-                         d, causal, window, q_offset, scale, stream);
+                                       const void* out, const void* dout, const float* lse,
+                                       void* dq, void* dk, void* dv, float* dsum,
+                                       float* part, int b, int sq,
+                                       int skv, int n_heads, int n_kv, int d, int causal,
+                                       int window, int q_offset, int split, float scale,
+                                       void* stream) {
+  return dispatch<false>(q, k, v, out, dout, lse, dq, dk, dv, dsum, part, b, sq,
+                         skv, n_heads, n_kv, d, causal, window, q_offset, split, scale, stream);
 }
 
 extern "C" int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
-                                        const void* out, const void* dout, void* dq, void* dk,
-                                        void* dv, void* scratch, int b, int sq, int skv,
-                                        int n_heads, int n_kv, int d, int causal, int window,
-                                        int q_offset, float scale, void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, out, dout, dq, dk, dv, scratch, b, sq, skv,
-                                 n_heads, n_kv, d, causal, window, q_offset, scale, stream);
+                                        const void* out, const void* dout, const float* lse,
+                                        void* dq, void* dk, void* dv, float* dsum,
+                                        float* part, int b, int sq,
+                                        int skv, int n_heads, int n_kv, int d, int causal,
+                                        int window, int q_offset, int split, float scale,
+                                        void* stream) {
+  return dispatch<true>(q, k, v, out, dout, lse, dq, dk, dv, dsum, part, b, sq,
+                        skv, n_heads, n_kv, d, causal, window, q_offset, split, scale, stream);
 }

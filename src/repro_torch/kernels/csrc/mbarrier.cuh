@@ -1,5 +1,6 @@
 // Shared-memory mbarrier helpers (PTX, sm_90) of the kernels that wait on
-// asynchronous copies or stores: flash_attention.cu (TMA tiles),
+// asynchronous copies or stores: flash_attention.cu and
+// flash_attention_bwd.cu (TMA tiles),
 // affine_warp.cu (bulk image copies), kld_score.cu (bulk tile copies) and
 // kld_greedy.cu (st.async keys between the CTAs of a cluster).
 #pragma once

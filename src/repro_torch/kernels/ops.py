@@ -11,6 +11,7 @@ The kernel library is built on the first CUDA call (``kernels/build.py``).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -363,42 +364,47 @@ def _check_head_dim(d: int) -> None:
 
 
 def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-                   window: int | None, q_offset: int) -> torch.Tensor:
+                   window: int | None, q_offset: int, with_lse: bool = False):
+    """The forward launch; with ``with_lse`` also each row's log-sum-exp
+    ``(b, H, sq)`` fp32 for the backward (None on the CPU, whose backward
+    recomputes the softmax), returned as ``(out, lse)``."""
     if not _on_cuda(q, k, v):
-        return ref.flash_attention(q, k, v, causal=causal, window=window,
-                                   q_offset=q_offset)
+        out = ref.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+        return (out, None) if with_lse else out
     b, sq, h, d = q.shape
     _check_head_dim(d)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("the kernel loads q, k and v by TMA: they must be 16-byte aligned")
     out = torch.empty_like(q)
+    lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device) if with_lse else None
     entry = "flash_attention_f32" if q.dtype == torch.float32 else "flash_attention_bf16"
     _launch("flash_attention", entry, q.device, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), b, sq, k.shape[1], h, k.shape[2], d,
-            int(causal), 0 if window is None else int(window), int(q_offset),
-            1.0 / math.sqrt(d))
-    return out
+            v.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(), b, sq,
+            k.shape[1], h, k.shape[2], d, int(causal), 0 if window is None else int(window),
+            int(q_offset), 1.0 / math.sqrt(d))
+    return (out, lse) if with_lse else out
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Flash attention with a gradient: the forward kernel as it is, and the
-    backward kernel (``csrc/flash_attention_bwd.cu``) on the card or
-    ``ref.flash_attention_bwd`` on the CPU, from the saved ``q, k, v`` and
-    the forward's output."""
+    """Flash attention with a gradient: the forward kernel, asked for each
+    row's log-sum-exp, and the backward kernel
+    (``csrc/flash_attention_bwd.cu``) on the card or
+    ``ref.flash_attention_bwd`` on the CPU, from the saved ``q, k, v``, the
+    forward's output and its log-sum-exp."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset):
-        out = _flash_forward(q, k, v, causal, window, q_offset)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = _flash_forward(q, k, v, causal, window, q_offset, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask = (causal, window, q_offset)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         causal, window, q_offset = ctx.mask
         dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), causal=causal,
-                                         window=window, q_offset=q_offset)
+                                         window=window, q_offset=q_offset, lse=lse)
         return dq, dk, dv, None, None, None
 
 
@@ -421,36 +427,124 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _flash_forward(q, k, v, causal, window, q_offset)
 
 
+# a dK/dV CTA's fixed cost beside its (head, query tile) steps, in steps:
+# loading K and V and writing dK and dV (fitted to the split sweep of
+# ``examples/kernel_times.py --only flash_attention_bwd`` on an H100)
+FLASH_BWD_CTA_STEPS = 2
+
+
+def flash_bwd_keys(d: int) -> int:
+    """Keys per dK/dV CTA of the bf16 backward kernel: 128 (two warpgroups
+    of 64) below head dim 256, 64 at 256 (its warpgroups split columns)."""
+    return 64 if d == 256 else 128
+
+
+@functools.lru_cache(maxsize=4096)
+def flash_bwd_split(b: int, sq: int, skv: int, kv: int, rep: int, n_sm: int, *,
+                    keys: int = 128, causal: bool = True, window: int | None = None,
+                    q_offset: int = 0) -> int:
+    """How many CTAs share a KV head's ``rep`` query heads in the bf16
+    backward's dK/dV pass (a divisor of ``rep``), for CTAs of ``keys``
+    keys (``flash_bwd_keys``).  A CTA of split ``s`` walks ``rep / s``
+    heads times the 64-row query tiles its keys see under the masks, plus
+    ``FLASH_BWD_CTA_STEPS``; its CTAs run heaviest first on ``n_sm`` SMs, so
+    the pass takes about the larger of the heaviest CTA and the mean load of
+    an SM.  The least split that minimizes that is taken: each split past
+    the first writes fp32 partial dK, dV that a second pass sums in split
+    order."""
+    tiles = []                              # 64-row query tiles each CTA's keys see
+    for j0 in range(0, skv, keys):
+        lo = max(0, j0 - q_offset) if causal else 0
+        hi = min(sq, min(j0 + keys, skv) - 1 + window - q_offset) if window else sq
+        tiles.append(-(-(hi - lo // 64 * 64) // 64) if hi > lo else 0)
+    best, best_cost = 1, math.inf
+    for s in (s for s in range(1, rep + 1) if rep % s == 0):
+        steps = [rep // s * n + FLASH_BWD_CTA_STEPS for n in tiles]
+        cost = max(max(steps), b * kv * s * sum(steps) / n_sm)
+        if cost < best_cost:
+            best, best_cost = s, cost
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, dout: torch.Tensor, *, causal: bool = True,
-                        window: int | None = None, q_offset: int = 0
+                        window: int | None = None, q_offset: int = 0,
+                        lse: torch.Tensor | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradient of ``flash_attention(q, k, v)`` at its output ``out``
     for the output gradient ``dout``: ``dq, dk, dv`` in the inputs' dtype,
     fp32 accumulation, each KV head's gradient summed over its query heads
-    in a fixed order (no atomics: two runs agree bit for bit).  One launch
-    (a row-statistics pass, a dK/dV pass and a dQ pass) into fp32 scratch
-    of ``3 b H sq`` floats.  Head dims as ``flash_attention``."""
+    in a fixed order (no atomics: two runs agree bit for bit).
+
+    ``lse``: the forward's ``(b, H, sq)`` fp32 log-sum-exp of each row
+    (``ref.flash_attention_lse``; the autograd path passes it); without it
+    the forward kernel runs first to write it (one ``flash_attention``
+    launch, its output discarded).  The CPU's plain version recomputes the
+    softmax and does not read it.  One backward launch: on the card bf16
+    runs dQ (which writes each row's D), dK/dV over ``flash_bwd_split``'s
+    head split and, at a split past 1, the partials' sum
+    (``csrc/flash_attention_bwd.cu``).  Head dims as ``flash_attention``;
+    q, k, v, out and dout 16-byte aligned."""
     _flash_args(q, k, v, window)
     if out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype \
             or dout.dtype != q.dtype:
         raise ValueError(f"out and dout must be {tuple(q.shape)} {q.dtype}, got "
                          f"{tuple(out.shape)} {out.dtype} and {tuple(dout.shape)} "
                          f"{dout.dtype}")
+    b, sq, h, d = q.shape
+    if lse is not None and (lse.shape != (b, h, sq) or lse.dtype != torch.float32):
+        raise ValueError(f"lse must be ({b}, {h}, {sq}) float32, got {tuple(lse.shape)} "
+                         f"{lse.dtype}")
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    if not _on_cuda(q, k, v, out, dout):
+    tensors = (q, k, v, out, dout) + (() if lse is None else (lse,))
+    if not _on_cuda(*tensors):
         return ref.flash_attention_bwd(q, k, v, out, dout, **kw)
+    _check_head_dim(d)
+    if any(t.data_ptr() % 16 for t in (q, k, v, out, dout)):
+        raise ValueError("the kernel loads q, k, v and dout by TMA and out by 16-byte "
+                         "loads: they must be 16-byte aligned")
+    if lse is None:
+        _, lse = _flash_forward(q, k, v, causal, window, q_offset, with_lse=True)
+    return _flash_bwd_launch(q, k, v, out, dout, lse, None, **kw)
+
+
+def _flash_bwd_launch(q, k, v, out, dout, lse, split: int | None, *, causal: bool,
+                      window: int | None, q_offset: int):
+    """The backward launch on checked card tensors and the forward's lse.
+    ``split``: CTAs per KV head's query heads in the bf16 dK/dV pass, a
+    divisor of ``H / KV`` (None: ``flash_bwd_split``'s choice; the split
+    sweep of ``examples/kernel_times.py`` and the card tests set it); the
+    fp32 kernels take 1."""
     b, sq, h, d = q.shape
     _, skv, kv, _ = k.shape
-    _check_head_dim(d)
+    rep = h // kv
+    if split is not None and (split < 1 or rep % split
+                              or (split > 1 and q.dtype == torch.float32)):
+        raise ValueError(f"split must divide H / KV = {rep} (and be 1 in float32), "
+                         f"got {split}")
+    dev = q.device
+    if q.dtype == torch.float32:
+        split = 1
+    elif split is None:
+        split = flash_bwd_split(b, sq, skv, kv, rep, _sm_count(dev.index),
+                                keys=flash_bwd_keys(d), causal=causal, window=window,
+                                q_offset=q_offset)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    scratch = torch.empty(3 * b * h * sq, dtype=torch.float32, device=q.device)
+    dsum = torch.empty(b * h * sq, dtype=torch.float32, device=dev)
+    part = torch.empty(2 * split * b * skv * kv * d, dtype=torch.float32, device=dev) \
+        if split > 1 else None
     entry = "flash_attention_bwd_f32" if q.dtype == torch.float32 \
         else "flash_attention_bwd_bf16"
-    _launch("flash_attention_bwd", entry, q.device, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), scratch.data_ptr(), b, sq, skv, h, kv, d, int(causal),
-            0 if window is None else int(window), int(q_offset), 1.0 / math.sqrt(d))
+    _launch("flash_attention_bwd", entry, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dsum.data_ptr(), None if part is None else part.data_ptr(), b,
+            sq, skv, h, kv, d, int(causal), 0 if window is None else int(window),
+            int(q_offset), split, 1.0 / math.sqrt(d))
     return dq, dk, dv
 
 

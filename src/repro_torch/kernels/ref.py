@@ -150,6 +150,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
 
 
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+                        window: int | None = None, q_offset: int = 0) -> torch.Tensor:
+    """Each row's log-sum-exp of its scaled visible scores, ``(b, H, sq)``
+    fp32, natural log: ``log sum_k exp(q.k / sqrt(d))`` over the keys the
+    masks leave it, ``+inf`` for a row that sees no key (so ``exp(s -
+    lse)`` is 0 there).  What the forward kernels write for the backward."""
+    b, sq, h, d = q.shape
+    kv = k.shape[2]
+    s = torch.einsum("bqgrd,bkgd->bgrqk", q.to(torch.float32).reshape(b, sq, kv, h // kv, d),
+                     k.to(torch.float32)) * (1.0 / math.sqrt(d))
+    mask = attention_mask(sq, k.shape[1], causal=causal, window=window,
+                          q_offset=q_offset, device=q.device)
+    lse = torch.logsumexp(torch.where(mask, s, -math.inf), dim=-1)
+    lse = torch.where(mask.any(-1), lse, math.inf)
+    return lse.reshape(b, h, sq)
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, dout: torch.Tensor, *, causal: bool = True,
                         window: int | None = None, q_offset: int = 0

@@ -12,6 +12,7 @@ orders of magnitude and fp32 rounding of reordered sums shows at ~1e-6 of
 each tensor's scale).
 """
 import dataclasses
+import math
 import types
 
 import jax
@@ -133,6 +134,138 @@ def test_flash_attention_bwd_wrapper_checks():
         ops.flash_attention_bwd(q, k, v, q, g.double())
     with pytest.raises(ValueError):
         ops.flash_attention_bwd(q, k, v.double(), q, g)
+
+
+# the bf16 card kernel's shapes (tests/test_torch_cuda.py BWD_CARD_CASES) and
+# chip_smoke.py phase 3's four backward shapes: qwen3-4b's training layer,
+# the reduced configs' layer, danube's windowed head (32 heads over 8 cut to
+# 4 over 1, GQA 4:1 kept) and gemma's layer at batch 1
+EMU_BWD_CASES = [(2, 64, 64, 4, 4, 64, True, None, 0),
+                 (4, 128, 128, 32, 8, 128, True, None, 0),
+                 (1, 300, 300, 32, 8, 80, True, 96, 0),
+                 (2, 256, 256, 8, 1, 256, True, None, 0),
+                 (1, 70, 131, 4, 2, 64, True, 50, 61),
+                 (1, 45, 77, 6, 3, 128, False, None, 0),
+                 (1, 40, 40, 2, 1, 80, True, 8, 45),
+                 (4, 128, 128, 4, 4, 64, True, None, 0),
+                 (1, 1024, 2048, 4, 1, 80, True, 512, 1024),
+                 (1, 1024, 1024, 8, 1, 256, True, None, 0)]
+
+
+def _tensor_core_bwd(q, k, v, out, dout, *, causal, window, q_offset, split):
+    """The bf16 card kernel's arithmetic (csrc/flash_attention_bwd.cu),
+    emulated: S and dO V^T in fp32 from the bf16 inputs, P = exp(S / sqrt(d)
+    - lse) from the plain lse (masked P = 0), D from the bf16 out and dout,
+    dS = P (dP - D) in fp32; P and dS rounded to bf16 before their products
+    (fp32 sums); each KV head's dK, dV summed over its query heads in order
+    within each of ``split`` groups, then the groups in order; bf16 out."""
+    b, sq, h, d = q.shape
+    kv = k.shape[2]
+    rep = h // kv
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    qf = q.float().reshape(b, sq, kv, rep, d)
+    kf, vf = k.float(), v.float()
+    do = dout.float().reshape(b, sq, kv, rep, d)
+    lse = ref.flash_attention_lse(q, k, **kw).reshape(b, kv, rep, sq, 1)
+    mask = ref.attention_mask(sq, k.shape[1], device="cpu", **kw)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qf, kf) * (1.0 / math.sqrt(d))
+    p = torch.where(mask, torch.exp(s - lse), 0.0)
+    dsum = (do * out.float().reshape(b, sq, kv, rep, d)).sum(-1).permute(0, 2, 3, 1)
+    ds = p * (torch.einsum("bqgrd,bkgd->bgrqk", do, vf) - dsum[..., None])
+    pb, dsb = p.to(torch.bfloat16).float(), ds.to(torch.bfloat16).float()
+    dq = torch.einsum("bgrqk,bkgd->bqgrd", dsb, kf) / math.sqrt(d)
+    per = rep // split
+
+    def heads_sum(x):                     # (b, kv, rep, skv, d) -> (b, skv, kv, d)
+        parts = [sum(x[:, :, r] for r in range(g * per, (g + 1) * per)) for g in range(split)]
+        return sum(parts[1:], parts[0]).permute(0, 2, 1, 3)
+
+    dk = heads_sum(torch.einsum("bgrqk,bqgrd->bgrkd", dsb, qf)) / math.sqrt(d)
+    dv = heads_sum(torch.einsum("bgrqk,bqgrd->bgrkd", pb, do))
+    return tuple(t.to(torch.bfloat16) for t in (dq.reshape(b, sq, h, d), dk, dv))
+
+
+@pytest.mark.parametrize("case", EMU_BWD_CASES)
+def test_tensor_core_bwd_numerics_within_card_tolerance(case):
+    """The card's bf16 backward tolerance, 2^-7 of each gradient's largest
+    magnitude, admits the tensor-core kernel's arithmetic (P and dS rounded
+    to bf16, the split the card's 132 SMs get) against the plain version in
+    fp32 on the same bf16 inputs and against ``jax.vjp`` of the reference's
+    attention (where every row sees a key: the reference spreads a row with
+    none uniformly), on three seeds."""
+    b, sq, skv, h, kv, d, causal, window, off = case
+    kw = dict(causal=causal, window=window, q_offset=off)
+    split = ops.flash_bwd_split(b, sq, skv, kv, h // kv, 132, keys=ops.flash_bwd_keys(d), **kw)
+    every_row = bool(ref.attention_mask(sq, skv, device="cpu", **kw).any(-1).all())
+    for seed in range(3):
+        q, k, v, dout = (torch.from_numpy(x).to(torch.bfloat16)
+                         for x in _attn_data(seed, b, sq, skv, h, kv, d))
+        out = ref.flash_attention(q, k, v, **kw)
+        got = _tensor_core_bwd(q, k, v, out, dout, split=split, **kw)
+        plain = ref.flash_attention_bwd(*(t.float() for t in (q, k, v, out, dout)), **kw)
+        for g, e in zip(got, plain):
+            _close(g, e, 2 ** -7)
+        if every_row:
+            _, jgrads = _jax_attention_vjp(*(t.float().numpy() for t in (q, k, v, dout)), **kw)
+            for g, j in zip(got, jgrads):
+                _close(g, j, 2 ** -7)
+
+
+@pytest.mark.parametrize("case", [BWD_CASES[0], BWD_CASES[1], (1, 12, 12, 2, 1, 8, True, 4, 20)])
+def test_flash_attention_lse_matches_reference(case):
+    """``ref.flash_attention_lse`` against the logsumexp of the reference's
+    masked scaled scores (jax, fp32) within 1e-5 of 1 + |lse|; +inf where a
+    row sees no key (the last case: window 4, offset 20, no row sees one)."""
+    b, sq, skv, h, kv, d, causal, window, off = case
+    kw = dict(causal=causal, window=window, q_offset=off)
+    q, k, _, _ = _attn_data(9, b, sq, skv, h, kv, d)
+    got = ref.flash_attention_lse(torch.from_numpy(q), torch.from_numpy(k), **kw).numpy()
+    kr = jnp.repeat(jnp.asarray(k), h // kv, axis=2)
+    logits = jnp.einsum("bqhd,bkhd->bhqk", jnp.asarray(q), kr) / np.sqrt(d)
+    mask = jnp.asarray(ref.attention_mask(sq, skv, device="cpu", **kw).numpy())
+    want = np.asarray(jax.nn.logsumexp(jnp.where(mask, logits, -jnp.inf), axis=-1))
+    seen = np.asarray(mask.any(-1))[None, None]
+    assert np.array_equal(np.isinf(got), ~np.broadcast_to(seen, got.shape))
+    assert (got[np.isinf(got)] > 0).all()
+    gap = np.abs(got - want)[np.broadcast_to(seen, got.shape)]
+    assert (gap <= 1e-5 * (1 + np.abs(want[np.broadcast_to(seen, got.shape)]))).all()
+
+
+def test_flash_attention_bwd_with_lse_equals_without_on_cpu():
+    """On the CPU ``ops.flash_attention_bwd`` takes the forward's lse (checked
+    for shape and dtype) and gives what the call without it gives; the
+    autograd function saves none there.  The launch's private head split is
+    checked before anything runs."""
+    q, k, v, dout = (torch.from_numpy(x) for x in _attn_data(2, 1, 20, 20, 4, 2, 16))
+    kw = dict(causal=True, window=None, q_offset=0)
+    out = ref.flash_attention(q, k, v, **kw)
+    lse = ref.flash_attention_lse(q, k, **kw)
+    with_lse = ops.flash_attention_bwd(q, k, v, out, dout, lse=lse, **kw)
+    for a, b in zip(with_lse, ops.flash_attention_bwd(q, k, v, out, dout, **kw)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="lse"):
+        ops.flash_attention_bwd(q, k, v, out, dout, lse=lse[:, :2], **kw)
+    with pytest.raises(ValueError, match="lse"):
+        ops.flash_attention_bwd(q, k, v, out, dout, lse=lse.double(), **kw)
+    with pytest.raises(ValueError, match="split"):
+        ops._flash_bwd_launch(q, k, v, out, dout, lse, 3, **kw)
+
+
+@pytest.mark.parametrize("shape,d,kw,want", [
+    ((4, 128, 128, 8, 4), 128, {}, 4),                           # qwen3-4b's layer
+    ((4, 1024, 1024, 1, 8), 256, {}, 4),                         # gemma-2b's layer
+    ((1, 1024, 2048, 8, 4), 80, {"window": 512, "q_offset": 1024}, 2),   # danube's head
+    ((4, 128, 128, 4, 1), 64, {}, 1),                            # no GQA: nothing to split
+    ((1, 256, 256, 1, 8), 128, {"causal": False}, 8)])
+def test_flash_bwd_split_cost_model(shape, d, kw, want):
+    """The dK/dV pass's head split on 132 SMs, the least that minimizes the
+    larger of the heaviest CTA and an SM's mean load (the first three rows:
+    the best of each shape's sweep on an H100); always a divisor of H / KV.
+    A CTA holds 128 keys below head dim 256, 64 at 256."""
+    b, sq, skv, kv, rep = shape
+    assert ops.flash_bwd_keys(d) == (64 if d == 256 else 128)
+    got = ops.flash_bwd_split(b, sq, skv, kv, rep, 132, keys=ops.flash_bwd_keys(d), **kw)
+    assert got == want and rep % got == 0
 
 
 # ---------------------------------------------------------------- forward_train
