@@ -490,9 +490,8 @@ def check_flash_bwd(dev, gen, *, b, sq, skv, h, kv, d, dtype, window, q_offset=0
                  # a pair against the bound's 5
                  "ops_7_of_5_ms": 14.0 * d * pairs / peak * 1e3,
                  "split": ops.flash_bwd_split(b, sq, skv, kv, h // kv,
-                                              ops._sm_count(dev.index),
-                                              keys=ops.flash_bwd_keys(d), **kw)
-                 if dtype == torch.bfloat16 else 1},
+                                              ops._sm_count(dev.index), d=d, dtype=dtype,
+                                              **kw)},
                 ms=(lambda: ops.flash_attention_bwd(q, k, v, out, dout, lse=lse, **kw), 50.0),
                 direct_ms=(lambda: ops.flash_attention_bwd(q, k, v, out, dout, **kw), 50.0),
                 plain_ms=(lambda: ref.flash_attention_bwd(q, k, v, out, dout, **kw), 50.0),
@@ -1415,8 +1414,7 @@ def _sync_time(fn):
 
 # the backward kernel's passes, by the names the profiler records
 BWD_KERNELS = ("bwd_dq_tc_kernel", "bwd_dkdv_tc_kernel", "bwd_reduce_tc_kernel",
-               "bwd_dsum_f32_kernel", "bwd_dkdv_f32_kernel",
-               "bwd_dq_f32_kernel")
+               "bwd_dq_f32_kernel", "bwd_dkdv_f32_kernel", "bwd_reduce_f32_kernel")
 
 
 def profile_call(fn) -> dict:

@@ -6,7 +6,7 @@ zoo's other head dims and SSD widths), for the ``repro_torch`` of any
 source tree (to compare two commits in one run):
 
   python3 src/repro_torch/examples/kernel_times.py [--src TREE/src] [--label NAME] [--out FILE]
-      [--only flash_attention,flash_attention_bwd]
+      [--only flash_attention,flash_attention_bwd,flash_attention_bwd_cases]
   python3 src/repro_torch/examples/kernel_times.py --profiler-sessions 100
   python3 src/repro_torch/examples/kernel_times.py --ptxas --sass
 
@@ -23,7 +23,9 @@ rows SDPA's (fp32, explicit mask, KV heads repeated outside the call),
 the backward rows SDPA's backward in the same dtype (its forward graph
 built once outside the timed call) and, where the tree's wrapper takes
 the forward's log-sum-exp, the call with it (the training path), each of
-its kernels' device ms and in bf16 every head split of the dK/dV pass;
+its kernels' device ms and every head split of the dK/dV pass (fp32
+too where the tree's fp32 pass splits), and the fp32 backward with the
+forward's lse at the card tests' shapes (``flash_attention_bwd_cases``);
 the bf16 forward rows the forward writing that log-sum-exp;
 the greedy, scoring and SSD rows give the least time the card could take,
 and the scoring rows the launch plan where the tree has one.  A shape
@@ -34,8 +36,8 @@ the timing and bound helpers below.
 records in N sessions of one ``fedavg_agg`` call each (the one-kernel
 check of ``tests/test_torch_cuda.py``), to tell a missed record from an
 extra kernel.  ``--ptxas`` builds the library once more into a temporary
-directory and prints, from its ``-Xptxas=-v`` log, the fp32 flash and
-matrix kernels' registers and spills; ``--sass`` counts the SASS
+directory and prints, from its ``-Xptxas=-v`` log, the fp32 flash
+(forward and backward) and matrix kernels' registers and spills; ``--sass`` counts the SASS
 instructions of the matrix scorer's one-lane kernel in the built library
 (``cuobjdump -sass``), and the float instructions among them, and the
 issue-rate floors they imply at the matrix rows' shapes.
@@ -243,6 +245,17 @@ FLASH_SHAPES = [(4, 2048, 25, 5, 64, 1024), (1, 2048, 32, 8, 80, 4096),
 FLASH_BWD_SHAPES = [(4, 128, 128, 32, 8, 128, None, 0), (4, 128, 128, 4, 4, 64, None, 0),
                     (1, 1024, 2048, 32, 8, 80, 512, 1024),
                     (4, 1024, 1024, 8, 1, 256, None, 0)]
+# (b, sq, skv, H, KV, d, causal, window, q_offset) of the backward's card
+# tests (tests/test_torch_cuda.py BWD_CARD_CASES), timed in fp32 with the
+# forward's lse
+FLASH_BWD_CARD_CASES = [(2, 64, 64, 4, 4, 64, True, None, 0),
+                        (4, 128, 128, 32, 8, 128, True, None, 0),
+                        (1, 300, 300, 32, 8, 80, True, 96, 0),
+                        (2, 256, 256, 8, 1, 256, True, None, 0),
+                        (1, 70, 131, 4, 2, 64, True, 50, 61),
+                        (1, 45, 77, 6, 3, 128, False, None, 0),
+                        (1, 40, 40, 2, 1, 80, True, 8, 45),
+                        (1, 1024, 1024, 8, 1, 256, True, None, 0)]
 # (B, H, W, C) of the warp: the EMNIST round's slots (16 clients x 460), the
 # CINIC batch of phase 3, a rectangular image
 WARP_SHAPES = [(7360, 28, 28, 1), (4096, 32, 32, 3), (7360, 20, 36, 3)]
@@ -297,12 +310,13 @@ def flash_bwd_rows(gen, dev) -> list[dict]:
     direct call (the tree's wrapper finds the row statistics itself)
     beside its plain version, the bound, SDPA's backward and, where the
     tree's wrapper takes them, the call with the forward's lse (the
-    training path) and its kernels' device ms, and in bf16 each head split
-    of the dK/dV pass."""
+    training path) and its kernels' device ms, and each head split of the
+    dK/dV pass (in fp32 only where the tree's fp32 pass splits)."""
     from repro_torch.kernels import ops, ref
     rows = []
     with_lse = _accepts(ops.flash_attention_bwd, "lse")
     with_split = hasattr(ops, "_flash_bwd_launch")
+    fp32_split = hasattr(ops, "flash_bwd_rows")    # the fp32 dK/dV pass splits too
     for dtype in (torch.bfloat16, torch.float32):
         for b, sq, skv, h, kv, d, window, off in FLASH_BWD_SHAPES:
             kw = dict(causal=True, window=window, q_offset=off)
@@ -325,10 +339,11 @@ def flash_bwd_rows(gen, dev) -> list[dict]:
                 row["lse_ms"] = time_ms(call)
                 row["lse_device_ms"] = device_profile(call, row["lse_ms"])[0]
                 row["lse_kernels_device_ms"] = kernel_breakdown(call, row["lse_ms"])
-                if with_split and dtype == torch.bfloat16:
+                if with_split and (dtype == torch.bfloat16 or fp32_split):
+                    tile = dict(d=d, dtype=dtype) if fp32_split \
+                        else dict(keys=ops.flash_bwd_keys(d))
                     row["split"] = ops.flash_bwd_split(
-                        b, sq, skv, kv, h // kv, ops._sm_count(dev.index),
-                        keys=ops.flash_bwd_keys(d), **kw)
+                        b, sq, skv, kv, h // kv, ops._sm_count(dev.index), **tile, **kw)
                     row["split_ms"], row["split_device_ms"] = {}, {}
                     for s in (s for s in range(1, h // kv + 1) if (h // kv) % s == 0):
                         fn = lambda: ops._flash_bwd_launch(  # noqa: E731
@@ -341,6 +356,27 @@ def flash_bwd_rows(gen, dev) -> list[dict]:
             row["sdpa_bwd_device_ms"] = device_profile(lib, row["sdpa_bwd_ms"])[0]
             rows.append(row)
             del q, k, v, out, dout, lib
+    return rows
+
+
+def flash_bwd_case_rows(gen, dev) -> list[dict]:
+    """The fp32 attention backward with the forward's lse (the training
+    path's call) at ``FLASH_BWD_CARD_CASES``: event and device ms, beside
+    the bound."""
+    from repro_torch.kernels import ops, ref
+    rows = []
+    for b, sq, skv, h, kv, d, causal, window, off in FLASH_BWD_CARD_CASES:
+        kw = dict(causal=causal, window=window, q_offset=off)
+        q, dout = (torch.randn(b, sq, h, d, generator=gen, device=dev) for _ in range(2))
+        k, v = (torch.randn(b, skv, kv, d, generator=gen, device=dev) for _ in range(2))
+        out, lse = ops._flash_forward(q, k, v, causal, window, off, with_lse=True)
+        b_ms, by = flash_bwd_bound(q, k, ref.attention_mask(sq, skv, device=dev, **kw))
+        row = {"kernel": "flash_attention_bwd_cases",
+               "shape": f"b={b} sq={sq} skv={skv} H={h} KV={kv} d={d} causal={causal} "
+                        f"W={window} off={off} float32", "bound_ms": b_ms, "bound_by": by}
+        rows.append(_timed_row(
+            row, lambda: ops.flash_attention_bwd(q, k, v, out, dout, lse=lse, **kw),
+            lambda: ref.flash_attention_bwd(q, k, v, out, dout, **kw)))
     return rows
 
 
@@ -400,6 +436,8 @@ def measure(only: set[str] | None = None) -> list[dict]:
     if want("flash_attention_bwd"):
         if hasattr(ops, "flash_attention_bwd"):         # absent in older trees
             rows += flash_bwd_rows(gen, dev)
+    if want("flash_attention_bwd_cases") and _accepts(ops.flash_attention_bwd, "lse"):
+        rows += flash_bwd_case_rows(gen, dev)
     if want("affine_warp"):
         for b, h, w, c in WARP_SHAPES:
             imgs, mats, trans, nchw, grid = warp_inputs(b, h, w, c, gen, dev)
@@ -488,7 +526,8 @@ def _timed_row(row: dict, call, plain) -> dict:
     return row
 
 
-def ptxas_report(names=("flash_f32_kernel", "kld_score_matrix_kernel")) -> list[str]:
+def ptxas_report(names=("flash_f32_kernel", "bwd_dkdv_f32_kernel", "bwd_dq_f32_kernel",
+                        "kld_score_matrix_kernel")) -> list[str]:
     """Registers and spills ptxas reports for every kernel whose mangled
     name holds one of ``names``, from the build log of the library built
     once more into a temporary directory."""
@@ -609,7 +648,8 @@ def main() -> int:
     ap.add_argument("--profiler-sessions", type=int, default=0,
                     help="count the kernels recorded in this many one-call sessions")
     ap.add_argument("--ptxas", action="store_true",
-                    help="print the fp32 flash and matrix kernels' registers and spills")
+                    help="print the fp32 flash (forward, backward) and matrix kernels' "
+                         "registers and spills")
     ap.add_argument("--sass", action="store_true",
                     help="count the matrix scorer's SASS instructions per class")
     ap.add_argument("--only", default=None,

@@ -659,23 +659,6 @@ flash_f32_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// TMA map of a (b, s, heads, d) fp32 tensor as the 4-D (d, heads, s, b)
-// view, 32 x 1 x 64 x 1 boxes, 128-byte swizzle, zero fill out of bounds.
-bool make_map(CUtensorMap* map, const void* ptr, int d, int heads, int s, int b) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(s), static_cast<cuuint64_t>(b)};
-  const cuuint64_t row = static_cast<cuuint64_t>(d) * 4;
-  const cuuint64_t strides[3] = {row, row * heads, row * heads * s};
-  const cuuint32_t box[4] = {kBox, 1, kKeys, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(ptr), dims,
-            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse, int b,
            int sq, int skv, int n_heads, int n_kv, int causal, int window, int q_offset,
@@ -690,8 +673,9 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, i
   const int q_tiles = (sq + kRowsQ - 1) / kRowsQ;
   if (q_tiles > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
   CUtensorMap qmap, kmap, vmap;
-  if (!make_map(&qmap, q, D, n_heads, sq, b) || !make_map(&kmap, k, D, n_kv, skv, b) ||
-      !make_map(&vmap, v, D, n_kv, skv, b))
+  if (!make_map_f32(&qmap, q, D, n_heads, sq, b, kRowsQ) ||
+      !make_map_f32(&kmap, k, D, n_kv, skv, b, kKeys) ||
+      !make_map_f32(&vmap, v, D, n_kv, skv, b, kKeys))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kern = flash_f32_kernel<D>;
   const cudaError_t err = smem_limit_once<flash_f32_kernel<D>>(Shape<D>::kSmem);

@@ -23,9 +23,10 @@
 // key) pair (S and dO v^T recomputed, then dv, dk and dq), 10 d flops a
 // pair: e.g. qwen3-4b's training layer (b=4, s=128, H=32, KV=8, d=128,
 // causal) is 1.4 GFLOP, 1.4 us at the tensor cores' 989 TFLOP/s in bf16,
-// under its bytes (6.3 us).  Keeping dq in a kernel of its own (no atomics)
-// recomputes S and dO v^T there: 7 products a pair against the bound's 5,
-// so the bf16 kernels reach at most 5/7 of the operations bound.
+// under its bytes (6.3 us), and 20.2 us at the CUDA cores' 67 TFLOP/s in
+// fp32, over its bytes (12.5 us).  Keeping dq in a kernel of its own (no
+// atomics) recomputes S and dO v^T there: 7 products a pair against the
+// bound's 5, so both paths reach at most 5/7 of the operations bound.
 //
 // bf16: the tensor cores, three kernels in one launch, in the order (c),
 // (b), (d).
@@ -72,11 +73,29 @@
 // gradient's largest magnitude (tests/test_torch_train.py).  Head dims 64,
 // 80 (two 64-column boxes, TMA zero-fills columns 80..127), 128 and 256.
 //
-// fp32: the CUDA cores (no TF32), exact and simple: 32 x 32 tiles in
-// shared memory with rows padded to d + 1 floats, 256 threads a CTA, one
-// CTA per (b, kv head, 32-key tile) for dk and dv walking its group's query
-// heads in order, one per (b, h, 32-query tile) for dq, after a D pass (one
-// warp a row).
+// fp32: the CUDA cores (no TF32, no split-precision trick), whose bound is
+// 67 TFLOP/s of FMAs, in the same three kernels and order: dQ (which writes
+// D), dK/dV over the same head split, and the splits' sum in order.  What
+// keeps a CUDA-core kernel from that rate is shared memory and load stalls,
+// so the design is the fp32 forward's (flash_attention.cu): no producer
+// warp; the held tiles and a 2-stage ring of streamed tiles come by TMA
+// (32-column boxes, 128-byte swizzle, zero fill past the sequence and past
+// d = 80's 80 columns), each stage refilled by the warp whose ticket
+// completes the CTA's releases of it, so no warp waits for another and no
+// block-wide barrier sits in the loop.  Thread (ty, tx) (ty the half-warp,
+// H of them) owns rows ty + H i of the held tile (keys for dK/dV, query
+// rows for dQ) and, per step, a register block of their scores against rows
+// tx + 16j of the streamed tile, from float4 loads of the swizzled rows: 4
+// x 4 at 64 x 64 tiles (eight warps, d = 80 and 128), 4 x 2 at 32 x 32
+// (four warps, d = 64 and 256), 4-8 FMAs a load.  P^T and dS^T (or dS) go
+// through the half-warp's own weight tile (__syncwarp only) to the
+// accumulators of dV += P^T dO, dK += dS^T Q (or dQ += dS K): the lane's
+// columns 4 (tx + 16c) .. + 3 (and 64 + tx at d = 80) of its rows, float4
+// loads again.  The sums stay in one order (columns in order, then rows or
+// keys in order, then heads, then splits): two runs agree bit for bit.  Shared
+// memory: 224 KB a dK/dV CTA at d = 128, 200 KB at 256 (K, V and the ring
+// take 192 KB; a thread's 2 x 4 x 16 dK, dV accumulators are 128 registers).
+// A dK/dV CTA with no visible step writes zeros.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -107,12 +126,6 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 // key j is visible to query row i (absolute position q_offset + i)
 __device__ __forceinline__ bool visible(int causal, int window, int q_offset, int i, int j) {
   const int qpos = q_offset + i;
@@ -136,238 +149,520 @@ __device__ __forceinline__ void row_range(const Params& p, int j0, int j1, int* 
 // ---------------------------------------------------------------- fp32
 namespace f32 {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 32;            // query rows and keys per tile
-constexpr int kPLd = kTile + 1;      // row stride of the P and dS tiles
+constexpr int kStages = 2;           // (Q, dO) or (K, V) ring depth
+constexpr int kSmemPerSm = 233472;   // an SM's shared memory (228 KB)
 
-// D of row (b, h, i) into dsum[(b H + h) sq + i]: one warp a row, 4
-// columns a lane per step, fp32 sums in a fixed order.
-template <int D>
-__global__ void __launch_bounds__(256) bwd_dsum_f32_kernel(Params p) {
-  const int64_t row = (static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x) / 32;
-  const int lane = threadIdx.x & 31;
-  const int64_t rows = static_cast<int64_t>(p.b) * p.n_heads * p.sq;
-  if (row >= rows) return;                          // uniform across the warp
-  const int i = static_cast<int>(row % p.sq);
-  const int64_t bh = row / p.sq;
-  const int h = static_cast<int>(bh % p.n_heads);
-  const int64_t bi = bh / p.n_heads;
-  const int64_t base = ((bi * p.sq + i) * p.n_heads + h) * D;
-  const float* o = static_cast<const float*>(p.out) + base;
-  const float* g = static_cast<const float*>(p.dout) + base;
-  float acc = 0.f;
-#pragma unroll
-  for (int c = 4 * lane; c < D; c += 128)
-#pragma unroll
-    for (int u = 0; u < 4; ++u) acc = fmaf(g[c + u], o[c + u], acc);
-  acc = warp_sum(acc);
-  if (lane == 0) p.dsum[row] = acc;
+// CTAs an SM holds at `bytes` of shared memory each (1 KB reserved per
+// CTA), 1 to 3
+constexpr int per_sm(size_t bytes) {
+  return kSmemPerSm / (bytes + 1024) < 1 ? 1
+         : kSmemPerSm / (bytes + 1024) > 3 ? 3
+                                           : static_cast<int>(kSmemPerSm / (bytes + 1024));
 }
 
-// rows row0 .. row0 + 31 of head hh of a (b, seq, heads, D) tensor into a
-// 32 x (D + 1) fp32 tile, zeros past the sequence
+// The fp32 tiles at head dim D: the dK/dV CTA holds kKeys keys of K and V
+// and streams kRows-row tiles of Q and dO; the dQ CTA holds kRows query
+// rows of Q and dO and streams kKeys-key tiles of K and V.  So each tensor
+// has one TMA box height, shared by both kernels.  64 x 64 tiles and eight
+// warps (two a scheduler) at d = 80 and 128; 32 x 32 and four warps at d =
+// 256, where K, V and a 2-stage (Q, dO) ring of 32 rows already take 192
+// KB, and at d = 64, whose one use, the reduced configs' small layer, needs
+// CTAs more than large tiles.
 template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, int seq, int heads,
-                                          int bi, int hh, int row0) {
-  for (int idx = threadIdx.x; idx < kTile * D; idx += kThreads) {
-    const int r = idx / D, c = idx - r * D;
-    const int pos = row0 + r;
-    float x = 0.f;
-    if (pos < seq) x = src[((static_cast<int64_t>(bi) * seq + pos) * heads + hh) * D + c];
-    dst[r * (D + 1) + c] = x;
-  }
-}
-
-// P and dS of query rows [i0, i0 + 32) against keys [j0, j0 + 32): thread t
-// owns row t / 8 and keys t % 8 + 8 r; S and dO v^T are d-long fp32 sums
-// in column order.  Masked pairs and pairs past either sequence get 0.
-template <int D>
-__device__ __forceinline__ void p_ds_tile(const Params& p, const float* Qs, const float* dOs,
-                                          const float* Ks, const float* Vs, const float* ls,
-                                          const float* Ds, float* Ps, float* dSs, int i0,
-                                          int j0) {
-  const int i = threadIdx.x >> 3, jl = threadIdx.x & 7;
-  float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
-  const float* qrow = Qs + i * (D + 1);
-  const float* grow = dOs + i * (D + 1);
-#pragma unroll 4
-  for (int c = 0; c < D; ++c) {
-    const float qv = qrow[c], gv = grow[c];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int j = jl + 8 * r;
-      s[r] = fmaf(qv, Ks[j * (D + 1) + c], s[r]);
-      dp[r] = fmaf(gv, Vs[j * (D + 1) + c], dp[r]);
-    }
-  }
-  const int qi = i0 + i;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int j = jl + 8 * r, kj = j0 + j;
-    float pv = 0.f;
-    if (qi < p.sq && kj < p.skv && visible(p.causal, p.window, p.q_offset, qi, kj))
-      pv = expf(s[r] * p.scale - ls[i]);
-    Ps[i * kPLd + j] = pv;
-    dSs[i * kPLd + j] = pv * (dp[r] - Ds[i]);
-  }
-}
-
-// the lse and D of query rows [i0, i0 + 32) of (bi, h) into shared
-// memory, zeros past the sequence
-__device__ __forceinline__ void load_stats(const Params& p, float* ls, float* Ds, int bi,
-                                           int h, int i0) {
-  if (threadIdx.x < kTile) {
-    const int qi = i0 + threadIdx.x;
-    const int64_t row = (static_cast<int64_t>(bi) * p.n_heads + h) * p.sq + qi;
-    const bool in = qi < p.sq;
-    ls[threadIdx.x] = in ? p.lse[row] : 0.f;
-    Ds[threadIdx.x] = in ? p.dsum[row] : 0.f;
-  }
-}
-
-template <int D>
-struct Smem {
-  static constexpr size_t kGradBytes =
-      (4 * kTile * (D + 1) + 2 * kTile * kPLd + 2 * kTile) * sizeof(float);
+struct Tiles {
+  static constexpr int kKeys = D == 64 || D == 256 ? 32 : 64;
+  static constexpr int kRows = kKeys;
+  static constexpr int kThreads = kKeys == 64 ? 256 : 128;
+  static constexpr int kHalves = kThreads / 16;          // half-warps: rows ty + kHalves i
+  static constexpr int kBoxes = (D + 31) / 32;           // 32-column boxes; d=80: 3
+  static constexpr int kVec = D / 64;                    // float4 columns a lane accumulates
+  static constexpr int kScalar = (D % 64) / 16;          // + one scalar column (d=80)
+  static constexpr int kCols = 4 * kVec + kScalar;
+  static constexpr int kKeyBytes = kBoxes * kKeys * 128;    // a K or V tile
+  static constexpr int kRowBytes = kBoxes * kRows * 128;    // a Q or dO tile
+  // 1 KB of slack to align the swizzled tiles; the held pair, the ring of
+  // pairs, the fp32 weight tiles (P^T and dS^T, or dS), 1 + kStages
+  // mbarriers and kStages tickets
+  static constexpr size_t kSmemKV = 1024 + 2 * static_cast<size_t>(kKeyBytes) +
+                                    2 * kStages * static_cast<size_t>(kRowBytes) +
+                                    2 * kKeys * kRows * 4 + 8 * (1 + kStages) + 4 * kStages;
+  static constexpr size_t kSmemQ = 1024 + 2 * static_cast<size_t>(kRowBytes) +
+                                   2 * kStages * static_cast<size_t>(kKeyBytes) +
+                                   kKeys * kRows * 4 + 8 * (1 + kStages) + 4 * kStages;
+  static constexpr int kPerSmKV = per_sm(kSmemKV);
+  static constexpr int kPerSmQ = per_sm(kSmemQ);
 };
 
-// dk, dv: one CTA per (b, kv head, 32-key tile) holds k and v and loops over
-// the H / KV query heads of its group and, for each, over the query tiles
-// the masks leave visible; each thread owns d / 8 columns of one key's dk
-// and dv in registers.
-template <int D>
-__global__ void __launch_bounds__(kThreads) bwd_dkdv_f32_kernel(Params p) {
-  extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + kTile * (D + 1);
-  float* Qs = Vs + kTile * (D + 1);
-  float* dOs = Qs + kTile * (D + 1);
-  float* Ps = dOs + kTile * (D + 1);
-  float* dSs = Ps + kTile * kPLd;
-  float* ls = dSs + kTile * kPLd;
-  float* Ds = ls + kTile;
-  constexpr int kCols = D / 8;                      // columns a thread owns
-  const int bi = blockIdx.x / p.n_kv, kvh = blockIdx.x % p.n_kv;
-  const int j0 = blockIdx.y * kTile;
-  const int rep = p.n_heads / p.n_kv;
-  const float* q = static_cast<const float*>(p.q);
-  const float* g = static_cast<const float*>(p.dout);
-  load_tile<D>(Ks, static_cast<const float*>(p.k), p.skv, p.n_kv, bi, kvh, j0);
-  load_tile<D>(Vs, static_cast<const float*>(p.v), p.skv, p.n_kv, bi, kvh, j0);
+// Byte offset of 16-byte chunk `c` of row `r` in a tile of `rows`-row
+// boxes of 32 fp32 columns, 128-byte swizzled (TMA's pattern: chunk c of a
+// 128-byte row r sits at c ^ (r % 8)); `rsw` is 16 (r % 8), hoisted.
+template <int kRowsBox>
+__device__ __forceinline__ uint32_t sw_off(int r, int c, uint32_t rsw) {
+  return static_cast<uint32_t>((c >> 3) * kRowsBox * 128 + r * 128) +
+         ((16u * static_cast<uint32_t>(c & 7)) ^ rsw);
+}
 
-  const int jr = threadIdx.x >> 3, cl = threadIdx.x & 7;
-  float dk[kCols], dv[kCols];
+// One `rows`-row tile of head `head` from position `pos` by TMA.
+template <int D, int kRowsBox>
+__device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
+                                          int head, int pos, int b) {
 #pragma unroll
-  for (int u = 0; u < kCols; ++u) dk[u] = dv[u] = 0.f;
-  int lo, hi;
-  row_range(p, j0, min(j0 + kTile, p.skv), &lo, &hi);
-  for (int r = 0; r < rep; ++r) {                   // the group's query heads, in order
-    const int h = kvh * rep + r;
-    for (int i0 = (lo / kTile) * kTile; i0 < hi; i0 += kTile) {
-      __syncthreads();                              // the previous tile's readers
-      load_tile<D>(Qs, q, p.sq, p.n_heads, bi, h, i0);
-      load_tile<D>(dOs, g, p.sq, p.n_heads, bi, h, i0);
-      load_stats(p, ls, Ds, bi, h, i0);
-      __syncthreads();
-      p_ds_tile<D>(p, Qs, dOs, Ks, Vs, ls, Ds, Ps, dSs, i0, j0);
-      __syncthreads();
-      for (int i = 0; i < kTile; ++i) {
-        const float pv = Ps[i * kPLd + jr], dsv = dSs[i * kPLd + jr];
-        const float* qrow = Qs + i * (D + 1);
-        const float* grow = dOs + i * (D + 1);
+  for (int j = 0; j < Tiles<D>::kBoxes; ++j)
+    tma_load_4d(dst + j * kRowsBox * 128, map, bar, 32 * j, head, pos, b);
+}
+
+// s[i][j] = A[ty + H i] . B[tx + 16j] over the D columns, in column order
+// (H the CTA's half-warps): A the CTA's held tile (OWN rows), B a streamed
+// tile (STR rows).  Per 16-byte chunk of d a lane loads OWN / H A chunks
+// (one address per half-warp: a broadcast) and STR / 16 B chunks for 4
+// (OWN / H) (STR / 16) FMAs; the swizzle keeps both free of bank conflicts.
+template <int D, int OWN, int STR>
+__device__ __forceinline__ void dot_block(float (&s)[OWN / Tiles<D>::kHalves][STR / 16],
+                                          const uint8_t* a, const uint8_t* b, int ty, int tx) {
+  constexpr int H = Tiles<D>::kHalves, KI = OWN / H, RJ = STR / 16;
+  const uint32_t asw = 16u * static_cast<uint32_t>(ty & 7);   // rows ty + H i
+  const uint32_t bsw = 16u * static_cast<uint32_t>(tx & 7);   // rows tx + 16j
 #pragma unroll
-        for (int u = 0; u < kCols; ++u) {
-          const int c = cl + 8 * u;
-          dv[u] = fmaf(pv, grow[c], dv[u]);
-          dk[u] = fmaf(dsv, qrow[c], dk[u]);
-        }
+  for (int i = 0; i < KI; ++i)
+#pragma unroll
+    for (int j = 0; j < RJ; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < D / 4; ++c) {
+    float4 bf[RJ];
+#pragma unroll
+    for (int j = 0; j < RJ; ++j)
+      bf[j] = *reinterpret_cast<const float4*>(b + sw_off<STR>(tx + 16 * j, c, bsw));
+#pragma unroll
+    for (int i = 0; i < KI; ++i) {
+      const float4 af = *reinterpret_cast<const float4*>(a + sw_off<OWN>(ty + H * i, c, asw));
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) {
+        s[i][j] = fmaf(af.x, bf[j].x, s[i][j]);
+        s[i][j] = fmaf(af.y, bf[j].y, s[i][j]);
+        s[i][j] = fmaf(af.z, bf[j].z, s[i][j]);
+        s[i][j] = fmaf(af.w, bf[j].w, s[i][j]);
       }
     }
   }
-  const int kj = j0 + jr;
-  if (kj < p.skv) {
-    const int64_t base = ((static_cast<int64_t>(bi) * p.skv + kj) * p.n_kv + kvh) * D;
-    float* dkp = static_cast<float*>(p.dk);
-    float* dvp = static_cast<float*>(p.dv);
+}
+
+// acc[i][.] += sum over r < STR, in order, of w[i][r] B[r][columns of lane
+// tx]: w the half-warp's staged (OWN / H, STR) weights (index r stored at
+// r ^ psw), B a streamed tile.  A lane owns columns 4 (tx + 16 c) .. + 3
+// (c < kVec), plus 64 kVec + tx at d = 80.  Per 4 rows, OWN / H float4
+// weight loads (broadcast) and 4 D / 64 row chunks feed (OWN / H) D / 4 FMAs.
+template <int D, int OWN, int STR>
+__device__ __forceinline__ void accumulate(float (&acc)[OWN / Tiles<D>::kHalves][Tiles<D>::kCols],
+                                           const float* w, const uint8_t* b, int tx, int psw) {
+  using T = Tiles<D>;
+  constexpr int KI = OWN / T::kHalves;
+  constexpr int kBoxBytes = STR * 128;
+  // two 8-row groups in flight, but one where the lane holds 64 or more
+  // accumulators (d = 256: more would spill or slow the dK/dV kernel)
+#pragma unroll (KI * T::kCols < 64 ? 2 : 1)
+  for (int r8 = 0; r8 < STR; r8 += 8)
 #pragma unroll
-    for (int u = 0; u < kCols; ++u) {
-      const int c = cl + 8 * u;
-      dkp[base + c] = dk[u] * p.scale;
-      dvp[base + c] = dv[u];
+    for (int r4 = r8; r4 < r8 + 8; r4 += 4) {
+      float4 wf[KI];
+#pragma unroll
+      for (int i = 0; i < KI; ++i)
+        wf[i] = *reinterpret_cast<const float4*>(w + i * STR + (r4 ^ psw));
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const uint32_t rsw = 16u * static_cast<uint32_t>((r4 - r8 + u) & 7);   // row % 8
+        const uint8_t* row = b + (r4 + u) * 128;
+        float wu[KI];
+#pragma unroll
+        for (int i = 0; i < KI; ++i)
+          wu[i] = u == 0 ? wf[i].x : u == 1 ? wf[i].y : u == 2 ? wf[i].z : wf[i].w;
+#pragma unroll
+        for (int c = 0; c < T::kVec; ++c) {
+          const int chunk = tx + 16 * c;
+          const float4 vf = *reinterpret_cast<const float4*>(
+              row + (chunk >> 3) * kBoxBytes + ((16u * (chunk & 7)) ^ rsw));
+#pragma unroll
+          for (int i = 0; i < KI; ++i) {
+            acc[i][4 * c + 0] = fmaf(wu[i], vf.x, acc[i][4 * c + 0]);
+            acc[i][4 * c + 1] = fmaf(wu[i], vf.y, acc[i][4 * c + 1]);
+            acc[i][4 * c + 2] = fmaf(wu[i], vf.z, acc[i][4 * c + 2]);
+            acc[i][4 * c + 3] = fmaf(wu[i], vf.w, acc[i][4 * c + 3]);
+          }
+        }
+        if constexpr (T::kScalar > 0) {
+          // column 64 kVec + tx: box 2 kVec, chunk tx / 4, word tx % 4
+          const float vv = *reinterpret_cast<const float*>(
+              row + 2 * T::kVec * kBoxBytes + ((16u * (tx >> 2)) ^ rsw) + 4 * (tx & 3));
+#pragma unroll
+          for (int i = 0; i < KI; ++i)
+            acc[i][4 * T::kVec] = fmaf(wu[i], vv, acc[i][4 * T::kVec]);
+        }
+      }
+    }
+}
+
+// A warp is done with ring stage `st` (step t): the last of the CTA's
+// kWarps warps to say so (its ticket ends a group of kWarps) loads step
+// t + kStages into it, if there is one, by calling `load`.  Nobody waits.
+template <int kWarps, typename Load>
+__device__ __forceinline__ void release(uint32_t* ticket, int st, int lane, bool more,
+                                        const Load& load) {
+  __syncwarp();                             // the warp's reads of the stage are done
+  if (lane == 0) {
+    __threadfence_block();
+    if ((atomicAdd(ticket + st, 1u) & (kWarps - 1u)) == kWarps - 1u && more) {
+      __threadfence_block();
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      load();
     }
   }
 }
 
-// dq: one CTA per (b, h, 32-query tile) loops over the visible key tiles;
-// each thread owns d / 8 columns of one row's dq.
+// Stores a lane's columns of row `row` (4 (tx + 16 c) .. + 3, and 64 kVec +
+// tx at d = 80), times `mul`.
 template <int D>
-__global__ void __launch_bounds__(kThreads) bwd_dq_f32_kernel(Params p) {
-  extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + kTile * (D + 1);
-  float* Qs = Vs + kTile * (D + 1);
-  float* dOs = Qs + kTile * (D + 1);
-  float* Ps = dOs + kTile * (D + 1);
-  float* dSs = Ps + kTile * kPLd;
-  float* ls = dSs + kTile * kPLd;
-  float* Ds = ls + kTile;
-  constexpr int kCols = D / 8;
-  const int bi = blockIdx.x / p.n_heads, h = blockIdx.x % p.n_heads;
-  const int kvh = h / (p.n_heads / p.n_kv);
-  const int i0 = blockIdx.y * kTile;
-  const float* k = static_cast<const float*>(p.k);
-  const float* v = static_cast<const float*>(p.v);
-  load_tile<D>(Qs, static_cast<const float*>(p.q), p.sq, p.n_heads, bi, h, i0);
-  load_tile<D>(dOs, static_cast<const float*>(p.dout), p.sq, p.n_heads, bi, h, i0);
-  load_stats(p, ls, Ds, bi, h, i0);
+__device__ __forceinline__ void store_row(float* row, const float (&acc)[Tiles<D>::kCols],
+                                          int tx, float mul) {
+  using T = Tiles<D>;
+#pragma unroll
+  for (int c = 0; c < T::kVec; ++c)
+    *reinterpret_cast<float4*>(row + 4 * (tx + 16 * c)) =
+        make_float4(acc[4 * c] * mul, acc[4 * c + 1] * mul, acc[4 * c + 2] * mul,
+                    acc[4 * c + 3] * mul);
+  if constexpr (T::kScalar > 0) row[64 * T::kVec + tx] = acc[4 * T::kVec] * mul;
+}
 
-  const int ir = threadIdx.x >> 3, cl = threadIdx.x & 7;
-  float dq[kCols];
-#pragma unroll
-  for (int u = 0; u < kCols; ++u) dq[u] = 0.f;
+// dK/dV: one CTA per (batch, KV head, kKeys-key tile, head split).  Thread
+// (ty, tx) (ty = the half-warp) owns keys ty + H i and their dK, dV columns
+// (`accumulate`'s); per (head, query tile) step it forms the S^T and dP^T
+// blocks of its keys against query rows tx + 16j (`dot_block`), P^T =
+// exp2(S^T scale log2 e - lse log2 e) and dS^T = P^T (dP^T - D), stages them
+// in the half-warp's weight tiles (so only __syncwarp guards them), then
+// dV += P^T dO and dK += dS^T Q.  The (Q, dO) tiles of the CTA's query
+// heads (head-major, then query tiles) stream through the ring.
+template <int D>
+__global__ void __launch_bounds__(Tiles<D>::kThreads, Tiles<D>::kPerSmKV)
+bwd_dkdv_f32_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const __grid_constant__ CUtensorMap domap, Params p, float scale_log2) {
+  using T = Tiles<D>;
+  constexpr int OWN = T::kKeys, STR = T::kRows, H = T::kHalves, KI = OWN / H, RJ = STR / 16;
+  constexpr int kOwnBytes = T::kKeyBytes, kStrBytes = T::kRowBytes;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  uint8_t* k_s = smem_raw + (((raw + 1023u) & ~1023u) - raw);   // 1 KB aligned
+  uint8_t* v_s = k_s + kOwnBytes;
+  uint8_t* ring = v_s + kOwnBytes;                  // stage st: Q, then dO
+  float* w_s = reinterpret_cast<float*>(ring + 2 * kStages * kStrBytes);   // P^T, dS^T
+  uint64_t* full_kv = reinterpret_cast<uint64_t*>(w_s + 2 * OWN * STR);
+  uint64_t* full = full_kv + 1;
+  uint32_t* ticket = reinterpret_cast<uint32_t*>(full + kStages);
+
+  const int sp = blockIdx.x % p.split;
+  const int bg = blockIdx.x / p.split;
+  const int b = bg / p.n_kv, g = bg - b * p.n_kv;
+  const int j0 = blockIdx.y * OWN;                  // key tile 0 first (causal: heaviest)
+  const int per = p.n_heads / p.n_kv / p.split;     // query heads of this CTA
+  const int h0 = (g * p.split + sp) * per;
   int lo, hi;
-  key_range(p, i0, min(i0 + kTile, p.sq), &lo, &hi);
-  for (int j0 = (lo / kTile) * kTile; j0 < hi; j0 += kTile) {
-    __syncthreads();                                // the previous tile's readers
-    load_tile<D>(Ks, k, p.skv, p.n_kv, bi, kvh, j0);
-    load_tile<D>(Vs, v, p.skv, p.n_kv, bi, kvh, j0);
-    __syncthreads();
-    p_ds_tile<D>(p, Qs, dOs, Ks, Vs, ls, Ds, Ps, dSs, i0, j0);
-    __syncthreads();
-    for (int j = 0; j < kTile; ++j) {
-      const float dsv = dSs[ir * kPLd + j];
-      const float* krow = Ks + j * (D + 1);
-#pragma unroll
-      for (int u = 0; u < kCols; ++u) dq[u] = fmaf(dsv, krow[cl + 8 * u], dq[u]);
+  row_range(p, j0, min(j0 + OWN, p.skv), &lo, &hi);
+  const int it0 = (lo / STR) * STR;
+  const int n_qt = hi > lo ? (hi - it0 + STR - 1) / STR : 0;
+  const int n = per * n_qt;                         // (head, query tile) steps, head-major
+  auto load_step = [&](int t) {
+    uint8_t* dst = ring + 2 * (t % kStages) * kStrBytes;
+    const int h = h0 + t / n_qt, i0 = it0 + (t % n_qt) * STR;
+    mbar_expect_tx(full + t % kStages, 2 * kStrBytes);
+    load_tile<D, STR>(dst, &qmap, full + t % kStages, h, i0, b);
+    load_tile<D, STR>(dst + kStrBytes, &domap, full + t % kStages, h, i0, b);
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      ticket[s] = 0;
+    }
+    mbar_init_fence();
+    if (n > 0) {
+      mbar_expect_tx(full_kv, 2 * kOwnBytes);
+      load_tile<D, OWN>(k_s, &kmap, full_kv, g, j0, b);
+      load_tile<D, OWN>(v_s, &vmap, full_kv, g, j0, b);
+      for (int t = 0; t < kStages && t < n; ++t) load_step(t);
     }
   }
-  const int qi = i0 + ir;
-  if (qi < p.sq) {
-    const int64_t base = ((static_cast<int64_t>(bi) * p.sq + qi) * p.n_heads + h) * D;
-    float* dqp = static_cast<float*>(p.dq);
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int ty = warp * 2 + (lane >> 4);
+  const int tx = lane & 15;
+  const int psw = 16 * (ty & 1);                    // the weight tiles' row-index swizzle
+  float* pw = w_s + ty * KI * STR;                  // this half-warp's P^T
+  float* dsw = pw + OWN * STR;                      // and dS^T
+  float dk[KI][T::kCols], dv[KI][T::kCols];
 #pragma unroll
-    for (int u = 0; u < kCols; ++u) dqp[base + cl + 8 * u] = dq[u] * p.scale;
+  for (int i = 0; i < KI; ++i)
+#pragma unroll
+    for (int c = 0; c < T::kCols; ++c) dk[i][c] = dv[i][c] = 0.f;
+  if (n > 0) mbar_wait(full_kv, 0);
+
+  for (int t = 0; t < n; ++t) {
+    const int st = t % kStages;
+    const int h = h0 + t / n_qt, i0 = it0 + (t % n_qt) * STR;
+    const uint8_t* q_t = ring + 2 * st * kStrBytes;
+    const uint8_t* do_t = q_t + kStrBytes;
+    float nl[RJ], dd[RJ];                           // the rows' -lse log2 e and D
+#pragma unroll
+    for (int j = 0; j < RJ; ++j) {
+      const int row = i0 + tx + 16 * j;
+      const int64_t idx = (static_cast<int64_t>(b) * p.n_heads + h) * p.sq + row;
+      nl[j] = row < p.sq ? -p.lse[idx] * kLog2e : 0.f;
+      dd[j] = row < p.sq ? p.dsum[idx] : 0.f;
+    }
+    // the per-element mask only where a mask or an end cuts the tile
+    const bool whole = j0 + OWN <= p.skv && i0 + STR <= p.sq &&
+                       (!p.causal || j0 + OWN - 1 <= i0 + p.q_offset) &&
+                       (p.window <= 0 || j0 > i0 + STR - 1 + p.q_offset - p.window);
+    mbar_wait(full + st, (t / kStages) & 1);
+
+    float s[KI][RJ];
+    dot_block<D, OWN, STR>(s, k_s, q_t, ty, tx);    // S^T = K Q^T
+#pragma unroll
+    for (int i = 0; i < KI; ++i)
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) {
+        float pv = exp2f(fmaf(s[i][j], scale_log2, nl[j]));
+        if (!whole) {
+          const int key = j0 + ty + H * i, row = i0 + tx + 16 * j;
+          const bool ok = key < p.skv && row < p.sq &&
+                          visible(p.causal, p.window, p.q_offset, row, key);
+          pv = ok ? pv : 0.f;
+        }
+        pw[i * STR + ((tx + 16 * j) ^ psw)] = pv;
+      }
+    dot_block<D, OWN, STR>(s, v_s, do_t, ty, tx);   // dP^T = V dO^T
+#pragma unroll
+    for (int i = 0; i < KI; ++i)
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) {
+        const int at = i * STR + ((tx + 16 * j) ^ psw);   // this lane's own P^T
+        dsw[at] = pw[at] * (s[i][j] - dd[j]);
+      }
+    __syncwarp();                                   // the half-warp's P^T and dS^T
+    accumulate<D, OWN, STR>(dv, pw, do_t, tx, psw);
+    accumulate<D, OWN, STR>(dk, dsw, q_t, tx, psw);
+    release<T::kThreads / 32>(ticket, st, lane, t + kStages < n, [&] { load_step(t + kStages); });
+  }
+
+  // dK (scaled) and dV at split 1, else this split's fp32 partials
+  const int64_t part_n = static_cast<int64_t>(p.b) * p.skv * p.n_kv * D;
+#pragma unroll
+  for (int i = 0; i < KI; ++i) {
+    const int key = j0 + ty + H * i;
+    if (key >= p.skv) continue;
+    const int64_t at = ((static_cast<int64_t>(b) * p.skv + key) * p.n_kv + g) * D;
+    if (p.part == nullptr) {
+      store_row<D>(static_cast<float*>(p.dk) + at, dk[i], tx, p.scale);
+      store_row<D>(static_cast<float*>(p.dv) + at, dv[i], tx, 1.f);
+    } else {
+      store_row<D>(p.part + sp * part_n + at, dk[i], tx, 1.f);
+      store_row<D>(p.part + (p.split + sp) * part_n + at, dv[i], tx, 1.f);
+    }
+  }
+}
+
+// dQ: one CTA per (batch, query head, kRows-query tile).  The half-warp ty
+// owns query rows ty + H i; the CTA first forms D = rowsum(dO O) of its rows
+// from out and dout (and writes it for the dK/dV pass: no other CTA visits
+// these rows), then walks its visible key tiles through the (K, V) ring:
+// the S and dP blocks against keys tx + 16j, dS = P (dP - D) staged in the
+// half-warp's weight tile, dQ += dS K.
+template <int D>
+__global__ void __launch_bounds__(Tiles<D>::kThreads, Tiles<D>::kPerSmQ)
+bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap qmap,
+                  const __grid_constant__ CUtensorMap kmap,
+                  const __grid_constant__ CUtensorMap vmap,
+                  const __grid_constant__ CUtensorMap domap, Params p, float scale_log2) {
+  using T = Tiles<D>;
+  constexpr int OWN = T::kRows, STR = T::kKeys, H = T::kHalves, KI = OWN / H, RJ = STR / 16;
+  constexpr int kOwnBytes = T::kRowBytes, kStrBytes = T::kKeyBytes;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  uint8_t* q_s = smem_raw + (((raw + 1023u) & ~1023u) - raw);   // 1 KB aligned
+  uint8_t* do_s = q_s + kOwnBytes;
+  uint8_t* ring = do_s + kOwnBytes;                 // stage st: K, then V
+  float* w_s = reinterpret_cast<float*>(ring + 2 * kStages * kStrBytes);   // dS
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(w_s + OWN * STR);
+  uint64_t* full = full_q + 1;
+  uint32_t* ticket = reinterpret_cast<uint32_t*>(full + kStages);
+
+  const int b = blockIdx.x / p.n_heads;
+  const int h = blockIdx.x - b * p.n_heads;
+  const int g = h / (p.n_heads / p.n_kv);
+  const int i0 = (gridDim.y - 1 - blockIdx.y) * OWN;   // heaviest tiles first
+  int k_begin, k_end;
+  key_range(p, i0, min(i0 + OWN, p.sq), &k_begin, &k_end);
+  const int kt0 = (k_begin / STR) * STR;
+  const int n = k_end > k_begin ? (k_end - kt0 + STR - 1) / STR : 0;
+  auto load_step = [&](int t) {
+    uint8_t* dst = ring + 2 * (t % kStages) * kStrBytes;
+    mbar_expect_tx(full + t % kStages, 2 * kStrBytes);
+    load_tile<D, STR>(dst, &kmap, full + t % kStages, g, kt0 + t * STR, b);
+    load_tile<D, STR>(dst + kStrBytes, &vmap, full + t % kStages, g, kt0 + t * STR, b);
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      ticket[s] = 0;
+    }
+    mbar_init_fence();
+    if (n > 0) {
+      mbar_expect_tx(full_q, 2 * kOwnBytes);
+      load_tile<D, OWN>(q_s, &qmap, full_q, h, i0, b);
+      load_tile<D, OWN>(do_s, &domap, full_q, h, i0, b);
+      for (int t = 0; t < kStages && t < n; ++t) load_step(t);
+    }
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int ty = warp * 2 + (lane >> 4);
+  const int tx = lane & 15;
+  const int psw = 16 * (ty & 1);
+  float* dsw = w_s + ty * KI * STR;                 // this half-warp's dS
+  // -lse log2 e and D of rows ty + H i: the half-warp's 16 lanes take the
+  // row's 16-byte chunks in turn, then sum over the half-warp
+  float nl[KI], dd[KI];
+#pragma unroll
+  for (int i = 0; i < KI; ++i) {
+    const int row = i0 + ty + H * i;
+    const int64_t idx = (static_cast<int64_t>(b) * p.n_heads + h) * p.sq + row;
+    nl[i] = row < p.sq ? -p.lse[idx] * kLog2e : 0.f;
+    float acc = 0.f;
+    if (row < p.sq) {
+      const int64_t base = ((static_cast<int64_t>(b) * p.sq + row) * p.n_heads + h) * D;
+      const float4* o = reinterpret_cast<const float4*>(static_cast<const float*>(p.out) + base);
+      const float4* go = reinterpret_cast<const float4*>(static_cast<const float*>(p.dout) + base);
+#pragma unroll
+      for (int c = tx; c < D / 4; c += 16) {
+        const float4 ov = o[c], gv = go[c];
+        acc = fmaf(gv.x, ov.x, acc);
+        acc = fmaf(gv.y, ov.y, acc);
+        acc = fmaf(gv.z, ov.z, acc);
+        acc = fmaf(gv.w, ov.w, acc);
+      }
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    dd[i] = acc;
+    if (row < p.sq && tx == 0) p.dsum[idx] = acc;
+  }
+  float dq[KI][T::kCols];
+#pragma unroll
+  for (int i = 0; i < KI; ++i)
+#pragma unroll
+    for (int c = 0; c < T::kCols; ++c) dq[i][c] = 0.f;
+  if (n > 0) mbar_wait(full_q, 0);
+
+  for (int t = 0; t < n; ++t) {
+    const int st = t % kStages;
+    const int k0 = kt0 + t * STR;
+    const uint8_t* k_t = ring + 2 * st * kStrBytes;
+    const uint8_t* v_t = k_t + kStrBytes;
+    const bool whole = k0 + STR <= p.skv && i0 + OWN <= p.sq &&
+                       (!p.causal || k0 + STR - 1 <= i0 + p.q_offset) &&
+                       (p.window <= 0 || k0 > i0 + OWN - 1 + p.q_offset - p.window);
+    mbar_wait(full + st, (t / kStages) & 1);
+    float s[KI][RJ], dp[KI][RJ];
+    dot_block<D, OWN, STR>(s, q_s, k_t, ty, tx);    // S = Q K^T
+    dot_block<D, OWN, STR>(dp, do_s, v_t, ty, tx);  // dP = dO V^T
+#pragma unroll
+    for (int i = 0; i < KI; ++i)
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) {
+        float pv = exp2f(fmaf(s[i][j], scale_log2, nl[i]));
+        if (!whole) {
+          const int row = i0 + ty + H * i, key = k0 + tx + 16 * j;
+          const bool ok = key < p.skv && row < p.sq &&
+                          visible(p.causal, p.window, p.q_offset, row, key);
+          pv = ok ? pv : 0.f;
+        }
+        dsw[i * STR + ((tx + 16 * j) ^ psw)] = pv * (dp[i][j] - dd[i]);
+      }
+    __syncwarp();                                   // the half-warp's dS
+    accumulate<D, OWN, STR>(dq, dsw, k_t, tx, psw);
+    release<T::kThreads / 32>(ticket, st, lane, t + kStages < n, [&] { load_step(t + kStages); });
+  }
+
+#pragma unroll
+  for (int i = 0; i < KI; ++i) {
+    const int row = i0 + ty + H * i;
+    if (row < p.sq)
+      store_row<D>(static_cast<float*>(p.dq) +
+                       ((static_cast<int64_t>(b) * p.sq + row) * p.n_heads + h) * D,
+                   dq[i], tx, p.scale);
+  }
+}
+
+// dk = scale * sum of the split partials, dv = their sum, in split order;
+// 4 elements a thread
+__global__ void __launch_bounds__(256) bwd_reduce_f32_kernel(const float* __restrict__ part,
+                                                             float* __restrict__ dk,
+                                                             float* __restrict__ dv,
+                                                             int64_t part_n, int split,
+                                                             float scale) {
+  for (int64_t e = 4 * (blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x);
+       e < part_n; e += 4 * static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    float4 sk = *reinterpret_cast<const float4*>(part + e);
+    float4 sv = *reinterpret_cast<const float4*>(part + split * part_n + e);
+    for (int s = 1; s < split; ++s) {
+      const float4 a = *reinterpret_cast<const float4*>(part + s * part_n + e);
+      const float4 c = *reinterpret_cast<const float4*>(part + (split + s) * part_n + e);
+      sk.x += a.x; sk.y += a.y; sk.z += a.z; sk.w += a.w;
+      sv.x += c.x; sv.y += c.y; sv.z += c.z; sv.w += c.w;
+    }
+    *reinterpret_cast<float4*>(dk + e) =
+        make_float4(sk.x * scale, sk.y * scale, sk.z * scale, sk.w * scale);
+    *reinterpret_cast<float4*>(dv + e) = sv;
   }
 }
 
 template <int D>
 int launch(const Params& p, cudaStream_t stream) {
-  const int q_tiles = (p.sq + kTile - 1) / kTile;
-  const int k_tiles = (p.skv + kTile - 1) / kTile;
+  using T = Tiles<D>;
+  const int q_tiles = (p.sq + T::kRows - 1) / T::kRows;
+  const int k_tiles = (p.skv + T::kKeys - 1) / T::kKeys;
   if (q_tiles > 65535 || k_tiles > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  cudaError_t err = smem_limit_once<bwd_dkdv_f32_kernel<D>>(Smem<D>::kGradBytes);
-  if (err == cudaSuccess) err = smem_limit_once<bwd_dq_f32_kernel<D>>(Smem<D>::kGradBytes);
+  if (p.split < 1 || (p.n_heads / p.n_kv) % p.split != 0 || (p.split > 1) != (p.part != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap qmap, kmap, vmap, domap;
+  if (!make_map_f32(&qmap, p.q, D, p.n_heads, p.sq, p.b, T::kRows) ||
+      !make_map_f32(&kmap, p.k, D, p.n_kv, p.skv, p.b, T::kKeys) ||
+      !make_map_f32(&vmap, p.v, D, p.n_kv, p.skv, p.b, T::kKeys) ||
+      !make_map_f32(&domap, p.dout, D, p.n_heads, p.sq, p.b, T::kRows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = smem_limit_once<bwd_dkdv_f32_kernel<D>>(T::kSmemKV);
+  if (err == cudaSuccess) err = smem_limit_once<bwd_dq_f32_kernel<D>>(T::kSmemQ);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned bh = static_cast<unsigned>(p.b) * p.n_heads;
-  const unsigned bkv = static_cast<unsigned>(p.b) * p.n_kv;
-  const int64_t rows = static_cast<int64_t>(bh) * p.sq;
-  bwd_dsum_f32_kernel<D><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(p);
+  const float scale_log2 = p.scale * kLog2e;
+  bwd_dq_f32_kernel<D><<<dim3(static_cast<unsigned>(p.b) * p.n_heads, q_tiles), T::kThreads,
+                         T::kSmemQ, stream>>>(qmap, kmap, vmap, domap, p, scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_dkdv_f32_kernel<D><<<dim3(bkv, k_tiles), kThreads, Smem<D>::kGradBytes, stream>>>(p);
+  bwd_dkdv_f32_kernel<D><<<dim3(static_cast<unsigned>(p.b) * p.n_kv * p.split, k_tiles),
+                           T::kThreads, T::kSmemKV, stream>>>(qmap, kmap, vmap, domap, p,
+                                                           scale_log2);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_dq_f32_kernel<D><<<dim3(bh, q_tiles), kThreads, Smem<D>::kGradBytes, stream>>>(p);
+  if (err != cudaSuccess || p.split == 1) return static_cast<int>(err);
+  const int64_t part_n = static_cast<int64_t>(p.b) * p.skv * p.n_kv * D;
+  const int64_t blocks = (part_n / 4 + 255) / 256;
+  bwd_reduce_f32_kernel<<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), 256, 0,
+                          stream>>>(p.part, static_cast<float*>(p.dk), static_cast<float*>(p.dv),
+                                    part_n, p.split, p.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -864,15 +1159,16 @@ int launch(const Params& p, cudaStream_t stream) {
 }  // namespace tc
 
 // window <= 0 means no sliding window; causal is 0 or 1.  lse: the
-// forward's b H sq floats (required).  dsum: b H sq floats.  part: 2 split b skv KV d floats when split > 1 (bf16 only; the
-// fp32 kernels take split 1), else null.
+// forward's b H sq floats (required).  dsum: b H sq floats.  split: CTAs
+// per KV head's query heads in the dK/dV pass, a divisor of H / KV.  part:
+// 2 split b skv KV d floats when split > 1, else null.
 template <bool kBf16>
 int dispatch(const void* q, const void* k, const void* v, const void* out, const void* dout,
              const float* lse, void* dq, void* dk, void* dv, float* dsum, float* part, int b, int sq, int skv, int n_heads, int n_kv, int d, int causal,
              int window, int q_offset, int split, float scale, void* stream) {
   if (b <= 0 || sq <= 0 || n_heads <= 0) return static_cast<int>(cudaGetLastError());
   if (n_kv <= 0 || n_heads % n_kv != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (lse == nullptr || (!kBf16 && split != 1)) return static_cast<int>(cudaErrorInvalidValue);
+  if (lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t esize = kBf16 ? 2 : 4;
   if (skv <= 0) {                                   // no key: dq is zero, dk and dv empty

@@ -1,6 +1,6 @@
 // The pieces the flash-attention forward (flash_attention.cu) and backward
-// (flash_attention_bwd.cu) kernels share: TMA maps and loads of the model
-// layout (b, s, heads, d) as a 4-D (d, heads, s, b) view, the wgmma
+// (flash_attention_bwd.cu) kernels share: TMA maps (bf16 and fp32) and loads
+// of the model layout (b, s, heads, d) as a 4-D (d, heads, s, b) view, the wgmma
 // m64n64k16 bf16 products (both operands in shared memory, or A from
 // registers and B MN-major), their shared-memory descriptors and fences,
 // and the dynamic shared memory limit.
@@ -171,6 +171,26 @@ inline bool make_map_bf16(CUtensorMap* map, const void* ptr, int d, int heads, i
   const cuuint32_t box[4] = {64, 1, 64, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// TMA map of a (b, s, heads, d) fp32 tensor as the 4-D (d, heads, s, b)
+// view, 32 x 1 x `rows` x 1 boxes (one 128-byte row of 32 columns each),
+// 128-byte swizzle, zero fill out of bounds (past the sequence, and past
+// d = 80's 80 columns in its third box).
+inline bool make_map_f32(CUtensorMap* map, const void* ptr, int d, int heads, int s, int b,
+                         int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(s), static_cast<cuuint64_t>(b)};
+  const cuuint64_t row = static_cast<cuuint64_t>(d) * 4;
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * s};
+  const cuuint32_t box[4] = {32, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(ptr), dims,
             strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -428,38 +428,52 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 # a dK/dV CTA's fixed cost beside its (head, query tile) steps, in steps:
-# loading K and V and writing dK and dV (fitted to the split sweep of
-# ``examples/kernel_times.py --only flash_attention_bwd`` on an H100)
-FLASH_BWD_CTA_STEPS = 2
+# loading K and V and writing dK and dV (fitted to the split sweeps of
+# ``examples/kernel_times.py --only flash_attention_bwd`` on an H100; an
+# fp32 step is longer against that cost, on the CUDA cores)
+FLASH_BWD_CTA_STEPS = {torch.bfloat16: 2, torch.float32: 1}
 
 
-def flash_bwd_keys(d: int) -> int:
-    """Keys per dK/dV CTA of the bf16 backward kernel: 128 (two warpgroups
-    of 64) below head dim 256, 64 at 256 (its warpgroups split columns)."""
+def flash_bwd_keys(d: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Keys per dK/dV CTA of the backward kernel.  bf16: 128 (two
+    warpgroups of 64) below head dim 256, 64 at 256 (its warpgroups split
+    columns).  fp32: 64, but 32 at head dim 256 (K, V and the query ring
+    fill the shared memory) and at 64 (the reduced configs' small layer
+    needs CTAs more than large tiles)."""
+    if dtype == torch.float32:
+        return 32 if d in (64, 256) else 64
     return 64 if d == 256 else 128
 
 
+def flash_bwd_rows(d: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Query rows per (Q, dO) tile a dK/dV CTA streams: 64, but in fp32
+    as many as its keys (``flash_bwd_keys``)."""
+    return flash_bwd_keys(d, dtype) if dtype == torch.float32 else 64
+
+
 @functools.lru_cache(maxsize=4096)
-def flash_bwd_split(b: int, sq: int, skv: int, kv: int, rep: int, n_sm: int, *,
-                    keys: int = 128, causal: bool = True, window: int | None = None,
-                    q_offset: int = 0) -> int:
-    """How many CTAs share a KV head's ``rep`` query heads in the bf16
-    backward's dK/dV pass (a divisor of ``rep``), for CTAs of ``keys``
-    keys (``flash_bwd_keys``).  A CTA of split ``s`` walks ``rep / s``
-    heads times the 64-row query tiles its keys see under the masks, plus
-    ``FLASH_BWD_CTA_STEPS``; its CTAs run heaviest first on ``n_sm`` SMs, so
-    the pass takes about the larger of the heaviest CTA and the mean load of
-    an SM.  The least split that minimizes that is taken: each split past
-    the first writes fp32 partial dK, dV that a second pass sums in split
-    order."""
-    tiles = []                              # 64-row query tiles each CTA's keys see
+def flash_bwd_split(b: int, sq: int, skv: int, kv: int, rep: int, n_sm: int, *, d: int,
+                    dtype: torch.dtype = torch.bfloat16, causal: bool = True,
+                    window: int | None = None, q_offset: int = 0) -> int:
+    """How many CTAs share a KV head's ``rep`` query heads in the
+    backward's dK/dV pass at head dim ``d`` in ``dtype`` (a divisor of
+    ``rep``).  Its CTAs hold ``flash_bwd_keys`` keys and stream
+    ``flash_bwd_rows``-row query tiles; a CTA of split ``s`` walks ``rep /
+    s`` heads times the query tiles its keys see under the masks, plus
+    ``FLASH_BWD_CTA_STEPS[dtype]``; its CTAs run heaviest first on ``n_sm``
+    SMs, so the pass takes about the larger of the heaviest CTA and the mean
+    load of an SM.  The least split that minimizes that is taken: each split
+    past the first writes fp32 partial dK, dV that a second pass sums in
+    split order."""
+    keys, rows = flash_bwd_keys(d, dtype), flash_bwd_rows(d, dtype)
+    tiles = []                              # query tiles each CTA's keys see
     for j0 in range(0, skv, keys):
         lo = max(0, j0 - q_offset) if causal else 0
         hi = min(sq, min(j0 + keys, skv) - 1 + window - q_offset) if window else sq
-        tiles.append(-(-(hi - lo // 64 * 64) // 64) if hi > lo else 0)
+        tiles.append(-(-(hi - lo // rows * rows) // rows) if hi > lo else 0)
     best, best_cost = 1, math.inf
     for s in (s for s in range(1, rep + 1) if rep % s == 0):
-        steps = [rep // s * n + FLASH_BWD_CTA_STEPS for n in tiles]
+        steps = [rep // s * n + FLASH_BWD_CTA_STEPS[dtype] for n in tiles]
         cost = max(max(steps), b * kv * s * sum(steps) / n_sm)
         if cost < best_cost:
             best, best_cost = s, cost
@@ -485,9 +499,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``ref.flash_attention_lse``; the autograd path passes it); without it
     the forward kernel runs first to write it (one ``flash_attention``
     launch, its output discarded).  The CPU's plain version recomputes the
-    softmax and does not read it.  One backward launch: on the card bf16
+    softmax and does not read it.  One backward launch: on the card it
     runs dQ (which writes each row's D), dK/dV over ``flash_bwd_split``'s
-    head split and, at a split past 1, the partials' sum
+    head split and, at a split past 1, the partials' sum, on the tensor
+    cores in bf16 and on the CUDA cores in fp32
     (``csrc/flash_attention_bwd.cu``).  Head dims as ``flash_attention``;
     q, k, v, out and dout 16-byte aligned."""
     _flash_args(q, k, v, window)
@@ -516,23 +531,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _flash_bwd_launch(q, k, v, out, dout, lse, split: int | None, *, causal: bool,
                       window: int | None, q_offset: int):
     """The backward launch on checked card tensors and the forward's lse.
-    ``split``: CTAs per KV head's query heads in the bf16 dK/dV pass, a
-    divisor of ``H / KV`` (None: ``flash_bwd_split``'s choice; the split
-    sweep of ``examples/kernel_times.py`` and the card tests set it); the
-    fp32 kernels take 1."""
+    ``split``: CTAs per KV head's query heads in the dK/dV pass (bf16 and
+    fp32), a divisor of ``H / KV`` (None: ``flash_bwd_split``'s choice for
+    the dtype's tiles; the split sweep of ``examples/kernel_times.py`` and
+    the card tests set it)."""
     b, sq, h, d = q.shape
     _, skv, kv, _ = k.shape
     rep = h // kv
-    if split is not None and (split < 1 or rep % split
-                              or (split > 1 and q.dtype == torch.float32)):
-        raise ValueError(f"split must divide H / KV = {rep} (and be 1 in float32), "
-                         f"got {split}")
+    if split is not None and (split < 1 or rep % split):
+        raise ValueError(f"split must divide H / KV = {rep}, got {split}")
     dev = q.device
-    if q.dtype == torch.float32:
-        split = 1
-    elif split is None:
-        split = flash_bwd_split(b, sq, skv, kv, rep, _sm_count(dev.index),
-                                keys=flash_bwd_keys(d), causal=causal, window=window,
+    if split is None:
+        split = flash_bwd_split(b, sq, skv, kv, rep, _sm_count(dev.index), d=d,
+                                dtype=q.dtype, causal=causal, window=window,
                                 q_offset=q_offset)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dsum = torch.empty(b * h * sq, dtype=torch.float32, device=dev)

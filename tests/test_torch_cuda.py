@@ -919,14 +919,17 @@ def test_checkpoint_round_trip_on_card(dev, tmp_path):
 # (b, sq, skv, H, KV, d, causal, window, q_offset): the reduced configs'
 # layer (d=64), qwen3-4b's training layer (d=128, GQA 4:1), danube's head
 # (d=80) under a window, gemma's (d=256, MQA 8:1), ragged tiles with a
-# q_offset, no causal mask, and rows that see no key (window + offset)
+# q_offset, no causal mask, rows that see no key (window + offset), and
+# gemma's heads over 1,024 positions (many query tiles a key tile, so the
+# fp32 (Q, dO) ring wraps many times and the head split's partials are summed)
 BWD_CARD_CASES = [(2, 64, 64, 4, 4, 64, True, None, 0),
                   (4, 128, 128, 32, 8, 128, True, None, 0),
                   (1, 300, 300, 32, 8, 80, True, 96, 0),
                   (2, 256, 256, 8, 1, 256, True, None, 0),
                   (1, 70, 131, 4, 2, 64, True, 50, 61),
                   (1, 45, 77, 6, 3, 128, False, None, 0),
-                  (1, 40, 40, 2, 1, 80, True, 8, 45)]
+                  (1, 40, 40, 2, 1, 80, True, 8, 45),
+                  (1, 1024, 1024, 8, 1, 256, True, None, 0)]
 
 
 def _bwd_inputs(dev, dtype, case, seed):
@@ -1024,23 +1027,31 @@ def test_flash_attention_bwd_autograd_lse_matches_direct_call(dev, case):
 
 @pytest.mark.cuda
 def test_flash_attention_bwd_split_partials_are_bitwise(dev):
-    """gemma's MQA 8:1 layer shape (d=256) and qwen3-4b's GQA 4:1 at d=128:
-    each split of the query heads (fp32 partials per split, summed in split
-    order by a second pass; the launch's private split argument) gives the
-    same bits in two runs and stays within the bf16 bound."""
-    for case, splits in (((1, 256, 256, 8, 1, 256, True, None, 0), (1, 2, 4, 8)),
-                         ((2, 200, 200, 8, 2, 128, True, None, 0), (1, 2, 4))):
-        q, k, v, out, dout, kw = _bwd_inputs(dev, torch.bfloat16, case, 3)
-        exact = ref.flash_attention_bwd(*(t.float() for t in (q, k, v, out, dout)), **kw)
-        _, lse = ops._flash_forward(q, k, v, kw["causal"], kw["window"], kw["q_offset"],
-                                    with_lse=True)
-        for split in splits:
-            first = ops._flash_bwd_launch(q, k, v, out, dout, lse, split, **kw)
-            second = ops._flash_bwd_launch(q, k, v, out, dout, lse, split, **kw)
-            assert all(torch.equal(a, b) for a, b in zip(first, second)), split
-            assert _bf16_bwd_over_bound(first, exact) <= 1.0, split
-    with pytest.raises(ValueError, match="split"):
-        ops._flash_bwd_launch(q, k, v, out, dout, lse, 3, **kw)
+    """gemma's MQA 8:1 layer shape (d=256) and qwen3-4b's GQA 4:1 at d=128,
+    in bf16 and fp32: each split of the query heads (fp32 partials per
+    split, summed in split order by a second pass; the launch's private
+    split argument) gives the same bits in two runs and stays within the
+    dtype's bound (bf16: 2^-7 of each gradient's largest magnitude; fp32:
+    1e-5 of its scale of the plain version)."""
+    for dtype in (torch.bfloat16, torch.float32):
+        for case, splits in (((1, 256, 256, 8, 1, 256, True, None, 0), (1, 2, 4, 8)),
+                             ((2, 200, 200, 8, 2, 128, True, None, 0), (1, 2, 4))):
+            q, k, v, out, dout, kw = _bwd_inputs(dev, dtype, case, 3)
+            exact = ref.flash_attention_bwd(*(t.float() for t in (q, k, v, out, dout)), **kw)
+            _, lse = ops._flash_forward(q, k, v, kw["causal"], kw["window"], kw["q_offset"],
+                                        with_lse=True)
+            for split in splits:
+                first = ops._flash_bwd_launch(q, k, v, out, dout, lse, split, **kw)
+                second = ops._flash_bwd_launch(q, k, v, out, dout, lse, split, **kw)
+                assert all(torch.equal(a, b) for a, b in zip(first, second)), (dtype, split)
+                if dtype == torch.bfloat16:
+                    assert _bf16_bwd_over_bound(first, exact) <= 1.0, split
+                    continue
+                for g, e in zip(first, exact):
+                    err, scale = _err_scale(g, e)
+                    assert err <= 1e-5 * scale, split
+        with pytest.raises(ValueError, match="split"):
+            ops._flash_bwd_launch(q, k, v, out, dout, lse, 3, **kw)
 
 
 @pytest.mark.cuda

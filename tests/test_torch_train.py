@@ -195,7 +195,7 @@ def test_tensor_core_bwd_numerics_within_card_tolerance(case):
     none uniformly), on three seeds."""
     b, sq, skv, h, kv, d, causal, window, off = case
     kw = dict(causal=causal, window=window, q_offset=off)
-    split = ops.flash_bwd_split(b, sq, skv, kv, h // kv, 132, keys=ops.flash_bwd_keys(d), **kw)
+    split = ops.flash_bwd_split(b, sq, skv, kv, h // kv, 132, d=d, **kw)
     every_row = bool(ref.attention_mask(sq, skv, device="cpu", **kw).any(-1).all())
     for seed in range(3):
         q, k, v, dout = (torch.from_numpy(x).to(torch.bfloat16)
@@ -256,15 +256,28 @@ def test_flash_attention_bwd_with_lse_equals_without_on_cpu():
     ((4, 1024, 1024, 1, 8), 256, {}, 4),                         # gemma-2b's layer
     ((1, 1024, 2048, 8, 4), 80, {"window": 512, "q_offset": 1024}, 2),   # danube's head
     ((4, 128, 128, 4, 1), 64, {}, 1),                            # no GQA: nothing to split
-    ((1, 256, 256, 1, 8), 128, {"causal": False}, 8)])
+    ((1, 256, 256, 1, 8), 128, {"causal": False}, 8),
+    # the fp32 kernels (CUDA cores): the same layers
+    ((4, 128, 128, 8, 4), 128, {"dtype": torch.float32}, 4),
+    ((4, 1024, 1024, 1, 8), 256, {"dtype": torch.float32}, 2),
+    ((1, 1024, 2048, 8, 4), 80, {"window": 512, "q_offset": 1024, "dtype": torch.float32}, 1),
+    ((4, 128, 128, 4, 1), 64, {"dtype": torch.float32}, 1)])
 def test_flash_bwd_split_cost_model(shape, d, kw, want):
     """The dK/dV pass's head split on 132 SMs, the least that minimizes the
-    larger of the heaviest CTA and an SM's mean load (the first three rows:
-    the best of each shape's sweep on an H100); always a divisor of H / KV.
-    A CTA holds 128 keys below head dim 256, 64 at 256."""
+    larger of the heaviest CTA and an SM's mean load (the first three rows
+    and the first three fp32 rows: the best of each shape's sweep on an
+    H100); always a divisor of H / KV.  A bf16 CTA holds 128 keys below
+    head dim 256, 64 at 256, and streams 64-row query tiles; an fp32 CTA
+    64 keys and 64 rows, 32 and 32 at head dims 64 and 256."""
     b, sq, skv, kv, rep = shape
-    assert ops.flash_bwd_keys(d) == (64 if d == 256 else 128)
-    got = ops.flash_bwd_split(b, sq, skv, kv, rep, 132, keys=ops.flash_bwd_keys(d), **kw)
+    kw = dict(kw)
+    dtype = kw.pop("dtype", torch.bfloat16)
+    if dtype == torch.bfloat16:
+        assert ops.flash_bwd_keys(d) == (64 if d == 256 else 128) and ops.flash_bwd_rows(d) == 64
+    else:
+        tile = 32 if d in (64, 256) else 64
+        assert ops.flash_bwd_keys(d, dtype) == ops.flash_bwd_rows(d, dtype) == tile
+    got = ops.flash_bwd_split(b, sq, skv, kv, rep, 132, d=d, dtype=dtype, **kw)
     assert got == want and rep % got == 0
 
 
