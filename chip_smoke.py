@@ -6,7 +6,7 @@
 Phases, each fatal on failure:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: the seven CUDA sources (eight kernels) with ``nvcc`` for sm_90a,
+2. build: the eight CUDA sources (nine kernels) with ``nvcc`` for sm_90a,
    one process per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes and at a large one, with CUDA-event times of the
@@ -59,9 +59,10 @@ Phases, each fatal on failure:
    in decode; every logit must be finite.  Each model is built once; after
    its run it serves one warm prefill and 4 decode steps under
    ``torch.profiler``: device busy time, idle share, flash attention's and
-   SSD's share of the prefill and the top kernels of each.  Every kernel
-   signature (shape, dtype, mask) the run called and phase 3 did not hold
-   (``recorded_kernel_calls``) is then held against its plain version.
+   SSD's share of the prefill and the top kernels of each.  No backward
+   kernel launches.  Every kernel signature (shape, dtype, mask) the run
+   called and phase 3 did not hold (``recorded_kernel_calls``) is then held
+   against its plain version.
 
 10. async rounds, client stores and checkpoints, at phase 5's EMNIST arm
     (Astraea, 3 rounds a run, launch counts reset before each run and read
@@ -87,9 +88,16 @@ Phases, each fatal on failure:
     of 8 synthetic clients (one ``kld_greedy_picks``; one ``fedavg_agg`` for
     the LoRA round, one a leaf for the full-delta one), with seconds, peak
     memory, the WAN ledger (the LoRA leg's 35,863,552 bytes, the reference
-    mapping's) and a profiled step of each; a reduced Hymba must refuse to
-    train on the card (no SSD backward kernel); then both training
-    launchers at their reduced defaults.
+    mapping's) and a profiled step of each; then the SSD families at full
+    width (bf16, seed 0): hymba-1.5b (1,393,625,120 parameters) two AdamW
+    steps at 4 x 128 (32 flash, 32 flash backward, 32 SSD and 32 SSD
+    backward launches a step) and a LoRA rank-16 round over the same 2
+    mediators, and mamba2-370m (368,338,432) two AdamW steps at 4 x 512
+    (eight chunks; 48 SSD and 48 SSD backward launches a step, no flash),
+    each with seconds, peak memory, finite losses and a moved update, every
+    kernel signature they call that phase 3 did not hold held against its
+    plain version after; then the training launchers at their reduced
+    defaults (qwen3-4b and mamba2-370m) and ``fl_train``.
 
 Phase 3 also holds the flash-attention and SSD kernels against their plain
 versions at the serve shapes (bf16 and f32), with a no-window, a
@@ -104,7 +112,11 @@ query offset, and gemma's layer, in bf16 and f32, by the direct call and
 with the forward's log-sum-exp (the training path), beside SDPA's
 backward (its bf16 error against the same exact gradients printed beside
 the kernel's; bf16 gradients within 2^-7 of their largest magnitude), and
-times the bf16 forward with and without writing that log-sum-exp.  A bf16
+times the bf16 forward with and without writing that log-sum-exp, and
+Hymba's training attention layer (GQA 5:1 at head dim 64) in bf16.  It
+holds the SSD backward kernel against its plain version at Hymba's
+training layer, mamba2-370m's, Hymba's serve-length shape and a reduced
+config's, each also bit for bit across two runs.  A bf16
 attention row is held per element too: against the plain version in fp32
 on the same inputs, within 2^-8 (|exact| + sum p|v| / l), one bf16
 rounding of the output and of every probability weight.
@@ -137,7 +149,8 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.examples.kernel_times import (bound, flash_bound,  # noqa: E402
                                                flash_bwd_bound, greedy_bound,
                                                score_bound, sdpa_backward,
-                                               ssd_bound, ssd_inputs)
+                                               ssd_bound, ssd_bwd_bound,
+                                               ssd_bwd_inputs, ssd_inputs)
 
 FED_KW = dict(num_clients=64, total_samples=6400, test_samples=2350,
               sizes="instagram", global_dist="letterfreq", local="random",
@@ -347,9 +360,10 @@ def _dname(dtype):
     return str(dtype).split(".")[-1]
 
 
-# the kernel signatures phase 3 (and phase 9, for the serving paths' own)
-# has held against the plain versions: ("flash_attention", q shape, k shape,
-# dtype, causal, window, q_offset) and ("ssd_chunk", x shape, n, dtype)
+# the kernel signatures phase 3 (and phases 9 and 11, for the serving and
+# training paths' own) has held against the plain versions:
+# ("flash_attention", q shape, k shape, dtype, causal, window, q_offset),
+# ("ssd_chunk", x shape, n, dtype) and ("ssd_chunk_bwd", x shape, n)
 CHECKED: set[tuple] = set()
 
 
@@ -363,6 +377,10 @@ def ssd_key(x, B):
         raise AssertionError(f"ssd_chunk called with x {x.dtype} and B {B.dtype}; the "
                              f"check draws both in one dtype")
     return ("ssd_chunk", tuple(x.shape), B.shape[-1], x.dtype)
+
+
+def ssd_bwd_key(x, B):
+    return ("ssd_chunk_bwd", tuple(x.shape), B.shape[-1])
 
 
 def check_flash(dev, gen, *, b, sq, skv, h, kv, d, dtype, window, q_offset=0,
@@ -522,6 +540,65 @@ def check_ssd(dev, gen, *, b, nc, L, h, p, n, dtype):
                 plain_ms=(lambda: ref.ssd_chunk(x, dt, A, B, C), 50.0))
     row["library_ms"] = row["library_device_ms"] = None
     return row
+
+
+def check_ssd_bwd(dev, gen, *, b, nc, L, h, p, n):
+    """The SSD backward kernel at fp32 inputs and random output gradients
+    against ``ref.ssd_chunk_bwd``: dx, ddt, dB and dC within 1e-5 of each
+    gradient's scale (fp32 sums in other orders), dA within 1e-4 (a sum of
+    b nc L terms of both signs); a second run equal bit for bit; timed
+    beside the plain version (no one PyTorch call computes it)."""
+    from repro_torch.kernels import ops, ref
+    args = ssd_bwd_inputs(b, nc, L, h, p, n, gen, dev)
+    x, B = args[0], args[3]
+    got, again = ops.ssd_chunk_bwd(*args), ops.ssd_chunk_bwd(*args)
+    want = ref.ssd_chunk_bwd(*args)
+    errs, worst = [], 0.0
+    for name, o, w, rel in zip(("dx", "ddt", "dA", "dB", "dC"), got, want,
+                               (1e-5, 1e-5, 1e-4, 1e-5, 1e-5)):
+        err = float((o.double() - w.double()).abs().max())
+        tol = rel * max(float(w.double().abs().max()), 1e-30)
+        if not err <= tol:
+            raise AssertionError(f"ssd_chunk_bwd {name} at b={b} nc={nc} L={L} h={h} p={p} "
+                                 f"n={n}: err {err} > {tol}")
+        errs.append(err)
+        worst = max(worst, err / tol)
+    if not all(torch.equal(u, v) for u, v in zip(got, again)):
+        raise AssertionError(f"ssd_chunk_bwd at b={b} nc={nc} L={L} h={h}: two runs differ")
+    del want, again
+    CHECKED.add(ssd_bwd_key(x, B))
+    b_ms, by = ssd_bwd_bound(b, nc, L, h, p, n)
+    row = timed({"shape": f"b={b} nc={nc} L={L} h={h} p={p} n={n} float32",
+                 "max_abs_err": max(errs), "errs_dx_ddt_dA_dB_dC": errs,
+                 "worst_over_bound": worst, "bitwise_repeat": True,
+                 "plan": ops.ssd_chunk_bwd_plan(b, nc, L, h, p, n, dev),
+                 "bound_ms": b_ms, "bound_by": by},
+                ms=(lambda: ops.ssd_chunk_bwd(*args), 50.0),
+                plain_ms=(lambda: ref.ssd_chunk_bwd(*args), 50.0))
+    row["library_ms"] = row["library_device_ms"] = None
+    return row
+
+
+def hold_unchecked(dev, gen, seen: dict, checks: dict, path: str) -> None:
+    """Every kernel signature in ``seen`` (``recorded_kernel_calls``) that no
+    check has held yet, held against its plain version on fresh inputs; the
+    rows join ``checks`` with their path."""
+    held = {"flash_attention": check_flash, "ssd_chunk": check_ssd,
+            "ssd_chunk_bwd": check_ssd_bwd}
+    for key, (name, kw) in seen.items():
+        if key in CHECKED:
+            continue
+        row = held[name](dev, gen, **kw)
+        row["path"] = path
+        checks[name].append(row)
+        log(f"[{path.split()[0]}-check] {path} {name} {row['shape']}: err "
+            f"{row['max_abs_err']:.3e} (tol {row.get('tol', 'per output')}"
+            + (f", per element {row['per_element_worst_over_bound']:.3f} of its bound"
+               if "per_element_worst_over_bound" in row else "")
+            + f"), kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"bound {row['bound_ms']:.6f} ms")
+    if any(key not in CHECKED for key in seen):
+        raise AssertionError(f"{path}: kernel signatures left unchecked")
 
 
 # ---------------------------------------------------------------- phases 4-7
@@ -1200,12 +1277,13 @@ SERVE_RUNS = (
 
 @contextlib.contextmanager
 def recorded_kernel_calls(seen: dict):
-    """While open, every ``ops.flash_attention`` and ``ops.ssd_chunk`` call
-    on the card adds its signature (``flash_key``/``ssd_key``) to ``seen``,
-    with the keyword arguments that rebuild it in ``check_flash`` or
-    ``check_ssd``.  The wrappers themselves run and count as always."""
+    """While open, every ``ops.flash_attention``, ``ops.ssd_chunk`` and
+    ``ops.ssd_chunk_bwd`` call on the card adds its signature
+    (``flash_key``/``ssd_key``/``ssd_bwd_key``) to ``seen``, with the
+    keyword arguments that rebuild it in ``check_flash``, ``check_ssd`` or
+    ``check_ssd_bwd``.  The wrappers themselves run and count as always."""
     from repro_torch.kernels import ops
-    flash, ssd = ops.flash_attention, ops.ssd_chunk
+    flash, ssd, ssd_bwd = ops.flash_attention, ops.ssd_chunk, ops.ssd_chunk_bwd
 
     def flash_rec(q, k, v, *, causal=True, window=None, q_offset=0):
         if q.is_cuda:
@@ -1222,11 +1300,18 @@ def recorded_kernel_calls(seen: dict):
                                                      n=B.shape[-1], dtype=x.dtype))
         return ssd(x, dt, A, B, C)
 
-    ops.flash_attention, ops.ssd_chunk = flash_rec, ssd_rec
+    def ssd_bwd_rec(x, dt, A, B, C, dy, dS, dg):
+        if x.is_cuda:
+            b, nc, L, h, p = x.shape
+            seen[ssd_bwd_key(x, B)] = ("ssd_chunk_bwd", dict(b=b, nc=nc, L=L, h=h, p=p,
+                                                             n=B.shape[-1]))
+        return ssd_bwd(x, dt, A, B, C, dy, dS, dg)
+
+    ops.flash_attention, ops.ssd_chunk, ops.ssd_chunk_bwd = flash_rec, ssd_rec, ssd_bwd_rec
     try:
         yield seen
     finally:
-        ops.flash_attention, ops.ssd_chunk = flash, ssd
+        ops.flash_attention, ops.ssd_chunk, ops.ssd_chunk_bwd = flash, ssd, ssd_bwd
 
 
 def serve_path(dev, arch, batch, prompt, tokens, params, flash, ssd):
@@ -1264,6 +1349,8 @@ def serve_path(dev, arch, batch, prompt, tokens, params, flash, ssd):
             dec["flash_attention"] or dec["ssd_chunk"]:
         raise AssertionError(f"{arch}: prefill launched {pre}, decode {dec}; expected "
                              f"{flash} flash_attention and {ssd} ssd_chunk in the prefill")
+    if launches["flash_attention_bwd"] or launches["ssd_chunk_bwd"]:
+        raise AssertionError(f"{arch}: serving launched a backward kernel: {launches}")
     if not r["logits_finite"]:
         raise AssertionError(f"{arch} serve: non-finite logits")
     if tuple(r["tokens"].shape) != (batch, tokens):
@@ -1347,6 +1434,8 @@ TRAIN_ARCH, TRAIN_PARAMS = "qwen3-4b", 4_022_468_096
 LORA_RANK, LORA_TRAINABLE, LORA_LEG_BYTES = 16, 17_931_776, 35_863_552
 # its largest leaf (the embedding, 151,936 x 2,560): phase 3 checks Eq. 6 there
 TRAIN_LARGEST_LEAF = 388_956_160
+# the SSD families phase 11 trains at full width
+HYMBA_PARAMS, MAMBA2_PARAMS = 1_393_625_120, 368_338_432
 # the federated runs' traffic: 8 synthetic clients of 128 tokens, gamma 4
 FL_CLIENTS, FL_GAMMA, FL_SEQ, FL_LR = 8, 4, 128, 5e-4
 
@@ -1419,8 +1508,8 @@ BWD_KERNELS = ("bwd_dq_tc_kernel", "bwd_dkdv_tc_kernel", "bwd_reduce_tc_kernel",
 
 def profile_call(fn) -> dict:
     """One call of ``fn`` under ``torch.profiler``: host-clock wall, device
-    busy (summed kernel time), idle share, device kernels, the flash
-    backward's device ms and the top kernels."""
+    busy (summed kernel time), idle share, device kernels, the flash and
+    SSD backwards' device ms and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -1433,18 +1522,138 @@ def profile_call(fn) -> dict:
             "kernel_launches": sum(calls for _, _, calls in kernels),
             "flash_bwd_ms": sum(ms for name, ms, _ in kernels
                                 if any(k in name for k in BWD_KERNELS)),
+            "ssd_bwd_ms": sum(ms for name, ms, _ in kernels if "ssd_bwd" in name),
             "top_kernels": kernels[:8]}
 
 
 def log_profile(label: str, prof: dict) -> None:
     log(f"[train-profile] {label}: wall {prof['wall_ms']:.1f} ms, device busy "
         f"{prof['device_busy_ms']:.1f} ms, idle {100 * prof['idle_share']:.1f} %, "
-        f"{prof['kernel_launches']} kernels, flash backward {prof['flash_bwd_ms']:.2f} ms")
+        f"{prof['kernel_launches']} kernels, flash backward {prof['flash_bwd_ms']:.2f} ms, "
+        f"SSD backward {prof['ssd_bwd_ms']:.2f} ms")
     for name, ms, calls in prof["top_kernels"]:
         log(f"[train-profile]   {ms:9.3f} ms {calls:6d}x {name[:90]}")
 
 
-def phase11(dev, path_launches: dict, lap) -> dict:
+def want_launches(cfg, steps: int, **extra) -> dict:
+    """Every kernel's launches in ``steps`` training steps of ``cfg``: one
+    forward and one backward flash launch per attention layer, one forward
+    and one backward SSD launch per SSM layer; ``extra`` for the rest."""
+    from repro_torch.kernels import ops
+    attn = steps * cfg.n_layers if cfg.has_attention else 0
+    ssd = steps * cfg.n_layers if cfg.has_ssm else 0
+    want = {k: 0 for k in ops.LAUNCHES}
+    want.update(flash_attention=attn, flash_attention_bwd=attn, ssd_chunk=ssd,
+                ssd_chunk_bwd=ssd, **extra)
+    return want
+
+
+def largest_update(new: dict, old: dict) -> float:
+    return max(float((new[k].float() - old[k].float()).abs().max()) for k in old)
+
+
+def train_ssm_family(dev, arch: str, n_expect: int, seq: int, seen: dict,
+                     path_launches: dict, fl_data=None) -> dict:
+    """``arch`` at full width (bf16, weights from seed 0): two AdamW steps of
+    ``make_train_step`` at batch 4 x ``seq``, the SSD gradient on the
+    card's backward kernel; with ``fl_data`` (phase 11's 2 mediators: their
+    token streams mapped into this vocab, rows, weights, steps per
+    mediator) also a LoRA rank-16 round of ``make_fl_round`` (its Eq. 6
+    launch held to its plain version).  Each run's launch counts reset
+    just before it and read just after; finite losses, a moved update,
+    seconds and peak memory.  Kernel signatures go to ``seen``."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import lora
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw, schedules
+    cfg = configs.get(arch)
+    torch.cuda.empty_cache()
+    model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    params = T.train_params(model)
+    n_params = sum(p.numel() for p in params.values())
+    if n_params != n_expect:
+        raise AssertionError(f"{arch}: {n_params} parameters, expected {n_expect}")
+    opt = adamw(schedules.warmup_cosine(3e-4, 10, 20))
+    state = opt.init(params)
+    step = steps.make_train_step(model, opt)
+    shape = configs.InputShape("phase11", seq, 4, "train")
+    batches = []
+    for i in range(2):
+        b = configs.make_batch(cfg, shape, seed=1 + i, device=dev)["batch"]
+        b["labels"] = torch.roll(b["tokens"], -1, dims=1)
+        batches.append(b)
+    start = {k: t.clone() for k, t in params.items()}
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    secs, losses = [], []
+    with recorded_kernel_calls(seen):
+        for b in batches:
+            (params, state, loss), sec = _sync_time(lambda: step(params, state, b))
+            secs.append(sec)
+            losses.append(float(loss))
+    launches = dict(ops.LAUNCHES)
+    path_launches[f"train {arch}"] = launches
+    if launches != want_launches(cfg, 2):
+        raise AssertionError(f"{arch} train steps: launches {launches}, expected "
+                             f"{want_launches(cfg, 2)}")
+    moved = largest_update(params, start)
+    del start
+    if not all(math.isfinite(x) for x in losses) or moved == 0.0:
+        raise AssertionError(f"{arch} train steps: losses {losses}, largest update {moved}")
+    res = {"train": {"s_per_step": secs, "losses": losses, "peak_gb": _peak_gb(),
+                     "launches": launches, "tokens": 4 * seq, "largest_update": moved,
+                     "params": n_params,
+                     "flop_bound_ms": 6 * n_params * 4 * seq / 989e12 * 1e3,
+                     "profile": profile_call(lambda: step(params, state, batches[0]))}}
+    log(f"[train] {arch} {n_params:,} params bf16, AdamW, batch 4 x {seq}: s/step "
+        f"{' '.join(f'{x:.4f}' for x in secs)} (6 N tokens at 989 TFLOP/s: "
+        f"{res['train']['flop_bound_ms']:.2f} ms), losses {losses}, largest update "
+        f"{moved:.3e}, peak {res['train']['peak_gb']:.2f} GB, launches {launches}")
+    log_profile(f"{arch} AdamW step (a third, profiled)", res["train"]["profile"])
+    del state, opt, step
+    torch.cuda.empty_cache()
+    if fl_data is not None:
+        tokens, labels, w, per_med = fl_data
+        mapping = T.adapter_mapping(cfg, LORA_RANK)
+        a_tree = lora.init_adapter_A(lora.A_SALT, mapping, dev)
+        ad_state = lora.init_adapter_state(mapping, params)
+        fl = steps.make_fl_round(model, 2, learning_rate=FL_LR, local_steps=per_med,
+                                 lora_mapping=mapping)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        with HeldEq6() as held, recorded_kernel_calls(seen):
+            new_state, sec = _sync_time(lambda: fl(params, a_tree, ad_state, tokens, labels, w))
+        sec -= held.seconds
+        launches = dict(ops.LAUNCHES)
+        path_launches[f"lora round {arch}"] = launches
+        want = want_launches(cfg, 2 * per_med, fedavg_agg=1)
+        if launches != want:
+            raise AssertionError(f"{arch} LoRA round: launches {launches}, expected {want}")
+        moved = largest_update(new_state, ad_state)
+        with torch.no_grad():
+            loss = float(T.forward_train(model, {"tokens": tokens[:2], "labels": labels[:2]},
+                                         lora.merge_params(params, a_tree, new_state,
+                                                           mapping))[0])
+        if not math.isfinite(loss) or moved == 0.0:
+            raise AssertionError(f"{arch} LoRA round: loss {loss}, largest update {moved}")
+        res["lora_round"] = {"s_per_round": sec, "loss": loss, "peak_gb": _peak_gb(),
+                             "launches": launches, "largest_update": moved,
+                             "trainable": lora.num_trainable_params(mapping),
+                             "eq6_held": {"calls": held.calls, "worst_rel": held.worst}}
+        log(f"[fl] {arch} LoRA rank {LORA_RANK} round, 2 mediators x {per_med} steps: "
+            f"{sec:.3f} s, loss {loss:.4f}, largest adapter update {moved:.3e}, peak "
+            f"{_peak_gb():.2f} GB, {res['lora_round']['trainable']:,} trainable, launches "
+            f"{launches}; Eq. 6 held to its plain version: {held.calls} call, worst "
+            f"{held.worst:.2e}")
+        del a_tree, ad_state, new_state, fl
+    del model, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase11(dev, gen, checks: dict, path_launches: dict, lap) -> dict:
     """qwen3-4b at full width (bf16, weights from seed 0): two AdamW steps
     of ``make_train_step`` at batch 4 x 128, a LoRA rank-16 round and a
     full-delta round of ``make_fl_round`` over the 2 mediators Alg. 3 makes
@@ -1452,9 +1661,11 @@ def phase11(dev, path_launches: dict, lap) -> dict:
     launch counts reset just before and read just after, seconds, peak
     memory and the WAN ledger, and every Eq. 6 launch of the two rounds
     held to its plain version (``HeldEq6``; its seconds left out of the
-    rounds'); then a reduced Hymba's training raises (no
-    SSD backward kernel), and both launchers run at their reduced
-    defaults."""
+    rounds'); then hymba-1.5b (steps and a LoRA round over the same
+    mediators) and mamba2-370m (steps at 4 x 512) through
+    ``train_ssm_family``, every kernel signature they called that no check
+    had held then held against its plain version (``checks`` gains the
+    rows); then the launchers at their reduced defaults."""
     from repro_torch import configs
     from repro_torch.core import scheduling
     from repro_torch.core.comm import CommMeter
@@ -1618,36 +1829,48 @@ def phase11(dev, path_launches: dict, lap) -> dict:
     torch.cuda.empty_cache()
     lap("11 full-delta round")
 
-    # (d) no SSD backward kernel: a hybrid layer does not train on the card
-    hy = configs.reduced(configs.get("hymba-1.5b"))
-    hmodel = T.init_model(hy, torch.Generator(device=dev).manual_seed(0), device=dev)
-    toks = torch.randint(0, hy.vocab, (1, 64), device=dev)
-    hp = {k: t.requires_grad_(True) for k, t in T.train_params(hmodel).items()}
-    try:
-        T.forward_train(hmodel, {"tokens": toks, "labels": toks}, hp)
-    except NotImplementedError as e:
-        res["hymba_train"] = str(e)
-    else:
-        raise AssertionError("training a reduced Hymba on the card did not raise")
-    log(f"[train] reduced Hymba on the card raises: {res['hymba_train']}")
-    del hmodel, hp
+    # (d) the SSD families at full width, their SSD gradient on the card's
+    # backward kernel; Hymba's LoRA round over the same 2 mediators, their
+    # clients' tokens mapped into its vocab (the topic bands kept)
+    seen: dict = {}
+    hy_vocab = configs.get("hymba-1.5b").vocab
+    hy_streams = [t * hy_vocab // cfg.vocab for t in streams]
+    hy_tokens, hy_labels, hy_w, _ = fl_train.pack_mediators(meds, hy_streams, counts, FL_SEQ, 2)
+    res["hymba"] = train_ssm_family(dev, "hymba-1.5b", HYMBA_PARAMS, 128, seen, path_launches,
+                                    fl_data=(hy_tokens, hy_labels, hy_w, per_med))
+    lap("11 hymba-1.5b")
+    res["mamba2"] = train_ssm_family(dev, "mamba2-370m", MAMBA2_PARAMS, 512, seen,
+                                     path_launches)
+    lap("11 mamba2-370m")
 
     # (e) the launchers at their reduced defaults
     ops.reset_launches()
     tr = train.main([])
     path_launches["launch.train"] = dict(ops.LAUNCHES)
     ops.reset_launches()
+    with recorded_kernel_calls(seen):
+        tm = train.main(["--arch", "mamba2-370m"])
+    path_launches["launch.train mamba2-370m"] = dict(ops.LAUNCHES)
+    ops.reset_launches()
     ft = fl_train.main(["--lora-rank", "2"])
     path_launches["launch.fl_train"] = dict(ops.LAUNCHES)
-    if not (all(math.isfinite(x) for x in tr["losses"] + ft["losses"])):
-        raise AssertionError(f"launchers: {tr['losses']} {ft['losses']}")
-    res["launchers"] = {"train_losses": tr["losses"], "fl_losses": ft["losses"],
-                        "fl_ratio": ft["ratio"], "launches": {
-                            k: path_launches[k] for k in ("launch.train", "launch.fl_train")}}
+    if not (all(math.isfinite(x) for x in tr["losses"] + tm["losses"] + ft["losses"])):
+        raise AssertionError(f"launchers: {tr['losses']} {tm['losses']} {ft['losses']}")
+    res["launchers"] = {"train_losses": tr["losses"], "mamba2_train_losses": tm["losses"],
+                        "fl_losses": ft["losses"], "fl_ratio": ft["ratio"], "launches": {
+                            k: path_launches[k] for k in ("launch.train",
+                                                          "launch.train mamba2-370m",
+                                                          "launch.fl_train")}}
     log(f"[launch] train (reduced {TRAIN_ARCH}, 20 steps): loss {tr['losses'][0]:.4f} -> "
-        f"{tr['losses'][-1]:.4f}; fl_train --lora-rank 2 (3 rounds): losses "
-        f"{ft['losses']}, ratio {ft['ratio']:.4f}; launches "
-        f"{path_launches['launch.train']} / {path_launches['launch.fl_train']}")
+        f"{tr['losses'][-1]:.4f}; train --arch mamba2-370m (reduced, 20 steps): loss "
+        f"{tm['losses'][0]:.4f} -> {tm['losses'][-1]:.4f}; fl_train --lora-rank 2 (3 "
+        f"rounds): losses {ft['losses']}, ratio {ft['ratio']:.4f}; launches "
+        f"{path_launches['launch.train']} / {path_launches['launch.train mamba2-370m']} / "
+        f"{path_launches['launch.fl_train']}")
+    # every kernel signature the SSD families' runs called, held against its
+    # plain version on fresh inputs (the models freed), unless a check did
+    res["kernel_signatures"] = [str(key) for key in seen]
+    hold_unchecked(dev, gen, seen, checks, "train ssm families")
     lap("11 launchers")
     return res
 
@@ -1778,11 +2001,21 @@ def main() -> int:
     checks["flash_attention_bwd"] = [
         check_flash_bwd(dev, gen, **shape, dtype=dt)
         for shape in bwd_shapes for dt in (torch.bfloat16, torch.float32)]
+    # Hymba's training attention layer (phase 11's): GQA 5:1 at head dim 64
+    checks["flash_attention_bwd"].append(check_flash_bwd(
+        dev, gen, b=4, sq=128, skv=128, h=25, kv=5, d=64, window=1024, dtype=torch.bfloat16))
     lap("3 flash_attention_bwd")
     ssd = dict(b=4, nc=32, L=64, h=25, p=64, n=16)
     checks["ssd_chunk"] = [check_ssd(dev, gen, **ssd, dtype=torch.float32),
                            check_ssd(dev, gen, **ssd, dtype=torch.bfloat16)]
     lap("3 ssd_chunk")
+    # the SSD backward: Hymba's training layer (phase 11's, first),
+    # mamba2-370m's 4 x 512 layer, Hymba's serve-length shape and a reduced
+    # config's block
+    checks["ssd_chunk_bwd"] = [check_ssd_bwd(dev, gen, **shape) for shape in (
+        dict(b=4, nc=2, L=64, h=25, p=64, n=16), dict(b=4, nc=8, L=64, h=32, p=64, n=128),
+        dict(b=4, nc=32, L=64, h=25, p=64, n=16), dict(b=1, nc=1, L=64, h=4, p=32, n=16))]
+    lap("3 ssd_chunk_bwd")
     # Astraea's first cohort as the engine schedules it: the selection of
     # default_rng(seed).choice, at the expected post-augmentation counts.
     # The greedy rows come last: their quarter-second kernels have left the
@@ -1830,6 +2063,11 @@ def main() -> int:
         if "lse_ms" in r:
             log(f"[kernel] flash_attention {r['shape']}: writing lse {fmt(r['lse_ms'])} "
                 f"({fmt(r['lse_device_ms'])}) against {fmt(r['ms'])} ({fmt(r['device_ms'])})")
+    for r in checks["ssd_chunk_bwd"]:
+        log(f"[kernel] ssd_chunk_bwd {r['shape']}: worst gradient {r['worst_over_bound']:.3f} "
+            f"of its bound (dA 1e-4, the rest 1e-5 of the gradient's scale), errors "
+            f"{', '.join(f'{e:.3e}' for e in r['errs_dx_ddt_dA_dB_dC'])}, two runs bitwise "
+            f"equal; plan {r['plan']}")
     for r in checks["kld_greedy_picks"]:
         log(f"[kernel] kld_greedy_picks {r['shape']}: cluster {r['plan']}, "
             f"{r['us_per_step']:.3f} us per step")
@@ -1941,30 +2179,15 @@ def main() -> int:
         # every kernel signature this run called, held against its plain
         # version on fresh inputs (the model freed), unless phase 3 already did
         r["kernel_signatures"] = [str(key) for key in seen]
-        for key, (name, kw) in seen.items():
-            if key in CHECKED:
-                continue
-            if name == "flash_attention":
-                row = check_flash(dev, gen, **kw)
-            else:
-                row = check_ssd(dev, gen, **kw)
-            row["path"] = f"serve {arch}"
-            checks[name].append(row)
-            log(f"[serve-check] {arch} {name} {row['shape']}: err {row['max_abs_err']:.3e} "
-                f"(tol {row.get('tol', 'per output')}"
-                + (f", per element {row['per_element_worst_over_bound']:.3f} of its bound"
-                   if "per_element_worst_over_bound" in row else "")
-                + f"), kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-                f"bound {row['bound_ms']:.6f} ms")
-        if any(key not in CHECKED for key in seen):
-            raise AssertionError(f"{arch}: kernel signatures left unchecked")
+        hold_unchecked(dev, gen, seen, checks, f"serve {arch}")
         lap(f"9 serve {arch}")
 
     # ---- 10. async rounds, client stores and checkpoints
     p10 = phase10(fed, cinic_fed, dev, path_launches, lap)
 
-    # ---- 11. training qwen3-4b at full width, and the launchers
-    p11 = phase11(dev, path_launches, lap)
+    # ---- 11. training qwen3-4b, hymba-1.5b and mamba2-370m at full width,
+    # and the launchers
+    p11 = phase11(dev, gen, checks, path_launches, lap)
 
     # every kernel's launches over the paths that drive it (each path's
     # counts were reset just before it and read just after)
@@ -1980,7 +2203,8 @@ def main() -> int:
               "affine_warp": "src/repro_torch/kernels/csrc/affine_warp.cu",
               "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
               "flash_attention_bwd": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-              "ssd_chunk": "src/repro_torch/kernels/csrc/ssd_chunk.cu"}
+              "ssd_chunk": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+              "ssd_chunk_bwd": "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu"}
     replaces = {"fedavg_agg": "src/repro/kernels/fedavg_agg.py:68",
                 "kld_greedy_picks": "src/repro/kernels/kld_score.py:215",
                 "kld_score": "src/repro/kernels/kld_score.py:80",
@@ -1989,7 +2213,10 @@ def main() -> int:
                 "flash_attention": "src/repro/kernels/flash_attention.py:95",
                 # no pallas_call: the reference differentiates this attention in XLA
                 "flash_attention_bwd": "src/repro/kernels/ref.py:59",
-                "ssd_chunk": "src/repro/kernels/ssd_chunk.py:88"}
+                "ssd_chunk": "src/repro/kernels/ssd_chunk.py:88",
+                "ssd_chunk_bwd": "no pallas_call: the reference differentiates "
+                                 "src/repro/kernels/ref.py:78 / src/repro/models/ssm.py:56 "
+                                 "in XLA"}
     summary = []
     for name, rs in checks.items():
         r = rs[0]                      # the main path's shape

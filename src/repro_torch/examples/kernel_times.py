@@ -6,7 +6,7 @@ zoo's other head dims and SSD widths), for the ``repro_torch`` of any
 source tree (to compare two commits in one run):
 
   python3 src/repro_torch/examples/kernel_times.py [--src TREE/src] [--label NAME] [--out FILE]
-      [--only flash_attention,flash_attention_bwd,flash_attention_bwd_cases]
+      [--only flash_attention,flash_attention_bwd,flash_attention_bwd_cases,ssd_chunk_bwd]
   python3 src/repro_torch/examples/kernel_times.py --profiler-sessions 100
   python3 src/repro_torch/examples/kernel_times.py --ptxas --sass
 
@@ -28,6 +28,8 @@ too where the tree's fp32 pass splits), and the fp32 backward with the
 forward's lse at the card tests' shapes (``flash_attention_bwd_cases``);
 the bf16 forward rows the forward writing that log-sum-exp;
 the greedy, scoring and SSD rows give the least time the card could take,
+the SSD backward rows also the plain version's event and device ms (no one
+PyTorch call computes that gradient, so they have no library time),
 and the scoring rows the launch plan where the tree has one.  A shape
 a tree's wrapper refuses gets a row with its error and no times.
 ``--only`` times the named kernels' rows alone.  ``chip_smoke.py`` uses
@@ -37,7 +39,8 @@ records in N sessions of one ``fedavg_agg`` call each (the one-kernel
 check of ``tests/test_torch_cuda.py``), to tell a missed record from an
 extra kernel.  ``--ptxas`` builds the library once more into a temporary
 directory and prints, from its ``-Xptxas=-v`` log, the fp32 flash
-(forward and backward) and matrix kernels' registers and spills; ``--sass`` counts the SASS
+(forward and backward), matrix and SSD backward kernels' registers and
+spills; ``--sass`` counts the SASS
 instructions of the matrix scorer's one-lane kernel in the built library
 (``cuobjdump -sass``), and the float instructions among them, and the
 issue-rate floors they imply at the matrix rows' shapes.
@@ -112,6 +115,20 @@ def ssd_bound(b: int, nc: int, L: int, h: int, p: int, n: int,
                  else FP32_FLOPS_PER_S)
 
 
+def ssd_bwd_bound(b: int, nc: int, L: int, h: int, p: int, n: int) -> tuple[float, str]:
+    """The SSD backward, fp32: per (batch, chunk, head) dx's P^T dy and dM'
+    = dy x^T on the lower triangle (2 p operations an element each) and B
+    dS and x dS^T (2 L n p each); per (batch, chunk) C B^T, dC and dB on
+    the triangle (2 n each), as B and C have no head axis.  x, dt, A, B, C,
+    dy, dS and dg read once, dx, ddt, dA, dB and dC written once."""
+    tiles, tri = b * nc * h, L * (L + 1) // 2
+    flops = tiles * (4 * tri * p + 4 * L * n * p) + b * nc * 6 * tri * n
+    x_elems, bc_elems = b * nc * L * h * p, b * nc * L * n
+    nbytes = 4 * (3 * x_elems + 2 * b * nc * L * h + 4 * bc_elems + b * nc * h * n * p
+                  + b * nc * h + 2 * h)
+    return bound(nbytes, flops)
+
+
 def flash_bound(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor
                 ) -> tuple[float, str]:
     """Attention of ``q (b, sq, H, d)`` over ``k, v (b, skv, KV, d)`` under
@@ -159,6 +176,15 @@ def ssd_inputs(b, nc, L, h, p, n, dtype, gen, dev):
     B = torch.randn(b, nc, L, n, generator=gen, device=dev).to(dtype)
     C = torch.randn(b, nc, L, n, generator=gen, device=dev).to(dtype)
     return x, dt, A, B, C
+
+
+def ssd_bwd_inputs(b, nc, L, h, p, n, gen, dev):
+    """``ssd_inputs`` in fp32 and random output gradients dy, dS, dg: the
+    SSD backward's eight arguments."""
+    return ssd_inputs(b, nc, L, h, p, n, torch.float32, gen, dev) + (
+        torch.randn(b, nc, L, h, p, generator=gen, device=dev),
+        torch.randn(b, nc, h, n, p, generator=gen, device=dev),
+        torch.randn(b, nc, h, generator=gen, device=dev))
 
 
 def time_ms(fn, min_ms: float = 50.0, max_reps: int = 4096) -> float:
@@ -278,6 +304,10 @@ MATRIX_SHAPES = [(16, 512, 47), (256, 1024, 47), (256, 4096, 47), (16, 512, 2000
 # 64: src/repro/configs/mamba2_370m.py) over one 2,048-token sequence
 SSD_SHAPES = [(4, 32, 64, 25, 64, 16, torch.float32), (4, 32, 64, 25, 64, 16, torch.bfloat16),
               (1, 32, 64, 32, 64, 128, torch.float32)]
+# (b, nc, L, h, p, n) of the SSD backward: Hymba's training layer (4 x 128),
+# mamba2-370m's (4 x 512), Hymba's serve-length shape and a reduced config's
+SSD_BWD_SHAPES = [(4, 2, 64, 25, 64, 16), (4, 8, 64, 32, 64, 128), (4, 32, 64, 25, 64, 16),
+                  (1, 1, 64, 4, 32, 16)]
 
 
 def warp_inputs(b, h, w, c, gen, dev):
@@ -502,6 +532,20 @@ def measure(only: set[str] | None = None) -> list[dict]:
                                                    f"{str(dtype)[6:]}",
                    "bound_ms": b_ms, "bound_by": by}
             rows.append(_timed_row(row, lambda: ops.ssd_chunk(*args), lambda: ref.ssd_chunk(*args)))
+    if want("ssd_chunk_bwd") and hasattr(ops, "ssd_chunk_bwd"):     # absent in older trees
+        for b, nc, L, h, p, n in SSD_BWD_SHAPES:
+            args = ssd_bwd_inputs(b, nc, L, h, p, n, gen, dev)
+            b_ms, by = ssd_bwd_bound(b, nc, L, h, p, n)
+            row = {"kernel": "ssd_chunk_bwd",
+                   "shape": f"b={b} nc={nc} L={L} h={h} p={p} n={n} float32",
+                   "bound_ms": b_ms, "bound_by": by, "library": "none"}
+            plain = lambda: ref.ssd_chunk_bwd(*args)          # noqa: E731
+            row = _timed_row(row, lambda: ops.ssd_chunk_bwd(*args), plain)
+            if row["ms"] is not None:
+                row["plan"] = ops.ssd_chunk_bwd_plan(b, nc, L, h, p, n)
+                row["plain_ms"] = time_ms(plain)
+                row["plain_device_ms"] = device_profile(plain, row["plain_ms"])[0]
+            rows.append(row)
     return rows
 
 
@@ -527,7 +571,7 @@ def _timed_row(row: dict, call, plain) -> dict:
 
 
 def ptxas_report(names=("flash_f32_kernel", "bwd_dkdv_f32_kernel", "bwd_dq_f32_kernel",
-                        "kld_score_matrix_kernel")) -> list[str]:
+                        "kld_score_matrix_kernel", "ssd_bwd_kernel")) -> list[str]:
     """Registers and spills ptxas reports for every kernel whose mangled
     name holds one of ``names``, from the build log of the library built
     once more into a temporary directory."""
@@ -648,8 +692,8 @@ def main() -> int:
     ap.add_argument("--profiler-sessions", type=int, default=0,
                     help="count the kernels recorded in this many one-call sessions")
     ap.add_argument("--ptxas", action="store_true",
-                    help="print the fp32 flash (forward, backward) and matrix kernels' "
-                         "registers and spills")
+                    help="print the fp32 flash (forward, backward), matrix and SSD backward "
+                         "kernels' registers and spills")
     ap.add_argument("--sass", action="store_true",
                     help="count the matrix scorer's SASS instructions per class")
     ap.add_argument("--only", default=None,
@@ -715,6 +759,9 @@ def main() -> int:
             extra += (f", split {r['split']}; event (device) ms by split " + ", ".join(
                 f"{k}: {r['split_ms'][k]:.4f} ({r['split_device_ms'][k]})"
                 for k in r["split_ms"]))
+        if "plain_ms" in r:
+            extra += (f", plain {r['plain_ms']:.4f} ms (device {r['plain_device_ms']}), "
+                      f"library {r['library']}")
         if "sdpa_bwd_ms" in r:
             extra += (f", SDPA backward {r['sdpa_bwd_ms']:.4f} ms "
                       f"(device {r['sdpa_bwd_device_ms']})")

@@ -25,7 +25,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fedavg_agg.cu", "kld_greedy.cu", "kld_score.cu", "affine_warp.cu",
-           "flash_attention.cu", "flash_attention_bwd.cu", "ssd_chunk.cu")
+           "flash_attention.cu", "flash_attention_bwd.cu", "ssd_chunk.cu",
+           "ssd_chunk_bwd.cu")
 # headers the sources include (hashed into the library's name with them)
 HEADERS = ("flash_common.cuh", "kld_common.cuh", "mbarrier.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -50,6 +51,7 @@ SIGNATURES = {
     "flash_attention_bwd_bf16": (*(_P,) * 11, *(_I,) * 10, _F, _P),
     "ssd_chunk_f32": (*(_P,) * 8, *(_I,) * 6, _P),
     "ssd_chunk_bf16": (*(_P,) * 8, *(_I,) * 6, _P),
+    "ssd_chunk_bwd_f32": (*(_P,) * 15, _I64, *(_I,) * 6, _P),
 }
 
 
@@ -139,6 +141,9 @@ def library() -> ctypes.CDLL:
     lib.ssd_chunk_plan.argtypes = [_I] * 5 + [ctypes.POINTER(_I)] * 3 \
         + [ctypes.POINTER(_I64)]
     lib.ssd_chunk_plan.restype = ctypes.c_int
+    lib.ssd_chunk_bwd_plan.argtypes = [_I] * 6 + [ctypes.POINTER(_I)] * 3 \
+        + [ctypes.POINTER(_I64)] * 2
+    lib.ssd_chunk_bwd_plan.restype = ctypes.c_int
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -22,7 +22,8 @@ from repro_torch.kernels import build, ref
 LAUNCHES: dict[str, int] = {"fedavg_agg": 0, "kld_greedy_picks": 0,
                             "kld_score": 0, "kld_score_matrix": 0,
                             "affine_warp": 0, "flash_attention": 0,
-                            "flash_attention_bwd": 0, "ssd_chunk": 0}
+                            "flash_attention_bwd": 0, "ssd_chunk": 0,
+                            "ssd_chunk_bwd": 0}
 
 # mediators the matrix grid's y axis holds (65,535 tiles of 8; a call
 # tiles by 4 only at a few thousand pairs, see kld_score_matrix_plan)
@@ -39,12 +40,6 @@ FLASH_HEAD_DIMS = (64, 80, 128, 256)
 # mediator rows Eq. 6 takes (its CTAs keep the normalized weights in 48 KB
 # of shared memory)
 FEDAVG_MAX_M = 12_288
-# why a gradient through ``ssd_chunk`` on the card raises (its outputs would
-# carry none): the kernel has no backward yet
-SSD_NO_BACKWARD = ("ssd_chunk has no backward kernel on the card, so an ssm or hybrid "
-                   "layer cannot train there yet (ROADMAP Queue 1 item 1: the SSD "
-                   "backward kernel); train on the CPU, where the plain version is "
-                   "differentiable")
 # a block's dynamic shared memory on Hopper (the SSD block keeps B, C, x,
 # the (L, L) decay matrix beside W, and (L,) vectors there, fp32)
 MAX_SMEM_BYTES = 232_448
@@ -585,13 +580,8 @@ def ssd_chunk_plan(L: int, p: int, n: int, esize: int = 4, xvec: bool = True) ->
             "smem_bytes": nbytes.value, "threads": threads.value}
 
 
-def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-              B: torch.Tensor, C: torch.Tensor):
-    """Mamba-2 intra-chunk block: ``x (b, nc, L, h, p)``, ``dt (b, nc, L,
-    h)``, ``A (h,)``, ``B, C (b, nc, L, n)`` -> ``y_diag (b, nc, L, h, p)``
-    in ``x``'s dtype, ``S (b, nc, h, n, p)`` f32, ``g (b, nc, h)`` f32.
-    ``x``, ``B``, ``C`` share float32 or bfloat16; ``dt`` and ``A`` are
-    float32."""
+def _ssd_args(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+              C: torch.Tensor) -> None:
     if x.dim() != 5 or dt.dim() != 4 or A.dim() != 1 or B.dim() != 4 \
             or B.shape != C.shape:
         raise ValueError("expected x (b, nc, L, h, p), dt (b, nc, L, h), A (h,), "
@@ -599,7 +589,6 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f"{tuple(dt.shape)}, {tuple(A.shape)}, {tuple(B.shape)}, "
                          f"{tuple(C.shape)}")
     b, nc, L, h, p = x.shape
-    n = B.shape[-1]
     if dt.shape != (b, nc, L, h) or A.shape != (h,) or B.shape[:3] != (b, nc, L):
         raise ValueError(f"inconsistent shapes: x {tuple(x.shape)}, dt "
                          f"{tuple(dt.shape)}, A {tuple(A.shape)}, B {tuple(B.shape)}")
@@ -609,14 +598,26 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f"{x.dtype}, {B.dtype}, {C.dtype}")
     if dt.dtype != torch.float32 or A.dtype != torch.float32:
         raise ValueError(f"dt and A must be float32, got {dt.dtype}, {A.dtype}")
+    n = B.shape[-1]
     if ssd_chunk_smem_bytes(L, p, n) > MAX_SMEM_BYTES:
         raise ValueError(f"chunk L={L}, p={p}, n={n} needs "
                          f"{ssd_chunk_smem_bytes(L, p, n)} B of shared memory, "
                          f"over {MAX_SMEM_BYTES}")
+
+
+def _ssd_bwd_fits(L: int, p: int, n: int) -> None:
+    if ssd_chunk_bwd_smem_bytes(L, p, n) > MAX_SMEM_BYTES:
+        raise ValueError(f"the SSD backward of chunk L={L}, p={p}, n={n} needs "
+                         f"{ssd_chunk_bwd_smem_bytes(L, p, n)} B of shared memory, "
+                         f"over {MAX_SMEM_BYTES}")
+
+
+def _ssd_forward(x, dt, A, B, C):
+    """The forward launch on checked inputs (the plain version on the CPU)."""
     if not _on_cuda(x, dt, A, B, C):
         return ref.ssd_chunk(x, dt, A, B, C)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, B, C)):
-        raise NotImplementedError(SSD_NO_BACKWARD)
+    b, nc, L, h, p = x.shape
+    n = B.shape[-1]
     y = torch.empty_like(x)
     S = torch.empty(b, nc, h, n, p, dtype=torch.float32, device=x.device)
     g = torch.empty(b, nc, h, dtype=torch.float32, device=x.device)
@@ -625,3 +626,117 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             A.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(), S.data_ptr(),
             g.data_ptr(), b, nc, L, h, p, n)
     return y, S, g
+
+
+class _SSDChunk(torch.autograd.Function):
+    """The SSD block with a gradient: the forward kernel, then the backward
+    kernel (``csrc/ssd_chunk_bwd.cu``) on the card or ``ref.ssd_chunk_bwd``
+    on the CPU, from the saved inputs (everything else is recomputed)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C):
+        ctx.save_for_backward(x, dt, A, B, C)
+        return _ssd_forward(x, dt, A, B, C)
+
+    @staticmethod
+    def backward(ctx, dy, dS, dg):
+        grads = ssd_chunk_bwd(*ctx.saved_tensors, dy.contiguous(), dS.contiguous(),
+                              dg.contiguous())
+        return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
+
+
+def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+              B: torch.Tensor, C: torch.Tensor):
+    """Mamba-2 intra-chunk block: ``x (b, nc, L, h, p)``, ``dt (b, nc, L,
+    h)``, ``A (h,)``, ``B, C (b, nc, L, n)`` -> ``y_diag (b, nc, L, h, p)``
+    in ``x``'s dtype, ``S (b, nc, h, n, p)`` f32, ``g (b, nc, h)`` f32.
+    ``x``, ``B``, ``C`` share float32 or bfloat16; ``dt`` and ``A`` are
+    float32.  Differentiable when an input requires grad (``_SSDChunk``:
+    one forward and one backward launch a call; shapes the backward kernel
+    holds, fp32 on the card)."""
+    _ssd_args(x, dt, A, B, C)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, B, C)):
+        _ssd_bwd_fits(x.shape[2], x.shape[4], B.shape[-1])
+        if x.is_cuda and x.dtype != torch.float32:
+            raise ValueError(f"the SSD backward kernel takes float32 x, B and C, got "
+                             f"{x.dtype}")
+        return _SSDChunk.apply(x, dt, A, B, C)
+    return _ssd_forward(x, dt, A, B, C)
+
+
+def ssd_chunk_bwd_smem_bytes(L: int, p: int, n: int) -> int:
+    """Dynamic shared memory of one SSD backward CTA in its least layout
+    (``csrc/ssd_chunk_bwd.cu`` ``make_layout`` with C B^T recomputed; L and
+    n rounded up to 8, p to 4, transposed rows padded by 4): B and C
+    transposed, dCB, the dB term, the larger of a head's (P, x, dy, dS) and
+    a segment's end (dCB transposed, B, C), the per-unit partials, cum in
+    fp64 and six (L,) vectors.  A shape runs when it fits;
+    ``ssd_chunk_bwd_plan`` gives the layout a call takes."""
+    lp, np8, pp = -(-L // 8) * 8, -(-n // 8) * 8, -(-p // 4) * 4
+    head = lp * lp + 2 * pp * (lp + 4) + pp * (np8 + 4)
+    seg = lp * lp + 2 * lp * np8
+    parts = (lp // 4 + lp // 8 + np8 // 8) * lp
+    return 4 * (3 * np8 * lp + lp * lp + max(head, seg) + parts + 8 * lp)
+
+
+@functools.lru_cache(maxsize=1024)
+def _ssd_bwd_plan(index: int, b: int, nc: int, L: int, h: int, p: int, n: int) -> dict:
+    import ctypes
+    cache, threads, ctas = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    smem, part = ctypes.c_int64(), ctypes.c_int64()
+    with torch.cuda.device(index):
+        build.check(build.library().ssd_chunk_bwd_plan(
+            b, nc, L, h, p, n, *map(ctypes.byref, (cache, threads, ctas, smem, part))),
+            "ssd_chunk_bwd_plan")
+    return {"cache_cb": bool(cache.value), "threads": threads.value, "ctas": ctas.value,
+            "smem_bytes": smem.value, "part_floats": part.value}
+
+
+def ssd_chunk_bwd_plan(b: int, nc: int, L: int, h: int, p: int, n: int,
+                       device: torch.device | None = None) -> dict:
+    """The launch an SSD backward call of this shape makes on ``device``
+    (the current card without it): C B^T cached or recomputed per element,
+    threads per CTA, CTAs (the persistent grid: SMs times the CTAs per SM,
+    at most b nc h), dynamic shared memory in bytes, and the floats of the
+    per-(CTA, (batch, chunk)) partials of dB and dC.  No launch."""
+    index = torch.cuda.current_device() if device is None else torch.device(device).index
+    return dict(_ssd_bwd_plan(index, b, nc, L, h, p, n))
+
+
+def ssd_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                  C: torch.Tensor, dy: torch.Tensor, dS: torch.Tensor, dg: torch.Tensor):
+    """The gradient of ``ssd_chunk`` at ``(x, dt, A, B, C)`` for the output
+    gradients ``dy`` (like ``x``), ``dS (b, nc, h, n, p)`` and ``dg (b, nc,
+    h)``, both float32: ``dx, ddt, dA, dB, dC`` in the inputs' dtypes.  On
+    the card fp32 only (a bf16 ``x`` raises) and one launch: the block's
+    kernel and a pass summing the per-CTA partials of dB, dC and dA in a
+    fixed order (no atomics: two runs agree bit for bit).  Any dtype of
+    ``ssd_chunk`` on the CPU (``ref.ssd_chunk_bwd``)."""
+    _ssd_args(x, dt, A, B, C)
+    b, nc, L, h, p = x.shape
+    n = B.shape[-1]
+    if dy.shape != x.shape or dy.dtype != x.dtype or dS.shape != (b, nc, h, n, p) \
+            or dg.shape != (b, nc, h) or dS.dtype != torch.float32 \
+            or dg.dtype != torch.float32:
+        raise ValueError(f"expected dy {tuple(x.shape)} {x.dtype}, dS {(b, nc, h, n, p)} "
+                         f"and dg {(b, nc, h)} float32; got {tuple(dy.shape)} {dy.dtype}, "
+                         f"{tuple(dS.shape)} {dS.dtype}, {tuple(dg.shape)} {dg.dtype}")
+    _ssd_bwd_fits(L, p, n)
+    if not _on_cuda(x, dt, A, B, C, dy, dS, dg):
+        return ref.ssd_chunk_bwd(x, dt, A, B, C, dy, dS, dg)
+    if x.dtype != torch.float32:
+        raise ValueError(f"the SSD backward kernel takes float32 x, B and C, got {x.dtype}")
+    dev = x.device
+    dx, ddt = torch.empty_like(x), torch.empty_like(dt)
+    dA, dB, dC = torch.empty_like(A), torch.empty_like(B), torch.empty_like(C)
+    if b * nc * h == 0:
+        return dx, ddt, dA.zero_(), dB.zero_(), dC.zero_()
+    plan = _ssd_bwd_plan(dev.index, b, nc, L, h, p, n)
+    part = torch.empty(plan["part_floats"], dtype=torch.float32, device=dev)
+    dapart = torch.empty(b * nc * h, dtype=torch.float32, device=dev)
+    _launch("ssd_chunk_bwd", "ssd_chunk_bwd_f32", dev, x.data_ptr(), dt.data_ptr(),
+            A.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(), dS.data_ptr(),
+            dg.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+            dC.data_ptr(), part.data_ptr(), dapart.data_ptr(), plan["part_floats"], b, nc,
+            L, h, p, n)
+    return dx, ddt, dA, dB, dC

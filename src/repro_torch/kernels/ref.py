@@ -202,7 +202,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
               B: torch.Tensor, C: torch.Tensor):
-    """Mamba-2 intra-chunk block for every (batch, chunk, head), fp32.
+    """Mamba-2 intra-chunk block for every (batch, chunk, head), fp32
+    (float64 for float64 inputs, the tests' exact yardstick).
 
     ``x (b, nc, L, h, p)``, ``dt (b, nc, L, h)``, ``A (h,)``, ``B, C
     (b, nc, L, n)`` -> ``y_diag (b, nc, L, h, p)`` in ``x``'s dtype,
@@ -215,7 +216,7 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     The decay is masked to ``-inf`` above the diagonal before ``exp``, so
     it stays finite whatever the segment sums."""
-    f32 = torch.float32
+    f32 = torch.promote_types(x.dtype, torch.float32)
     xf, dtf, Bf, Cf = x.to(f32), dt.to(f32), B.to(f32), C.to(f32)
     L = x.shape[2]
     cum = torch.cumsum(dtf * A.to(f32), dim=2)                  # (b, nc, L, h)
@@ -229,3 +230,65 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     S = torch.einsum("bclhn,bclhp->bchnp", w, xf)
     g = torch.exp(cum[:, :, -1, :])
     return y.to(x.dtype), S, g
+
+
+def ssd_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor,
+                  dS: torch.Tensor, dg: torch.Tensor):
+    """The gradient of ``ssd_chunk`` from its formulas, in fp32 (float64
+    for float64 inputs): given the
+    output gradients ``dy`` (like ``x``), ``dS (b, nc, h, n, p)`` and ``dg
+    (b, nc, h)``, returns ``dx, ddt, dA, dB, dC`` in the inputs' dtypes.
+
+    Per (batch, chunk, head), with ``P_ij = (C_i . B_j) exp(cum_i - cum_j)``
+    on the lower triangle (the forward's masked exp), ``M'_ij = P_ij dt_j``,
+    ``e_l = exp(cum_L - cum_l)`` and ``W_ls = e_l dt_l B_ls``:
+
+        dx     = M'^T dy + W dS
+        dM'    = dy x^T (lower triangle),   dW = x dS^T
+        dC     = dCB B,  dB = dCB^T C + sum_h e dt dW,
+                 dCB_ij = sum_h dM'_ij exp(cum_i - cum_j) dt_j
+        dcum_l = sum_j G_lj - sum_i G_il - H_l,  G = dM' * M' off the
+                 diagonal, H_l = sum_s dW_ls W_ls for l < L; cum_L also
+                 gets sum_l H_l + dg g (the diagonal of G and H_L, in two
+                 terms that cancel, are left out: on steep segments their
+                 rounding would swamp dA)
+        ddt_l  = A d(dA)_l + sum_i dM'_il P_il + e_l sum_s dW_ls B_ls,
+                 d(dA) = reverse-cumsum(dcum)
+        dA     = sum_{b, c, l} dt_l d(dA)_l
+
+    cum is summed in float64 and its differences rounded to the working
+    type: in fp32 one ulp of a running sum of a few hundred is ~3e-5 of
+    absolute error in every exp, which the dt gradient carries."""
+    f32 = torch.promote_types(x.dtype, torch.float32)
+    xf, dtf, Af, Bf, Cf = x.to(f32), dt.to(f32), A.to(f32), B.to(f32), C.to(f32)
+    dyf, dSf, dgf = dy.to(f32), dS.to(f32), dg.to(f32)
+    L = x.shape[2]
+    # in float64: each exponent is a difference of two running sums that
+    # grow over the chunk (the kernel's rule)
+    cum = torch.cumsum(dtf.double() * Af.double(), dim=2)       # (b, nc, L, h)
+    seg = (cum[:, :, :, None, :] - cum[:, :, None, :, :]).to(f32)   # (b, nc, i, j, h)
+    tril = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
+    decay = torch.exp(torch.where(tril[:, :, None], seg, -math.inf))
+    P = torch.einsum("bcin,bcjn->bcij", Cf, Bf)[..., None] * decay
+    dtj = dtf[:, :, None, :, :]                                 # dt_j over (i, j)
+    Mp = P * dtj
+    e = torch.exp((cum[:, :, -1:, :] - cum).to(f32))            # (b, nc, L, h)
+    W = (e * dtf)[..., None] * Bf[:, :, :, None, :]             # (b, nc, l, h, n)
+    dx = torch.einsum("bcijh,bcihp->bcjhp", Mp, dyf) \
+        + torch.einsum("bclhn,bchnp->bclhp", W, dSf)
+    dM = torch.einsum("bcihp,bcjhp->bcijh", dyf, xf) * tril[:, :, None]
+    dW = torch.einsum("bclhp,bchnp->bclhn", xf, dSf)
+    dCB = (dM * decay * dtj).sum(-1)                            # (b, nc, i, j)
+    dC = torch.einsum("bcij,bcjn->bcin", dCB, Bf)
+    dB = torch.einsum("bcij,bcin->bcjn", dCB, Cf) \
+        + torch.einsum("bclhn,bclh->bcln", dW, e * dtf)
+    G = dM * Mp * torch.ones(L, L, dtype=torch.bool, device=x.device).tril(-1)[:, :, None]
+    H = (dW * W).sum(-1)                                        # (b, nc, l, h)
+    H[:, :, -1] = 0.0                   # e_L = 1: cum_L's two terms cancel
+    dcum = G.sum(3) - G.sum(2) - H
+    dcum[:, :, -1] += H.sum(2) + dgf * torch.exp(cum[:, :, -1].to(f32))
+    ddA = torch.flip(torch.cumsum(torch.flip(dcum, (2,)), dim=2), (2,))
+    ddt = (dM * P).sum(2) + e * (dW * Bf[:, :, :, None, :]).sum(-1) + Af * ddA
+    dA = (dtf * ddA).sum((0, 1, 2))
+    return dx.to(x.dtype), ddt.to(dt.dtype), dA.to(A.dtype), dB.to(B.dtype), dC.to(C.dtype)

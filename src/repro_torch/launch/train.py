@@ -7,8 +7,10 @@ The reduced (CPU smoke) variant of ``--arch`` by default, as the reference's
 ``repro.launch.train``; ``--full-config`` trains the published widths (on
 the card: qwen3-4b needs ~8 GB of bf16 weights, 8 GB of gradients and 16 GB
 of AdamW moments).  ``--ckpt`` writes ``{"params", "step"}`` in the
-reference's checkpoint format (the parameters with stacked layers).  An
-``ssm`` or ``hybrid`` family trains on the CPU only (``--device cpu``).
+reference's checkpoint format (the parameters with stacked layers).  The
+``ssm`` and ``hybrid`` families train on the card too (``--arch
+mamba2-370m``, ``--arch hymba-1.5b``): ``--seq`` a multiple of their
+chunk of 64.
 """
 from __future__ import annotations
 

@@ -5,8 +5,10 @@ The selective SSM per head (A scalar, one B/C group)
     h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t,    y_t = C_t h_t + D x_t
 
 runs in chunks of L: the intra-chunk block (``y_diag``, the chunk's
-outgoing state and its decay) is the ``ssd_chunk`` kernel; the recurrence
-over chunks, the inter-chunk output ``y_off`` and the ``D`` skip are torch.
+outgoing state and its decay) is the ``ssd_chunk`` kernel, and its
+gradient the ``ssd_chunk_bwd`` kernel; the recurrence over chunks, the
+inter-chunk output ``y_off`` and the ``D`` skip are torch, differentiated
+by autograd (the reference leaves them to XLA, outside any Pallas kernel).
 
 Shapes: x (b, l, h, p); dt (b, l, h); B, C (b, l, n); A (h,); D (h,).
 The state is (b, h, p, n) fp32, the conv tail (b, k-1, channels).

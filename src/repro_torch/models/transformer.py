@@ -16,10 +16,9 @@ pytree path with the stacked layer axis written out
   ``forward_decode``   one token + cache -> logits; the cache is updated in
                        place (the reference returns a new one)
 
-Training runs attention through the flash kernels' autograd function (one
-forward and one backward launch a layer).  The SSD kernel has no backward
-yet, so an ``ssm`` or ``hybrid`` layer trains on the CPU only (the plain
-version is differentiable); on the card it raises ``NotImplementedError``.
+Training runs attention through the flash kernels' autograd function and
+the SSD block through the SSD kernels' (``ops._SSDChunk``): one forward
+and one backward launch a layer each, on the card as on the CPU.
 
 The cache keeps the reference's layout, one stacked tensor per leaf with a
 leading layer axis: ``{"attn": {"k", "v": (L, b, S, KV, d)}, "ssm":

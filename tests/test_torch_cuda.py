@@ -641,6 +641,84 @@ def test_ssd_chunk_layout_matches_library(dev):
     assert ops.ssd_chunk_plan(64, 64, 16, esize=2)["smem_bytes"] == 58_112
 
 
+# the cases above that the backward kernel holds (all but L = 128)
+SSD_BWD_CARD_CASES = [c for c in SSD_CARD_CASES
+                      if ops.ssd_chunk_bwd_smem_bytes(*c[2:3], *c[4:]) <= ops.MAX_SMEM_BYTES]
+
+
+def _ssd_bwd_inputs(dev, b, nc, L, h, p, n, dt_scale=1.0):
+    x, dt, A, B, C = _ssd_inputs(dev, torch.float32, b, nc, L, h, p, n, dt_scale)
+    g = torch.Generator(device=dev).manual_seed(L + h + n)
+    cot = (torch.randn(b, nc, L, h, p, generator=g, device=dev),
+           torch.randn(b, nc, h, n, p, generator=g, device=dev),
+           torch.randn(b, nc, h, generator=g, device=dev))
+    return x, dt, A, B, C, *cot
+
+
+def _ssd_bwd_matches_plain(got, want):
+    """dx, ddt, dB and dC within 1e-5 of each gradient's scale (fp32 sums in
+    other orders), dA within 1e-4 (a sum of b nc L terms of both signs)."""
+    for name, o, w, rel in zip(("dx", "ddt", "dA", "dB", "dC"), got, want,
+                               (1e-5, 1e-5, 1e-4, 1e-5, 1e-5)):
+        assert o.dtype == w.dtype and o.shape == w.shape, name
+        err, scale = _err_scale(o, w)
+        assert err <= rel * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nc,L,h,p,n", SSD_BWD_CARD_CASES)
+def test_ssd_chunk_bwd_kernel(dev, b, nc, L, h, p, n):
+    """The backward kernel against ``ref.ssd_chunk_bwd`` (one launch)."""
+    args = _ssd_bwd_inputs(dev, b, nc, L, h, p, n)
+    before = ops.LAUNCHES["ssd_chunk_bwd"]
+    got = ops.ssd_chunk_bwd(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_chunk_bwd"] == before + 1
+    _ssd_bwd_matches_plain(got, ref.ssd_chunk_bwd(*args))
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_bwd_kernel_steep_segments(dev):
+    """dt 400 times larger: the segment sums fall far below -88 under the
+    diagonal and would overflow above it; every gradient is finite and
+    within the plain version's tolerance."""
+    args = _ssd_bwd_inputs(dev, 2, 3, 64, 5, 64, 16, dt_scale=400.0)
+    got = ops.ssd_chunk_bwd(*args)
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    _ssd_bwd_matches_plain(got, ref.ssd_chunk_bwd(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nc,L,h,p,n", [(4, 2, 64, 25, 64, 16), (4, 8, 64, 32, 64, 128)])
+def test_ssd_chunk_bwd_kernel_is_bitwise_deterministic(dev, b, nc, L, h, p, n):
+    """Hymba's training layer (heads split across CTAs, so dB and dC are
+    sums of partials) and mamba2-370m's: two runs agree bit for bit."""
+    args = _ssd_bwd_inputs(dev, b, nc, L, h, p, n)
+    plan = ops.ssd_chunk_bwd_plan(b, nc, L, h, p, n)
+    assert plan["ctas"] > b * nc                   # some (batch, chunk) has 2 CTAs
+    one, two = ops.ssd_chunk_bwd(*args), ops.ssd_chunk_bwd(*args)
+    assert all(torch.equal(u, v) for u, v in zip(one, two))
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_bwd_kernel_refuses_what_it_cannot_hold(dev):
+    """L = 128 (the forward takes it): the backward's shared memory is over
+    227 KB, so the wrapper raises with the bytes, and a gradient through
+    ``ssd_chunk`` is refused before the forward launches; bf16 inputs with
+    a gradient are refused on the card."""
+    args = _ssd_bwd_inputs(dev, 1, 2, 128, 3, 64, 16)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.ssd_chunk_bwd(*args)
+    x = args[0].clone().requires_grad_(True)
+    before = ops.LAUNCHES["ssd_chunk"]
+    with pytest.raises(ValueError, match="backward"):
+        ops.ssd_chunk(x, *args[1:5])
+    x, dt, A, B, C = _ssd_inputs(dev, torch.bfloat16, 1, 2, 64, 3, 64, 16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ops.ssd_chunk(x.requires_grad_(True), dt, A, B, C)
+    assert ops.LAUNCHES["ssd_chunk"] == before
+
+
 def _card_matches_cpu(dev, cfg):
     """``cfg`` with f32 weights from one seed, prompt 128, on the card and
     on the CPU: one flash launch per attention layer and one SSD launch per
@@ -1084,14 +1162,12 @@ def test_flash_attention_bwd_kernel_refuses_other_head_dims(dev):
     assert ops.LAUNCHES["flash_attention_bwd"] == before
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("arch,upd", [("qwen3-4b", {}),
-                                      ("h2o-danube-1.8b", {"sliding_window": 16})])
-def test_reduced_dense_training_on_card_matches_cpu(dev, arch, upd):
-    """``forward_train`` of a reduced dense config (f32 weights from one
-    seed, each layer matrix rescaled from the reference init's
+def _training_on_card_matches_cpu(dev, cfg):
+    """``forward_train`` of a reduced config (f32 weights from one seed,
+    each layer matrix but the conv taps rescaled from the reference init's
     ``1/sqrt(L)`` to ``1/sqrt(d_in)``) on the card and on the CPU: one
-    forward and one backward flash launch per layer on the card; the loss
+    forward and one backward flash launch per attention layer and one
+    forward and one backward SSD launch per SSM layer on the card; the loss
     within 1e-5 and every gradient within 1e-3 of its scale (fp32 sums in
     other orders); a two-step SGD round of ``make_fl_round`` on both within
     1e-3 of each leaf's update scale.  The rescale: at the reference's own
@@ -1099,17 +1175,18 @@ def test_reduced_dense_training_on_card_matches_cpu(dev, arch, upd):
     to 9.4e-2 of the embedding's update scale (danube, window 16, two
     steps, five perturbations), so card-vs-CPU agreement there tests
     nothing; at the standard fan-in that spread is at most 4.7e-5
-    (``tests/test_torch_train.py::_perturbation_spread``)."""
+    (``tests/test_torch_train.py::_perturbation_spread``).  Seq 64, 128 for
+    the SSD families (two chunks, so the recurrence carries a gradient)."""
     from repro_torch.launch import steps as S
-    cfg = dataclasses.replace(configs.reduced(configs.get(arch)), **upd)
     cpu = T.init_model(cfg, torch.Generator().manual_seed(0))
     with torch.no_grad():                  # the standard fan-in (see the docstring)
         for name, p in cpu.named_parameters():
-            if name.startswith("layers.") and p.dim() == 2:
+            if name.startswith("layers.") and p.dim() == 2 and not name.endswith("conv_w"):
                 p.mul_((cfg.n_layers / p.shape[0]) ** 0.5)
     card = T.Transformer(cfg, device=dev)
     card.load_state_dict(cpu.state_dict())
-    toks = torch.randint(0, cfg.vocab, (4, 64), generator=torch.Generator().manual_seed(1))
+    seq = 128 if cfg.has_ssm else 64
+    toks = torch.randint(0, cfg.vocab, (4, seq), generator=torch.Generator().manual_seed(1))
     batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
     dbatch = {k: t.to(dev) for k, t in batch.items()}
     lc, gc = S._loss_and_grads(lambda p: T.forward_train(cpu, batch, p)[0], T.train_params(cpu))
@@ -1117,12 +1194,15 @@ def test_reduced_dense_training_on_card_matches_cpu(dev, arch, upd):
     lg, gg = S._loss_and_grads(lambda p: T.forward_train(card, dbatch, p)[0],
                                T.train_params(card))
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["flash_attention"] == ops.LAUNCHES["flash_attention_bwd"] == cfg.n_layers
+    attn = cfg.n_layers if cfg.has_attention else 0
+    ssm = cfg.n_layers if cfg.has_ssm else 0
+    assert ops.LAUNCHES["flash_attention"] == ops.LAUNCHES["flash_attention_bwd"] == attn
+    assert ops.LAUNCHES["ssd_chunk"] == ops.LAUNCHES["ssd_chunk_bwd"] == ssm
     assert abs(float(lg) - float(lc)) <= 1e-5 * abs(float(lc))
     for name, g in gc.items():
         err, scale = _err_scale(gg[name].cpu(), g)
         assert err <= 1e-3 * scale, name
-    w = torch.full((4,), 64.0)
+    w = torch.full((4,), float(seq))
     rc = S.make_fl_round(cpu, 1, learning_rate=0.05, local_steps=2)(
         T.train_params(cpu), batch["tokens"], batch["labels"], w)
     rg = S.make_fl_round(card, 1, learning_rate=0.05, local_steps=2)(
@@ -1134,14 +1214,14 @@ def test_reduced_dense_training_on_card_matches_cpu(dev, arch, upd):
 
 
 @pytest.mark.cuda
-def test_ssm_training_on_card_raises(dev):
-    """The SSD kernel has no backward yet: training a hybrid or SSM layer on
-    the card raises and names the ROADMAP item; serving still runs."""
-    cfg = configs.reduced(configs.get("hymba-1.5b"))
-    model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
-    toks = torch.randint(0, cfg.vocab, (1, 64), device=dev)
-    params = {k: t.requires_grad_(True) for k, t in T.train_params(model).items()}
-    with pytest.raises(NotImplementedError, match="SSD backward kernel"):
-        T.forward_train(model, {"tokens": toks, "labels": toks}, params)
-    logits, _ = T.forward_prefill(model, {"tokens": toks})
-    assert bool(torch.isfinite(logits).all())
+@pytest.mark.parametrize("arch,upd", [("qwen3-4b", {}),
+                                      ("h2o-danube-1.8b", {"sliding_window": 16})])
+def test_reduced_dense_training_on_card_matches_cpu(dev, arch, upd):
+    _training_on_card_matches_cpu(
+        dev, dataclasses.replace(configs.reduced(configs.get(arch)), **upd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "mamba2-370m"])
+def test_reduced_ssm_training_on_card_matches_cpu(dev, arch):
+    _training_on_card_matches_cpu(dev, configs.reduced(configs.get(arch)))

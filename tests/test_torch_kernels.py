@@ -296,10 +296,13 @@ def test_cpu_calls_launch_nothing():
                             torch.ones(1, 3, 2, 64))
     ops.ssd_chunk(torch.ones(1, 1, 4, 1, 2), torch.ones(1, 1, 4, 1), -torch.ones(1),
                   torch.ones(1, 1, 4, 3), torch.ones(1, 1, 4, 3))
+    ops.ssd_chunk_bwd(torch.ones(1, 1, 4, 1, 2), torch.ones(1, 1, 4, 1), -torch.ones(1),
+                      torch.ones(1, 1, 4, 3), torch.ones(1, 1, 4, 3), torch.ones(1, 1, 4, 1, 2),
+                      torch.ones(1, 1, 1, 3, 2), torch.ones(1, 1, 1))
     assert ops.LAUNCHES == {"fedavg_agg": 0, "kld_greedy_picks": 0, "kld_score": 0,
                             "kld_score_matrix": 0, "affine_warp": 0,
                             "flash_attention": 0, "flash_attention_bwd": 0,
-                            "ssd_chunk": 0}
+                            "ssd_chunk": 0, "ssd_chunk_bwd": 0}
 
 
 # ---------------------------------------------------------------- attention
@@ -600,3 +603,107 @@ def test_ssd_chunk_padding_near_the_limit():
                                                                  p=136, n=60))
     with pytest.raises(ValueError):
         ops.ssd_chunk(x, dt, A, B, C)
+
+
+def _ssd_cotangents(seed, x, S, g):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.normal(size=t.shape).astype(np.float32) for t in (x, S, g))
+
+
+# (b, nc, L, h, p, n): L 16 and 64, n 8 and 128, L, p and n that are not
+# multiples of 8, and the reduced configs' block (L 64, p 32, n 16)
+SSD_BWD_CASES = [(2, 3, 16, 3, 8, 8), (1, 2, 64, 2, 16, 128), (2, 2, 30, 3, 10, 6),
+                 (1, 1, 64, 4, 32, 16)]
+
+
+@pytest.mark.parametrize("b,nc,L,h,p,n", SSD_BWD_CASES)
+def test_ssd_chunk_bwd_matches_reference_vjp(b, nc, L, h, p, n):
+    """``ref.ssd_chunk_bwd`` from its formulas against ``jax.vjp`` of the
+    reference's oracle on the same inputs and cotangents, fp32: dx, ddt, dB
+    and dC within 1e-5 of each gradient's scale (sums in other orders;
+    measured 2e-6 at worst), dA within 1e-4 (a sum of b nc L terms of both
+    signs: torch's own autograd through ``ref.ssd_chunk`` is 1.3e-5 of its
+    scale away from the reference's)."""
+    arrays = _ssd_inputs(L + n, b=b, nc=nc, L=L, h=h, p=p, n=n)
+    y, S, g = jref.ssd_chunk(*map(jnp.asarray, arrays))
+    cot = _ssd_cotangents(L * n, y, S, g)
+    _, vjp = jax.vjp(jref.ssd_chunk, *map(jnp.asarray, arrays))
+    want = vjp(tuple(map(jnp.asarray, cot)))
+    got = ref.ssd_chunk_bwd(*(torch.from_numpy(a) for a in arrays + cot))
+    for name, gr, w, rel in zip(("dx", "ddt", "dA", "dB", "dC"), got, want,
+                                (1e-5, 1e-5, 1e-4, 1e-5, 1e-5)):
+        w = np.asarray(w)
+        assert gr.shape == w.shape and gr.dtype == torch.float32, name
+        np.testing.assert_allclose(gr.numpy(), w, rtol=0, atol=rel * np.abs(w).max(),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("dtype,dt_scale", [(torch.float32, 1.0), (torch.float32, 400.0),
+                                            (torch.bfloat16, 1.0)])
+def test_ssd_chunk_grads_match_autograd_of_plain_version(dtype, dt_scale):
+    """``ops.ssd_chunk`` with inputs that require grad goes through
+    ``_SSDChunk`` (the plain forward, ``ref.ssd_chunk_bwd``) on the CPU: its
+    fp32 gradients equal torch autograd through ``ref.ssd_chunk`` in
+    float64 on the same values within 1e-5 of each gradient's scale, dA
+    within 1e-4 (bf16 x, B and C: gradients in bf16, 2^-7), also where the
+    segment sums reach far below -88 (``dt`` 400 times larger), every
+    gradient finite.  The float64 yardstick, not fp32 autograd: there
+    autograd's dA is 2.9e-2 of its scale off (the diagonal of G and the
+    chunk's last H cancel in its dcum; ``ref.ssd_chunk_bwd`` leaves them
+    out and sums cum in float64: 1.8e-5)."""
+    x, dt, A, B, C = _ssd_inputs(21)
+    arrays = (x, dt * np.float32(dt_scale), A, B, C)
+    y, S, g = ref.ssd_chunk(*(torch.from_numpy(a) for a in arrays))
+    cot = [torch.from_numpy(c) for c in _ssd_cotangents(22, y, S, g)]
+    cot[0] = cot[0].to(dtype)
+    mine = [torch.from_numpy(a).to(dtype if i in (0, 3, 4) else torch.float32)
+            .requires_grad_(True) for i, a in enumerate(arrays)]
+    out = ops.ssd_chunk(*mine)
+    assert type(out[0].grad_fn).__name__ == "_SSDChunkBackward"
+    got = torch.autograd.grad(out, mine, cot)
+    exact = [t.detach().double().requires_grad_(True) for t in mine]
+    want = torch.autograd.grad(ref.ssd_chunk(*exact), exact, [c.double() for c in cot])
+    for i, (gr, w) in enumerate(zip(got, want)):
+        assert gr.dtype == mine[i].dtype and bool(torch.isfinite(gr.float()).all())
+        rel = 2 ** -7 if gr.dtype == torch.bfloat16 else (1e-4 if i == 2 else 1e-5)
+        err = float((gr.double() - w).abs().max())
+        assert err <= rel * float(w.abs().max()), (i, err)
+
+
+def test_ssd_chunk_grads_only_where_needed():
+    """The backward returns None for an input that does not require grad
+    (a frozen ``A``), and a call without grad stays the plain forward."""
+    x, dt, A, B, C = (torch.from_numpy(a) for a in _ssd_inputs(23))
+    xg = x.clone().requires_grad_(True)
+    out = ops.ssd_chunk(xg, dt, A, B, C)
+    grads = out[0].grad_fn.apply(*(torch.ones_like(t) for t in out))
+    assert grads[0] is not None and grads[0].shape == x.shape
+    assert all(gr is None for gr in grads[1:])
+    with torch.no_grad():
+        assert ops.ssd_chunk(xg, dt, A, B, C)[0].grad_fn is None
+
+
+def test_ssd_chunk_bwd_wrapper_checks():
+    """Output-gradient shapes and dtypes; the backward kernel's shared
+    memory in its least layout (C B^T recomputed): the Hymba block 93,696 B,
+    mamba2-370m's (L 64, p 64, n 128) 211,968 B; a chunk the forward takes
+    but the backward does not hold is refused when a gradient is asked for,
+    before the forward runs."""
+    assert ops.ssd_chunk_bwd_smem_bytes(64, 64, 16) == 93_696
+    assert ops.ssd_chunk_bwd_smem_bytes(64, 64, 128) == 211_968 <= ops.MAX_SMEM_BYTES
+    assert ops.ssd_chunk_bwd_smem_bytes(128, 128, 64) > ops.MAX_SMEM_BYTES
+    x, dt, A, B, C = (torch.from_numpy(a) for a in _ssd_inputs(24))
+    y, S, g = ops.ssd_chunk(x, dt, A, B, C)
+    with pytest.raises(ValueError):
+        ops.ssd_chunk_bwd(x, dt, A, B, C, y, S[..., :1], g)
+    with pytest.raises(ValueError):
+        ops.ssd_chunk_bwd(x, dt, A, B, C, y, S, g.double())
+    with pytest.raises(ValueError):
+        ops.ssd_chunk_bwd(x, dt, A, B, C, y.bfloat16(), S, g)
+    big = [torch.zeros(1, 1, 128, 1, 128, requires_grad=True), torch.zeros(1, 1, 128, 1),
+           -torch.ones(1), torch.zeros(1, 1, 128, 64), torch.zeros(1, 1, 128, 64)]
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="backward"):
+        ops.ssd_chunk(*big)
+    with torch.no_grad():
+        assert ops.ssd_chunk(*big)[0].shape == big[0].shape

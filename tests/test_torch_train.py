@@ -392,13 +392,18 @@ def _adam_delta_check(p_new, r_new, p_old, mu, r_mu, lr):
 
 
 @pytest.mark.parametrize("microbatches", [1, 2])
-def test_train_step_matches_reference(microbatches):
+@pytest.mark.parametrize("arch", ["qwen3-4b", "hymba-1.5b", "mamba2-370m"])
+def test_train_step_matches_reference(arch, microbatches):
     """One AdamW step (warmup-cosine rate, clipping at 0.01 so that it
-    binds) of the reduced qwen3-4b equals the reference's
+    binds) of the reduced config equals the reference's
     ``make_train_step`` under ``jax.jit``; ``microbatches=2`` accumulates
-    in fp32 in the reference's order.  The loss within 1e-5 relative."""
-    rcfg, params, model = _models("qwen3-4b")
-    batch = _lm_batch(3, 4, 16, rcfg.vocab)
+    in fp32 in the reference's order.  The loss within 1e-5 relative.  The
+    SSD families (their gradient through ``ops._SSDChunk``) train on seq 64,
+    a multiple of their chunk, from weights at the standard fan-in
+    (``_fan_in``: at the reference's own init a 1e-7 perturbation of
+    Hymba's weights moves its gradients by 1.4e-3 of their scale)."""
+    rcfg, params, model = _models(arch, fan_in=arch != "qwen3-4b")
+    batch = _lm_batch(3, 4, 64 if rcfg.has_ssm else 16, rcfg.vocab)
     lr = 1e-2
     ropt = radamw(rwarmup(lr, 2, 20))
     rstep = jax.jit(RS.make_train_step(rcfg, ropt, clip_norm=0.01, microbatches=microbatches))
