@@ -150,7 +150,8 @@ from repro_torch.examples.kernel_times import (bound, flash_bound,  # noqa: E402
                                                flash_bwd_bound, greedy_bound,
                                                score_bound, sdpa_backward,
                                                ssd_bound, ssd_bwd_bound,
-                                               ssd_bwd_inputs, ssd_inputs)
+                                               ssd_bwd_inputs, ssd_bwd_split_bound,
+                                               ssd_inputs)
 
 FED_KW = dict(num_clients=64, total_samples=6400, test_samples=2350,
               sizes="instagram", global_dist="letterfreq", local="random",
@@ -567,12 +568,16 @@ def check_ssd_bwd(dev, gen, *, b, nc, L, h, p, n):
         raise AssertionError(f"ssd_chunk_bwd at b={b} nc={nc} L={L} h={h}: two runs differ")
     del want, again
     CHECKED.add(ssd_bwd_key(x, B))
-    b_ms, by = ssd_bwd_bound(b, nc, L, h, p, n)
+    # the products run on the tensor cores in split fp32; the bound at the
+    # CUDA cores' fp32 rate stands beside it
+    b_ms, by = ssd_bwd_split_bound(b, nc, L, h, p, n)
+    c_ms, c_by = ssd_bwd_bound(b, nc, L, h, p, n)
     row = timed({"shape": f"b={b} nc={nc} L={L} h={h} p={p} n={n} float32",
                  "max_abs_err": max(errs), "errs_dx_ddt_dA_dB_dC": errs,
                  "worst_over_bound": worst, "bitwise_repeat": True,
                  "plan": ops.ssd_chunk_bwd_plan(b, nc, L, h, p, n, dev),
-                 "bound_ms": b_ms, "bound_by": by},
+                 "bound_ms": b_ms, "bound_by": by, "fp32_core_bound_ms": c_ms,
+                 "fp32_core_bound_by": c_by},
                 ms=(lambda: ops.ssd_chunk_bwd(*args), 50.0),
                 plain_ms=(lambda: ref.ssd_chunk_bwd(*args), 50.0))
     row["library_ms"] = row["library_device_ms"] = None

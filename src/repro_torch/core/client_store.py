@@ -435,7 +435,7 @@ def build_client_store(policy: str, xs=None, ys=None, mask=None, *,
             "the 'sharded' client store (the client axis partitioned over "
             "devices, with scheduling.place_mediators and the ragged "
             "exchange) needs torch.distributed across processes and is not "
-            "ported yet: ROADMAP.md, Queue 1 item 1")
+            "ported yet: ROADMAP.md, Queue 1 item 6")
     if source is not None and policy not in ("host", "spilled"):
         raise ValueError(f"client-store policy {policy!r} needs the packed "
                          "arrays; streaming row sources require the 'host' "

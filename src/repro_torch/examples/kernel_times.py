@@ -27,9 +27,12 @@ its kernels' device ms and every head split of the dK/dV pass (fp32
 too where the tree's fp32 pass splits), and the fp32 backward with the
 forward's lse at the card tests' shapes (``flash_attention_bwd_cases``);
 the bf16 forward rows the forward writing that log-sum-exp;
-the greedy, scoring and SSD rows give the least time the card could take,
-the SSD backward rows also the plain version's event and device ms (no one
-PyTorch call computes that gradient, so they have no library time),
+the greedy, scoring and SSD rows give the least time the card could take
+(the SSD backward's with its products at the split-fp32 tensor-core rate
+the kernel runs them at, and beside it the bound at the CUDA cores' fp32
+rate), and the plain version's event and device
+ms (no one PyTorch call computes that gradient, so they have no library
+time),
 and the scoring rows the launch plan where the tree has one.  A shape
 a tree's wrapper refuses gets a row with its error and no times.
 ``--only`` times the named kernels' rows alone.  ``chip_smoke.py`` uses
@@ -67,6 +70,9 @@ import torch.nn.functional as F
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
+TF32_FLOPS_PER_S = 495e12
+# fp32 products on the tensor cores in split fp32: three TF32 products each
+SPLIT_FP32_FLOPS_PER_S = TF32_FLOPS_PER_S / 3
 
 
 def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS_PER_S
@@ -115,18 +121,29 @@ def ssd_bound(b: int, nc: int, L: int, h: int, p: int, n: int,
                  else FP32_FLOPS_PER_S)
 
 
-def ssd_bwd_bound(b: int, nc: int, L: int, h: int, p: int, n: int) -> tuple[float, str]:
+def ssd_bwd_bound(b: int, nc: int, L: int, h: int, p: int, n: int,
+                  peak: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
     """The SSD backward, fp32: per (batch, chunk, head) dx's P^T dy and dM'
     = dy x^T on the lower triangle (2 p operations an element each) and B
     dS and x dS^T (2 L n p each); per (batch, chunk) C B^T, dC and dB on
     the triangle (2 n each), as B and C have no head axis.  x, dt, A, B, C,
-    dy, dS and dg read once, dx, ddt, dA, dB and dC written once."""
+    dy, dS and dg read once, dx, ddt, dA, dB and dC written once.  At the
+    CUDA cores' fp32 rate by default; ``ssd_bwd_split_bound`` at the rate
+    of the kernel's split-fp32 tensor-core products."""
     tiles, tri = b * nc * h, L * (L + 1) // 2
     flops = tiles * (4 * tri * p + 4 * L * n * p) + b * nc * 6 * tri * n
     x_elems, bc_elems = b * nc * L * h * p, b * nc * L * n
     nbytes = 4 * (3 * x_elems + 2 * b * nc * L * h + 4 * bc_elems + b * nc * h * n * p
                   + b * nc * h + 2 * h)
-    return bound(nbytes, flops)
+    return bound(nbytes, flops, peak)
+
+
+def ssd_bwd_split_bound(b: int, nc: int, L: int, h: int, p: int, n: int) -> tuple[float, str]:
+    """``ssd_bwd_bound``'s bytes and operations with the operations at the
+    split-fp32 tensor-core rate (three TF32 products for each fp32 product
+    at 495 TFLOP/s: 165 TFLOP/s of fp32 work), the rate the kernel's
+    products run at."""
+    return ssd_bwd_bound(b, nc, L, h, p, n, SPLIT_FP32_FLOPS_PER_S)
 
 
 def flash_bound(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor
@@ -300,10 +317,13 @@ SCORE_SHAPES = [(16, 10), (512, 47), (1024, 47), (4096, 47), (512, 256), (512, 1
 # (256 mediators x 1,024 clients), a large sweep and many classes
 MATRIX_SHAPES = [(16, 512, 47), (256, 1024, 47), (256, 4096, 47), (16, 512, 2000)]
 # (b, nc, L, h, p, n, dtype) of the SSD block: the Hymba prefill layer in
-# f32 and bf16, and mamba2-370m's block (32 heads of 64, state 128, chunk
-# 64: src/repro/configs/mamba2_370m.py) over one 2,048-token sequence
+# f32 and bf16, mamba2-370m's block (32 heads of 64, state 128, chunk 64:
+# src/repro/configs/mamba2_370m.py) over one 2,048-token sequence, and the
+# fp32 training layers the SSD backward's rows below take (Hymba at 4 x
+# 128, mamba2-370m at 4 x 512)
 SSD_SHAPES = [(4, 32, 64, 25, 64, 16, torch.float32), (4, 32, 64, 25, 64, 16, torch.bfloat16),
-              (1, 32, 64, 32, 64, 128, torch.float32)]
+              (1, 32, 64, 32, 64, 128, torch.float32), (4, 2, 64, 25, 64, 16, torch.float32),
+              (4, 8, 64, 32, 64, 128, torch.float32)]
 # (b, nc, L, h, p, n) of the SSD backward: Hymba's training layer (4 x 128),
 # mamba2-370m's (4 x 512), Hymba's serve-length shape and a reduced config's
 SSD_BWD_SHAPES = [(4, 2, 64, 25, 64, 16), (4, 8, 64, 32, 64, 128), (4, 32, 64, 25, 64, 16),
@@ -535,10 +555,12 @@ def measure(only: set[str] | None = None) -> list[dict]:
     if want("ssd_chunk_bwd") and hasattr(ops, "ssd_chunk_bwd"):     # absent in older trees
         for b, nc, L, h, p, n in SSD_BWD_SHAPES:
             args = ssd_bwd_inputs(b, nc, L, h, p, n, gen, dev)
-            b_ms, by = ssd_bwd_bound(b, nc, L, h, p, n)
+            b_ms, by = ssd_bwd_split_bound(b, nc, L, h, p, n)
+            c_ms, c_by = ssd_bwd_bound(b, nc, L, h, p, n)
             row = {"kernel": "ssd_chunk_bwd",
                    "shape": f"b={b} nc={nc} L={L} h={h} p={p} n={n} float32",
-                   "bound_ms": b_ms, "bound_by": by, "library": "none"}
+                   "bound_ms": b_ms, "bound_by": by, "fp32_core_bound_ms": c_ms,
+                   "fp32_core_bound_by": c_by, "library": "none"}
             plain = lambda: ref.ssd_chunk_bwd(*args)          # noqa: E731
             row = _timed_row(row, lambda: ops.ssd_chunk_bwd(*args), plain)
             if row["ms"] is not None:
@@ -746,6 +768,11 @@ def main() -> int:
             extra += f", bound {r['bound_ms']:.6f} ms ({r['bound_by']})"
             if r["device_ms"]:
                 extra += f", {100 * r['bound_ms'] / r['device_ms']:.1f} % of it by device time"
+        if "fp32_core_bound_ms" in r:
+            extra += (f", fp32-core bound {r['fp32_core_bound_ms']:.6f} ms "
+                      f"({r['fp32_core_bound_by']})")
+            if r["device_ms"]:
+                extra += f", {100 * r['fp32_core_bound_ms'] / r['device_ms']:.1f} % of it"
         if "plan" in r:
             extra += f", plan {r['plan']}"
         if "sdpa_ms" in r:

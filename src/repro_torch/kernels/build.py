@@ -142,7 +142,7 @@ def library() -> ctypes.CDLL:
         + [ctypes.POINTER(_I64)]
     lib.ssd_chunk_plan.restype = ctypes.c_int
     lib.ssd_chunk_bwd_plan.argtypes = [_I] * 6 + [ctypes.POINTER(_I)] * 3 \
-        + [ctypes.POINTER(_I64)] * 2
+        + [ctypes.POINTER(_I64)] * 2 + [ctypes.POINTER(_I)] * 2 + [ctypes.POINTER(_I64)]
     lib.ssd_chunk_bwd_plan.restype = ctypes.c_int
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p

@@ -606,6 +606,9 @@ def _ssd_args(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tenso
 
 
 def _ssd_bwd_fits(L: int, p: int, n: int) -> None:
+    if L > SSD_BWD_MAX_L:
+        raise ValueError(f"the SSD backward holds chunks of at most {SSD_BWD_MAX_L} steps, "
+                         f"got L={L}")
     if ssd_chunk_bwd_smem_bytes(L, p, n) > MAX_SMEM_BYTES:
         raise ValueError(f"the SSD backward of chunk L={L}, p={p}, n={n} needs "
                          f"{ssd_chunk_bwd_smem_bytes(L, p, n)} B of shared memory, "
@@ -664,41 +667,83 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return _ssd_forward(x, dt, A, B, C)
 
 
+# (dM' tiles, dW^T tiles) a warp of the SSD backward keeps in registers,
+# by kernel variant (0 dW^T tiles: the dB term in shared memory), in the
+# order ``csrc/ssd_chunk_bwd.cu`` ``variant_of`` tries them; the card test
+# holds this choice and ``ssd_chunk_bwd_smem_bytes`` to the library's plan
+# over a grid of shapes
+SSD_BWD_VARIANTS = ((3, 1), (3, 8), (3, 16), (12, 0))
+
+
+def _ssd_bwd_variant(L: int, n: int) -> tuple[int, int] | None:
+    """The backward kernel's variant for chunk L and state n (the first
+    whose registers hold a warp's share of the m16n8 tiles: its dM' tiles,
+    and its dW^T tiles, in super-tiles of 2 x 4 where it keeps 8),
+    None past ``SSD_BWD_MAX_L``."""
+    lp, lp16, n16 = -(-L // 8) * 8, -(-L // 16) * 16, -(-n // 16) * 16
+    tri = (lp16 // 16) * (lp16 // 16 + 1) - (lp16 - lp) // 8
+    mt = -(-tri // 8)
+    for v_mt, v_mw in SSD_BWD_VARIANTS:
+        sr, sc = (2, 4) if v_mw == 8 else (1, 1)
+        supertiles = -(-(n16 // 16) // sr) * -(-(lp // 8) // sc)
+        if mt <= v_mt and (v_mw == 0 or supertiles <= 8 * (v_mw // (sr * sc))):
+            return v_mt, v_mw
+    return None
+
+
+# the longest chunk the backward holds (its dM' tiles fit the widest variant)
+SSD_BWD_MAX_L = max(L for L in range(1, 1024) if _ssd_bwd_variant(L, 1) is not None)
+
+
 def ssd_chunk_bwd_smem_bytes(L: int, p: int, n: int) -> int:
     """Dynamic shared memory of one SSD backward CTA in its least layout
-    (``csrc/ssd_chunk_bwd.cu`` ``make_layout`` with C B^T recomputed; L and
-    n rounded up to 8, p to 4, transposed rows padded by 4): B and C
-    transposed, dCB, the dB term, the larger of a head's (P, x, dy, dS) and
-    a segment's end (dCB transposed, B, C), the per-unit partials, cum in
-    fp64 and six (L,) vectors.  A shape runs when it fits;
-    ``ssd_chunk_bwd_plan`` gives the layout a call takes."""
-    lp, np8, pp = -(-L // 8) * 8, -(-n // 8) * 8, -(-p // 4) * 4
-    head = lp * lp + 2 * pp * (lp + 4) + pp * (np8 + 4)
-    seg = lp * lp + 2 * lp * np8
-    parts = (lp // 4 + lp // 8 + np8 // 8) * lp
-    return 4 * (3 * np8 * lp + lp * lp + max(head, seg) + parts + 8 * lp)
+    (``csrc/ssd_chunk_bwd.cu`` ``make_layout`` with one head stage; L, p and
+    n rounded up to 8, n to 16 for dS's rows): 1 KB of slack to align the
+    stage, the larger of a head's stage (x, dy and dS as TMA lands them,
+    dt; 1 KB granules) and a segment's end (dCB, and the dB term where the
+    variant keeps it in registers), B and C, P, each warp's cum (fp64) and
+    row, column and q partials, dk, the warps' totals, the stages'
+    mbarriers, and the dB term where the variant keeps it in shared memory.
+    A shape runs when it fits (and L <= ``SSD_BWD_MAX_L``);
+    ``ssd_chunk_bwd_plan`` gives the layout a call takes (two stages where
+    they fit)."""
+    lp, p8, n8 = (-(-v // 8) * 8 for v in (L, p, n))
+    n16 = -(-n // 16) * 16
+    variant = _ssd_bwd_variant(L, n)
+    term_in_smem = variant is None or variant[1] == 0
+    head = (2 * lp + n16) * p8 + lp
+    seg = lp * lp + (0 if term_in_smem else n16 * lp)
+    stage = -(-max(head, seg) // 256) * 256
+    return 4 * (256 + stage + 2 * lp * n8 + lp * lp + 40 * lp + lp + 16 + 8
+                + (n16 * lp if term_in_smem else 0))
 
 
 @functools.lru_cache(maxsize=1024)
 def _ssd_bwd_plan(index: int, b: int, nc: int, L: int, h: int, p: int, n: int) -> dict:
     import ctypes
-    cache, threads, ctas = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    stages, threads, ctas = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     smem, part = ctypes.c_int64(), ctypes.c_int64()
+    dm_tiles, dw_tiles, least = ctypes.c_int(), ctypes.c_int(), ctypes.c_int64()
     with torch.cuda.device(index):
         build.check(build.library().ssd_chunk_bwd_plan(
-            b, nc, L, h, p, n, *map(ctypes.byref, (cache, threads, ctas, smem, part))),
+            b, nc, L, h, p, n, *map(ctypes.byref, (stages, threads, ctas, smem, part,
+                                                   dm_tiles, dw_tiles, least))),
             "ssd_chunk_bwd_plan")
-    return {"cache_cb": bool(cache.value), "threads": threads.value, "ctas": ctas.value,
-            "smem_bytes": smem.value, "part_floats": part.value}
+    return {"stages": stages.value, "threads": threads.value, "ctas": ctas.value,
+            "smem_bytes": smem.value, "part_floats": part.value,
+            "variant": (dm_tiles.value, dw_tiles.value), "least_smem_bytes": least.value}
 
 
 def ssd_chunk_bwd_plan(b: int, nc: int, L: int, h: int, p: int, n: int,
                        device: torch.device | None = None) -> dict:
     """The launch an SSD backward call of this shape makes on ``device``
-    (the current card without it): C B^T cached or recomputed per element,
-    threads per CTA, CTAs (the persistent grid: SMs times the CTAs per SM,
-    at most b nc h), dynamic shared memory in bytes, and the floats of the
-    per-(CTA, (batch, chunk)) partials of dB and dC.  No launch."""
+    (the current card without it): head stages (2: the next head's inputs
+    loaded while this one computes; 1 where two do not fit), threads per
+    CTA, CTAs (the persistent grid: SMs times the CTAs per SM, at most b nc
+    h), dynamic shared memory in bytes, and the floats of the per-(CTA,
+    (batch, chunk)) partials of dB and dC, the kernel variant (the dM' and
+    dW^T tiles a warp keeps, ``SSD_BWD_VARIANTS``) and the bytes of its
+    least (one-stage) layout.  No launch."""
     index = torch.cuda.current_device() if device is None else torch.device(device).index
     return dict(_ssd_bwd_plan(index, b, nc, L, h, p, n))
 
@@ -733,7 +778,7 @@ def ssd_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.T
         return dx, ddt, dA.zero_(), dB.zero_(), dC.zero_()
     plan = _ssd_bwd_plan(dev.index, b, nc, L, h, p, n)
     part = torch.empty(plan["part_floats"], dtype=torch.float32, device=dev)
-    dapart = torch.empty(b * nc * h, dtype=torch.float32, device=dev)
+    dapart = torch.empty(8 * b * nc * h, dtype=torch.float32, device=dev)    # a warp's share
     _launch("ssd_chunk_bwd", "ssd_chunk_bwd_f32", dev, x.data_ptr(), dt.data_ptr(),
             A.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(), dS.data_ptr(),
             dg.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),

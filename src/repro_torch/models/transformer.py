@@ -43,9 +43,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm as ssm_lib
 
 _NOT_PORTED = {
-    "moe": "ROADMAP 'Still to port': the MoE family (granite, grok)",
-    "audio": "ROADMAP 'Still to port': the audio family (whisper)",
-    "vlm": "ROADMAP 'Still to port': the VLM family (internvl2)",
+    "moe": "ROADMAP Queue 1 item 3: the MoE family (granite, grok)",
+    "audio": "ROADMAP Queue 1 item 3: the audio family (whisper)",
+    "vlm": "ROADMAP Queue 1 item 3: the VLM family (internvl2)",
 }
 
 

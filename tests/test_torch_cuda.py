@@ -560,12 +560,17 @@ def test_flash_attention_bf16_row_without_keys_is_zero(dev, d):
 # rows in 16-byte pieces, bf16 rows not: x loaded at each head's start),
 # and in fp32 each of the four layouts: two x stages with C B^T cached
 # (Hymba), two stages recomputing it ((128, 128, 16)), one stage cached
-# ((128, 128, 32)) and one recomputing ((128, 128, 64))
+# ((128, 128, 32)) and one recomputing ((128, 128, 64)); for the backward,
+# CTAs that walk several heads with the next one in flight across (batch,
+# chunk) boundaries at n = 128 (189 heads on one CTA an SM) and at Hymba's
+# widths with an odd head count (800 heads of 25 a chunk on two CTAs an SM),
+# and a state past 128 (n = 136: the variant keeping 16 dW^T tiles a warp)
 SSD_CARD_CASES = [(4, 32, 64, 25, 64, 16), (2, 3, 32, 3, 16, 8), (1, 2, 64, 4, 64, 128),
                   (1, 2, 16, 2, 8, 8), (2, 3, 16, 25, 16, 16), (1, 5, 32, 3, 64, 16),
                   (1, 3, 64, 25, 64, 16), (1, 2, 128, 3, 64, 16), (2, 2, 30, 3, 10, 6),
                   (1, 3, 64, 5, 12, 16), (1, 2, 128, 3, 128, 16), (1, 2, 128, 3, 128, 32),
-                  (1, 2, 128, 2, 128, 64), (1, 2, 128, 2, 130, 64)]
+                  (1, 2, 128, 2, 128, 64), (1, 2, 128, 2, 130, 64), (3, 7, 64, 9, 64, 128),
+                  (2, 16, 64, 25, 64, 16), (1, 2, 64, 3, 8, 136)]
 
 
 def _ssd_inputs(dev, dtype, b, nc, L, h, p, n, dt_scale=1.0):
@@ -641,7 +646,8 @@ def test_ssd_chunk_layout_matches_library(dev):
     assert ops.ssd_chunk_plan(64, 64, 16, esize=2)["smem_bytes"] == 58_112
 
 
-# the cases above that the backward kernel holds (all but L = 128)
+# the cases above that the backward kernel holds (L = 128 at p = 64 and n =
+# 16 only)
 SSD_BWD_CARD_CASES = [c for c in SSD_CARD_CASES
                       if ops.ssd_chunk_bwd_smem_bytes(*c[2:3], *c[4:]) <= ops.MAX_SMEM_BYTES]
 
@@ -701,12 +707,59 @@ def test_ssd_chunk_bwd_kernel_is_bitwise_deterministic(dev, b, nc, L, h, p, n):
 
 
 @pytest.mark.cuda
+def test_ssd_chunk_bwd_layout_matches_library(dev):
+    """The backward's plan for every case it holds fits in 227 KB, takes the
+    variant ``ops._ssd_bwd_variant`` names and a least (one-stage) layout of
+    ``ops.ssd_chunk_bwd_smem_bytes`` (the wrapper's check), and is that
+    layout where it takes one head stage; both stage counts and every
+    variant are picked.  Over a grid of (L, p, n) the library refuses just
+    the shapes the wrapper refuses and agrees with ``ops`` on the rest.
+    Hymba's training layer takes two stages in 111,968 B, two CTAs an SM,
+    and mamba2-370m's two stages in 226,656 B, one CTA an SM; in the n =
+    128 case of 189 heads some CTA's two heads belong to two (batch, chunk)
+    pairs."""
+    seen, variants = set(), set()
+    for b, nc, L, h, p, n in SSD_BWD_CARD_CASES:
+        plan = ops.ssd_chunk_bwd_plan(b, nc, L, h, p, n)
+        assert plan["smem_bytes"] <= ops.MAX_SMEM_BYTES and plan["threads"] == 256
+        assert plan["variant"] == ops._ssd_bwd_variant(L, n), (L, p, n)
+        assert plan["least_smem_bytes"] == ops.ssd_chunk_bwd_smem_bytes(L, p, n), (L, p, n)
+        if plan["stages"] == 1:
+            assert plan["smem_bytes"] == plan["least_smem_bytes"], (L, p, n)
+        seen.add(plan["stages"])
+        variants.add(plan["variant"])
+    assert seen == {1, 2}
+    assert variants == set(ops.SSD_BWD_VARIANTS)
+    for L in (1, 7, 8, 9, 16, 17, 24, 31, 32, 33, 40, 48, 56, 63, 64, 65, 72, 80, 96, 112,
+              120, 128, 136, 143, 144, 145, 160):
+        for n in (1, 6, 8, 16, 17, 24, 32, 48, 64, 65, 96, 128, 129, 136, 192, 256, 257):
+            want = ops._ssd_bwd_variant(L, n)
+            for p in (4, 8, 10, 32, 64, 128):
+                if want is None or ops.ssd_chunk_bwd_smem_bytes(L, p, n) > ops.MAX_SMEM_BYTES:
+                    with pytest.raises(RuntimeError):
+                        ops.ssd_chunk_bwd_plan(1, 1, L, 1, p, n)
+                    continue
+                plan = ops.ssd_chunk_bwd_plan(1, 1, L, 1, p, n)
+                assert (plan["variant"], plan["least_smem_bytes"]) == \
+                    (want, ops.ssd_chunk_bwd_smem_bytes(L, p, n)), (L, p, n)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    hymba = ops.ssd_chunk_bwd_plan(4, 2, 64, 25, 64, 16)
+    assert (hymba["stages"], hymba["smem_bytes"]) == (2, 111_968)
+    assert hymba["ctas"] == min(200, 2 * sms)
+    mamba = ops.ssd_chunk_bwd_plan(4, 8, 64, 32, 64, 128)
+    assert (mamba["stages"], mamba["smem_bytes"], mamba["ctas"]) == (2, 226_656, sms)
+    ctas, items, nh = ops.ssd_chunk_bwd_plan(3, 7, 64, 9, 64, 128)["ctas"], 189, 9
+    assert any(items * c // ctas // nh != (items * (c + 1) // ctas - 1) // nh
+               for c in range(ctas))
+
+
+@pytest.mark.cuda
 def test_ssd_chunk_bwd_kernel_refuses_what_it_cannot_hold(dev):
-    """L = 128 (the forward takes it): the backward's shared memory is over
-    227 KB, so the wrapper raises with the bytes, and a gradient through
-    ``ssd_chunk`` is refused before the forward launches; bf16 inputs with
-    a gradient are refused on the card."""
-    args = _ssd_bwd_inputs(dev, 1, 2, 128, 3, 64, 16)
+    """L = 128 at p = 128 and n = 32 (the forward takes it): the backward's
+    shared memory is over 227 KB, so the wrapper raises with the bytes, and
+    a gradient through ``ssd_chunk`` is refused before the forward
+    launches; bf16 inputs with a gradient are refused on the card."""
+    args = _ssd_bwd_inputs(dev, 1, 2, 128, 3, 128, 32)
     with pytest.raises(ValueError, match="shared memory"):
         ops.ssd_chunk_bwd(*args)
     x = args[0].clone().requires_grad_(True)

@@ -683,14 +683,61 @@ def test_ssd_chunk_grads_only_where_needed():
         assert ops.ssd_chunk(xg, dt, A, B, C)[0].grad_fn is None
 
 
+def _tf32(a: np.ndarray) -> np.ndarray:
+    """fp32 rounded to TF32 (10 mantissa bits), to nearest, ties away from
+    zero (``cvt.rna.tf32.f32``)."""
+    bits = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _ssd_bwd_products(n: int) -> dict[str, tuple[np.ndarray, np.ndarray]]:
+    """The SSD backward kernel's matrix products at a head of L = 64, p =
+    64 and state n, as (left, right) fp32 operands from seeded inputs at
+    Mamba-2's scales: B dS and P^T dy (dx), dy x^T (dM'), dS x^T (dW^T),
+    C B^T, dCB B (dC) and dCB^T C (dB)."""
+    L, p = 64, 64
+    rng = np.random.default_rng(n)
+    x, dy = (rng.normal(size=(L, p)).astype(np.float32) for _ in range(2))
+    dS = rng.normal(size=(n, p)).astype(np.float32)
+    B, C = ((0.5 * rng.normal(size=(L, n))).astype(np.float32) for _ in range(2))
+    cum = np.cumsum(-np.log1p(np.exp(rng.normal(size=L))))
+    P = (np.tril(C.astype(np.float64) @ B.T.astype(np.float64)
+                 * np.exp(np.minimum(cum[:, None] - cum[None, :], 0.0)))).astype(np.float32)
+    dCB = np.tril(rng.normal(size=(L, L))).astype(np.float32)
+    return {"B dS": (B, dS), "P^T dy": (P.T, dy), "dy x^T": (dy, x.T), "dS x^T": (dS, x.T),
+            "C B^T": (C, B.T), "dCB B": (dCB, B), "dCB^T C": (dCB.T, C)}
+
+
+@pytest.mark.parametrize("n", [16, 128])
+@pytest.mark.parametrize("product", ["B dS", "P^T dy", "dy x^T", "dS x^T", "C B^T", "dCB B",
+                                     "dCB^T C"])
+def test_ssd_bwd_split_fp32_products_keep_fp32_accuracy(n, product):
+    """Why the backward kernel splits its tensor-core operands: at Hymba's
+    (n = 16) and mamba2-370m's (n = 128) head shapes each product in TF32
+    with fp32 sums, as ``mma.sync`` forms it, against float64.  Split (each
+    operand a TF32 big part plus the TF32 rounding of its remainder; big.big
+    + big.small + small.big, small terms first) stays ten times under the
+    kernels' 1e-5 of the product's scale; one pass of TF32 exceeds 1e-5."""
+    a, b = _ssd_bwd_products(n)[product]
+    exact = a.astype(np.float64) @ b.astype(np.float64)
+    scale = float(np.abs(exact).max())
+    a_big, b_big = _tf32(a), _tf32(b)
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    split = (a_small @ b_big + a_big @ b_small).astype(np.float32) + a_big @ b_big
+    single = _tf32(a) @ _tf32(b)
+    assert split.dtype == single.dtype == np.float32
+    assert float(np.abs(split - exact).max()) <= 1e-6 * scale
+    assert float(np.abs(single - exact).max()) > 1e-5 * scale
+
+
 def test_ssd_chunk_bwd_wrapper_checks():
     """Output-gradient shapes and dtypes; the backward kernel's shared
-    memory in its least layout (C B^T recomputed): the Hymba block 93,696 B,
-    mamba2-370m's (L 64, p 64, n 128) 211,968 B; a chunk the forward takes
+    memory in its least layout (one head stage): the Hymba block 74,080 B,
+    mamba2-370m's (L 64, p 64, n 128) 160,096 B; a chunk the forward takes
     but the backward does not hold is refused when a gradient is asked for,
     before the forward runs."""
-    assert ops.ssd_chunk_bwd_smem_bytes(64, 64, 16) == 93_696
-    assert ops.ssd_chunk_bwd_smem_bytes(64, 64, 128) == 211_968 <= ops.MAX_SMEM_BYTES
+    assert ops.ssd_chunk_bwd_smem_bytes(64, 64, 16) == 74_080
+    assert ops.ssd_chunk_bwd_smem_bytes(64, 64, 128) == 160_096 <= ops.MAX_SMEM_BYTES
     assert ops.ssd_chunk_bwd_smem_bytes(128, 128, 64) > ops.MAX_SMEM_BYTES
     x, dt, A, B, C = (torch.from_numpy(a) for a in _ssd_inputs(24))
     y, S, g = ops.ssd_chunk(x, dt, A, B, C)
