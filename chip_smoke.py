@@ -98,6 +98,20 @@ Phases, each fatal on failure:
     kernel signature they call that phase 3 did not hold held against its
     plain version after; then the training launchers at their reduced
     defaults (qwen3-4b and mamba2-370m) and ``fl_train``.
+12. the CNN engine's LoRA adapter exchange and the round telemetry, under
+    cuDNN's deterministic algorithms, each run's launch counts reset
+    before it and read after: ``fedavg_agg`` against its plain version at
+    the adapter widths (M = 16 and 4 at EMNIST's 753 columns, M = 4 at
+    CINIC's 2,142); at phase 5's EMNIST arm, per trainer in turns, a
+    full-delta, a rank-2 and a full-rank (150) run of 3 rounds
+    (one Eq. 6 launch a round over the adapter rows, one capture, the WAN
+    ledger at 3,012 B a rank-2 leg; full rank's merged weights bitwise
+    the full-delta run's), their seconds per round; an async
+    S=0 rank-2 run bitwise its sync run; one rank-2 Astraea round at
+    CINIC-10's width; a rank-2 Astraea run with ``Telemetry(profile=True)``
+    and a device trace over its rounds 2 and 3: bitwise the untraced run,
+    one capture, the four artifacts valid, the spans in the device trace,
+    a live ``/metrics`` scrape equal to ``to_prometheus()``.
 
 Phase 3 also holds the flash-attention and SSD kernels against their plain
 versions at the serve shapes (bf16 and f32), with a no-window, a
@@ -665,12 +679,13 @@ def agreement_check(dev, cinic: bool = False):
     return {"groups": g_dev, "params_max_abs_err": err, "tol": 1e-4}
 
 
-def fl_trainer(name, fed, dev, make_model, row_exec="vmap", init_params=None):
-    """The main path's FedAvg or Astraea trainer, seed 0, at ``row_exec``."""
+def fl_trainer(name, fed, dev, make_model, row_exec="vmap", init_params=None, **kw):
+    """The main path's FedAvg or Astraea trainer, seed 0, at ``row_exec``;
+    ``kw`` adds trainer fields (``lora_rank``, ``telemetry``, ...)."""
     from repro_torch.core import AstraeaTrainer, FedAvgTrainer, LocalSpec
     from repro_torch.optim import adam
     common = dict(clients_per_round=CLIENTS, local=LocalSpec(20, 2), seed=0,
-                  device=dev, row_exec=row_exec, init_params=init_params)
+                  device=dev, row_exec=row_exec, init_params=init_params, **kw)
     if name == "FedAvg":
         return FedAvgTrainer(make_model(), adam(1e-3), fed, **common)
     return AstraeaTrainer(make_model(), adam(1e-3), fed, gamma=GAMMA,
@@ -736,7 +751,9 @@ def row_exec_check(fed, dev, make_model, vmap_runs):
     """Per trainer: one more lockstep round under ``torch.profiler``; then
     the same trainer with ``row_exec="map"`` from the same seed: its first
     round timed and held to the lockstep trainer's first round, its second
-    round profiled.
+    round profiled without its aten ops (``host_ops=False``: the runtime
+    calls and the device activity of its ~10^5 eager launches; the aten
+    ops would multiply the events the analysis walks).
 
     The hold: after one full-width round the two paths (fp32 sums in
     other orders, carried through the round's Adam steps) must lie no
@@ -775,7 +792,7 @@ def row_exec_check(fed, dev, make_model, vmap_runs):
                                  f"the vmap round, more than twice the {rel_noise:.3e} a "
                                  "1e-7 perturbation of the weights moves it")
         max_abs = float((flat(mp.params) - flat(first)).abs().max())
-        map_prof = profile_round(mp, top=6)
+        map_prof = profile_round(mp, top=6, host_ops=False)
         out[name] = {"map_round_s": map_s, "rel_l2_vs_vmap": rel,
                      "rel_l2_perturbed": rel_noise, "max_abs_vs_vmap": max_abs,
                      "vmap_profile": vmap_prof, "map_profile": map_prof,
@@ -799,7 +816,7 @@ def log_row_exec(arm, rows, check):
                 f"device busy {p['busy_s']:.4f} s, idle {100 * p['idle_share']:.1f} % "
                 f"(kernel time summed {p['kernel_s']:.4f} s), "
                 f"{p['host_launches']} host launches ({p['graph_launches']} graph), "
-                f"{p['device_kernels']} device kernels")
+                f"{p['device_kernels']} device kernels; analysis {p['analysis_s']:.1f} s")
 
 
 def cinic_cohort_counts(fed):
@@ -909,6 +926,10 @@ def run_timed(tr, rounds=ROUNDS, label=""):
 
 def same_params(a, b) -> bool:
     return all(torch.equal(a.params[k], b.params[k]) for k in a.params)
+
+
+def same_state(a: dict, b: dict) -> bool:
+    return set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
 
 
 def expected_wan(fed, rounds=ROUNDS):
@@ -1880,6 +1901,235 @@ def phase11(dev, gen, checks: dict, path_launches: dict, lap) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- phase 12
+
+# the LoRA rank of phase 12's adapter rounds and the adapter widths it gives
+# at the two arms (the reference's lora.build_mapping gives the same:
+# tests/test_torch_lora_engine.py); full rank of emnist_cnn(47, 28)
+CNN_LORA_RANK, EMNIST_ADAPTER, CINIC_ADAPTER, EMNIST_FULL_RANK = 2, 753, 2_142, 150
+# the runs timed in turns at the EMNIST arm, per trainer: (label, lora_rank)
+LORA_TURNS = (("full-delta", None), ("rank 2", CNN_LORA_RANK), ("full rank", EMNIST_FULL_RANK))
+# the reference's span taxonomy (src/repro/obs/README.md)
+TAXONOMY = {"round", "plan_refresh", "reschedule", "pack", "store_stream", "aggregate",
+            "wave", "dispatch_gap", "commit", "store_exchange", "commit_lag",
+            "store_prefetch"}
+
+
+def expected_legs_wan(fed, name, payload, rounds=ROUNDS):
+    """The WAN ledger after each round when every leg carries ``payload``
+    bytes: ``2c`` legs a FedAvg round; ``2(c + ceil(c/gamma))`` an Astraea
+    round, plus the Alg. 2 plan broadcast."""
+    if name == "FedAvg":
+        return [payload * 2 * CLIENTS * (r + 1) for r in range(rounds)]
+    plan = 4 * fed.num_classes * fed.num_clients
+    legs = 2 * (CLIENTS + math.ceil(CLIENTS / GAMMA))
+    return [plan + payload * legs * (r + 1) for r in range(rounds)]
+
+
+def lora_run(name, fed, dev, make_model, n_params, rank, rounds=ROUNDS, **kw):
+    """``rounds`` rounds of a trainer at ``lora_rank=rank`` (None: full
+    delta), each timed between two device syncs, with the FL kernels'
+    launches counted from 0: one Eq. 6 launch a round, one warp a round
+    (Astraea's online plan), one greedy pass (Astraea); one round program,
+    captured; the WAN ledger exact at the adapter payload; finite merged
+    weights."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import lora
+    tr = fl_trainer(name, fed, dev, make_model, lora_rank=rank, **kw)
+    eng = tr.engine
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    secs = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        tr.run_round()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = {k: ops.LAUNCHES[k] for k in FL_KERNELS}
+    astraea = name == "Astraea"
+    want = {"fedavg_agg": rounds, "affine_warp": rounds if astraea else 0,
+            "kld_greedy_picks": 1 if astraea else 0}
+    label = f"{name} lora_rank={rank}"
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, expected {want}")
+    if eng.num_round_traces != 1 or eng._program.graph is None:
+        raise AssertionError(f"{label}: {eng.num_round_traces} round programs, graph "
+                             f"{eng._program.graph}; expected one capture")
+    payload = 4 * n_params if rank is None else lora.exchange_nbytes(eng._lora_mapping)
+    if tr.comm.round_log != expected_legs_wan(fed, name, payload, rounds):
+        raise AssertionError(f"{label}: WAN ledger {tr.comm.round_log}")
+    merged = eng.merged_params()
+    if not all(bool(torch.isfinite(p).all()) for p in merged.values()):
+        raise AssertionError(f"{label}: non-finite weights")
+    return tr, {"round_seconds": secs, "launches": launches, "leg_bytes": payload,
+                "ratio": tr.comm.adapter_reduction_ratio, "width": eng._layout.total}
+
+
+def phase12(fed, cinic_fed, dev, gen, checks: dict, path_launches: dict, lap) -> dict:
+    """Phase 12 (module docstring): the CNN engine's LoRA adapter exchange
+    and the round telemetry, through the trainers, on the card, under
+    cuDNN's deterministic algorithms (its runs are held to each other bit
+    for bit)."""
+    with deterministic_convolutions():
+        return _phase12(fed, cinic_fed, dev, gen, checks, path_launches, lap)
+
+
+def _phase12(fed, cinic_fed, dev, gen, checks, path_launches, lap) -> dict:
+    from repro_torch.core import AsyncSpec, StragglerSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch.metrics_endpoint import MetricsServer
+    from repro_torch.models.cnn import cinic_cnn, emnist_cnn
+    from repro_torch.obs import (Telemetry, load_jsonl, start_device_trace,
+                                 stop_device_trace, validate_events)
+    import urllib.request
+    out: dict = {"turns": {}}
+    emnist = lambda: emnist_cnn(47, 28)                             # noqa: E731
+    # Eq. 6 at the adapter widths: FedAvg's 16 rows and Astraea's 4 at
+    # EMNIST's, Astraea's 4 at CINIC's, each against its plain version
+    eq6 = [check_fedavg(dev, m, n, torch.float32, gen, dummy=False)
+           for m, n in ((16, EMNIST_ADAPTER), (4, EMNIST_ADAPTER), (4, CINIC_ADAPTER))]
+    checks["fedavg_agg"] += eq6
+    out["eq6"] = eq6
+    for name in ("FedAvg", "Astraea"):
+        rows = []
+        for label, rank in LORA_TURNS:
+            tr, row = lora_run(name, fed, dev, emnist, 68_873, rank)
+            if name == "Astraea" and rank == CNN_LORA_RANK:
+                sync = tr               # the sync run async S=0 is held to
+            if rank is None:
+                full_delta = tr         # the run full rank is held to
+            want_width = {None: 68_873, CNN_LORA_RANK: EMNIST_ADAPTER,
+                          EMNIST_FULL_RANK: 68_873}[rank]
+            if row["width"] != want_width:
+                raise AssertionError(f"{name} {label}: Eq. 6 over {row['width']} "
+                                     f"columns, expected {want_width}")
+            if rank == EMNIST_FULL_RANK:
+                if row["ratio"] != 1.0:
+                    raise AssertionError(f"{name} full rank: ratio {row['ratio']}")
+                if not same_state(tr.engine.merged_params(), full_delta.params):
+                    raise AssertionError(f"{name} full rank: merged weights differ "
+                                         "from the full-delta run's")
+                row["bitwise_full_delta"] = True
+            row["label"] = label
+            rows.append(row)
+            key = f"lora {name} {label}"
+            for k, v in row["launches"].items():
+                path_launches.setdefault(key, {}).setdefault(k, 0)
+                path_launches[key][k] += v
+            del tr
+        del full_delta
+        out["turns"][name] = rows
+    lap("12 LoRA EMNIST turns")
+    # async S=0 over the adapter state, a wave per mediator behind the 4x
+    # straggler: the adapters, merged weights and WAN ledger bit for bit the
+    # last sync rank-2 Astraea run's
+    spec = AsyncSpec(staleness_bound=0, wave_size=1, straggler=StragglerSpec(**FLEET))
+    tr = fl_trainer("Astraea", fed, dev, emnist, lora_rank=CNN_LORA_RANK, async_spec=spec)
+    secs, launches = run_timed(tr, label="LoRA async S=0")
+    if not (same_state(tr.engine.adapters, sync.engine.adapters)
+            and same_state(tr.engine.merged_params(), sync.engine.merged_params())
+            and tr.comm.round_log == sync.comm.round_log):
+        raise AssertionError("LoRA async S=0 differs from its sync run")
+    if launches["fedavg_agg"] != tr.runner.num_commits:
+        raise AssertionError(f"LoRA async S=0: launches {launches}, "
+                             f"{tr.runner.num_commits} commits")
+    out["async_s0"] = {"bitwise": True, "round_seconds": secs, "launches": launches,
+                       "commits": tr.runner.num_commits}
+    path_launches["lora async S=0"] = dict(launches)
+    del tr
+    lap("12 LoRA async")
+    # one Astraea round at CINIC-10's width, rank 2
+    tr, row = lora_run("Astraea", cinic_fed, dev, lambda: cinic_cnn(10, 32, 3, 32),
+                       CINIC_PARAMS, CNN_LORA_RANK, rounds=1)
+    if row["width"] != CINIC_ADAPTER:
+        raise AssertionError(f"CINIC rank 2: width {row['width']}, expected {CINIC_ADAPTER}")
+    out["cinic"] = row
+    path_launches["lora cinic"] = dict(row["launches"])
+    del tr
+    torch.cuda.empty_cache()
+    lap("12 LoRA CINIC")
+    # a traced rank-2 Astraea run: spans under record_function, a device
+    # trace around its rounds after the capture, the four artifacts, a live
+    # /metrics scrape; bit for bit the untraced sync run, one capture
+    trace_dir = ROOT / "build" / "phase12_trace"
+    tel = Telemetry(str(trace_dir), profile=True)
+    tr, row = lora_run("Astraea", fed, dev, emnist, 68_873, CNN_LORA_RANK, rounds=1,
+                       telemetry=tel)
+    if not start_device_trace(str(trace_dir)):
+        raise AssertionError("start_device_trace: no CUDA profiler activity on the card")
+    try:
+        for _ in range(ROUNDS - 1):
+            t0 = time.perf_counter()
+            tr.run_round()
+            torch.cuda.synchronize()
+            row["round_seconds"].append(time.perf_counter() - t0)
+    finally:
+        device_trace = stop_device_trace()
+    launches = {k: ops.LAUNCHES[k] for k in FL_KERNELS}
+    if launches != {"fedavg_agg": ROUNDS, "kld_greedy_picks": 1, "affine_warp": ROUNDS}:
+        raise AssertionError(f"traced run: launches {launches}")
+    if not same_state(tr.engine.adapters, sync.engine.adapters) \
+            or tr.engine.num_round_traces != 1:
+        raise AssertionError(f"telemetry changed the run: {tr.engine.num_round_traces} "
+                             "programs, or other bits than the untraced run's")
+    paths = tel.flush()
+    missing = [k for k, v in paths.items() if not Path(v).is_file()]
+    events = load_jsonl(paths["events_jsonl"])
+    validate_events(events)
+    names = {e["name"] for e in events}
+    with open(device_trace) as f:
+        device_names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    # Astraea reschedules once: rounds 2 and 3 open "round" and "aggregate"
+    want_spans, traced_spans = {"round", "reschedule", "pack", "store_stream",
+                                "aggregate"}, {"round", "aggregate"}
+    if missing or not names <= TAXONOMY or not want_spans <= names \
+            or not traced_spans <= device_names:
+        raise AssertionError(f"telemetry: missing artifacts {missing}, spans {names}, "
+                             f"in the device trace {traced_spans & device_names}")
+    with MetricsServer(tel.metrics) as srv:
+        scraped = urllib.request.urlopen(srv.url, timeout=10).read().decode()
+    if scraped != tel.metrics.to_prometheus():
+        raise AssertionError("the /metrics scrape differs from to_prometheus()")
+    rounds = [e for e in events if e["name"] == "round"]
+    out["telemetry"] = {"round_seconds": row["round_seconds"], "events": len(events),
+                        "spans": sorted(names), "device_trace_bytes":
+                        Path(device_trace).stat().st_size,
+                        "round_span_ms": [e["dur_us"] / 1e3 for e in rounds],
+                        "scrape_bytes": len(scraped)}
+    path_launches["lora traced"] = launches
+    del tr, sync
+    lap("12 telemetry")
+    return out
+
+
+def log_phase12(p12: dict) -> None:
+    for name, rows in p12["turns"].items():
+        for r in rows:
+            ratio = "n/a" if r["ratio"] is None else f"{r['ratio']:.6f}"
+            log(f"[lora] EMNIST {name:7s} {r['label']:10s}: Eq. 6 over {r['width']:,} "
+                f"columns, {r['leg_bytes']:,} B a leg (ratio {ratio}), s/round "
+                f"{' '.join(f'{x:.4f}' for x in r['round_seconds'])} (first includes the "
+                f"capture), launches {r['launches']}")
+    c = p12["cinic"]
+    log(f"[lora] CINIC-10 Astraea rank 2: Eq. 6 over {c['width']:,} columns, "
+        f"{c['leg_bytes']:,} B a leg (ratio {c['ratio']:.6f} of {4 * CINIC_PARAMS:,} B), "
+        f"round {c['round_seconds'][0]:.4f} s (with the capture), launches {c['launches']}")
+    a = p12["async_s0"]
+    log(f"[lora] async S=0 rank 2: bitwise equal to its sync run; {a['commits']} commits, "
+        f"launches {a['launches']}; s/round {' '.join(f'{x:.4f}' for x in a['round_seconds'])}")
+    for r in p12["eq6"]:
+        device = "n/a" if r["device_ms"] is None else f"{r['device_ms']:.4f}"
+        log(f"[lora] Eq. 6 {r['shape']}: kernel {r['ms']:.4f} ms (device {device}), "
+            f"plain {r['plain_ms']:.4f}, `wn @ d` {r['library_ms']:.4f}, bound "
+            f"{r['bound_ms']:.6f} ({r['bound_by']}), err {r['max_abs_err']:.3e}")
+    t = p12["telemetry"]
+    log(f"[obs] traced rank-2 Astraea (profile=True; device trace over rounds 2-3): s/round "
+        f"{' '.join(f'{x:.4f}' for x in t['round_seconds'])}, round spans "
+        f"{' '.join(f'{x:.2f}' for x in t['round_span_ms'])} ms, {t['events']} events, "
+        f"spans {t['spans']}, device trace {t['device_trace_bytes']:,} B, /metrics "
+        f"scrape {t['scrape_bytes']:,} B equal to to_prometheus()")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2194,6 +2444,14 @@ def main() -> int:
     # and the launchers
     p11 = phase11(dev, gen, checks, path_launches, lap)
 
+    # ---- 12. the CNN engine's LoRA adapter exchange and round telemetry
+    p12 = phase12(fed, cinic_fed, dev, gen, checks, path_launches, lap)
+    log_phase12(p12)
+    phases_s = sum(phase_s.values())
+    log(f"[time] phases {phases_s:.1f} s in all, phase 12 "
+        f"{sum(v for k, v in phase_s.items() if k.startswith('12 ')):.1f} s; "
+        f"{1200 - phases_s:.1f} s left of a 1,200 s call")
+
     # every kernel's launches over the paths that drive it (each path's
     # counts were reset just before it and read just after)
     launches = {name: sum(p.get(name, 0) for p in path_launches.values())
@@ -2240,7 +2498,7 @@ def main() -> int:
          "cinic_peak_mem_gb": cinic_peak, "cinic_materialized": materialized,
          "row_exec": rows_check,
          "serve_agreement": serve_agree, "serve": served,
-         "phase10": p10, "phase11": p11,
+         "phase10": p10, "phase11": p11, "phase12": p12,
          "path_launches": path_launches, "launches": launches, "phase_seconds": phase_s,
          "kernels": summary}, indent=1, default=str))
     log(json.dumps({"kernels": summary}))

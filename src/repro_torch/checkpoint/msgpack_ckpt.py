@@ -23,7 +23,8 @@ Compression as the reference: zstd when ``zstandard`` imports, zlib
 otherwise; reading a zstd frame without ``zstandard`` raises the
 reference's error.  ``save_trainer`` writes the params in the reference's
 layout (``convert.params_to_jax``), so a trainer file of either package
-loads in the other.
+loads in the other; a LoRA trainer's file adds its adapter state and A
+bases under keys the reference's ``load_trainer`` does not read.
 """
 from __future__ import annotations
 
@@ -302,21 +303,54 @@ def load_pytree(path: str) -> PyTree:
     return _decode(unpackb(packed))
 
 
+def _lora_engine(trainer):
+    """The trainer's engine when it exchanges LoRA adapters, else None."""
+    engine = getattr(trainer, "engine", None)
+    return engine if getattr(engine, "adapters", None) is not None else None
+
+
 def save_trainer(path: str, trainer, extra: dict | None = None) -> None:
     """Checkpoint a FedAvg/Astraea trainer: params (the reference's
-    layout) + round + WAN traffic, and the ``.meta.json``."""
+    layout) + round + WAN traffic, and the ``.meta.json``.  Under LoRA the
+    params are the frozen backbone, so the file also holds what the rounds
+    train, the adapter state (``adapters``), and the frozen A bases
+    (``lora_a``): both keyed and laid out as the reference's trees."""
     meta = {"round": trainer._round, "traffic_mb": trainer.comm.megabytes}
     meta.update(extra or {})
-    save_pytree(path, {"params": params_to_jax(trainer.params),
-                       "round": trainer._round,
-                       "traffic_bytes": trainer.comm.total_bytes}, meta)
+    tree = {"params": params_to_jax(trainer.params),
+            "round": trainer._round,
+            "traffic_bytes": trainer.comm.total_bytes}
+    engine = _lora_engine(trainer)
+    if engine is not None:
+        tree["adapters"] = dict(engine.adapters)
+        tree["lora_a"] = dict(engine.lora_args()[1])
+    save_pytree(path, tree, meta)
 
 
 def load_trainer(path: str, trainer):
     """Restore what ``save_trainer`` wrote (as the reference, not the
-    selection rng) into ``trainer``, on its device."""
+    selection rng) into ``trainer``, on its device.  A LoRA trainer needs
+    a file with its adapter state and A bases, and a full-delta trainer
+    one without: either mismatch raises."""
     state = load_pytree(path)
+    engine = _lora_engine(trainer)
+    if (engine is not None) != ("adapters" in state):
+        raise ValueError(
+            "checkpoint and trainer disagree on LoRA: the file "
+            f"{'holds' if 'adapters' in state else 'lacks'} an adapter state, "
+            f"the trainer {'exchanges' if engine is not None else 'has no'} adapters")
     trainer.params = params_from_jax(state["params"])
+    if engine is not None:
+        adapters = state["adapters"]
+        if set(adapters) != set(engine.adapters):
+            raise ValueError(f"adapter paths {sorted(adapters)} != the mapping's "
+                             f"{sorted(engine.adapters)}")
+        bad = [k for k, v in engine.adapters.items() if adapters[k].shape != v.shape]
+        if bad:
+            raise ValueError(f"adapter shapes differ from the mapping's at {bad}")
+        engine.load_lora_a(state["lora_a"])
+        engine.server_state = {k: adapters[k].to(device=v.device, dtype=v.dtype)
+                               .contiguous() for k, v in engine.adapters.items()}
     trainer._round = int(state["round"])
     trainer.comm.total_bytes = float(state["traffic_bytes"])
     return trainer

@@ -9,8 +9,9 @@ reference does, so ``dense1``'s rows need no permutation.
 The reference's transformer params share the port's layouts (weights
 ``(d_in, d_out)``) and differ only in the stacked leading ``layers`` axis,
 which the port writes out as one module per layer.  LoRA adapter trees
-(``A`` and the adapter state) keep the reference's flat ``/``-joined keys
-and stacked shapes in the port too, so they convert leaf for leaf.
+(``A`` and the adapter state) keep the reference's flat ``/``-joined keys,
+stacked shapes and layouts in the port too (the CNN's dense entries as
+HWIO / ``(din, dout)``), so they convert leaf for leaf.
 """
 from __future__ import annotations
 

@@ -10,8 +10,10 @@ averages the mediator deltas with weights n_m / n.
 
 The trainer presents the reference's arguments (``repro/core/astraea.py``)
 where they apply to a single-device engine -- with ``store`` (and the
-spilled store's ``store_prefetch_depth``/``store_lru_rows``) and
-``async_spec`` (bounded-staleness waves, ``core/async_engine.py``) -- plus
+spilled store's ``store_prefetch_depth``/``store_lru_rows``),
+``async_spec`` (bounded-staleness waves, ``core/async_engine.py``),
+``lora_rank``/``lora_alpha`` (the LoRA adapter exchange) and
+``telemetry`` (``obs/``) -- plus
 ``row_exec`` (the engine's, ``EngineConfig.row_exec``), ``device``,
 ``init_params``, ``draws`` and ``loss_fn`` (see ``core/engine.py``).
 ``params`` and ``_round`` can be set, as ``checkpoint.load_trainer``
@@ -94,6 +96,13 @@ class AstraeaTrainer:
     # spilled store: reschedules prefetched ahead; LRU rows (None = 2x c)
     store_prefetch_depth: int = 1
     store_lru_rows: int | None = None
+    # LoRA adapter exchange: the rank of the mapping table built from
+    # model.param_specs() (models/lora.py); None = full-delta legs
+    lora_rank: int | None = None
+    lora_alpha: float | None = None
+    # an obs.Telemetry handle threaded into the engine (host-side spans
+    # and metrics; None = the no-op stubs)
+    telemetry: object = None
     seed: int = 0
     row_exec: str = "vmap"                  # "vmap" (lockstep rows) | "map"
     device: object = None                   # None = the CUDA device
@@ -115,10 +124,12 @@ class AstraeaTrainer:
                 local=self.local, mediator_epochs=self.mediator_epochs,
                 reschedule_every_round=self.reschedule_every_round,
                 pad_mediators_to=pad_m, seed=self.seed, row_exec=self.row_exec,
+                lora_rank=self.lora_rank, lora_alpha=self.lora_alpha,
                 **store_config(self)),
             aug_plan=engine_plan, adaptive_aug_alpha=adaptive_alpha,
             device=self.device,
-            init_params=self.init_params, draws=self.draws, loss_fn=self.loss_fn)
+            init_params=self.init_params, draws=self.draws, loss_fn=self.loss_fn,
+            telemetry=self.telemetry)
         charge_materialized_plan(self.engine, phase)
         self.runner = async_runner(self.engine, self.async_spec)
         self.history = self.runner.history

@@ -4,8 +4,8 @@
 mediator gates every round.  This module wraps the engine so mediator
 groups complete in **waves** and the server folds them under a bounded
 staleness ``S``, as the JAX package's ``core/async_engine.py`` does (its
-simulation model, commit rule and discounted Eq. 6, without its telemetry
-spans and its multi-process dispatcher):
+simulation model, commit rule, discounted Eq. 6 and telemetry, without its
+multi-process dispatcher):
 
 * A ``StragglerModel`` (``core/staleness.py``) gives each mediator a
   seeded simulated duration, per mediator slot or per client.
@@ -48,6 +48,15 @@ replay can overwrite them; pending rows outlive their round by up to
 schedule row, never by wave, so a mediator trains on the same numbers
 whichever wave runs it; the warp is one launch per round
 (``engine.prepare_round``).
+
+The folded state is the engine's ``server_state``: the weights, or under
+LoRA the adapter state (each wave's rows and the commit then span the
+adapter width).  With the engine's ``telemetry`` on, a round opens the
+reference's spans -- ``round`` (``mode="async"``) > ``wave`` >
+``dispatch_gap``, then ``commit`` -- and ``synchronize`` a
+``commit_lag``; ``observe_async_round`` absorbs each round and the final
+flush.  Masked dispatch closes each wave span and commit span on a device
+wait; overlapped dispatch never waits there.
 """
 from __future__ import annotations
 
@@ -131,14 +140,21 @@ class AsyncRoundEngine:
         self.sync_time = 0.0                # the barrier on the same fleet
         self.num_commits = 0
         self.commit_log: list[dict] = []
+        self.last_wave_stats: dict | None = None
         self.history: list[dict] = []
         # dispatch observability (never enters the math)
         self.num_dispatches = 0
         self.num_overlapped_dispatches = 0
         self._overlap_checks = 0
         self._last_wave: torch.cuda.Event | None = None
+        self.wall_commit_wait_s = 0.0       # host seconds in synchronize()
         self.num_syncs = 0
         self._round = 0
+
+    @property
+    def telemetry(self):
+        """The wrapped engine's ``obs`` handle, shared by both drivers."""
+        return self.engine.telemetry
 
     @property
     def sim_speedup(self) -> float:
@@ -182,41 +198,58 @@ class AsyncRoundEngine:
         return self._straggler.durations(slot_np[:m_real].sum(axis=1) * em)
 
     def run_round(self) -> None:
-        spec, eng = self.spec, self.engine
+        spec, eng, tel = self.spec, self.engine, self.telemetry
+        wan0 = eng.comm.total_bytes
+        with tel.span("round", round=self._round, mode="async", dispatch=spec.dispatch,
+                      staleness_bound=self.staleness_bound, wave_size=spec.wave_size,
+                      policy=eng.cfg.store) as rsp:
+            self._run_round_body(spec, eng, tel)
+            rsp.set(wan_bytes=eng.comm.total_bytes - wan0, traces=eng.num_round_traces)
+        tel.observe_async_round(self, duration_s=rsp.duration_s)
+
+    def _run_round_body(self, spec, eng, tel) -> None:
         inp = eng.prepare_round()
         slot_np, m_real = inp.slot, inp.m_real
         m_pad = slot_np.shape[0]
         waves, wstats = scheduling.partition_waves(
             self._durations(eng, slot_np, m_real), spec.wave_size)
+        self.last_wave_stats = wstats
         r, t0 = self._round, self.virtual_time
-        snapshot = eng.params               # every wave of round r starts here
+        snapshot = eng.server_state         # every wave of round r starts here
         # the round's dummy tail (weight exactly 0) completes the padded
         # stack, so an S=0 commit folds the sync round's input
         self._dummy = (eng.noop_rows(snapshot, m_pad - m_real),
                        inp.weights[m_real:])
         for wi, wave in enumerate(waves):
             rows = np.sort(np.asarray(wave, np.int64))
-            self._probe_overlap()
-            pick = to_device(rows, eng.device)
-            if self._sliced:
-                vals = eng.run_rows_sliced(inp, snapshot, rows).clone()
-            else:
-                vals = eng.run_rows(inp, snapshot, rows)[pick]
-            wts = inp.weights[pick]
-            if self._on_card:
-                self._last_wave = torch.cuda.Event()
-                self._last_wave.record()
-                if spec.block_each_wave:
-                    self._last_wave.synchronize()   # the blocking baseline
-            clients = int(slot_np[rows].sum())
-            # charges come from the schedule: the WAN ledger is the same
-            # in every dispatch mode
-            if self._parallel_clients:
-                eng.comm.fedavg_wave(clients)
-            else:
-                eng.comm.astraea_wave(clients, len(rows), eng.cfg.mediator_epochs)
-            self._pending.append(_PendingWave(
-                r, t0 + wstats["wave_times"][wi], rows, vals, wts))
+            with tel.span("wave", wave=wi, round=r, mediators=int(rows.size),
+                          sim_done=float(t0 + wstats["wave_times"][wi])) as wsp:
+                overlapped = self._probe_overlap()
+                with tel.span("dispatch_gap", wave=wi, round=r, overlapped=overlapped):
+                    pick = to_device(rows, eng.device)
+                    if self._sliced:
+                        vals = eng.run_rows_sliced(inp, snapshot, rows).clone()
+                    else:
+                        vals = eng.run_rows(inp, snapshot, rows)[pick]
+                    wts = inp.weights[pick]
+                if self._on_card:
+                    self._last_wave = torch.cuda.Event()
+                    self._last_wave.record()
+                    if spec.block_each_wave:
+                        self._last_wave.synchronize()   # the blocking baseline
+                if not self._sliced:
+                    wsp.sync_on((vals, wts))
+                clients = int(slot_np[rows].sum())
+                wave_wan0 = eng.comm.total_bytes
+                # charges come from the schedule: the WAN ledger is the same
+                # in every dispatch mode
+                if self._parallel_clients:
+                    eng.comm.fedavg_wave(clients)
+                else:
+                    eng.comm.astraea_wave(clients, len(rows), eng.cfg.mediator_epochs)
+                self._pending.append(_PendingWave(
+                    r, t0 + wstats["wave_times"][wi], rows, vals, wts))
+                wsp.set(clients=clients, wan_bytes=eng.comm.total_bytes - wave_wan0)
         eng.comm.end_round()
 
         # ---- commit C_r: wait for the waves the bound expires and the
@@ -239,15 +272,16 @@ class AsyncRoundEngine:
         self._round += 1
         eng._round = self._round
 
-    def _probe_overlap(self) -> None:
-        """Count whether the previously dispatched wave is still running
+    def _probe_overlap(self) -> bool:
+        """Whether the previously dispatched wave is still running, counted
         (observability only; never waits)."""
         self.num_dispatches += 1
         if self.num_dispatches == 1:
-            return
+            return False
         self._overlap_checks += 1
-        if self._last_wave is not None and not self._last_wave.query():
-            self.num_overlapped_dispatches += 1
+        in_flight = self._last_wave is not None and not self._last_wave.query()
+        self.num_overlapped_dispatches += in_flight
+        return in_flight
 
     # ------------------------------------------------------------------
     # commits
@@ -255,6 +289,10 @@ class AsyncRoundEngine:
     def _fold(self, ready: list[_PendingWave], r: int, c_time: float) -> None:
         """One server commit: staleness-discounted Eq. 6 over ``ready``."""
         assert ready, "a commit always folds at least the round's fast wave"
+        with self.telemetry.span("commit", round=r, sim_time=float(c_time)) as csp:
+            self._fold_traced(ready, r, c_time, csp)
+
+    def _fold_traced(self, ready, r, c_time, csp) -> None:
         parts_v, parts_w, stales = [], [], []
         for q in sorted({p.round for p in ready}):
             ws = [p for p in ready if p.round == q]
@@ -279,16 +317,27 @@ class AsyncRoundEngine:
             "staleness_bound": self.staleness_bound,
             "pending_after": len(self._pending),
         })
+        csp.set(folded_rows=self.commit_log[-1]["folded_rows"],
+                staleness_max=max(stales) if stales else 0,
+                pending_after=len(self._pending))
+        if not self._sliced:
+            csp.sync_on(self.engine.server_state)
 
     def synchronize(self) -> float:
         """Wait for every enqueued wave and commit to finish on the card:
         the only host sync of overlapped dispatch (``fit`` calls it at
-        evaluation, ``flush`` at the end).  Returns the seconds waited."""
+        evaluation, ``flush`` at the end).  Returns the seconds waited,
+        which ``wall_commit_wait_s`` sums (observability only)."""
         t0 = time.perf_counter()
-        if self._on_card:
-            torch.cuda.synchronize(self.engine.device)
+        with self.telemetry.span("commit_lag", round=self._round,
+                                 pending=len(self._pending)) as sp:
+            if self._on_card:
+                torch.cuda.synchronize(self.engine.device)
+            waited = time.perf_counter() - t0
+            sp.set(waited_s=waited)
+        self.wall_commit_wait_s += waited
         self.num_syncs += 1
-        return time.perf_counter() - t0
+        return waited
 
     def flush(self) -> None:
         """Fold every still-pending wave (end of training), each discounted
@@ -303,6 +352,9 @@ class AsyncRoundEngine:
         self._fold(ready, self._round, c_time)
         self.virtual_time = max(self.virtual_time, c_time)
         self.synchronize()
+        # the flush commit lands after the last round's absorption: one
+        # more metrics snapshot brings its staleness into the registry
+        self.telemetry.observe_async_round(self)
 
     # ------------------------------------------------------------------
     # driving
@@ -310,7 +362,7 @@ class AsyncRoundEngine:
     def evaluate(self) -> dict:
         """Test-set metrics now, with the async history keys."""
         eng = self.engine
-        m = evaluate(eng.model, eng.params, eng._test_x, eng._test_y)
+        m = evaluate(eng.model, eng.merged_params(), eng._test_x, eng._test_y)
         stales = [s for c in self.commit_log for s in c["staleness"]]
         m.update(round=self._round, traffic_mb=eng.comm.megabytes,
                  sim_time=self.virtual_time, sync_sim_time=self.sync_time,

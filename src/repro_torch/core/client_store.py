@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import to_device
+from repro_torch.obs.telemetry import NULL_TELEMETRY
 
 POLICIES = ("replicated", "sharded", "host", "spilled")
 
@@ -137,10 +138,14 @@ class ClientStore:
       mask slot tensors (the mask not yet scaled by the slot mask).
     * ``row_specs``: each array's per-client shape and numpy dtype.
     * ``last_stream_bytes``: what the latest ``plan`` copied host->device.
+    * ``telemetry``: the ``obs`` handle the engine installs (the spilled
+      store marks each prefetch hit or miss with a ``store_prefetch``
+      instant); the no-op one by default.
     """
 
     policy: str
     last_stream_bytes: int = 0
+    telemetry = NULL_TELEMETRY
 
     def plan(self, idx: np.ndarray, slot: np.ndarray):
         raise NotImplementedError
@@ -403,8 +408,10 @@ class SpilledHostStore(HostStore):
             if box.get("done") and np.array_equal(pre_uniq, uniq):
                 staged = (bufs, cached, miss)
                 self.prefetch_hits += 1
+                self.telemetry.instant("store_prefetch", hit=True, rows=int(uniq.size))
             else:
                 self.prefetch_misses += 1
+                self.telemetry.instant("store_prefetch", hit=False, rows=int(uniq.size))
         if staged is None:
             bufs, cached, miss = self._stage(uniq)
             self._read_tier(uniq, bufs, miss)
@@ -435,7 +442,7 @@ def build_client_store(policy: str, xs=None, ys=None, mask=None, *,
             "the 'sharded' client store (the client axis partitioned over "
             "devices, with scheduling.place_mediators and the ragged "
             "exchange) needs torch.distributed across processes and is not "
-            "ported yet: ROADMAP.md, Queue 1 item 6")
+            "ported yet: ROADMAP.md, Queue 1, \"The distributed runtime\"")
     if source is not None and policy not in ("host", "spilled"):
         raise ValueError(f"client-store policy {policy!r} needs the packed "
                          "arrays; streaming row sources require the 'host' "

@@ -65,6 +65,24 @@ A round is three steps, shared with the async engine
 * ``fold``: Eq. 6 over a stack of rows and the delta or weights fold, one
   function for the sync round and the async commit, so an async run at
   staleness 0 stays bitwise the sync one.
+
+**LoRA adapter exchange** (``EngineConfig.lora_rank``, the reference's):
+the model's ``param_specs`` give the adapter mapping table
+(``models/lora.py``).  ``params`` is then the frozen backbone and the
+round trains and folds the adapter state, ``server_state``: the flat
+``(M, N)`` row buffer, Eq. 6 and the fold run over its entries (N the
+adapter width), the row programs train it through ``lora.MergedModel``
+(the backbone and the frozen A bases are static buffers the captured graph
+reads), and each WAN leg carries ``lora.exchange_nbytes``.  At
+``lora.full_rank`` every entry is dense and the round is the full-delta
+round bit for bit; rank 0 trains and averages nothing.
+
+**Telemetry** (``telemetry=``, ``obs/``): the reference's spans around the
+phases -- ``round`` around ``run_round``; ``plan_refresh``,
+``reschedule``, ``pack`` and ``store_stream`` in ``prepare_round``;
+``aggregate`` around the rows and the fold, waiting for the new state --
+never inside the round program, and ``observe_round`` after each round.
+Off by default; on, it changes no bit and builds no program.
 """
 from __future__ import annotations
 
@@ -86,8 +104,10 @@ from repro_torch.core.mediator import mediator_update, mediator_update_rows
 from repro_torch.data.federated import FederatedDataset
 from repro_torch.device import resolve_device, to_device
 from repro_torch.kernels import ops
+from repro_torch.models import lora as lora_lib
 from repro_torch.models.cnn import Params, count_params
 from repro_torch.models.cnn import init_params as seeded_params
+from repro_torch.obs.telemetry import as_telemetry
 from repro_torch.optim.optimizers import Optimizer
 
 
@@ -115,6 +135,11 @@ class EngineConfig:
     # host LRU row cache in rows (None = twice the capacity)
     store_prefetch_depth: int = 1
     store_lru_rows: int | None = None
+    # LoRA adapter exchange: the rank of the mapping table built from
+    # model.param_specs() (models/lora.py); None = full-delta exchange, 0 =
+    # a frozen backbone; at lora.full_rank every entry is dense
+    lora_rank: int | None = None
+    lora_alpha: float | None = None         # merge scale; None = rank (1.0)
 
     def __post_init__(self):
         if self.row_exec not in ("vmap", "map"):
@@ -134,6 +159,10 @@ class EngineConfig:
             raise ValueError("weight aggregation implies gamma=1 (FedAvg)")
         if self.pad_mediators_to is not None and self.pad_mediators_to < 1:
             raise ValueError("pad_mediators_to must be >= 1")
+        if self.lora_rank is not None and self.lora_rank < 0:
+            raise ValueError("lora_rank must be >= 0")
+        if self.lora_alpha is not None and self.lora_rank is None:
+            raise ValueError("lora_alpha requires lora_rank")
 
     @classmethod
     def astraea(cls, *, clients_per_round: int, gamma: int, local: LocalSpec,
@@ -173,7 +202,8 @@ class FLRoundEngine:
     (``core/draws.py``); ``loss_fn(model, params, x, y, mask, keep)``
     replaces the masked cross-entropy of local training (``core/fl.py``);
     ``adaptive_aug_alpha`` refreshes ``aug_plan`` at every reschedule (see
-    the module docstring)."""
+    the module docstring); ``telemetry`` is an ``obs.Telemetry`` (None:
+    off)."""
 
     def __init__(self, model, opt: Optimizer, data: FederatedDataset,
                  cfg: EngineConfig, *, aug_plan: np.ndarray | None = None,
@@ -181,9 +211,13 @@ class FLRoundEngine:
                  device: str | torch.device | None = None,
                  init_params: Params | None = None,
                  draws: RoundDraws | None = None,
-                 loss_fn: LossFn | None = None):
+                 loss_fn: LossFn | None = None,
+                 telemetry=None):
         self.model, self.opt, self.data, self.cfg = model, opt, data, cfg
         self.loss_fn = loss_fn
+        # host-side spans and metrics around -- never inside -- the round
+        # program: on or off, the same bits and the same programs
+        self.telemetry = as_telemetry(telemetry)
         if adaptive_aug_alpha is not None and aug_plan is None:
             raise ValueError("adaptive_aug_alpha requires an initial aug_plan")
         self._adaptive_alpha = adaptive_aug_alpha
@@ -208,6 +242,7 @@ class FLRoundEngine:
                                  f"multiple of batch_size {cfg.local.batch_size}")
             self.pad = data.pad
             self.store = build_client_store(cfg.store, source=data, **store_kw)
+        self.store.telemetry = self.telemetry
         self._test_x = torch.from_numpy(np.asarray(data.test_images, np.float32)).to(dev)
         self._test_y = torch.from_numpy(np.asarray(data.test_labels)).to(dev)
         self._raw_counts = data.client_counts()
@@ -222,7 +257,25 @@ class FLRoundEngine:
         self.params: Params = init
         self.comm = CommMeter(count_params(self.params))
         self.draws = draws if draws is not None else SeededDraws(cfg.seed + 1, dev)
-        self._layout = ops.FlatLayout(self.params)
+        # LoRA: self.params is the frozen backbone; the round trains and
+        # folds the adapter state, and a WAN leg carries only that state
+        self._lora_mapping: dict | None = None
+        self._lora_a: dict | None = None
+        self.adapters: dict | None = None
+        if cfg.lora_rank is not None:
+            if not hasattr(model, "param_specs"):
+                raise ValueError("lora_rank requires a model with param_specs (the "
+                                 "adapter mapping table is built from them)")
+            mapping = lora_lib.build_mapping(model.param_specs(), cfg.lora_rank,
+                                             cfg.lora_alpha)
+            self._lora_mapping = mapping
+            self._lora_a = lora_lib.init_adapter_A(cfg.seed + lora_lib.A_SALT, mapping, dev)
+            self.adapters = lora_lib.init_adapter_state(mapping, self.params)
+            self.comm.adapter_payload_bytes = lora_lib.exchange_nbytes(
+                mapping, self.comm.bytes_per_param)
+            self._layout = lora_lib.flat_layout(mapping, self.adapters, self.params)
+        else:
+            self._layout = ops.FlatLayout(self.params)
 
         self._plan = None
         self.last_plan: np.ndarray | None = None
@@ -243,6 +296,67 @@ class FLRoundEngine:
         self._program: _RoundProgram | None = None
         self._wave_programs: dict[int, _RoundProgram] = {}   # width -> sliced
         self.num_round_traces = 0                    # round programs built
+        self.num_schedule_packs = 0                  # host packing events
+        # one entry per round program built: "initial" for a width's first
+        # program, "retrace" for one built after it for that width
+        self.trace_log: list[dict] = []
+
+    @property
+    def server_state(self) -> Params:
+        """What the round trains and folds: the adapter state under LoRA,
+        the weights otherwise."""
+        return self.adapters if self._lora_mapping is not None else self.params
+
+    @server_state.setter
+    def server_state(self, value: Params) -> None:
+        if self._lora_mapping is not None:
+            self.adapters = value
+        else:
+            self.params = value
+
+    def lora_args(self) -> tuple:
+        """The frozen operands of a LoRA round: the backbone and the A
+        bases (empty without a mapping)."""
+        if self._lora_mapping is None:
+            return ()
+        return self.params, self._lora_a
+
+    @torch.no_grad()
+    def merged_params(self) -> Params:
+        """Weights ready to evaluate: the adapter state merged into the
+        backbone under LoRA, the weights otherwise."""
+        if self._lora_mapping is None:
+            return self.params
+        return lora_lib.merge_params(self.params, self._lora_a, self.adapters,
+                                     self._lora_mapping)
+
+    def load_lora_a(self, a_tree: dict) -> None:
+        """Replace the frozen A bases (the reference's, say) with ``a_tree``:
+        the same paths and shapes, moved to this engine's device."""
+        if self._lora_a is None or set(a_tree) != set(self._lora_a):
+            raise ValueError(f"A paths {sorted(a_tree)} != the mapping's "
+                             f"{sorted(self._lora_a or {})}")
+        new = {k: torch.as_tensor(a_tree[k], dtype=torch.float32).to(self.device)
+               .contiguous() for k in self._lora_a}
+        bad = [k for k in new if new[k].shape != self._lora_a[k].shape]
+        if bad:
+            raise ValueError(f"A shapes differ from the mapping's at {bad}")
+        self._lora_a = new
+
+    def _row_model(self):
+        """The model the rows train: through the adapter state under LoRA."""
+        if self._lora_mapping is None:
+            return self.model
+        return lora_lib.MergedModel(self.model, *self.lora_args(), self._lora_mapping)
+
+    def _note_trace(self, fn: str, width: int) -> None:
+        """Count a round program built and record why, as the reference's
+        ``_note_trace`` does for its traces."""
+        self.num_round_traces += 1
+        first = not any(t["fn"] == fn and t["width"] == width for t in self.trace_log)
+        self.trace_log.append({"fn": fn, "width": width, "round": self._round,
+                               "trace_index": self.num_round_traces,
+                               "reason": "initial" if first else "retrace"})
 
     def load_params(self, params: Params) -> None:
         """Replace the weights with ``params`` (the same keys and shapes),
@@ -284,29 +398,41 @@ class FLRoundEngine:
         return [[int(sel[i]) for i in m.clients] for m in meds]
 
     def _pack_schedule(self, sel: np.ndarray) -> tuple:
+        tel = self.telemetry
         if self._adaptive_alpha is not None:
             # the plan of the cohort this round trains on, re-broadcast to it
-            plan_np = augmentation_plan(self._raw_counts[sel].sum(axis=0),
-                                        self._adaptive_alpha)
-            self._install_plan(plan_np)
-            self.comm.plan_broadcast(plan_np.size, len(sel))
-        groups = self._groups_for(sel)
+            with tel.span("plan_refresh", cohort=len(sel)):
+                plan_np = augmentation_plan(self._raw_counts[sel].sum(axis=0),
+                                            self._adaptive_alpha)
+                self._install_plan(plan_np)
+                self.comm.plan_broadcast(plan_np.size, len(sel))
+        with tel.span("reschedule", cohort=len(sel), schedule=self.cfg.schedule) as rsp:
+            groups = self._groups_for(sel)
+            if self.last_schedule_stats:
+                rsp.set(kld_mean=self.last_schedule_stats.get("kld_mean"),
+                        num_mediators=len(groups))
         self.last_groups = groups
         m_real = len(groups)
         m_pad = self.cfg.pad_mediators_to or m_real
         if m_pad < m_real:
             raise ValueError(f"pad_mediators_to={m_pad} smaller than the "
                              f"schedule ({m_real} mediators)")
-        idx = np.zeros((m_pad, self.cfg.gamma), np.int64)
-        slot = np.zeros((m_pad, self.cfg.gamma), np.float32)
-        for r, g in enumerate(groups):
-            idx[r, :len(g)] = g
-            slot[r, :len(g)] = 1.0
-        data, index = self.store.plan(idx, slot)
-        if self.store.last_stream_bytes:
-            # host->device streaming is pod-side traffic: the intra-pod
-            # ledger only, so the WAN bytes stay invariant to placement
-            self.comm.store_stream(self.store.last_stream_bytes)
+        with tel.span("pack", m_real=m_real, m_pad=m_pad, policy=self.store.policy) as psp:
+            idx = np.zeros((m_pad, self.cfg.gamma), np.int64)
+            slot = np.zeros((m_pad, self.cfg.gamma), np.float32)
+            for r, g in enumerate(groups):
+                idx[r, :len(g)] = g
+                slot[r, :len(g)] = 1.0
+            with tel.span("store_stream", policy=self.store.policy) as ssp:
+                data, index = self.store.plan(idx, slot)
+                ssp.set(bytes=self.store.last_stream_bytes)
+                ssp.sync_on(data)
+            if self.store.last_stream_bytes:
+                # host->device streaming is pod-side traffic: the intra-pod
+                # ledger only, so the WAN bytes stay invariant to placement
+                self.comm.store_stream(self.store.last_stream_bytes)
+            psp.set(stream_bytes=self.store.last_stream_bytes)
+        self.num_schedule_packs += 1
         return data, index, slot, m_real
 
     def ensure_schedule(self) -> tuple:
@@ -374,14 +500,14 @@ class FLRoundEngine:
     def _map_row(self, inp: RoundInputs, params, r: int, out: torch.Tensor) -> None:
         """Schedule row ``r`` through ``client_update`` / ``mediator_update``
         from ``params``, into the flat row ``out``."""
-        cfg = self.cfg
+        cfg, model = self.cfg, self._row_model()
         if cfg.aggregate == "weights":
-            res = client_update(self.model, self.opt, cfg.local, params,
+            res = client_update(model, self.opt, cfg.local, params,
                                 inp.xs[r, 0], inp.ys[r, 0], inp.ms[r, 0],
                                 self.draws.client(inp.rnd, r, 0, 0), self.loss_fn)
         else:
             res = mediator_update(
-                self.model, self.opt, cfg.local, cfg.mediator_epochs, params,
+                model, self.opt, cfg.local, cfg.mediator_epochs, params,
                 inp.xs[r], inp.ys[r], inp.ms[r],
                 lambda e, s: self.draws.client(inp.rnd, r, e, s)
                 if inp.slot[r, s] > 0 else EmptySlotDraws(self.device),
@@ -413,12 +539,12 @@ class FLRoundEngine:
         fresh = prog is None or prog.m != m_pad
         if fresh:
             prog = self._program = _RoundProgram(self, buf)
-            self.num_round_traces += 1
+            self._note_trace("round_fn", m_pad)
         ms = inp.ms
         if rows is not None:
             ms = ms * to_device(member.astype(np.float32), self.device)[:, None, None]
         prog.load(params, inp.xs, inp.ys, ms, (inp.slot > 0) & member[:, None],
-                  inp.rnd)
+                  inp.rnd, frozen=self.lora_args())
         if fresh and self.device.type == "cuda":
             prog.capture()
         prog.run()
@@ -448,10 +574,10 @@ class FLRoundEngine:
                                                    dtype=torch.float32,
                                                    device=self.device))
             self._wave_programs[n] = prog
-            self.num_round_traces += 1
+            self._note_trace("wave_fn", n)
         pick = to_device(rows, self.device)
         prog.load(params, inp.xs[pick], inp.ys[pick], inp.ms[pick],
-                  inp.slot[rows] > 0, inp.rnd, row_ids=rows)
+                  inp.slot[rows] > 0, inp.rnd, row_ids=rows, frozen=self.lora_args())
         if fresh and self.device.type == "cuda":
             prog.capture()
         prog.run()
@@ -466,42 +592,52 @@ class FLRoundEngine:
         return {name: {"width": p.m, "buffer_bytes": p.buffer_bytes,
                        "graph_pool_bytes": p.pool_bytes} for name, p in progs}
 
-    def noop_rows(self, params, n: int) -> torch.Tensor:
+    def noop_rows(self, state, n: int) -> torch.Tensor:
         """``n`` copies of a no-op row's output (an all-zero mask under
-        Adam): zero deltas, or the weights ``params`` themselves -- what the
+        Adam): zero deltas, or the trained tree ``state`` itself -- what the
         round program writes for a dummy row.  Their Eq. 6 weight is 0."""
+        out = torch.zeros((n, self._layout.total), dtype=torch.float32,
+                          device=self.device)
         if self.cfg.aggregate == "weights":
-            flat = torch.cat([params[k].reshape(-1) for k in self._layout.names])
-            return flat.expand(n, -1).clone()
-        return torch.zeros((n, self._layout.total), dtype=torch.float32,
-                           device=self.device)
+            for k, v in self._layout.views(out).items():
+                v.copy_(state[k].expand_as(v))
+        return out
 
     def fold(self, rows: torch.Tensor, weights: torch.Tensor) -> None:
         """Eq. 6 over the stack ``rows (M, N)`` with ``weights (M,)`` (one
-        ``fedavg_agg`` launch), folded into the params: the aggregate
-        replaces them (FedAvg) or is added to them (Astraea).  The one tail
-        of the sync round and the async commit."""
+        ``fedavg_agg`` launch; none for an empty adapter state), folded
+        into ``server_state``: the aggregate replaces it (FedAvg) or is
+        added to it (Astraea).  The one tail of the sync round and the
+        async commit."""
         agg = ops.fedavg_agg_flat(rows, weights, self._layout)
         if self.cfg.aggregate == "weights":
-            self.params = agg
+            self.server_state = agg
         else:
-            self.params = {k: self.params[k] + agg[k] for k in self.params}
+            state = self.server_state
+            self.server_state = {k: state[k] + agg[k] for k in state}
 
     def run_round(self) -> None:
-        cfg = self.cfg
+        cfg, tel = self.cfg, self.telemetry
         c = min(cfg.clients_per_round, self.data.num_clients)
-        inp = self.prepare_round()
-        self.fold(self.run_rows(inp, self.params), inp.weights)
-        if cfg.aggregate == "weights":
-            self.comm.fedavg_round(c)
-        else:
-            self.comm.astraea_round(c, cfg.gamma, cfg.mediator_epochs)
-        self.comm.end_round()
-        self._round += 1
+        wan0 = self.comm.total_bytes
+        with tel.span("round", round=self._round, cohort=c, schedule=cfg.schedule,
+                      policy=cfg.store) as rsp:
+            inp = self.prepare_round()
+            with tel.span("aggregate", mediators=inp.m_real) as asp:
+                self.fold(self.run_rows(inp, self.server_state), inp.weights)
+                asp.sync_on(self.server_state)
+            if cfg.aggregate == "weights":
+                self.comm.fedavg_round(c)
+            else:
+                self.comm.astraea_round(c, cfg.gamma, cfg.mediator_epochs)
+            self.comm.end_round()
+            self._round += 1
+            rsp.set(wan_bytes=self.comm.total_bytes - wan0, traces=self.num_round_traces)
+        tel.observe_round(self, duration_s=rsp.duration_s)
 
     def evaluate(self) -> dict:
         """Test-set metrics now, with the history keys."""
-        m = evaluate(self.model, self.params, self._test_x, self._test_y)
+        m = evaluate(self.model, self.merged_params(), self._test_x, self._test_y)
         m.update(round=self._round, traffic_mb=self.comm.megabytes)
         if self.last_schedule_stats and "kld_mean" in self.last_schedule_stats:
             m["mediator_kld_mean"] = self.last_schedule_stats["kld_mean"]
@@ -531,7 +667,7 @@ class _RoundProgram:
 
     def __init__(self, engine: FLRoundEngine, rows: torch.Tensor):
         cfg, dev = engine.cfg, engine.device
-        self.model, self.opt, self.loss_fn = engine.model, engine.opt, engine.loss_fn
+        self.opt, self.loss_fn = engine.opt, engine.loss_fn
         self.local, self.draws, self.device = cfg.local, engine.draws, dev
         self.graph = None
         self.pool_bytes = 0           # the captured graph's private pool
@@ -543,7 +679,13 @@ class _RoundProgram:
         self.pad = engine.pad
         shape = (self.m, self.gamma, engine.pad)
         self.p0 = {k: torch.zeros((self.m,) + p.shape, dtype=p.dtype, device=dev)
-                   for k, p in engine.params.items()}
+                   for k, p in engine.server_state.items()}
+        # under LoRA the rows train the adapter state through the frozen
+        # backbone and A bases, static buffers filled by ``load``
+        self.frozen = tuple({k: torch.empty_like(v) for k, v in tree.items()}
+                            for tree in engine.lora_args())
+        self.model = engine.model if not self.frozen else lora_lib.MergedModel(
+            engine.model, *self.frozen, engine._lora_mapping)
         (x_shape, x_dtype), (_, y_dtype), _ = engine.store.row_specs
         self.x = torch.zeros(shape + tuple(x_shape[1:]), device=dev,
                              dtype=torch.from_numpy(np.zeros(0, x_dtype)).dtype)
@@ -561,14 +703,19 @@ class _RoundProgram:
         self.out = engine._layout.views(rows)
 
     def load(self, params, xs, ys, ms, active: np.ndarray, rnd: int,
-             row_ids: np.ndarray | None = None) -> None:
-        """Fill the static buffers for round ``rnd``: the weights broadcast
-        to every row, the (augmented) client data, and the draws of every
-        active ``(row, slot)`` at the addresses ``"map"`` asks for -- row
-        ``r`` of the program is schedule row ``row_ids[r]`` (``r`` itself
-        if None), so a mediator draws the same numbers in any wave."""
+             row_ids: np.ndarray | None = None, frozen: tuple = ()) -> None:
+        """Fill the static buffers for round ``rnd``: the trained tree
+        broadcast to every row, the frozen LoRA operands (``frozen``, the
+        engine's ``lora_args()``), the (augmented) client data, and the
+        draws of every active ``(row, slot)`` at the addresses ``"map"``
+        asks for -- row ``r`` of the program is schedule row ``row_ids[r]``
+        (``r`` itself if None), so a mediator draws the same numbers in any
+        wave."""
         for k, p in params.items():
             self.p0[k].copy_(p.expand_as(self.p0[k]))
+        for buf, tree in zip(self.frozen, frozen):
+            for k, v in buf.items():
+                v.copy_(tree[k])
         self.x.copy_(xs)
         self.y.copy_(ys)
         self.mask.copy_(ms)
@@ -637,8 +784,9 @@ class _RoundProgram:
     @property
     def buffer_bytes(self) -> int:
         """Device bytes of the static buffers the program reads and writes."""
-        return sum(t.nbytes for t in (*self.p0.values(), self.x, self.y, self.mask,
-                                      self.perms, *self.keeps, self.rows))
+        frozen = [t for tree in self.frozen for t in tree.values()]
+        return sum(t.nbytes for t in (*self.p0.values(), *frozen, self.x, self.y,
+                                      self.mask, self.perms, *self.keeps, self.rows))
 
     def run(self) -> None:
         if self.graph is None:

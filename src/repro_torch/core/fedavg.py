@@ -42,6 +42,13 @@ class FedAvgTrainer:
     # spilled store: reschedules prefetched ahead; LRU rows (None = 2x c)
     store_prefetch_depth: int = 1
     store_lru_rows: int | None = None
+    # LoRA adapter exchange: the rank of the mapping table built from
+    # model.param_specs() (models/lora.py); None = full-delta legs
+    lora_rank: int | None = None
+    lora_alpha: float | None = None
+    # an obs.Telemetry handle threaded into the engine (host-side spans
+    # and metrics; None = the no-op stubs)
+    telemetry: object = None
     seed: int = 0
     row_exec: str = "vmap"           # "vmap" (lockstep rows) | "map"
     device: object = None            # None = the CUDA device
@@ -61,10 +68,12 @@ class FedAvgTrainer:
             EngineConfig.fedavg(clients_per_round=self.clients_per_round,
                                 local=self.local, pad_mediators_to=pad_m,
                                 seed=self.seed, row_exec=self.row_exec,
-                                **store_config(self)),
+                                lora_rank=self.lora_rank, lora_alpha=self.lora_alpha,
+                **store_config(self)),
             aug_plan=engine_plan, adaptive_aug_alpha=adaptive_alpha,
             device=self.device,
-            init_params=self.init_params, draws=self.draws, loss_fn=self.loss_fn)
+            init_params=self.init_params, draws=self.draws, loss_fn=self.loss_fn,
+            telemetry=self.telemetry)
         charge_materialized_plan(self.engine, phase)
         self.runner = async_runner(self.engine, self.async_spec)
         self.history = self.runner.history

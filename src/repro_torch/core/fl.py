@@ -12,6 +12,10 @@ clients in lockstep, one per row of stacked ``(M, ...)`` weights, with
 ``torch.func.vmap`` over the rows' gradients and Adam on the stacked
 leaves (elementwise, and every row takes the same step count).  Its draws
 arrive as tensors, so the whole update can be captured as a CUDA graph.
+
+The trained tree is whatever ``model.apply`` takes: the weights, or under
+LoRA the adapter state, which ``models.lora.MergedModel`` merges into the
+frozen backbone; an empty tree (a rank-0 adapter state) trains nothing.
 """
 from __future__ import annotations
 
@@ -61,6 +65,8 @@ def client_update(model, opt: Optimizer, spec: LocalSpec, params: Params,
     n_pad, bsz = x.shape[0], spec.batch_size
     if n_pad % bsz:
         raise ValueError(f"pad {n_pad} is not a multiple of batch_size {bsz}")
+    if not params:
+        return params
     loss_fn = loss_fn or masked_ce_loss
     state = opt.init(params)
     sites = model.dropout_sites(bsz)
@@ -104,6 +110,8 @@ def client_update_rows(model, opt: Optimizer, spec: LocalSpec, params: Params,
     bsz = spec.batch_size
     if n_pad % bsz:
         raise ValueError(f"pad {n_pad} is not a multiple of batch_size {bsz}")
+    if not params:
+        return params
     grads_of = row_grads(model, loss_fn)
     state = opt.init(params)
     rows = torch.arange(m, device=y.device)[:, None]

@@ -135,14 +135,18 @@ class FlatLayout:
     """Where each leaf of a float32 parameter dict lies in one flat buffer
     of ``total`` columns: leaf ``names[i]`` of shape ``shapes[i]`` at
     columns ``[offsets[i], offsets[i] + numel)``, in the dict's order (the
-    order ``fedavg_agg_tree`` concatenates in)."""
+    order ``fedavg_agg_tree`` concatenates in).  A leaf named in ``perms``
+    is stored permuted -- its columns hold ``leaf.permute(perms[name])``,
+    row-major -- and viewed back in its own shape."""
 
-    def __init__(self, params: dict[str, torch.Tensor]):
+    def __init__(self, params: dict[str, torch.Tensor],
+                 perms: dict[str, tuple] | None = None):
         for k, v in params.items():
             if v.dtype != torch.float32:
                 raise ValueError(f"leaf {k!r} is {v.dtype}; the flat buffer is float32")
         self.names = tuple(params)
         self.shapes = tuple(tuple(v.shape) for v in params.values())
+        self.perms = {k: tuple(p) for k, p in (perms or {}).items()}
         sizes = [math.prod(s) for s in self.shapes]
         self.offsets = tuple(sum(sizes[:i]) for i in range(len(sizes)))
         self.total = sum(sizes)
@@ -150,8 +154,18 @@ class FlatLayout:
     def views(self, flat: torch.Tensor) -> dict[str, torch.Tensor]:
         """The leaves as views of ``flat (..., total)``: ``(..., *shape)``."""
         lead = flat.shape[:-1]
-        return {k: flat[..., o:o + math.prod(s)].view(*lead, *s)
-                for k, s, o in zip(self.names, self.shapes, self.offsets)}
+        out = {}
+        for k, s, o in zip(self.names, self.shapes, self.offsets):
+            chunk = flat[..., o:o + math.prod(s)]
+            perm = self.perms.get(k)
+            if perm is None:
+                out[k] = chunk.view(*lead, *s)
+            else:
+                back = [perm.index(i) for i in range(len(perm))]
+                nl = len(lead)
+                out[k] = chunk.view(*lead, *(s[p] for p in perm)).permute(
+                    *range(nl), *(nl + b for b in back))
+        return out
 
 
 def fedavg_agg_flat(rows: torch.Tensor, weights: torch.Tensor,
@@ -160,9 +174,12 @@ def fedavg_agg_flat(rows: torch.Tensor, weights: torch.Tensor,
     row ``m`` holds mediator ``m``'s leaves at ``layout``'s columns: one
     ``fedavg_agg`` call, the leaves returned as views of its ``(total,)``
     result.  Equal bit for bit to ``fedavg_agg_tree`` over the same leaves
-    stacked (the same columns, reduced independently)."""
+    stacked (the same columns, reduced independently).  An empty layout (a
+    rank-0 LoRA adapter state) has nothing to average: no launch, ``{}``."""
     if rows.dim() != 2 or rows.shape[1] != layout.total:
         raise ValueError(f"expected rows (M, {layout.total}), got {tuple(rows.shape)}")
+    if layout.total == 0:
+        return layout.views(rows.new_zeros(0))
     return layout.views(fedavg_agg(rows, weights))
 
 

@@ -17,6 +17,12 @@ transpose around every grouped convolution of the lockstep rows) and
 permuted back to NHWC before the flatten, so ``dense1``'s input rows keep
 the reference's order.
 
+``param_specs()`` gives each parameter as the reference declares it --
+its ``/``-joined path (``conv1/w``), shape and logical axes in the
+reference's layout (conv ``(kh, kw, cin, cout)``, dense ``(din, dout)``)
+-- with the port's name and the permutation from one layout to the other,
+for the LoRA mapping table (``models/lora.py``).
+
 Training code calls the model functionally, ``model.apply(params, x,
 keep=...)`` with ``params`` a dict keyed like ``state_dict()``.  Dropout
 takes its keep-masks from the caller, one boolean mask per dropout site in
@@ -26,6 +32,7 @@ lists each site's ``(shape, rate)``, so the draws can be injected.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import torch
 import torch.nn as nn
@@ -33,6 +40,33 @@ import torch.nn.functional as F
 
 Params = dict[str, torch.Tensor]
 Site = tuple[tuple[int, ...], float]
+
+
+@dataclass(frozen=True)
+class ParamSpec:
+    """One parameter as the reference declares it: ``shape`` and logical
+    ``axes`` in the reference's layout, the port's parameter ``names`` it
+    covers (one), and ``perm``, the permutation taking the reference
+    layout to the port's (``None``: the same layout)."""
+    shape: tuple[int, ...]
+    axes: tuple[str, ...]
+    names: tuple[str, ...]
+    perm: tuple[int, ...] | None = None
+
+
+def _conv_specs(name: str, kh: int, kw: int, cin: int, cout: int) -> dict:
+    """A conv layer: HWIO ``w`` is the port's OIHW ``.weight``."""
+    return {f"{name}/w": ParamSpec((kh, kw, cin, cout), ("conv", "conv", "conv_in", "mlp"),
+                                   (f"{name}.weight",), (3, 2, 0, 1)),
+            f"{name}/b": ParamSpec((cout,), ("mlp",), (f"{name}.bias",))}
+
+
+def _dense_specs(name: str, din: int, dout: int, out_axis: str = "mlp") -> dict:
+    """A dense layer: ``(din, dout)`` ``w`` is the transpose of the port's
+    ``nn.Linear`` ``.weight``."""
+    return {f"{name}/w": ParamSpec((din, dout), ("embed", out_axis), (f"{name}.weight",),
+                                   (1, 0)),
+            f"{name}/b": ParamSpec((dout,), (out_axis,), (f"{name}.bias",))}
 
 
 def _shapes(h: int) -> tuple[int, int, int]:
@@ -62,6 +96,13 @@ class EmnistCNN(nn.Module):
         self.conv3 = nn.Conv2d(18, 24, 2, stride=1)
         self.dense1 = nn.Linear(h3 * h3 * 24, 150)
         self.out = nn.Linear(150, num_classes)
+
+    def param_specs(self) -> dict[str, ParamSpec]:
+        """The reference's ``emnist_cnn(...).param_specs()``, flat by path."""
+        flat = self.dense1.in_features
+        return {**_conv_specs("conv1", 5, 5, 1, 12), **_conv_specs("conv2", 3, 3, 12, 18),
+                **_conv_specs("conv3", 2, 2, 18, 24), **_dense_specs("dense1", flat, 150),
+                **_dense_specs("out", 150, self.num_classes, out_axis="vocab")}
 
     DROPOUT_RATES = (0.5, 0.5)
 
@@ -115,6 +156,14 @@ class CinicCNN(nn.Module):
         self.conv2b = nn.Conv2d(w2, w2, 3, padding=1)
         self.dense1 = nn.Linear(self._pooled[1] ** 2 * w2, hidden)
         self.out = nn.Linear(hidden, num_classes)
+
+    def param_specs(self) -> dict[str, ParamSpec]:
+        """The reference's ``cinic_cnn(...).param_specs()``, flat by path."""
+        (w1, w2, hidden), cin = self._widths, self.conv1a.in_channels
+        return {**_conv_specs("conv1a", 3, 3, cin, w1), **_conv_specs("conv1b", 3, 3, w1, w1),
+                **_conv_specs("conv2a", 3, 3, w1, w2), **_conv_specs("conv2b", 3, 3, w2, w2),
+                **_dense_specs("dense1", self.dense1.in_features, hidden),
+                **_dense_specs("out", hidden, self.num_classes, out_axis="vocab")}
 
     DROPOUT_RATES = (0.25, 0.25, 0.5)
 

@@ -19,10 +19,18 @@ initialized, merged and costed:
 
 The adapter trees keep the reference's layout, so the WAN bytes equal the
 reference's by construction: flat dicts keyed by the ``/``-joined path of
-the reference's parameter pytree (``layers/attn/wq``), in its sorted order,
-with the stacked ``layers`` axis as the batch axis (``A (L, d, r)``, ``B
-(L, r, h)``).  The port's weights are one module per layer
-(``layers.3.attn.wq``); ``merge_params`` maps between the two.
+the reference's parameter pytree (``layers/attn/wq``, ``conv1/w``), in its
+sorted order, with leading ``BATCH_AXES`` batching the factorization
+(``A (L, d, r)``, ``B (L, r, h)``) and each tensor in the reference's
+layout (a conv ``(kh, kw, cin, cout)``, a dense ``(din, dout)``).  Where
+the port's weights differ -- one module per layer (``layers.3.attn.wq``),
+a conv's ``(cout, cin, kh, kw)``, an ``nn.Linear``'s ``(dout, din)`` --
+the model's ``param_specs`` say how: each spec gives the port's parameter
+names it covers (one per batch slice) and the permutation from the
+reference's layout to the port's.  ``merge_params`` forms each update in
+the reference's layout, then slices and permutes it onto the port's
+weights; a dense entry's state stays in the reference's layout.
+``MergedModel`` trains a model through the adapter state.
 """
 from __future__ import annotations
 
@@ -35,19 +43,24 @@ import torch
 # the seed the launchers derive the frozen-A stream from (the reference
 # folds the same salt into its key)
 A_SALT = 0x10AA
+# leading logical axes that batch the factorization instead of folding
+# into din (stacked decoder layers; the reference's MoE experts)
+BATCH_AXES = ("layers", "expert")
 
 
 def path_of(spec_name: str) -> str:
     """``param_specs`` name (``layers.attn.wq``) -> mapping path
-    (``layers/attn/wq``)."""
+    (``layers/attn/wq``); a path (``conv1/w``) stays as it is."""
     return spec_name.replace(".", "/")
 
 
 @dataclass(frozen=True)
 class LoraEntry:
-    """One mapping-table row: how tensor ``path`` is adapted."""
+    """One mapping-table row: how tensor ``path`` is adapted, and which of
+    the port's parameters it covers (``names``, one per batch slice) in
+    which layout (``perm`` takes the reference's to the port's)."""
     path: str
-    shape: tuple            # full backbone tensor shape (stacked layers)
+    shape: tuple            # full backbone tensor shape (the reference's)
     batch_shape: tuple      # leading batch dims
     batch_axes: tuple       # their axis names
     din: int                # prod(non-batch dims except the last); 0 for 1-D
@@ -55,6 +68,8 @@ class LoraEntry:
     rank: int
     alpha: float
     kind: str               # "factorized" | "dense"
+    names: tuple = ()       # the port's parameter names
+    perm: tuple | None = None
 
     @property
     def state_shape(self) -> tuple:
@@ -73,27 +88,29 @@ class LoraEntry:
         return math.prod(self.state_shape)
 
 
-def _split(name: str, shape: tuple) -> tuple[tuple, tuple, tuple]:
-    """(batch axes, batch shape, rest) of a spec: a stacked layer weight
-    batches over its leading ``layers`` axis (the reference also batches
-    over MoE experts, a family the port does not run)."""
-    if name.startswith("layers."):
-        return ("layers",), tuple(shape[:1]), tuple(shape[1:])
-    return (), (), tuple(shape)
+def _split(spec) -> tuple[tuple, tuple, tuple]:
+    """(batch axes, batch shape, rest) of a spec: its leading axes named in
+    ``BATCH_AXES`` batch the factorization."""
+    nb = 0
+    while nb < len(spec.axes) and spec.axes[nb] in BATCH_AXES:
+        nb += 1
+    shape = tuple(spec.shape)
+    return tuple(spec.axes[:nb]), shape[:nb], shape[nb:]
 
 
 def build_mapping(specs: dict, rank: int, alpha: float | None = None
                   ) -> dict[str, LoraEntry]:
-    """Adapter mapping table from ``transformer.param_specs``.  ``alpha=None``
-    is ``alpha=rank`` (merge scale 1); ``rank=0`` is the empty mapping."""
+    """Adapter mapping table from a model's ``param_specs`` (each spec with
+    ``shape``, ``axes``, ``names`` and ``perm``).  ``alpha=None`` is
+    ``alpha=rank`` (merge scale 1); ``rank=0`` is the empty mapping."""
     if rank < 0:
         raise ValueError(f"lora rank must be >= 0, got {rank}")
     if rank == 0:
         return {}
     mapping: dict[str, LoraEntry] = {}
     for name in sorted(specs, key=path_of):
-        shape = tuple(specs[name].shape)
-        batch_axes, batch_shape, rest = _split(name, shape)
+        spec = specs[name]
+        batch_axes, batch_shape, rest = _split(spec)
         dout = int(rest[-1]) if rest else 0
         din = math.prod(rest[:-1]) if len(rest) > 1 else 0
         if len(rest) < 2 or rank >= min(din, dout):
@@ -102,9 +119,10 @@ def build_mapping(specs: dict, rank: int, alpha: float | None = None
             kind, r_eff = "factorized", rank
         path = path_of(name)
         mapping[path] = LoraEntry(
-            path=path, shape=shape, batch_shape=batch_shape, batch_axes=batch_axes,
-            din=din, dout=dout, rank=r_eff,
-            alpha=float(alpha) if alpha is not None else float(rank), kind=kind)
+            path=path, shape=tuple(spec.shape), batch_shape=batch_shape,
+            batch_axes=batch_axes, din=din, dout=dout, rank=r_eff,
+            alpha=float(alpha) if alpha is not None else float(rank), kind=kind,
+            names=tuple(spec.names), perm=spec.perm)
     return mapping
 
 
@@ -112,21 +130,26 @@ def full_rank(specs: dict) -> int:
     """Smallest rank at which every entry is dense (the full-delta round,
     bit for bit)."""
     need = 1
-    for name, spec in specs.items():
-        _, _, rest = _split(name, tuple(spec.shape))
+    for spec in specs.values():
+        _, _, rest = _split(spec)
         if len(rest) >= 2:
             need = max(need, min(math.prod(rest[:-1]), int(rest[-1])))
     return need
 
 
-def _layer_names(e: LoraEntry) -> list[str]:
-    """The port's parameter names an entry covers: one per stacked layer,
-    or the one top-level tensor."""
-    name = e.path.replace("/", ".")
-    if not e.batch_shape:
-        return [name]
-    rest = name[len("layers."):]
-    return [f"layers.{i}.{rest}" for i in range(e.batch_shape[0])]
+def _to_port(t: torch.Tensor, perm) -> torch.Tensor:
+    """A slice in the reference's layout, in the port's."""
+    return t if perm is None else t.permute(perm).contiguous()
+
+
+def _to_reference(t: torch.Tensor, perm) -> torch.Tensor:
+    """A port weight in the reference's layout."""
+    if perm is None:
+        return t
+    inverse = [0] * len(perm)
+    for i, p in enumerate(perm):
+        inverse[p] = i
+    return t.permute(inverse).contiguous()
 
 
 def init_adapter_A(seed: int, mapping: dict[str, LoraEntry], device=None) -> dict:
@@ -150,19 +173,19 @@ def init_adapter_A(seed: int, mapping: dict[str, LoraEntry], device=None) -> dic
 def init_adapter_state(mapping: dict[str, LoraEntry],
                        backbone: dict[str, torch.Tensor]) -> dict:
     """Round-0 adapter state: zero fp32 ``B`` for factorized entries, a copy
-    of the backbone value (stacked over layers) for dense ones."""
+    of the backbone value (stacked over the batch slices, in the
+    reference's layout) for dense ones."""
     out = {}
     for path, e in mapping.items():
         if e.kind == "dense":
-            names = _layer_names(e)
-            missing = [n for n in names if n not in backbone]
+            missing = [n for n in e.names if n not in backbone]
             if missing:
                 raise KeyError(f"mapping entry {path!r} not found in the backbone "
                                f"({missing[0]!r})")
-            out[path] = torch.stack([backbone[n] for n in names]) if e.batch_shape \
-                else backbone[names[0]].clone()
+            parts = [_to_reference(backbone[n], e.perm) for n in e.names]
+            out[path] = torch.stack(parts) if e.batch_shape else parts[0].clone()
         else:
-            dev = backbone[_layer_names(e)[0]].device
+            dev = backbone[e.names[0]].device
             out[path] = torch.zeros(e.state_shape, dtype=torch.float32, device=dev)
     return out
 
@@ -170,26 +193,64 @@ def init_adapter_state(mapping: dict[str, LoraEntry],
 def merge_params(backbone: dict[str, torch.Tensor], a_tree: dict, state: dict,
                  mapping: dict[str, LoraEntry]) -> dict[str, torch.Tensor]:
     """Effective weights, keyed like ``backbone`` (the port's parameter
-    names): dense entries pass the state through (layer ``i``'s slice of a
+    names): dense entries pass the state through (batch slice ``i`` of a
     stacked entry), factorized ones add the scaled ``A @ B`` in fp32 and
-    cast back to the backbone's dtype; tensors with no entry stay frozen.
-    Differentiable in ``state``."""
+    cast back to the backbone's dtype; each slice is permuted into the
+    port's layout; tensors with no entry stay frozen.  Differentiable in
+    ``state``."""
     out = dict(backbone)
     for path, e in mapping.items():
-        names = _layer_names(e)
         if e.kind == "dense":
             full = state[path]
         else:
             full = (e.alpha / e.rank) * torch.matmul(a_tree[path], state[path]).reshape(e.shape)
-        # one layer's slice each: ``unbind``, whose gradient stacks the
+        # one batch slice each: ``unbind``, whose gradient stacks the
         # slices' in one op (indexing would scatter each into a zero copy
         # of the whole stacked tensor)
         parts = full.unbind(0) if e.batch_shape else (full,)
-        for n, part in zip(names, parts):
-            w = backbone[n]
+        for n, part in zip(e.names, parts):
+            w, part = backbone[n], _to_port(part, e.perm)
             out[n] = part.to(w.dtype) if e.kind == "dense" \
                 else (w.to(torch.float32) + part).to(w.dtype)
     return out
+
+
+def flat_layout(mapping: dict[str, LoraEntry], state: dict, backbone: dict):
+    """The flat row buffer's layout (``kernels.ops.FlatLayout``) over an
+    adapter ``state``: each entry at the place of the port weight it covers
+    (the ``backbone``'s order), a dense entry stored in the port's layout.
+    At full rank every column then lies where the full-delta round's does,
+    so Eq. 6 -- even a plain version whose sum depends on a column's
+    position, as a vectorized ``sum(0)``'s last columns do -- gives the
+    same bits."""
+    from repro_torch.kernels.ops import FlatLayout
+    where = {n: i for i, n in enumerate(backbone)}
+    order = sorted(state, key=lambda p: where[mapping[p].names[0]])
+    return FlatLayout({p: state[p] for p in order},
+                      {p: e.perm for p, e in mapping.items()
+                       if e.kind == "dense" and e.perm is not None})
+
+
+class MergedModel:
+    """``model`` trained through a LoRA adapter state: ``apply(state, ...)``
+    merges ``state`` into the frozen ``backbone`` with the frozen A bases
+    (``merge_params``) and applies ``model`` to the merged weights -- the
+    reference's ``dc_replace(model, apply=...merge_params...)``.  Every
+    other attribute is the model's."""
+
+    def __init__(self, model, backbone: dict, a_tree: dict,
+                 mapping: dict[str, LoraEntry]):
+        self.model, self.backbone, self.a_tree, self.mapping = \
+            model, backbone, a_tree, mapping
+
+    def apply(self, state: dict, *args, **kwargs):
+        return self.model.apply(merge_params(self.backbone, self.a_tree, state,
+                                             self.mapping), *args, **kwargs)
+
+    def __getattr__(self, name):
+        if "model" not in self.__dict__:        # mid-copy: not built yet
+            raise AttributeError(name)
+        return getattr(self.model, name)
 
 
 def exchange_nbytes(mapping: dict[str, LoraEntry], bytes_per_param: int = 4) -> int:

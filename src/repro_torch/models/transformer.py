@@ -32,7 +32,7 @@ the prompt length.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 import torch.nn as nn
@@ -43,9 +43,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm as ssm_lib
 
 _NOT_PORTED = {
-    "moe": "ROADMAP Queue 1 item 3: the MoE family (granite, grok)",
-    "audio": "ROADMAP Queue 1 item 3: the audio family (whisper)",
-    "vlm": "ROADMAP Queue 1 item 3: the VLM family (internvl2)",
+    "moe": "ROADMAP Queue 1, \"The rest of the zoo, served\": the MoE family (granite, grok)",
+    "audio": "ROADMAP Queue 1, \"The rest of the zoo, served\": the audio family (whisper)",
+    "vlm": "ROADMAP Queue 1, \"The rest of the zoo, served\": the VLM family (internvl2)",
 }
 
 
@@ -66,10 +66,16 @@ def _check_ported(cfg: ArchConfig) -> None:
 class Spec:
     """One parameter: its shape as the reference declares it (layer weights
     with the leading stacked ``layers`` axis), its init scale (``None``:
-    fan-in) and dtype."""
+    fan-in) and dtype; for the LoRA mapping table (``models/lora.py``) its
+    leading batch ``axes`` (``("layers",)`` for a stacked weight) and the
+    port's parameter ``names`` it covers, one a layer.  Layouts are the
+    reference's (``perm`` None)."""
     shape: tuple[int, ...]
     scale: float | None
     dtype: torch.dtype
+    axes: tuple[str, ...] = ()
+    names: tuple[str, ...] = ()
+    perm = None
 
 
 def _attn_specs(cfg: ArchConfig, n: int, dt) -> dict[str, Spec]:
@@ -124,7 +130,10 @@ def param_specs(cfg: ArchConfig) -> dict[str, Spec]:
         lay.update({"mlp.w_gate": Spec((n, d, f), None, dt),
                     "mlp.w_up": Spec((n, d, f), None, dt),
                     "mlp.w_down": Spec((n, f, d), None, dt)})
-    specs.update({f"layers.{k}": v for k, v in lay.items()})
+    specs = {k: replace(v, names=(k,)) for k, v in specs.items()}
+    specs.update({f"layers.{k}": replace(v, axes=("layers",),
+                                         names=tuple(f"layers.{i}.{k}" for i in range(n)))
+                  for k, v in lay.items()})
     return specs
 
 

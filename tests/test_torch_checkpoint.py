@@ -183,9 +183,10 @@ def _federation():
                      seed=0)
 
 
-def _trainer(kind, fed, row_exec="vmap"):
+def _trainer(kind, fed, row_exec="vmap", **lora):
     common = dict(clients_per_round=8, local=LocalSpec(10, 1), seed=0, device="cpu",
-                  init_params=init_params(emnist_cnn(8, 16), 0), row_exec=row_exec)
+                  init_params=init_params(emnist_cnn(8, 16), 0), row_exec=row_exec,
+                  **lora)
     if kind == "fedavg":
         return FedAvgTrainer(emnist_cnn(8, 16), adam(1e-3), fed, **common)
     return AstraeaTrainer(emnist_cnn(8, 16), adam(1e-3), fed, gamma=4, alpha=0.67,
@@ -219,6 +220,49 @@ def test_trainer_round_trip(tmp_path, kind):
         fresh.run_round()
         assert all(torch.equal(fresh.params[k], tr.params[k]) for k in tr.params)
         assert fresh.comm.total_bytes == tr.comm.total_bytes
+
+
+@pytest.mark.parametrize("kind", ["astraea", "fedavg"])
+def test_lora_trainer_round_trip(tmp_path, kind):
+    """Under LoRA the params are the frozen backbone: the file also holds
+    the adapter state and the A bases, and a fresh trainer (its A zeroed
+    first) gets both back bit for bit, so its merged weights and, for
+    Astraea, its next round equal the uninterrupted trainer's.  The
+    reference reads the file's params.  A LoRA file in a full-delta
+    trainer, and a full-delta file in a LoRA trainer, raise."""
+    fed = _federation()
+    tr = _trainer(kind, fed, lora_rank=2)
+    tr.fit(2, eval_every=2)
+    eng = tr.engine
+    assert any(bool(v.abs().sum()) for k, v in eng.adapters.items()
+               if k.endswith("dense1/w"))    # the rounds moved the state
+    path = str(tmp_path / "lora.ckpt")
+    save_trainer(path, tr)
+    ref = jckpt.load_pytree(path)
+    want = params_to_jax(tr.params)
+    assert all(np.asarray(ref["params"][l][k]).tobytes() == want[l][k].tobytes()
+               for l in want for k in want[l])
+    fresh = _trainer(kind, fed, lora_rank=2)
+    fresh.engine.load_lora_a({k: torch.zeros_like(v)
+                              for k, v in fresh.engine.lora_args()[1].items()})
+    load_trainer(path, fresh)
+    assert fresh._round == 2 and fresh.comm.total_bytes == tr.comm.total_bytes
+    for got, exp in ((fresh.engine.adapters, eng.adapters),
+                     (fresh.engine.lora_args()[1], eng.lora_args()[1]),
+                     (fresh.params, tr.params),
+                     (fresh.engine.merged_params(), eng.merged_params())):
+        assert set(got) == set(exp) and all(torch.equal(got[k], exp[k]) for k in exp)
+    if kind == "astraea":
+        tr.run_round()
+        fresh.run_round()
+        assert all(torch.equal(fresh.engine.adapters[k], eng.adapters[k])
+                   for k in eng.adapters)
+    with pytest.raises(ValueError, match="disagree on LoRA"):
+        load_trainer(path, _trainer(kind, fed))
+    full = str(tmp_path / "full.ckpt")
+    save_trainer(full, _trainer(kind, fed))
+    with pytest.raises(ValueError, match="disagree on LoRA"):
+        load_trainer(full, _trainer(kind, fed, lora_rank=2))
 
 
 def test_reference_trainer_file_loads_in_port(tmp_path):

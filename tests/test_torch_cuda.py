@@ -1045,6 +1045,131 @@ def test_checkpoint_round_trip_on_card(dev, tmp_path):
                                                                    tree["b"][0].cpu())
 
 
+# ---------------------------------------------------------------- LoRA rounds and telemetry
+
+@pytest.fixture
+def deterministic_convolutions():
+    """cuDNN's deterministic algorithms for runs held to each other bit for
+    bit (its default ones are not deterministic at every width)."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = before
+
+
+def _emnist_full_trainer(dev, row_exec, **kw):
+    """Astraea at ``chip_smoke.py``'s EMNIST arm: ``emnist_cnn(47, 28)``
+    (68,873 parameters), 64 clients, c=16, gamma=4, B=20, E=2, Adam 1e-3,
+    alpha=0.67 online, seed 0."""
+    from repro_torch.core import AstraeaTrainer, LocalSpec
+    from repro_torch.data.federated import EMNIST_LIKE, partition
+    from repro_torch.models.cnn import emnist_cnn
+    from repro_torch.optim import adam
+    fed = partition(dataclasses.replace(EMNIST_LIKE, num_classes=47), num_clients=64,
+                    total_samples=6400, test_samples=2350, sizes="instagram",
+                    global_dist="letterfreq", local="random", seed=0)
+    return AstraeaTrainer(emnist_cnn(47, 28), adam(1e-3), fed, clients_per_round=16,
+                          gamma=4, local=LocalSpec(20, 2), alpha=0.67, seed=0, device=dev,
+                          row_exec=row_exec, **kw)
+
+
+@pytest.mark.cuda
+def test_lora_vmap_round_equals_map_round_at_emnist_width(dev, plain_convolutions):
+    """A rank-2 round at EMNIST's full width (753 adapter values): under
+    "vmap" one program, captured once, with one Eq. 6 launch over the
+    adapter rows; within 1e-4 of the same round row by row, eagerly, both
+    through ATen's convolutions."""
+    runs = {}
+    for row_exec in ("map", "vmap"):
+        tr = _emnist_full_trainer(dev, row_exec, lora_rank=2)
+        ops.reset_launches()
+        tr.run_round()
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["fedavg_agg"] == 1
+        runs[row_exec] = tr
+    m, v = runs["map"].engine, runs["vmap"].engine
+    assert v._program.graph is not None and v.num_round_traces == 1
+    assert v._layout.total == 753 and v._rows.shape == (4, 753)
+    assert m.comm.round_log == v.comm.round_log
+    err = max(float((m.adapters[k] - v.adapters[k]).abs().max()) for k in m.adapters)
+    assert err <= 1e-4, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row_exec", ["vmap", "map"])
+@pytest.mark.parametrize("kind", ["fedavg", "astraea"])
+def test_lora_full_rank_is_the_full_delta_round_on_card(dev, deterministic_convolutions,
+                                                        kind, row_exec):
+    """At full rank (24 for the small EMNIST model) every entry is dense:
+    two rounds give the full-delta run's weights bit for bit on the card
+    (Eq. 6's kernel over the adapter layout's columns; the same cuDNN
+    settings for both)."""
+    from repro_torch.models import lora
+    from repro_torch.models.cnn import emnist_cnn
+    full = lora.full_rank(emnist_cnn(8, 16).param_specs())
+    ref_tr = _small_trainer(dev, False, kind, row_exec)
+    tr = _small_trainer(dev, False, kind, row_exec, lora_rank=full)
+    for _ in range(2):
+        ref_tr.run_round()
+        tr.run_round()
+    merged = tr.engine.merged_params()
+    assert all(torch.equal(merged[k], ref_tr.params[k]) for k in ref_tr.params)
+    assert tr.comm.adapter_reduction_ratio == 1.0
+    assert tr.comm.round_log == ref_tr.comm.round_log
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row_exec", ["vmap", "map"])
+def test_lora_rank0_launches_no_eq6(dev, row_exec):
+    """Rank 0: the rounds run (the "vmap" program captured over an empty
+    trained tree), launch no Eq. 6 kernel, and leave the backbone
+    untouched; no WAN leg carries a byte (the ledger holds the Alg. 2 plan
+    broadcast alone)."""
+    tr = _small_trainer(dev, False, "astraea", row_exec, lora_rank=0)
+    before = {k: v.clone() for k, v in tr.params.items()}
+    plan = tr.comm.total_bytes
+    ops.reset_launches()
+    for _ in range(2):
+        tr.run_round()
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fedavg_agg"] == 0 and ops.LAUNCHES["affine_warp"] == 2
+    assert tr.engine.adapters == {} and tr.comm.wan_adapter_bytes == 0
+    assert plan > 0 and tr.comm.round_log == [plan, plan]
+    assert tr.comm.adapter_reduction_ratio == 0.0
+    assert all(torch.equal(before[k], tr.params[k]) for k in before)
+    if row_exec == "vmap":
+        assert tr.engine.num_round_traces == 1 and tr.engine._program.graph is not None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lora_rank", [None, 2])
+@pytest.mark.parametrize("async_bound", [None, 0])
+def test_telemetry_on_card_adds_no_capture(dev, deterministic_convolutions, tmp_path,
+                                           async_bound, lora_rank):
+    """Spans (waiting on the card at their close) on against off, sync and
+    async S=0: bit for bit the same trained state, the same round
+    programs, each captured once; the events valid."""
+    from repro_torch.core import AsyncSpec
+    from repro_torch.obs import Telemetry, load_jsonl, validate_events
+    kw = {"lora_rank": lora_rank}
+    if async_bound is not None:
+        kw["async_spec"] = AsyncSpec(staleness_bound=async_bound, wave_size=1,
+                                     straggler=_fleet())
+    off = _small_trainer(dev, False, "astraea", "vmap", **kw)
+    tel = Telemetry(str(tmp_path), profile=True)
+    on = _small_trainer(dev, False, "astraea", "vmap", telemetry=tel, **kw)
+    for _ in range(2):
+        off.run_round()
+        on.run_round()
+    a, b = off.engine.server_state, on.engine.server_state
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert off.engine.num_round_traces == on.engine.num_round_traces == 1
+    assert [t["reason"] for t in on.engine.trace_log] == ["initial"]
+    events = load_jsonl(tel.flush()["events_jsonl"])
+    validate_events(events)
+    assert sum(e["name"] == "round" for e in events) == 2
+
+
 # ---------------------------------------------------------------- training
 
 # (b, sq, skv, H, KV, d, causal, window, q_offset): the reduced configs'

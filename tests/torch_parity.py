@@ -491,6 +491,85 @@ def reference_async(jmodel, params, fed, *, kind: str, clients: int, batch: int,
     return params, comm, log
 
 
+def reference_lora(jmodel, params, fed, *, kind: str, clients: int, batch: int,
+                   epochs: int, rounds: int, seed: int, rank: int, opt,
+                   gamma: int = 1, mediator_epochs: int = 1,
+                   alpha: float | None = None, out: dict | None = None):
+    """The reference engine's LoRA adapter exchange (``repro/core/engine.py``
+    with ``lora_rank``, no Alg. 2 plan) as a mesh-free loop: the mapping
+    of ``repro.models.lora.build_mapping(jmodel.param_specs(), rank,
+    alpha)``, the frozen A of ``init_adapter_A(fold_in(PRNGKey(seed),
+    A_SALT))`` and the round-0 state of ``init_adapter_state``; the
+    reference's ``make_mediator_update`` (``kind="astraea"``, Alg. 3 once)
+    or ``make_client_update`` (``kind="fedavg"``, a fresh selection every
+    round) train the state through a model whose ``apply`` merges it into
+    the backbone (``merge_params``, as the engine's ``dc_replace``); Eq. 6
+    over the rows, folded as the engine's ``_fold`` (``state + agg`` or
+    ``agg``); ``CommMeter`` with the adapter payload.  Returns ``(state,
+    a_tree, mapping, comm, merged)``, ``merged`` the final merged
+    weights; ``out``, if given, receives ``states``, the state before
+    round 0 and after each round."""
+    import dataclasses
+
+    from repro.models import lora as jlora
+    mapping = jlora.build_mapping(jmodel.param_specs(), rank, alpha)
+    a_tree = jlora.init_adapter_A(
+        jax.random.fold_in(jax.random.PRNGKey(seed), jlora.A_SALT), mapping)
+    backbone = jax.tree.map(jnp.asarray, params)
+    state = jlora.init_adapter_state(mapping, backbone)
+    merged_model = dataclasses.replace(jmodel, apply=lambda tp, x, **kw: jmodel.apply(
+        jlora.merge_params(backbone, a_tree, tp, mapping), x, **kw))
+    local = jfl.LocalSpec(batch, epochs)
+    if kind == "astraea":
+        update = jax.jit(make_mediator_update(merged_model, opt, local, mediator_epochs))
+    else:
+        update = jax.jit(jfl.make_client_update(merged_model, opt, local))
+    pad = padded_size(fed, batch)
+    xs, ys, mask = fed.padded(pad)
+    raw = fed.client_counts()
+    rng = np.random.default_rng(seed)
+    comm = JCommMeter(jcnn.count_params(params))
+    comm.adapter_payload_bytes = jlora.exchange_nbytes(mapping, comm.bytes_per_param)
+    states = [state]
+    for rnd in range(rounds):
+        if kind == "fedavg" or rnd == 0:
+            sel = rng.choice(fed.num_clients, size=clients, replace=False)
+            if kind == "astraea":
+                meds = jsched.reschedule(raw[sel].astype(np.float64), gamma, impl="batched")
+                groups = [[int(sel[i]) for i in m.clients] for m in meds]
+            else:
+                groups = [[int(k)] for k in sel]
+        keys = _round_keys(seed, rnd, len(groups))
+        outs, weights = [], []
+        for r, g in enumerate(groups):
+            if kind == "astraea":
+                idx = np.zeros(gamma, np.int64)
+                slot = np.zeros(gamma, np.float32)
+                idx[:len(g)], slot[:len(g)] = g, 1.0
+                m = mask[idx] * slot[:, None]
+                outs.append(update(state, xs[idx], ys[idx], m, keys[r]))
+            else:
+                m = mask[g[0]]
+                outs.append(update(state, xs[g[0]], ys[g[0]], m, keys[r]))
+            weights.append(jnp.float32(m.sum()))
+        if not state:
+            pass                            # rank 0: nothing to average
+        elif kind == "astraea":
+            state = _fold_deltas(state, outs, weights)
+        else:
+            state = _stack_average(outs, weights)
+        if kind == "astraea":
+            comm.astraea_round(clients, gamma, mediator_epochs)
+        else:
+            comm.fedavg_round(clients)
+        comm.end_round()
+        states.append(state)
+    if out is not None:
+        out["states"] = states
+    merged = jlora.merge_params(backbone, a_tree, state, mapping)
+    return state, a_tree, mapping, comm, merged
+
+
 def adapter_tree_to_jax(tree: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
     """Inverse of ``repro_torch.convert.adapter_tree_from_jax``: the port's
     flat ``{path: tensor}`` LoRA tree as the reference's numpy leaves;
