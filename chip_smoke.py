@@ -44,9 +44,12 @@ Phases, each fatal on failure:
    992.600 MiB; the same ``"map"`` rounds and profiles; then one
    materialized-Alg. 2 Astraea round (its warp launches and extra
    storage);
-8. serving agreement: a reduced Hymba (GQA 4:2) and a reduced gemma at its
-   full head dim of 256 (f32 weights from one seed) prefilled and decoded
-   on the card against the same runs on the CPU;
+8. serving agreement: a reduced Hymba (GQA 4:2), a reduced gemma at its
+   full head dim of 256, and the reduced granite-moe-3b-a800m (MoE),
+   whisper-base (audio; LayerNorm scales set to 1) and internvl2-1b (VLM)
+   with their weights at the standard fan-in (f32 weights from one seed;
+   stub vision or frame embeddings from another) prefilled and decoded on
+   the card against the same runs on the CPU;
 9. serving paths: ``repro_torch.launch.serve.serve`` at full width (bf16,
    weights from seed 0), one model at a time, with the launch counts reset
    just before each and read just after (``SERVE_RUNS``): hymba-1.5b
@@ -55,14 +58,21 @@ Phases, each fatal on failure:
    256), batch 4, a 2,048-token prompt and 16 new tokens; qwen3-4b
    (4,022,468,096; 36 flash at 128), h2o-danube-1.8b (1,831,201,280; 24
    flash at 80, window 4096) and mamba2-370m (368,338,432; 48 SSD at state
-   128), batch 1, a 512-token prompt and 4 new tokens.  No kernel launches
-   in decode; every logit must be finite.  Each model is built once; after
-   its run it serves one warm prefill and 4 decode steps under
+   128), batch 1, a 512-token prompt and 4 new tokens; granite-moe-3b-a800m
+   (3,298,793,472; 32 flash, 40 experts top 8) at batch 4 x 2,048 + 16,
+   internvl2-1b (493,780,992; 24 flash at GQA 14:2) at batch 4 x (256 stub
+   vision tokens + 1,792 text) + 16, whisper-base (73,542,144; 18 flash: 6
+   encoder, non-causal over 1,536 stub frames, 6 decoder and 6
+   cross-attention; its LayerNorm scales set to 1 after init, as the
+   reference's init zeroes them and with them every output) at batch 4 x
+   256 + 16.  No kernel launches in decode but whisper's 6 cross-attention
+   flash launches a step; every logit must be finite.  Each model is built
+   once; after its run it serves one warm prefill and 4 decode steps under
    ``torch.profiler``: device busy time, idle share, flash attention's and
    SSD's share of the prefill and the top kernels of each.  No backward
    kernel launches.  Every kernel signature (shape, dtype, mask) the run
    called and phase 3 did not hold (``recorded_kernel_calls``) is then held
-   against its plain version.
+   against its plain version.  A table of the runs follows.
 
 10. async rounds, client stores and checkpoints, at phase 5's EMNIST arm
     (Astraea, 3 rounds a run, launch counts reset before each run and read
@@ -162,7 +172,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # kernel-times script
 from repro_torch.examples.kernel_times import (bound, flash_bound,  # noqa: E402
                                                flash_bwd_bound, greedy_bound,
-                                               score_bound, sdpa_backward,
+                                               score_bound, sdpa_backward, sdpa_mask,
                                                ssd_bound, ssd_bwd_bound,
                                                ssd_bwd_inputs, ssd_bwd_split_bound,
                                                ssd_inputs)
@@ -436,20 +446,23 @@ def check_flash(dev, gen, *, b, sq, skv, h, kv, d, dtype, window, q_offset=0,
     pairs = int(mask.sum()) * b * h                  # visible (query, key) pairs
     b_ms, by = flash_bound(q, k, mask)
     # yardstick: SDPA in its (b, H, s, d) layout with the same boolean mask
-    # and the KV heads repeated, prepared outside the timed call
+    # (none where every key is seen) and the KV heads repeated, prepared
+    # outside the timed call
     qt = q.transpose(1, 2).contiguous()
     kt = k.repeat_interleave(h // kv, dim=2).transpose(1, 2).contiguous()
     vt = v.repeat_interleave(h // kv, dim=2).transpose(1, 2).contiguous()
-    sdpa = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask).transpose(1, 2)
+    lib_mask = sdpa_mask(mask)
+    sdpa = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=lib_mask).transpose(1, 2)
     row = timed({"shape": f"b={b} sq={sq} skv={skv} H={h} KV={kv} d={d} "
-                          f"W={window} off={q_offset} {_dname(dtype)}",
+                          f"W={window} off={q_offset}" + ("" if causal else " non-causal")
+                          + f" {_dname(dtype)}",
                  "max_abs_err": err, "tol": tol, **extra, "pairs": pairs,
                  "sdpa_err": float((sdpa.double() - plain.double()).abs().max()),
                  "bound_ms": b_ms, "bound_by": by},
                 ms=(lambda: ops.flash_attention(q, k, v, **kw), 50.0),
                 plain_ms=(lambda: ref.flash_attention(q, k, v, **kw), 50.0),
                 library_ms=(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask), 50.0))
+                    qt, kt, vt, attn_mask=lib_mask), 50.0))
     if dtype == torch.bfloat16:
         # what writing the backward's lse costs (the training path asks for
         # it; serving does not)
@@ -1252,30 +1265,71 @@ def materialized_round(fed, dev):
             "accuracy": m["accuracy"], "loss": m["loss"]}
 
 
-def serve_agreement(dev, cfg):
-    """A reduced model, f32 weights from one seed: prefill of a prompt of 2W
-    (window mask and ring wrap; 128 without a window) and 8 teacher-forced
-    decode steps on the card against the CPU's plain versions.  Tolerance
-    2e-4 of the logit scale: fp32 sums in other orders (cuBLAS, the
-    kernels) amplified by the reference init's large activations, as in
-    tests/test_torch_serve.py."""
+def ln_scales_to_one(model) -> int:
+    """Set every LayerNorm scale of ``model`` to 1 and return how many
+    there are.  The reference's init zeroes them and its LayerNorm
+    multiplies by the scale itself, so at init every LayerNorm output (and
+    logit) of an ``norm="ln"`` model is 0."""
+    n = 0
+    for name, p in model.named_parameters():
+        if name.rsplit(".", 1)[-1] in ("norm1", "norm2", "norm_x", "final_norm",
+                                       "enc_final_norm"):
+            p.fill_(1.0)
+            n += 1
+    return n
+
+
+def to_fan_in(model) -> None:
+    """Rescale every stacked layer matrix of ``model`` from the reference
+    init's ``1/sqrt(layers)`` to the standard ``1/sqrt(d_in)``.  At the
+    reference's scale the reduced whisper's and granite's decode logits are
+    ill-conditioned: a 1e-7 relative perturbation of the weights moves them
+    by up to 4.2e-3 and 4.8e-4 of their scale on the CPU alone (1.7e-6 at
+    the standard fan-in), past the agreement's 2e-4."""
+    cfg = model.cfg
+    stacks = {"layers": cfg.n_layers, "encoder": cfg.encoder_layers}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            n = stacks.get(name.split(".", 1)[0])
+            if n and p.dim() >= 2:
+                p.mul_(math.sqrt(n / p.shape[-2]))
+
+
+def serve_agreement(dev, cfg, fan_in: bool = False):
+    """A reduced model, f32 weights from one seed (LayerNorm scales set to
+    1, ``ln_scales_to_one``, under ``norm="ln"``; with ``fan_in`` at the
+    standard fan-in, ``to_fan_in``), a VLM's or an audio model's stub
+    inputs from another: prefill of a prompt of 2W (window mask and ring wrap; 128
+    without a window) and 8 teacher-forced decode steps on the card
+    against the same runs on the CPU.  Tolerance 2e-4 of the logit scale:
+    fp32 sums in other orders (cuBLAS, the kernels) amplified by the
+    reference init's large activations, as in tests/test_torch_serve.py."""
+    from repro_torch.launch.serve import modality_inputs, prefix_len
     from repro_torch.models import transformer as T
     cpu = T.init_model(cfg, torch.Generator().manual_seed(0))
+    if cfg.norm == "ln":
+        ln_scales_to_one(cpu)
+    if fan_in:
+        to_fan_in(cpu)
     card = T.Transformer(cfg, device=dev)
     card.load_state_dict(cpu.state_dict())
     s, steps = 2 * (cfg.sliding_window or 64), 8
-    toks = torch.randint(0, cfg.vocab, (2, s + steps),
-                         generator=torch.Generator().manual_seed(1))
-    lc, cc = T.forward_prefill(cpu, {"tokens": toks[:, :s]}, pad_to=s + steps)
-    lg, cg = T.forward_prefill(card, {"tokens": toks[:, :s].to(dev)}, pad_to=s + steps)
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, s + steps), generator=gen)
+    extra = modality_inputs(cfg, 2, gen, "cpu")
+    start = prefix_len(cfg) + s
+    lc, cc = T.forward_prefill(cpu, {"tokens": toks[:, :s], **extra}, pad_to=start + steps)
+    lg, cg = T.forward_prefill(card, {"tokens": toks[:, :s].to(dev),
+                                      **{k: v.to(dev) for k, v in extra.items()}},
+                               pad_to=start + steps)
     errs, scales = [], []
     for i in range(steps + 1):
         errs.append(float((lg.cpu() - lc).abs().max()))
         scales.append(max(float(lc.abs().max()), 1.0))
         if i == steps:
             break
-        pos = s + i
-        tok = toks[:, pos:pos + 1]
+        pos = start + i
+        tok = toks[:, s + i:s + i + 1]
         lc, cc = T.forward_decode(cpu, {"tokens": tok, "positions": torch.full((2,), pos)}, cc)
         lg, cg = T.forward_decode(card, {"tokens": tok.to(dev),
                                          "positions": torch.full((2,), pos, device=dev)}, cg)
@@ -1285,19 +1339,32 @@ def serve_agreement(dev, cfg):
                              f"(scales {scales})")
     return {"logits_max_abs_err": errs, "logit_scale": scales, "max_rel_err": rel,
             "tol_rel": 2e-4, "prompt": s, "decode_steps": steps,
-            "head_dim": cfg.resolved_head_dim}
+            "head_dim": cfg.resolved_head_dim, "fan_in": fan_in}
 
+
+# the families whose reduced configs phase 8 holds at the standard fan-in
+# (``to_fan_in``)
+FAN_IN_ARCHS = ("granite-moe-3b-a800m", "whisper-base", "internvl2-1b")
 
 # the serving runs at full width: (arch, batch, prompt, new tokens,
-# parameters, flash and SSD launches per prefill); Hymba and gemma at
-# Hymba's traffic, the other three short, so the script stays well inside
-# its time limit
+# parameters, flash and SSD launches per prefill, flash launches per decode
+# step); Hymba, gemma and the three families of slice 17 at Hymba's traffic
+# (a VLM's 2,048 positions are 256 stub vision tokens and 1,792 text;
+# whisper's prompt is 256 tokens over 1,536 stub frames), the other three
+# short, so the script stays well inside its time limit
 SERVE_RUNS = (
-    ("hymba-1.5b", 4, 2048, 16, 1_393_625_120, 32, 32),
-    ("gemma-2b", 4, 2048, 16, 2_506_172_416, 18, 0),
-    ("qwen3-4b", 1, 512, 4, 4_022_468_096, 36, 0),
-    ("h2o-danube-1.8b", 1, 512, 4, 1_831_201_280, 24, 0),
-    ("mamba2-370m", 1, 512, 4, 368_338_432, 0, 48),
+    ("hymba-1.5b", 4, 2048, 16, 1_393_625_120, 32, 32, 0),
+    ("gemma-2b", 4, 2048, 16, 2_506_172_416, 18, 0, 0),
+    ("qwen3-4b", 1, 512, 4, 4_022_468_096, 36, 0, 0),
+    ("h2o-danube-1.8b", 1, 512, 4, 1_831_201_280, 24, 0, 0),
+    ("mamba2-370m", 1, 512, 4, 368_338_432, 0, 48, 0),
+    # MoE: 32 layers of GQA 24:8 at d=64, 40 experts top-8
+    ("granite-moe-3b-a800m", 4, 2048, 16, 3_298_793_472, 32, 0, 0),
+    # VLM: GQA 14:2 with QKV bias
+    ("internvl2-1b", 4, 1792, 16, 493_780_992, 24, 0, 0),
+    # audio: 6 encoder (non-causal) + 6 decoder + 6 cross-attention launches
+    # a prefill, the 6 cross-attentions in each decode step
+    ("whisper-base", 4, 256, 16, 73_542_144, 18, 0, 6),
 )
 
 
@@ -1340,13 +1407,15 @@ def recorded_kernel_calls(seen: dict):
         ops.flash_attention, ops.ssd_chunk, ops.ssd_chunk_bwd = flash, ssd, ssd_bwd
 
 
-def serve_path(dev, arch, batch, prompt, tokens, params, flash, ssd):
+def serve_path(dev, arch, batch, prompt, tokens, params, flash, ssd, decode_flash):
     """``arch`` at full width through the serving entry point, the launch
     counts reset just before and read just after: ``flash`` and ``ssd``
-    launches in the prefill, none in decode, finite logits, ``(batch,
-    tokens)`` tokens.  The model is built once (weights from seed 0), served
-    and then profiled (``profile_serve``).  Returns the run's record and the
-    kernel signatures it called (``recorded_kernel_calls``)."""
+    launches in the prefill, ``decode_flash`` flash launches (the audio
+    decoder's cross-attention) and no SSD launch in each decode step,
+    finite logits, ``(batch, tokens)`` tokens.  The model is built once
+    (weights from seed 0; LayerNorm scales set to 1, ``ln_scales_to_one``),
+    served and then profiled (``profile_serve``).  Returns the run's record
+    and the kernel signatures it called (``recorded_kernel_calls``)."""
     from repro_torch import configs
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve
@@ -1357,6 +1426,7 @@ def serve_path(dev, arch, batch, prompt, tokens, params, flash, ssd):
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
     model = T.init_model(cfg, gen, device=dev)
+    ln_scales = ln_scales_to_one(model) if cfg.norm == "ln" else 0
     torch.cuda.synchronize(dev)
     init_s = time.perf_counter() - t0
     init_peak = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -1372,9 +1442,10 @@ def serve_path(dev, arch, batch, prompt, tokens, params, flash, ssd):
     if r["params"] != params:
         raise AssertionError(f"{arch} has {r['params']} params, expected {params}")
     if (pre["flash_attention"], pre["ssd_chunk"]) != (flash, ssd) or \
-            dec["flash_attention"] or dec["ssd_chunk"]:
+            dec["flash_attention"] != decode_flash * (tokens - 1) or dec["ssd_chunk"]:
         raise AssertionError(f"{arch}: prefill launched {pre}, decode {dec}; expected "
-                             f"{flash} flash_attention and {ssd} ssd_chunk in the prefill")
+                             f"{flash} flash_attention and {ssd} ssd_chunk in the prefill, "
+                             f"{decode_flash} flash_attention a decode step")
     if launches["flash_attention_bwd"] or launches["ssd_chunk_bwd"]:
         raise AssertionError(f"{arch}: serving launched a backward kernel: {launches}")
     if not r["logits_finite"]:
@@ -1383,10 +1454,11 @@ def serve_path(dev, arch, batch, prompt, tokens, params, flash, ssd):
         raise AssertionError(f"{arch}: generated {tuple(r['tokens'].shape)} tokens")
     steps = r["decode_step_s"]
     out = {"arch": arch, "batch": batch, "prompt": prompt, "tokens": tokens,
-           "init_s": init_s, "init_peak_mem_gb": init_peak,
+           "init_s": init_s, "init_peak_mem_gb": init_peak, "ln_scales_set_to_one": ln_scales,
            "prefill_s": r["prefill_s"], "decode_step_s": steps,
            "decode_ms_per_token": 1e3 * sum(steps) / len(steps),
            "prefill_launches": pre, "decode_launches": dec,
+           "decode_flash_per_step": dec["flash_attention"] / len(steps),
            "launches": launches, "params": r["params"], "peak_mem_gb": peak,
            "sample": r["tokens"][0].tolist()}
     del r
@@ -1410,17 +1482,19 @@ def profile_serve(dev, model, batch, prompt, steps: int = 4):
     prefill and ``steps`` decode steps under ``torch.profiler``, each
     against its host-clock wall time; device idle share = 1 - busy/wall."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import modality_inputs, prefix_len
     from repro_torch.models import transformer as T
     gen = torch.Generator(device=dev).manual_seed(1)
     toks = torch.randint(0, model.cfg.vocab, (batch, prompt + steps), generator=gen,
                          device=dev)
-    T.forward_prefill(model, {"tokens": toks[:, :prompt]}, pad_to=prompt + steps)  # warm-up
+    inputs = {"tokens": toks[:, :prompt], **modality_inputs(model.cfg, batch, gen, dev)}
+    start = prefix_len(model.cfg) + prompt
+    T.forward_prefill(model, inputs, pad_to=start + steps)                 # warm-up
     out = {}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, cache = T.forward_prefill(model, {"tokens": toks[:, :prompt]},
-                                     pad_to=prompt + steps)
+        _, cache = T.forward_prefill(model, inputs, pad_to=start + steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy, kernels = _device_busy_ms(prof)
@@ -1435,7 +1509,7 @@ def profile_serve(dev, model, batch, prompt, steps: int = 4):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for i in range(steps):
-            pos = torch.full((batch,), prompt + i, dtype=torch.long, device=dev)
+            pos = torch.full((batch,), start + i, dtype=torch.long, device=dev)
             T.forward_decode(model, {"tokens": toks[:, prompt + i:prompt + i + 1],
                                      "positions": pos}, cache)
         torch.cuda.synchronize()
@@ -1444,7 +1518,9 @@ def profile_serve(dev, model, batch, prompt, steps: int = 4):
     top = kernels[:8]
     launches = sum(e.count for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    flash = sum(ms for name, ms, _ in kernels if "flash" in name)
     out["decode"] = {"wall_ms_per_token": wall * 1e3 / steps,
+                     "flash_device_ms_per_token": flash / steps,
                      "device_busy_ms_per_token": busy / steps,
                      "idle_share": 1.0 - busy / (wall * 1e3), "top_kernels": top,
                      "kernel_launches_per_token": launches / steps}
@@ -2389,16 +2465,21 @@ def main() -> int:
 
     lap("7 Path B")
 
-    # ---- 8. serving: card vs CPU on a reduced Hymba and a reduced gemma at
-    # its full head dim (``reduced`` sets 64)
+    # ---- 8. serving: card vs CPU on a reduced Hymba, a reduced gemma at
+    # its full head dim (``reduced`` sets 64), and the reduced MoE, audio
+    # and VLM families
     from repro_torch import configs
     serve_agree = {
         "hymba": serve_agreement(dev, dataclasses.replace(
             configs.reduced(configs.get("hymba-1.5b")), n_kv_heads=2)),
         "gemma": serve_agreement(dev, dataclasses.replace(
-            configs.reduced(configs.get("gemma-2b")), head_dim=256))}
+            configs.reduced(configs.get("gemma-2b")), head_dim=256)),
+        **{arch.split("-")[0]: serve_agreement(dev, configs.reduced(configs.get(arch)),
+                                               fan_in=True)
+           for arch in FAN_IN_ARCHS}}
     for name, a in serve_agree.items():
-        log(f"[serve-agree] reduced {name} (f32, head dim {a['head_dim']}), prompt "
+        log(f"[serve-agree] reduced {name} (f32, head dim {a['head_dim']}"
+            + (", weights at the standard fan-in" if a["fan_in"] else "") + "), prompt "
             f"{a['prompt']} + {a['decode_steps']} decode steps: logits max rel err "
             f"{a['max_rel_err']:.3e} (tol {a['tol_rel']})")
 
@@ -2407,8 +2488,9 @@ def main() -> int:
     # ---- 9. the serving paths at full width, one model at a time (each
     # freed before the next loads), each profiled after its run
     served = {}
-    for arch, batch, prompt, tokens, params, flash, ssd in SERVE_RUNS:
-        r, seen = serve_path(dev, arch, batch, prompt, tokens, params, flash, ssd)
+    for arch, batch, prompt, tokens, params, flash, ssd, decode_flash in SERVE_RUNS:
+        r, seen = serve_path(dev, arch, batch, prompt, tokens, params, flash, ssd,
+                             decode_flash)
         served[arch] = r
         path_launches[f"serve {arch}"] = {k: r["launches"][k]
                                           for k in ("flash_attention", "ssd_chunk")}
@@ -2416,7 +2498,11 @@ def main() -> int:
             f"{tokens} tokens: prefill {r['prefill_s']:.3f} s, decode "
             f"{r['decode_ms_per_token']:.2f} ms/token, peak {r['peak_mem_gb']:.2f} GB")
         log(f"[serve] {arch} prefill launches {r['prefill_launches']}; decode launches "
-            f"{r['decode_launches']}; all logits finite")
+            f"{r['decode_launches']} ({r['decode_flash_per_step']:g} flash a step); all "
+            f"logits finite"
+            + (f"; its {r['ln_scales_set_to_one']} LayerNorm scales set to 1 after init "
+               f"(the reference's init zeroes them, and every output with them)"
+               if r["ln_scales_set_to_one"] else ""))
         pf, dc = r["profile"]["prefill"], r["profile"]["decode"]
         log(f"[serve-profile] {arch} prefill (warm, profiled): wall {pf['wall_ms']:.1f} ms, "
             f"device busy {pf['device_busy_ms']:.1f} ms, idle "
@@ -2436,6 +2522,15 @@ def main() -> int:
         r["kernel_signatures"] = [str(key) for key in seen]
         hold_unchecked(dev, gen, seen, checks, f"serve {arch}")
         lap(f"9 serve {arch}")
+    log(f"[serve-table] {'arch':22s} {'batch x seq + new':>18s} {'prefill s':>9s} "
+        f"{'decode ms/tok':>13s} {'peak GB':>8s} {'idle pre/dec %':>14s} "
+        f"{'flash pre/dec-step':>18s}")
+    for arch, r in served.items():
+        pf, dc = r["profile"]["prefill"], r["profile"]["decode"]
+        log(f"[serve-table] {arch:22s} {r['batch']:>5d} x {r['prompt']:>5d} + {r['tokens']:<4d} "
+            f"{r['prefill_s']:9.3f} {r['decode_ms_per_token']:13.2f} {r['peak_mem_gb']:8.2f} "
+            f"{100 * pf['idle_share']:6.1f}/{100 * dc['idle_share']:<6.1f} "
+            f"{r['prefill_launches']['flash_attention']:>9d}/{r['decode_flash_per_step']:<8g}")
 
     # ---- 10. async rounds, client stores and checkpoints
     p10 = phase10(fed, cinic_fed, dev, path_launches, lap)

@@ -1,5 +1,5 @@
 """``ArchConfig``, the CPU smoke reduction, and the input shapes and
-smoke batches of the ported families, as plain Python."""
+smoke batches of the zoo, as plain Python."""
 from __future__ import annotations
 
 import dataclasses
@@ -117,17 +117,37 @@ class InputShape:
     kind: str            # train | prefill | decode (the port's batches: train)
 
 
+def token_split(cfg: ArchConfig, seq_len: int) -> tuple[int, int]:
+    """(text tokens, modality tokens) of a sequence of ``seq_len``: a VLM
+    spends ``min(vision_tokens, seq_len // 2)`` on its stub vision tokens
+    (``repro/configs/base.py::_token_split``)."""
+    if cfg.arch_type == "vlm":
+        v = min(cfg.vision_tokens, seq_len // 2)
+        return seq_len - v, v
+    return seq_len, 0
+
+
 def make_batch(cfg: ArchConfig, shape: InputShape, seed: int = 0, device=None) -> dict:
-    """A training batch of ``shape`` (``repro/configs/base.py::make_batch``
-    for the text families): ``{"batch": {"tokens", "labels"}}``, labels
-    equal to the tokens as the reference fills them (a trainer shifts
-    them).  Tokens are uniform over the vocab from a generator seeded with
-    ``seed`` (the reference draws them with ``jax.random``).  The serving
-    paths build their own prompts and caches."""
+    """A training batch of ``shape`` (``repro/configs/base.py::make_batch``):
+    ``{"batch": {"tokens", "labels"}}`` over the text span, labels equal to
+    the tokens as the reference fills them (a trainer shifts them), plus a
+    VLM's ``vision_embeds (B, vision, d)`` and an audio model's ``enc_feats
+    (B, source_positions, d)`` in the model's dtype, filled with 0.01 as the
+    reference fills its stub frontends' outputs.  Tokens are uniform over
+    the vocab from a generator seeded with ``seed`` (the reference draws
+    them with ``jax.random``).  The serving paths build their own prompts
+    and caches."""
     if shape.kind != "train":
         raise ValueError(f"the port makes train batches only, not {shape.kind!r}")
     dev = torch.device("cpu" if device is None else device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    tokens = torch.randint(0, cfg.vocab, (shape.global_batch, shape.seq_len),
-                           generator=gen, device=dev)
-    return {"batch": {"tokens": tokens, "labels": tokens.clone()}}
+    text, vis = token_split(cfg, shape.seq_len)
+    B, dt = shape.global_batch, cfg.torch_dtype()
+    tokens = torch.randint(0, cfg.vocab, (B, text), generator=gen, device=dev)
+    batch = {"tokens": tokens, "labels": tokens.clone()}
+    if cfg.arch_type == "vlm":
+        batch["vision_embeds"] = torch.full((B, vis, cfg.d_model), 0.01, dtype=dt, device=dev)
+    if cfg.arch_type == "audio":
+        batch["enc_feats"] = torch.full((B, cfg.source_positions, cfg.d_model), 0.01,
+                                        dtype=dt, device=dev)
+    return {"batch": batch}

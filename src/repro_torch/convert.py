@@ -7,8 +7,9 @@ The reference's CNN params are ``{"conv1": {"w": HWIO, "b"}, ...,
 reference does, so ``dense1``'s rows need no permutation.
 
 The reference's transformer params share the port's layouts (weights
-``(d_in, d_out)``) and differ only in the stacked leading ``layers`` axis,
-which the port writes out as one module per layer.  LoRA adapter trees
+``(d_in, d_out)``) and differ only in the stacked leading layer axis of
+the ``layers`` and (audio) ``encoder`` stacks, which the port writes out as
+one module per layer.  LoRA adapter trees
 (``A`` and the adapter state) keep the reference's flat ``/``-joined keys,
 stacked shapes and layouts in the port too (the CNN's dense entries as
 HWIO / ``(din, dout)``), so they convert leaf for leaf.
@@ -74,18 +75,23 @@ def _flatten(tree, prefix: str = "") -> dict:
     return out
 
 
+# the reference's stacked layer trees
+STACKS = ("layers", "encoder")
+
+
 def transformer_params_from_jax(tree) -> dict[str, torch.Tensor]:
     """Reference transformer params (``repro.models.transformer.init_params``
     pytree, leaves as numpy) -> the port's ``Transformer`` state dict.
-    Layouts are shared; only the stacked leading axis of ``layers`` is
-    unstacked into ``layers.{i}.<path>``."""
+    Layouts are shared; only the stacked leading axis of ``layers`` and
+    ``encoder`` is unstacked into ``layers.{i}.<path>`` /
+    ``encoder.{i}.<path>``."""
     out = {}
     for name, leaf in _flatten(tree).items():
         t = _to_torch(leaf)
-        if name.startswith("layers."):
-            rest = name[len("layers."):]
+        stack, _, rest = name.partition(".")
+        if stack in STACKS and rest:
             for i in range(t.shape[0]):
-                out[f"layers.{i}.{rest}"] = t[i].clone()
+                out[f"{stack}.{i}.{rest}"] = t[i].clone()
         else:
             out[name] = t
     return out
@@ -93,16 +99,18 @@ def transformer_params_from_jax(tree) -> dict[str, torch.Tensor]:
 
 def transformer_params_to_jax(state: dict[str, torch.Tensor]) -> dict:
     """Inverse of ``transformer_params_from_jax``: state dict -> nested
-    numpy dict with stacked layers.  bfloat16 tensors come back as float32
-    arrays of the same values (numpy has no bfloat16)."""
+    numpy dict with stacked ``layers`` and ``encoder``.  bfloat16 tensors
+    come back as float32 arrays of the same values (numpy has no
+    bfloat16)."""
     stacks: dict[str, dict[int, np.ndarray]] = {}
     flat: dict[str, np.ndarray] = {}
     for name, t in state.items():
         t = t.detach().cpu()
         a = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-        if name.startswith("layers."):
+        stack = name.split(".", 1)[0]
+        if stack in STACKS and "." in name:
             _, idx, rest = name.split(".", 2)
-            stacks.setdefault(f"layers.{rest}", {})[int(idx)] = a
+            stacks.setdefault(f"{stack}.{rest}", {})[int(idx)] = a
         else:
             flat[name] = a
     for name, rows in stacks.items():

@@ -146,6 +146,13 @@ def ssd_bwd_split_bound(b: int, nc: int, L: int, h: int, p: int, n: int) -> tupl
     return ssd_bwd_bound(b, nc, L, h, p, n, SPLIT_FP32_FLOPS_PER_S)
 
 
+def sdpa_mask(mask: torch.Tensor) -> torch.Tensor | None:
+    """SDPA's ``attn_mask`` for a boolean ``mask``: None where it keeps
+    every key (the same function, and SDPA may then take its flash
+    kernel)."""
+    return None if bool(mask.all()) else mask
+
+
 def flash_bound(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor
                 ) -> tuple[float, str]:
     """Attention of ``q (b, sq, H, d)`` over ``k, v (b, skv, KV, d)`` under
@@ -277,10 +284,17 @@ def device_profile(fn, event_ms: float) -> tuple[float | None, float]:
 # (M, N, dtype) of Eq. 6: the EMNIST and CINIC models' widths and a large one
 FEDAVG_SHAPES = [(16, 68_873, torch.float32), (16, 68_873, torch.bfloat16),
                  (16, 2_168_362, torch.float32), (16, 2 ** 24, torch.float32)]
-# (b, s, H, KV, d, window), timed in bf16 and fp32: the Hymba layer,
-# danube's and qwen3's heads, gemma's layer
-FLASH_SHAPES = [(4, 2048, 25, 5, 64, 1024), (1, 2048, 32, 8, 80, 4096),
-                (1, 2048, 32, 8, 128, None), (4, 2048, 8, 1, 256, None)]
+# (b, sq, skv, H, KV, d, causal, window), timed in bf16 and fp32: the Hymba
+# layer, danube's and qwen3's heads, gemma's layer
+FLASH_SHAPES = [(4, 2048, 2048, 25, 5, 64, True, 1024), (1, 2048, 2048, 32, 8, 80, True, 4096),
+                (1, 2048, 2048, 32, 8, 128, True, None), (4, 2048, 2048, 8, 1, 256, True, None),
+                # granite-moe-3b-a800m's (GQA 24:8) and internvl2-1b's (14:2)
+                # prefill layers; whisper-base's encoder layer (non-causal over
+                # 1,536 frames) and cross-attention from a 256-token prompt
+                # (prefill) and from one token (a decode step)
+                (4, 2048, 2048, 24, 8, 64, True, None), (4, 2048, 2048, 14, 2, 64, True, None),
+                (4, 1536, 1536, 8, 8, 64, False, None), (4, 256, 1536, 8, 8, 64, False, None),
+                (4, 1, 1536, 8, 8, 64, False, None)]
 # (b, sq, skv, H, KV, d, window, q_offset) of the attention backward
 # (chip_smoke.py phase 3's), timed in bf16 and fp32: qwen3-4b's training
 # layer, the reduced configs' layer, danube's head under a window with a
@@ -453,31 +467,36 @@ def measure(only: set[str] | None = None) -> list[dict]:
                          "max_abs_err": err})
     if want("flash_attention"):
         for dtype in (torch.bfloat16, torch.float32):
-            for b, s, h, kv, d, window in FLASH_SHAPES:
-                q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
-                k = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
-                v = torch.randn(b, s, kv, d, generator=gen, device=dev).to(dtype)
-                mask = ref.attention_mask(s, s, causal=True, window=window, q_offset=0,
-                                          device=dev)
+            for b, sq, skv, h, kv, d, causal, window in FLASH_SHAPES:
+                q = torch.randn(b, sq, h, d, generator=gen, device=dev).to(dtype)
+                k = torch.randn(b, skv, kv, d, generator=gen, device=dev).to(dtype)
+                v = torch.randn(b, skv, kv, d, generator=gen, device=dev).to(dtype)
+                kw = dict(causal=causal, window=window)
+                mask = ref.attention_mask(sq, skv, q_offset=0, device=dev, **kw)
                 b_ms, by = flash_bound(q, k, mask)
+                shape = f"b={b} s={sq}" if sq == skv else f"b={b} sq={sq} skv={skv}"
                 row = {"kernel": "flash_attention",
-                       "shape": f"b={b} s={s} H={h} KV={kv} d={d} W={window} {str(dtype)[6:]}",
+                       "shape": f"{shape} H={h} KV={kv} d={d} W={window}"
+                                + ("" if causal else " non-causal") + f" {str(dtype)[6:]}",
                        "bound_ms": b_ms, "bound_by": by}
-                row = _timed_row(row, lambda: ops.flash_attention(q, k, v, window=window),
-                                 lambda: ref.flash_attention(q, k, v, window=window))
+                row = _timed_row(row, lambda: ops.flash_attention(q, k, v, **kw),
+                                 lambda: ref.flash_attention(q, k, v, **kw))
                 if _accepts(ops._flash_forward, "with_lse") and row["ms"] is not None:
                     # what writing the backward's lse costs the forward
                     fwd = lambda: ops._flash_forward(  # noqa: E731
-                        q, k, v, True, window, 0, with_lse=True)
+                        q, k, v, causal, window, 0, with_lse=True)
                     row["lse_ms"] = time_ms(fwd)
                     row["lse_device_ms"] = device_profile(fwd, row["lse_ms"])[0]
-                if dtype == torch.float32 and row["ms"] is not None:
-                    # the library's fp32 attention on the same inputs and mask
+                if (dtype == torch.float32 or not causal) and row["ms"] is not None:
+                    # the library's attention on the same inputs and mask (no
+                    # mask where every key is seen: SDPA then picks its
+                    # fastest kernel); the causal rows' in fp32 only
                     qt = q.transpose(1, 2).contiguous()
                     kt, vt = (t.repeat_interleave(h // kv, dim=2).transpose(1, 2).contiguous()
                               for t in (k, v))
+                    lib_mask = sdpa_mask(mask)
                     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                        qt, kt, vt, attn_mask=mask)
+                        qt, kt, vt, attn_mask=lib_mask)
                     row["sdpa_ms"] = time_ms(sdpa)
                     row["sdpa_device_ms"] = device_profile(sdpa, row["sdpa_ms"])[0]
                     del qt, kt, vt
@@ -776,7 +795,7 @@ def main() -> int:
         if "plan" in r:
             extra += f", plan {r['plan']}"
         if "sdpa_ms" in r:
-            extra += f", SDPA fp32 {r['sdpa_ms']:.4f} ms (device {r['sdpa_device_ms']})"
+            extra += f", SDPA {r['shape'].split()[-1]} {r['sdpa_ms']:.4f} ms (device {r['sdpa_device_ms']})"
         if "lse_ms" in r:
             extra += f", with lse {r['lse_ms']:.4f} ms (device {r['lse_device_ms']})"
         if "lse_kernels_device_ms" in r:

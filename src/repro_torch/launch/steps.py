@@ -221,7 +221,9 @@ def make_fl_round(model: T.Transformer, n_mediators: int = 1, *,
 # --------------------------------------------------------------------------
 
 def make_prefill_step(model: T.Transformer, pad_to: int | None = None):
-    """``step(batch) -> (next tokens (b, 1), logits (b, 1, vocab), cache)``."""
+    """``step(batch) -> (next tokens (b, 1), logits (b, 1, vocab), cache)``;
+    ``batch`` holds ``tokens`` and, for a VLM or an audio model,
+    ``vision_embeds`` or ``enc_feats``, all handed to ``forward_prefill``."""
     def prefill_step(batch):
         logits, cache = T.forward_prefill(model, batch, pad_to=pad_to)
         return logits.argmax(-1), logits, cache
@@ -230,7 +232,8 @@ def make_prefill_step(model: T.Transformer, pad_to: int | None = None):
 
 def make_serve_step(model: T.Transformer):
     """One decode step: ``step(batch, cache) -> (next tokens (b, 1), logits
-    (b, 1, vocab), cache)``; the cache is updated in place."""
+    (b, 1, vocab), cache)``; the cache is updated in place (an audio
+    model's decode reads the encoder output its prefill stored there)."""
     def serve_step(batch, cache):
         logits, cache = T.forward_decode(model, batch, cache)
         return logits.argmax(-1), logits, cache

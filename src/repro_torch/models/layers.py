@@ -25,6 +25,17 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     return out.to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """fp32 LayerNorm; the output is multiplied by ``scale`` itself (the
+    reference's ``layer_norm``; not the ``1 + scale`` of ``rms_norm``)."""
+    xf = x.to(torch.float32)
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    out = (xf - mean) * torch.rsqrt(var + eps) * scale + bias
+    return out.to(x.dtype)
+
+
 def rope_freqs(head_dim: int, theta: float = 1e4, device=None) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
                                          device=device) / head_dim))
@@ -73,9 +84,18 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     return torch.einsum("bgrqk,bkgd->bqgrd", probs, v_cache).reshape(b, 1, h, d)
 
 
+def act_fn(activation: str = "silu"):
+    """SiLU, or GELU with ``jax.nn.gelu``'s default tanh approximation."""
+    return (lambda t: F.gelu(t, approximate="tanh")) if activation == "gelu" else F.silu
+
+
 def glu_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
             w_down: torch.Tensor, activation: str = "silu") -> torch.Tensor:
-    """SwiGLU / GeGLU (``jax.nn.gelu``'s default tanh approximation)."""
-    gate = x @ w_gate
-    gate = F.gelu(gate, approximate="tanh") if activation == "gelu" else F.silu(gate)
-    return (gate * (x @ w_up)) @ w_down
+    """SwiGLU / GeGLU."""
+    return (act_fn(activation)(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor, w_out: torch.Tensor,
+        b_out: torch.Tensor) -> torch.Tensor:
+    """The biased GELU MLP (Whisper's), ``jax.nn.gelu``'s tanh approximation."""
+    return F.gelu(x @ w_in + b_in, approximate="tanh") @ w_out + b_out

@@ -1,14 +1,23 @@
-"""The port's config-driven decoder stack (``repro/models/transformer.py``).
+"""The port's config-driven transformer stack (``repro/models/transformer.py``).
 
-Families ported: ``dense`` (GQA + RoPE + GLU, optional QKV bias, qk-norm,
-sliding window), ``ssm`` (Mamba-2 SSD blocks) and ``hybrid`` (attention and
-SSD heads in parallel on one input, Hymba-style).  ``moe``, ``audio`` and
-``vlm`` raise ``NotImplementedError``.
+One ``ArchConfig`` covers the zoo's six families:
 
-Each decoder layer is an ``nn.Module``; weights keep the reference's
-``(d_in, d_out)`` layout and names, so a state dict key is the reference's
-pytree path with the stacked layer axis written out
-(``layers.3.attn.wq``).  Entry points:
+  dense   GQA + RoPE + GLU (optional QKV bias, qk-norm, sliding window)
+  moe     dense attention + a token-choice top-k mixture of GLU experts
+          (``models/moe.py``)
+  ssm     attention-free Mamba-2 SSD blocks
+  hybrid  attention and SSD heads in parallel on one input (Hymba-style)
+  vlm     a dense decoder reading stub vision embeddings ahead of the text
+          (InternVL2-style)
+  audio   an encoder over stub frame embeddings and a decoder that
+          cross-attends to it; LayerNorm, learned positions, a biased GELU
+          MLP (Whisper-style)
+
+Each layer is an ``nn.Module``; weights keep the reference's ``(d_in,
+d_out)`` layout and names, so a state dict key is the reference's pytree
+path with the stacked layer axis written out (``layers.3.attn.wq``,
+``encoder.1.mlp.w_in``, ``layers.0.xattn.wk``, ``layers.2.moe.w_gate``).
+Entry points:
 
   ``forward_train``    full-sequence causal-LM loss, differentiable in the
                        weights (``model(tokens)`` gives the fp32 logits)
@@ -16,18 +25,22 @@ pytree path with the stacked layer axis written out
   ``forward_decode``   one token + cache -> logits; the cache is updated in
                        place (the reference returns a new one)
 
-Training runs attention through the flash kernels' autograd function and
-the SSD block through the SSD kernels' (``ops._SSDChunk``): one forward
-and one backward launch a layer each, on the card as on the CPU.
+Every attention -- causal self-attention, the encoder's non-causal one and
+the decoder's cross-attention, in decode too -- runs through the flash
+kernel (``layers.gqa_attention``), except decode's self-attention over the
+cache (``layers.decode_attention``).  Training runs attention through the
+flash kernels' autograd function and the SSD block through the SSD
+kernels' (``ops._SSDChunk``).
 
 The cache keeps the reference's layout, one stacked tensor per leaf with a
 leading layer axis: ``{"attn": {"k", "v": (L, b, S, KV, d)}, "ssm":
 {"state": (L, b, h, p, n) fp32, "conv": (L, b, k-1, channels)}}`` (an
 SSM model's leaves sit under ``"ssm"`` too; the reference keeps them at
-the top level).  A
-sliding-window cache is a ring of ``S = min(W, budget)`` slots holding
-position ``p`` at slot ``p % W``, after prefill as after decode, whatever
-the prompt length.
+the top level).  An audio model's prefill also stores the encoder's output
+as ``cache["enc_out"] (b, S_src, d)``, which decode cross-attends to (the
+reference's decode takes it in the batch).  A sliding-window cache is a
+ring of ``S = min(W, budget)`` slots holding position ``p`` at slot ``p %
+W``, after prefill as after decode, whatever the prompt length.
 """
 from __future__ import annotations
 
@@ -40,22 +53,22 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 
-_NOT_PORTED = {
-    "moe": "ROADMAP Queue 1, \"The rest of the zoo, served\": the MoE family (granite, grok)",
-    "audio": "ROADMAP Queue 1, \"The rest of the zoo, served\": the audio family (whisper)",
-    "vlm": "ROADMAP Queue 1, \"The rest of the zoo, served\": the VLM family (internvl2)",
-}
+ARCH_TYPES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+# learned positions' rows when the caller gives no ``max_seq``
+MAX_SEQ = 4096
 
 
-def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.arch_type in _NOT_PORTED or cfg.is_moe:
-        family = "moe" if cfg.is_moe else cfg.arch_type
-        raise NotImplementedError(f"{cfg.name}: {family} models are not ported "
-                                  f"yet ({_NOT_PORTED[family]})")
-    if cfg.arch_type not in ("dense", "ssm", "hybrid"):
+def _check_arch(cfg: ArchConfig) -> None:
+    if cfg.arch_type not in ARCH_TYPES:
         raise ValueError(f"unknown arch_type {cfg.arch_type!r}")
+
+
+def _encoder_cfg(cfg: ArchConfig) -> ArchConfig:
+    """The audio encoder's layers: a dense, non-MoE copy of the config."""
+    return replace(cfg, arch_type="dense", n_experts=0)
 
 
 # ==========================================================================
@@ -67,9 +80,10 @@ class Spec:
     """One parameter: its shape as the reference declares it (layer weights
     with the leading stacked ``layers`` axis), its init scale (``None``:
     fan-in) and dtype; for the LoRA mapping table (``models/lora.py``) its
-    leading batch ``axes`` (``("layers",)`` for a stacked weight) and the
-    port's parameter ``names`` it covers, one a layer.  Layouts are the
-    reference's (``perm`` None)."""
+    leading batch ``axes`` (``("layers",)`` for a stacked weight,
+    ``("layers", "expert")`` for an expert's) and the port's parameter
+    ``names`` it covers, one a layer.  Layouts are the reference's
+    (``perm`` None)."""
     shape: tuple[int, ...]
     scale: float | None
     dtype: torch.dtype
@@ -90,6 +104,24 @@ def _attn_specs(cfg: ArchConfig, n: int, dt) -> dict[str, Spec]:
     return s
 
 
+def _mlp_specs(cfg: ArchConfig, n: int, dt) -> dict[str, Spec]:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.norm == "ln":                       # Whisper's biased GELU MLP
+        return {"w_in": Spec((n, d, f), None, dt), "b_in": Spec((n, f), 0.0, dt),
+                "w_out": Spec((n, f, d), None, dt), "b_out": Spec((n, d), 0.0, dt)}
+    return {"w_gate": Spec((n, d, f), None, dt), "w_up": Spec((n, d, f), None, dt),
+            "w_down": Spec((n, f, d), None, dt)}
+
+
+def _moe_specs(cfg: ArchConfig, n: int, dt) -> dict[str, Spec]:
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    ex = ("layers", "expert")
+    return {"router": Spec((n, d, E), None, torch.float32),
+            "w_gate": Spec((n, E, d, f), None, dt, axes=ex),
+            "w_up": Spec((n, E, d, f), None, dt, axes=ex),
+            "w_down": Spec((n, E, f, d), None, dt, axes=ex)}
+
+
 def _ssm_specs(cfg: ArchConfig, n_layers: int, dt) -> dict[str, Spec]:
     d, di, n, h = cfg.d_model, cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads
     conv_dim = di + 2 * n
@@ -105,47 +137,94 @@ def _ssm_specs(cfg: ArchConfig, n_layers: int, dt) -> dict[str, Spec]:
     }
 
 
-def param_specs(cfg: ArchConfig) -> dict[str, Spec]:
+def _norm_specs(cfg: ArchConfig, shape: tuple[int, ...], names: list[str]) -> dict:
+    """fp32 norm scales (zeros at init), each with a ``_b`` bias under LN."""
+    out = {}
+    for nm in names:
+        out[nm] = Spec(shape, 0.0, torch.float32)
+        if cfg.norm == "ln":
+            out[nm + "_b"] = Spec(shape, 0.0, torch.float32)
+    return out
+
+
+def _layer_specs(cfg: ArchConfig, n: int, dt, cross_attention: bool = False) -> dict:
+    """One stack's per-layer specs, keyed without the stack's prefix
+    (``transformer.py::_decoder_layer_specs``)."""
+    d = cfg.d_model
+    if cfg.arch_type == "ssm":
+        lay = _norm_specs(cfg, (n, d), ["norm1"])
+        lay.update({f"ssm.{k}": v for k, v in _ssm_specs(cfg, n, dt).items()})
+        return lay
+    lay = _norm_specs(cfg, (n, d), ["norm1", "norm2"])
+    lay.update({f"attn.{k}": v for k, v in _attn_specs(cfg, n, dt).items()})
+    if cfg.arch_type == "hybrid":
+        lay.update({f"ssm.{k}": v for k, v in _ssm_specs(cfg, n, dt).items()})
+        lay["mix_attn"] = Spec((n, d), 0.0, torch.float32)
+        lay["mix_ssm"] = Spec((n, d), 0.0, torch.float32)
+    if cross_attention:
+        lay.update(_norm_specs(cfg, (n, d), ["norm_x"]))
+        lay.update({f"xattn.{k}": v for k, v in _attn_specs(cfg, n, dt).items()})
+    if cfg.is_moe:
+        lay.update({f"moe.{k}": v for k, v in _moe_specs(cfg, n, dt).items()})
+    else:
+        lay.update({f"mlp.{k}": v for k, v in _mlp_specs(cfg, n, dt).items()})
+    return lay
+
+
+def _stacked(prefix: str, lay: dict, n: int) -> dict[str, Spec]:
+    return {f"{prefix}.{k}": replace(v, axes=v.axes or ("layers",),
+                                     names=tuple(f"{prefix}.{i}.{k}" for i in range(n)))
+            for k, v in lay.items()}
+
+
+def param_specs(cfg: ArchConfig, max_seq: int = MAX_SEQ) -> dict[str, Spec]:
     """Flat ``{state-dict path with the layer index left out: Spec}``, in
     the reference's order (``transformer.py::param_specs``); ``layers.*``
-    specs carry the stacked layer axis."""
-    _check_ported(cfg)
-    dt, f32 = cfg.torch_dtype(), torch.float32
+    and ``encoder.*`` specs carry the stacked layer axis.  ``max_seq``
+    sizes learned positions."""
+    _check_arch(cfg)
+    dt = cfg.torch_dtype()
     d, n = cfg.d_model, cfg.n_layers
-    specs = {"embed": Spec((cfg.vocab, d), 1.0 / math.sqrt(d), dt),
-             "final_norm": Spec((d,), 0.0, f32)}
+    specs = {"embed": Spec((cfg.vocab, d), 1.0 / math.sqrt(d), dt)}
+    specs.update(_norm_specs(cfg, (d,), ["final_norm"]))
     if not cfg.tie_embeddings:
         specs["lm_head"] = Spec((d, cfg.vocab), None, dt)
-    lay = {"norm1": Spec((n, d), 0.0, f32)}
-    if cfg.arch_type == "ssm":
-        lay.update({f"ssm.{k}": v for k, v in _ssm_specs(cfg, n, dt).items()})
-    else:
-        lay["norm2"] = Spec((n, d), 0.0, f32)
-        lay.update({f"attn.{k}": v for k, v in _attn_specs(cfg, n, dt).items()})
-        if cfg.arch_type == "hybrid":
-            lay.update({f"ssm.{k}": v for k, v in _ssm_specs(cfg, n, dt).items()})
-            lay["mix_attn"] = Spec((n, d), 0.0, f32)
-            lay["mix_ssm"] = Spec((n, d), 0.0, f32)
-        f = cfg.d_ff
-        lay.update({"mlp.w_gate": Spec((n, d, f), None, dt),
-                    "mlp.w_up": Spec((n, d, f), None, dt),
-                    "mlp.w_down": Spec((n, f, d), None, dt)})
+    if cfg.pos == "learned":
+        specs["pos_embed"] = Spec((max_seq, d), 0.02, dt)
+    if cfg.arch_type == "audio":
+        specs["enc_pos"] = Spec((cfg.source_positions, d), 0.02, dt)
     specs = {k: replace(v, names=(k,)) for k, v in specs.items()}
-    specs.update({f"layers.{k}": replace(v, axes=("layers",),
-                                         names=tuple(f"layers.{i}.{k}" for i in range(n)))
-                  for k, v in lay.items()})
+    if cfg.arch_type == "audio":
+        ne = cfg.encoder_layers
+        specs.update(_stacked("encoder", _layer_specs(_encoder_cfg(cfg), ne, dt), ne))
+        specs.update({k: replace(v, names=(k,)) for k, v in
+                      _norm_specs(replace(cfg, norm="ln"), (d,), ["enc_final_norm"]).items()})
+    specs.update(_stacked("layers", _layer_specs(cfg, n, dt,
+                                                 cross_attention=cfg.arch_type == "audio"), n))
     return specs
 
 
-def param_count(cfg: ArchConfig) -> int:
-    return sum(math.prod(s.shape) for s in param_specs(cfg).values())
+def param_count(cfg: ArchConfig, max_seq: int = MAX_SEQ) -> int:
+    return sum(math.prod(s.shape) for s in param_specs(cfg, max_seq).values())
 
 
-def adapter_mapping(cfg: ArchConfig, rank: int, alpha: float | None = None) -> dict:
+def active_param_count(cfg: ArchConfig, max_seq: int = MAX_SEQ) -> int:
+    """Params touched per token (MoE: ``top_k`` of the ``n_experts``
+    experts' weights), as the reference counts them."""
+    total = param_count(cfg, max_seq)
+    if not cfg.is_moe:
+        return total
+    expert_leaf = cfg.n_layers * 3 * cfg.d_model * cfg.d_ff
+    return total - expert_leaf * cfg.n_experts + expert_leaf * cfg.top_k
+
+
+def adapter_mapping(cfg: ArchConfig, rank: int, alpha: float | None = None,
+                    max_seq: int = MAX_SEQ) -> dict:
     """The LoRA mapping table over this architecture's specs
-    (``models/lora.py``), keyed like the reference's by ``/``-joined path."""
+    (``models/lora.py``), keyed like the reference's by ``/``-joined path;
+    the expert axis batches the factorization as the layer axis does."""
     from repro_torch.models import lora
-    return lora.build_mapping(param_specs(cfg), rank, alpha)
+    return lora.build_mapping(param_specs(cfg, max_seq), rank, alpha)
 
 
 def _init_leaf(spec: Spec, generator: torch.Generator, device) -> torch.Tensor:
@@ -181,28 +260,39 @@ class _Params(nn.Module):
                 torch.empty(shape, dtype=dtype, device=device), requires_grad=False))
 
 
+def _project(x: torch.Tensor, w: torch.Tensor, heads: int, hd: int,
+             bias: torch.Tensor | None = None) -> torch.Tensor:
+    y = x @ w
+    if bias is not None:
+        y = y + bias
+    return y.reshape(x.shape[0], x.shape[1], heads, hd)
+
+
 class Attention(_Params):
     def forward(self, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor, *,
-                mode: str, cache: dict | None = None) -> torch.Tensor:
-        """Train attends over the full sequence with no cache; prefill also
-        writes the layer's K/V into ``cache`` (ring-buffer slots for a
-        sliding window); decode writes one slot and attends over the
-        cache.  ``positions``: ``(b, s)`` for train and prefill, ``(b,)``
-        for decode."""
+                mode: str, cache: dict | None = None, causal: bool = True) -> torch.Tensor:
+        """Train attends over the full sequence with no cache (``causal``
+        False: the audio encoder); prefill also writes the layer's K/V into
+        ``cache`` (ring-buffer slots for a sliding window); decode writes
+        one slot and attends over the cache.  ``positions``: ``(b, s)`` for
+        train and prefill, ``(b,)`` for decode; RoPE only under ``pos ==
+        "rope"``."""
         b, s, _ = x.shape
         hd, H, KV = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
-        q, k, v = x @ self.wq, x @ self.wk, x @ self.wv
-        if cfg.qkv_bias:
-            q, k, v = q + self.bq, k + self.bk, v + self.bv
-        q, k, v = q.reshape(b, s, H, hd), k.reshape(b, s, KV, hd), v.reshape(b, s, KV, hd)
+        bias = cfg.qkv_bias
+        q = _project(x, self.wq, H, hd, self.bq if bias else None)
+        k = _project(x, self.wk, KV, hd, self.bk if bias else None)
+        v = _project(x, self.wv, KV, hd, self.bv if bias else None)
         if cfg.qk_norm:
             q = L.rms_norm(q, self.q_norm, cfg.norm_eps)
             k = L.rms_norm(k, self.k_norm, cfg.norm_eps)
+        rope = cfg.pos == "rope"
         W = cfg.sliding_window
         if mode in ("train", "prefill"):
-            q = L.apply_rope(q, positions, cfg.rope_theta)
-            k = L.apply_rope(k, positions, cfg.rope_theta)
-            out = L.gqa_attention(q, k, v, causal=True, window=W)
+            if rope:
+                q = L.apply_rope(q, positions, cfg.rope_theta)
+                k = L.apply_rope(k, positions, cfg.rope_theta)
+            out = L.gqa_attention(q, k, v, causal=causal, window=W)
             if cache is not None:
                 start = max(0, s - W) if W is not None else 0
                 slots = torch.arange(start, s, device=x.device)
@@ -212,8 +302,9 @@ class Attention(_Params):
                 cache["v"][:, slots] = v[:, start:].to(cache["v"].dtype)
         elif mode == "decode":
             pos = positions.reshape(b)
-            q = L.apply_rope(q, pos[:, None], cfg.rope_theta)
-            k = L.apply_rope(k, pos[:, None], cfg.rope_theta)
+            if rope:
+                q = L.apply_rope(q, pos[:, None], cfg.rope_theta)
+                k = L.apply_rope(k, pos[:, None], cfg.rope_theta)
             slot = pos % W if W is not None else pos
             rows = torch.arange(b, device=x.device)
             cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
@@ -222,6 +313,21 @@ class Attention(_Params):
             out = L.decode_attention(q, cache["k"], cache["v"], cache_len)
         else:
             raise ValueError(mode)
+        return out.reshape(b, s, H * hd) @ self.wo
+
+
+class CrossAttention(_Params):
+    def forward(self, cfg: ArchConfig, x: torch.Tensor, enc_out: torch.Tensor) -> torch.Tensor:
+        """The decoder's queries against the encoder's output, non-causal,
+        no cache: K and V are projected from ``enc_out`` on every call, in
+        decode too (``transformer.py::cross_attn_block``; no bias, no
+        RoPE, no qk-norm)."""
+        b, s, _ = x.shape
+        hd, H, KV = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+        q = _project(x, self.wq, H, hd)
+        k = _project(enc_out, self.wk, KV, hd)
+        v = _project(enc_out, self.wv, KV, hd)
+        out = L.gqa_attention(q, k, v, causal=False)
         return out.reshape(b, s, H * hd) @ self.wo
 
 
@@ -259,7 +365,19 @@ class SSMBlock(_Params):
 
 class MLP(_Params):
     def forward(self, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+        """The GLU MLP, or under LayerNorm Whisper's biased GELU MLP."""
+        if cfg.norm == "ln":
+            return L.mlp(x, self.w_in, self.b_in, self.w_out, self.b_out)
         return L.glu_mlp(x, self.w_gate, self.w_up, self.w_down, cfg.activation)
+
+
+class MoE(_Params):
+    def forward(self, cfg: ArchConfig, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The mixture of GLU experts: ``(out, aux)``."""
+        return moe_lib.moe_glu(x, self.router, self.w_gate, self.w_up, self.w_down,
+                               top_k=cfg.top_k, group_size=cfg.moe_group,
+                               capacity_factor=cfg.capacity_factor,
+                               activation=cfg.activation)
 
 
 def _sub(specs: dict[str, Spec], prefix: str) -> dict[str, tuple]:
@@ -268,29 +386,48 @@ def _sub(specs: dict[str, Spec], prefix: str) -> dict[str, tuple]:
             if k.startswith(prefix)}
 
 
+def _norm(cfg: ArchConfig, x: torch.Tensor, owner: nn.Module, name: str) -> torch.Tensor:
+    if cfg.norm == "ln":
+        return L.layer_norm(x, getattr(owner, name), getattr(owner, name + "_b"), cfg.norm_eps)
+    return L.rms_norm(x, getattr(owner, name), cfg.norm_eps)
+
+
 class DecoderLayer(nn.Module):
-    def __init__(self, cfg: ArchConfig, specs: dict[str, Spec], device):
+    """One layer of a stack (``transformer.py::decoder_layer``): the
+    decoder's, the audio encoder's (built from its dense config), with
+    cross-attention in an audio decoder.  ``prefix`` names the stack."""
+
+    _NORMS = ("norm1", "norm1_b", "norm2", "norm2_b", "norm_x", "norm_x_b",
+              "mix_attn", "mix_ssm")
+
+    def __init__(self, cfg: ArchConfig, specs: dict[str, Spec], device,
+                 prefix: str = "layers"):
         super().__init__()
         self.cfg = cfg
-        for name in ("norm1", "norm2", "mix_attn", "mix_ssm"):
-            if f"layers.{name}" in specs:
-                sp = specs[f"layers.{name}"]
+        for name in self._NORMS:
+            if f"{prefix}.{name}" in specs:
+                sp = specs[f"{prefix}.{name}"]
                 self.register_parameter(name, nn.Parameter(
                     torch.empty(sp.shape[1:], dtype=sp.dtype, device=device),
                     requires_grad=False))
-        if cfg.has_attention:
-            self.attn = Attention(_sub(specs, "layers.attn."), device)
-            self.mlp = MLP(_sub(specs, "layers.mlp."), device)
-        if cfg.has_ssm:
-            self.ssm = SSMBlock(_sub(specs, "layers.ssm."), device)
+        for name, cls in (("attn", Attention), ("xattn", CrossAttention),
+                          ("ssm", SSMBlock), ("mlp", MLP), ("moe", MoE)):
+            shapes = _sub(specs, f"{prefix}.{name}.")
+            if shapes:
+                setattr(self, name, cls(shapes, device))
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, *, mode: str,
-                cache: dict | None) -> torch.Tensor:
+                cache: dict | None, enc_out: torch.Tensor | None = None,
+                causal: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(x, aux)``: the layer's output and its MoE load-balance term
+        (0 without experts)."""
         cfg, cache = self.cfg, cache or {}
-        h = L.rms_norm(x, self.norm1, cfg.norm_eps)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        h = _norm(cfg, x, self, "norm1")
         if cfg.arch_type == "ssm":
-            return x + self.ssm(cfg, h, mode=mode, cache=cache.get("ssm"))
-        a_out = self.attn(cfg, h, positions, mode=mode, cache=cache.get("attn"))
+            return x + self.ssm(cfg, h, mode=mode, cache=cache.get("ssm")), aux
+        a_out = self.attn(cfg, h, positions, mode=mode, cache=cache.get("attn"),
+                          causal=causal)
         if cfg.arch_type == "hybrid":
             s_out = self.ssm(cfg, h, mode=mode, cache=cache.get("ssm"))
             ga = 0.5 * (1.0 + self.mix_attn.to(torch.float32))
@@ -299,51 +436,72 @@ class DecoderLayer(nn.Module):
         else:
             out = a_out
         x = x + out
-        return x + self.mlp(cfg, L.rms_norm(x, self.norm2, cfg.norm_eps))
+        if enc_out is not None:
+            x = x + self.xattn(cfg, _norm(cfg, x, self, "norm_x"), enc_out)
+        h = _norm(cfg, x, self, "norm2")
+        if cfg.is_moe:
+            out, aux = self.moe(cfg, h)
+        else:
+            out = self.mlp(cfg, h)
+        return x + out, aux
 
 
 class Transformer(nn.Module):
-    """The decoder stack.  Build with ``init_model`` (random weights from a
+    """The model.  Build with ``init_model`` (random weights from a
     generator) or construct and ``load_state_dict`` (e.g. weights converted
-    from the reference by ``repro_torch.convert.transformer_params_from_jax``)."""
+    from the reference by ``repro_torch.convert.transformer_params_from_jax``).
+    ``max_seq`` sizes learned positions (the longest sequence the model
+    takes, decode included)."""
 
-    def __init__(self, cfg: ArchConfig, device=None):
+    _TOP = ("embed", "final_norm", "final_norm_b", "lm_head", "pos_embed", "enc_pos",
+            "enc_final_norm", "enc_final_norm_b")
+
+    def __init__(self, cfg: ArchConfig, device=None, max_seq: int = MAX_SEQ):
         super().__init__()
-        specs = param_specs(cfg)
-        self.cfg = cfg
-        for name in ("embed", "final_norm", "lm_head"):
+        specs = param_specs(cfg, max_seq)
+        self.cfg, self.max_seq = cfg, max_seq
+        for name in self._TOP:
             if name in specs:
                 self.register_parameter(name, nn.Parameter(
                     torch.empty(specs[name].shape, dtype=specs[name].dtype, device=device),
                     requires_grad=False))
+        if cfg.arch_type == "audio":
+            enc = _encoder_cfg(cfg)
+            self.encoder = nn.ModuleList(DecoderLayer(enc, specs, device, "encoder")
+                                         for _ in range(cfg.encoder_layers))
         self.layers = nn.ModuleList(DecoderLayer(cfg, specs, device)
                                     for _ in range(cfg.n_layers))
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, vision_embeds: torch.Tensor | None = None,
+                enc_feats: torch.Tensor | None = None, *, with_aux: bool = False):
         """Train mode: ``tokens (b, s)`` -> fp32 logits ``(b, s, vocab)`` of
-        every position, no cache (the reference's ``_embed_inputs``, the
-        layer stack, then ``_lm_head``)."""
-        b, s = tokens.shape
-        h = _embed(self, tokens)
-        positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
-        for layer in self.layers:
-            h = layer(h, positions, mode="train", cache=None)
-        return _lm_head(self, h)
+        every text position, no cache (``_embed_inputs``, the layer stack,
+        then ``_lm_head``; a VLM's vision span is left out, as the
+        reference's loss leaves it).  ``with_aux``: ``(logits, aux)``, aux
+        the MoE load-balance terms summed over the layers."""
+        cfg = self.cfg
+        enc_out = _run_encoder(self, enc_feats) if cfg.arch_type == "audio" else None
+        h, positions = _embed_inputs(self, tokens, vision_embeds)
+        h, aux = _run_layers(self, h, positions, mode="train", cache=None, enc_out=enc_out)
+        if cfg.arch_type == "vlm":
+            h = h[:, cfg.vision_tokens:]
+        logits = _lm_head(self, h)
+        return (logits, aux) if with_aux else logits
 
 
-def init_model(cfg: ArchConfig, generator: torch.Generator, device=None) -> Transformer:
+def init_model(cfg: ArchConfig, generator: torch.Generator, device=None,
+               max_seq: int = MAX_SEQ) -> Transformer:
     """A model with the reference's init rule drawn from ``generator``
     (which must live on ``device``), one stacked draw per spec."""
-    model = Transformer(cfg, device=device)
+    model = Transformer(cfg, device=device, max_seq=max_seq)
     params = dict(model.named_parameters())
-    for name, spec in param_specs(cfg).items():
+    for name, spec in param_specs(cfg, max_seq).items():
         leaf = _init_leaf(spec, generator, device)
-        if name.startswith("layers."):
-            rest = name[len("layers."):]
-            for i in range(cfg.n_layers):
-                params[f"layers.{i}.{rest}"].copy_(leaf[i])
-        else:
+        if len(spec.names) == 1 and spec.names[0] == name:
             params[name].copy_(leaf)
+        else:
+            for i, n in enumerate(spec.names):
+                params[n].copy_(leaf[i])
     return model
 
 
@@ -355,7 +513,7 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, *,
                device=None) -> dict:
     """Zero decode cache with a leading layer axis (``transformer.py::
     init_cache``); a sliding window keeps ``min(W, max_len)`` slots."""
-    _check_ported(cfg)
+    _check_arch(cfg)
     dt = cfg.torch_dtype()
     n, b = cfg.n_layers, batch_size
     cache: dict = {}
@@ -373,12 +531,23 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, *,
     return cache
 
 
-def _layer_cache(cache: dict, i: int) -> dict:
-    """Views of layer ``i``'s slice of every cache leaf."""
-    return {blk: {k: t[i] for k, t in leaves.items()} for blk, leaves in cache.items()}
+def _layer_cache(cache: dict | None, i: int) -> dict | None:
+    """Views of layer ``i``'s slice of every stacked cache leaf."""
+    if cache is None:
+        return None
+    return {blk: {k: t[i] for k, t in leaves.items()} for blk, leaves in cache.items()
+            if isinstance(leaves, dict)}
 
 
-def _embed(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+def _check_positions(model: Transformer, last: int) -> None:
+    """Learned positions have ``max_seq`` rows: a later position raises
+    (the reference would index past them)."""
+    if model.cfg.pos == "learned" and last >= model.pos_embed.shape[0]:
+        raise ValueError(f"position {last} is past the model's {model.pos_embed.shape[0]} "
+                         f"learned positions (max_seq)")
+
+
+def _embed_tokens(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
     cfg = model.cfg
     h = model.embed[tokens].to(cfg.torch_dtype())
     if cfg.embed_scale:
@@ -386,9 +555,57 @@ def _embed(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
     return h
 
 
+def _embed_inputs(model: Transformer, tokens: torch.Tensor,
+                  vision_embeds: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Token embeddings, a VLM's vision embeddings prepended, learned
+    positions added (``transformer.py::_embed_inputs``) -> ``(h,
+    positions (b, s))``."""
+    cfg = model.cfg
+    h = _embed_tokens(model, tokens)
+    if cfg.arch_type == "vlm":
+        if vision_embeds is None:
+            raise ValueError(f"{cfg.name} takes vision_embeds (b, vision tokens, d)")
+        h = torch.cat([vision_embeds.to(h.dtype), h], dim=1)
+    b, s = h.shape[:2]
+    positions = torch.arange(s, device=h.device)[None].expand(b, s)
+    if cfg.pos == "learned":
+        _check_positions(model, s - 1)
+        h = h + model.pos_embed[:s].to(h.dtype)
+    return h, positions
+
+
+def _run_encoder(model: Transformer, enc_feats: torch.Tensor | None) -> torch.Tensor:
+    """The audio encoder over stub frame embeddings ``(b, S_src, d)``: its
+    learned positions, the dense layers without a causal mask, a final
+    LayerNorm (``transformer.py::_run_encoder``)."""
+    cfg = model.cfg
+    if enc_feats is None:
+        raise ValueError(f"{cfg.name} takes enc_feats (b, source positions, d)")
+    h = enc_feats.to(cfg.torch_dtype())
+    b, s = h.shape[:2]
+    if s > model.enc_pos.shape[0]:
+        raise ValueError(f"{s} source frames, the encoder has {model.enc_pos.shape[0]}")
+    h = h + model.enc_pos[:s].to(h.dtype)
+    positions = torch.arange(s, device=h.device)[None].expand(b, s)
+    for layer in model.encoder:
+        h, _ = layer(h, positions, mode="train", cache=None, causal=False)
+    return L.layer_norm(h, model.enc_final_norm, model.enc_final_norm_b, cfg.norm_eps)
+
+
+def _run_layers(model: Transformer, h: torch.Tensor, positions: torch.Tensor, *,
+                mode: str, cache: dict | None, enc_out: torch.Tensor | None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i, layer in enumerate(model.layers):
+        h, a = layer(h, positions, mode=mode, cache=_layer_cache(cache, i), enc_out=enc_out)
+        aux = aux + a
+    return h, aux
+
+
 def _lm_head(model: Transformer, h: torch.Tensor) -> torch.Tensor:
     cfg = model.cfg
-    h = L.rms_norm(h, model.final_norm, cfg.norm_eps)
+    h = _norm(cfg, h, model, "final_norm")
     w = model.embed.t() if cfg.tie_embeddings else model.lm_head
     return (h @ w).to(torch.float32)
 
@@ -404,50 +621,67 @@ def forward_train(model: Transformer, batch: dict,
                   params: dict[str, torch.Tensor] | None = None
                   ) -> tuple[torch.Tensor, dict]:
     """Causal-LM loss: the mean next-token NLL of ``batch["labels"]`` under
-    the fp32 logits of ``batch["tokens"]`` (both ``(b, s)``).  ``params``
-    (state-dict names -> tensors, e.g. ones that require grad, or LoRA-
-    merged weights) stand in for the model's own through
-    ``torch.func.functional_call``.  Returns ``(loss, {"loss", "aux"})``;
-    ``aux`` is 0 (no ported family is MoE)."""
-    tokens = batch["tokens"]
-    logits = model(tokens) if params is None else \
-        torch.func.functional_call(model, params, (tokens,))
+    the fp32 logits of ``batch["tokens"]`` (both ``(b, s)``; a VLM's
+    ``vision_embeds`` and an audio model's ``enc_feats`` from the batch
+    too), plus ``0.01 * aux`` for MoE.  ``params`` (state-dict names ->
+    tensors, e.g. ones that require grad, or LoRA-merged weights) stand in
+    for the model's own through ``torch.func.functional_call``.  Returns
+    ``(loss, {"loss", "aux"})``, ``aux`` the MoE load-balance terms summed
+    over the layers (0 without experts)."""
+    args = (batch["tokens"], batch.get("vision_embeds"), batch.get("enc_feats"))
+    kw = {"with_aux": True}
+    logits, aux = model(*args, **kw) if params is None else \
+        torch.func.functional_call(model, params, args, kw)
     loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                            batch["labels"].reshape(-1).long())
-    return loss, {"loss": loss, "aux": torch.zeros((), device=loss.device)}
+    if model.cfg.is_moe:
+        loss = loss + 0.01 * aux
+    return loss, {"loss": loss, "aux": aux}
 
 
 @torch.no_grad()
 def forward_prefill(model: Transformer, batch: dict, pad_to: int | None = None
                     ) -> tuple[torch.Tensor, dict]:
-    """Full-sequence prefill: last-position logits ``(b, 1, vocab)`` fp32
-    and the populated cache.  ``pad_to`` is the decode budget (prompt plus
-    new tokens): full-attention caches get that many slots, sliding-window
-    rings ``min(W, pad_to)`` (``W`` without a budget)."""
+    """Full-sequence prefill of ``batch["tokens"]`` (a VLM's
+    ``vision_embeds`` ahead of them, an audio model's ``enc_feats`` through
+    the encoder): last-position logits ``(b, 1, vocab)`` fp32 and the
+    populated cache (an audio model's with ``"enc_out"``).  ``pad_to`` is
+    the decode budget (the whole prefilled sequence, vision tokens
+    included, plus new tokens): full-attention caches get that many slots,
+    sliding-window rings ``min(W, pad_to)`` (``W`` without a budget)."""
     cfg = model.cfg
-    tokens = batch["tokens"]
-    b, s = tokens.shape
+    enc_out = _run_encoder(model, batch.get("enc_feats")) if cfg.arch_type == "audio" \
+        else None
+    h, positions = _embed_inputs(model, batch["tokens"], batch.get("vision_embeds"))
+    b, s = h.shape[:2]
     if pad_to is not None and pad_to < s:
-        raise ValueError(f"pad_to={pad_to} is shorter than the prompt ({s})")
+        raise ValueError(f"pad_to={pad_to} is shorter than the prefilled sequence ({s})")
     if pad_to is not None:
         budget = pad_to
+        _check_positions(model, pad_to - 1)
     else:
         budget = cfg.sliding_window if cfg.sliding_window is not None else s
-    cache = init_cache(cfg, b, budget, device=tokens.device)
-    h = _embed(model, tokens)
-    positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
-    for i, layer in enumerate(model.layers):
-        h = layer(h, positions, mode="prefill", cache=_layer_cache(cache, i))
+    cache = init_cache(cfg, b, budget, device=h.device)
+    h, _ = _run_layers(model, h, positions, mode="prefill", cache=cache, enc_out=enc_out)
+    if enc_out is not None:
+        cache["enc_out"] = enc_out
     return _lm_head(model, h[:, -1:]), cache
 
 
 @torch.no_grad()
 def forward_decode(model: Transformer, batch: dict, cache: dict
                    ) -> tuple[torch.Tensor, dict]:
-    """One-token decode: ``tokens (b, 1)``, ``positions (b,)`` absolute.
-    Returns logits ``(b, 1, vocab)`` fp32 and ``cache``, updated in place."""
-    h = _embed(model, batch["tokens"])
+    """One-token decode: ``tokens (b, 1)``, ``positions (b,)`` absolute (a
+    VLM's count its vision tokens).  An audio model cross-attends to
+    ``batch["enc_out"]`` if given, else to the cache's.  Returns logits
+    ``(b, 1, vocab)`` fp32 and ``cache``, updated in place."""
+    cfg = model.cfg
+    h = _embed_tokens(model, batch["tokens"])
     positions = batch["positions"]
-    for i, layer in enumerate(model.layers):
-        h = layer(h, positions, mode="decode", cache=_layer_cache(cache, i))
+    if cfg.pos == "learned":
+        _check_positions(model, int(positions.max()))
+        h = h + model.pos_embed[positions][:, None].to(h.dtype)
+    enc_out = batch.get("enc_out", cache.get("enc_out")) if cfg.arch_type == "audio" \
+        else None
+    h, _ = _run_layers(model, h, positions, mode="decode", cache=cache, enc_out=enc_out)
     return _lm_head(model, h), cache

@@ -450,6 +450,14 @@ FLASH_CARD_CASES = [
     (1, 70, 260, 8, 1, 256, True, 90, 190),
     (1, 100, 100, 4, 2, 256, False, None, 0),
     (1, 200, 200, 8, 1, 256, True, None, 0),
+    # whisper-base at full width: the encoder's non-causal self-attention
+    # over 1,536 frames, the decoder's cross-attention from a 256-token
+    # prompt (prefill) and from one token (decode) to them; internvl2-1b's
+    # GQA 14:2 prefill layer
+    (4, 1536, 1536, 8, 8, 64, False, None, 0),
+    (4, 256, 1536, 8, 8, 64, False, None, 0),
+    (4, 1, 1536, 8, 8, 64, False, None, 0),
+    (4, 2048, 2048, 14, 2, 64, True, None, 0),
 ]
 
 
@@ -772,32 +780,62 @@ def test_ssd_chunk_bwd_kernel_refuses_what_it_cannot_hold(dev):
     assert ops.LAUNCHES["ssd_chunk"] == before
 
 
-def _card_matches_cpu(dev, cfg):
-    """``cfg`` with f32 weights from one seed, prompt 128, on the card and
-    on the CPU: one flash launch per attention layer and one SSD launch per
-    SSM layer in the card's prefill; the logits of the prefill and of 4
-    teacher-forced decode steps agree within 2e-4 of the logit scale
-    (fp32 sums in other orders, amplified by the init's large
+def _card_matches_cpu(dev, cfg, fan_in=False):
+    """``cfg`` with f32 weights from one seed (LayerNorm scales set to 1:
+    the reference's init zeroes them, and every LayerNorm output with
+    them; with ``fan_in`` each stacked layer matrix rescaled from the
+    reference init's ``1/sqrt(layers)`` to ``1/sqrt(d_in)``: at the
+    reference's scale a 1e-7 relative perturbation of the weights moves the
+    reduced whisper's and granite's decode logits by up to 4.2e-3 and
+    4.8e-4 of their scale on the CPU alone, past the 2e-4 below), a VLM's or audio model's stub inputs from another, prompt 128,
+    on the card and on the CPU: one flash launch per attention layer (an
+    audio model's encoder layers and cross-attentions too) and one SSD
+    launch per SSM layer in the card's prefill; the logits of the prefill
+    and of 4 teacher-forced decode steps agree within 2e-4 of the logit
+    scale (fp32 sums in other orders, amplified by the init's large
     activations)."""
+    from repro_torch.launch.serve import modality_inputs, prefix_len
     cpu = T.init_model(cfg, torch.Generator().manual_seed(0))
+    if cfg.norm == "ln":
+        for name, p in cpu.named_parameters():
+            if name.rsplit(".", 1)[-1] in ("norm1", "norm2", "norm_x", "final_norm",
+                                           "enc_final_norm"):
+                p.fill_(1.0)
+    if fan_in:
+        stacks = {"layers": cfg.n_layers, "encoder": cfg.encoder_layers}
+        with torch.no_grad():
+            for name, p in cpu.named_parameters():
+                n = stacks.get(name.split(".", 1)[0])
+                if n and p.dim() >= 2:
+                    p.mul_((n / p.shape[-2]) ** 0.5)
     card = T.Transformer(cfg, device=dev)
     card.load_state_dict(cpu.state_dict())
-    toks = torch.randint(0, cfg.vocab, (2, 132), generator=torch.Generator().manual_seed(1))
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 132), generator=gen)
+    extra = modality_inputs(cfg, 2, gen, "cpu")
+    start = prefix_len(cfg) + 128
     ops.reset_launches()
-    lc, cc = T.forward_prefill(cpu, {"tokens": toks[:, :128]}, pad_to=132)
-    lg, cg = T.forward_prefill(card, {"tokens": toks[:, :128].to(dev)}, pad_to=132)
-    assert ops.LAUNCHES["flash_attention"] == (cfg.n_layers if cfg.has_attention else 0)
+    lc, cc = T.forward_prefill(cpu, {"tokens": toks[:, :128], **extra}, pad_to=start + 4)
+    lg, cg = T.forward_prefill(card, {"tokens": toks[:, :128].to(dev),
+                                      **{k: v.to(dev) for k, v in extra.items()}},
+                               pad_to=start + 4)
+    audio = cfg.arch_type == "audio"
+    attn_layers = (cfg.n_layers if cfg.has_attention else 0) \
+        + (cfg.encoder_layers + cfg.n_layers if audio else 0)
+    assert ops.LAUNCHES["flash_attention"] == attn_layers
     assert ops.LAUNCHES["ssd_chunk"] == (cfg.n_layers if cfg.has_ssm else 0)
     err, scale = _err_scale(lg.cpu(), lc)
     assert err <= 2e-4 * scale
     for i in range(4):
-        pos = 128 + i
-        tok = toks[:, pos:pos + 1]
+        pos = start + i
+        tok = toks[:, 128 + i:129 + i]
         lc, cc = T.forward_decode(cpu, {"tokens": tok, "positions": torch.full((2,), pos)}, cc)
         lg, cg = T.forward_decode(card, {"tokens": tok.to(dev),
                                          "positions": torch.full((2,), pos, device=dev)}, cg)
         err, scale = _err_scale(lg.cpu(), lc)
         assert err <= 2e-4 * scale
+    # decode's cross-attention runs on the kernel, one launch a layer a step
+    assert ops.LAUNCHES["flash_attention"] == attn_layers + (4 * cfg.n_layers if audio else 0)
 
 
 @pytest.mark.cuda
@@ -808,20 +846,25 @@ def test_hymba_prefill_and_decode_on_card_match_cpu(dev):
 
 
 # (arch, head dim override): the reduced zoo families the serving path
-# registers; gemma at its full head dim 256 (``reduced`` sets 64)
+# registers; gemma at its full head dim 256 (``reduced`` sets 64); the MoE,
+# audio and VLM families (weights at the standard fan-in)
 ZOO_CARD_CASES = [("gemma-2b", 256), ("qwen3-4b", None), ("h2o-danube-1.8b", None),
-                  ("mamba2-370m", None)]
+                  ("mamba2-370m", None), ("granite-moe-3b-a800m", None),
+                  ("whisper-base", None), ("internvl2-1b", None)]
+ZOO_FAN_IN = ("granite-moe-3b-a800m", "whisper-base", "internvl2-1b")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch,head_dim", ZOO_CARD_CASES)
 def test_zoo_prefill_and_decode_on_card_match_cpu(dev, arch, head_dim):
     """Each registered family, reduced: prompt 128 is 2W for danube's
-    reduced window and two SSD chunks for mamba2."""
+    reduced window and two SSD chunks for mamba2, four MoE groups of 64
+    tokens for granite (batch 2); internvl2's 16 vision tokens ahead of
+    it, whisper's 64 frames through its encoder."""
     cfg = configs.reduced(configs.get(arch))
     if head_dim is not None:
         cfg = dataclasses.replace(cfg, head_dim=head_dim)
-    _card_matches_cpu(dev, cfg)
+    _card_matches_cpu(dev, cfg, fan_in=arch in ZOO_FAN_IN)
 
 
 # ---------------------------------------------------------------- the round engine

@@ -80,7 +80,7 @@ def test_configs_match_reference():
         dataclasses.asdict(RC.reduced(RC.get("hymba-1.5b")))
     assert full.torch_dtype() == torch.bfloat16
     assert PC.reduced(full).torch_dtype() == torch.float32
-    for arch in ("granite-moe-3b-a800m", "no-such-arch"):
+    for arch in ("granite-moe", "no-such-arch"):
         with pytest.raises(KeyError):
             PC.get(arch)
 
@@ -128,13 +128,13 @@ def test_param_count_and_specs_match_reference(variant):
     assert ours == flat
 
 
-@pytest.mark.parametrize("arch_type,upd", [("moe", dict(n_experts=4, top_k=2)),
-                                           ("audio", {}), ("vlm", {})])
-def test_unported_families_raise(arch_type, upd):
-    cfg = dataclasses.replace(PC.reduced(PC.get("hymba-1.5b")), arch_type=arch_type, **upd)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_unknown_arch_type_raises():
+    """Every family of the reference is ported; an arch_type outside them
+    raises ``ValueError`` (``Transformer``, ``param_specs``, ``init_cache``)."""
+    cfg = dataclasses.replace(PC.reduced(PC.get("hymba-1.5b")), arch_type="diffusion")
+    with pytest.raises(ValueError, match="unknown arch_type"):
         PT.Transformer(cfg)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unknown arch_type"):
         PT.init_cache(cfg, 1, 8)
 
 

@@ -502,10 +502,14 @@ def test_input_shapes_and_make_batch_match_reference(arch):
 
 
 def test_active_param_count_equals_reference():
-    """Every ported family is dense: the reference's count of the params a
-    token touches is the port's whole count."""
+    """For every id, the port's parameter count and its count of the params
+    a token touches equal the reference's ``param_count`` and
+    ``active_param_count``; only the MoE families touch fewer."""
     for arch in PC.ARCH_IDS:
-        assert PT.param_count(PC.get(arch)) == RT.active_param_count(RC.get(arch))
+        assert PT.param_count(PC.get(arch)) == RT.param_count(RC.get(arch))
+        active = PT.active_param_count(PC.get(arch))
+        assert active == RT.active_param_count(RC.get(arch))
+        assert (active < PT.param_count(PC.get(arch))) == PC.get(arch).is_moe
 
 
 def _perturbation_spread(init: str, n: int = 5, steps: int = 2) -> dict:
