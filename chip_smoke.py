@@ -104,10 +104,24 @@ Phases, each fatal on failure:
     backward launches a step) and a LoRA rank-16 round over the same 2
     mediators, and mamba2-370m (368,338,432) two AdamW steps at 4 x 512
     (eight chunks; 48 SSD and 48 SSD backward launches a step, no flash),
-    each with seconds, peak memory, finite losses and a moved update, every
-    kernel signature they call that phase 3 did not hold held against its
-    plain version after; then the training launchers at their reduced
-    defaults (qwen3-4b and mamba2-370m) and ``fl_train``.
+    each with seconds, peak memory, finite losses and a moved update; then
+    the MoE, audio and VLM families at full width (bf16, seed 0) at 4 x
+    128: granite-moe-3b-a800m (3,298,793,472 parameters; 32 flash and 32
+    flash backward launches a step, 40 experts top 8 through the MoE's
+    deterministic backward) two AdamW steps and a LoRA rank-16 round over
+    the same 2 mediators (its adapters batched over the layers and the
+    experts; the leg's 109,341,696 bytes, the reference mapping's; its
+    layer matrices at the standard fan-in, ``to_fan_in``: at the
+    reference's init the round's plain SGD diverges), whisper-base
+    (73,542,144; its LayerNorm scales set to 1; 18 flash and 18 flash
+    backward launches a step: 6 encoder layers, non-causal over
+    1,536 stub frames, 6 decoder and 6 cross-attention) and internvl2-1b
+    (493,780,992; 64 stub vision tokens and 64 text tokens a row; 24 and 24)
+    two AdamW steps each, with a profiled step each; then the training
+    launchers at their reduced defaults (qwen3-4b, mamba2-370m,
+    granite-moe-3b-a800m, whisper-base, internvl2-1b) and ``fl_train``;
+    every kernel signature these runs called that phase 3 did not hold --
+    the flash backward's too -- held against its plain version after.
 12. the CNN engine's LoRA adapter exchange and the round telemetry, under
     cuDNN's deterministic algorithms, each run's launch counts reset
     before it and read after: ``fedavg_agg`` against its plain version at
@@ -126,8 +140,9 @@ Phases, each fatal on failure:
 Phase 3 also holds the flash-attention and SSD kernels against their plain
 versions at the serve shapes (bf16 and f32), with a no-window, a
 ``q_offset`` and a GQA 1:1 attention row, rows at head dims 80 and 128
-in bf16 and f32, and gemma's layer (MQA 8:1, head dim 256) in bf16 and
-f32, and
+in bf16 and f32, gemma's layer (MQA 8:1, head dim 256) in bf16 and
+f32, and granite's (GQA 24:8) and internvl2's (14:2) prefill layers in
+bf16, and
 times ``F.scaled_dot_product_attention`` with an explicit mask as
 attention's one-call yardstick (the port never calls it).  It holds the
 attention backward kernel against its plain version at qwen3-4b's training
@@ -137,7 +152,11 @@ with the forward's log-sum-exp (the training path), beside SDPA's
 backward (its bf16 error against the same exact gradients printed beside
 the kernel's; bf16 gradients within 2^-7 of their largest magnitude), and
 times the bf16 forward with and without writing that log-sum-exp, and
-Hymba's training attention layer (GQA 5:1 at head dim 64) in bf16.  It
+Hymba's training attention layer (GQA 5:1 at head dim 64) in bf16, and
+phase 11's MoE, audio and VLM training layers at head dim 64: whisper's
+encoder (4 x 1,536 frames, non-causal) in bf16 and f32, its
+cross-attention (128 queries over the 1,536 frames, non-causal),
+granite's GQA 24:8 and internvl2's 14:2 layers at 4 x 128 in bf16.  It
 holds the SSD backward kernel against its plain version at Hymba's
 training layer, mamba2-370m's, Hymba's serve-length shape and a reduced
 config's, each also bit for bit across two runs.  A bf16
@@ -381,6 +400,10 @@ def check_warp(dev, b, h, w, c, gen):
     return row
 
 
+def _fmt(x):
+    return "n/a" if x is None else f"{x:.4f}"
+
+
 def _dname(dtype):
     return str(dtype).split(".")[-1]
 
@@ -388,13 +411,18 @@ def _dname(dtype):
 # the kernel signatures phase 3 (and phases 9 and 11, for the serving and
 # training paths' own) has held against the plain versions:
 # ("flash_attention", q shape, k shape, dtype, causal, window, q_offset),
-# ("ssd_chunk", x shape, n, dtype) and ("ssd_chunk_bwd", x shape, n)
+# the same for "flash_attention_bwd", ("ssd_chunk", x shape, n, dtype) and
+# ("ssd_chunk_bwd", x shape, n)
 CHECKED: set[tuple] = set()
 
 
 def flash_key(q, k, causal, window, q_offset):
     return ("flash_attention", tuple(q.shape), tuple(k.shape), q.dtype, causal, window,
             q_offset)
+
+
+def flash_bwd_key(q, k, causal, window, q_offset):
+    return ("flash_attention_bwd",) + flash_key(q, k, causal, window, q_offset)[1:]
 
 
 def ssd_key(x, B):
@@ -528,8 +556,10 @@ def check_flash_bwd(dev, gen, *, b, sq, skv, h, kv, d, dtype, window, q_offset=0
     pairs = int(mask.sum()) * b * h
     peak = 989e12 if dtype == torch.bfloat16 else 67e12
     lib = sdpa_backward(q, k, v, dout, mask)
+    CHECKED.add(flash_bwd_key(q, k, causal, window, q_offset))
     row = timed({"shape": f"b={b} sq={sq} skv={skv} H={h} KV={kv} d={d} "
-                          f"W={window} off={q_offset} {_dname(dtype)}",
+                          f"W={window} off={q_offset}" + ("" if causal else " non-causal")
+                          + f" {_dname(dtype)}",
                  "max_abs_err": max(errs), "errs_dq_dk_dv": errs, "tols": tols,
                  "worst_over_bound": worst, **extra, "bound_ms": b_ms, "bound_by": by,
                  # dq in a pass of its own recomputes S and dO V^T: 7 products
@@ -615,8 +645,8 @@ def hold_unchecked(dev, gen, seen: dict, checks: dict, path: str) -> None:
     """Every kernel signature in ``seen`` (``recorded_kernel_calls``) that no
     check has held yet, held against its plain version on fresh inputs; the
     rows join ``checks`` with their path."""
-    held = {"flash_attention": check_flash, "ssd_chunk": check_ssd,
-            "ssd_chunk_bwd": check_ssd_bwd}
+    held = {"flash_attention": check_flash, "flash_attention_bwd": check_flash_bwd,
+            "ssd_chunk": check_ssd, "ssd_chunk_bwd": check_ssd_bwd}
     for key, (name, kw) in seen.items():
         if key in CHECKED:
             continue
@@ -627,8 +657,12 @@ def hold_unchecked(dev, gen, seen: dict, checks: dict, path: str) -> None:
             f"{row['max_abs_err']:.3e} (tol {row.get('tol', 'per output')}"
             + (f", per element {row['per_element_worst_over_bound']:.3f} of its bound"
                if "per_element_worst_over_bound" in row else "")
-            + f"), kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-            f"bound {row['bound_ms']:.6f} ms")
+            + (f", worst gradient {row['worst_over_bound']:.3f} of its bound"
+               if "worst_over_bound" in row else "")
+            + f"), kernel {row['ms']:.4f} ms ({_fmt(row['device_ms'])} device), plain "
+            f"{row['plain_ms']:.4f} ms, library {_fmt(row['library_ms'])} ms "
+            f"({_fmt(row['library_device_ms'])} device), bound {row['bound_ms']:.6f} ms "
+            f"({row['bound_by']})")
     if any(key not in CHECKED for key in seen):
         raise AssertionError(f"{path}: kernel signatures left unchecked")
 
@@ -1370,21 +1404,35 @@ SERVE_RUNS = (
 
 @contextlib.contextmanager
 def recorded_kernel_calls(seen: dict):
-    """While open, every ``ops.flash_attention``, ``ops.ssd_chunk`` and
+    """While open, every ``ops.flash_attention``, ``ops.flash_attention_bwd``
+    (the autograd function's backward calls it), ``ops.ssd_chunk`` and
     ``ops.ssd_chunk_bwd`` call on the card adds its signature
-    (``flash_key``/``ssd_key``/``ssd_bwd_key``) to ``seen``, with the
-    keyword arguments that rebuild it in ``check_flash``, ``check_ssd`` or
-    ``check_ssd_bwd``.  The wrappers themselves run and count as always."""
+    (``flash_key``/``flash_bwd_key``/``ssd_key``/``ssd_bwd_key``) to
+    ``seen``, with the keyword arguments that rebuild it in ``check_flash``,
+    ``check_flash_bwd``, ``check_ssd`` or ``check_ssd_bwd``.  The wrappers
+    themselves run and count as always."""
     from repro_torch.kernels import ops
-    flash, ssd, ssd_bwd = ops.flash_attention, ops.ssd_chunk, ops.ssd_chunk_bwd
+    flash, flash_bwd = ops.flash_attention, ops.flash_attention_bwd
+    ssd, ssd_bwd = ops.ssd_chunk, ops.ssd_chunk_bwd
+
+    def flash_kw(q, k, causal, window, q_offset):
+        b, sq, h, d = q.shape
+        return dict(b=b, sq=sq, skv=k.shape[1], h=h, kv=k.shape[2], d=d, dtype=q.dtype,
+                    causal=causal, window=window, q_offset=q_offset)
 
     def flash_rec(q, k, v, *, causal=True, window=None, q_offset=0):
         if q.is_cuda:
-            b, sq, h, d = q.shape
-            seen[flash_key(q, k, causal, window, q_offset)] = ("flash_attention", dict(
-                b=b, sq=sq, skv=k.shape[1], h=h, kv=k.shape[2], d=d, dtype=q.dtype,
-                causal=causal, window=window, q_offset=q_offset))
+            seen[flash_key(q, k, causal, window, q_offset)] = (
+                "flash_attention", flash_kw(q, k, causal, window, q_offset))
         return flash(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+    def flash_bwd_rec(q, k, v, out, dout, *, causal=True, window=None, q_offset=0,
+                      lse=None):
+        if q.is_cuda:
+            seen[flash_bwd_key(q, k, causal, window, q_offset)] = (
+                "flash_attention_bwd", flash_kw(q, k, causal, window, q_offset))
+        return flash_bwd(q, k, v, out, dout, causal=causal, window=window,
+                         q_offset=q_offset, lse=lse)
 
     def ssd_rec(x, dt, A, B, C):
         if x.is_cuda:
@@ -1400,11 +1448,13 @@ def recorded_kernel_calls(seen: dict):
                                                              n=B.shape[-1]))
         return ssd_bwd(x, dt, A, B, C, dy, dS, dg)
 
-    ops.flash_attention, ops.ssd_chunk, ops.ssd_chunk_bwd = flash_rec, ssd_rec, ssd_bwd_rec
+    ops.flash_attention, ops.flash_attention_bwd = flash_rec, flash_bwd_rec
+    ops.ssd_chunk, ops.ssd_chunk_bwd = ssd_rec, ssd_bwd_rec
     try:
         yield seen
     finally:
-        ops.flash_attention, ops.ssd_chunk, ops.ssd_chunk_bwd = flash, ssd, ssd_bwd
+        ops.flash_attention, ops.flash_attention_bwd = flash, flash_bwd
+        ops.ssd_chunk, ops.ssd_chunk_bwd = ssd, ssd_bwd
 
 
 def serve_path(dev, arch, batch, prompt, tokens, params, flash, ssd, decode_flash):
@@ -1536,8 +1586,13 @@ TRAIN_ARCH, TRAIN_PARAMS = "qwen3-4b", 4_022_468_096
 LORA_RANK, LORA_TRAINABLE, LORA_LEG_BYTES = 16, 17_931_776, 35_863_552
 # its largest leaf (the embedding, 151,936 x 2,560): phase 3 checks Eq. 6 there
 TRAIN_LARGEST_LEAF = 388_956_160
-# the SSD families phase 11 trains at full width
+# the SSD, MoE, audio and VLM families phase 11 trains at full width
 HYMBA_PARAMS, MAMBA2_PARAMS = 1_393_625_120, 368_338_432
+GRANITE_PARAMS, WHISPER_PARAMS, INTERNVL2_PARAMS = 3_298_793_472, 73_542_144, 493_780_992
+# their LoRA rounds' (trainable values, bytes a bf16 leg) at rank 16, from
+# the reference's own mapping (tests/test_torch_lora.py): granite's adapters
+# batch over (layers, expert)
+LORA_LEGS = {"granite-moe-3b-a800m": (54_670_848, 109_341_696)}
 # the federated runs' traffic: 8 synthetic clients of 128 tokens, gamma 4
 FL_CLIENTS, FL_GAMMA, FL_SEQ, FL_LR = 8, 4, 128, 5e-4
 
@@ -1639,10 +1694,13 @@ def log_profile(label: str, prof: dict) -> None:
 
 def want_launches(cfg, steps: int, **extra) -> dict:
     """Every kernel's launches in ``steps`` training steps of ``cfg``: one
-    forward and one backward flash launch per attention layer, one forward
-    and one backward SSD launch per SSM layer; ``extra`` for the rest."""
+    forward and one backward flash launch per attention layer -- an audio
+    model's encoder layers and its decoder's cross-attention layers
+    included -- one forward and one backward SSD launch per SSM layer;
+    ``extra`` for the rest."""
     from repro_torch.kernels import ops
-    attn = steps * cfg.n_layers if cfg.has_attention else 0
+    cross = cfg.n_layers if cfg.arch_type == "audio" else 0
+    attn = steps * (cfg.n_layers + cfg.encoder_layers + cross) if cfg.has_attention else 0
     ssd = steps * cfg.n_layers if cfg.has_ssm else 0
     want = {k: 0 for k in ops.LAUNCHES}
     want.update(flash_attention=attn, flash_attention_bwd=attn, ssd_chunk=ssd,
@@ -1654,16 +1712,22 @@ def largest_update(new: dict, old: dict) -> float:
     return max(float((new[k].float() - old[k].float()).abs().max()) for k in old)
 
 
-def train_ssm_family(dev, arch: str, n_expect: int, seq: int, seen: dict,
-                     path_launches: dict, fl_data=None) -> dict:
-    """``arch`` at full width (bf16, weights from seed 0): two AdamW steps of
-    ``make_train_step`` at batch 4 x ``seq``, the SSD gradient on the
-    card's backward kernel; with ``fl_data`` (phase 11's 2 mediators: their
-    token streams mapped into this vocab, rows, weights, steps per
-    mediator) also a LoRA rank-16 round of ``make_fl_round`` (its Eq. 6
-    launch held to its plain version).  Each run's launch counts reset
-    just before it and read just after; finite losses, a moved update,
-    seconds and peak memory.  Kernel signatures go to ``seen``."""
+def train_family(dev, arch: str, n_expect: int, seq: int, seen: dict,
+                 path_launches: dict, fl_data=None, fan_in: bool = False) -> dict:
+    """``arch`` at full width (bf16, weights from seed 0; an ``norm="ln"``
+    model's LayerNorm scales set to 1, ``ln_scales_to_one``, as the
+    reference's init zeroes them and every output with them; with
+    ``fan_in`` the stacked layer matrices at the standard fan-in,
+    ``to_fan_in``): two AdamW steps of ``make_train_step`` at batch 4 x
+    ``seq`` (``make_batch``'s:
+    a VLM's first half stub vision tokens, an audio model's 1,536 stub
+    frames), the attention and SSD gradients on the card's backward
+    kernels; with ``fl_data`` (phase 11's 2 mediators: their token streams
+    mapped into this vocab, rows, weights, steps per mediator) also a LoRA
+    rank-16 round of ``make_fl_round`` (its Eq. 6 launch held to its plain
+    version).  Each run's launch counts reset just before it and read just
+    after; finite losses, a moved update, seconds and peak memory.  Kernel
+    signatures go to ``seen``."""
     from repro_torch import configs
     from repro_torch.kernels import ops
     from repro_torch.launch import steps
@@ -1673,6 +1737,9 @@ def train_ssm_family(dev, arch: str, n_expect: int, seq: int, seen: dict,
     cfg = configs.get(arch)
     torch.cuda.empty_cache()
     model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    ln_scales = ln_scales_to_one(model) if cfg.norm == "ln" else 0
+    if fan_in:
+        to_fan_in(model)
     params = T.train_params(model)
     n_params = sum(p.numel() for p in params.values())
     if n_params != n_expect:
@@ -1706,19 +1773,41 @@ def train_ssm_family(dev, arch: str, n_expect: int, seq: int, seen: dict,
         raise AssertionError(f"{arch} train steps: losses {losses}, largest update {moved}")
     res = {"train": {"s_per_step": secs, "losses": losses, "peak_gb": _peak_gb(),
                      "launches": launches, "tokens": 4 * seq, "largest_update": moved,
-                     "params": n_params,
+                     "params": n_params, "ln_scales_set_to_one": ln_scales,
+                     "fan_in": fan_in,
+                     "microbatches_suggested": steps.suggest_microbatches(cfg, 4, seq),
                      "flop_bound_ms": 6 * n_params * 4 * seq / 989e12 * 1e3,
                      "profile": profile_call(lambda: step(params, state, batches[0]))}}
     log(f"[train] {arch} {n_params:,} params bf16, AdamW, batch 4 x {seq}: s/step "
         f"{' '.join(f'{x:.4f}' for x in secs)} (6 N tokens at 989 TFLOP/s: "
         f"{res['train']['flop_bound_ms']:.2f} ms), losses {losses}, largest update "
-        f"{moved:.3e}, peak {res['train']['peak_gb']:.2f} GB, launches {launches}")
+        f"{moved:.3e}, peak {res['train']['peak_gb']:.2f} GB, launches {launches}"
+        + (f"; its {ln_scales} LayerNorm scales set to 1 after init" if ln_scales else "")
+        + ("; at the standard fan-in" if fan_in else ""))
+    if cfg.encoder_layers:
+        # suggest_microbatches' napkin (6 bytes a saved residual of d a
+        # position a layer) reads the decoder's seq for every layer; with
+        # the encoder's frames in its own layers instead
+        napkin = (cfg.n_layers + cfg.encoder_layers) * 4 * seq * cfg.d_model * 6
+        frames = (cfg.n_layers * seq + cfg.encoder_layers * cfg.source_positions) \
+            * 4 * cfg.d_model * 6
+        res["train"]["napkin_bytes"] = {"decoder_seq": napkin, "encoder_frames": frames}
+        log(f"[train] {arch} suggest_microbatches(batch 4, seq {seq}) = "
+            f"{res['train']['microbatches_suggested']}: its napkin counts {napkin:,} B of "
+            f"saved residuals at the decoder's seq, {frames:,} B with the encoder's "
+            f"{cfg.source_positions} frames (budget 4e9 B); measured peak "
+            f"{res['train']['peak_gb']:.2f} GB")
     log_profile(f"{arch} AdamW step (a third, profiled)", res["train"]["profile"])
     del state, opt, step
     torch.cuda.empty_cache()
     if fl_data is not None:
         tokens, labels, w, per_med = fl_data
         mapping = T.adapter_mapping(cfg, LORA_RANK)
+        leg = lora.exchange_nbytes(mapping, 2)
+        if arch in LORA_LEGS and (lora.num_trainable_params(mapping), leg) != LORA_LEGS[arch]:
+            raise AssertionError(f"{arch} rank {LORA_RANK}: {lora.num_trainable_params(mapping)} "
+                                 f"trainable, {leg} bytes a leg; the reference's mapping "
+                                 f"gives {LORA_LEGS[arch]}")
         a_tree = lora.init_adapter_A(lora.A_SALT, mapping, dev)
         ad_state = lora.init_adapter_state(mapping, params)
         fl = steps.make_fl_round(model, 2, learning_rate=FL_LR, local_steps=per_med,
@@ -1743,12 +1832,13 @@ def train_ssm_family(dev, arch: str, n_expect: int, seq: int, seen: dict,
         res["lora_round"] = {"s_per_round": sec, "loss": loss, "peak_gb": _peak_gb(),
                              "launches": launches, "largest_update": moved,
                              "trainable": lora.num_trainable_params(mapping),
+                             "leg_bytes": leg, "ratio": leg / (2 * n_params),
                              "eq6_held": {"calls": held.calls, "worst_rel": held.worst}}
         log(f"[fl] {arch} LoRA rank {LORA_RANK} round, 2 mediators x {per_med} steps: "
             f"{sec:.3f} s, loss {loss:.4f}, largest adapter update {moved:.3e}, peak "
-            f"{_peak_gb():.2f} GB, {res['lora_round']['trainable']:,} trainable, launches "
-            f"{launches}; Eq. 6 held to its plain version: {held.calls} call, worst "
-            f"{held.worst:.2e}")
+            f"{_peak_gb():.2f} GB, {res['lora_round']['trainable']:,} trainable, {leg:,} B "
+            f"a leg (adapter/full {leg / (2 * n_params):.6f}), launches {launches}; Eq. 6 "
+            f"held to its plain version: {held.calls} call, worst {held.worst:.2e}")
         del a_tree, ad_state, new_state, fl
     del model, params
     torch.cuda.empty_cache()
@@ -1763,11 +1853,14 @@ def phase11(dev, gen, checks: dict, path_launches: dict, lap) -> dict:
     launch counts reset just before and read just after, seconds, peak
     memory and the WAN ledger, and every Eq. 6 launch of the two rounds
     held to its plain version (``HeldEq6``; its seconds left out of the
-    rounds'); then hymba-1.5b (steps and a LoRA round over the same
-    mediators) and mamba2-370m (steps at 4 x 512) through
-    ``train_ssm_family``, every kernel signature they called that no check
-    had held then held against its plain version (``checks`` gains the
-    rows); then the launchers at their reduced defaults."""
+    rounds'); then through ``train_family`` hymba-1.5b (steps and a LoRA
+    round over the same mediators), mamba2-370m (steps at 4 x 512),
+    granite-moe-3b-a800m (steps and a LoRA round), whisper-base and
+    internvl2-1b (steps); then the launchers at their reduced defaults
+    (qwen3-4b, mamba2-370m, granite, whisper, internvl2 and ``fl_train``);
+    every kernel signature these runs called that no check had held (the
+    flash backward's too) is then held against its plain version
+    (``checks`` gains the rows)."""
     from repro_torch import configs
     from repro_torch.core import scheduling
     from repro_torch.core.comm import CommMeter
@@ -1938,41 +2031,64 @@ def phase11(dev, gen, checks: dict, path_launches: dict, lap) -> dict:
     hy_vocab = configs.get("hymba-1.5b").vocab
     hy_streams = [t * hy_vocab // cfg.vocab for t in streams]
     hy_tokens, hy_labels, hy_w, _ = fl_train.pack_mediators(meds, hy_streams, counts, FL_SEQ, 2)
-    res["hymba"] = train_ssm_family(dev, "hymba-1.5b", HYMBA_PARAMS, 128, seen, path_launches,
-                                    fl_data=(hy_tokens, hy_labels, hy_w, per_med))
+    res["hymba"] = train_family(dev, "hymba-1.5b", HYMBA_PARAMS, 128, seen, path_launches,
+                                fl_data=(hy_tokens, hy_labels, hy_w, per_med))
     lap("11 hymba-1.5b")
-    res["mamba2"] = train_ssm_family(dev, "mamba2-370m", MAMBA2_PARAMS, 512, seen,
-                                     path_launches)
+    res["mamba2"] = train_family(dev, "mamba2-370m", MAMBA2_PARAMS, 512, seen, path_launches)
     lap("11 mamba2-370m")
 
-    # (e) the launchers at their reduced defaults
+    # (e) the MoE, audio and VLM families at full width, 4 x 128: granite's
+    # steps and a LoRA round over the same 2 mediators (its adapters batched
+    # over the layers and the experts), whisper's and internvl2's steps
+    # (make_fl_round feeds a mediator only tokens and labels, as the
+    # reference's does: neither can take its frames or vision tokens).
+    # granite trains at the standard fan-in (``to_fan_in``): at the
+    # reference init's 1/sqrt(layers) its round's plain SGD (lr 5e-4, no
+    # clipping, as the reference's) meets adapter gradients of 1.7e6 at
+    # the first step and NaN at the second; at the fan-in they stay ~0.1
+    gr_vocab = configs.get("granite-moe-3b-a800m").vocab
+    gr_streams = [t * gr_vocab // cfg.vocab for t in streams]
+    gr_tokens, gr_labels, gr_w, _ = fl_train.pack_mediators(meds, gr_streams, counts, FL_SEQ, 2)
+    res["granite"] = train_family(dev, "granite-moe-3b-a800m", GRANITE_PARAMS, 128, seen,
+                                  path_launches, fl_data=(gr_tokens, gr_labels, gr_w, per_med),
+                                  fan_in=True)
+    lap("11 granite-moe-3b-a800m")
+    res["whisper"] = train_family(dev, "whisper-base", WHISPER_PARAMS, 128, seen, path_launches)
+    res["internvl2"] = train_family(dev, "internvl2-1b", INTERNVL2_PARAMS, 128, seen,
+                                    path_launches)
+    lap("11 whisper-base, internvl2-1b")
+
+    # (f) the launchers at their reduced defaults
     ops.reset_launches()
     tr = train.main([])
     path_launches["launch.train"] = dict(ops.LAUNCHES)
-    ops.reset_launches()
-    with recorded_kernel_calls(seen):
-        tm = train.main(["--arch", "mamba2-370m"])
-    path_launches["launch.train mamba2-370m"] = dict(ops.LAUNCHES)
+    archs = ("mamba2-370m", "granite-moe-3b-a800m", "whisper-base", "internvl2-1b")
+    arch_losses = {}
+    for arch in archs:
+        ops.reset_launches()
+        with recorded_kernel_calls(seen):
+            arch_losses[arch] = train.main(["--arch", arch])["losses"]
+        path_launches[f"launch.train {arch}"] = dict(ops.LAUNCHES)
     ops.reset_launches()
     ft = fl_train.main(["--lora-rank", "2"])
     path_launches["launch.fl_train"] = dict(ops.LAUNCHES)
-    if not (all(math.isfinite(x) for x in tr["losses"] + tm["losses"] + ft["losses"])):
-        raise AssertionError(f"launchers: {tr['losses']} {tm['losses']} {ft['losses']}")
-    res["launchers"] = {"train_losses": tr["losses"], "mamba2_train_losses": tm["losses"],
-                        "fl_losses": ft["losses"], "fl_ratio": ft["ratio"], "launches": {
-                            k: path_launches[k] for k in ("launch.train",
-                                                          "launch.train mamba2-370m",
-                                                          "launch.fl_train")}}
+    every = tr["losses"] + ft["losses"] + [x for v in arch_losses.values() for x in v]
+    if not all(math.isfinite(x) for x in every):
+        raise AssertionError(f"launchers: {tr['losses']} {arch_losses} {ft['losses']}")
+    names = ["launch.train"] + [f"launch.train {a}" for a in archs] + ["launch.fl_train"]
+    res["launchers"] = {"train_losses": tr["losses"], "arch_train_losses": arch_losses,
+                        "fl_losses": ft["losses"], "fl_ratio": ft["ratio"],
+                        "launches": {k: path_launches[k] for k in names}}
     log(f"[launch] train (reduced {TRAIN_ARCH}, 20 steps): loss {tr['losses'][0]:.4f} -> "
-        f"{tr['losses'][-1]:.4f}; train --arch mamba2-370m (reduced, 20 steps): loss "
-        f"{tm['losses'][0]:.4f} -> {tm['losses'][-1]:.4f}; fl_train --lora-rank 2 (3 "
-        f"rounds): losses {ft['losses']}, ratio {ft['ratio']:.4f}; launches "
-        f"{path_launches['launch.train']} / {path_launches['launch.train mamba2-370m']} / "
-        f"{path_launches['launch.fl_train']}")
-    # every kernel signature the SSD families' runs called, held against its
-    # plain version on fresh inputs (the models freed), unless a check did
+        f"{tr['losses'][-1]:.4f}; "
+        + "; ".join(f"train --arch {a} (reduced, 20 steps): loss {v[0]:.4f} -> {v[-1]:.4f}"
+                    for a, v in arch_losses.items())
+        + f"; fl_train --lora-rank 2 (3 rounds): losses {ft['losses']}, ratio "
+        f"{ft['ratio']:.4f}; launches " + " / ".join(str(path_launches[k]) for k in names))
+    # every kernel signature these runs called, held against its plain
+    # version on fresh inputs (the models freed), unless a check did
     res["kernel_signatures"] = [str(key) for key in seen]
-    hold_unchecked(dev, gen, seen, checks, "train ssm families")
+    hold_unchecked(dev, gen, seen, checks, "train families")
     lap("11 launchers")
     return res
 
@@ -2321,6 +2437,13 @@ def main() -> int:
     gemma = dict(b=4, sq=2048, skv=2048, h=8, kv=1, d=256, window=None)
     checks["flash_attention"] += [check_flash(dev, gen, **gemma, dtype=torch.bfloat16),
                                   check_flash(dev, gen, **gemma, dtype=torch.float32)]
+    # granite's (GQA 24:8) and internvl2's (14:2) prefill layers in bf16,
+    # here rather than after their serving runs: there the profiler has
+    # dropped records (0.040 ms of device time for granite's 0.194 ms
+    # kernel by events), and SDPA's device time is read beside them
+    checks["flash_attention"] += [
+        check_flash(dev, gen, b=4, sq=2048, skv=2048, h=h, kv=kv, d=64,
+                    dtype=torch.bfloat16, window=None) for h, kv in ((24, 8), (14, 2))]
     lap("3 flash_attention")
     # the attention backward: qwen3-4b's training layer (phase 11's shape,
     # first), the reduced configs' layer, danube's head under a window with a
@@ -2335,6 +2458,19 @@ def main() -> int:
     # Hymba's training attention layer (phase 11's): GQA 5:1 at head dim 64
     checks["flash_attention_bwd"].append(check_flash_bwd(
         dev, gen, b=4, sq=128, skv=128, h=25, kv=5, d=64, window=1024, dtype=torch.bfloat16))
+    # the training layers of phase 11's MoE, audio and VLM runs (4 x 128,
+    # head dim 64): whisper's encoder over 1,536 frames, non-causal (bf16
+    # and f32), its cross-attention (128 queries over the 1,536 frames),
+    # granite's GQA 24:8 and internvl2's 14:2 layers
+    whisper_enc = dict(b=4, sq=1536, skv=1536, h=8, kv=8, d=64, window=None, causal=False)
+    checks["flash_attention_bwd"] += [
+        check_flash_bwd(dev, gen, **whisper_enc, dtype=torch.bfloat16),
+        check_flash_bwd(dev, gen, **whisper_enc, dtype=torch.float32),
+        check_flash_bwd(dev, gen, **{**whisper_enc, "sq": 128}, dtype=torch.bfloat16),
+        check_flash_bwd(dev, gen, b=4, sq=128, skv=128, h=24, kv=8, d=64, window=None,
+                        dtype=torch.bfloat16),
+        check_flash_bwd(dev, gen, b=4, sq=128, skv=128, h=14, kv=2, d=64, window=None,
+                        dtype=torch.bfloat16)]
     lap("3 flash_attention_bwd")
     ssd = dict(b=4, nc=32, L=64, h=25, p=64, n=16)
     checks["ssd_chunk"] = [check_ssd(dev, gen, **ssd, dtype=torch.float32),
@@ -2367,16 +2503,14 @@ def main() -> int:
     for counts_big in big:
         checks["kld_greedy_picks"].append(check_greedy(dev, counts_big, GAMMA))
     lap("3 kld_greedy_picks")
-    def fmt(x):
-        return "n/a" if x is None else f"{x:.4f}"
     log("[kernel] times in ms per call: CUDA events (device time from the profiler)")
     for name, rows in checks.items():
         for r in rows:
             log(f"[kernel] {name:17s} {r['shape']:24s} err {r['max_abs_err']:.3e} "
-                f"kernel {fmt(r['ms'])} ({fmt(r['device_ms'])}, "
+                f"kernel {_fmt(r['ms'])} ({_fmt(r['device_ms'])}, "
                 f"{r['kernels_per_call']:g} kernels/call)  "
-                f"plain {fmt(r['plain_ms'])} ({fmt(r['plain_device_ms'])})  "
-                f"library {fmt(r['library_ms'])} ({fmt(r['library_device_ms'])})  "
+                f"plain {_fmt(r['plain_ms'])} ({_fmt(r['plain_device_ms'])})  "
+                f"library {_fmt(r['library_ms'])} ({_fmt(r['library_device_ms'])})  "
                 f"bound {r['bound_ms']:.6f} ({r['bound_by']})")
     for r in checks["flash_attention_bwd"]:
         log(f"[kernel] flash_attention_bwd {r['shape']}: worst gradient {r['worst_over_bound']:.3f} "
@@ -2384,16 +2518,16 @@ def main() -> int:
             + (f", SDPA's bf16 backward {r['sdpa_worst_over_bound']:.3f} of it (errors "
                f"{', '.join(f'{e:.3e}' for e in r['sdpa_errs_dq_dk_dv'])})"
                if "sdpa_worst_over_bound" in r else "")
-            + f"; with lse {fmt(r['ms'])} ({fmt(r['device_ms'])}), direct call "
-            f"{fmt(r['direct_ms'])} ({fmt(r['direct_device_ms'])}), split {r['split']}, "
+            + f"; with lse {_fmt(r['ms'])} ({_fmt(r['device_ms'])}), direct call "
+            f"{_fmt(r['direct_ms'])} ({_fmt(r['direct_device_ms'])}), split {r['split']}, "
             f"7/5 of the operations bound {r['ops_7_of_5_ms']:.6f} ms")
     for r in checks["flash_attention"]:
         if "per_element_worst_over_bound" in r:
             log(f"[kernel] flash_attention {r['shape']}: worst element "
                 f"{r['per_element_worst_over_bound']:.3f} of 2^-8 (|exact| + sum p|v| / l)")
         if "lse_ms" in r:
-            log(f"[kernel] flash_attention {r['shape']}: writing lse {fmt(r['lse_ms'])} "
-                f"({fmt(r['lse_device_ms'])}) against {fmt(r['ms'])} ({fmt(r['device_ms'])})")
+            log(f"[kernel] flash_attention {r['shape']}: writing lse {_fmt(r['lse_ms'])} "
+                f"({_fmt(r['lse_device_ms'])}) against {_fmt(r['ms'])} ({_fmt(r['device_ms'])})")
     for r in checks["ssd_chunk_bwd"]:
         log(f"[kernel] ssd_chunk_bwd {r['shape']}: worst gradient {r['worst_over_bound']:.3f} "
             f"of its bound (dA 1e-4, the rest 1e-5 of the gradient's scale), errors "

@@ -146,6 +146,8 @@ def library() -> ctypes.CDLL:
     lib.ssd_chunk_bwd_plan.restype = ctypes.c_int
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    lib.repro_bind_device.argtypes = [ctypes.c_int]
+    lib.repro_bind_device.restype = ctypes.c_int
     return lib
 
 

@@ -265,3 +265,13 @@ extern "C" int fedavg_agg_bf16(const void* d, const void* w, void* out,
 extern "C" const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+// Makes `device`'s primary context current on the calling host thread
+// (cudaSetDevice does since CUDA 12).  The wrappers call it on a thread's
+// first launch: cuTensorMapEncodeTiled encodes the TMA maps before this
+// library's first runtime call there, and it refuses them on a thread
+// with no current context (autograd runs the backward on a thread of its
+// own, where a warm caching allocator may have made no runtime call yet).
+extern "C" int repro_bind_device(int device) {
+  return static_cast<int>(cudaSetDevice(device));
+}

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import functools
 import math
+import threading
 
 import torch
 
@@ -67,12 +68,23 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
     return True
 
 
+# the device each host thread's launches last bound (``_launch``)
+_BOUND = threading.local()
+
+
 def _launch(name: str, entry: str, device: torch.device, *args) -> None:
     """Call ``entry`` on ``device``'s current stream.  The raw stream and
     device queries skip ``torch.cuda``'s Python layer (host cost per call);
-    the device context is entered only when ``device`` is not current."""
-    fn = getattr(build.library(), entry)
+    the device context is entered only when ``device`` is not current.  A
+    thread's first launch on a device binds its primary context there
+    (``repro_bind_device``): autograd runs a backward on a thread of its
+    own, where nothing may have made it current yet."""
+    lib = build.library()
+    fn = getattr(lib, entry)
     index = device.index
+    if getattr(_BOUND, "device", None) != index:
+        build.check(lib.repro_bind_device(index), "repro_bind_device")
+        _BOUND.device = index
     if index == torch._C._cuda_getDevice():
         code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     else:

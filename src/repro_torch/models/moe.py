@@ -16,6 +16,15 @@ outputs and adds them with its gate weights; no step waits on the host.  The sam
 ``(n, g, k, E, C)`` one-hot (1.3 GB a layer at granite-moe-3b-a800m's
 4 x 2,048 prefill).  ``moe_glu(..., onehot=True)`` is the reference's
 formulation, which the tests hold the index form to.
+
+Both gathers carry their own backward (``_Dispatch``, ``_Combine``), a
+gather by the inverse index: a token's gradient is the sum of its
+``top_k`` buffer rows' gradients in fp32, rounded once, and a buffer
+row's gradient is the one (token, slot)'s that sits there (zero for an
+empty row).  Autograd's backward of ``index_select`` would scatter-add
+with atomics instead: in bf16 each of a token's up to ``top_k`` adds would
+round, in no fixed order.  So the gradients are the same bits on every
+run.
 """
 from __future__ import annotations
 
@@ -85,6 +94,53 @@ def route_topk(router_logits: torch.Tensor, top_k: int, capacity: int):
     return route_topk_from_probs(_softmax(router_logits), top_k, capacity)
 
 
+class _Dispatch(torch.autograd.Function):
+    """The expert buffer: row ``r`` of ``x (tokens, d)`` gathered by ``src
+    (slots,)``, the index ``tokens`` reading a zero row.  Backward: a
+    token's gradient is the sum of its ``top_k`` buffer rows' (``place
+    (tokens * top_k,)``, ``slots`` for a dropped slot), in fp32 (or a wider
+    dtype) in slot order, rounded once."""
+
+    @staticmethod
+    def forward(ctx, x, src, place, top_k):
+        ctx.save_for_backward(place)
+        ctx.top_k = top_k
+        return torch.cat([x, x.new_zeros(1, x.shape[1])]).index_select(0, src)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (place,) = ctx.saved_tensors
+        d = grad.shape[1]
+        rows = torch.cat([grad, grad.new_zeros(1, d)]).index_select(0, place)
+        acc = torch.promote_types(grad.dtype, torch.float32)
+        return rows.view(-1, ctx.top_k, d).sum(1, dtype=acc).to(grad.dtype), None, None, None
+
+
+class _Combine(torch.autograd.Function):
+    """Each (token, slot)'s buffer row: ``out (slots, d)`` gathered by ``row
+    (tokens * top_k,)``, a dropped slot reading a live row (its gate weight
+    is 0).  Backward: a buffer row's gradient is the one kept (token,
+    slot)'s that sits there (``place``: each (token, slot)'s row, ``slots``
+    for a dropped one), zero for an empty row; a dropped slot's gives none."""
+
+    @staticmethod
+    def forward(ctx, out, row, place):
+        ctx.save_for_backward(place)
+        ctx.slots = out.shape[0]
+        return out.index_select(0, row)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (place,) = ctx.saved_tensors
+        picks, d = grad.shape
+        # each row's (token, slot), the zero row past them for an empty one
+        # (the dropped slots all land on the spare entry, which is cut)
+        pick = torch.full((ctx.slots + 1,), picks, dtype=torch.long, device=grad.device)
+        pick.scatter_(0, place, torch.arange(picks, device=grad.device))
+        rows = torch.cat([grad, grad.new_zeros(1, d)]).index_select(0, pick[:ctx.slots])
+        return rows, None, None
+
+
 def moe_glu(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
             w_up: torch.Tensor, w_down: torch.Tensor, *, top_k: int,
             group_size: int = 512, capacity_factor: float = 1.25,
@@ -126,15 +182,17 @@ def moe_glu(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
     # the buffer row's token: an empty row reads the zero row past the
     # tokens (scatters and gathers by index: no host sync)
     token = torch.arange(n * g, device=x.device).view(n, g, 1).expand(n, g, top_k)
+    place = torch.where(keep, row, slots).flatten()        # (token, slot) -> row
     src = torch.full((slots + 1,), n * g, dtype=torch.long, device=x.device)
-    src.scatter_(0, torch.where(keep, row, slots).flatten(), token.flatten())
-    x_pad = torch.cat([x.reshape(n * g, d), x.new_zeros(1, d)])
-    buf = x_pad.index_select(0, src[:slots]).view(n_experts, n * capacity, d)
+    src.scatter_(0, place, token.flatten())
+    buf = _Dispatch.apply(x.reshape(n * g, d), src[:slots], place, top_k)
+    buf = buf.view(n_experts, n * capacity, d)
     h = act(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_up)
     out = torch.bmm(h, w_down).view(slots, d)
     # each token's top_k outputs, weighted by its gates in x's dtype and
-    # summed (fp32 accumulation, one rounding)
+    # summed (fp32 accumulation, one rounding); a dropped slot reads a live
+    # row with weight 0, and its place gets no gradient back
     weight = torch.where(keep, gates.to(x.dtype), 0).view(n * g, 1, top_k)
-    picked = out.index_select(0, row.flatten()).view(n * g, top_k, d)
+    picked = _Combine.apply(out, row.flatten(), place).view(n * g, top_k, d)
     y = torch.bmm(weight, picked)
     return y.reshape(b, s, d), aux.mean()

@@ -478,13 +478,17 @@ class Transformer(nn.Module):
         every text position, no cache (``_embed_inputs``, the layer stack,
         then ``_lm_head``; a VLM's vision span is left out, as the
         reference's loss leaves it).  ``with_aux``: ``(logits, aux)``, aux
-        the MoE load-balance terms summed over the layers."""
+        the MoE load-balance terms summed over the layers.  The vision span
+        left out is the one given: ``vision_embeds.shape[1]`` positions,
+        ``cfg.vision_tokens`` or fewer (``configs.token_split`` gives a
+        sequence shorter than twice the vision tokens half of it; the
+        reference slices ``cfg.vision_tokens`` there and keeps no text)."""
         cfg = self.cfg
         enc_out = _run_encoder(self, enc_feats) if cfg.arch_type == "audio" else None
         h, positions = _embed_inputs(self, tokens, vision_embeds)
         h, aux = _run_layers(self, h, positions, mode="train", cache=None, enc_out=enc_out)
         if cfg.arch_type == "vlm":
-            h = h[:, cfg.vision_tokens:]
+            h = h[:, vision_embeds.shape[1]:]
         logits = _lm_head(self, h)
         return (logits, aux) if with_aux else logits
 

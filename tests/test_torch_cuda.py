@@ -1228,7 +1228,15 @@ BWD_CARD_CASES = [(2, 64, 64, 4, 4, 64, True, None, 0),
                   (1, 70, 131, 4, 2, 64, True, 50, 61),
                   (1, 45, 77, 6, 3, 128, False, None, 0),
                   (1, 40, 40, 2, 1, 80, True, 8, 45),
-                  (1, 1024, 1024, 8, 1, 256, True, None, 0)]
+                  (1, 1024, 1024, 8, 1, 256, True, None, 0),
+                  # the MoE, audio and VLM training layers (4 x 128, d=64):
+                  # whisper's encoder over 1,536 frames and its
+                  # cross-attention (non-causal, 128 queries over them),
+                  # granite's GQA 24:8, internvl2's 14:2
+                  (4, 1536, 1536, 8, 8, 64, False, None, 0),
+                  (4, 128, 1536, 8, 8, 64, False, None, 0),
+                  (4, 128, 128, 24, 8, 64, True, None, 0),
+                  (4, 128, 128, 14, 2, 64, True, None, 0)]
 
 
 def _bwd_inputs(dev, dtype, case, seed):
@@ -1383,46 +1391,88 @@ def test_flash_attention_bwd_kernel_refuses_other_head_dims(dev):
     assert ops.LAUNCHES["flash_attention_bwd"] == before
 
 
-def _training_on_card_matches_cpu(dev, cfg):
+def _training_on_card_matches_cpu(dev, cfg, monkeypatch):
     """``forward_train`` of a reduced config (f32 weights from one seed,
-    each layer matrix but the conv taps rescaled from the reference init's
-    ``1/sqrt(L)`` to ``1/sqrt(d_in)``) on the card and on the CPU: one
-    forward and one backward flash launch per attention layer and one
-    forward and one backward SSD launch per SSM layer on the card; the loss
+    each stacked layer matrix but the conv taps -- an expert's 3-D weights
+    and the audio encoder's too -- rescaled from the reference init's
+    ``1/sqrt(L)`` to ``1/sqrt(d_in)``; LayerNorm scales set to 1, as the
+    reference's init zeroes them; a VLM's vision embeddings and an audio
+    model's frames standard normal from a second seed) on the card and on
+    the CPU: one forward and one backward flash launch per attention layer
+    (an audio model's encoder and cross-attention layers included) and one
+    forward and one backward SSD launch per SSM layer on the card; an MoE
+    layer's top-k experts the same on both (checked first, so a flip of a
+    near tie fails as a route, not as a gradient; the smallest gap between
+    a token's k-th and (k+1)-th router probability is printed); the loss
     within 1e-5 and every gradient within 1e-3 of its scale (fp32 sums in
-    other orders); a two-step SGD round of ``make_fl_round`` on both within
-    1e-3 of each leaf's update scale.  The rescale: at the reference's own
-    init the CPU round alone, from weights perturbed by 1e-7, moves by up
-    to 9.4e-2 of the embedding's update scale (danube, window 16, two
-    steps, five perturbations), so card-vs-CPU agreement there tests
-    nothing; at the standard fan-in that spread is at most 4.7e-5
+    other orders); for the families whose round takes tokens alone, a
+    two-step SGD round of ``make_fl_round`` on both within 1e-3 of each
+    leaf's update scale.  The rescale: at the reference's own init the CPU
+    round alone, from weights perturbed by 1e-7, moves by up to 9.4e-2 of
+    the embedding's update scale (danube, window 16, two steps, five
+    perturbations), so card-vs-CPU agreement there tests nothing; at the
+    standard fan-in that spread is at most 4.7e-5
     (``tests/test_torch_train.py::_perturbation_spread``).  Seq 64, 128 for
     the SSD families (two chunks, so the recurrence carries a gradient)."""
     from repro_torch.launch import steps as S
+    from repro_torch.models import moe as moe_lib
     cpu = T.init_model(cfg, torch.Generator().manual_seed(0))
+    stacks = {"layers": cfg.n_layers, "encoder": cfg.encoder_layers}
     with torch.no_grad():                  # the standard fan-in (see the docstring)
         for name, p in cpu.named_parameters():
-            if name.startswith("layers.") and p.dim() == 2 and not name.endswith("conv_w"):
-                p.mul_((cfg.n_layers / p.shape[0]) ** 0.5)
+            n, leaf = stacks.get(name.split(".", 1)[0]), name.rsplit(".", 1)[-1]
+            if n and p.dim() >= 2 and leaf != "conv_w":
+                p.mul_((n / p.shape[-2]) ** 0.5)
+            if cfg.norm == "ln" and leaf in ("norm1", "norm2", "norm_x", "final_norm",
+                                             "enc_final_norm"):
+                p.fill_(1.0)
     card = T.Transformer(cfg, device=dev)
     card.load_state_dict(cpu.state_dict())
     seq = 128 if cfg.has_ssm else 64
-    toks = torch.randint(0, cfg.vocab, (4, seq), generator=torch.Generator().manual_seed(1))
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (4, seq), generator=gen)
     batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    if cfg.arch_type == "vlm":
+        batch["vision_embeds"] = torch.randn(4, cfg.vision_tokens, cfg.d_model, generator=gen)
+    if cfg.arch_type == "audio":
+        batch["enc_feats"] = torch.randn(4, cfg.source_positions, cfg.d_model, generator=gen)
     dbatch = {k: t.to(dev) for k, t in batch.items()}
+    routes = {"cpu": [], "card": []}
+    route = moe_lib._route
+
+    def recording(side):
+        def rec(probs, top_k, capacity):
+            out = route(probs, top_k, capacity)
+            top = torch.topk(probs.detach(), top_k + 1, dim=-1).values
+            routes[side].append((out[1].cpu(), float((top[..., -2] - top[..., -1]).min())))
+            return out
+        return rec
+
+    monkeypatch.setattr(moe_lib, "_route", recording("cpu"))
     lc, gc = S._loss_and_grads(lambda p: T.forward_train(cpu, batch, p)[0], T.train_params(cpu))
+    monkeypatch.setattr(moe_lib, "_route", recording("card"))
     ops.reset_launches()
     lg, gg = S._loss_and_grads(lambda p: T.forward_train(card, dbatch, p)[0],
                                T.train_params(card))
     torch.cuda.synchronize()
-    attn = cfg.n_layers if cfg.has_attention else 0
+    monkeypatch.setattr(moe_lib, "_route", route)
+    cross = cfg.n_layers if cfg.arch_type == "audio" else 0
+    attn = cfg.n_layers + cfg.encoder_layers + cross if cfg.has_attention else 0
     ssm = cfg.n_layers if cfg.has_ssm else 0
     assert ops.LAUNCHES["flash_attention"] == ops.LAUNCHES["flash_attention_bwd"] == attn
     assert ops.LAUNCHES["ssd_chunk"] == ops.LAUNCHES["ssd_chunk_bwd"] == ssm
+    assert len(routes["cpu"]) == len(routes["card"]) == (cfg.n_layers if cfg.is_moe else 0)
+    for (ec, margin), (eg, _) in zip(routes["cpu"], routes["card"]):
+        assert torch.equal(ec, eg), f"a top-k route differs (smallest gap {margin:.3e})"
+    if cfg.is_moe:
+        print(f"{cfg.name}: smallest gap between a token's k-th and (k+1)-th router "
+              f"probability {min(m for _, m in routes['cpu']):.3e}")
     assert abs(float(lg) - float(lc)) <= 1e-5 * abs(float(lc))
     for name, g in gc.items():
         err, scale = _err_scale(gg[name].cpu(), g)
         assert err <= 1e-3 * scale, name
+    if cfg.arch_type in ("vlm", "audio"):    # their round takes no frames or vision tokens
+        return
     w = torch.full((4,), float(seq))
     rc = S.make_fl_round(cpu, 1, learning_rate=0.05, local_steps=2)(
         T.train_params(cpu), batch["tokens"], batch["labels"], w)
@@ -1437,12 +1487,50 @@ def _training_on_card_matches_cpu(dev, cfg):
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch,upd", [("qwen3-4b", {}),
                                       ("h2o-danube-1.8b", {"sliding_window": 16})])
-def test_reduced_dense_training_on_card_matches_cpu(dev, arch, upd):
+def test_reduced_dense_training_on_card_matches_cpu(dev, arch, upd, monkeypatch):
     _training_on_card_matches_cpu(
-        dev, dataclasses.replace(configs.reduced(configs.get(arch)), **upd))
+        dev, dataclasses.replace(configs.reduced(configs.get(arch)), **upd), monkeypatch)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["hymba-1.5b", "mamba2-370m"])
-def test_reduced_ssm_training_on_card_matches_cpu(dev, arch):
-    _training_on_card_matches_cpu(dev, configs.reduced(configs.get(arch)))
+def test_reduced_ssm_training_on_card_matches_cpu(dev, arch, monkeypatch):
+    _training_on_card_matches_cpu(dev, configs.reduced(configs.get(arch)), monkeypatch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "whisper-base", "internvl2-1b"])
+def test_reduced_zoo_training_on_card_matches_cpu(dev, arch, monkeypatch):
+    _training_on_card_matches_cpu(dev, configs.reduced(configs.get(arch)), monkeypatch)
+
+
+@pytest.mark.cuda
+def test_moe_backward_is_bitwise_deterministic(dev):
+    """granite-moe-3b-a800m's MoE layer at full width in bf16 (4 x 128
+    tokens, one group of 512, 40 experts top 8, d 1,536, f 512): forward
+    and backward twice give the same bits in every gradient (a token's
+    gradient gathers its 8 buffer rows' and sums them in fp32 in one
+    order; autograd's ``index_select`` backward would add them by atomics
+    in bf16), all finite and none zero."""
+    from repro_torch.models import moe as moe_lib
+    cfg = configs.get("granite-moe-3b-a800m")
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    g = torch.Generator(device=dev).manual_seed(0)
+    bf = torch.bfloat16
+    x = torch.randn(4, 128, d, generator=g, device=dev).to(bf)
+    router = torch.randn(d, E, generator=g, device=dev) / d ** 0.5
+    w_gate, w_up = ((torch.randn(E, d, f, generator=g, device=dev) / d ** 0.5).to(bf)
+                    for _ in range(2))
+    w_down = (torch.randn(E, f, d, generator=g, device=dev) / f ** 0.5).to(bf)
+    dy = torch.randn(4, 128, d, generator=g, device=dev).to(bf)
+
+    def grads():
+        leaves = [t.clone().requires_grad_(True) for t in (x, router, w_gate, w_up, w_down)]
+        y, aux = moe_lib.moe_glu(*leaves, top_k=cfg.top_k, group_size=cfg.moe_group,
+                                 capacity_factor=cfg.capacity_factor)
+        return torch.autograd.grad((y.float() * dy.float()).sum() + 0.01 * aux, leaves)
+
+    first, second = grads(), grads()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+        assert bool(a.isfinite().all()) and bool(a.abs().max() > 0)

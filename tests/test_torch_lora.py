@@ -37,21 +37,25 @@ from repro_torch.launch import fl_train as pfl                    # noqa: E402
 from repro_torch.launch import steps as PS                        # noqa: E402
 from repro_torch.models import lora as PL                         # noqa: E402
 from repro_torch.models import transformer as PT                  # noqa: E402
-from torch_parity import adapter_tree_to_jax                      # noqa: E402
+from torch_parity import adapter_tree_to_jax, rand_params         # noqa: E402
 
 LR, LOCAL_STEPS, EPOCHS, SEQ = 0.05, 4, 2, 32
-# qwen3-4b at rank 16: the adapter state a leg carries (bf16) against the
-# full model, from the reference's own mapping (the card run checks it)
-QWEN3_R16_TRAINABLE, QWEN3_R16_LEG_BYTES = 17_931_776, 35_863_552
+# qwen3-4b and granite-moe-3b-a800m at rank 16: the adapter state a leg
+# carries (bf16) against the full model, from the reference's own mapping
+# (the card run checks it)
+R16_LEGS = {"qwen3-4b": (17_931_776, 35_863_552),
+            "granite-moe-3b-a800m": (54_670_848, 109_341_696)}
+GRANITE = "granite-moe-3b-a800m"
 
 
 # ---------------------------------------------------------------- mapping
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma-2b"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma-2b", GRANITE])
 @pytest.mark.parametrize("rank", [16, 1])
 def test_mapping_of_full_config_equals_reference(arch, rank):
     """Entry by entry, in the reference's order: kind, shapes, rank, alpha,
-    state params; and the leg's bytes and the full rank."""
+    state params; and the leg's bytes and the full rank (granite's expert
+    weights batched over the layer and expert axes)."""
     want = RT.adapter_mapping(RC.get(arch), rank)
     got = PT.adapter_mapping(PC.get(arch), rank)
     assert list(got) == list(want)
@@ -68,9 +72,8 @@ def test_mapping_of_full_config_equals_reference(arch, rank):
     assert PL.num_trainable_params(got) == RL.num_trainable_params(want)
     specs = PT.param_specs(PC.get(arch))
     assert PL.full_rank(specs) == RL.full_rank(RT.param_specs(RC.get(arch)))
-    if arch == "qwen3-4b" and rank == 16:
-        assert PL.num_trainable_params(got) == QWEN3_R16_TRAINABLE
-        assert PL.exchange_nbytes(got, 2) == QWEN3_R16_LEG_BYTES
+    if arch in R16_LEGS and rank == 16:
+        assert (PL.num_trainable_params(got), PL.exchange_nbytes(got, 2)) == R16_LEGS[arch]
 
 
 def test_rank_zero_is_empty_and_negative_raises():
@@ -209,6 +212,88 @@ def test_lora_round_matches_reference(setup):
         _close_step(merged[k], w, backbone[k])
     back = adapter_tree_to_jax(got)
     assert all(np.array_equal(back[p], got[p].numpy()) for p in got)
+
+
+@pytest.fixture(scope="module")
+def granite():
+    """The reduced granite-moe-3b-a800m (4 experts, top 2, groups of 64)
+    with every leaf drawn from numpy at the standard fan-in
+    (``torch_parity.rand_params``), on the reference's host mesh."""
+    rcfg, pcfg = RC.reduced(RC.get(GRANITE)), PC.reduced(PC.get(GRANITE))
+    params = jax.tree.map(jnp.asarray, rand_params(rcfg, 0))
+    model = PT.Transformer(pcfg)
+    model.load_state_dict(transformer_params_from_jax(jax.tree.map(np.asarray, params)))
+    spec_tree = jax.tree.map(lambda _: P(), RT.param_specs(rcfg),
+                             is_leaf=lambda x: hasattr(x, "axes"))
+    return rcfg, pcfg, params, model, make_host_mesh(), spec_tree
+
+
+def test_granite_lora_round_matches_reference(granite):
+    """Rank 4 on the MoE family, its expert weights' adapters batched over
+    ``(layers, expert)`` and the fp32 router's over the layers, the
+    reference's frozen ``A`` injected: every adapter state leaf's update
+    within 1e-4 of the reference's (``local_steps=4``,
+    ``mediator_epochs=2``; each step one row of 32 tokens, one MoE group,
+    the aux term in the loss), and the merged weights as the reference
+    merges them."""
+    rcfg, pcfg, params, model, mesh, spec_tree = granite
+    mapping, a_tree, state = _lora_setup(rcfg, params, 4)
+    assert mapping["layers/moe/w_gate"].batch_axes == ("layers", "expert")
+    fl_ref = jax.jit(RS.make_fl_round(rcfg, mesh, spec_tree, learning_rate=LR,
+                                      local_steps=LOCAL_STEPS, mediator_epochs=EPOCHS,
+                                      lora_mapping=mapping))
+    toks, labels = _stream(6, LOCAL_STEPS, rcfg.vocab)
+    weights = np.full((LOCAL_STEPS,), float(SEQ), np.float32)
+    with use_mesh(mesh):
+        want = fl_ref(params, a_tree, state, jnp.asarray(toks), jnp.asarray(labels),
+                      jnp.asarray(weights))
+    merged_want = transformer_params_from_jax(jax.tree.map(
+        np.asarray, RL.merge_params(params, a_tree, want, mapping)))
+
+    pmap = PT.adapter_mapping(pcfg, 4)
+    backbone = PT.train_params(model)
+    p_a = adapter_tree_from_jax(jax.tree.map(np.asarray, a_tree))
+    p_state = PL.init_adapter_state(pmap, backbone)
+    fl = PS.make_fl_round(model, 1, learning_rate=LR, local_steps=LOCAL_STEPS,
+                          mediator_epochs=EPOCHS, lora_mapping=pmap)
+    got = fl(backbone, p_a, p_state, torch.from_numpy(toks), torch.from_numpy(labels),
+             torch.from_numpy(weights))
+    assert list(got) == list(want)
+    moved = {p: _close_step(got[p], np.asarray(want[p]), p_state[p]) for p in got}
+    assert moved["layers/moe/w_down"] > 0 and max(moved.values()) > 1e-3
+    merged = PL.merge_params(backbone, p_a, got, pmap)
+    for k, w in merged_want.items():
+        _close_step(merged[k], w, backbone[k])
+
+
+@pytest.mark.parametrize("arch,needs", [("whisper-base", "enc_feats"),
+                                        ("internvl2-1b", "vision_embeds")])
+def test_fl_round_of_audio_and_vlm_raises(arch, needs):
+    """A mediator's batch is tokens and labels only, so the audio model's
+    round (no frames) and the VLM's (no vision embeddings) raise, full-delta
+    and over an adapter state, before any step; the reference's round
+    fails on the same missing key (``KeyError``) when it is traced."""
+    rcfg, pcfg = RC.reduced(RC.get(arch)), PC.reduced(PC.get(arch))
+    model = PT.init_model(pcfg, torch.Generator().manual_seed(0))
+    backbone = PT.train_params(model)
+    toks, labels = _stream(7, LOCAL_STEPS, pcfg.vocab)
+    args = (torch.from_numpy(toks), torch.from_numpy(labels), torch.ones(LOCAL_STEPS))
+    before = {k: t.clone() for k, t in backbone.items()}
+    with pytest.raises(ValueError, match=needs):
+        PS.make_fl_round(model, 1, local_steps=LOCAL_STEPS)(backbone, *args)
+    mapping = PT.adapter_mapping(pcfg, 4)
+    state = PL.init_adapter_state(mapping, backbone)
+    with pytest.raises(ValueError, match=needs):
+        PS.make_fl_round(model, 1, local_steps=LOCAL_STEPS, lora_mapping=mapping)(
+            backbone, PL.init_adapter_A(PL.A_SALT, mapping), state, *args)
+    assert all(torch.equal(before[k], backbone[k]) for k in before)
+    params = jax.tree.map(jnp.asarray, rand_params(rcfg, 0))
+    spec_tree = jax.tree.map(lambda _: P(), RT.param_specs(rcfg),
+                             is_leaf=lambda x: hasattr(x, "axes"))
+    mesh = make_host_mesh()
+    fl_ref = jax.jit(RS.make_fl_round(rcfg, mesh, spec_tree, local_steps=LOCAL_STEPS))
+    with use_mesh(mesh), pytest.raises(KeyError, match=needs):
+        fl_ref(params, *(jnp.asarray(a.numpy()) for a in args))
 
 
 def test_full_rank_lora_round_is_the_full_delta_round_bitwise(setup):

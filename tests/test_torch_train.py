@@ -38,6 +38,7 @@ from repro_torch.launch import train as ptrain                    # noqa: E402
 from repro_torch.models import transformer as PT                  # noqa: E402
 from repro_torch.optim import adamw as padamw                     # noqa: E402
 from repro_torch.optim import schedules                           # noqa: E402
+from torch_parity import rand_params                              # noqa: E402
 
 
 def _rel_err(got, want) -> tuple[float, float]:
@@ -149,7 +150,13 @@ EMU_BWD_CASES = [(2, 64, 64, 4, 4, 64, True, None, 0),
                  (1, 40, 40, 2, 1, 80, True, 8, 45),
                  (4, 128, 128, 4, 4, 64, True, None, 0),
                  (1, 1024, 2048, 4, 1, 80, True, 512, 1024),
-                 (1, 1024, 1024, 8, 1, 256, True, None, 0)]
+                 (1, 1024, 1024, 8, 1, 256, True, None, 0),
+                 # the MoE, audio and VLM training layers at batch 1:
+                 # whisper's cross-attention (128 queries over 1,536
+                 # frames, non-causal), granite's GQA 24:8, internvl2's 14:2
+                 (1, 128, 1536, 8, 8, 64, False, None, 0),
+                 (1, 128, 128, 24, 8, 64, True, None, 0),
+                 (1, 128, 128, 14, 2, 64, True, None, 0)]
 
 
 def _tensor_core_bwd(q, k, v, out, dout, *, causal, window, q_offset, split):
@@ -287,6 +294,8 @@ def test_flash_bwd_split_cost_model(shape, d, kw, want):
 # masks at seq 32 (the reduced 64 would not)
 FAMILIES = {"hymba-1.5b": {}, "gemma-2b": {}, "qwen3-4b": {},
             "h2o-danube-1.8b": {"sliding_window": 16}, "mamba2-370m": {}}
+# the MoE, audio and VLM families, whose weights the tests draw from numpy
+ZOO = ("granite-moe-3b-a800m", "whisper-base", "internvl2-1b")
 
 
 def _pair(arch, **upd):
@@ -313,8 +322,16 @@ def _fan_in(params):
 
 
 def _models(arch, fan_in=False, **upd):
+    """The reduced ``arch``: the reference's init (``fan_in``: rescaled to
+    the standard fan-in), or for the MoE, audio and VLM families (``ZOO``)
+    every leaf drawn from numpy (``torch_parity.rand_params``: the
+    reference's init zeroes whisper's LayerNorm scales, and with them
+    every output)."""
     rcfg, pcfg = _pair(arch, **upd)
-    params = RT.init_params(jax.random.PRNGKey(0), rcfg)
+    if arch in ZOO:
+        params = jax.tree.map(jnp.asarray, rand_params(rcfg, 0))
+    else:
+        params = RT.init_params(jax.random.PRNGKey(0), rcfg)
     if fan_in:
         params = _fan_in(params)
     model = PT.Transformer(pcfg)
@@ -322,9 +339,17 @@ def _models(arch, fan_in=False, **upd):
     return rcfg, params, model
 
 
-def _lm_batch(seed, b, s, vocab):
-    toks = np.random.default_rng(seed).integers(0, vocab, (b, s)).astype(np.int32)
-    return {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
+def _lm_batch(seed, b, s, vocab, rcfg=None):
+    """Tokens and next-token labels; with ``rcfg`` a VLM's vision embeddings
+    or an audio model's frames too (standard normal)."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, vocab, (b, s)).astype(np.int32)
+    batch = {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
+    if rcfg is not None and rcfg.arch_type in ("vlm", "audio"):
+        name, n = (("vision_embeds", rcfg.vision_tokens) if rcfg.arch_type == "vlm"
+                   else ("enc_feats", rcfg.source_positions))
+        batch[name] = rng.normal(size=(b, n, rcfg.d_model)).astype(np.float32)
+    return batch
 
 
 def _tbatch(batch):
@@ -392,7 +417,7 @@ def _adam_delta_check(p_new, r_new, p_old, mu, r_mu, lr):
 
 
 @pytest.mark.parametrize("microbatches", [1, 2])
-@pytest.mark.parametrize("arch", ["qwen3-4b", "hymba-1.5b", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "hymba-1.5b", "mamba2-370m", *ZOO])
 def test_train_step_matches_reference(arch, microbatches):
     """One AdamW step (warmup-cosine rate, clipping at 0.01 so that it
     binds) of the reduced config equals the reference's
@@ -401,9 +426,13 @@ def test_train_step_matches_reference(arch, microbatches):
     SSD families (their gradient through ``ops._SSDChunk``) train on seq 64,
     a multiple of their chunk, from weights at the standard fan-in
     (``_fan_in``: at the reference's own init a 1e-7 perturbation of
-    Hymba's weights moves its gradients by 1.4e-3 of their scale)."""
-    rcfg, params, model = _models(arch, fan_in=arch != "qwen3-4b")
-    batch = _lm_batch(3, 4, 64 if rcfg.has_ssm else 16, rcfg.vocab)
+    Hymba's weights moves its gradients by 1.4e-3 of their scale).  The
+    MoE, audio and VLM families train from numpy weights (``_models``) on
+    16 tokens a row, with 16 standard-normal vision embeddings (internvl2)
+    or 64 frames (whisper) a row; granite's 64 tokens are one MoE group
+    (two of 32 under microbatches), its aux term in the loss."""
+    rcfg, params, model = _models(arch, fan_in=arch in ("hymba-1.5b", "mamba2-370m"))
+    batch = _lm_batch(3, 4, 64 if rcfg.has_ssm else 16, rcfg.vocab, rcfg)
     lr = 1e-2
     ropt = radamw(rwarmup(lr, 2, 20))
     rstep = jax.jit(RS.make_train_step(rcfg, ropt, clip_norm=0.01, microbatches=microbatches))

@@ -33,7 +33,6 @@ from repro.models import layers as RL                             # noqa: E402
 from repro.models import lora as RLo                              # noqa: E402
 from repro.models import moe as RM                                # noqa: E402
 from repro.models import transformer as RT                        # noqa: E402
-from repro.models.layers import LogicalParam                      # noqa: E402
 
 from repro_torch import configs as PC                             # noqa: E402
 from repro_torch.convert import (transformer_params_from_jax,     # noqa: E402
@@ -44,7 +43,7 @@ from repro_torch.models import lora as PLo                        # noqa: E402
 from repro_torch.models import moe as PM                          # noqa: E402
 from repro_torch.models import transformer as PT                  # noqa: E402
 
-from torch_parity import adapter_tree_to_jax                      # noqa: E402
+from torch_parity import adapter_tree_to_jax, rand_params         # noqa: E402
 
 # fp32 parity bound, relative to the compared tensor's largest magnitude
 # (tests/test_torch_serve.py's REL)
@@ -57,7 +56,6 @@ NEW = {"granite-moe-3b-a800m": (3_298_793_472, 882_874_368),
        "whisper-base": (73_542_144, 73_542_144),
        "internvl2-1b": (493_780_992, 493_780_992),
        "qwen1.5-110b": (111_209_914_368, 111_209_914_368)}
-NORM_SCALES = {"norm1", "norm2", "norm_x", "final_norm", "enc_final_norm"}
 
 
 def _close(got, want, rel=REL):
@@ -89,29 +87,6 @@ def _flat_specs(tree, prefix=""):
         else:
             out[prefix + k] = v
     return out
-
-
-def rand_params(rcfg, seed, max_seq=4096):
-    """The reference's param tree with every leaf drawn from numpy: matrices
-    at ``1/sqrt(d_in)``, embeddings and learned positions at their spec's
-    scale, norm scales ``N(1, 0.1)`` under LayerNorm and ``N(0, 0.1)``
-    under RMS norm (which multiplies by ``1 + scale``), biases ``N(0,
-    0.1)``."""
-    rng = np.random.default_rng(seed)
-
-    def draw(path, spec):
-        name = str(getattr(path[-1], "key", path[-1]))
-        if name in NORM_SCALES:
-            a = rng.normal(size=spec.shape) * 0.1 + (1.0 if rcfg.norm == "ln" else 0.0)
-        elif spec.scale == 0.0:                       # biases
-            a = rng.normal(size=spec.shape) * 0.1
-        elif spec.scale is not None:
-            a = rng.normal(size=spec.shape) * spec.scale
-        else:
-            a = rng.normal(size=spec.shape) / np.sqrt(spec.shape[-2])
-        return a.astype(np.float32)
-    return jax.tree_util.tree_map_with_path(draw, RT.param_specs(rcfg, max_seq),
-                                            is_leaf=lambda x: isinstance(x, LogicalParam))
 
 
 def _port_model(pcfg, params, max_seq=4096):
@@ -333,6 +308,47 @@ def test_moe_glu_matches_reference(b, s, E, k, cf, act):
     _close(y_i, y_o.numpy(), rel=1e-6)
 
 
+@pytest.mark.parametrize("b,s,E,k,cf,act", [(2, 64, 4, 2, 1.25, "silu"),
+                                            (2, 64, 8, 2, 0.5, "gelu"),
+                                            (2, 64, 8, 3, 0.5, "silu"),
+                                            (1, 4, 8, 2, 1.25, "silu")])
+def test_moe_glu_gradients_match_onehot_and_reference(b, s, E, k, cf, act):
+    """The index form's backward (``moe._Gather``: each token's gradient its
+    ``top_k`` buffer rows' summed in fp32, each buffer row's its one
+    (token, slot)'s) against autograd through the one-hot einsums and
+    against ``jax.grad`` of the reference's ``moe_glu``: the gradients of x,
+    the router and the three expert weights of ``<y, dy> + 0.37 aux``, each
+    within 1e-6 of its largest magnitude (at least 1, as ``_close`` takes
+    it; fp32 sums in other orders).  Drops (cf 0.5),
+    top 3 and a 4-token group among the cases."""
+    d, f = 32, 16
+    rng = np.random.default_rng(b * s + E + k)
+    x = rng.normal(size=(b, s, d)).astype(np.float32)
+    router = rng.normal(size=(d, E)).astype(np.float32)
+    w_gate, w_up = ((rng.normal(size=(E, d, f)) / np.sqrt(d)).astype(np.float32)
+                    for _ in range(2))
+    w_down = (rng.normal(size=(E, f, d)) / np.sqrt(f)).astype(np.float32)
+    dy = rng.normal(size=(b, s, d)).astype(np.float32)
+    args = (x, router, w_gate, w_up, w_down)
+    kw = dict(top_k=k, group_size=64, capacity_factor=cf, activation=act)
+
+    def port_grads(onehot):
+        leaves = [_t(a).requires_grad_(True) for a in args]
+        y, aux = PM.moe_glu(*leaves, **kw, onehot=onehot)
+        return torch.autograd.grad((y * _t(dy)).sum() + 0.37 * aux, leaves)
+
+    def ref_loss(*a):
+        y, aux = RM.moe_glu(*a, **kw)
+        return (y * jnp.asarray(dy)).sum() + 0.37 * aux
+
+    want = jax.grad(ref_loss, argnums=tuple(range(5)))(*map(jnp.asarray, args))
+    by_index, by_onehot = port_grads(False), port_grads(True)
+    for g, o, w in zip(by_index, by_onehot, want):
+        _close(g, o.numpy(), rel=1e-6)
+        _close(g, w, rel=1e-6)
+    assert all(bool(g.abs().max() > 0) for g in by_index)
+
+
 def test_moe_group_must_divide_the_tokens():
     x = torch.zeros(1, 96, 8)
     w = torch.zeros(4, 8, 8)
@@ -374,6 +390,40 @@ def test_forward_train_matches_reference(family):
         scale = float(np.abs(w).max())
         err = float((g - want[name]).abs().max())
         assert err <= REL * scale, f"{arch} {name}: {err} > {REL} x {scale}"
+
+
+def test_vlm_loss_covers_the_text_after_the_vision_span_given():
+    """``make_batch`` at a sequence shorter than twice a VLM's vision tokens
+    gives them half of it (``token_split``: 8 of the reduced 16 at seq 16,
+    64 of internvl2-1b's 256 at phase 11's 128).  The port's loss covers
+    the text after the span given and equals the reference's with
+    ``vision_tokens`` set to that span (loss within 1e-6, gradients within
+    ``REL``); the reference's own config slices ``cfg.vision_tokens`` off
+    and raises on the empty text span."""
+    rcfg, pcfg = _pair("internvl2-1b")
+    shape = (2, 16)
+    assert PC.token_split(pcfg, shape[1]) == (8, 8)
+    params = rand_params(rcfg, 2)
+    model = _port_model(pcfg, params)
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, rcfg.vocab, (2, 8)).astype(np.int32)
+    vis = rng.normal(size=(2, 8, rcfg.d_model)).astype(np.float32)
+    rb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(np.roll(toks, -1, 1)),
+          "vision_embeds": jnp.asarray(vis)}
+    with pytest.raises(ValueError):
+        RT.forward_train(params, rcfg, rb)
+    (rloss, _), rgrads = jax.value_and_grad(
+        lambda p: RT.forward_train(p, dataclasses.replace(rcfg, vision_tokens=8), rb),
+        has_aux=True)(params)
+    leaves = {k: t.clone().requires_grad_(True) for k, t in PT.train_params(model).items()}
+    pb = {"tokens": _t(toks), "labels": _t(np.roll(toks, -1, 1)), "vision_embeds": _t(vis)}
+    loss, _ = PT.forward_train(model, pb, leaves)
+    grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    assert abs(float(loss.detach()) - float(rloss)) <= 1e-6 * abs(float(rloss))
+    want = transformer_params_from_jax(jax.tree.map(np.asarray, rgrads))
+    for name, g in grads.items():
+        scale = float(want[name].abs().max())
+        assert float((g - want[name]).abs().max()) <= REL * max(scale, 1e-30), name
 
 
 # ---------------------------------------------------------------- serving

@@ -36,6 +36,8 @@ from repro.core import scheduling as jsched
 from repro.core.comm import CommMeter as JCommMeter
 from repro.core.mediator import make_mediator_update
 from repro.models import cnn as jcnn
+from repro.models import transformer as jtransformer
+from repro.models.layers import LogicalParam
 from repro.optim import adam as jadam
 
 from repro.core.augmentation import AUG_SALT, _affine_params, _next_pow2, warp_params
@@ -579,3 +581,30 @@ def adapter_tree_to_jax(tree: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
         t = t.detach().cpu()
         out[path] = (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
     return out
+
+
+# the norm scales ``rand_params`` draws around 1 under LayerNorm
+NORM_SCALES = {"norm1", "norm2", "norm_x", "final_norm", "enc_final_norm"}
+
+
+def rand_params(rcfg, seed, max_seq=4096):
+    """The reference's param tree with every leaf drawn from numpy: matrices
+    at ``1/sqrt(d_in)``, embeddings and learned positions at their spec's
+    scale, norm scales ``N(1, 0.1)`` under LayerNorm and ``N(0, 0.1)``
+    under RMS norm (which multiplies by ``1 + scale``), biases ``N(0,
+    0.1)``."""
+    rng = np.random.default_rng(seed)
+
+    def draw(path, spec):
+        name = str(getattr(path[-1], "key", path[-1]))
+        if name in NORM_SCALES:
+            a = rng.normal(size=spec.shape) * 0.1 + (1.0 if rcfg.norm == "ln" else 0.0)
+        elif spec.scale == 0.0:                       # biases
+            a = rng.normal(size=spec.shape) * 0.1
+        elif spec.scale is not None:
+            a = rng.normal(size=spec.shape) * spec.scale
+        else:
+            a = rng.normal(size=spec.shape) / np.sqrt(spec.shape[-2])
+        return a.astype(np.float32)
+    return jax.tree_util.tree_map_with_path(draw, jtransformer.param_specs(rcfg, max_seq),
+                                            is_leaf=lambda x: isinstance(x, LogicalParam))
