@@ -136,6 +136,22 @@ Phases, each fatal on failure:
     and a device trace over its rounds 2 and 3: bitwise the untraced run,
     one capture, the four artifacts valid, the spans in the device trace,
     a live ``/metrics`` scrape equal to ``to_prometheus()``.
+13. the measurement layer (``roofline/``, ``launch/dryrun.py``): (a) inside
+    phase 11, on its qwen3-4b model, one AdamW step at 4 x 128 counted on
+    the card by ``roofline.step_costs`` (launch counts reset before and read
+    after) against the dry run's count of the same step on meta: equal
+    FLOPs and kernel charges (the launches are the charges), the byte
+    proxy's differing aten ops printed, the dry run's per-device bytes
+    within 25 % of the step's ``max_memory_allocated`` (less the bytes
+    earlier phases left on the card), and an uncounted step's seconds and
+    share of the 989 TFLOP/s bf16 peak by ``model_flops`` and by the
+    counted FLOPs; (b) the quickstart twin (``examples/quickstart.py``) at
+    its full config, counts reset before and read after: each of
+    ``fedavg_agg``, ``kld_greedy_picks`` and ``affine_warp`` launched, the
+    WAN MiB of every evaluated round equal to the closed forms; (c) the dry
+    run on meta of grok-1-314b and qwen1.5-110b ``train_4k`` on both
+    production meshes: each device's state bytes and the 80 GB cards the
+    replicated and the sharded layouts need.
 
 Phase 3 also holds the flash-attention and SSD kernels against their plain
 versions at the serve shapes (bf16 and f32), with a no-window, a
@@ -1919,6 +1935,8 @@ def phase11(dev, gen, checks: dict, path_launches: dict, lap) -> dict:
     del state, opt, step
     torch.cuda.empty_cache()
     lap("11 train step")
+    res["counted_step"] = counted_step(dev, cfg, model, params, batches[0], path_launches)
+    lap("13 (a) counted step")
 
     # the federation: Alg. 3 on the card (one greedy launch), 2 mediators
     streams, counts = fl_client_streams(dev)
@@ -2322,6 +2340,166 @@ def log_phase12(p12: dict) -> None:
         f"scrape {t['scrape_bytes']:,} B equal to to_prometheus()")
 
 
+# ---------------------------------------------------------------- phase 13
+
+# the memory estimate's limit against the measured peak, and the card whose
+# bytes the dry run's layouts are sized for
+MEM_TOLERANCE, CARD_BYTES = 0.25, 80e9
+
+
+def _by_op_sum(*costs) -> dict:
+    out: dict = {}
+    for c in costs:
+        for k, v in c.by_op.items():
+            row = out.setdefault(k, {"calls": 0, "flops": 0.0, "bytes": 0.0})
+            for f in row:
+                row[f] += v[f]
+    return out
+
+
+def counted_step(dev, cfg, model, params, batch, path_launches: dict) -> dict:
+    """Phase 13 (a): one qwen3-4b AdamW step at 4 x 128 on phase 11's model,
+    counted on the card by ``roofline.step_costs`` (the kernels' launches
+    reset just before and read just after), against the dry run's count of
+    the same step on meta (``launch.dryrun.run_one`` on the one-card mesh,
+    its optimizer): the FLOPs and the kernel charges must be equal, the
+    launches the charges, and the dry run's per-device bytes within
+    ``MEM_TOLERANCE`` of the step's measured peak.  Aten ops whose byte
+    proxy differs (another aten path on the card) are printed.  Then one
+    uncounted step, timed: its share of the bf16 peak, by ``model_flops``
+    and by the counted FLOPs."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import adam
+    from repro_torch.roofline import HW, model_flops, step_costs
+    shape = configs.InputShape("phase13", 128, 4, "train")
+    t0 = time.perf_counter()
+    rec = dryrun.run_one(TRAIN_ARCH, shape, mesh=make_host_mesh(), cfg=cfg, keep_meta=True)
+    meta_s = time.perf_counter() - t0
+    grad, update = rec["meta"]["grad"], rec["meta"]["update"]
+    opt = adam(1e-4)                              # the dry run's optimizer
+    step = steps.make_train_step(model, opt)
+    batch = {k: batch[k].to(torch.int32) for k in ("tokens", "labels")}
+    torch.cuda.synchronize()
+    param_bytes = sum(p.numel() * p.element_size() for p in params.values())
+    others = torch.cuda.memory_allocated() - param_bytes   # not the step's
+    state = opt.init(params)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    card = step_costs(step, params, state, batch)
+    torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    path_launches[f"counted step {TRAIN_ARCH}"] = launches
+    peak = torch.cuda.max_memory_allocated() - others
+    _, sec = _sync_time(lambda: step(params, state, batch))
+    meta_kernels = rec["counted_costs"]["kernels"]
+    meta_flops = grad.flops + update.flops
+    if card.kernels != meta_kernels or card.flops != meta_flops:
+        raise AssertionError(f"card count {card.flops} {card.kernels} != meta count "
+                             f"{meta_flops} {meta_kernels}")
+    if {k: v for k, v in launches.items() if v} != card.launches:
+        raise AssertionError(f"launches {launches} != charges {card.launches}")
+    est = rec["memory"]["peak_estimate_bytes"]
+    ratio = est / peak
+    if abs(ratio - 1.0) > MEM_TOLERANCE:
+        raise AssertionError(f"dry-run estimate {est} B against the measured peak {peak} B: "
+                             f"ratio {ratio:.3f}")
+    meta_ops = _by_op_sum(grad, update)
+    pairs = {k: tuple(ops_.get(k, {}).get("bytes", 0.0) for ops_ in (card.by_op, meta_ops))
+             for k in set(card.by_op) | set(meta_ops)}
+    differ = {k: v for k, v in sorted(pairs.items()) if v[0] != v[1]}
+    mflops = model_flops(cfg, 4 * 128, "train")
+    peak_flops = HW().peak_flops
+    res = {"meta_s": meta_s, "counted_s": counted_s, "s_per_step": sec,
+           "flops": card.flops, "meta_flops": meta_flops, "kernels": card.kernels,
+           "bytes": card.bytes, "meta_bytes": grad.bytes + update.bytes,
+           "bytes_differ": differ, "model_flops": mflops,
+           "model_flops_share": mflops / (sec * peak_flops),
+           "counted_flops_share": card.flops / (sec * peak_flops),
+           "estimate_bytes": est, "measured_peak_bytes": peak, "other_bytes": others,
+           "estimate_over_peak": ratio, "memory": rec["memory"]}
+    del state, opt, step
+    torch.cuda.empty_cache()
+    log(f"[phase13] (a) {TRAIN_ARCH} AdamW step, 4 x 128 bf16: counted on the card "
+        f"{card.flops:.6e} FLOPs, kernels {card.launches} == the dry run's meta count "
+        f"({meta_s:.1f} s on meta, {counted_s:.2f} s counted on the card); a step "
+        f"uncounted {sec:.4f} s: model_flops {mflops:.6e} -> "
+        f"{100 * res['model_flops_share']:.2f} % of 989 TFLOP/s, counted "
+        f"{100 * res['counted_flops_share']:.2f} %")
+    log(f"[phase13] (a) memory: dry-run estimate {est / 1e9:.3f} GB per device "
+        f"({json.dumps({k: v for k, v in rec['memory'].items() if k.endswith('bytes')})}), "
+        f"measured peak {peak / 1e9:.3f} GB (max_memory_allocated less {others / 1e9:.3f} GB "
+        f"of earlier phases' tensors), ratio {ratio:.4f} (limit 1 +- {MEM_TOLERANCE})")
+    log(f"[phase13] (a) bytes proxy: card {card.bytes:.6e}, meta {res['meta_bytes']:.6e}; "
+        f"ops that differ (card, meta): {differ}")
+    return res
+
+
+def phase13(dev, counted: dict, path_launches: dict, lap) -> dict:
+    """(b) the quickstart twin on the card at its full config: it launches
+    each FL kernel, and its WAN MiB equal the closed forms; (c) the dry run
+    on meta of grok-1-314b and qwen1.5-110b ``train_4k`` on both production
+    meshes: each device's state bytes and the 80 GB cards each layout
+    needs.  (a) ran in phase 11 (``counted_step``)."""
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):       # its table, off the result lines
+        q = quickstart.main(["--device", "cuda"])
+    q_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    path_launches["quickstart"] = launches
+    missing = [k for k in FL_KERNELS if launches[k] < 1]
+    w = 4 * q["num_params"]
+    c, g, rounds = quickstart.PER_ROUND, quickstart.GAMMA, quickstart.ROUNDS
+    plan = 4 * q["num_classes"] * q["num_clients"]
+    # each evaluated round's cumulative ledger
+    want_f = [h["round"] * 2 * c * w / 2 ** 20 for h in q["fedavg"]]
+    want_a = [(plan + h["round"] * 2 * w * (c + math.ceil(c / g))) / 2 ** 20
+              for h in q["astraea"]]
+    got_f = [h["traffic_mb"] for h in q["fedavg"]]
+    got_a = [h["traffic_mb"] for h in q["astraea"]]
+    acc = [h["accuracy"] for h in q["fedavg"] + q["astraea"]]
+    if missing or got_f != want_f or got_a != want_a or not all(map(math.isfinite, acc)):
+        raise AssertionError(f"quickstart: launches {launches}, WAN {got_f} {got_a} against "
+                             f"{want_f} {want_a}, accuracy {acc}")
+    log(f"[phase13] (b) quickstart twin, {rounds} rounds a trainer: {q_s:.1f} s, launches "
+        f"{launches}; WAN MiB FedAvg {got_f[-1]} Astraea {got_a[-1]} (closed forms exact); "
+        f"top-1 FedAvg {q['fedavg'][-1]['accuracy']:.4f} Astraea {acc[-1]:.4f}")
+    lap("13 (b) quickstart")
+    dry = {}
+    for arch in ("grok-1-314b", "qwen1.5-110b"):
+        for multi in (False, True):
+            t0 = time.perf_counter()
+            rec = dryrun.run_one(arch, "train_4k", multi)
+            if rec["status"] != "ok":
+                raise AssertionError(f"dry run {arch} train_4k: {rec}")
+            m, cards = rec["memory"], rec["cards_80gb"]
+            state = m["param_bytes"] + m["grad_bytes"] + m["opt_bytes"]
+            dry[f"{arch} {rec['mesh']}"] = {"s": time.perf_counter() - t0, "memory": m,
+                                             "cards_80gb": cards, "state_bytes": state,
+                                             "roofline": rec["roofline"]}
+            log(f"[phase13] (c) dry run {arch} train_4k {rec['mesh']} ({rec['n_chips']} devices, "
+                f"{rec['counted_costs']['microbatches']} microbatches, "
+                f"{time.perf_counter() - t0:.1f} s on meta): state {state / 1e9:.3f} GB a device "
+                f"(params {m['param_bytes'] / 1e9:.3f}, grads {m['grad_bytes'] / 1e9:.3f}, AdamW "
+                f"{m['opt_bytes'] / 1e9:.3f}), activations (estimate) "
+                f"{m['activation_bytes_estimate'] / 1e9:.3f} GB; 80 GB cards for the state: "
+                + ", ".join(f"{layout} {c['cards']} {c['mesh']} ({c['microbatches']} "
+                            f"microbatches, {c['per_device_bytes'] / 1e9:.3f} GB)"
+                            for layout, c in cards.items()))
+    lap("13 (c) dry runs")
+    return {"counted_step": counted, "quickstart": {"s": q_s, "launches": launches,
+                                                    "wan_mib": [got_f, got_a], "accuracy": acc},
+            "dry_runs": dry}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2676,9 +2854,14 @@ def main() -> int:
     # ---- 12. the CNN engine's LoRA adapter exchange and round telemetry
     p12 = phase12(fed, cinic_fed, dev, gen, checks, path_launches, lap)
     log_phase12(p12)
+
+    # ---- 13. the step-cost counter on the card, the quickstart twin, the
+    # dry runs of the two largest models
+    p13 = phase13(dev, p11.pop("counted_step"), path_launches, lap)
     phases_s = sum(phase_s.values())
     log(f"[time] phases {phases_s:.1f} s in all, phase 12 "
-        f"{sum(v for k, v in phase_s.items() if k.startswith('12 ')):.1f} s; "
+        f"{sum(v for k, v in phase_s.items() if k.startswith('12 ')):.1f} s, phase 13 "
+        f"{sum(v for k, v in phase_s.items() if k.startswith('13 ')):.1f} s; "
         f"{1200 - phases_s:.1f} s left of a 1,200 s call")
 
     # every kernel's launches over the paths that drive it (each path's
@@ -2727,7 +2910,7 @@ def main() -> int:
          "cinic_peak_mem_gb": cinic_peak, "cinic_materialized": materialized,
          "row_exec": rows_check,
          "serve_agreement": serve_agree, "serve": served,
-         "phase10": p10, "phase11": p11, "phase12": p12,
+         "phase10": p10, "phase11": p11, "phase12": p12, "phase13": p13,
          "path_launches": path_launches, "launches": launches, "phase_seconds": phase_s,
          "kernels": summary}, indent=1, default=str))
     log(json.dumps({"kernels": summary}))

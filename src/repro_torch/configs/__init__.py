@@ -5,9 +5,11 @@ resolves any of the ten architectures (in the reference's order); any other
 id raises ``KeyError``, as the reference does for an unknown id.
 ``reduced(cfg)`` is the CPU smoke variant of the same family;
 ``InputShape`` and ``make_batch`` give a family's training inputs,
-``token_split`` a VLM's text and vision spans.
+``token_split`` a VLM's text and vision spans; ``INPUT_SHAPES``,
+``input_specs`` (meta tensors) and ``skip_reason`` the dry run's.
 """
-from repro_torch.configs.base import ArchConfig, InputShape, make_batch, reduced, token_split
+from repro_torch.configs.base import (INPUT_SHAPES, ArchConfig, InputShape, input_specs,
+                                     make_batch, reduced, skip_reason, token_split)
 from repro_torch.configs.gemma_2b import CONFIG as GEMMA_2B
 from repro_torch.configs.granite_moe_3b_a800m import CONFIG as GRANITE_MOE_3B_A800M
 from repro_torch.configs.grok_1_314b import CONFIG as GROK_1_314B

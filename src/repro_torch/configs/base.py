@@ -151,3 +151,55 @@ def make_batch(cfg: ArchConfig, shape: InputShape, seed: int = 0, device=None) -
         batch["enc_feats"] = torch.full((B, cfg.source_positions, cfg.d_model), 0.01,
                                         dtype=dt, device=dev)
     return {"batch": batch}
+
+
+# the reference's four input shapes (``repro/configs/base.py::INPUT_SHAPES``)
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
+def skip_reason(cfg: ArchConfig, shape: InputShape) -> str | None:
+    """Why the dry run leaves ``(cfg, shape)`` out, or None
+    (``repro/launch/dryrun.py::skip_reason``)."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return ("full-attention architecture without a sliding-window/SSM "
+                "variant: 524k dense decode is intentionally N/A (DESIGN.md)")
+    return None
+
+
+def input_specs(cfg: ArchConfig, shape: InputShape, device="meta", batch: int | None = None
+                ) -> dict:
+    """Every model input of ``(cfg, shape)`` as empty tensors on ``device``
+    (meta by default: no memory, no data), the reference's shapes and
+    dtypes (``repro/configs/base.py::input_specs``): ``{"batch": ...}``,
+    and for decode also ``"cache"`` (``transformer.init_cache``'s layout,
+    ``seq_len`` deep).  ``batch`` replaces ``shape.global_batch`` (the rows
+    one data shard holds).  Tokens are int32 as in the reference; nothing
+    is drawn."""
+    B = shape.global_batch if batch is None else batch
+    dt, i32 = cfg.torch_dtype(), torch.int32
+    text, vis = token_split(cfg, shape.seq_len)
+
+    def empty(*size, dtype=dt):
+        return torch.empty(size, dtype=dtype, device=device)
+
+    if shape.kind in ("train", "prefill"):
+        out = {"tokens": empty(B, text, dtype=i32)}
+        if shape.kind == "train":
+            out["labels"] = empty(B, text, dtype=i32)
+        if cfg.arch_type == "vlm":
+            out["vision_embeds"] = empty(B, vis, cfg.d_model)
+        if cfg.arch_type == "audio":
+            out["enc_feats"] = empty(B, cfg.source_positions, cfg.d_model)
+        return {"batch": out}
+    if shape.kind != "decode":
+        raise ValueError(f"unknown shape kind {shape.kind!r}")
+    from repro_torch.models.transformer import init_cache
+    out = {"tokens": empty(B, 1, dtype=i32), "positions": empty(B, dtype=i32)}
+    if cfg.arch_type == "audio":
+        out["enc_out"] = empty(B, cfg.source_positions, cfg.d_model)
+    return {"batch": out, "cache": init_cache(cfg, B, shape.seq_len, device=device)}

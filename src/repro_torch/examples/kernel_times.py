@@ -53,6 +53,7 @@ from __future__ import annotations
 import argparse
 import collections
 import hashlib
+import importlib.util
 import json
 import math
 import re
@@ -66,11 +67,26 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-# H100 SXM data-sheet peaks (dense, no sparsity) at the 700 W limit
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
-BF16_FLOPS_PER_S = 989e12
-TF32_FLOPS_PER_S = 495e12
+
+
+def _peaks():
+    """``roofline/model.py``'s ``HW`` (H100 SXM data-sheet peaks, dense, no
+    sparsity, at the 700 W limit), loaded from this file's own tree by
+    path: ``--src`` points ``repro_torch`` at another tree, which may not
+    have it."""
+    path = Path(__file__).resolve().parents[1] / "roofline" / "model.py"
+    spec = importlib.util.spec_from_file_location("_kernel_times_roofline", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod.HW()
+
+
+_HW = _peaks()
+HBM_BYTES_PER_S = _HW.hbm_bw
+FP32_FLOPS_PER_S = _HW.peak_flops_fp32
+BF16_FLOPS_PER_S = _HW.peak_flops
+TF32_FLOPS_PER_S = _HW.peak_flops_tf32
 # fp32 products on the tensor cores in split fp32: three TF32 products each
 SPLIT_FP32_FLOPS_PER_S = TF32_FLOPS_PER_S / 3
 

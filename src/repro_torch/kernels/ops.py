@@ -5,7 +5,17 @@ Each wrapper checks device, dtype, shape and contiguity, then
 * for CPU tensors, returns the plain PyTorch version (``kernels/ref.py``);
 * for CUDA tensors, launches its kernel on the current stream and adds one
   to ``LAUNCHES[name]`` -- or raises.  Nothing routes a CUDA tensor around
-  its kernel.
+  its kernel;
+* for meta tensors while a step-cost counter is active (``COUNTER``, set
+  by ``roofline.counts.step_costs``, which the dry run runs under), makes
+  the card's checks and returns empty meta outputs of the kernel's
+  shapes, computing nothing.  Without a counter a meta input raises, as
+  any other device does.
+
+With a counter active every kernel call (``_charged``), on any device,
+goes through ``COUNTER.run``, which charges the kernel's analytic cost and
+leaves the call's own tensor ops (a plain version's, an output's
+allocation) uncounted.  Without one that costs a ``None`` check.
 
 The kernel library is built on the first CUDA call (``kernels/build.py``).
 """
@@ -46,26 +56,45 @@ FEDAVG_MAX_M = 12_288
 MAX_SMEM_BYTES = 232_448
 
 
+# the step-cost counter of the running ``roofline.counts.step_costs``, or
+# None; while it is set, meta inputs take the wrappers' shape-only branch
+COUNTER = None
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
 
 
-def _on_cuda(*tensors: torch.Tensor) -> bool:
-    """True for CUDA inputs, False for CPU ones; raises on anything else or
-    on a mix of devices."""
+def _charged(name: str):
+    """Hand each call of the decorated kernel call to the active step-cost
+    counter (``COUNTER.run``), which charges ``name``'s analytic cost."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if COUNTER is None:
+                return fn(*args, **kwargs)
+            return COUNTER.run(name, fn, *args, **kwargs)
+        return call
+    return wrap
+
+
+def _route(*tensors: torch.Tensor) -> str:
+    """``"cpu"``, ``"cuda"``, or ``"meta"`` for meta inputs while a
+    step-cost counter is active; raises on anything else or on a mix of devices.  A
+    card's (and a meta) input must be contiguous."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"inputs lie on different devices: {sorted(map(str, devices))}")
     dev = devices.pop()
     if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
+        return "cpu"
+    if dev.type != "cuda" and not (dev.type == "meta" and COUNTER is not None):
         raise ValueError(f"unsupported device {dev}")
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError("CUDA kernel inputs must be contiguous")
-    return True
+    return dev.type
 
 
 # the device each host thread's launches last bound (``_launch``)
@@ -104,7 +133,13 @@ def fedavg_agg(deltas: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
                          f"{tuple(deltas.shape)} and {tuple(weights.shape)}")
     if deltas.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"deltas must be float32 or bfloat16, got {deltas.dtype}")
-    if not _on_cuda(deltas, weights):
+    return _fedavg_agg(deltas, weights)
+
+
+@_charged("fedavg_agg")
+def _fedavg_agg(deltas: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    where = _route(deltas, weights)
+    if where == "cpu":
         return ref.fedavg_agg(deltas, weights)
     m, n = deltas.shape
     if weights.dtype != torch.float32:
@@ -112,6 +147,8 @@ def fedavg_agg(deltas: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     if not 1 <= m <= FEDAVG_MAX_M:
         raise ValueError(f"the kernel takes 1 <= M <= {FEDAVG_MAX_M} rows, got M={m}")
     out = deltas.new_empty(n)
+    if where == "meta":
+        return out
     entry = "fedavg_agg_f32" if deltas.dtype == torch.float32 else "fedavg_agg_bf16"
     _launch("fedavg_agg", entry, deltas.device, deltas.data_ptr(),
             weights.data_ptr(), out.data_ptr(), m, n)
@@ -203,14 +240,20 @@ def kld_greedy_picks(client_counts: torch.Tensor, gamma: int) -> torch.Tensor:
         raise ValueError("client_counts must be a (K, C) float32 tensor")
     if gamma < 1:
         raise ValueError(f"gamma must be >= 1, got {gamma}")
-    if not _on_cuda(client_counts):
+    return _kld_greedy_picks(client_counts, gamma)
+
+
+@_charged("kld_greedy_picks")
+def _kld_greedy_picks(client_counts: torch.Tensor, gamma: int) -> torch.Tensor:
+    where = _route(client_counts)
+    if where == "cpu":
         return ref.kld_greedy_picks(client_counts, gamma)
     k, c = client_counts.shape
     if c < 1:
         raise ValueError("client_counts must have at least one class")
     dev = client_counts.device
     picks = torch.empty(k, dtype=torch.int32, device=dev)
-    if k == 0:
+    if k == 0 or where == "meta":
         return picks
     key = (dev.index, k, c)
     floats = _GREEDY_SCRATCH.get(key)
@@ -258,11 +301,17 @@ def kld_score(mediator_counts: torch.Tensor,
     C.  The kernel scores with the greedy pass's device function, so its
     bits equal that pass's scores."""
     _score_inputs(mediator_counts, client_counts, 1)
-    if not _on_cuda(mediator_counts, client_counts):
+    return _kld_score(mediator_counts, client_counts)
+
+
+@_charged("kld_score")
+def _kld_score(mediator_counts: torch.Tensor, client_counts: torch.Tensor) -> torch.Tensor:
+    where = _route(mediator_counts, client_counts)
+    if where == "cpu":
         return ref.kld_score(mediator_counts, client_counts)
     k, c = client_counts.shape
     out = torch.empty(k, dtype=torch.float32, device=client_counts.device)
-    if k == 0:
+    if k == 0 or where == "meta":
         return out
     _launch("kld_score", "kld_score_f32", client_counts.device,
             mediator_counts.data_ptr(), client_counts.data_ptr(), out.data_ptr(),
@@ -290,14 +339,21 @@ def kld_score_matrix(mediator_counts: torch.Tensor,
     kernel scores with ``kld_score``'s device function, so row ``i`` equals
     ``kld_score(mediator_counts[i], client_counts)`` bit for bit."""
     _score_inputs(mediator_counts, client_counts, 2)
-    if not _on_cuda(mediator_counts, client_counts):
+    return _kld_score_matrix(mediator_counts, client_counts)
+
+
+@_charged("kld_score_matrix")
+def _kld_score_matrix(mediator_counts: torch.Tensor,
+                      client_counts: torch.Tensor) -> torch.Tensor:
+    where = _route(mediator_counts, client_counts)
+    if where == "cpu":
         return ref.kld_score_matrix(mediator_counts, client_counts)
     m, c = mediator_counts.shape
     k = client_counts.shape[0]
     if m > SCORE_MAX_M:
         raise ValueError(f"the scoring kernel takes M <= {SCORE_MAX_M}, got M={m}")
     out = torch.empty(m, k, dtype=torch.float32, device=client_counts.device)
-    if m == 0 or k == 0:
+    if m == 0 or k == 0 or where == "meta":
         return out
     _launch("kld_score_matrix", "kld_score_matrix_f32", client_counts.device,
             mediator_counts.data_ptr(), client_counts.data_ptr(), out.data_ptr(),
@@ -343,13 +399,21 @@ def affine_warp(images: torch.Tensor, mats: torch.Tensor,
                          f"{tuple(mats.shape)} and {tuple(trans.shape)}")
     if not all(t.dtype == torch.float32 for t in (images, mats, trans)):
         raise ValueError("affine_warp takes float32 images, mats and trans")
-    if not _on_cuda(images, mats, trans):
+    return _affine_warp(images, mats, trans)
+
+
+@_charged("affine_warp")
+def _affine_warp(images: torch.Tensor, mats: torch.Tensor,
+                 trans: torch.Tensor) -> torch.Tensor:
+    where = _route(images, mats, trans)
+    if where == "cpu":
         return ref.affine_warp(images, mats, trans)
-    out = torch.empty_like(images)
-    if out.numel() == 0:
-        return out
+    b, h, w, c = images.shape
     if h * w * c >= 2 ** 31:
         raise ValueError(f"the kernel indexes an image with int32, got {h}x{w}x{c}")
+    out = torch.empty_like(images)
+    if out.numel() == 0 or where == "meta":
+        return out
     _launch("affine_warp", "affine_warp_f32", images.device, images.data_ptr(),
             mats.data_ptr(), trans.data_ptr(), out.data_ptr(), b, h, w, c)
     return out
@@ -387,20 +451,24 @@ def _check_head_dim(d: int) -> None:
                          f"{FLASH_HEAD_DIMS}")
 
 
+@_charged("flash_attention")
 def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
                    window: int | None, q_offset: int, with_lse: bool = False):
     """The forward launch; with ``with_lse`` also each row's log-sum-exp
     ``(b, H, sq)`` fp32 for the backward (None on the CPU, whose backward
     recomputes the softmax), returned as ``(out, lse)``."""
-    if not _on_cuda(q, k, v):
+    where = _route(q, k, v)
+    if where == "cpu":
         out = ref.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
         return (out, None) if with_lse else out
     b, sq, h, d = q.shape
     _check_head_dim(d)
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
+    if where == "cuda" and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("the kernel loads q, k and v by TMA: they must be 16-byte aligned")
     out = torch.empty_like(q)
     lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device) if with_lse else None
+    if where == "meta":
+        return (out, lse) if with_lse else out
     entry = "flash_attention_f32" if q.dtype == torch.float32 else "flash_attention_bf16"
     _launch("flash_attention", entry, q.device, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(), b, sq,
@@ -535,20 +603,28 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"out and dout must be {tuple(q.shape)} {q.dtype}, got "
                          f"{tuple(out.shape)} {out.dtype} and {tuple(dout.shape)} "
                          f"{dout.dtype}")
-    b, sq, h, d = q.shape
+    b, sq, h, _ = q.shape
     if lse is not None and (lse.shape != (b, h, sq) or lse.dtype != torch.float32):
         raise ValueError(f"lse must be ({b}, {h}, {sq}) float32, got {tuple(lse.shape)} "
                          f"{lse.dtype}")
+    return _flash_bwd(q, k, v, out, dout, lse, causal, window, q_offset)
+
+
+@_charged("flash_attention_bwd")
+def _flash_bwd(q, k, v, out, dout, lse, causal, window, q_offset):
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     tensors = (q, k, v, out, dout) + (() if lse is None else (lse,))
-    if not _on_cuda(*tensors):
+    where = _route(*tensors)
+    if where == "cpu":
         return ref.flash_attention_bwd(q, k, v, out, dout, **kw)
-    _check_head_dim(d)
-    if any(t.data_ptr() % 16 for t in (q, k, v, out, dout)):
+    _check_head_dim(q.shape[3])
+    if where == "cuda" and any(t.data_ptr() % 16 for t in (q, k, v, out, dout)):
         raise ValueError("the kernel loads q, k, v and dout by TMA and out by 16-byte "
                          "loads: they must be 16-byte aligned")
     if lse is None:
         _, lse = _flash_forward(q, k, v, causal, window, q_offset, with_lse=True)
+    if where == "meta":
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     return _flash_bwd_launch(q, k, v, out, dout, lse, None, **kw)
 
 
@@ -644,15 +720,19 @@ def _ssd_bwd_fits(L: int, p: int, n: int) -> None:
                          f"over {MAX_SMEM_BYTES}")
 
 
+@_charged("ssd_chunk")
 def _ssd_forward(x, dt, A, B, C):
     """The forward launch on checked inputs (the plain version on the CPU)."""
-    if not _on_cuda(x, dt, A, B, C):
+    where = _route(x, dt, A, B, C)
+    if where == "cpu":
         return ref.ssd_chunk(x, dt, A, B, C)
     b, nc, L, h, p = x.shape
     n = B.shape[-1]
     y = torch.empty_like(x)
     S = torch.empty(b, nc, h, n, p, dtype=torch.float32, device=x.device)
     g = torch.empty(b, nc, h, dtype=torch.float32, device=x.device)
+    if where == "meta":
+        return y, S, g
     entry = "ssd_chunk_f32" if x.dtype == torch.float32 else "ssd_chunk_bf16"
     _launch("ssd_chunk", entry, x.device, x.data_ptr(), dt.data_ptr(),
             A.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(), S.data_ptr(),
@@ -689,7 +769,7 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     _ssd_args(x, dt, A, B, C)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, B, C)):
         _ssd_bwd_fits(x.shape[2], x.shape[4], B.shape[-1])
-        if x.is_cuda and x.dtype != torch.float32:
+        if x.device.type != "cpu" and x.dtype != torch.float32:
             raise ValueError(f"the SSD backward kernel takes float32 x, B and C, got "
                              f"{x.dtype}")
         return _SSDChunk.apply(x, dt, A, B, C)
@@ -796,13 +876,23 @@ def ssd_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.T
                          f"and dg {(b, nc, h)} float32; got {tuple(dy.shape)} {dy.dtype}, "
                          f"{tuple(dS.shape)} {dS.dtype}, {tuple(dg.shape)} {dg.dtype}")
     _ssd_bwd_fits(L, p, n)
-    if not _on_cuda(x, dt, A, B, C, dy, dS, dg):
+    return _ssd_bwd(x, dt, A, B, C, dy, dS, dg)
+
+
+@_charged("ssd_chunk_bwd")
+def _ssd_bwd(x, dt, A, B, C, dy, dS, dg):
+    where = _route(x, dt, A, B, C, dy, dS, dg)
+    if where == "cpu":
         return ref.ssd_chunk_bwd(x, dt, A, B, C, dy, dS, dg)
     if x.dtype != torch.float32:
         raise ValueError(f"the SSD backward kernel takes float32 x, B and C, got {x.dtype}")
+    b, nc, L, h, p = x.shape
+    n = B.shape[-1]
     dev = x.device
     dx, ddt = torch.empty_like(x), torch.empty_like(dt)
     dA, dB, dC = torch.empty_like(A), torch.empty_like(B), torch.empty_like(C)
+    if where == "meta":
+        return dx, ddt, dA, dB, dC
     if b * nc * h == 0:
         return dx, ddt, dA.zero_(), dB.zero_(), dC.zero_()
     plan = _ssd_bwd_plan(dev.index, b, nc, L, h, p, n)

@@ -74,12 +74,26 @@ def make_train_step(model: T.Transformer, opt: Optimizer, *, clip_norm: float = 
     slices and accumulates their gradients in ``accum_dtype`` in slice
     order, then divides loss and gradients by the count, as the reference's
     scan does.  ``params`` and ``opt_state`` are updated in place and
-    returned."""
+    returned.  The step's two parts are its attributes, for the dry run
+    to count apart: ``step.grad_of(params, batch) -> (loss, grads)`` of one
+    microbatch, and ``step.finish(params, opt_state, grads) -> (params,
+    opt_state)`` from the microbatches' summed gradients (divided by the
+    count, clipped, the update), which empties ``grads`` once the clipped
+    copy exists, so the unclipped gradients are not held through the
+    update."""
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
 
     def grad_of(params, batch):
         return _loss_and_grads(lambda p: T.forward_train(model, batch, p)[0], params)
+
+    def finish(params: Params, opt_state: dict, grads: Params):
+        if microbatches > 1:
+            for k in grads:
+                grads[k] = grads[k] / microbatches
+        clipped = clip_by_global_norm(grads, clip_norm)
+        grads.clear()
+        return params, _update_leafwise(opt, clipped, opt_state, params)
 
     def train_step(params: Params, opt_state: dict, batch: dict):
         if microbatches == 1:
@@ -99,10 +113,9 @@ def make_train_step(model: T.Transformer, opt: Optimizer, *, clip_norm: float = 
                 for k, gk in g.items():
                     grads[k].add_(gk)
             loss = loss / microbatches
-            grads = {k: g / microbatches for k, g in grads.items()}
-        grads = clip_by_global_norm(grads, clip_norm)
-        opt_state = _update_leafwise(opt, grads, opt_state, params)
+        params, opt_state = finish(params, opt_state, grads)
         return params, opt_state, loss
+    train_step.grad_of, train_step.finish = grad_of, finish
     return train_step
 
 

@@ -82,68 +82,87 @@ class Spec:
     fan-in) and dtype; for the LoRA mapping table (``models/lora.py``) its
     leading batch ``axes`` (``("layers",)`` for a stacked weight,
     ``("layers", "expert")`` for an expert's) and the port's parameter
-    ``names`` it covers, one a layer.  Layouts are the reference's
-    (``perm`` None)."""
+    ``names`` it covers, one a layer; ``logical``, the logical axis name of
+    every dimension (the reference's ``LogicalParam.axes``), is what the
+    sharding rules read (``launch/sharding.py``).  Layouts are the
+    reference's (``perm`` None)."""
     shape: tuple[int, ...]
     scale: float | None
     dtype: torch.dtype
     axes: tuple[str, ...] = ()
     names: tuple[str, ...] = ()
+    logical: tuple[str, ...] = ()
     perm = None
+
+
+def _lp(shape: tuple[int, ...], logical: tuple[str, ...], scale, dt, **kw) -> Spec:
+    """A stacked layer weight: ``shape`` and ``logical`` lead with the
+    layer axis."""
+    return Spec(shape, scale, dt, logical=("layers",) + logical, **kw)
 
 
 def _attn_specs(cfg: ArchConfig, n: int, dt) -> dict[str, Spec]:
     d, hd, H, KV = cfg.d_model, cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
-    s = {"wq": Spec((n, d, H * hd), None, dt), "wk": Spec((n, d, KV * hd), None, dt),
-         "wv": Spec((n, d, KV * hd), None, dt), "wo": Spec((n, H * hd, d), None, dt)}
+    s = {"wq": _lp((n, d, H * hd), ("embed", "heads"), None, dt),
+         "wk": _lp((n, d, KV * hd), ("embed", "kv_heads"), None, dt),
+         "wv": _lp((n, d, KV * hd), ("embed", "kv_heads"), None, dt),
+         "wo": _lp((n, H * hd, d), ("heads", "embed"), None, dt)}
     if cfg.qkv_bias:
-        s.update(bq=Spec((n, H * hd), 0.0, dt), bk=Spec((n, KV * hd), 0.0, dt),
-                 bv=Spec((n, KV * hd), 0.0, dt))
+        s.update(bq=_lp((n, H * hd), ("heads",), 0.0, dt),
+                 bk=_lp((n, KV * hd), ("kv_heads",), 0.0, dt),
+                 bv=_lp((n, KV * hd), ("kv_heads",), 0.0, dt))
     if cfg.qk_norm:
-        s.update(q_norm=Spec((n, hd), 0.0, dt), k_norm=Spec((n, hd), 0.0, dt))
+        s.update(q_norm=_lp((n, hd), ("head_dim",), 0.0, dt),
+                 k_norm=_lp((n, hd), ("head_dim",), 0.0, dt))
     return s
 
 
 def _mlp_specs(cfg: ArchConfig, n: int, dt) -> dict[str, Spec]:
     d, f = cfg.d_model, cfg.d_ff
     if cfg.norm == "ln":                       # Whisper's biased GELU MLP
-        return {"w_in": Spec((n, d, f), None, dt), "b_in": Spec((n, f), 0.0, dt),
-                "w_out": Spec((n, f, d), None, dt), "b_out": Spec((n, d), 0.0, dt)}
-    return {"w_gate": Spec((n, d, f), None, dt), "w_up": Spec((n, d, f), None, dt),
-            "w_down": Spec((n, f, d), None, dt)}
+        return {"w_in": _lp((n, d, f), ("embed", "mlp"), None, dt),
+                "b_in": _lp((n, f), ("mlp",), 0.0, dt),
+                "w_out": _lp((n, f, d), ("mlp", "embed"), None, dt),
+                "b_out": _lp((n, d), ("embed",), 0.0, dt)}
+    return {"w_gate": _lp((n, d, f), ("embed", "mlp"), None, dt),
+            "w_up": _lp((n, d, f), ("embed", "mlp"), None, dt),
+            "w_down": _lp((n, f, d), ("mlp", "embed"), None, dt)}
 
 
 def _moe_specs(cfg: ArchConfig, n: int, dt) -> dict[str, Spec]:
     d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
     ex = ("layers", "expert")
-    return {"router": Spec((n, d, E), None, torch.float32),
-            "w_gate": Spec((n, E, d, f), None, dt, axes=ex),
-            "w_up": Spec((n, E, d, f), None, dt, axes=ex),
-            "w_down": Spec((n, E, f, d), None, dt, axes=ex)}
+    return {"router": _lp((n, d, E), ("embed", "expert"), None, torch.float32),
+            "w_gate": _lp((n, E, d, f), ("expert", "embed", "mlp"), None, dt, axes=ex),
+            "w_up": _lp((n, E, d, f), ("expert", "embed", "mlp"), None, dt, axes=ex),
+            "w_down": _lp((n, E, f, d), ("expert", "mlp", "embed"), None, dt, axes=ex)}
 
 
 def _ssm_specs(cfg: ArchConfig, n_layers: int, dt) -> dict[str, Spec]:
     d, di, n, h = cfg.d_model, cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads
     conv_dim = di + 2 * n
+    nl = n_layers
     return {
-        "in_proj": Spec((n_layers, d, 2 * di + 2 * n + h), None, dt),
-        "conv_w": Spec((n_layers, cfg.conv_kernel, conv_dim), 0.5, dt),
-        "conv_b": Spec((n_layers, conv_dim), 0.0, dt),
-        "A_log": Spec((n_layers, h), 1.0, dt),
-        "D": Spec((n_layers, h), 1.0, dt),
-        "dt_bias": Spec((n_layers, h), 0.0, dt),
-        "norm": Spec((n_layers, di), 0.0, dt),
-        "out_proj": Spec((n_layers, di, d), None, dt),
+        "in_proj": _lp((nl, d, 2 * di + 2 * n + h), ("embed", "ssm_proj"), None, dt),
+        "conv_w": _lp((nl, cfg.conv_kernel, conv_dim), ("conv", "ssm_conv"), 0.5, dt),
+        "conv_b": _lp((nl, conv_dim), ("ssm_conv",), 0.0, dt),
+        "A_log": _lp((nl, h), ("ssm_heads",), 1.0, dt),
+        "D": _lp((nl, h), ("ssm_heads",), 1.0, dt),
+        "dt_bias": _lp((nl, h), ("ssm_heads",), 0.0, dt),
+        "norm": _lp((nl, di), ("ssm_inner",), 0.0, dt),
+        "out_proj": _lp((nl, di, d), ("ssm_inner", "embed"), None, dt),
     }
 
 
 def _norm_specs(cfg: ArchConfig, shape: tuple[int, ...], names: list[str]) -> dict:
-    """fp32 norm scales (zeros at init), each with a ``_b`` bias under LN."""
+    """fp32 norm scales (zeros at init), each with a ``_b`` bias under LN;
+    ``shape`` is ``(d,)`` or stacked ``(layers, d)``."""
+    logical = ("layers", "embed")[-len(shape):]
     out = {}
     for nm in names:
-        out[nm] = Spec(shape, 0.0, torch.float32)
+        out[nm] = Spec(shape, 0.0, torch.float32, logical=logical)
         if cfg.norm == "ln":
-            out[nm + "_b"] = Spec(shape, 0.0, torch.float32)
+            out[nm + "_b"] = Spec(shape, 0.0, torch.float32, logical=logical)
     return out
 
 
@@ -159,8 +178,8 @@ def _layer_specs(cfg: ArchConfig, n: int, dt, cross_attention: bool = False) -> 
     lay.update({f"attn.{k}": v for k, v in _attn_specs(cfg, n, dt).items()})
     if cfg.arch_type == "hybrid":
         lay.update({f"ssm.{k}": v for k, v in _ssm_specs(cfg, n, dt).items()})
-        lay["mix_attn"] = Spec((n, d), 0.0, torch.float32)
-        lay["mix_ssm"] = Spec((n, d), 0.0, torch.float32)
+        lay["mix_attn"] = _lp((n, d), ("embed",), 0.0, torch.float32)
+        lay["mix_ssm"] = _lp((n, d), ("embed",), 0.0, torch.float32)
     if cross_attention:
         lay.update(_norm_specs(cfg, (n, d), ["norm_x"]))
         lay.update({f"xattn.{k}": v for k, v in _attn_specs(cfg, n, dt).items()})
@@ -185,14 +204,15 @@ def param_specs(cfg: ArchConfig, max_seq: int = MAX_SEQ) -> dict[str, Spec]:
     _check_arch(cfg)
     dt = cfg.torch_dtype()
     d, n = cfg.d_model, cfg.n_layers
-    specs = {"embed": Spec((cfg.vocab, d), 1.0 / math.sqrt(d), dt)}
+    specs = {"embed": Spec((cfg.vocab, d), 1.0 / math.sqrt(d), dt,
+                           logical=("vocab", "embed"))}
     specs.update(_norm_specs(cfg, (d,), ["final_norm"]))
     if not cfg.tie_embeddings:
-        specs["lm_head"] = Spec((d, cfg.vocab), None, dt)
+        specs["lm_head"] = Spec((d, cfg.vocab), None, dt, logical=("embed", "vocab"))
     if cfg.pos == "learned":
-        specs["pos_embed"] = Spec((max_seq, d), 0.02, dt)
+        specs["pos_embed"] = Spec((max_seq, d), 0.02, dt, logical=("pos", "embed"))
     if cfg.arch_type == "audio":
-        specs["enc_pos"] = Spec((cfg.source_positions, d), 0.02, dt)
+        specs["enc_pos"] = Spec((cfg.source_positions, d), 0.02, dt, logical=("pos", "embed"))
     specs = {k: replace(v, names=(k,)) for k, v in specs.items()}
     if cfg.arch_type == "audio":
         ne = cfg.encoder_layers
@@ -683,7 +703,8 @@ def forward_decode(model: Transformer, batch: dict, cache: dict
     h = _embed_tokens(model, batch["tokens"])
     positions = batch["positions"]
     if cfg.pos == "learned":
-        _check_positions(model, int(positions.max()))
+        if positions.device.type != "meta":    # a shape-only run has no values
+            _check_positions(model, int(positions.max()))
         h = h + model.pos_embed[positions][:, None].to(h.dtype)
     enc_out = batch.get("enc_out", cache.get("enc_out")) if cfg.arch_type == "audio" \
         else None

@@ -1534,3 +1534,59 @@ def test_moe_backward_is_bitwise_deterministic(dev):
     for a, b in zip(first, second):
         assert torch.equal(a, b)
         assert bool(a.isfinite().all()) and bool(a.abs().max() > 0)
+
+
+# ---------------------------------------------------------------- step-cost counter
+
+@pytest.mark.cuda
+def test_counter_on_card_still_launches_the_kernel(dev):
+    """Under ``step_costs`` a CUDA call launches its kernel (one more
+    ``LAUNCHES``), is charged once by its analytic cost, and its result is
+    the kernel's."""
+    from repro_torch.roofline import model as RM
+    from repro_torch.roofline import step_costs
+    g = torch.Generator(device=dev).manual_seed(0)
+    d = torch.randn(16, 68_873, generator=g, device=dev)
+    w = torch.rand(16, generator=g, device=dev)
+    before = ops.LAUNCHES["fedavg_agg"]
+    c = step_costs(ops.fedavg_agg, d, w)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fedavg_agg"] == before + 1
+    cost = RM.fedavg_agg_cost(16, 68_873, 4, 4)
+    assert c.kernels == {"fedavg_agg": {"launches": 1, "flops": cost.flops,
+                                        "bytes": cost.bytes_accessed}}
+    assert c.by_op == {}
+    torch.testing.assert_close(c.result.double(), ref.fedavg_agg(d, w).double(),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,b,s", [("qwen3-4b", 2, 64), ("hymba-1.5b", 1, 64)])
+def test_card_step_count_equals_meta_count(dev, arch, b, s):
+    """One reduced AdamW step counted on the card (the flash and SSD
+    kernels, forward and backward) and the same step on meta: equal FLOPs
+    and kernel charges, and the card's launches are the charges."""
+    from repro_torch.launch import steps
+    from repro_torch.optim import adam
+    from repro_torch.roofline import step_costs
+    cfg = configs.reduced(configs.get(arch))
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=torch.Generator().manual_seed(0),
+                           dtype=torch.int32)
+    counted = {}
+    for where in ("cuda", "meta"):
+        if where == "cuda":
+            model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        else:
+            model = T.Transformer(cfg, device="meta")
+        params = T.train_params(model)
+        opt = adam(1e-3)
+        state = opt.init(params)
+        batch = {"tokens": tokens.to(where), "labels": tokens.to(where)}
+        ops.reset_launches()
+        counted[where] = step_costs(steps.make_train_step(model, opt), params, state, batch)
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        assert launches == (counted[where].launches if where == "cuda" else {})
+    card, meta = counted["cuda"], counted["meta"]
+    assert card.kernels == meta.kernels
+    assert card.flops == meta.flops
+    assert torch.isfinite(card.result[2])
