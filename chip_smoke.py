@@ -81,7 +81,7 @@ Phases, each fatal on failure:
     behind a 4x straggler -- masked dispatch bitwise the sync ``"vmap"``
     run, overlapped under ``"map"`` bitwise the sync ``"map"`` run, one
     Eq. 6 launch per commit and one warp per round; S=2 in turns (blocking
-    baseline, masked, overlapped): seconds per round, ``overlap_frac``,
+    baseline, overlapped): seconds per round, ``overlap_frac``,
     graphs built and their bytes, ``sim_speedup``, the staleness
     histogram, the WAN ledger equal to ``2|w|(c E_m + ceil(c/gamma))`` per
     round plus the plan; the graphs of an async CINIC-10 engine and their
@@ -91,32 +91,36 @@ Phases, each fatal on failure:
     checkpoint after round 2 restored on the card, its round 3 bitwise the
     uninterrupted one's.
 11. training qwen3-4b at full width (bf16, weights from seed 0; 4,022,468,096
-    parameters), each run's launch counts reset before it and read after:
-    two AdamW steps of ``make_train_step`` at batch 4 x 128 (36 forward and
-    36 backward flash launches a step), a LoRA rank-16 round and a
+    parameters), each run's launch counts reset before it and read after;
+    a full config checkpoints each layer of a training step
+    (``ArchConfig.remat``), so its backward runs each layer's forward
+    kernels again: two forward launches of a layer's flash (SSD) kernel a
+    step, one backward.  Two AdamW steps of ``make_train_step`` at batch 4
+    x 128 (72 forward and 36 backward flash launches a step), a LoRA
+    rank-16 round and a
     full-delta round of ``make_fl_round`` over the 2 mediators Alg. 3 makes
     of 8 synthetic clients (one ``kld_greedy_picks``; one ``fedavg_agg`` for
     the LoRA round, one a leaf for the full-delta one), with seconds, peak
     memory, the WAN ledger (the LoRA leg's 35,863,552 bytes, the reference
     mapping's) and a profiled step of each; then the SSD families at full
     width (bf16, seed 0): hymba-1.5b (1,393,625,120 parameters) two AdamW
-    steps at 4 x 128 (32 flash, 32 flash backward, 32 SSD and 32 SSD
+    steps at 4 x 128 (64 flash, 32 flash backward, 64 SSD and 32 SSD
     backward launches a step) and a LoRA rank-16 round over the same 2
     mediators, and mamba2-370m (368,338,432) two AdamW steps at 4 x 512
-    (eight chunks; 48 SSD and 48 SSD backward launches a step, no flash),
+    (eight chunks; 96 SSD and 48 SSD backward launches a step, no flash),
     each with seconds, peak memory, finite losses and a moved update; then
     the MoE, audio and VLM families at full width (bf16, seed 0) at 4 x
-    128: granite-moe-3b-a800m (3,298,793,472 parameters; 32 flash and 32
+    128: granite-moe-3b-a800m (3,298,793,472 parameters; 64 flash and 32
     flash backward launches a step, 40 experts top 8 through the MoE's
     deterministic backward) two AdamW steps and a LoRA rank-16 round over
     the same 2 mediators (its adapters batched over the layers and the
     experts; the leg's 109,341,696 bytes, the reference mapping's; its
     layer matrices at the standard fan-in, ``to_fan_in``: at the
     reference's init the round's plain SGD diverges), whisper-base
-    (73,542,144; its LayerNorm scales set to 1; 18 flash and 18 flash
+    (73,542,144; its LayerNorm scales set to 1; 36 flash and 18 flash
     backward launches a step: 6 encoder layers, non-causal over
     1,536 stub frames, 6 decoder and 6 cross-attention) and internvl2-1b
-    (493,780,992; 64 stub vision tokens and 64 text tokens a row; 24 and 24)
+    (493,780,992; 64 stub vision tokens and 64 text tokens a row; 48 and 24)
     two AdamW steps each, with a profiled step each; then the training
     launchers at their reduced defaults (qwen3-4b, mamba2-370m,
     granite-moe-3b-a800m, whisper-base, internvl2-1b) and ``fl_train``;
@@ -149,9 +153,26 @@ Phases, each fatal on failure:
     its full config, counts reset before and read after: each of
     ``fedavg_agg``, ``kld_greedy_picks`` and ``affine_warp`` launched, the
     WAN MiB of every evaluated round equal to the closed forms; (c) the dry
-    run on meta of grok-1-314b and qwen1.5-110b ``train_4k`` on both
-    production meshes: each device's state bytes and the 80 GB cards the
-    replicated and the sharded layouts need.
+    run on meta of grok-1-314b and qwen1.5-110b ``train_4k`` on the
+    single-pod production mesh (the multi-pod one is left to the CPU's
+    ``dryrun --all`` for the script's time limit): each device's state
+    bytes and the 80 GB cards the replicated and the sharded layouts need.
+14. the mediator axis (``phase14``), every line with the card's name and
+    power limit (logical shards and processes on one card measure device
+    and host copies, not NVLink or NCCL): (a) four logical shards on the
+    card at phase 5's EMNIST arm, three Astraea rounds with a reschedule
+    each, under cuDNN's deterministic algorithms: the replicated store and
+    the sharded store (``scheduling.place_mediators``) under the ragged
+    and the all-gather exchange bit for bit equal, each shard a quarter of
+    the replicated store's bytes, exchange bytes a round (ragged <= gather,
+    both > 0), the placement's fetch counts, seconds a round and launches;
+    async S=0 over the sharded store bitwise its sync run; (b) two child
+    processes on the card (``examples/distributed_waves.py``, the library
+    phase 2 built loaded, never rebuilt), joined through a ``TCPStore``
+    this process hosts: two overlapped async rounds of (a)'s arm over a
+    ``ProcessWaveDispatcher``, their params bit for bit each other's and a
+    single-process run's, their per-key ledgers equal; a child that fails
+    or hangs fails the phase.
 
 Phase 3 also holds the flash-attention and SSD kernels against their plain
 versions at the serve shapes (bf16 and f32), with a no-window, a
@@ -191,6 +212,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -243,18 +265,12 @@ def timed(row: dict, **fns) -> dict:
 # ---------------------------------------------------------------- phase 3
 
 def one_kernel_per_call(row: dict, fn, what: str) -> None:
-    """Hold a wrapper to one device kernel per call (the mean over the
-    profiled calls).  The wrapper launches its kernel on every call, so a
-    mean that rounds below one is CUPTI dropping records from the window
-    (0.35 a call once at Eq. 6's M=4 row): that window is profiled again,
-    up to three times, and its device ms replaces the row's.  More than one
-    kernel a call fails at once."""
-    from repro_torch.examples.kernel_times import device_profile
-    for _ in range(3):
-        if round(row["kernels_per_call"]) >= 1:
-            break
-        row["device_ms"], row["kernels_per_call"] = device_profile(fn, row["ms"])
-    if round(row["kernels_per_call"]) != 1:
+    """Hold a wrapper to one device kernel per call, counted in a CUDA
+    graph of one call (``kernel_times.graph_kernel_count``: every launch is
+    a node, so none can be dropped, as the profiler's records were)."""
+    from repro_torch.examples.kernel_times import graph_kernel_count
+    row["kernels_per_call"] = graph_kernel_count(fn)
+    if row["kernels_per_call"] != 1:
         raise AssertionError(f"{what}: {row['kernels_per_call']} device kernels per call, "
                              "expected 1")
 
@@ -1049,15 +1065,17 @@ def async_s0(fed, dev):
 
 def async_s2(fed, dev):
     """S=2, a wave per mediator, the 4x straggler: the blocking baseline
-    (masked, the host waits for every wave), masked and overlapped in
-    turns; seconds per round, overlap share, graphs and their bytes,
+    (masked, the host waits for every wave) and overlapped in turns (masked
+    dispatch without the waits runs at S=0 in ``async_s0``; left out here
+    for the script's time limit); seconds per round, overlap share, graphs
+    and their bytes,
     simulated speedup, the staleness histogram and, for the non-blocking
     modes, one profiled round more; the WAN ledger equal to the round
     formula in every mode."""
     from repro_torch.core import AsyncSpec, StragglerSpec
     from repro_torch.examples.profile_round import profile_round
     modes = (("blocking", dict(dispatch="masked", block_each_wave=True)),
-             ("masked", dict(dispatch="masked")), ("overlapped", dict(dispatch="overlapped")))
+             ("overlapped", dict(dispatch="overlapped")))
     out = {}
     for name, kw in modes:
         spec = AsyncSpec(staleness_bound=2, wave_size=1,
@@ -1709,17 +1727,19 @@ def log_profile(label: str, prof: dict) -> None:
 
 
 def want_launches(cfg, steps: int, **extra) -> dict:
-    """Every kernel's launches in ``steps`` training steps of ``cfg``: one
-    forward and one backward flash launch per attention layer -- an audio
+    """Every kernel's launches in ``steps`` training steps of ``cfg``: a
+    forward and a backward flash launch per attention layer -- an audio
     model's encoder layers and its decoder's cross-attention layers
-    included -- one forward and one backward SSD launch per SSM layer;
-    ``extra`` for the rest."""
+    included -- a forward and a backward SSD launch per SSM layer, and
+    under ``cfg.remat`` a second forward launch of each (the layer's
+    recompute in the backward); ``extra`` for the rest."""
     from repro_torch.kernels import ops
+    fwd = 2 if cfg.remat else 1
     cross = cfg.n_layers if cfg.arch_type == "audio" else 0
     attn = steps * (cfg.n_layers + cfg.encoder_layers + cross) if cfg.has_attention else 0
     ssd = steps * cfg.n_layers if cfg.has_ssm else 0
     want = {k: 0 for k in ops.LAUNCHES}
-    want.update(flash_attention=attn, flash_attention_bwd=attn, ssd_chunk=ssd,
+    want.update(flash_attention=fwd * attn, flash_attention_bwd=attn, ssd_chunk=fwd * ssd,
                 ssd_chunk_bwd=ssd, **extra)
     return want
 
@@ -1896,8 +1916,10 @@ def phase11(dev, gen, checks: dict, path_launches: dict, lap) -> dict:
     layers = cfg.n_layers
 
     def counts_ok(name, launches, flash, extra):
+        # under remat each layer's forward runs again in the backward
         want = {k: 0 for k in ops.LAUNCHES}
-        want.update(flash_attention=flash, flash_attention_bwd=flash, **extra)
+        want.update(flash_attention=(2 if cfg.remat else 1) * flash,
+                    flash_attention_bwd=flash, **extra)
         if launches != want:
             raise AssertionError(f"{name}: launches {launches}, expected {want}")
 
@@ -2442,9 +2464,9 @@ def counted_step(dev, cfg, model, params, batch, path_launches: dict) -> dict:
 def phase13(dev, counted: dict, path_launches: dict, lap) -> dict:
     """(b) the quickstart twin on the card at its full config: it launches
     each FL kernel, and its WAN MiB equal the closed forms; (c) the dry run
-    on meta of grok-1-314b and qwen1.5-110b ``train_4k`` on both production
-    meshes: each device's state bytes and the 80 GB cards each layout
-    needs.  (a) ran in phase 11 (``counted_step``)."""
+    on meta of grok-1-314b and qwen1.5-110b ``train_4k`` on the single-pod
+    production mesh: each device's state bytes and the 80 GB cards each
+    layout needs.  (a) ran in phase 11 (``counted_step``)."""
     from repro_torch.examples import quickstart
     from repro_torch.kernels import ops
     from repro_torch.launch import dryrun
@@ -2475,29 +2497,200 @@ def phase13(dev, counted: dict, path_launches: dict, lap) -> dict:
     lap("13 (b) quickstart")
     dry = {}
     for arch in ("grok-1-314b", "qwen1.5-110b"):
-        for multi in (False, True):
-            t0 = time.perf_counter()
-            rec = dryrun.run_one(arch, "train_4k", multi)
-            if rec["status"] != "ok":
-                raise AssertionError(f"dry run {arch} train_4k: {rec}")
-            m, cards = rec["memory"], rec["cards_80gb"]
-            state = m["param_bytes"] + m["grad_bytes"] + m["opt_bytes"]
-            dry[f"{arch} {rec['mesh']}"] = {"s": time.perf_counter() - t0, "memory": m,
-                                             "cards_80gb": cards, "state_bytes": state,
-                                             "roofline": rec["roofline"]}
-            log(f"[phase13] (c) dry run {arch} train_4k {rec['mesh']} ({rec['n_chips']} devices, "
-                f"{rec['counted_costs']['microbatches']} microbatches, "
-                f"{time.perf_counter() - t0:.1f} s on meta): state {state / 1e9:.3f} GB a device "
-                f"(params {m['param_bytes'] / 1e9:.3f}, grads {m['grad_bytes'] / 1e9:.3f}, AdamW "
-                f"{m['opt_bytes'] / 1e9:.3f}), activations (estimate) "
-                f"{m['activation_bytes_estimate'] / 1e9:.3f} GB; 80 GB cards for the state: "
-                + ", ".join(f"{layout} {c['cards']} {c['mesh']} ({c['microbatches']} "
-                            f"microbatches, {c['per_device_bytes'] / 1e9:.3f} GB)"
-                            for layout, c in cards.items()))
+        t0 = time.perf_counter()
+        rec = dryrun.run_one(arch, "train_4k")
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry run {arch} train_4k: {rec}")
+        m, cards = rec["memory"], rec["cards_80gb"]
+        state = m["param_bytes"] + m["grad_bytes"] + m["opt_bytes"]
+        dry[f"{arch} {rec['mesh']}"] = {"s": time.perf_counter() - t0, "memory": m,
+                                         "cards_80gb": cards, "state_bytes": state,
+                                         "roofline": rec["roofline"]}
+        log(f"[phase13] (c) dry run {arch} train_4k {rec['mesh']} ({rec['n_chips']} devices, "
+            f"{rec['counted_costs']['microbatches']} microbatches, "
+            f"{time.perf_counter() - t0:.1f} s on meta): state {state / 1e9:.3f} GB a device "
+            f"(params {m['param_bytes'] / 1e9:.3f}, grads {m['grad_bytes'] / 1e9:.3f}, AdamW "
+            f"{m['opt_bytes'] / 1e9:.3f}), activations (estimate) "
+            f"{m['activation_bytes_estimate'] / 1e9:.3f} GB; 80 GB cards for the state: "
+            + ", ".join(f"{layout} {c['cards']} {c['mesh']} ({c['microbatches']} "
+                        f"microbatches, {c['per_device_bytes'] / 1e9:.3f} GB)"
+                        for layout, c in cards.items()))
     lap("13 (c) dry runs")
     return {"counted_step": counted, "quickstart": {"s": q_s, "launches": launches,
                                                     "wan_mib": [got_f, got_a], "accuracy": acc},
             "dry_runs": dry}
+
+
+# ---------------------------------------------------------------- phase 14
+
+P14_SHARDS, P14_PROCESSES, P14_CHILD_TIMEOUT_S = 4, 2, 300
+
+
+def phase14(fed, dev, smi: str, path_launches: dict, lap) -> dict:
+    """The mediator axis.  (a) Four logical shards on ``cuda:0`` at phase
+    5's EMNIST arm, three Astraea rounds with a reschedule each, under
+    cuDNN's deterministic algorithms: the replicated store and the sharded
+    store under both exchanges bit for bit equal (and their WAN ledger the
+    closed form), each shard a quarter of the replicated store's bytes (the
+    card's peak over each run printed beside it), the
+    ragged exchange at most the all-gather's and both above 0, the
+    placement's fetches adding up; async S=0 (a wave per mediator, masked)
+    over the sharded store bit for bit the sync run.  (b) Two processes on
+    ``cuda:0``, spawned after phase 2 built the kernels (they load the
+    library, never build it), each joining a ``TCPStore`` this process
+    hosts: two overlapped async rounds of (a)'s arm over the replicated
+    store and a ``ProcessWaveDispatcher``; their params bit for bit equal
+    to each other's and to this process's single-process run, their
+    per-key ledgers equal.  A child that fails or outlives
+    ``P14_CHILD_TIMEOUT_S`` fails the phase.  Logical shards and processes
+    on one card measure device and host copies, not NVLink or NCCL."""
+    from datetime import timedelta
+
+    from repro_torch.core import AsyncSpec, StragglerSpec
+    from repro_torch.examples import distributed_waves
+    from repro_torch.launch.mesh import make_mediator_mesh
+    tag = f"[phase14] ({smi}; one card: device copies, not NVLink or NCCL)"
+    mesh = make_mediator_mesh(devices=(dev,) * P14_SHARDS)
+    res: dict = {"card": smi}
+
+    # (a) the stores over four logical shards
+    runs, stats = {}, {}
+    with deterministic_convolutions():
+        for name, kw in (("replicated", dict(store="replicated")),
+                         ("sharded ragged", dict(store="sharded", store_exchange="ragged")),
+                         ("sharded gather", dict(store="sharded", store_exchange="gather"))):
+            torch.cuda.synchronize(dev)
+            held = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            tr = p10_trainer(fed, dev, mesh=mesh, reschedule_every_round=True, **kw)
+            secs, launches = run_timed(tr, label=name)
+            peak = torch.cuda.max_memory_allocated(dev) - held
+            path_launches[f"14 {name}"] = launches
+            if launches != {"fedavg_agg": ROUNDS, "kld_greedy_picks": ROUNDS,
+                            "affine_warp": ROUNDS}:
+                raise AssertionError(f"{name}: launches {launches}")
+            store = tr.engine.store
+            stats[name] = {"round_seconds": secs, "launches": launches,
+                           "per_device_bytes": store.per_device_bytes(),
+                           "card_peak_bytes": peak,
+                           "exchange_bytes_per_round": store.exchange_bytes_per_round,
+                           "ledger": tr.comm.ledger_totals(),
+                           "store_stats": {k: v for k, v in
+                                           (tr.engine.last_schedule_stats or {}).items()
+                                           if k.startswith("store_")}}
+            runs[name] = tr
+            log(f"{tag} (a) {name}: s/round {' '.join(f'{x:.4f}' for x in secs)}, launches "
+                f"{launches}, device bytes a shard {store.per_device_bytes():,}, the card's "
+                f"peak over the run {peak:,} B (max_memory_allocated less what was held "
+                f"before; all shards on this card), exchange "
+                f"{store.exchange_bytes_per_round:,} B a round (last), ledger "
+                f"store_exchange {tr.comm.store_exchange_bytes:,.0f} B, "
+                f"{stats[name]['store_stats']}")
+        rep = runs["replicated"]
+        ragged, gather = runs["sharded ragged"], runs["sharded gather"]
+        for name in ("sharded ragged", "sharded gather"):
+            tr = runs[name]
+            if not same_params(tr, rep):
+                raise AssertionError(f"{name} differs from the replicated store")
+            if not tr.comm.round_log == rep.comm.round_log == expected_wan(fed):
+                raise AssertionError(f"{name}: WAN ledger {tr.comm.round_log}")
+            if tr.engine.store.per_device_bytes() * P14_SHARDS != \
+                    rep.engine.store.per_device_bytes():
+                raise AssertionError(f"{name}: {tr.engine.store.per_device_bytes()} B a shard")
+            st = stats[name]["store_stats"]
+            if st["store_local_fetches"] + st["store_remote_fetches"] != \
+                    st["store_total_fetches"] or st["store_total_fetches"] != CLIENTS:
+                raise AssertionError(f"{name}: fetches {st}")
+        r_bytes = ragged.engine.store.exchange_bytes_per_round
+        g_bytes = gather.engine.store.exchange_bytes_per_round
+        if not 0 < r_bytes <= g_bytes or rep.comm.store_exchange_bytes != 0:
+            raise AssertionError(f"exchange bytes ragged {r_bytes}, gather {g_bytes}")
+        spec = AsyncSpec(staleness_bound=0, wave_size=1, dispatch="masked",
+                         straggler=StragglerSpec(**FLEET))
+        tr = p10_trainer(fed, dev, mesh=mesh, reschedule_every_round=True,
+                         store="sharded", async_spec=spec)
+        secs, launches = run_timed(tr, label="async S=0 sharded")
+        path_launches["14 async S=0 sharded"] = launches
+        if not same_params(tr, ragged):
+            raise AssertionError("async S=0 over the sharded store differs from the sync run")
+        stats["async S=0 sharded"] = {"round_seconds": secs, "launches": launches,
+                                      "commits": tr.runner.num_commits,
+                                      "ledger": tr.comm.ledger_totals()}
+        log(f"{tag} (a) async S=0 masked, a wave per mediator, over the sharded store: "
+            f"bitwise the sync run; s/round {' '.join(f'{x:.4f}' for x in secs)}, launches "
+            f"{launches}, store_exchange {tr.comm.store_exchange_bytes:,.0f} B (once a wave)")
+        log(f"{tag} (a) replicated == sharded ragged == sharded gather, bit for bit; "
+            f"device bytes a shard {ragged.engine.store.per_device_bytes():,} x "
+            f"{P14_SHARDS} = replicated {rep.engine.store.per_device_bytes():,}; exchange "
+            f"a round ragged {r_bytes:,} B <= gather {g_bytes:,} B")
+    res["stores"] = stats
+    del runs, rep, ragged, gather, tr
+    torch.cuda.empty_cache()
+    lap("14 (a) sharded store")
+
+    # (b) two processes on this card
+    store = torch.distributed.TCPStore("127.0.0.1", 0, None, is_master=True,
+                                       wait_for_workers=False,
+                                       timeout=timedelta(seconds=P14_CHILD_TIMEOUT_S))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), TORCHELASTIC_USE_AGENT_STORE="True")
+    outs = [ROOT / "build" / f"phase14_rank{i}.npz" for i in range(P14_PROCESSES)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.examples.distributed_waves", "--arm", "emnist",
+         "--device", f"cuda:{dev.index}", "--coordinator", f"127.0.0.1:{store.port}",
+         "--num-processes", str(P14_PROCESSES), "--process-id", str(i), "--out", str(out)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for i, out in enumerate(outs)]
+    texts = []
+    try:
+        # the single-process run, while the children start up
+        with deterministic_convolutions():
+            solo = distributed_waves.run_waves("emnist", dev)
+        for p in procs:
+            texts.append(p.communicate(timeout=P14_CHILD_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"a phase-14 child outlived {P14_CHILD_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    children_s = time.perf_counter() - t0
+    for p, text in zip(procs, texts):
+        if p.returncode:
+            raise AssertionError(f"a phase-14 child exited {p.returncode}:\n{text[-3000:]}")
+    want = distributed_waves.summary(solo)
+    path_launches["14 single-process waves"] = solo["launches"]
+    names, keys = sorted(want["params"]), sorted(want["ledger"])
+    children = []
+    for i, out in enumerate(outs):
+        with np.load(out) as z:
+            report = json.loads(str(z["report"]))
+            if report["failures"] or report["nvcc_builds"] != 0:
+                raise AssertionError(f"child {i}: {report}")
+            if list(z["names"]) != names or not all(
+                    np.array_equal(z[f"p_{j}"], want["params"][k]) for j, k in enumerate(names)):
+                raise AssertionError(f"child {i}: params differ from the single-process run")
+            if list(z["ledger_keys"]) != keys or not np.array_equal(
+                    z["ledger"], [want["ledger"][k] for k in keys]):
+                raise AssertionError(f"child {i}: ledger differs from the single-process run")
+            if json.loads(str(z["commit_log"])) != want["commit_log"]:
+                raise AssertionError(f"child {i}: commit log differs")
+        path_launches[f"14 process {i}"] = report["launches"]
+        children.append(report)
+        log(f"{tag} (b) process {i} of {P14_PROCESSES} on cuda:{dev.index}: published "
+            f"{report['num_published']}, received {report['num_received']}, s/round "
+            f"{' '.join(f'{x:.4f}' for x in report['round_seconds'])}, launches "
+            f"{report['launches']}, nvcc builds {report['nvcc_builds']}")
+    log(f"{tag} (b) {P14_PROCESSES} processes: params bit for bit equal to each other's "
+        f"and to the single-process run (s/round "
+        f"{' '.join(f'{x:.4f}' for x in solo['round_seconds'])}, launches "
+        f"{solo['launches']}), per-key ledgers equal; the children took {children_s:.1f} s")
+    res["processes"] = {"children": children, "children_s": children_s,
+                        "single_round_seconds": solo["round_seconds"],
+                        "single_launches": solo["launches"]}
+    lap("14 (b) two processes")
+    return res
 
 
 def main() -> int:
@@ -2858,10 +3051,14 @@ def main() -> int:
     # ---- 13. the step-cost counter on the card, the quickstart twin, the
     # dry runs of the two largest models
     p13 = phase13(dev, p11.pop("counted_step"), path_launches, lap)
+
+    # ---- 14. the mediator axis: logical shards and two processes on this card
+    p14 = phase14(fed, dev, smi, path_launches, lap)
     phases_s = sum(phase_s.values())
     log(f"[time] phases {phases_s:.1f} s in all, phase 12 "
         f"{sum(v for k, v in phase_s.items() if k.startswith('12 ')):.1f} s, phase 13 "
-        f"{sum(v for k, v in phase_s.items() if k.startswith('13 ')):.1f} s; "
+        f"{sum(v for k, v in phase_s.items() if k.startswith('13 ')):.1f} s, phase 14 "
+        f"{sum(v for k, v in phase_s.items() if k.startswith('14 ')):.1f} s; "
         f"{1200 - phases_s:.1f} s left of a 1,200 s call")
 
     # every kernel's launches over the paths that drive it (each path's
@@ -2910,7 +3107,7 @@ def main() -> int:
          "cinic_peak_mem_gb": cinic_peak, "cinic_materialized": materialized,
          "row_exec": rows_check,
          "serve_agreement": serve_agree, "serve": served,
-         "phase10": p10, "phase11": p11, "phase12": p12, "phase13": p13,
+         "phase10": p10, "phase11": p11, "phase12": p12, "phase13": p13, "phase14": p14,
          "path_launches": path_launches, "launches": launches, "phase_seconds": phase_s,
          "kernels": summary}, indent=1, default=str))
     log(json.dumps({"kernels": summary}))

@@ -9,7 +9,7 @@ mediator trains its clients sequentially for E_m epochs, and Eq. 6
 averages the mediator deltas with weights n_m / n.
 
 The trainer presents the reference's arguments (``repro/core/astraea.py``)
-where they apply to a single-device engine -- with ``store`` (and the
+-- with ``store`` (the sharded store's ``store_exchange`` and ``mesh``; the
 spilled store's ``store_prefetch_depth``/``store_lru_rows``),
 ``async_spec`` (bounded-staleness waves, ``core/async_engine.py``),
 ``lora_rank``/``lora_alpha`` (the LoRA adapter exchange) and
@@ -58,7 +58,8 @@ def charge_materialized_plan(engine: FLRoundEngine, phase: AugPhase) -> None:
 
 def store_config(trainer) -> dict:
     """Both trainers' client-store fields, as ``EngineConfig`` keywords."""
-    return dict(store=trainer.store, store_prefetch_depth=trainer.store_prefetch_depth,
+    return dict(store=trainer.store, store_exchange=trainer.store_exchange,
+                store_prefetch_depth=trainer.store_prefetch_depth,
                 store_lru_rows=trainer.store_lru_rows)
 
 
@@ -88,6 +89,10 @@ class AstraeaTrainer:
     adaptive_plan: bool = False
     reschedule_every_round: bool = False    # static client data -> schedule once
     store: str = "replicated"               # client-store placement policy
+    store_exchange: str = "ragged"          # the sharded store's serve exchange
+    # the mediator mesh the sharded store spreads over (None: one shard on
+    # the device)
+    mesh: object = None
     # padded mediator count; defaults to ceil(c / gamma), Alg. 3's output size
     pad_mediators_to: int | None = None
     # bounded-staleness async rounds (core/async_engine.py); None = the
@@ -129,7 +134,7 @@ class AstraeaTrainer:
             aug_plan=engine_plan, adaptive_aug_alpha=adaptive_alpha,
             device=self.device,
             init_params=self.init_params, draws=self.draws, loss_fn=self.loss_fn,
-            telemetry=self.telemetry)
+            telemetry=self.telemetry, mesh=self.mesh)
         charge_materialized_plan(self.engine, phase)
         self.runner = async_runner(self.engine, self.async_spec)
         self.history = self.runner.history

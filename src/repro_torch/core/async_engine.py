@@ -4,7 +4,7 @@
 mediator gates every round.  This module wraps the engine so mediator
 groups complete in **waves** and the server folds them under a bounded
 staleness ``S``, as the JAX package's ``core/async_engine.py`` does (its
-simulation model, commit rule, discounted Eq. 6 and telemetry, without its
+simulation model, commit rule, discounted Eq. 6, telemetry and
 multi-process dispatcher):
 
 * A ``StragglerModel`` (``core/staleness.py``) gives each mediator a
@@ -34,19 +34,33 @@ Dispatch (``AsyncSpec.dispatch``):
 * ``"overlapped"``: each wave runs a program over just its rows, one per
   distinct width, built (captured, on the card) once and cached
   (``engine.run_rows_sliced``); the host never waits between waves or at
-  commits.  ``overlap_frac`` is the share of dispatches that found the
+  commits.  A store that places rows by locality (``sharded``:
+  ``store.permutes_rows``) reads each row on the shard its position gives
+  it, so its waves stay masked under overlapped dispatch (the host still
+  never waits).  ``overlap_frac`` is the share of dispatches that found the
   previous wave still running on the card (a CUDA event's ``query()``);
   ``synchronize()`` -- at evaluation and in ``flush`` -- is the only host
   sync.  Under ``row_exec="vmap"`` a sliced program batches another
   width than the sync round's, so S=0 is bitwise the sync run only under
   ``"map"``, within float reordering under ``"vmap"``.
 
-A wave's rows are copied out of the program's row buffer into the pending
+Waves hold mediator indices; a wave's rows are copied out of the
+program's row buffer (at the mediators' schedule rows) into the pending
 wave's own ``(n_rows, N)`` storage on the round's stream before the next
 replay can overwrite them; pending rows outlive their round by up to
-``S`` rounds.  Draws and the online warp are addressed by round and
-schedule row, never by wave, so a mediator trains on the same numbers
-whichever wave runs it; the warp is one launch per round
+``S`` rounds.  Each masked wave runs the round's plan, so a sharded
+store's serve exchange is charged once a wave.
+
+**Several processes** (``dispatcher=``, a
+``launch.mesh.ProcessWaveDispatcher``): the owner of wave ``(r, w)`` runs
+it and publishes its rows and weights (wave 0 also the dummy tail); every
+other process receives them.  Every process books the same WAN charges and
+folds every wave with the same ``fedavg_agg`` launch, so the params and the
+ledger do not depend on the process count.
+
+Draws and the online warp are addressed by round and mediator, never by
+wave or row, so a mediator trains on the same numbers whichever wave (or
+process) runs it; the warp is one launch per round
 (``engine.prepare_round``).
 
 The folded state is the engine's ``server_state``: the weights, or under
@@ -115,7 +129,7 @@ class _PendingWave:
     """One trained but uncommitted wave's contribution."""
     round: int
     t_done: float
-    rows: np.ndarray            # schedule rows, ascending
+    mediators: np.ndarray       # mediator indices, ascending
     values: torch.Tensor        # (n_rows, N) flat deltas / weights
     weights: torch.Tensor       # (n_rows,) Eq. 6 sizes
 
@@ -125,11 +139,13 @@ class AsyncRoundEngine:
     keeps the params, store, schedule and comm meter; this class owns the
     virtual clock, the pending waves and the discounted commits."""
 
-    def __init__(self, engine: FLRoundEngine, spec: AsyncSpec):
+    def __init__(self, engine: FLRoundEngine, spec: AsyncSpec, *, dispatcher=None):
         self.engine, self.spec = engine, spec
         self.policy = make_staleness_policy(spec.policy, spec.policy_alpha)
         self._parallel_clients = engine.cfg.aggregate == "weights"
-        self._sliced = spec.dispatch == "overlapped"
+        self._pipelined = spec.dispatch == "overlapped"
+        self._sliced = self._pipelined and not engine.store.permutes_rows
+        self._dispatcher = dispatcher
         self._on_card = engine.device.type == "cuda"
         self._straggler: StragglerModel | None = None
         self._adaptive = AdaptiveStaleness(spec.adaptive) \
@@ -183,7 +199,7 @@ class AsyncRoundEngine:
     # ------------------------------------------------------------------
     # one virtual round: dispatch its waves, then commit
     # ------------------------------------------------------------------
-    def _durations(self, eng, slot_np, m_real) -> np.ndarray:
+    def _durations(self, eng, slot_np, row_of, m_real) -> np.ndarray:
         spec = self.spec
         if self._straggler is None:
             # sized to the real population, so padding never dilutes the
@@ -195,7 +211,7 @@ class AsyncRoundEngine:
         em = max(1, eng.cfg.mediator_epochs)
         if spec.straggler.level == "client":
             return self._straggler.durations_for_groups(eng.last_groups, em)
-        return self._straggler.durations(slot_np[:m_real].sum(axis=1) * em)
+        return self._straggler.durations(slot_np[row_of].sum(axis=1) * em)
 
     def run_round(self) -> None:
         spec, eng, tel = self.spec, self.engine, self.telemetry
@@ -209,46 +225,55 @@ class AsyncRoundEngine:
 
     def _run_round_body(self, spec, eng, tel) -> None:
         inp = eng.prepare_round()
-        slot_np, m_real = inp.slot, inp.m_real
+        slot_np, m_real, row_of = inp.slot, inp.m_real, inp.row_of
         m_pad = slot_np.shape[0]
         waves, wstats = scheduling.partition_waves(
-            self._durations(eng, slot_np, m_real), spec.wave_size)
+            self._durations(eng, slot_np, row_of, m_real), spec.wave_size)
         self.last_wave_stats = wstats
         r, t0 = self._round, self.virtual_time
         snapshot = eng.server_state         # every wave of round r starts here
-        # the round's dummy tail (weight exactly 0) completes the padded
-        # stack, so an S=0 commit folds the sync round's input
-        self._dummy = (eng.noop_rows(snapshot, m_pad - m_real),
-                       inp.weights[m_real:])
         for wi, wave in enumerate(waves):
-            rows = np.sort(np.asarray(wave, np.int64))
-            with tel.span("wave", wave=wi, round=r, mediators=int(rows.size),
+            meds = np.sort(np.asarray(wave, np.int64))      # mediator indices
+            with tel.span("wave", wave=wi, round=r, mediators=int(meds.size),
                           sim_done=float(t0 + wstats["wave_times"][wi])) as wsp:
                 overlapped = self._probe_overlap()
-                with tel.span("dispatch_gap", wave=wi, round=r, overlapped=overlapped):
-                    pick = to_device(rows, eng.device)
-                    if self._sliced:
-                        vals = eng.run_rows_sliced(inp, snapshot, rows).clone()
-                    else:
-                        vals = eng.run_rows(inp, snapshot, rows)[pick]
-                    wts = inp.weights[pick]
+                owner = self._dispatcher is None or \
+                    self._dispatcher.owner_of(r, wi) == self._dispatcher.process_index
+                if owner:
+                    with tel.span("dispatch_gap", wave=wi, round=r, overlapped=overlapped):
+                        vals, wts = self._dispatch(eng, inp, snapshot, row_of[meds])
+                        if wi == 0:
+                            # the round's dummy tail (weight exactly 0)
+                            # completes the padded stack, so an S=0 commit
+                            # folds the sync round's input
+                            dummy_rows = to_device(inp.unperm[m_real:], eng.device)
+                            self._dummy = (eng.noop_rows(snapshot, m_pad - m_real),
+                                           inp.weights[dummy_rows])
+                    if self._dispatcher is not None:
+                        self._publish_wave(r, wi, vals, wts)
+                else:
+                    vals, wts = self._receive_wave(r, wi)
                 if self._on_card:
                     self._last_wave = torch.cuda.Event()
                     self._last_wave.record()
                     if spec.block_each_wave:
                         self._last_wave.synchronize()   # the blocking baseline
-                if not self._sliced:
+                if not self._pipelined:
                     wsp.sync_on((vals, wts))
-                clients = int(slot_np[rows].sum())
+                clients = int(slot_np[row_of[meds]].sum())
                 wave_wan0 = eng.comm.total_bytes
-                # charges come from the schedule: the WAN ledger is the same
-                # in every dispatch mode
+                # charges come from the schedule, on every process: the WAN
+                # ledger is the same in every dispatch mode and process count
                 if self._parallel_clients:
                     eng.comm.fedavg_wave(clients)
                 else:
-                    eng.comm.astraea_wave(clients, len(rows), eng.cfg.mediator_epochs)
+                    eng.comm.astraea_wave(clients, len(meds), eng.cfg.mediator_epochs)
+                if not self._sliced:
+                    # a masked wave runs the round's plan: a sharded store's
+                    # serve exchange once a wave (nothing for the other stores)
+                    eng.charge_exchange()
                 self._pending.append(_PendingWave(
-                    r, t0 + wstats["wave_times"][wi], rows, vals, wts))
+                    r, t0 + wstats["wave_times"][wi], meds, vals, wts))
                 wsp.set(clients=clients, wan_bytes=eng.comm.total_bytes - wave_wan0)
         eng.comm.end_round()
 
@@ -271,6 +296,29 @@ class AsyncRoundEngine:
         self.sync_time += wstats["barrier_time"]
         self._round += 1
         eng._round = self._round
+
+    def _dispatch(self, eng, inp, snapshot, rows: np.ndarray) -> tuple:
+        """Train one wave, its mediators at schedule ``rows``: ``(vals (n,
+        N), wts (n,))``."""
+        pick = to_device(rows, eng.device)
+        if self._sliced:
+            vals = eng.run_rows_sliced(inp, snapshot, rows).clone()
+        else:
+            vals = eng.run_rows(inp, snapshot, rows)[pick]
+        return vals, inp.weights[pick]
+
+    def _publish_wave(self, r: int, wi: int, vals, wts) -> None:
+        """Ship an owned wave (wave 0 with the dummy tail) to the other
+        processes; reading it to the host waits for the wave."""
+        arrays = [vals, wts] + (list(self._dummy) if wi == 0 else [])
+        self._dispatcher.publish(f"wave-{r}-{wi}", [a.cpu().numpy() for a in arrays])
+
+    def _receive_wave(self, r: int, wi: int) -> tuple:
+        dev = self.engine.device
+        got = [torch.from_numpy(a).to(dev) for a in self._dispatcher.receive(f"wave-{r}-{wi}")]
+        if wi == 0:
+            self._dummy = (got[2], got[3])
+        return got[0], got[1]
 
     def _probe_overlap(self) -> bool:
         """Whether the previously dispatched wave is still running, counted
@@ -296,7 +344,7 @@ class AsyncRoundEngine:
         parts_v, parts_w, stales = [], [], []
         for q in sorted({p.round for p in ready}):
             ws = [p for p in ready if p.round == q]
-            rows = np.concatenate([p.rows for p in ws])
+            rows = np.concatenate([p.mediators for p in ws])
             order = to_device(np.argsort(rows, kind="stable"), self.engine.device)
             vals = torch.cat([p.values for p in ws])[order]
             wts = torch.cat([p.weights for p in ws])[order]
@@ -312,7 +360,7 @@ class AsyncRoundEngine:
         self.num_commits += 1
         self.commit_log.append({
             "round": r, "time": float(c_time),
-            "folded_rows": int(sum(p.rows.size for p in ready)),
+            "folded_rows": int(sum(p.mediators.size for p in ready)),
             "staleness": stales,
             "staleness_bound": self.staleness_bound,
             "pending_after": len(self._pending),
@@ -320,7 +368,7 @@ class AsyncRoundEngine:
         csp.set(folded_rows=self.commit_log[-1]["folded_rows"],
                 staleness_max=max(stales) if stales else 0,
                 pending_after=len(self._pending))
-        if not self._sliced:
+        if not self._pipelined:
             csp.sync_on(self.engine.server_state)
 
     def synchronize(self) -> float:

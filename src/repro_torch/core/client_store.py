@@ -21,9 +21,12 @@ spilled      U_cap * slice         the ``host`` stream, but the federation
                                    across schedules come from the LRU cache
 ===========  ====================  =========================================
 
-The reference's fourth policy, ``sharded``, partitions the client axis
-over a mesh of devices and needs ``torch.distributed`` across processes;
-``build_client_store`` raises ``NotImplementedError`` for it.
+The fourth policy, ``sharded`` (``ShardedStore``), partitions the client
+axis over the ``mediator`` axis of a mesh (``launch/mesh.py``): shard
+``d`` holds clients ``[d * K_local, (d + 1) * K_local)`` in its own buffer
+on its mesh device -- ``K / n`` rows a device -- and each round moves the
+scheduled clients that a row reads from another shard between the shards
+(the serve exchange), charged to the intra-pod ledger.
 
 On the card the streaming stores keep two pinned host staging buffers and
 one compact device buffer of ``U_cap`` rows, all allocated once.  A
@@ -53,10 +56,13 @@ from collections import deque
 import numpy as np
 import torch
 
+from repro_torch.core import scheduling
 from repro_torch.device import to_device
+from repro_torch.launch.mesh import mediator_sharding
 from repro_torch.obs.telemetry import NULL_TELEMETRY
 
 POLICIES = ("replicated", "sharded", "host", "spilled")
+EXCHANGES = ("ragged", "gather")
 
 
 def _bytes(*arrays) -> int:
@@ -144,8 +150,21 @@ class ClientStore:
     """
 
     policy: str
+    # whether ``place`` puts mediators on rows other than their schedule
+    # order (the engine then undoes it before Eq. 6)
+    permutes_rows = False
     last_stream_bytes: int = 0
+    # what every execution of the current plan moves between shards
+    exchange_bytes_per_round: int = 0
     telemetry = NULL_TELEMETRY
+
+    def place(self, groups: list[list[int]], m_pad: int) -> np.ndarray:
+        """``row_to_group (m_pad,)``: the mediator on each schedule row, -1
+        for a dummy row.  Schedule order unless the store places by
+        locality."""
+        row_to_group = np.full(m_pad, -1, np.int64)
+        row_to_group[:len(groups)] = np.arange(len(groups))
+        return row_to_group
 
     def plan(self, idx: np.ndarray, slot: np.ndarray):
         raise NotImplementedError
@@ -161,10 +180,12 @@ class ClientStore:
     def stats(self) -> dict:
         """Residency and traffic with one key set for every policy (a
         policy without a feature reports 0 or None), as the reference's
-        ``ClientStore.stats`` without the mesh keys."""
+        ``ClientStore.stats`` without its parameter-residency keys."""
         return {
             "policy": self.policy,
             "per_device_bytes": self.per_device_bytes(),
+            "exchange": getattr(self, "exchange", None),
+            "exchange_bytes_per_round": self.exchange_bytes_per_round,
             "streamed_bytes": getattr(self, "_streamed_bytes", 0),
             "num_streams": getattr(self, "num_streams", 0),
             "prefetch_hits": getattr(self, "prefetch_hits", 0),
@@ -195,6 +216,206 @@ class ReplicatedStore(ClientStore):
 
     def per_device_bytes(self) -> int:
         return _bytes(*self._arrays)
+
+
+class ShardPlan(tuple):
+    """One reschedule's sharded plan: the host arrays ``(route, loc, lpos,
+    rpos)`` -- the reference's plan tensors, byte for byte -- and ``dev``,
+    the slot block's shape and each shard's gather list on the devices
+    (None for a store without devices)."""
+    dev = None
+
+
+class ShardedStore(ClientStore):
+    """The client axis partitioned over the ``mediator`` axis of ``mesh``.
+
+    ``K`` is padded to a multiple of the shard count ``n`` with zero-mask
+    dummy clients; shard ``d`` keeps its ``K_local = K_pad / n`` rows in a
+    buffer of its own on ``mesh.devices[d]``.  Mediator row ``r`` of an
+    ``(M_pad, gamma)`` schedule reads on shard ``r // (M_pad / n)``, where
+    ``place`` (``scheduling.place_mediators``) put it by locality.
+
+    ``plan`` (host numpy, once per reschedule, the reference's arithmetic)
+    splits each active slot into a *local* read from its row's shard at
+    ``lpos`` or a *remote* read at ``rpos`` of the rows the reference's
+    exchange ships to that shard, and fills the send lists ``route``:
+
+    * ``ragged`` (default): per (owner, reader) pair, the clients that
+      reader's rows read from that owner, deduplicated per pair, at most
+      ``R = min(M_local * gamma, K_local)``; at hop ``s = 1 .. n-1`` of
+      ``ring_permutation(n, s)`` shard ``o`` sends its list for reader
+      ``(o + s) % n``, which lands at ``(s - 1) * R`` of the reader's
+      buffer.  Charged the occupied slots.
+    * ``gather``: one globally deduplicated serve list a shard, at most
+      ``F = min(M_pad * gamma, K_local)``, sent to every shard (the
+      reference's all-gather), landing at ``owner * F``.  Charged
+      ``n * F * (n - 1)`` slices, occupied or not.
+
+    The plan and its ``exchange_bytes_per_round`` are what the engine
+    charges to the intra-pod ledger.  On the devices every row trains on
+    the engine's one device, so ``slot_data`` moves no rows between shards:
+    each shard's slots are gathered on their owner (one ``index_select``)
+    and copied straight into the engine's ``(M_pad, gamma, pad, ...)``
+    block.  A reader shard's receive buffers and the ring would only add
+    copies and hold up to a replicated store's rows on every shard; they
+    pay once rows train on their own shard's card.  Copies move exact
+    values, so every placement and both exchanges give the replicated
+    store's slots bit for bit."""
+
+    policy = "sharded"
+    permutes_rows = True
+    exchange = "gather"         # a plan-only store built without devices
+
+    def __init__(self, xs, ys, mask, mesh, *, device: torch.device,
+                 exchange: str = "ragged"):
+        if exchange not in EXCHANGES:
+            raise ValueError(f"unknown exchange {exchange!r}; expected one of {EXCHANGES}")
+        self.exchange = exchange
+        arrays = tuple(np.asarray(a) for a in (xs, ys, mask))
+        sharding = mediator_sharding(mesh, arrays[0].shape[0])
+        self._n, self._k_local = sharding.num_shards, sharding.k_local
+        k_pad = self._n * self._k_local
+        arrays = tuple(np.concatenate([a, np.zeros((k_pad - a.shape[0],) + a.shape[1:],
+                                                   a.dtype)]) for a in arrays)
+        self._slice_nbytes = _bytes(*(a[:1] for a in arrays))
+        self.row_specs = tuple((tuple(a.shape[1:]), a.dtype) for a in arrays)
+        self.device = device
+        self._devices = sharding.devices
+        self._shards = [tuple(torch.from_numpy(np.ascontiguousarray(a[sharding.rows(d)]))
+                              .to(dev) for a in arrays)
+                        for d, dev in enumerate(self._devices)]
+        self.last_placement_stats: dict | None = None
+
+    def owner(self, cid: int) -> int:
+        return cid // self._k_local
+
+    def place(self, groups, m_pad):
+        row_to_group, stats = scheduling.place_mediators(
+            groups, self._n, m_pad // self._n, self.owner)
+        self.last_placement_stats = stats
+        return row_to_group
+
+    @staticmethod
+    def _group_positions(keys: np.ndarray, num_groups: int) -> np.ndarray:
+        """Each element's position within its key's group, in input order
+        inside every group."""
+        perm = np.argsort(keys, kind="stable")
+        counts = np.bincount(keys, minlength=num_groups)
+        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        pos = np.empty(keys.size, np.int64)
+        pos[perm] = np.arange(keys.size) - np.repeat(starts, counts)
+        return pos
+
+    def plan(self, idx, slot):
+        m_pad, gamma = idx.shape
+        m_local = max(1, m_pad // self._n)
+        # row-major active slots: the first-encounter order the serve lists
+        # are filled in
+        rr, gg = np.nonzero(slot > 0)
+        cids = idx[rr, gg].astype(np.int64)
+        owners = cids // self._k_local
+        readers = rr // m_local
+        remote = owners != readers
+        loc = np.ones((m_pad, gamma), bool)       # inactive slots: local row 0
+        lpos = np.zeros((m_pad, gamma), np.int32)
+        rpos = np.zeros((m_pad, gamma), np.int32)
+        lpos[rr[~remote], gg[~remote]] = (cids[~remote] % self._k_local).astype(np.int32)
+        loc[rr[remote], gg[remote]] = False
+        if self.exchange == "gather":
+            route, occupied, capacity = self._plan_gather(
+                m_pad, gamma, rr, gg, cids, remote, rpos)
+            self.exchange_bytes_per_round = capacity * (self._n - 1) * self._slice_nbytes
+        else:
+            route, occupied, capacity = self._plan_ragged(
+                m_local, gamma, rr, gg, cids, owners, readers, remote, rpos)
+            self.exchange_bytes_per_round = occupied * self._slice_nbytes
+        if self.last_placement_stats is not None:
+            self.last_placement_stats["serve_capacity"] = int(capacity)
+            self.last_placement_stats["serve_occupied"] = int(occupied)
+            self.last_placement_stats["exchange"] = self.exchange
+        plan = ShardPlan((route, loc, lpos, rpos))
+        shards = getattr(self, "_shards", None)
+        if shards is not None:
+            plan.dev = self._gather_lists(idx)
+        return shards, plan
+
+    def _plan_gather(self, m_pad, gamma, rr, gg, cids, remote, rpos):
+        """Globally deduplicated serve lists of the all-gather."""
+        f = max(1, min(m_pad * gamma, self._k_local))
+        serve = np.zeros((self._n, f), np.int32)
+        rc = cids[remote]
+        occupied = 0
+        if rc.size:
+            uq, first, inv = np.unique(rc, return_index=True, return_inverse=True)
+            enc = np.argsort(first, kind="stable")    # first-encounter order
+            u_cid = uq[enc]
+            u_own = u_cid // self._k_local
+            j = self._group_positions(u_own, self._n)  # per-owner fill order
+            serve[u_own, j] = (u_cid % self._k_local).astype(np.int32)
+            enc_rank = np.empty(uq.size, np.int64)
+            enc_rank[enc] = np.arange(uq.size)
+            pos = u_own * f + j                        # rpos = owner * F + fill
+            rpos[rr[remote], gg[remote]] = pos[enc_rank[inv]].astype(np.int32)
+            occupied = int(uq.size)
+        return serve, occupied, self._n * f
+
+    def _plan_ragged(self, m_local, gamma, rr, gg, cids, owners, readers, remote, rpos):
+        """Per (owner, reader) send lists of the ring: a client read on two
+        reader shards ships to both, and lands in the reader's buffer at
+        ``(hop - 1) * R + pair_fill``."""
+        n = self._n
+        r_cap = max(1, min(m_local * gamma, self._k_local))
+        send = np.zeros((n, max(n - 1, 1), r_cap), np.int32)
+        rc = cids[remote]
+        occupied = 0
+        if rc.size:
+            k_pad = n * self._k_local
+            code = (owners[remote] * n + readers[remote]) * k_pad + rc
+            uq, first, inv = np.unique(code, return_index=True, return_inverse=True)
+            enc = np.argsort(first, kind="stable")
+            u_code = uq[enc]
+            u_pair = u_code // k_pad
+            u_cid = u_code % k_pad
+            u_own = u_pair // n
+            u_hop = (u_pair % n - u_own) % n           # reader = owner + hop
+            j = self._group_positions(u_pair, n * n)
+            if int(j.max(initial=-1)) >= r_cap:         # a pair holds <= R clients
+                raise AssertionError("ragged pair capacity overflow")
+            send[u_own, u_hop - 1, j] = (u_cid % self._k_local).astype(np.int32)
+            enc_rank = np.empty(uq.size, np.int64)
+            enc_rank[enc] = np.arange(uq.size)
+            pos = (u_hop - 1) * r_cap + j              # reader-local rpos
+            rpos[rr[remote], gg[remote]] = pos[enc_rank[inv]].astype(np.int32)
+            occupied = int(uq.size)
+        return send, occupied, n * max(n - 1, 1) * r_cap
+
+    def _gather_lists(self, idx: np.ndarray) -> tuple:
+        """The slot block's shape and, for each shard that owns a slot, the
+        rows it serves (on its device) and their flat slot positions (on
+        the engine's device)."""
+        flat = idx.reshape(-1).astype(np.int64)
+        owners = flat // self._k_local
+        lists = []
+        for d, dev in enumerate(self._devices):
+            at = np.nonzero(owners == d)[0]
+            if at.size:
+                lists.append((d, to_device(flat[at] % self._k_local, dev),
+                              to_device(at, self.device)))
+        return idx.shape, lists
+
+    def slot_data(self, data, plan):
+        shape, lists = plan.dev
+        out = []
+        for a, (row_shape, _) in enumerate(self.row_specs):
+            block = torch.empty((shape[0] * shape[1],) + row_shape, dtype=data[0][a].dtype,
+                                device=self.device)
+            for d, rows, at in lists:
+                block.index_copy_(0, at, data[d][a].index_select(0, rows).to(self.device))
+            out.append(block.reshape(tuple(shape) + row_shape))
+        return tuple(out)
+
+    def per_device_bytes(self) -> int:
+        return _bytes(*self._shards[0])
 
 
 class HostStore(ClientStore):
@@ -429,26 +650,27 @@ def build_client_store(policy: str, xs=None, ys=None, mask=None, *,
                        device: torch.device, capacity: int | None = None,
                        spill_dir: str | None = None, source=None,
                        prefetch_depth: int = 1,
-                       lru_rows: int | None = None) -> ClientStore:
+                       lru_rows: int | None = None, mesh=None,
+                       exchange: str = "ragged") -> ClientStore:
     """The packed client store under ``policy`` (module docstring) on
-    ``device``.  ``xs/ys/mask`` are the packed host arrays; the streaming
-    policies (``host``/``spilled``) take ``source`` instead, a row source
-    that is never materialized as one array (the million-client path)."""
+    ``device``; the sharded one keeps its shards on ``mesh``'s devices,
+    assembles the round's slots on ``device`` and runs the ``exchange``.
+    ``xs/ys/mask`` are the packed host arrays; the streaming policies
+    (``host``/``spilled``) take ``source`` instead, a row source that is
+    never materialized as one array (the million-client path)."""
     if policy not in POLICIES:
         raise ValueError(f"unknown client-store policy {policy!r}; "
                          f"expected one of {POLICIES}")
-    if policy == "sharded":
-        raise NotImplementedError(
-            "the 'sharded' client store (the client axis partitioned over "
-            "devices, with scheduling.place_mediators and the ragged "
-            "exchange) needs torch.distributed across processes and is not "
-            "ported yet: ROADMAP.md, Queue 1, \"The distributed runtime\"")
     if source is not None and policy not in ("host", "spilled"):
         raise ValueError(f"client-store policy {policy!r} needs the packed "
                          "arrays; streaming row sources require the 'host' "
                          "or 'spilled' policy")
     if policy == "replicated":
         return ReplicatedStore(xs, ys, mask, device)
+    if policy == "sharded":
+        if mesh is None:
+            raise ValueError("the 'sharded' client store needs a mesh with devices")
+        return ShardedStore(xs, ys, mask, mesh, device=device, exchange=exchange)
     if capacity is None:
         capacity = source.num_clients if source is not None else xs.shape[0]
     if policy == "host":

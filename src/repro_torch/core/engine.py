@@ -45,10 +45,20 @@ The client data live in a ``ClientStore`` (``core/client_store.py``,
 ``EngineConfig.store``): replicated on the device, or streamed from host
 RAM (``"host"``) or a disk/lazy tier (``"spilled"``) once per reschedule
 into a ``min(K, c)``-row device buffer, the copy charged to the intra-pod
-ledger.  The engine also takes a *streaming federation* -- ``data``
-without ``client_images`` but with the row-source protocol
-(``data.synthetic.StreamingFederation``) -- for those two stores, so the
-device footprint is fixed by ``c``, never by ``K``.  With a prefetching
+ledger, or partitioned over the ``mediator`` axis of ``mesh``
+(``"sharded"``, ``launch/mesh.py``), whose serve exchange
+(``EngineConfig.store_exchange``) is charged to the intra-pod ledger every
+round.  ``M_pad`` is rounded up to a multiple of the mesh's shard count.
+The sharded store places each mediator on the shard that holds most of its
+clients (``store.place``, ``scheduling.place_mediators``): schedule row
+``r`` then holds mediator ``row_to_group[r]``, whose draws it asks for, and
+the rows and weights are put back in mediator order (``unperm``) before
+Eq. 6, so every placement sums the same rows in the same order.  The rows
+train on the engine's device whatever the mesh.  The engine also takes a
+*streaming federation* -- ``data`` without ``client_images`` but with the
+row-source protocol (``data.synthetic.StreamingFederation``) -- for the
+host and spilled stores, so the device footprint is fixed by ``c``, never
+by ``K``.  With a prefetching
 store and a reschedule every round, ``ensure_schedule`` pre-draws the
 next ``store_prefetch_depth`` selections (the rng is called in the same
 order at any depth) and hands them to ``store.prefetch``.
@@ -95,7 +105,7 @@ import torch
 
 from repro_torch.core import scheduling
 from repro_torch.core.augmentation import augmentation_plan, online_augment_rows
-from repro_torch.core.client_store import POLICIES, build_client_store
+from repro_torch.core.client_store import EXCHANGES, POLICIES, build_client_store
 from repro_torch.core.comm import CommMeter
 from repro_torch.core.draws import EmptySlotDraws, RoundDraws, SeededDraws
 from repro_torch.core.fl import (LocalSpec, LossFn, client_update, client_update_rows,
@@ -104,6 +114,7 @@ from repro_torch.core.mediator import mediator_update, mediator_update_rows
 from repro_torch.data.federated import FederatedDataset
 from repro_torch.device import resolve_device, to_device
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import AbstractMesh, mediator_devices
 from repro_torch.models import lora as lora_lib
 from repro_torch.models.cnn import Params, count_params
 from repro_torch.models.cnn import init_params as seeded_params
@@ -131,6 +142,7 @@ class EngineConfig:
     seed: int = 0
     row_exec: str = "vmap"                  # "vmap" (lockstep) | "map" (loop)
     store: str = "replicated"               # client-store placement policy
+    store_exchange: str = "ragged"          # the sharded store's serve exchange
     # spilled store: reschedules pre-drawn and prefetched ahead, and its
     # host LRU row cache in rows (None = twice the capacity)
     store_prefetch_depth: int = 1
@@ -147,6 +159,9 @@ class EngineConfig:
         if self.store not in POLICIES:
             raise ValueError(f"unknown client-store policy {self.store!r}; "
                              f"expected one of {POLICIES}")
+        if self.store_exchange not in EXCHANGES:
+            raise ValueError(f"unknown store_exchange {self.store_exchange!r}; "
+                             f"expected one of {EXCHANGES}")
         if self.store_prefetch_depth < 1:
             raise ValueError("store_prefetch_depth must be >= 1")
         if self.store_lru_rows is not None and self.store_lru_rows < 0:
@@ -184,7 +199,10 @@ class RoundInputs:
     """One round's prepared inputs (``FLRoundEngine.prepare_round``):
     the ``(M_pad, gamma)`` slot mask and real row count, the (augmented)
     client data ``xs``/``ys (M_pad, gamma, pad, ...)``, the masks ``ms``
-    scaled by the slot mask, and the Eq. 6 sizes ``weights (M_pad,)``."""
+    scaled by the slot mask, and the Eq. 6 sizes ``weights (M_pad,)``, all
+    in schedule-row order; ``row_to_group (M_pad,)`` the mediator on each
+    row (-1 a dummy) and ``unperm (M_pad,)`` the rows in mediator order,
+    the dummies last."""
     rnd: int
     slot: np.ndarray
     m_real: int
@@ -192,6 +210,20 @@ class RoundInputs:
     ys: torch.Tensor
     ms: torch.Tensor
     weights: torch.Tensor
+    row_to_group: np.ndarray
+    unperm: np.ndarray
+
+    @property
+    def address(self) -> np.ndarray:
+        """The draw address of each row: its mediator, or for a dummy row
+        its own position (its mask is zero, so its draws change nothing)."""
+        return np.where(self.row_to_group >= 0, self.row_to_group,
+                        np.arange(self.row_to_group.size))
+
+    @property
+    def row_of(self) -> np.ndarray:
+        """``(m_real,)``: the schedule row of each mediator."""
+        return self.unperm[:self.m_real]
 
 
 class FLRoundEngine:
@@ -203,7 +235,8 @@ class FLRoundEngine:
     replaces the masked cross-entropy of local training (``core/fl.py``);
     ``adaptive_aug_alpha`` refreshes ``aug_plan`` at every reschedule (see
     the module docstring); ``telemetry`` is an ``obs.Telemetry`` (None:
-    off)."""
+    off); ``mesh`` a ``launch.mesh.AbstractMesh`` with devices, which the
+    sharded store puts its shards on (None: one shard on ``device``)."""
 
     def __init__(self, model, opt: Optimizer, data: FederatedDataset,
                  cfg: EngineConfig, *, aug_plan: np.ndarray | None = None,
@@ -212,7 +245,7 @@ class FLRoundEngine:
                  init_params: Params | None = None,
                  draws: RoundDraws | None = None,
                  loss_fn: LossFn | None = None,
-                 telemetry=None):
+                 telemetry=None, mesh: AbstractMesh | None = None):
         self.model, self.opt, self.data, self.cfg = model, opt, data, cfg
         self.loss_fn = loss_fn
         # host-side spans and metrics around -- never inside -- the round
@@ -222,10 +255,17 @@ class FLRoundEngine:
             raise ValueError("adaptive_aug_alpha requires an initial aug_plan")
         self._adaptive_alpha = adaptive_aug_alpha
         self.device = dev = resolve_device(device)
+        if mesh is None:
+            mesh = AbstractMesh(("mediator",), (1,), (dev,))
+        if any(d.type != dev.type for d in mediator_devices(mesh)):
+            raise ValueError(f"mesh devices {mesh.devices} are not {dev.type} devices")
+        self.mesh = mesh
+        self._msize = len(mesh.devices)
         capacity = min(cfg.clients_per_round, data.num_clients)
         store_kw = dict(device=dev, capacity=capacity,
                         prefetch_depth=cfg.store_prefetch_depth,
-                        lru_rows=cfg.store_lru_rows)
+                        lru_rows=cfg.store_lru_rows, mesh=mesh,
+                        exchange=cfg.store_exchange)
         if hasattr(data, "client_images"):
             sizes = [x.shape[0] for x in data.client_images]
             self.pad = _pad_multiple(max(sizes), cfg.local.batch_size)
@@ -417,12 +457,18 @@ class FLRoundEngine:
         if m_pad < m_real:
             raise ValueError(f"pad_mediators_to={m_pad} smaller than the "
                              f"schedule ({m_real} mediators)")
+        m_pad = _pad_multiple(m_pad, self._msize)
         with tel.span("pack", m_real=m_real, m_pad=m_pad, policy=self.store.policy) as psp:
+            row_to_group = self.store.place(groups, m_pad)
             idx = np.zeros((m_pad, self.cfg.gamma), np.int64)
             slot = np.zeros((m_pad, self.cfg.gamma), np.float32)
-            for r, g in enumerate(groups):
-                idx[r, :len(g)] = g
-                slot[r, :len(g)] = 1.0
+            row_of = np.zeros(m_real, np.int64)
+            for r, g in enumerate(row_to_group):
+                if g >= 0:
+                    row_of[g] = r
+                    idx[r, :len(groups[g])] = groups[g]
+                    slot[r, :len(groups[g])] = 1.0
+            unperm = np.concatenate([row_of, np.flatnonzero(row_to_group < 0)])
             with tel.span("store_stream", policy=self.store.policy) as ssp:
                 data, index = self.store.plan(idx, slot)
                 ssp.set(bytes=self.store.last_stream_bytes)
@@ -431,9 +477,16 @@ class FLRoundEngine:
                 # host->device streaming is pod-side traffic: the intra-pod
                 # ledger only, so the WAN bytes stay invariant to placement
                 self.comm.store_stream(self.store.last_stream_bytes)
+            placement = getattr(self.store, "last_placement_stats", None)
+            if placement:
+                # the store's placement keys under a store_ namespace, so
+                # they never overwrite the scheduler's
+                self.last_schedule_stats = {
+                    **(self.last_schedule_stats or {}),
+                    **{f"store_{k}": v for k, v in placement.items()}}
             psp.set(stream_bytes=self.store.last_stream_bytes)
         self.num_schedule_packs += 1
-        return data, index, slot, m_real
+        return data, index, slot, m_real, row_to_group, unperm
 
     def ensure_schedule(self) -> tuple:
         """(Re)draw the selection and (re)pack the schedule if this round
@@ -461,12 +514,13 @@ class FLRoundEngine:
     # ------------------------------------------------------------------
     # the round
     # ------------------------------------------------------------------
-    def _augment(self, xs, ys, weights):
+    def _augment(self, xs, ys, weights, address):
         """Online Alg. 2 over every (row, slot) batch in one warp launch.
         ``xs (R, pad, H, W, C)``, ``ys``/``weights (R, pad)`` with rows
-        ordered (mediator row, slot)."""
+        ordered (schedule row, slot); schedule row ``r`` draws at
+        ``address[r]``."""
         gamma = 1 if self.cfg.aggregate == "weights" else self.cfg.gamma
-        draws = [self.draws.augment(self._round, i // gamma, i % gamma,
+        draws = [self.draws.augment(self._round, int(address[i // gamma]), i % gamma,
                                     weights[i]) for i in range(ys.shape[0])]
         idx, u, mats, trans = (torch.stack([d[j] for d in draws]) for j in range(4))
         return online_augment_rows(xs, ys, self._plan, idx, u,
@@ -484,32 +538,35 @@ class FLRoundEngine:
         """Round ``_round``'s schedule, gathered client data, Eq. 6 sizes
         and -- with a plan -- its online warp, one launch over every
         scheduled slot."""
-        data, index, slot_np, m_real = self.ensure_schedule()
+        data, index, slot_np, m_real, row_to_group, unperm = self.ensure_schedule()
         m_pad, gamma = slot_np.shape
         xs, ys, mask = self.store.slot_data(data, index)    # (M, gamma, pad, ...)
         ms = mask * to_device(slot_np, self.device)[..., None]
         mult = ms if self._plan is None else ms * (1.0 + self._plan[ys.long()])
         weights = mult.sum(dim=(1, 2))                      # Eq. 6 sizes
+        inp = RoundInputs(self._round, slot_np, m_real, xs, ys, ms, weights,
+                          row_to_group, unperm)
         if self._plan is not None:
             flat = (m_pad * gamma, self.pad)
             ax, ay = self._augment(xs.reshape(flat + xs.shape[3:]),
-                                   ys.reshape(flat), mult.reshape(flat))
-            xs, ys = ax.reshape(xs.shape), ay.reshape(ys.shape)
-        return RoundInputs(self._round, slot_np, m_real, xs, ys, ms, weights)
+                                   ys.reshape(flat), mult.reshape(flat), inp.address)
+            inp.xs, inp.ys = ax.reshape(xs.shape), ay.reshape(ys.shape)
+        return inp
 
     def _map_row(self, inp: RoundInputs, params, r: int, out: torch.Tensor) -> None:
         """Schedule row ``r`` through ``client_update`` / ``mediator_update``
         from ``params``, into the flat row ``out``."""
         cfg, model = self.cfg, self._row_model()
+        at = int(inp.address[r])
         if cfg.aggregate == "weights":
             res = client_update(model, self.opt, cfg.local, params,
                                 inp.xs[r, 0], inp.ys[r, 0], inp.ms[r, 0],
-                                self.draws.client(inp.rnd, r, 0, 0), self.loss_fn)
+                                self.draws.client(inp.rnd, at, 0, 0), self.loss_fn)
         else:
             res = mediator_update(
                 model, self.opt, cfg.local, cfg.mediator_epochs, params,
                 inp.xs[r], inp.ys[r], inp.ms[r],
-                lambda e, s: self.draws.client(inp.rnd, r, e, s)
+                lambda e, s: self.draws.client(inp.rnd, at, e, s)
                 if inp.slot[r, s] > 0 else EmptySlotDraws(self.device),
                 loss_fn=self.loss_fn)
         for k, v in self._layout.views(out).items():
@@ -525,14 +582,14 @@ class FLRoundEngine:
         ``rows`` runs alone and every other row of the buffer is zero."""
         m_pad = inp.slot.shape[0]
         buf = self._row_buffer(m_pad)
-        member = np.zeros(m_pad, bool)
-        member[:inp.m_real] = True
+        real = inp.row_to_group >= 0
+        member = real.copy()
         if rows is not None:
             member[:] = False
             member[rows] = True
         if self.cfg.row_exec == "map":
             buf.zero_()
-            for r in np.flatnonzero(member[:inp.m_real]):
+            for r in np.flatnonzero(member & real):
                 self._map_row(inp, params, int(r), buf[r])
             return buf
         prog = self._program
@@ -544,7 +601,7 @@ class FLRoundEngine:
         if rows is not None:
             ms = ms * to_device(member.astype(np.float32), self.device)[:, None, None]
         prog.load(params, inp.xs, inp.ys, ms, (inp.slot > 0) & member[:, None],
-                  inp.rnd, frozen=self.lora_args())
+                  inp.rnd, row_ids=inp.address, frozen=self.lora_args())
         if fresh and self.device.type == "cuda":
             prog.capture()
         prog.run()
@@ -553,12 +610,16 @@ class FLRoundEngine:
     def run_rows_sliced(self, inp: RoundInputs, params,
                         rows: np.ndarray) -> torch.Tensor:
         """Local training of just the real schedule ``rows`` from
-        ``params``: ``(len(rows), N)``, row ``i`` the output of schedule row
-        ``rows[i]``, whose draws it asks for.  Under ``"vmap"`` it is a
+        ``params`` (a store that keeps schedule order only):
+        ``(len(rows), N)``, row ``i`` the output of schedule row ``rows[i]``,
+        whose draws it asks for.  Under ``"vmap"`` it is a
         round program of that width, built (and on the card captured) at
         its first use and cached for the engine's life; the result is its
         static row buffer, which the next call of that width overwrites.
         Under ``"map"`` the rows run one by one into a fresh buffer."""
+        if self.store.permutes_rows:
+            raise ValueError(f"the {self.store.policy!r} store reads each row on the "
+                             f"shard its position gives it; run its waves masked")
         rows = np.asarray(rows, np.int64)
         n = int(rows.size)
         if self.cfg.row_exec == "map":
@@ -577,7 +638,8 @@ class FLRoundEngine:
             self._note_trace("wave_fn", n)
         pick = to_device(rows, self.device)
         prog.load(params, inp.xs[pick], inp.ys[pick], inp.ms[pick],
-                  inp.slot[rows] > 0, inp.rnd, row_ids=rows, frozen=self.lora_args())
+                  inp.slot[rows] > 0, inp.rnd, row_ids=inp.address[rows],
+                  frozen=self.lora_args())
         if fresh and self.device.type == "cuda":
             prog.capture()
         prog.run()
@@ -603,6 +665,23 @@ class FLRoundEngine:
                 v.copy_(state[k].expand_as(v))
         return out
 
+    def in_mediator_order(self, inp: RoundInputs, rows: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The round's ``(M_pad, N)`` rows and Eq. 6 weights with a placing
+        store's permutation undone: mediators in order, dummies last."""
+        if not self.store.permutes_rows:
+            return rows, inp.weights
+        order = to_device(inp.unperm, self.device)
+        return rows[order], inp.weights[order]
+
+    def charge_exchange(self) -> None:
+        """One execution of the sharded store's serve exchange, on the
+        intra-pod ledger and the timeline (nothing for other stores)."""
+        nbytes = self.store.exchange_bytes_per_round
+        if nbytes:
+            self.comm.store_exchange(nbytes)
+            self.telemetry.instant("store_exchange", bytes=nbytes)
+
     def fold(self, rows: torch.Tensor, weights: torch.Tensor) -> None:
         """Eq. 6 over the stack ``rows (M, N)`` with ``weights (M,)`` (one
         ``fedavg_agg`` launch; none for an empty adapter state), folded
@@ -624,12 +703,13 @@ class FLRoundEngine:
                       policy=cfg.store) as rsp:
             inp = self.prepare_round()
             with tel.span("aggregate", mediators=inp.m_real) as asp:
-                self.fold(self.run_rows(inp, self.server_state), inp.weights)
+                self.fold(*self.in_mediator_order(inp, self.run_rows(inp, self.server_state)))
                 asp.sync_on(self.server_state)
             if cfg.aggregate == "weights":
                 self.comm.fedavg_round(c)
             else:
                 self.comm.astraea_round(c, cfg.gamma, cfg.mediator_epochs)
+            self.charge_exchange()
             self.comm.end_round()
             self._round += 1
             rsp.set(wan_bytes=self.comm.total_bytes - wan0, traces=self.num_round_traces)

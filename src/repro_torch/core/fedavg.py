@@ -34,6 +34,9 @@ class FedAvgTrainer:
     # plan drifts with the per-round client sample)
     adaptive_plan: bool = False
     store: str = "replicated"        # client-store placement policy
+    store_exchange: str = "ragged"   # the sharded store's serve exchange
+    # the mediator mesh (see AstraeaTrainer.mesh)
+    mesh: object = None
     # padded row count; defaults to c
     pad_mediators_to: int | None = None
     # bounded-staleness async rounds (core/async_engine.py); None = the
@@ -73,7 +76,7 @@ class FedAvgTrainer:
             aug_plan=engine_plan, adaptive_aug_alpha=adaptive_alpha,
             device=self.device,
             init_params=self.init_params, draws=self.draws, loss_fn=self.loss_fn,
-            telemetry=self.telemetry)
+            telemetry=self.telemetry, mesh=self.mesh)
         charge_materialized_plan(self.engine, phase)
         self.runner = async_runner(self.engine, self.async_spec)
         self.history = self.runner.history

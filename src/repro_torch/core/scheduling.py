@@ -210,6 +210,59 @@ def partition_waves(durations: np.ndarray, wave_size: int
     return waves, stats
 
 
+def place_mediators(groups: list[list[int]], num_shards: int,
+                    rows_per_shard: int, owner) -> tuple[np.ndarray, dict]:
+    """Locality-aware placement of mediators onto the rows of a sharded
+    client store (``core/client_store.py::ShardedStore``).
+
+    A mediator's gather is free for the clients its own shard holds and
+    costs an exchange slot for every other one.  Each mediator goes to the
+    shard owning most of its clients, at most ``rows_per_shard`` to a
+    shard, greedily in descending *regret* (best shard's count minus the
+    runner-up's), so the mediators with the most to lose pick first.  Ties
+    go to the lower mediator index, then the lower shard index.
+
+    ``groups`` are the mediators' client ids in schedule order; ``owner``
+    maps a client id to its shard.  Returns ``(row_to_group, stats)``:
+    ``row_to_group (num_shards * rows_per_shard,)`` gives the mediator on
+    each row (-1 a dummy row; rows ``[d * rows_per_shard, (d + 1) *
+    rows_per_shard)`` belong to shard ``d``, in mediator order), and
+    ``stats`` counts the local and cross-shard client fetches."""
+    m = len(groups)
+    m_pad = num_shards * rows_per_shard
+    if m > m_pad:
+        raise ValueError(f"{m} mediators do not fit {num_shards}x"
+                         f"{rows_per_shard} shard rows")
+    counts = np.zeros((m, num_shards), np.int64)
+    for g, clients in enumerate(groups):
+        for cid in clients:
+            counts[g, owner(cid)] += 1
+
+    def regret(g: int) -> int:
+        row = np.sort(counts[g])
+        return int(row[-1] - (row[-2] if num_shards > 1 else 0))
+
+    capacity = [rows_per_shard] * num_shards
+    shard_of = np.zeros(m, np.int64)
+    local = 0
+    for g in sorted(range(m), key=lambda g: -regret(g)):
+        prefs = np.argsort(-counts[g], kind="stable")
+        s = next(int(s) for s in prefs if capacity[s] > 0)
+        capacity[s] -= 1
+        shard_of[g] = s
+        local += int(counts[g, s])
+    row_to_group = np.full(m_pad, -1, np.int64)
+    next_row = [d * rows_per_shard for d in range(num_shards)]
+    for g in range(m):
+        d = int(shard_of[g])
+        row_to_group[next_row[d]] = g
+        next_row[d] += 1
+    total = int(sum(len(c) for c in groups))
+    stats = {"local_fetches": local, "remote_fetches": total - local,
+             "total_fetches": total, "num_shards": num_shards}
+    return row_to_group, stats
+
+
 def schedule_stats(mediators: list[Mediator]) -> dict[str, float]:
     """Fig. 7 metrics: distribution of D_KL(P_m || P_u) over mediators."""
     klds = np.array([m.kld_to_uniform() for m in mediators])

@@ -297,6 +297,39 @@ def device_profile(fn, event_ms: float) -> tuple[float | None, float]:
     return (total_us / calls / 1e3 if total_us > 0 else None), kernels
 
 
+def graph_kernel_count(fn) -> int:
+    """Device kernels one call of ``fn`` launches, counted without the
+    profiler (which drops records now and then): the call is captured in a
+    ``torch.cuda.CUDAGraph`` after one warm-up call, and the captured
+    graph's kernel nodes are counted through libcuda
+    (``cuGraphGetNodes``, ``cuGraphNodeGetType``).  A capture records every
+    launch on the stream, so a second kernel cannot go unseen; memsets and
+    copies are other node types."""
+    import ctypes
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    torch.cuda.synchronize()
+    cuda = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(handle, None, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    kernels = 0
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kernels += kind.value == 0              # CU_GRAPH_NODE_TYPE_KERNEL
+    graph.reset()
+    return kernels
+
+
 # (M, N, dtype) of Eq. 6: the EMNIST and CINIC models' widths and a large one
 FEDAVG_SHAPES = [(16, 68_873, torch.float32), (16, 68_873, torch.bfloat16),
                  (16, 2_168_362, torch.float32), (16, 2 ** 24, torch.float32)]

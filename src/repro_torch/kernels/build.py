@@ -6,7 +6,9 @@ never at import: every source is compiled to an object by its own ``nvcc``
 process, all started together, and the objects are linked into one
 ``.so`` for ``sm_90a`` under ``<repo>/build/repro_torch/``.  The library's
 name carries a hash of the sources and flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is.
+rebuilt and an unchanged one is loaded as it is.  Processes that reach the
+build together (several processes on one card) take a file lock beside
+the library: the first builds, the others then load what it built.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch; the
 ``ops`` wrappers raise on a non-zero code.
@@ -14,6 +16,7 @@ Every C entry point returns ``cudaGetLastError()`` after its launch; the
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -54,6 +57,9 @@ SIGNATURES = {
     "ssd_chunk_bwd_f32": (*(_P,) * 15, _I64, *(_I,) * 6, _P),
 }
 
+# nvcc builds this process ran (0 in a process that loaded a built library)
+NUM_BUILDS = 0
+
 
 def nvcc_path() -> str:
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
@@ -87,6 +93,16 @@ def build(log: list[str] | None = None, build_dir: Path = BUILD_DIR) -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
+    with open(out.parent / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)        # another process may be building
+        if not out.exists():
+            _compile(out, log)
+    return out
+
+
+def _compile(out: Path, log: list[str] | None) -> None:
+    global NUM_BUILDS
+    NUM_BUILDS += 1
     nvcc = nvcc_path()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
@@ -116,7 +132,6 @@ def build(log: list[str] | None = None, build_dir: Path = BUILD_DIR) -> Path:
         os.replace(tmp_lib, out)
     if log is not None:
         log.append(f"build seconds: {time.perf_counter() - t0:.2f}")
-    return out
 
 
 @functools.lru_cache(maxsize=None)

@@ -6,14 +6,20 @@ Alg. 3 schedules synthetic non-IID clients' token streams onto mediators
 
   PYTHONPATH=src python -m repro_torch.launch.fl_train --arch qwen3-4b --rounds 3
   PYTHONPATH=src python -m repro_torch.launch.fl_train --device cpu --lora-rank 2
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.fl_train --device cpu
 
 The reduced (CPU smoke) variant of ``--arch``, as the reference.  The
 reference runs one mediator per ("pod", "data") slice of its mesh, so on
 one device it trains the first mediator's clients only; so does this
 launcher.  A round over several mediators is ``make_fl_round(model,
-n_mediators=M)`` with ``pack_mediators(..., n_mediators=M)``.  The
-reference's multi-process runtime (``--coordinator`` and the model axis)
-waits for the port's distributed item (ROADMAP Queue 1).
+n_mediators=M)`` with ``pack_mediators(..., n_mediators=M)``.
+
+Several processes (``--coordinator host:port --num-processes P
+--process-id i``, or torchrun's environment) join through
+``launch.mesh.init_distributed``; each trains on its process-local device
+(``--device``, or the card of its local rank), so every process books the
+single-process run's WAN ledger.  ``--model-parallel`` above 1 (the model
+axis) is not ported and is refused.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ from repro_torch import configs as C
 from repro_torch.core import scheduling
 from repro_torch.core.comm import CommMeter
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import init_distributed, process_local_mesh
 from repro_torch.launch.steps import make_fl_round
 from repro_torch.models import lora as lora_lib
 from repro_torch.models import transformer as T
@@ -86,11 +93,34 @@ def main(argv=None) -> dict:
     ap.add_argument("--lora-alpha", type=float, default=None,
                     help="LoRA merge scale alpha (default: rank, i.e. 1.0)")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: the CUDA device)")
+                    help="torch device (default: the CUDA device; under several "
+                         "processes, the card of the local rank)")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="model-axis size; only 1 is ported")
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of the run's TCPStore, hosted by process 0 "
+                         "(env: MASTER_ADDR, MASTER_PORT); each process trains on "
+                         "its process-local device")
+    ap.add_argument("--num-processes", type=int, default=None,
+                    help="processes in the run (env: WORLD_SIZE)")
+    ap.add_argument("--process-id", type=int, default=None,
+                    help="this process's rank (env: RANK)")
     args = ap.parse_args(argv)
+    if args.model_parallel > 1:
+        raise SystemExit(f"--model-parallel {args.model_parallel}: the model axis "
+                         "(tensor-parallel rows across cards) is not ported yet "
+                         "(ROADMAP.md Queue 1, the distributed runtime's model axis)")
 
+    distributed = init_distributed(args.coordinator, args.num_processes, args.process_id)
+    if distributed:
+        import torch.distributed as dist
+        dev = process_local_mesh(device=args.device).devices[0]
+        if dist.get_rank() == 0:
+            print(f"distributed: {dist.get_world_size()} processes joined, "
+                  f"process 0 on {dev}")
+    else:
+        dev = resolve_device(args.device)
     cfg = C.reduced(C.get(args.arch))
-    dev = resolve_device(args.device)
     n_mediators = 1                       # one device: the reference's 1 x 1 mesh
     model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     params = T.train_params(model)

@@ -1,37 +1,62 @@
-"""Meshes as axis names and sizes (``repro/launch/mesh.py``), with no
-device and no process group.
+"""Meshes and the multi-process runtime of the mediator axis
+(``repro/launch/mesh.py``).
 
 The reference's production target is a pod of TPU chips:
 
   single pod: (data=16, model=16)            -- 256 devices
   multi pod:  (pod=2, data=16, model=16)     -- 512 devices
 
-Here a mesh is an ``AbstractMesh``: what the sharding rules
-(``launch/sharding.py``) and the dry run (``launch/dryrun.py``) read --
-axis names, their sizes, the device count.  Mapping it onto a live
-``torch.distributed`` ``DeviceMesh`` is the distributed runtime's work,
-which the port does not have yet: ``init_distributed``,
-``process_local_mesh``, ``ProcessWaveDispatcher`` and ``make_fl_mesh``
-with ``model > 1`` raise ``NotImplementedError`` naming it.
+Here a mesh is an ``AbstractMesh``: axis names and their sizes, which the
+sharding rules (``launch/sharding.py``) and the dry run
+(``launch/dryrun.py``) read, and optionally ``devices``, one
+``torch.device`` per mesh position, which the FL round engine and the
+sharded client store place their shards on.  ``make_mediator_mesh(4,
+devices=(cuda:0,) * 4)`` is four logical shards on one card.
+
+Several processes (``init_distributed``) join one ``torch.distributed``
+``TCPStore`` and a ``gloo`` process group.  Nothing crosses processes but
+host-side payloads, as in the reference: ``ProcessWaveDispatcher`` shards
+the async engine's waves over processes, each wave run by one owner on its
+``process_local_mesh`` and its result published through the store.
+
+The model axis -- ``make_fl_mesh(model > 1)``, tensor-parallel rows and
+the sharding rules on a live ``DeviceMesh`` -- needs device collectives
+across cards and is not ported yet: it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import io
 import math
+import os
 from dataclasses import dataclass
+from datetime import timedelta
 
-_RUNTIME = ("the port's distributed runtime (torch.distributed over several cards) "
-            "is not ported yet")
+import numpy as np
+import torch
+
+_MODEL_AXIS = ("the model axis (tensor-parallel rows over a torch.distributed "
+               "DeviceMesh, device collectives across cards) is not ported yet: "
+               "ROADMAP.md Queue 1, the distributed runtime's model-axis slice")
 
 
 @dataclass(frozen=True)
 class AbstractMesh:
-    """A mesh's axis names in order and their sizes."""
+    """A mesh's axis names in order, their sizes, and optionally its
+    devices, one ``torch.device`` per position in row-major order."""
     axis_names: tuple[str, ...]
     sizes: tuple[int, ...]
+    devices: tuple[torch.device, ...] | None = None
 
     def __post_init__(self):
         if len(self.axis_names) != len(self.sizes) or any(s < 1 for s in self.sizes):
             raise ValueError(f"bad mesh {self.axis_names} {self.sizes}")
+        if self.devices is not None:
+            devs = tuple(torch.device(d) for d in self.devices)
+            if len(devs) != self.size:
+                raise ValueError(f"mesh of {self.size} positions given {len(devs)} devices")
+            if len({d.type for d in devs}) != 1:
+                raise ValueError(f"mesh devices of mixed types: {devs}")
+            object.__setattr__(self, "devices", devs)
 
     @property
     def shape(self) -> dict[str, int]:
@@ -54,12 +79,82 @@ def make_host_mesh() -> AbstractMesh:
     return AbstractMesh(("data", "model"), (1, 1))
 
 
+def make_mediator_mesh(n: int | None = None, devices=None) -> AbstractMesh:
+    """The 1-D ``mediator`` mesh of the FL round engine.  ``n`` defaults to
+    the visible card count, one card a shard.  More shards than cards --
+    four logical shards on one card, or on the CPU -- need ``devices``
+    spelled out (``(torch.device("cuda", 0),) * 4``); without them such an
+    ``n`` raises rather than doubling shards up silently."""
+    if devices is not None:
+        devices = tuple(torch.device(d) for d in devices)
+        if n is not None and n != len(devices):
+            raise ValueError(f"make_mediator_mesh({n}) given {len(devices)} devices")
+        return AbstractMesh(("mediator",), (len(devices),), devices)
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    n = cards if n is None else int(n)
+    if n < 1:
+        raise RuntimeError("no CUDA device is visible; pass devices (e.g. "
+                           "(torch.device('cpu'),) * n) for a mesh of logical shards")
+    if n > cards:
+        raise ValueError(f"make_mediator_mesh({n}) on {cards} visible card(s): "
+                         f"pass devices explicitly for logical shards")
+    return AbstractMesh(("mediator",), (n,),
+                        tuple(torch.device("cuda", i) for i in range(n)))
+
+
 def make_fl_mesh(*, mediator: int = 1, model: int = 1) -> AbstractMesh:
     """The FL round engine's ``(mediator, model)`` mesh.  Only ``model ==
     1`` exists in the port: every mediator row holds its whole model."""
     if model != 1:
-        raise NotImplementedError(f"make_fl_mesh(model={model}): {_RUNTIME}")
+        raise NotImplementedError(f"make_fl_mesh(model={model}): {_MODEL_AXIS}")
     return AbstractMesh(("mediator", "model"), (int(mediator), 1))
+
+
+def default_fl_mesh(model_parallel: int = 1) -> AbstractMesh:
+    """The engine's default mesh: the 1-D mediator mesh over the visible
+    cards; model parallelism (``model_parallel > 1``) raises."""
+    if model_parallel <= 1:
+        return make_mediator_mesh()
+    return make_fl_mesh(model=model_parallel)
+
+
+def mediator_devices(mesh: AbstractMesh) -> tuple[torch.device, ...]:
+    """The devices along the ``mediator`` axis (a model axis, if any, has
+    size 1 in the port)."""
+    if mesh.devices is None:
+        raise ValueError(f"mesh {mesh.shape} carries no devices; build it with "
+                         f"make_mediator_mesh or pass devices")
+    if model_axis_size(mesh) != 1:
+        raise NotImplementedError(f"a mesh with a model axis: {_MODEL_AXIS}")
+    return mesh.devices
+
+
+@dataclass(frozen=True)
+class MediatorSharding:
+    """The client axis of a sharded store split into contiguous blocks over
+    the ``mediator`` axis: shard ``d`` on ``devices[d]`` owns clients
+    ``[d * k_local, (d + 1) * k_local)``."""
+    devices: tuple[torch.device, ...]
+    k_local: int
+
+    @property
+    def num_shards(self) -> int:
+        return len(self.devices)
+
+    def owner(self, cid: int) -> int:
+        return cid // self.k_local
+
+    def rows(self, shard: int) -> slice:
+        return slice(shard * self.k_local, (shard + 1) * self.k_local)
+
+
+def mediator_sharding(mesh: AbstractMesh, num_clients: int) -> MediatorSharding:
+    """How ``num_clients`` rows split over ``mesh``'s mediator axis: ``K``
+    padded up to a multiple of the shard count, ``K_pad / n`` rows a
+    shard."""
+    devices = mediator_devices(mesh)
+    n = len(devices)
+    return MediatorSharding(devices, -(-int(num_clients) // n))
 
 
 def model_axis_size(mesh: AbstractMesh) -> int:
@@ -82,14 +177,134 @@ def ring_permutation(n: int, step: int) -> list[tuple[int, int]]:
     return [(o, (o + step) % n) for o in range(n)]
 
 
-def init_distributed(*args, **kwargs):
-    raise NotImplementedError(f"init_distributed: {_RUNTIME}")
+# ---------------------------------------------------------------------------
+# processes
+# ---------------------------------------------------------------------------
+
+@dataclass
+class _World:
+    store: object
+    rank: int
+    size: int
 
 
-def process_local_mesh(*args, **kwargs):
-    raise NotImplementedError(f"process_local_mesh: {_RUNTIME}")
+_WORLD: _World | None = None
+JOIN_TIMEOUT_S = 120
+
+
+def init_distributed(coordinator: str | None = None,
+                     num_processes: int | None = None,
+                     process_id: int | None = None) -> bool:
+    """Join the processes of a run: a ``torch.distributed.TCPStore`` at the
+    coordinator's ``host:port`` (rank 0 hosts it) and a ``gloo`` process
+    group over it.  The arguments fall back to torchrun's environment
+    (``MASTER_ADDR:MASTER_PORT``, ``WORLD_SIZE``, ``RANK``); where a launcher
+    already hosts the store (``TORCHELASTIC_USE_AGENT_STORE=True``, as
+    torchrun sets), every rank joins it as a client.  A single-process
+    setting is a no-op returning False; joining again is a no-op returning
+    True."""
+    global _WORLD
+    if coordinator is None and os.environ.get("MASTER_ADDR") and os.environ.get("MASTER_PORT"):
+        coordinator = f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}"
+    if num_processes is None:
+        num_processes = int(os.environ.get("WORLD_SIZE", "1") or "1")
+    if process_id is None:
+        process_id = int(os.environ.get("RANK", "0") or "0")
+    if not coordinator or num_processes <= 1:
+        return False
+    if _WORLD is not None:
+        return True
+    if not 0 <= process_id < num_processes:
+        raise ValueError(f"process_id {process_id} outside [0, {num_processes})")
+    import torch.distributed as dist
+    host, port = coordinator.rsplit(":", 1)
+    hosted = os.environ.get("TORCHELASTIC_USE_AGENT_STORE") == "True"
+    store = dist.TCPStore(host, int(port), num_processes,
+                          is_master=process_id == 0 and not hosted,
+                          timeout=timedelta(seconds=JOIN_TIMEOUT_S))
+    dist.init_process_group("gloo", store=store, rank=process_id,
+                            world_size=num_processes,
+                            timeout=timedelta(seconds=JOIN_TIMEOUT_S))
+    _WORLD = _World(store, process_id, num_processes)
+    return True
+
+
+def coordination_client():
+    """The joined run's ``TCPStore``, or None in a single-process run: the
+    host-side key-value store and barrier the wave dispatcher exchanges
+    payloads through."""
+    return None if _WORLD is None else _WORLD.store
+
+
+def process_local_mesh(model: int = 1, *, device=None) -> AbstractMesh:
+    """This process's own one-device mediator mesh.  ``device`` names it
+    (two processes sharing one card both pass ``cuda:0``); None takes the
+    card of torchrun's ``LOCAL_RANK`` (0 without it), and raises without
+    a card."""
+    from repro_torch.device import resolve_device
+    if model != 1:
+        raise NotImplementedError(f"process_local_mesh(model={model}): {_MODEL_AXIS}")
+    if device is None:
+        index = int(os.environ.get("LOCAL_RANK", "0") or "0")
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        device = f"cuda:{index % cards}" if cards else None
+    return make_mediator_mesh(devices=(resolve_device(device),))
 
 
 class ProcessWaveDispatcher:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"ProcessWaveDispatcher: {_RUNTIME}")
+    """Round-robin wave ownership and the host-side payload exchange.
+
+    The async engine asks ``owner_of`` which process runs wave ``w`` of
+    round ``r``; that process runs it and ``publish``-es the result, every
+    other one ``receive``-s it.  Ownership is a pure function of ``(r,
+    w)``, so the processes agree on it without talking, and each books the
+    same WAN charges.  Payloads are framed with ``np.savez`` (ordered,
+    dtype- and shape-preserving) and read with ``allow_pickle=False``,
+    under keys ``astraea/<tag>`` that are never reused; a read that waits
+    past ``timeout_s`` raises."""
+
+    def __init__(self, client=None, *, process_index: int | None = None,
+                 num_processes: int | None = None, timeout_s: float = 120.0):
+        self.client = client if client is not None else coordination_client()
+        if self.client is None:
+            raise ValueError("ProcessWaveDispatcher needs a joined run "
+                             "(call init_distributed first) or a store")
+        self.process_index = _WORLD.rank if process_index is None else int(process_index)
+        self.num_processes = _WORLD.size if num_processes is None else int(num_processes)
+        if self.num_processes < 1 or not 0 <= self.process_index < self.num_processes:
+            raise ValueError(f"process {self.process_index} of {self.num_processes}")
+        self.timeout = timedelta(seconds=timeout_s)
+        self.num_published = 0
+        self.num_received = 0
+        self._tags: set[str] = set()
+
+    def owner_of(self, round_idx: int, wave_idx: int) -> int:
+        """The waves of a round spread over the processes, the offset
+        rotating every round so short rounds do not leave the high ranks
+        idle."""
+        return (int(round_idx) + int(wave_idx)) % self.num_processes
+
+    def publish(self, tag: str, arrays) -> None:
+        if tag in self._tags:
+            raise ValueError(f"payload tag {tag!r} already published")
+        self._tags.add(tag)
+        buf = io.BytesIO()
+        np.savez(buf, *[np.asarray(a) for a in arrays])
+        self.client.set(f"astraea/{tag}", buf.getvalue())
+        self.num_published += 1
+
+    def receive(self, tag: str) -> list[np.ndarray]:
+        key = f"astraea/{tag}"
+        self.client.wait([key], self.timeout)
+        with np.load(io.BytesIO(self.client.get(key)), allow_pickle=False) as z:
+            out = [z[f"arr_{i}"] for i in range(len(z.files))]
+        self.num_received += 1
+        return out
+
+    def barrier(self, name: str) -> None:
+        """Every process waits here until all have arrived (or raises after
+        the timeout); each ``name`` is used once."""
+        key = f"astraea/barrier/{name}"
+        if self.client.add(key, 1) == self.num_processes:
+            self.client.set(f"{key}/open", b"1")
+        self.client.wait([f"{key}/open"], self.timeout)

@@ -50,6 +50,7 @@ from dataclasses import dataclass, replace
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -613,8 +614,32 @@ def _run_encoder(model: Transformer, enc_feats: torch.Tensor | None) -> torch.Te
     h = h + model.enc_pos[:s].to(h.dtype)
     positions = torch.arange(s, device=h.device)[None].expand(b, s)
     for layer in model.encoder:
-        h, _ = layer(h, positions, mode="train", cache=None, causal=False)
+        h, _ = _call_layer(cfg, layer, h, positions, mode="train", cache=None,
+                           causal=False)
     return L.layer_norm(h, model.enc_final_norm, model.enc_final_norm_b, cfg.norm_eps)
+
+
+def _call_layer(cfg, layer, h, positions, **kw):
+    """One layer's call; in a training step under ``cfg.remat`` (the
+    reference's ``jax.checkpoint`` of each layer) it is checkpointed: the
+    step keeps only the layer's input, and the backward runs the layer's
+    forward again -- its kernels included, whose saved tensors (the flash
+    forward's log-sum-exp, the MoE dispatch's inverse index) then come from
+    that recompute.  The layer's weights are handed to the checkpoint as
+    inputs and bound again for the recompute: under ``forward_train``'s
+    ``functional_call`` they are the caller's tensors, which the layer no
+    longer holds when the backward runs.  The layers draw no random
+    numbers, so no generator state is saved."""
+    if not (cfg.remat and kw["mode"] == "train" and torch.is_grad_enabled()):
+        return layer(h, positions, **kw)
+    names = [name for name, _ in layer.named_parameters()]
+
+    def run(h, positions, *weights):
+        return torch.func.functional_call(layer, dict(zip(names, weights)), (h, positions), kw)
+
+    return torch.utils.checkpoint.checkpoint(
+        run, h, positions, *(w for _, w in layer.named_parameters()),
+        use_reentrant=False, preserve_rng_state=False)
 
 
 def _run_layers(model: Transformer, h: torch.Tensor, positions: torch.Tensor, *,
@@ -622,7 +647,8 @@ def _run_layers(model: Transformer, h: torch.Tensor, positions: torch.Tensor, *,
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, layer in enumerate(model.layers):
-        h, a = layer(h, positions, mode=mode, cache=_layer_cache(cache, i), enc_out=enc_out)
+        h, a = _call_layer(model.cfg, layer, h, positions, mode=mode,
+                           cache=_layer_cache(cache, i), enc_out=enc_out)
         aux = aux + a
     return h, aux
 

@@ -173,10 +173,11 @@ def test_meshes_and_helpers_match_reference():
 
 @pytest.mark.parametrize("call", [
     lambda: PMesh.make_fl_mesh(mediator=2, model=2),
-    lambda: PMesh.init_distributed(),
     lambda: PMesh.process_local_mesh(2),
-    lambda: PMesh.ProcessWaveDispatcher(),
+    lambda: PMesh.default_fl_mesh(2),
 ])
 def test_distributed_runtime_is_refused_by_name(call):
-    with pytest.raises(NotImplementedError, match="distributed runtime"):
+    """The model axis of the distributed runtime is refused by name (the
+    mediator axis, its processes included, runs: test_torch_distributed)."""
+    with pytest.raises(NotImplementedError, match="model axis"):
         call()

@@ -165,8 +165,8 @@ def test_store_errors():
                                             capacity=3)
     with pytest.raises(ValueError, match="capacity is 3"):
         store.plan(np.arange(4)[:, None], np.ones((4, 1), np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _trainer("astraea", fed, "sharded")
+    with pytest.raises(ValueError, match="unknown store_exchange"):
+        _trainer("astraea", fed, "sharded", store_exchange="all_gather")
     with pytest.raises(ValueError, match="unknown client-store policy"):
         EngineConfig.fedavg(clients_per_round=4, local=LocalSpec(10, 1), store="disk")
     for bad in (dict(store_prefetch_depth=0), dict(store_lru_rows=-1)):

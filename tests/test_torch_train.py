@@ -381,6 +381,59 @@ def test_forward_train_loss_and_grads_match_reference(arch):
         assert err <= 1e-4 * scale, f"{arch} {name}: {err} > 1e-4 x {scale}"
 
 
+def _loss_and_grads(model, batch):
+    leaves = {k: t.clone().requires_grad_(True) for k, t in PT.train_params(model).items()}
+    loss, _ = PT.forward_train(model, batch, leaves)
+    return loss, dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "mamba2-370m", "hymba-1.5b",
+                                  "granite-moe-3b-a800m", "whisper-base"])
+def test_remat_changes_no_bit(arch):
+    """``ArchConfig.remat`` checkpoints each layer of a training step (the
+    reference's ``jax.checkpoint``): the loss and every gradient of the
+    reduced config equal the run without it bit for bit on the CPU -- the
+    recomputed forward is the same arithmetic (dense, SSD, hybrid, MoE
+    routing and dispatch, and whisper's encoder and cross-attention)."""
+    _, pcfg = _pair(arch)
+    assert not pcfg.remat
+    model = PT.init_model(pcfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = _tbatch(_lm_batch(4, 2, 64 if pcfg.has_ssm else 32, pcfg.vocab, pcfg))
+    base_loss, base = _loss_and_grads(model, batch)
+    model.cfg = dataclasses.replace(pcfg, remat=True)
+    loss, grads = _loss_and_grads(model, batch)
+    assert torch.equal(loss, base_loss)
+    assert set(grads) == set(base)
+    for name, g in grads.items():
+        assert torch.equal(g, base[name]), name
+
+
+@pytest.mark.parametrize("arch,b,s", [("qwen3-4b", 2, 16), ("hymba-1.5b", 1, 64),
+                                      ("mamba2-370m", 1, 64)])
+def test_remat_step_counts_each_forward_twice(arch, b, s):
+    """On meta, a train step under remat charges each attention and SSD
+    layer two forward kernels (the forward and its recompute in the
+    backward) and one backward, against one and one without."""
+    from repro_torch.optim import adam
+    from repro_torch.roofline import counts
+    cfg = PC.reduced(PC.get(arch))
+    tokens = torch.zeros((b, s), dtype=torch.int32, device="meta")
+    launches = {}
+    for remat in (False, True):
+        model = PT.Transformer(dataclasses.replace(cfg, remat=remat), device="meta")
+        params = PT.train_params(model)
+        opt = adam(1e-3)
+        c = counts.step_costs(PS.make_train_step(model, opt), params, opt.init(params),
+                              {"tokens": tokens, "labels": tokens})
+        launches[remat] = c.launches
+    n_attn = cfg.n_layers if cfg.has_attention else 0
+    n_ssd = cfg.n_layers if cfg.has_ssm else 0
+    for remat, fwd in ((False, 1), (True, 2)):
+        want = {"flash_attention": fwd * n_attn, "flash_attention_bwd": n_attn,
+                "ssd_chunk": fwd * n_ssd, "ssd_chunk_bwd": n_ssd}
+        assert launches[remat] == {k: v for k, v in want.items() if v}, remat
+
+
 def test_forward_train_is_differentiable_only_where_asked():
     """``model(tokens)`` gives every position's fp32 logits (the last one
     equal to prefill's within 1e-5 of the scale: the head's product runs
