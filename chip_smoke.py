@@ -30,8 +30,9 @@ Phases, each fatal on failure:
    CommMeter formula and accuracy must be finite.  Then, per trainer, one
    more round profiled, and one ``row_exec="map"`` round (rows one by
    one, eagerly) from the same seed, held to the first lockstep round
-   (``row_exec_check``), timed and profiled: seconds, host launches,
-   device kernels and device busy and idle per round of both paths;
+   (``row_exec_check``), timed, and for Astraea (``MAP_PROFILED``)
+   profiled: seconds, host launches, device kernels and device busy and
+   idle per round of both paths;
 6. Path A, Alg. 3 step by step: ``reschedule(impl="loop")`` on the card
    over 1,024 integer histograms (one ``kld_score`` launch per pick) and
    the (mediator x client) score sweep of its schedule (one
@@ -172,7 +173,35 @@ Phases, each fatal on failure:
     this process hosts: two overlapped async rounds of (a)'s arm over a
     ``ProcessWaveDispatcher``, their params bit for bit each other's and a
     single-process run's, their per-key ledgers equal; a child that fails
-    or hangs fails the phase.
+    or hangs fails the phase.  (a) runs on the 4 x 1 ``(mediator, model)``
+    mesh (``make_fl_mesh(mediator=4, model=1)``: the 1-D mesh's program).
+15. the model axis (``phase15a``, ``tp_round_check`` and phase 14 (b)),
+    every line with the card's name and power limit (logical positions on
+    one card measure device copies, not NVLink): (a) after phase 14 (a), at
+    its EMNIST arm under cuDNN's deterministic algorithms, a 2 x 2 mesh of
+    four logical positions on the card: three Astraea rounds under the
+    gather oracle over the replicated and the sharded store, each bit for
+    bit phase 14 (a)'s 4 x 1 run, one capture, the split leaves' bytes a
+    position halved, WAN ledgers equal, model-axis bytes on the intra-pod
+    ledger at 2 x 2 only; async S=0 bitwise its sync run; TP rows (``"auto"``
+    on the card) after two rounds within 1e-5 relative and 1e-6 absolute of
+    the oracle's at the reference's tiny config, and within
+    ``P15_ARM_BOUND`` in L2 at the EMNIST arm; seconds a round of each; (b)
+    inside phase 11, after its full-delta round, the same round of qwen3-4b
+    tensor-parallel over two logical positions (``make_fl_round(mesh=...)``:
+    Megatron's layout, flash at 16:4 heads a position) from the same start
+    and inputs: its update within ``P15_DELTA_BOUND`` of the t=1 round's in
+    L2, and the first microbatch's gradient at the start within
+    ``P15_GRAD_BOUND`` of the whole model's,
+    1,152 forward and 576 backward flash launches at 16:4 heads (2
+    positions x 2 mediators x 4 steps x 36 layers, the forward twice under
+    remat; the t=1 round's 576 + 288), 651 Eq. 6 launches (one a shard of
+    the 253 split leaves and one for each of the 145 whole ones; each held
+    to its plain version; per-shard Eq. 6 bit for bit the whole leaf's),
+    seconds and peak GB, and every new flash signature held to its plain
+    version; (c) phase 14 (b)'s two children run one more
+    pair of rounds on ``process_local_mesh(model=2)`` (TP rows), bit for
+    bit this process's run of the same.
 
 Phase 3 also holds the flash-attention and SSD kernels against their plain
 versions at the serve shapes (bf16 and f32), with a no-window, a
@@ -826,13 +855,21 @@ def main_path(fed, dev, make_model, n_params):
     return rows, launches, torch.cuda.max_memory_allocated(dev) / 1e9, trainers
 
 
+# the trainers whose "map" round is profiled: analysing the ~10^5 eager
+# launches of one round takes 22-32 s on an H100 host, so FedAvg's "map"
+# rounds are timed and held but not profiled, which leaves the script's
+# time limit room for phase 15
+MAP_PROFILED = ("Astraea",)
+
+
 def row_exec_check(fed, dev, make_model, vmap_runs):
     """Per trainer: one more lockstep round under ``torch.profiler``; then
     the same trainer with ``row_exec="map"`` from the same seed: its first
-    round timed and held to the lockstep trainer's first round, its second
-    round profiled without its aten ops (``host_ops=False``: the runtime
-    calls and the device activity of its ~10^5 eager launches; the aten
-    ops would multiply the events the analysis walks).
+    round timed and held to the lockstep trainer's first round, and for
+    the trainers in ``MAP_PROFILED`` its second round profiled without its
+    aten ops (``host_ops=False``: the runtime calls and the device activity
+    of its ~10^5 eager launches; the aten ops would multiply the events the
+    analysis walks).
 
     The hold: after one full-width round the two paths (fp32 sums in
     other orders, carried through the round's Adam steps) must lie no
@@ -871,7 +908,7 @@ def row_exec_check(fed, dev, make_model, vmap_runs):
                                  f"the vmap round, more than twice the {rel_noise:.3e} a "
                                  "1e-7 perturbation of the weights moves it")
         max_abs = float((flat(mp.params) - flat(first)).abs().max())
-        map_prof = profile_round(mp, top=6, host_ops=False)
+        map_prof = profile_round(mp, top=6, host_ops=False) if name in MAP_PROFILED else None
         out[name] = {"map_round_s": map_s, "rel_l2_vs_vmap": rel,
                      "rel_l2_perturbed": rel_noise, "max_abs_vs_vmap": max_abs,
                      "vmap_profile": vmap_prof, "map_profile": map_prof,
@@ -891,6 +928,9 @@ def log_row_exec(arm, rows, check):
             f"perturbed by 1e-7: {c['rel_l2_perturbed']:.3e}), max abs "
             f"{c['max_abs_vs_vmap']:.3e}")
         for path, p in (("vmap", v), ("map", m)):
+            if p is None:
+                log(f"[rows] {arm} {name} {path}: not profiled (MAP_PROFILED)")
+                continue
             log(f"[rows] {arm} {name} {path} (profiled round): wall {p['wall_s']:.4f} s, "
                 f"device busy {p['busy_s']:.4f} s, idle {100 * p['idle_share']:.1f} % "
                 f"(kernel time summed {p['kernel_s']:.4f} s), "
@@ -1881,7 +1921,7 @@ def train_family(dev, arch: str, n_expect: int, seq: int, seen: dict,
     return res
 
 
-def phase11(dev, gen, checks: dict, path_launches: dict, lap) -> dict:
+def phase11(dev, gen, checks: dict, path_launches: dict, lap, smi: str = "") -> dict:
     """qwen3-4b at full width (bf16, weights from seed 0): two AdamW steps
     of ``make_train_step`` at batch 4 x 128, a LoRA rank-16 round and a
     full-delta round of ``make_fl_round`` over the 2 mediators Alg. 3 makes
@@ -2045,7 +2085,6 @@ def phase11(dev, gen, checks: dict, path_launches: dict, lap) -> dict:
     moved = max(float((new[k].float() - params[k].float()).abs().max()) for k in params)
     if not math.isfinite(loss) or moved == 0.0:
         raise AssertionError(f"full-delta round: loss {loss}, largest update {moved}")
-    del new
     one_step = steps.make_fl_round(model, 1, learning_rate=FL_LR, local_steps=1)
     res["full_round"] = {"s_per_round": sec, "loss": loss, "peak_gb": _peak_gb(),
                          "launches": launches, "ledger": meter.ledger_totals(),
@@ -2060,9 +2099,20 @@ def phase11(dev, gen, checks: dict, path_launches: dict, lap) -> dict:
         f"Eq. 6 held to its plain version: {held.calls} calls, worst {held.worst:.2e}")
     log_profile("full-delta round of one mediator and one step (profiled)",
                 res["full_round"]["profile"])
-    del fl, one_step, model, params
+    del fl, one_step
     torch.cuda.empty_cache()
     lap("11 full-delta round")
+
+    # phase 15 (b): the same round tensor-parallel over a model axis of 2,
+    # from the same start and inputs, held to (c)'s t=1 round
+    tp_seen: dict = {}
+    res["tp_round"] = tp_round_check(dev, model, params, new, moved, (tokens, labels, w),
+                                     per_med, steps_per_round, eval_loss, path_launches,
+                                     tp_seen, smi)
+    del new, model, params
+    torch.cuda.empty_cache()
+    hold_unchecked(dev, gen, tp_seen, checks, f"train {TRAIN_ARCH} TP round")
+    lap("15 (b) qwen3-4b TP round")
 
     # (d) the SSD families at full width, their SSD gradient on the card's
     # backward kernel; Hymba's LoRA round over the same 2 mediators, their
@@ -2524,6 +2574,321 @@ def phase13(dev, counted: dict, path_launches: dict, lap) -> dict:
 # ---------------------------------------------------------------- phase 14
 
 P14_SHARDS, P14_PROCESSES, P14_CHILD_TIMEOUT_S = 4, 2, 300
+# phase 15: the model axis's size.  TP rows at the EMNIST arm against the
+# gather oracle after two rounds, in L2 over the parameters relative to the
+# two rounds' update: only the order of the input gradient's all-reduce
+# differs (each output channel's sum is the whole layer's): 4.545e-7 on an
+# H100 (700 W)
+P15_T, P15_ARM_BOUND = 2, 1e-5
+# qwen3-4b's TP round at t=2 against its t=1 round: the round's update
+# (new - start, fp32) in L2 relative to the t=1 round's.  A round that
+# applies no update reads 1; the t=1 round with its gradient negated, run
+# beside it, reads 1.977 on an H100 (700 W).  The round moves 1.06 M of
+# the 4.0 G bf16 weights by single ulps, and a gradient rounded the other
+# way near half an ulp moves an element or leaves it: 392,907 elements
+# differ there and the TP round reads 0.345.  The TP backward's
+# maths is held on its own: one microbatch's gradient through qwen3-4b at
+# full width, cut to 2 layers, in fp32 (TF32 off), TP against the whole
+# model, in L2 over every weight and in the worst leaf: 5.2e-6 and 7.0e-6
+# there (sums reordered at 2,560 and 9,728 wide); a zero gradient reads 1
+P15_DELTA_BOUND, P15_GRAD_LAYERS, P15_GRAD_BOUND = 0.5, 2, 1e-4
+
+
+def phase15a(fed, dev, smi: str, four: dict, path_launches: dict) -> dict:
+    """Phase 15 (a), the model axis at phase 5's EMNIST arm under cuDNN's
+    deterministic algorithms, on a 2 x 2 ``(mediator, model)`` mesh of four
+    logical positions on the card: three Astraea rounds with a reschedule
+    each under the gather oracle (``tp_rows=False``) over the replicated
+    and the sharded store, each bit for bit phase 14 (a)'s 4 x 1 run of the
+    same (``four``), one capture, the split leaves' bytes a position half
+    the 4 x 1's (the 47-class head, which the rules leave whole, whole),
+    the WAN ledger equal, the model axis charged to the intra-pod ledger at
+    2 x 2 only; async S=0 (masked, a wave per mediator) bit for bit the
+    sync 2 x 2 run; TP rows (``"auto"`` on the card), one capture: after
+    two rounds at the reference's own config (``tests/test_tp_rows.py``'s
+    tiny federation) within 1e-5 relative and 1e-6 absolute of the
+    oracle's two rounds (the reference's bound), and at the EMNIST arm
+    within ``P15_ARM_BOUND`` of the oracle, in L2 over the parameters
+    relative to the two rounds' update; seconds a round of each."""
+    from repro_torch.core import AsyncSpec, StragglerSpec
+    from repro_torch.launch.mesh import make_fl_mesh
+    from repro_torch.models.cnn import emnist_cnn, init_params
+    tag = f"[phase15] ({smi}; logical positions on one card: device copies, not NVLink)"
+    mesh = make_fl_mesh(mediator=2, model=P15_T, devices=(dev,) * (2 * P15_T))
+    res: dict = {"card": smi}
+
+    def run(label, rounds=ROUNDS, snapshot_after=None, **kw):
+        tr = p10_trainer(fed, dev, mesh=mesh, reschedule_every_round=True, **kw)
+        from repro_torch.kernels import ops
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        secs, snap = [], None
+        for r in range(rounds):
+            t0 = time.perf_counter()
+            tr.run_round()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if snapshot_after == r + 1:
+                snap = {k: v.clone() for k, v in tr.params.items()}
+        if tr.runner is not tr.engine:
+            tr.runner.flush()
+        torch.cuda.synchronize()
+        launches = {k: ops.LAUNCHES[k] for k in FL_KERNELS}
+        path_launches[f"15 (a) {label}"] = launches
+        if launches != {k: rounds for k in FL_KERNELS}:
+            raise AssertionError(f"phase 15 (a) {label}: launches {launches}")
+        if tr.engine.num_round_traces != 1:
+            raise AssertionError(f"phase 15 (a) {label}: {tr.engine.num_round_traces} "
+                                 f"round programs")
+        res[label] = {"round_seconds": secs, "launches": launches,
+                      "tp_rows": tr.engine._tp_rows,
+                      "per_position_param_bytes":
+                          tr.engine.store.stats()["per_device_param_bytes"],
+                      "model_axis_bytes": tr.comm.model_axis_tp_bytes,
+                      "intra_pod_bytes": tr.comm.intra_pod_bytes}
+        log(f"{tag} (a) {label}: s/round {' '.join(f'{x:.4f}' for x in secs)}, launches "
+            f"{launches}, one capture, param bytes a position "
+            f"{res[label]['per_position_param_bytes']:,}, model-axis bytes "
+            f"{tr.comm.model_axis_tp_bytes:,.0f} (intra-pod ledger)")
+        return tr, snap
+
+    with deterministic_convolutions():
+        rep, snap2 = run("2x2 replicated oracle", tp_rows=False, snapshot_after=2)
+        sharded, _ = run("2x2 sharded oracle", tp_rows=False, store="sharded")
+        for tr, name in ((rep, "replicated"), (sharded, "sharded ragged")):
+            want = four[name]
+            if not all(torch.equal(tr.params[k], want["params"][k]) for k in want["params"]):
+                raise AssertionError(f"phase 15 (a): 2 x 2 {name} differs from 4 x 1")
+            if tr.comm.round_log != want["round_log"]:
+                raise AssertionError(f"phase 15 (a): {name} WAN ledger {tr.comm.round_log}")
+            if not tr.comm.model_axis_tp_bytes > 0:
+                raise AssertionError(f"phase 15 (a): {name} charged no model-axis bytes")
+        if four["replicated"]["intra_pod"] != 0:
+            raise AssertionError("phase 15 (a): 4 x 1 replicated charged intra-pod bytes")
+        eng = rep.engine
+        whole = four["replicated"]["param_bytes"]
+        for k, dim in eng._dims.items():
+            held = eng._shards.positions[0][k].nbytes
+            if held * (P15_T if dim is not None else 1) != eng.params[k].nbytes:
+                raise AssertionError(f"phase 15 (a): {k} holds {held} B a position")
+        split = sum(v.nbytes for k, v in eng.params.items() if eng._dims[k] is not None)
+        got = eng.store.stats()["per_device_param_bytes"]
+        if got != whole - split // P15_T:
+            raise AssertionError(f"phase 15 (a): {got} B a position of {whole}")
+        res["param_bytes"] = {"per_position": got, "replica": whole, "split": split,
+                              "ratio": got / whole}
+        log(f"{tag} (a) 2 x 2 == 4 x 1 bit for bit (replicated and sharded stores), WAN "
+            f"ledgers equal; param bytes a position {got:,} of the replica's {whole:,} "
+            f"({got / whole:.4f}: the split leaves' {split:,} B halve, the 47-class head "
+            f"stays whole as the rules leave it)")
+        spec = AsyncSpec(staleness_bound=0, wave_size=1, dispatch="masked",
+                         straggler=StragglerSpec(**FLEET))
+        asy, _ = run("2x2 async S=0 oracle", tp_rows=False, async_spec=spec)
+        if not same_params(asy, rep):
+            raise AssertionError("phase 15 (a): async S=0 on 2 x 2 differs from the sync run")
+        tp, _ = run("2x2 TP rows", rounds=2, tp_rows="auto")
+        if not tp.engine._tp_rows:
+            raise AssertionError("phase 15 (a): tp_rows='auto' did not resolve on the card")
+        init = init_params(emnist_cnn(47, 28), 0, dev)
+
+        def flat(p):
+            return torch.cat([p[k].flatten() for k in init])
+        update = float((flat(snap2) - flat(init)).norm())
+        rel = float((flat(tp.params) - flat(snap2)).norm()) / update
+        if not rel <= P15_ARM_BOUND:
+            raise AssertionError(f"phase 15 (a): TP rows lie {rel:.3e} of the update from the "
+                                 f"oracle (bound {P15_ARM_BOUND})")
+        ref_cfg = tp_rows_at_reference_config(dev)
+        res["tp_vs_oracle"] = {"rel_l2": rel, "bound": P15_ARM_BOUND,
+                               "max_abs": float((flat(tp.params) - flat(snap2)).abs().max()),
+                               "reference_config": ref_cfg}
+        log(f"{tag} (a) async S=0 bitwise its sync run; TP rows after 2 rounds at the "
+            f"EMNIST arm: {rel:.3e} of the update from the oracle in L2 (bound "
+            f"{P15_ARM_BOUND}; max abs {res['tp_vs_oracle']['max_abs']:.3e}); at the "
+            f"reference's config (tiny federation) within "
+            f"rtol 1e-5 atol 1e-6 of the oracle: largest |diff| {ref_cfg['max_abs']:.3e}, "
+            f"worst {ref_cfg['worst_over_bound']:.3f} of the bound, s/round TP "
+            f"{' '.join(f'{x:.4f}' for x in ref_cfg['tp_round_seconds'])}")
+    return res
+
+
+def tp_rows_at_reference_config(dev) -> dict:
+    """TP rows against the gather oracle at ``tests/test_tp_rows.py``'s
+    config (12 clients, 8 classes, 16 px, c=6, gamma=3, B=10, E=1, Adam
+    1e-3, seed 0) on a 2 x 2 mesh of logical positions, two rounds under
+    "vmap": within the reference's rtol 1e-5, atol 1e-6."""
+    from repro_torch.core import EngineConfig, FLRoundEngine, LocalSpec
+    from repro_torch.data.federated import EMNIST_LIKE, partition
+    from repro_torch.launch.mesh import make_fl_mesh
+    from repro_torch.models.cnn import emnist_cnn
+    from repro_torch.optim import adam
+    fed = partition(dataclasses.replace(EMNIST_LIKE, num_classes=8, image_size=16),
+                    num_clients=12, total_samples=600, test_samples=160, sizes="instagram",
+                    global_dist="letterfreq", local="random", seed=0)
+    mesh = make_fl_mesh(mediator=2, model=P15_T, devices=(dev,) * (2 * P15_T))
+    engines, secs = {}, []
+    for mode in ("auto", False):
+        cfg = EngineConfig.astraea(clients_per_round=6, gamma=3, local=LocalSpec(10, 1),
+                                   seed=0, pad_mediators_to=2, tp_rows=mode)
+        e = FLRoundEngine(emnist_cnn(8, 16), adam(1e-3), fed, cfg, mesh=mesh, device=dev)
+        for _ in range(2):
+            t0 = time.perf_counter()
+            e.run_round()
+            torch.cuda.synchronize()
+            if mode == "auto":
+                secs.append(time.perf_counter() - t0)
+        engines[mode] = e
+    tp, oracle = engines["auto"], engines[False]
+    if not tp._tp_rows or tp.num_round_traces != 1:
+        raise AssertionError("phase 15 (a): the reference config's TP engine")
+    worst = 0.0
+    for k, want in oracle.params.items():
+        got = tp.params[k]
+        worst = max(worst, float(((got - want).abs() / (1e-6 + 1e-5 * want.abs())).max()))
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6, msg=k)
+    return {"worst_over_bound": worst, "tp_round_seconds": secs,
+            "max_abs": max(float((tp.params[k] - v).abs().max())
+                           for k, v in oracle.params.items())}
+
+
+def tp_round_check(dev, model, params, new, moved, batch, per_med, steps_per_round,
+                   eval_loss, path_launches, seen, smi) -> dict:
+    """Phase 15 (b), inside phase 11: qwen3-4b's full-delta round
+    tensor-parallel over a model axis of ``P15_T`` logical positions on the
+    card, from phase 11 (c)'s start and inputs, held to its t=1 round
+    ``new``: the round's update within ``P15_DELTA_BOUND`` of the t=1
+    round's in L2 (elements each round moves counted), and the gradient
+    of the first microbatch through qwen3-4b cut to ``P15_GRAD_LAYERS``
+    layers in fp32, tensor-parallel, within ``P15_GRAD_BOUND`` of the
+    whole model's (overall and in every leaf); flash forward and backward launches
+    ``P15_T`` times (c)'s (each position's heads, H/t : KV/t), one
+    ``fedavg_agg`` a shard of each split leaf and one a whole leaf, each
+    held to its plain version (``HeldEq6``); per-shard Eq. 6 bit for bit
+    the whole leaf's on three leaves (split along dims 0 and 1); seconds,
+    peak GB; its kernel signatures recorded in ``seen``."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import model_axis, sharding, steps
+    from repro_torch.launch.mesh import make_fl_mesh
+    from repro_torch.models import transformer as T
+    tag = f"[phase15] ({smi}; logical positions on one card: device copies, not NVLink)"
+    tokens, labels, w = batch
+    cfg = model.cfg
+    mesh = make_fl_mesh(mediator=1, model=P15_T, devices=(dev,) * P15_T)
+    dims = sharding.placements(T.param_specs(cfg, model.max_seq), mesh)
+    fl = steps.make_fl_round(model, 2, learning_rate=FL_LR, local_steps=per_med, mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with HeldEq6() as held, recorded_kernel_calls(seen):
+        got, sec = _sync_time(lambda: fl(params, tokens, labels, w))
+    sec -= held.seconds
+    launches = dict(ops.LAUNCHES)
+    path_launches[f"15 (b) TP round {TRAIN_ARCH}"] = launches
+    flash = P15_T * steps_per_round * cfg.n_layers
+    n_eq6 = sum(P15_T if dims[k] is not None else 1 for k in params)
+    want = {k: 0 for k in ops.LAUNCHES}
+    want.update(flash_attention=(2 if cfg.remat else 1) * flash, flash_attention_bwd=flash,
+                fedavg_agg=n_eq6)
+    if launches != want:
+        raise AssertionError(f"TP round: launches {launches}, expected {want}")
+    loss = eval_loss(got)
+    diff = max(float((got[k].float() - new[k].float()).abs().max()) for k in params)
+    n_diff = sum(int((got[k] != new[k]).sum()) for k in params)
+    n_all = sum(p.numel() for p in params.values())
+    moved_t1 = sum(int((new[k] != params[k]).sum()) for k in params)
+    moved_tp = sum(int((got[k] != params[k]).sum()) for k in params)
+
+    def update_rel(out):
+        err = norm = 0.0
+        for k, p in params.items():
+            d1 = new[k].float() - p.float()
+            err += float((out[k].float() - p.float() - d1).square().sum())
+            norm += float(d1.square().sum())
+        return (err / norm) ** 0.5
+    delta_rel = update_rel(got)
+    if not math.isfinite(loss) or not delta_rel <= P15_DELTA_BOUND:
+        raise AssertionError(f"TP round: loss {loss}, its update {delta_rel} of the t=1 "
+                             f"round's from it in L2 (bound {P15_DELTA_BOUND})")
+    sig = sorted({(k[1], k[2]) for k in seen if k[0] == "flash_attention"})
+    del got
+    # the check's power: the t=1 round with the gradient negated
+    neg_rel = update_rel(steps.make_fl_round(model, 2, learning_rate=-FL_LR,
+                                             local_steps=per_med)(params, tokens, labels, w))
+    if not neg_rel > P15_DELTA_BOUND:
+        raise AssertionError(f"TP round: a round with the gradient negated reads {neg_rel}, "
+                             f"within the bound {P15_DELTA_BOUND}")
+    # the TP backward's maths: one microbatch's gradient in fp32 at full
+    # width, P15_GRAD_LAYERS layers, TP against the whole model
+    micro = tokens.shape[0] // 2 // per_med
+    mb = {"tokens": tokens[:micro], "labels": labels[:micro]}
+    cut = dataclasses.replace(cfg, n_layers=P15_GRAD_LAYERS, dtype="float32")
+    small = T.init_model(cut, torch.Generator(device=dev).manual_seed(15), device=dev)
+    whole_p = T.train_params(small)
+    sdims = sharding.placements(T.param_specs(cut, small.max_seq), mesh)
+    _, want_g = steps._loss_and_grads(lambda p: T.forward_train(small, mb, p)[0], whole_p)
+    tree = {}
+    for k, p in whole_p.items():
+        if sdims[k] is None:
+            tree[k] = p
+        else:
+            for j, s in enumerate(model_axis.split(p, sdims[k], (dev,) * P15_T)):
+                tree[model_axis.shard_key(k, j)] = s
+    tp = T.TensorParallel(small, sdims, (dev,) * P15_T, dev)
+    _, got_g = steps._loss_and_grads(lambda p: T.forward_train(small, mb, p, par=tp)[0], tree)
+    err = norm = 0.0
+    worst = (0.0, "")
+    for k, wg in want_g.items():
+        g = got_g[k] if sdims[k] is None else torch.cat(
+            [got_g[model_axis.shard_key(k, j)] for j in range(P15_T)], sdims[k])
+        e, n = float((g - wg).square().sum()), float(wg.square().sum())
+        err, norm = err + e, norm + n
+        if n > 0 and (e / n) ** 0.5 > worst[0]:
+            worst = ((e / n) ** 0.5, k)
+    del small, whole_p, tree, want_g, got_g
+    grad_rel = (err / norm) ** 0.5
+    if not (grad_rel <= P15_GRAD_BOUND and worst[0] <= P15_GRAD_BOUND):
+        raise AssertionError(f"TP round: the fp32 TP gradient lies {grad_rel} of the whole "
+                             f"model's from it in L2, {worst[0]} in {worst[1]} (bound "
+                             f"{P15_GRAD_BOUND})")
+    # per-shard Eq. 6 against the whole leaf's, fp32 deltas of two rows
+    g = torch.Generator(device=dev).manual_seed(15)
+    eq6_bitwise = {}
+    for name in ("embed", "layers.0.attn.wq", "layers.0.mlp.w_down"):
+        shape = params[name].shape
+        d = torch.randn((2,) + tuple(shape), generator=g, device=dev)
+        wts = torch.rand(2, generator=g, device=dev) * 100
+        whole = ops.fedavg_agg(d.reshape(2, -1), wts).reshape(shape)
+        parts = []
+        for s in model_axis.split(d, 1 + dims[name], (dev,) * P15_T):
+            parts.append(ops.fedavg_agg(s.reshape(2, -1), wts).reshape(s.shape[1:]))
+        eq6_bitwise[name] = bool(torch.equal(torch.cat(parts, dims[name]), whole))
+        del d, whole, parts
+    if not all(eq6_bitwise.values()):
+        raise AssertionError(f"per-shard Eq. 6 differs from the whole leaf's: {eq6_bitwise}")
+    out = {"s_per_round": sec, "peak_gb": _peak_gb(), "launches": launches, "loss": loss,
+           "largest_diff": diff, "largest_update_t1": moved,
+           "delta_rel_l2": delta_rel, "delta_bound": P15_DELTA_BOUND,
+           "delta_rel_l2_negated_round": neg_rel,
+           "grad_rel_l2": grad_rel, "grad_bound": P15_GRAD_BOUND,
+           "grad_worst_leaf": {"rel_l2": worst[0], "name": worst[1]},
+           "elements_moved_t1": moved_t1, "elements_moved_tp": moved_tp,
+           "elements_differing": n_diff, "elements": n_all,
+           "eq6_held": {"calls": held.calls, "worst_rel": held.worst},
+           "eq6_per_shard_bitwise": eq6_bitwise, "flash_signatures": sig}
+    log(f"{tag} (b) {TRAIN_ARCH} full-delta round at t={P15_T}, 2 mediators x {per_med} "
+        f"steps: {sec:.3f} s, loss {loss:.4f}, peak {out['peak_gb']:.2f} GB, launches "
+        f"{launches} (flash {P15_T} x (c)'s, fedavg_agg {n_eq6}: one a shard and one a whole "
+        f"leaf, each held to its plain version, worst {held.worst:.2e}); its update "
+        f"{delta_rel:.4e} of the t=1 round's from it in L2 (bound {P15_DELTA_BOUND}; no "
+        f"update reads 1, the t=1 round with its gradient negated {neg_rel:.4f}): the t=1 "
+        f"round moves {moved_t1:,} of {n_all:,} "
+        f"elements, the TP round {moved_tp:,}, {n_diff:,} differ, largest |diff| {diff:.3e} "
+        f"(the t=1 round's largest update {moved:.3e}); a microbatch's fp32 gradient "
+        f"through {P15_GRAD_LAYERS} full-width layers, TP against whole: {grad_rel:.4e} "
+        f"in L2, worst leaf {worst[1]} {worst[0]:.4e} (bound {P15_GRAD_BOUND}); flash at "
+        f"(q, k) {sig}; per-shard Eq. 6 bit for bit the whole leaf's: {eq6_bitwise}")
+    return out
+
+
 
 
 def phase14(fed, dev, smi: str, path_launches: dict, lap) -> dict:
@@ -2541,17 +2906,25 @@ def phase14(fed, dev, smi: str, path_launches: dict, lap) -> dict:
     hosts: two overlapped async rounds of (a)'s arm over the replicated
     store and a ``ProcessWaveDispatcher``; their params bit for bit equal
     to each other's and to this process's single-process run, their
-    per-key ledgers equal.  A child that fails or outlives
-    ``P14_CHILD_TIMEOUT_S`` fails the phase.  Logical shards and processes
-    on one card measure device and host copies, not NVLink or NCCL."""
+    per-key ledgers equal; then (phase 15 (c)) one more pair of rounds on
+    each child's ``process_local_mesh(model=2)`` (TP rows on the card),
+    bit for bit this process's run of the same.  A child that fails or
+    outlives ``P14_CHILD_TIMEOUT_S`` fails the phase.  (a) runs on the 4 x
+    1 ``(mediator, model)`` mesh, the 1-D mesh's program; its replicated
+    and sharded runs' params are kept in ``four`` for phase 15 (a).
+    Logical shards and processes on one card measure device and host
+    copies, not NVLink or NCCL."""
     from datetime import timedelta
 
     from repro_torch.core import AsyncSpec, StragglerSpec
     from repro_torch.examples import distributed_waves
-    from repro_torch.launch.mesh import make_mediator_mesh
+    from repro_torch.launch.mesh import make_fl_mesh, process_local_mesh
     tag = f"[phase14] ({smi}; one card: device copies, not NVLink or NCCL)"
-    mesh = make_mediator_mesh(devices=(dev,) * P14_SHARDS)
+    # the 4 x 1 (mediator, model) mesh: the 1-D mediator mesh's program
+    # (model axis 1), phase 15 (a)'s oracle
+    mesh = make_fl_mesh(mediator=P14_SHARDS, model=1, devices=(dev,) * P14_SHARDS)
     res: dict = {"card": smi}
+    four: dict = {}
 
     # (a) the stores over four logical shards
     runs, stats = {}, {}
@@ -2579,6 +2952,10 @@ def phase14(fed, dev, smi: str, path_launches: dict, lap) -> dict:
                                            (tr.engine.last_schedule_stats or {}).items()
                                            if k.startswith("store_")}}
             runs[name] = tr
+            four[name] = {"params": {k: v.clone() for k, v in tr.params.items()},
+                          "round_log": list(tr.comm.round_log),
+                          "intra_pod": tr.comm.intra_pod_bytes,
+                          "param_bytes": tr.engine.store.stats()["per_device_param_bytes"]}
             log(f"{tag} (a) {name}: s/round {' '.join(f'{x:.4f}' for x in secs)}, launches "
                 f"{launches}, device bytes a shard {store.per_device_bytes():,}, the card's "
                 f"peak over the run {peak:,} B (max_memory_allocated less what was held "
@@ -2627,6 +3004,9 @@ def phase14(fed, dev, smi: str, path_launches: dict, lap) -> dict:
     del runs, rep, ragged, gather, tr
     torch.cuda.empty_cache()
     lap("14 (a) sharded store")
+    res["model_axis"] = phase15a(fed, dev, smi, four, path_launches)
+    torch.cuda.empty_cache()
+    lap("15 (a) model axis, EMNIST")
 
     # (b) two processes on this card
     store = torch.distributed.TCPStore("127.0.0.1", 0, None, is_master=True,
@@ -2638,7 +3018,8 @@ def phase14(fed, dev, smi: str, path_launches: dict, lap) -> dict:
     procs = [subprocess.Popen(
         [sys.executable, "-m", "repro_torch.examples.distributed_waves", "--arm", "emnist",
          "--device", f"cuda:{dev.index}", "--coordinator", f"127.0.0.1:{store.port}",
-         "--num-processes", str(P14_PROCESSES), "--process-id", str(i), "--out", str(out)],
+         "--num-processes", str(P14_PROCESSES), "--process-id", str(i), "--out", str(out),
+         "--model-parallel", str(P15_T)],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for i, out in enumerate(outs)]
     texts = []
@@ -2646,6 +3027,8 @@ def phase14(fed, dev, smi: str, path_launches: dict, lap) -> dict:
         # the single-process run, while the children start up
         with deterministic_convolutions():
             solo = distributed_waves.run_waves("emnist", dev)
+            solo_tp = distributed_waves.run_waves(
+                "emnist", dev, mesh=process_local_mesh(P15_T, device=dev))
         for p in procs:
             texts.append(p.communicate(timeout=P14_CHILD_TIMEOUT_S)[0])
     except subprocess.TimeoutExpired:
@@ -2660,24 +3043,43 @@ def phase14(fed, dev, smi: str, path_launches: dict, lap) -> dict:
         if p.returncode:
             raise AssertionError(f"a phase-14 child exited {p.returncode}:\n{text[-3000:]}")
     want = distributed_waves.summary(solo)
+    want_tp = distributed_waves.summary(solo_tp)
     path_launches["14 single-process waves"] = solo["launches"]
-    names, keys = sorted(want["params"]), sorted(want["ledger"])
+    path_launches["15 (c) single-process waves, model axis 2"] = solo_tp["launches"]
+    if solo_tp["runner"].engine.store.stats()["model_axis"] != P15_T or \
+            not solo_tp["runner"].engine._tp_rows:
+        raise AssertionError("phase 15 (c): the process-local mesh trained no TP rows")
     children = []
     for i, out in enumerate(outs):
         with np.load(out) as z:
             report = json.loads(str(z["report"]))
             if report["failures"] or report["nvcc_builds"] != 0:
                 raise AssertionError(f"child {i}: {report}")
-            if list(z["names"]) != names or not all(
-                    np.array_equal(z[f"p_{j}"], want["params"][k]) for j, k in enumerate(names)):
-                raise AssertionError(f"child {i}: params differ from the single-process run")
-            if list(z["ledger_keys"]) != keys or not np.array_equal(
-                    z["ledger"], [want["ledger"][k] for k in keys]):
-                raise AssertionError(f"child {i}: ledger differs from the single-process run")
-            if json.loads(str(z["commit_log"])) != want["commit_log"]:
-                raise AssertionError(f"child {i}: commit log differs")
+            for prefix, w in (("", want), ("model_", want_tp)):
+                names, keys = sorted(w["params"]), sorted(w["ledger"])
+                if list(z[f"{prefix}names"]) != names or not all(
+                        np.array_equal(z[f"{prefix}p_{j}"], w["params"][k])
+                        for j, k in enumerate(names)):
+                    raise AssertionError(f"child {i}: {prefix}params differ from the "
+                                         f"single-process run")
+                if list(z[f"{prefix}ledger_keys"]) != keys or not np.array_equal(
+                        z[f"{prefix}ledger"], [w["ledger"][k] for k in keys]):
+                    raise AssertionError(f"child {i}: {prefix}ledger differs from the "
+                                         f"single-process run")
+                if json.loads(str(z[f"{prefix}commit_log"])) != w["commit_log"]:
+                    raise AssertionError(f"child {i}: {prefix}commit log differs")
+            mrun = report["model_axis_run"]
+            if mrun["model_axis"] != P15_T or not mrun["tp_rows"]:
+                raise AssertionError(f"child {i}: model-axis run {mrun}")
         path_launches[f"14 process {i}"] = report["launches"]
+        path_launches[f"15 (c) process {i}"] = mrun["launches"]
         children.append(report)
+        log(f"[phase15] ({smi}; logical positions on one card: device copies, not NVLink) "
+            f"(c) process {i}: one more pair of rounds on process_local_mesh(model="
+            f"{P15_T}), TP rows: published {mrun['num_published']}, received "
+            f"{mrun['num_received']}, s/round "
+            f"{' '.join(f'{x:.4f}' for x in mrun['round_seconds'])}, launches "
+            f"{mrun['launches']}")
         log(f"{tag} (b) process {i} of {P14_PROCESSES} on cuda:{dev.index}: published "
             f"{report['num_published']}, received {report['num_received']}, s/round "
             f"{' '.join(f'{x:.4f}' for x in report['round_seconds'])}, launches "
@@ -2686,9 +3088,15 @@ def phase14(fed, dev, smi: str, path_launches: dict, lap) -> dict:
         f"and to the single-process run (s/round "
         f"{' '.join(f'{x:.4f}' for x in solo['round_seconds'])}, launches "
         f"{solo['launches']}), per-key ledgers equal; the children took {children_s:.1f} s")
+    log(f"[phase15] ({smi}; logical positions on one card: device copies, not NVLink) "
+        f"(c) {P14_PROCESSES} processes on process_local_mesh(model={P15_T}): params bit "
+        f"for bit each other's and the single-process run's (s/round "
+        f"{' '.join(f'{x:.4f}' for x in solo_tp['round_seconds'])}, launches "
+        f"{solo_tp['launches']}), per-key ledgers equal")
     res["processes"] = {"children": children, "children_s": children_s,
                         "single_round_seconds": solo["round_seconds"],
-                        "single_launches": solo["launches"]}
+                        "single_launches": solo["launches"],
+                        "model_axis_single_round_seconds": solo_tp["round_seconds"]}
     lap("14 (b) two processes")
     return res
 
@@ -3042,7 +3450,7 @@ def main() -> int:
 
     # ---- 11. training qwen3-4b, hymba-1.5b and mamba2-370m at full width,
     # and the launchers
-    p11 = phase11(dev, gen, checks, path_launches, lap)
+    p11 = phase11(dev, gen, checks, path_launches, lap, smi)
 
     # ---- 12. the CNN engine's LoRA adapter exchange and round telemetry
     p12 = phase12(fed, cinic_fed, dev, gen, checks, path_launches, lap)
@@ -3053,13 +3461,16 @@ def main() -> int:
     p13 = phase13(dev, p11.pop("counted_step"), path_launches, lap)
 
     # ---- 14. the mediator axis: logical shards and two processes on this card
+    # ---- 15. the model axis (run inside phases 11 and 14): the 2-D mesh at
+    # the EMNIST arm, qwen3-4b's TP round, the children's model-axis rounds
     p14 = phase14(fed, dev, smi, path_launches, lap)
     phases_s = sum(phase_s.values())
     log(f"[time] phases {phases_s:.1f} s in all, phase 12 "
         f"{sum(v for k, v in phase_s.items() if k.startswith('12 ')):.1f} s, phase 13 "
         f"{sum(v for k, v in phase_s.items() if k.startswith('13 ')):.1f} s, phase 14 "
-        f"{sum(v for k, v in phase_s.items() if k.startswith('14 ')):.1f} s; "
-        f"{1200 - phases_s:.1f} s left of a 1,200 s call")
+        f"{sum(v for k, v in phase_s.items() if k.startswith('14 ')):.1f} s, phase 15 "
+        f"{sum(v for k, v in phase_s.items() if k.startswith('15 ')):.1f} s (its (c) in "
+        f"14 (b)); {1200 - phases_s:.1f} s left of a 1,200 s call")
 
     # every kernel's launches over the paths that drive it (each path's
     # counts were reset just before it and read just after)

@@ -30,6 +30,7 @@ from repro_torch.core.engine import EngineConfig, FLRoundEngine
 from repro_torch.core.fl import LocalSpec
 from repro_torch.data.federated import FederatedDataset
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import resolve_fl_mesh
 from repro_torch.optim.optimizers import Optimizer
 
 
@@ -90,9 +91,16 @@ class AstraeaTrainer:
     reschedule_every_round: bool = False    # static client data -> schedule once
     store: str = "replicated"               # client-store placement policy
     store_exchange: str = "ragged"          # the sharded store's serve exchange
-    # the mediator mesh the sharded store spreads over (None: one shard on
-    # the device)
+    # the mesh the sharded store spreads over and the model axis splits the
+    # parameters over (None: one shard on the device)
     mesh: object = None
+    # the model axis of the default 2-D (mediator, model) mesh over the
+    # visible cards (launch/mesh.py::make_fl_mesh); ignored when ``mesh`` is
+    # given; None = the engine's default
+    model_parallel: int | None = None
+    # on a mesh with a model axis: TP rows, the gather oracle or "auto"
+    # (EngineConfig.tp_rows)
+    tp_rows: bool | str = "auto"
     # padded mediator count; defaults to ceil(c / gamma), Alg. 3's output size
     pad_mediators_to: int | None = None
     # bounded-staleness async rounds (core/async_engine.py); None = the
@@ -130,11 +138,12 @@ class AstraeaTrainer:
                 reschedule_every_round=self.reschedule_every_round,
                 pad_mediators_to=pad_m, seed=self.seed, row_exec=self.row_exec,
                 lora_rank=self.lora_rank, lora_alpha=self.lora_alpha,
+                tp_rows=self.tp_rows,
                 **store_config(self)),
             aug_plan=engine_plan, adaptive_aug_alpha=adaptive_alpha,
             device=self.device,
             init_params=self.init_params, draws=self.draws, loss_fn=self.loss_fn,
-            telemetry=self.telemetry, mesh=self.mesh)
+            telemetry=self.telemetry, mesh=resolve_fl_mesh(self.mesh, self.model_parallel))
         charge_materialized_plan(self.engine, phase)
         self.runner = async_runner(self.engine, self.async_spec)
         self.history = self.runner.history

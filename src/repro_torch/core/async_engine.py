@@ -231,7 +231,7 @@ class AsyncRoundEngine:
             self._durations(eng, slot_np, row_of, m_real), spec.wave_size)
         self.last_wave_stats = wstats
         r, t0 = self._round, self.virtual_time
-        snapshot = eng.server_state         # every wave of round r starts here
+        snapshot = eng.row_state()          # every wave of round r starts here
         for wi, wave in enumerate(waves):
             meds = np.sort(np.asarray(wave, np.int64))      # mediator indices
             with tel.span("wave", wave=wi, round=r, mediators=int(meds.size),
@@ -268,6 +268,10 @@ class AsyncRoundEngine:
                     eng.comm.fedavg_wave(clients)
                 else:
                     eng.comm.astraea_wave(clients, len(meds), eng.cfg.mediator_epochs)
+                if eng._model_size > 1 and not eng._tp_rows:
+                    # every oracle wave gathers the split weights (or the
+                    # LoRA backbone): an intra-pod charge a wave
+                    eng._charge_model_axis()
                 if not self._sliced:
                     # a masked wave runs the round's plan: a sharded store's
                     # serve exchange once a wave (nothing for the other stores)
@@ -356,6 +360,11 @@ class AsyncRoundEngine:
             parts_w.append(wts)
             stales.extend([s] * rows.size)
         dvals, dwts = self._dummy
+        if self.engine._model_size > 1 and self.engine._lora_mapping is None:
+            # the reference's rule charges a commit's fold of the split
+            # weights (the port folds shard by shard; a LoRA commit folds
+            # the whole adapter state)
+            self.engine._charge_model_axis()
         self.engine.fold(torch.cat(parts_v + [dvals]), torch.cat(parts_w + [dwts]))
         self.num_commits += 1
         self.commit_log.append({
@@ -369,7 +378,7 @@ class AsyncRoundEngine:
                 staleness_max=max(stales) if stales else 0,
                 pending_after=len(self._pending))
         if not self._pipelined:
-            csp.sync_on(self.engine.server_state)
+            csp.sync_on(self.engine.state_at_rest())
 
     def synchronize(self) -> float:
         """Wait for every enqueued wave and commit to finish on the card:

@@ -157,6 +157,14 @@ class ClientStore:
     # what every execution of the current plan moves between shards
     exchange_bytes_per_round: int = 0
     telemetry = NULL_TELEMETRY
+    # (parameter bytes a mesh position holds, model axis the parameters are
+    # split over), set by the engine that adopts the store; None before
+    param_residency: tuple[int, int] | None = None
+
+    def note_param_residency(self, per_device_bytes: int, model_axis: int = 1) -> None:
+        """Record the engine's parameter residency so ``stats()`` covers the
+        whole device-memory picture (the reference's)."""
+        self.param_residency = (int(per_device_bytes), int(model_axis))
 
     def place(self, groups: list[list[int]], m_pad: int) -> np.ndarray:
         """``row_to_group (m_pad,)``: the mediator on each schedule row, -1
@@ -179,11 +187,17 @@ class ClientStore:
 
     def stats(self) -> dict:
         """Residency and traffic with one key set for every policy (a
-        policy without a feature reports 0 or None), as the reference's
-        ``ClientStore.stats`` without its parameter-residency keys."""
+        policy without a feature reports 0 or None), the reference's
+        ``ClientStore.stats``: ``per_device_param_bytes`` and ``model_axis``
+        are the adopting engine's parameter bytes a mesh position holds and
+        the model axis they split over (None before an engine adopts the
+        store)."""
+        ppb, axis = self.param_residency or (None, None)
         return {
             "policy": self.policy,
             "per_device_bytes": self.per_device_bytes(),
+            "per_device_param_bytes": ppb,
+            "model_axis": axis,
             "exchange": getattr(self, "exchange", None),
             "exchange_bytes_per_round": self.exchange_bytes_per_round,
             "streamed_bytes": getattr(self, "_streamed_bytes", 0),

@@ -87,6 +87,40 @@ reads), and each WAN leg carries ``lora.exchange_nbytes``.  At
 ``lora.full_rank`` every entry is dense and the round is the full-delta
 round bit for bit; rank 0 trains and averages nothing.
 
+**The 2-D ``(mediator, model)`` mesh** (``launch/mesh.py::make_fl_mesh``,
+the reference's §8 contract): the parameters are split over the ``model``
+axis by the rule tables (``launch/sharding.py::placements`` over the
+model's ``param_specs``: output channels and features, never a
+contraction dimension) and replicated over ``mediator``; at rest each
+position holds its shards (``sharding.ModelShards``), ``params`` gathers
+them whole, and ``store.stats()`` reports the bytes a position holds and
+the model axis.  Client data and schedules partition over the mediator
+axis only (``M_pad`` rounds up to the mediator count).  Two ways to run
+the rows (``EngineConfig.tp_rows``):
+
+* the gather oracle (``False``; ``"auto"`` off the card): at round start
+  the shards are all-gathered into the round's weights (before the graph
+  replay under ``"vmap"``), the rows and Eq. 6 run as on the 1-D mesh, and
+  ``fold`` adds each shard's slice of the aggregate to it
+  (``sharding.fold_shards``).  The gather moves exact bytes and the fold
+  is elementwise, so the trajectory is the 1-D one bit for bit.
+* TP rows (``True``; ``"auto"`` on the card): the rows train the shards
+  (``models/cnn.py::TensorParallel``): each position computes its output
+  channels from the whole input, the activations are all-gathered, the
+  input gradient all-reduced; the whole replica is never formed, in the
+  rows or at the fold.  Each row's shard deltas land at their columns of
+  the flat row buffer, so Eq. 6 and ``fold`` are the oracle's.  Under LoRA
+  the backbone stays split and the adapter state whole
+  (``lora.merge_shards``).  The reference refuses ``True`` on the CPU (an
+  XLA-CPU crash the port does not have); the port runs it there.
+
+Only ``params`` (evaluation, checkpoints, the oracle's round start)
+gathers the shards.
+
+The model-axis gather is charged to the intra-pod ledger
+(``comm.model_axis_round``) by the reference's rule; the WAN ledger does
+not change with the layout.
+
 **Telemetry** (``telemetry=``, ``obs/``): the reference's spans around the
 phases -- ``round`` around ``run_round``; ``plan_refresh``,
 ``reschedule``, ``pack`` and ``store_stream`` in ``prepare_round``;
@@ -114,9 +148,12 @@ from repro_torch.core.mediator import mediator_update, mediator_update_rows
 from repro_torch.data.federated import FederatedDataset
 from repro_torch.device import resolve_device, to_device
 from repro_torch.kernels import ops
-from repro_torch.launch.mesh import AbstractMesh, mediator_devices
+from repro_torch.launch import sharding as shard_lib
+from repro_torch.launch.mesh import (AbstractMesh, mediator_devices, model_axis_size,
+                                     model_devices)
+from repro_torch.launch.model_axis import shard_key
 from repro_torch.models import lora as lora_lib
-from repro_torch.models.cnn import Params, count_params
+from repro_torch.models.cnn import Params, TensorParallel, count_params
 from repro_torch.models.cnn import init_params as seeded_params
 from repro_torch.obs.telemetry import as_telemetry
 from repro_torch.optim.optimizers import Optimizer
@@ -152,6 +189,10 @@ class EngineConfig:
     # a frozen backbone; at lora.full_rank every entry is dense
     lora_rank: int | None = None
     lora_alpha: float | None = None         # merge scale; None = rank (1.0)
+    # on a mesh with a model axis: train the rows tensor-parallel over the
+    # parameter shards (True), gather them whole first (False: the oracle),
+    # or "auto" (TP rows on a CUDA device); a 1-D mesh is always the oracle
+    tp_rows: bool | str = "auto"
 
     def __post_init__(self):
         if self.row_exec not in ("vmap", "map"):
@@ -178,6 +219,8 @@ class EngineConfig:
             raise ValueError("lora_rank must be >= 0")
         if self.lora_alpha is not None and self.lora_rank is None:
             raise ValueError("lora_alpha requires lora_rank")
+        if self.tp_rows not in (True, False, "auto"):
+            raise ValueError(f"tp_rows must be True, False or 'auto', got {self.tp_rows!r}")
 
     @classmethod
     def astraea(cls, *, clients_per_round: int, gamma: int, local: LocalSpec,
@@ -257,10 +300,19 @@ class FLRoundEngine:
         self.device = dev = resolve_device(device)
         if mesh is None:
             mesh = AbstractMesh(("mediator",), (1,), (dev,))
-        if any(d.type != dev.type for d in mediator_devices(mesh)):
+        mediator_devices(mesh)                  # raises for a mesh without devices
+        if any(d.type != dev.type for d in mesh.devices):
             raise ValueError(f"mesh devices {mesh.devices} are not {dev.type} devices")
         self.mesh = mesh
-        self._msize = len(mesh.devices)
+        self._msize = mesh.shape["mediator"]
+        self._model_size = model_axis_size(mesh)
+        # the port dimension each parameter splits along over the model
+        # axis (None: replicated); None when nothing splits (a 1-D mesh, or
+        # a model without param_specs)
+        specs = getattr(model, "param_specs", None)
+        self._dims = shard_lib.placements(specs(), mesh) \
+            if self._model_size > 1 and specs is not None else None
+        self._shards: shard_lib.ModelShards | None = None
         capacity = min(cfg.clients_per_round, data.num_clients)
         store_kw = dict(device=dev, capacity=capacity,
                         prefetch_depth=cfg.store_prefetch_depth,
@@ -294,8 +346,13 @@ class FLRoundEngine:
         else:
             init = {k: torch.as_tensor(v, dtype=torch.float32).to(dev).contiguous()
                     for k, v in init_params.items()}
-        self.params: Params = init
-        self.comm = CommMeter(count_params(self.params))
+        self.params = init
+        self.store.note_param_residency(
+            self._shards.position_bytes() if self._shards is not None
+            else sum(v.nbytes for v in init.values()),
+            self._model_size if self._dims is not None else 1)
+        self.comm = CommMeter(count_params(init))
+        self._tp_rows = self._resolve_tp_rows()
         self.draws = draws if draws is not None else SeededDraws(cfg.seed + 1, dev)
         # LoRA: self.params is the frozen backbone; the round trains and
         # folds the adapter state, and a WAN leg carries only that state
@@ -313,9 +370,9 @@ class FLRoundEngine:
             self.adapters = lora_lib.init_adapter_state(mapping, self.params)
             self.comm.adapter_payload_bytes = lora_lib.exchange_nbytes(
                 mapping, self.comm.bytes_per_param)
-            self._layout = lora_lib.flat_layout(mapping, self.adapters, self.params)
+            self._layout = lora_lib.flat_layout(mapping, self.adapters, init)
         else:
-            self._layout = ops.FlatLayout(self.params)
+            self._layout = ops.FlatLayout(init)
 
         self._plan = None
         self.last_plan: np.ndarray | None = None
@@ -342,6 +399,83 @@ class FLRoundEngine:
         self.trace_log: list[dict] = []
 
     @property
+    def params(self) -> Params:
+        """The weights (the frozen backbone under LoRA), whole on the
+        engine's device: on a model axis the shards all-gathered."""
+        if self._shards is None:
+            return self._params
+        return shard_lib.gather_params(self._shards, self.device)
+
+    @params.setter
+    def params(self, value: Params) -> None:
+        if self._dims is None:
+            self._params = value
+        else:
+            self._shards = shard_lib.shard_params(value, self._dims, self.mesh)
+
+    def _resolve_tp_rows(self) -> bool:
+        """``cfg.tp_rows`` against the mesh: TP rows only where parameters
+        split over a model axis; ``"auto"`` turns them on on a CUDA device.
+        ``True`` runs them on the CPU too (the reference raises there, for
+        a crash of XLA's CPU partitioner)."""
+        mode = self.cfg.tp_rows
+        if mode is False or self._dims is None:
+            return False
+        on = mode is True or self.device.type == "cuda"
+        if on and self.cfg.row_exec == "vmap" and self.device.type == "cuda" \
+                and len(set(model_devices(self.mesh))) > 1:
+            raise ValueError("tp_rows under row_exec='vmap' captures one CUDA graph on "
+                             "one card; model columns on several cards need "
+                             "row_exec='map'")
+        return on
+
+    def _tp_tree(self) -> Params:
+        """The shards the TP rows train: model column ``j``'s slice of a
+        split leaf under ``shard_key(name, j)``, a replicated leaf whole."""
+        tree = {}
+        for k, dim in self._dims.items():
+            if dim is None:
+                tree[k] = self._shards.column(0)[k]
+            else:
+                for j in range(self._model_size):
+                    tree[shard_key(k, j)] = self._shards.column(j)[k]
+        return tree
+
+    def row_state(self) -> Params:
+        """The tree the rows train from: the adapter state under LoRA, the
+        shards under TP rows, else the whole weights (on a model axis,
+        gathered: the oracle's round-start gather)."""
+        if self._lora_mapping is not None:
+            return self.adapters
+        if self._tp_rows:
+            return self._tp_tree()
+        return self.params
+
+    def _row_views(self, flat: torch.Tensor) -> dict[str, torch.Tensor]:
+        """Views of a flat row buffer ``flat (..., N)`` keyed like
+        ``row_state()``: under TP rows (without LoRA) each shard's slice of
+        its leaf's columns."""
+        views = self._layout.views(flat)
+        if not self._tp_rows or self._lora_mapping is not None:
+            return views
+        lead, t = flat.dim() - 1, self._model_size
+        out = {}
+        for k, v in views.items():
+            dim = self._dims[k]
+            if dim is None:
+                out[k] = v
+                continue
+            size = v.shape[lead + dim] // t
+            for j in range(t):
+                out[shard_key(k, j)] = v.narrow(lead + dim, j * size, size)
+        return out
+
+    def _charge_model_axis(self) -> None:
+        """One model-axis gather of the weights on the intra-pod ledger, at
+        the reference's size (every position gathers what it lacks)."""
+        self.comm.model_axis_round(self._msize * self._model_size, self._model_size)
+
+    @property
     def server_state(self) -> Params:
         """What the round trains and folds: the adapter state under LoRA,
         the weights otherwise."""
@@ -355,11 +489,11 @@ class FLRoundEngine:
             self.params = value
 
     def lora_args(self) -> tuple:
-        """The frozen operands of a LoRA round: the backbone and the A
-        bases (empty without a mapping)."""
+        """The frozen operands of a LoRA round: the backbone (its shards
+        under TP rows) and the A bases (empty without a mapping)."""
         if self._lora_mapping is None:
             return ()
-        return self.params, self._lora_a
+        return (self._tp_tree() if self._tp_rows else self.params), self._lora_a
 
     @torch.no_grad()
     def merged_params(self) -> Params:
@@ -383,11 +517,20 @@ class FLRoundEngine:
             raise ValueError(f"A shapes differ from the mapping's at {bad}")
         self._lora_a = new
 
-    def _row_model(self):
-        """The model the rows train: through the adapter state under LoRA."""
+    def _row_model(self, frozen: tuple | None = None):
+        """The model the rows train: through the TP layers under TP rows,
+        and through the adapter state under LoRA, merged into the frozen
+        operands ``frozen`` (``lora_args()`` if None)."""
+        model = self.model
+        if self._tp_rows:
+            model = TensorParallel(model, self._dims, model_devices(self.mesh), self.device)
         if self._lora_mapping is None:
-            return self.model
-        return lora_lib.MergedModel(self.model, *self.lora_args(), self._lora_mapping)
+            return model
+        backbone, a_tree = self.lora_args() if frozen is None else frozen
+        if self._tp_rows:
+            return lora_lib.MergedModel(model, backbone, a_tree, self._lora_mapping,
+                                        dims=self._dims, t=self._model_size)
+        return lora_lib.MergedModel(model, backbone, a_tree, self._lora_mapping)
 
     def _note_trace(self, fn: str, width: int) -> None:
         """Count a round program built and record why, as the reference's
@@ -553,10 +696,11 @@ class FLRoundEngine:
             inp.xs, inp.ys = ax.reshape(xs.shape), ay.reshape(ys.shape)
         return inp
 
-    def _map_row(self, inp: RoundInputs, params, r: int, out: torch.Tensor) -> None:
+    def _map_row(self, inp: RoundInputs, model, params, r: int, out: torch.Tensor) -> None:
         """Schedule row ``r`` through ``client_update`` / ``mediator_update``
-        from ``params``, into the flat row ``out``."""
-        cfg, model = self.cfg, self._row_model()
+        of ``model`` (``_row_model()``) from ``params``, into the flat row
+        ``out``."""
+        cfg = self.cfg
         at = int(inp.address[r])
         if cfg.aggregate == "weights":
             res = client_update(model, self.opt, cfg.local, params,
@@ -569,7 +713,7 @@ class FLRoundEngine:
                 lambda e, s: self.draws.client(inp.rnd, at, e, s)
                 if inp.slot[r, s] > 0 else EmptySlotDraws(self.device),
                 loss_fn=self.loss_fn)
-        for k, v in self._layout.views(out).items():
+        for k, v in self._row_views(out).items():
             v.copy_(res[k])
 
     def run_rows(self, inp: RoundInputs, params,
@@ -589,8 +733,9 @@ class FLRoundEngine:
             member[rows] = True
         if self.cfg.row_exec == "map":
             buf.zero_()
+            model = self._row_model()
             for r in np.flatnonzero(member & real):
-                self._map_row(inp, params, int(r), buf[r])
+                self._map_row(inp, model, params, int(r), buf[r])
             return buf
         prog = self._program
         fresh = prog is None or prog.m != m_pad
@@ -625,8 +770,9 @@ class FLRoundEngine:
         if self.cfg.row_exec == "map":
             out = torch.empty((n, self._layout.total), dtype=torch.float32,
                               device=self.device)
+            model = self._row_model()
             for i, r in enumerate(rows):
-                self._map_row(inp, params, int(r), out[i])
+                self._map_row(inp, model, params, int(r), out[i])
             return out
         prog = self._wave_programs.get(n)
         fresh = prog is None
@@ -661,7 +807,7 @@ class FLRoundEngine:
         out = torch.zeros((n, self._layout.total), dtype=torch.float32,
                           device=self.device)
         if self.cfg.aggregate == "weights":
-            for k, v in self._layout.views(out).items():
+            for k, v in self._row_views(out).items():
                 v.copy_(state[k].expand_as(v))
         return out
 
@@ -689,11 +835,23 @@ class FLRoundEngine:
         added to it (Astraea).  The one tail of the sync round and the
         async commit."""
         agg = ops.fedavg_agg_flat(rows, weights, self._layout)
-        if self.cfg.aggregate == "weights":
-            self.server_state = agg
-        else:
+        add = self.cfg.aggregate != "weights"
+        if self._shards is not None and self._lora_mapping is None:
+            # on a model axis each shard takes its slice, never gathered
+            self._shards = shard_lib.fold_shards(self._shards, agg, add)
+        elif add:
             state = self.server_state
             self.server_state = {k: state[k] + agg[k] for k in state}
+        else:
+            self.server_state = agg
+
+    def state_at_rest(self):
+        """The folded state as held: the adapter state under LoRA, each
+        position's shards on a model axis (nothing gathered), else the
+        weights.  What a span waits on."""
+        if self._lora_mapping is not None:
+            return self.adapters
+        return self._shards.positions if self._shards is not None else self._params
 
     def run_round(self) -> None:
         cfg, tel = self.cfg, self.telemetry
@@ -703,12 +861,19 @@ class FLRoundEngine:
                       policy=cfg.store) as rsp:
             inp = self.prepare_round()
             with tel.span("aggregate", mediators=inp.m_real) as asp:
-                self.fold(*self.in_mediator_order(inp, self.run_rows(inp, self.server_state)))
-                asp.sync_on(self.server_state)
+                self.fold(*self.in_mediator_order(inp, self.run_rows(inp, self.row_state())))
+                asp.sync_on(self.state_at_rest())
             if cfg.aggregate == "weights":
                 self.comm.fedavg_round(c)
             else:
                 self.comm.astraea_round(c, cfg.gamma, cfg.mediator_epochs)
+            if self._model_size > 1 and (self._lora_mapping is None or not self._tp_rows):
+                # the intra-pod ledger only, by the reference's rule: TP rows
+                # with LoRA gather nothing (the backbone stays split, the
+                # adapters are whole); the oracle gathers the weights or the
+                # backbone once a round (``row_state`` / ``lora_args``), TP
+                # rows move activations and input gradients instead
+                self._charge_model_axis()
             self.charge_exchange()
             self.comm.end_round()
             self._round += 1
@@ -758,14 +923,14 @@ class _RoundProgram:
         self.sites = engine.model.dropout_sites(cfg.local.batch_size)
         self.pad = engine.pad
         shape = (self.m, self.gamma, engine.pad)
-        self.p0 = {k: torch.zeros((self.m,) + p.shape, dtype=p.dtype, device=dev)
-                   for k, p in engine.server_state.items()}
+        # each leaf on its own device: a shard on its model column's
+        self.p0 = {k: torch.zeros((self.m,) + p.shape, dtype=p.dtype, device=p.device)
+                   for k, p in engine.row_state().items()}
         # under LoRA the rows train the adapter state through the frozen
         # backbone and A bases, static buffers filled by ``load``
         self.frozen = tuple({k: torch.empty_like(v) for k, v in tree.items()}
                             for tree in engine.lora_args())
-        self.model = engine.model if not self.frozen else lora_lib.MergedModel(
-            engine.model, *self.frozen, engine._lora_mapping)
+        self.model = engine._row_model(self.frozen or None)
         (x_shape, x_dtype), (_, y_dtype), _ = engine.store.row_specs
         self.x = torch.zeros(shape + tuple(x_shape[1:]), device=dev,
                              dtype=torch.from_numpy(np.zeros(0, x_dtype)).dtype)
@@ -780,7 +945,7 @@ class _RoundProgram:
                                  + tuple(site), dtype=torch.bool, device=dev)
                       for site, _ in self.sites]
         self.rows = rows
-        self.out = engine._layout.views(rows)
+        self.out = engine._row_views(rows)
 
     def load(self, params, xs, ys, ms, active: np.ndarray, rnd: int,
              row_ids: np.ndarray | None = None, frozen: tuple = ()) -> None:

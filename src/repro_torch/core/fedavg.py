@@ -17,6 +17,7 @@ from repro_torch.core.augmentation import resolve_engine_plan
 from repro_torch.core.engine import EngineConfig, FLRoundEngine
 from repro_torch.core.fl import LocalSpec
 from repro_torch.data.federated import FederatedDataset
+from repro_torch.launch.mesh import resolve_fl_mesh
 from repro_torch.optim.optimizers import Optimizer
 
 
@@ -37,6 +38,11 @@ class FedAvgTrainer:
     store_exchange: str = "ragged"   # the sharded store's serve exchange
     # the mediator mesh (see AstraeaTrainer.mesh)
     mesh: object = None
+    # the model axis of the default 2-D mesh (see AstraeaTrainer)
+    model_parallel: int | None = None
+    # on a mesh with a model axis: TP rows, the gather oracle or "auto"
+    # (EngineConfig.tp_rows)
+    tp_rows: bool | str = "auto"
     # padded row count; defaults to c
     pad_mediators_to: int | None = None
     # bounded-staleness async rounds (core/async_engine.py); None = the
@@ -72,11 +78,11 @@ class FedAvgTrainer:
                                 local=self.local, pad_mediators_to=pad_m,
                                 seed=self.seed, row_exec=self.row_exec,
                                 lora_rank=self.lora_rank, lora_alpha=self.lora_alpha,
-                **store_config(self)),
+                                tp_rows=self.tp_rows, **store_config(self)),
             aug_plan=engine_plan, adaptive_aug_alpha=adaptive_alpha,
             device=self.device,
             init_params=self.init_params, draws=self.draws, loss_fn=self.loss_fn,
-            telemetry=self.telemetry, mesh=self.mesh)
+            telemetry=self.telemetry, mesh=resolve_fl_mesh(self.mesh, self.model_parallel))
         charge_materialized_plan(self.engine, phase)
         self.runner = async_runner(self.engine, self.async_spec)
         self.history = self.runner.history

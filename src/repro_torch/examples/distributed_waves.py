@@ -16,6 +16,11 @@ through the store; the caller compares with its own single-process run.
   PYTHONPATH=src python -m repro_torch.examples.distributed_waves --device cpu \\
       --coordinator 127.0.0.1:29500 --num-processes 2 --process-id i --out r{i}.npz
 
+``--model-parallel 2`` runs the workload a second time on each process's
+``process_local_mesh(model=2)`` (two model positions on its device; on the
+card ``tp_rows="auto"`` trains TP rows), through a second dispatcher
+namespace, and reports that run's params and ledger too.
+
 Arms: ``tiny`` (12 clients, 8 classes, 16 px, c=6, gamma=3, B=10, E=1, no
 Alg. 2, ``"map"``: the JAX package's two-process smoke workload) and
 ``emnist`` (64 clients, 47 classes, 28 px, c=16, gamma=4, B=20, E=2, alpha
@@ -64,15 +69,17 @@ def trainer(arm: str, fed, device, **kw):
                           device=device, **kw)
 
 
-def run_waves(arm: str, device, dispatcher=None, rounds: int = ROUNDS) -> dict:
-    """The workload: ``rounds`` overlapped S=0 async rounds and a flush.
+def run_waves(arm: str, device, dispatcher=None, rounds: int = ROUNDS,
+              mesh=None) -> dict:
+    """The workload: ``rounds`` overlapped S=0 async rounds and a flush
+    (on ``mesh``, if given: a process-local mesh with a model axis, say).
     Returns the runner, each round's seconds (host clock between device
     syncs) and the FL kernels' launches over the rounds."""
     from repro_torch.core import AsyncRoundEngine, AsyncSpec, StragglerSpec
     from repro_torch.kernels import ops
     device = torch.device(device)
     on_card = device.type == "cuda"
-    tr = trainer(arm, federation(arm), device)
+    tr = trainer(arm, federation(arm), device, mesh=mesh)
     spec = AsyncSpec(staleness_bound=0, wave_size=1, dispatch="overlapped",
                      straggler=StragglerSpec(model="lognormal", seed=3))
     runner = AsyncRoundEngine(tr.engine, spec, dispatcher=dispatcher)
@@ -109,6 +116,9 @@ def main(argv=None) -> int:
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
     ap.add_argument("--rounds", type=int, default=ROUNDS)
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="above 1: run the workload again on a process-local mesh with "
+                         "this model axis")
     ap.add_argument("--out", default=None,
                     help="write this process's params, ledger and counters here (.npz)")
     args = ap.parse_args(argv)
@@ -120,37 +130,49 @@ def main(argv=None) -> int:
                                          process_local_mesh)
     joined = init_distributed(args.coordinator, args.num_processes, args.process_id)
     device = process_local_mesh(device=args.device).devices[0]
-    disp = ProcessWaveDispatcher(timeout_s=120) if joined else None
-    res = run_waves(args.arm, device, disp, args.rounds)
-    out = summary(res)
-    rank = disp.process_index if disp else 0
-    names = sorted(out["params"])
-    keys = sorted(out["ledger"])
-    ledger = np.asarray([out["ledger"][k] for k in keys], np.float64)
-    failures = []
-    if disp is not None:
-        # every process against rank 0, through the store
-        disp.publish(f"params-{rank}", [out["params"][k] for k in names] + [ledger])
-        disp.barrier("results")
-        ref = disp.receive("params-0")
-        if not all(np.array_equal(out["params"][k], r) for k, r in zip(names, ref)):
-            failures.append("params differ from rank 0's")
-        if not np.array_equal(ledger, ref[-1]):
-            failures.append("ledger differs from rank 0's")
-        if not (disp.num_published > 0 and disp.num_received > 0):
-            failures.append("no wave crossed the process boundary")
-        disp.barrier("done")
-    report = {"rank": rank, "device": str(device), "round_seconds": res["round_seconds"],
-              "launches": res["launches"], "nvcc_builds": build.NUM_BUILDS,
-              "num_published": disp.num_published if disp else 0,
-              "num_received": disp.num_received if disp else 0,
-              "commits": res["runner"].num_commits, "failures": failures}
+    passes = [("", None, "astraea")]
+    if args.model_parallel > 1:
+        passes.append(("model_", process_local_mesh(args.model_parallel, device=device),
+                       f"astraea-model{args.model_parallel}"))
+    report, arrays, failures = {}, {}, []
+    for prefix, mesh, namespace in passes:
+        disp = ProcessWaveDispatcher(timeout_s=120, namespace=namespace) if joined else None
+        res = run_waves(args.arm, device, disp, args.rounds, mesh=mesh)
+        out = summary(res)
+        rank = disp.process_index if disp else 0
+        names = sorted(out["params"])
+        keys = sorted(out["ledger"])
+        ledger = np.asarray([out["ledger"][k] for k in keys], np.float64)
+        if disp is not None:
+            # every process against rank 0, through the store
+            disp.publish(f"params-{rank}", [out["params"][k] for k in names] + [ledger])
+            disp.barrier("results")
+            ref = disp.receive("params-0")
+            if not all(np.array_equal(out["params"][k], r) for k, r in zip(names, ref)):
+                failures.append(f"{prefix}params differ from rank 0's")
+            if not np.array_equal(ledger, ref[-1]):
+                failures.append(f"{prefix}ledger differs from rank 0's")
+            if not (disp.num_published > 0 and disp.num_received > 0):
+                failures.append(f"{prefix}no wave crossed the process boundary")
+            disp.barrier("done")
+        part = {"round_seconds": res["round_seconds"], "launches": res["launches"],
+                "num_published": disp.num_published if disp else 0,
+                "num_received": disp.num_received if disp else 0,
+                "commits": res["runner"].num_commits,
+                "model_axis": res["runner"].engine.store.stats()["model_axis"],
+                "tp_rows": res["runner"].engine._tp_rows}
+        if prefix:
+            report["model_axis_run"] = part
+        else:
+            report.update(rank=rank, device=str(device), **part)
+        arrays.update({f"{prefix}names": np.asarray(names),
+                       f"{prefix}ledger_keys": np.asarray(keys), f"{prefix}ledger": ledger,
+                       f"{prefix}commit_log": np.asarray(json.dumps(out["commit_log"])),
+                       **{f"{prefix}p_{i}": out["params"][k] for i, k in enumerate(names)}})
+    report.update(nvcc_builds=build.NUM_BUILDS, failures=failures)
     print(json.dumps(report), flush=True)
     if args.out:
-        np.savez(args.out, names=np.asarray(names), ledger_keys=np.asarray(keys),
-                 ledger=ledger, commit_log=np.asarray(json.dumps(out["commit_log"])),
-                 report=np.asarray(json.dumps(report)),
-                 **{f"p_{i}": out["params"][k] for i, k in enumerate(names)})
+        np.savez(args.out, report=np.asarray(json.dumps(report)), **arrays)
     return 1 if failures else 0
 
 

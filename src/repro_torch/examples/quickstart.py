@@ -11,9 +11,13 @@ trainers, rounds and printed lines as the JAX quickstart.
 
 On the card the round runs the three FL kernels: Eq. 6 (``fedavg_agg``),
 Alg. 3's greedy pass (``kld_greedy_picks``) and Alg. 2's warp
-(``affine_warp``).  ``--model-parallel`` (the JAX quickstart's 2-D
-``(mediator, model)`` mesh) waits for the port's distributed runtime and
-is refused.
+(``affine_warp``).  ``--model-parallel t`` puts both trainers on the 2-D
+``(mediator, model)`` mesh of one mediator row and ``t`` logical model
+positions on ``--device`` (``launch/mesh.py::make_fl_mesh``): the weights
+are split over the model axis at rest, the trajectory and the WAN ledger
+are the 1-D run's, and the model-axis gathers go to the intra-pod ledger.
+
+  PYTHONPATH=src python -m repro_torch.examples.quickstart --device cpu --rounds 2 --model-parallel 2
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ import dataclasses
 
 from repro_torch.core import AstraeaTrainer, FedAvgTrainer, LocalSpec
 from repro_torch.data.federated import EMNIST_LIKE, partition
+from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_fl_mesh
 from repro_torch.models.cnn import emnist_cnn
 from repro_torch.optim import adam
 
@@ -44,12 +50,16 @@ def main(argv=None) -> dict:
                     help="torch device (default: the CUDA device)")
     ap.add_argument("--rounds", type=int, default=ROUNDS)
     ap.add_argument("--model-parallel", type=int, default=None,
-                    help="refused: the 2-D (mediator, model) mesh needs the port's "
-                         "distributed runtime")
+                    help="model-axis size of the 2-D (mediator, model) mesh, its "
+                         "positions logical ones on --device; default: 1-D")
     args = ap.parse_args(argv)
+    mesh = None
     if args.model_parallel is not None:
-        ap.error("--model-parallel: the 2-D (mediator, model) mesh needs the port's "
-                 "distributed runtime, which is not ported yet")
+        if args.model_parallel < 1:
+            ap.error(f"--model-parallel {args.model_parallel}: must be >= 1")
+        dev = resolve_device(args.device)
+        mesh = make_fl_mesh(mediator=1, model=args.model_parallel,
+                            devices=(dev,) * args.model_parallel)
     rounds = args.rounds
     eval_every = max(rounds // 2, 1)
 
@@ -59,7 +69,7 @@ def main(argv=None) -> dict:
 
     print("== FedAvg (baseline) ==")
     fedavg = FedAvgTrainer(model, adam(1e-3), fed, clients_per_round=PER_ROUND,
-                           local=local, seed=0, device=args.device)
+                           local=local, seed=0, device=args.device, mesh=mesh)
     fh = fedavg.fit(rounds, eval_every=eval_every)
     for h in fh:
         print(f"  round {h['round']:3d}  acc={h['accuracy']:.3f}  "
@@ -68,7 +78,7 @@ def main(argv=None) -> dict:
     print(f"== Astraea (online augmentation alpha={ALPHA} + mediators gamma={GAMMA}) ==")
     astraea = AstraeaTrainer(model, adam(1e-3), fed, clients_per_round=PER_ROUND,
                              gamma=GAMMA, local=local, mediator_epochs=1,
-                             alpha=ALPHA, seed=0, device=args.device)
+                             alpha=ALPHA, seed=0, device=args.device, mesh=mesh)
     ah = astraea.fit(rounds, eval_every=eval_every)
     for h in ah:
         print(f"  round {h['round']:3d}  acc={h['accuracy']:.3f}  "
@@ -86,8 +96,17 @@ def main(argv=None) -> dict:
     print(f"WAN traffic after {rounds} rounds: FedAvg {fa_mb:.1f} MB vs "
           f"Astraea {as_mb:.1f} MB ({as_mb / fa_mb:.2f}x per-round "
           f"surcharge; Table III wins on rounds-to-accuracy)")
+    # the 2-D mesh: the bytes of weights a position holds, and the
+    # model-axis gathers on the intra-pod ledger, off the WAN numbers above
+    st = astraea.engine.store.stats()
+    if st["model_axis"] > 1:
+        print(f"model_parallel={st['model_axis']}: {st['per_device_param_bytes']} "
+              f"param bytes a position (replica {4 * fedavg.engine.comm.num_params}), "
+              f"intra-pod traffic {astraea.engine.comm.intra_pod_megabytes:.1f} MB off "
+              f"the WAN ledger")
     return {"fedavg": fh, "astraea": ah, "num_params": fedavg.engine.comm.num_params,
-            "num_classes": spec.num_classes, "num_clients": CLIENTS}
+            "num_classes": spec.num_classes, "num_clients": CLIENTS,
+            "store_stats": st, "intra_pod_bytes": astraea.engine.comm.intra_pod_bytes}
 
 
 if __name__ == "__main__":

@@ -18,8 +18,13 @@ Several processes (``--coordinator host:port --num-processes P
 --process-id i``, or torchrun's environment) join through
 ``launch.mesh.init_distributed``; each trains on its process-local device
 (``--device``, or the card of its local rank), so every process books the
-single-process run's WAN ledger.  ``--model-parallel`` above 1 (the model
-axis) is not ported and is refused.
+single-process run's WAN ledger.  ``--model-parallel t`` runs the round
+tensor-parallel over a model axis of ``t`` positions
+(``launch/steps.py::make_fl_round(mesh=...)``): ``t`` logical positions on
+``--device``'s card, or the cards ``--devices`` names (one a position); a
+family the tensor-parallel round does not cover raises.
+
+  PYTHONPATH=src python -m repro_torch.launch.fl_train --device cpu --model-parallel 2
 """
 from __future__ import annotations
 
@@ -34,7 +39,7 @@ from repro_torch import configs as C
 from repro_torch.core import scheduling
 from repro_torch.core.comm import CommMeter
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import init_distributed, process_local_mesh
+from repro_torch.launch.mesh import init_distributed, make_fl_mesh, process_local_mesh
 from repro_torch.launch.steps import make_fl_round
 from repro_torch.models import lora as lora_lib
 from repro_torch.models import transformer as T
@@ -96,7 +101,13 @@ def main(argv=None) -> dict:
                     help="torch device (default: the CUDA device; under several "
                          "processes, the card of the local rank)")
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="model-axis size; only 1 is ported")
+                    help="model-axis size: the round runs tensor-parallel over this "
+                         "many positions (logical ones on --device's card unless "
+                         "--devices names them)")
+    ap.add_argument("--devices", default=None,
+                    help="comma-separated devices of the model axis's positions, one "
+                         "each (e.g. cuda:0,cuda:1); default: --model-parallel logical "
+                         "positions on the round's device")
     ap.add_argument("--coordinator", default=None,
                     help="host:port of the run's TCPStore, hosted by process 0 "
                          "(env: MASTER_ADDR, MASTER_PORT); each process trains on "
@@ -106,10 +117,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--process-id", type=int, default=None,
                     help="this process's rank (env: RANK)")
     args = ap.parse_args(argv)
-    if args.model_parallel > 1:
-        raise SystemExit(f"--model-parallel {args.model_parallel}: the model axis "
-                         "(tensor-parallel rows across cards) is not ported yet "
-                         "(ROADMAP.md Queue 1, the distributed runtime's model axis)")
+    if args.model_parallel < 1:
+        raise SystemExit(f"--model-parallel {args.model_parallel}: must be >= 1")
 
     distributed = init_distributed(args.coordinator, args.num_processes, args.process_id)
     if distributed:
@@ -121,6 +130,16 @@ def main(argv=None) -> dict:
     else:
         dev = resolve_device(args.device)
     cfg = C.reduced(C.get(args.arch))
+    mesh = None
+    if args.model_parallel > 1 or args.devices:
+        positions = [resolve_device(d) for d in args.devices.split(",")] if args.devices \
+            else [dev] * args.model_parallel
+        if len(positions) != args.model_parallel:
+            raise SystemExit(f"--devices names {len(positions)} positions for "
+                             f"--model-parallel {args.model_parallel}")
+        mesh = make_fl_mesh(mediator=1, model=args.model_parallel, devices=positions)
+        print(f"model axis: {args.model_parallel} positions on "
+              f"{', '.join(str(d) for d in positions)}")
     n_mediators = 1                       # one device: the reference's 1 x 1 mesh
     model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     params = T.train_params(model)
@@ -146,7 +165,8 @@ def main(argv=None) -> dict:
     tokens, labels, w, per_med = pack_mediators(meds, streams, counts, args.seq, n_mediators)
 
     fl_round = make_fl_round(model, n_mediators, learning_rate=args.lr,
-                             local_steps=per_med, mediator_epochs=1, lora_mapping=mapping)
+                             local_steps=per_med, mediator_epochs=1, lora_mapping=mapping,
+                             mesh=mesh)
     n_clients_sched = sum(len(m.clients) for m in meds[:n_mediators])
     losses = []
     for r in range(args.rounds):

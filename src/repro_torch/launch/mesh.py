@@ -19,9 +19,12 @@ host-side payloads, as in the reference: ``ProcessWaveDispatcher`` shards
 the async engine's waves over processes, each wave run by one owner on its
 ``process_local_mesh`` and its result published through the store.
 
-The model axis -- ``make_fl_mesh(model > 1)``, tensor-parallel rows and
-the sharding rules on a live ``DeviceMesh`` -- needs device collectives
-across cards and is not ported yet: it raises ``NotImplementedError``.
+The ``(mediator, model)`` mesh of the FL round engine (``make_fl_mesh``)
+lays its positions out row-major: position ``i * t + j`` is model column
+``j`` of mediator row ``i``.  As in the reference, the model axis's
+collectives stay inside one process (``launch/model_axis.py``): positions
+are logical places for shards, several of them may name one card, and a
+collective between positions on two cards is a peer copy.
 """
 from __future__ import annotations
 
@@ -33,11 +36,6 @@ from datetime import timedelta
 
 import numpy as np
 import torch
-
-_MODEL_AXIS = ("the model axis (tensor-parallel rows over a torch.distributed "
-               "DeviceMesh, device collectives across cards) is not ported yet: "
-               "ROADMAP.md Queue 1, the distributed runtime's model-axis slice")
-
 
 @dataclass(frozen=True)
 class AbstractMesh:
@@ -79,6 +77,24 @@ def make_host_mesh() -> AbstractMesh:
     return AbstractMesh(("data", "model"), (1, 1))
 
 
+def _visible_cards() -> int:
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def _card_devices(n: int, what: str) -> tuple[torch.device, ...]:
+    """The first ``n`` visible cards, one a position: more positions than
+    cards need ``devices`` spelled out, else this raises rather than
+    doubling positions up silently."""
+    cards = _visible_cards()
+    if n < 1:
+        raise RuntimeError("no CUDA device is visible; pass devices (e.g. "
+                           "(torch.device('cpu'),) * n) for a mesh of logical positions")
+    if n > cards:
+        raise ValueError(f"{what} on {cards} visible card(s): pass devices "
+                         f"explicitly for logical positions")
+    return tuple(torch.device("cuda", i) for i in range(n))
+
+
 def make_mediator_mesh(n: int | None = None, devices=None) -> AbstractMesh:
     """The 1-D ``mediator`` mesh of the FL round engine.  ``n`` defaults to
     the visible card count, one card a shard.  More shards than cards --
@@ -90,43 +106,80 @@ def make_mediator_mesh(n: int | None = None, devices=None) -> AbstractMesh:
         if n is not None and n != len(devices):
             raise ValueError(f"make_mediator_mesh({n}) given {len(devices)} devices")
         return AbstractMesh(("mediator",), (len(devices),), devices)
-    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    n = cards if n is None else int(n)
-    if n < 1:
-        raise RuntimeError("no CUDA device is visible; pass devices (e.g. "
-                           "(torch.device('cpu'),) * n) for a mesh of logical shards")
-    if n > cards:
-        raise ValueError(f"make_mediator_mesh({n}) on {cards} visible card(s): "
-                         f"pass devices explicitly for logical shards")
+    n = _visible_cards() if n is None else int(n)
     return AbstractMesh(("mediator",), (n,),
-                        tuple(torch.device("cuda", i) for i in range(n)))
+                        _card_devices(n, f"make_mediator_mesh({n})"))
 
 
-def make_fl_mesh(*, mediator: int = 1, model: int = 1) -> AbstractMesh:
-    """The FL round engine's ``(mediator, model)`` mesh.  Only ``model ==
-    1`` exists in the port: every mediator row holds its whole model."""
-    if model != 1:
-        raise NotImplementedError(f"make_fl_mesh(model={model}): {_MODEL_AXIS}")
-    return AbstractMesh(("mediator", "model"), (int(mediator), 1))
+def make_fl_mesh(*, mediator: int | None = None, model: int = 1,
+                 devices=None) -> AbstractMesh:
+    """The FL round engine's 2-D ``(mediator, model)`` mesh
+    (``repro/launch/mesh.py::make_fl_mesh``): the mediator axis carries the
+    mediator rows, the model axis shards each row's parameters by the rule
+    tables (``launch/sharding.py``).  ``devices`` gives one device a
+    position in row-major order (``(cuda:0,) * 4`` is a 2 x 2 mesh on one
+    card); without it the positions take the visible cards, one each, and
+    ``mediator=None`` spreads them over the mediator axis, which the card
+    count must allow.  ``model=1`` is the 1-D mesh's program with a
+    size-1 model axis."""
+    model = int(model)
+    if model < 1:
+        raise ValueError(f"model axis size must be >= 1, got {model}")
+    if devices is not None:
+        devices = tuple(torch.device(d) for d in devices)
+        if len(devices) % model:
+            raise ValueError(f"{len(devices)} devices are not divisible by a model "
+                             f"axis of {model}")
+        if mediator is None:
+            mediator = len(devices) // model
+        if mediator * model != len(devices):
+            raise ValueError(f"a {mediator} x {model} mesh given {len(devices)} devices")
+        return AbstractMesh(("mediator", "model"), (int(mediator), model), devices)
+    if mediator is None:
+        cards = _visible_cards()
+        if cards % model or cards < model:
+            raise ValueError(f"{cards} visible card(s) are not divisible by a model "
+                             f"axis of {model}")
+        mediator = cards // model
+    n = int(mediator) * model
+    return AbstractMesh(("mediator", "model"), (int(mediator), model),
+                        _card_devices(n, f"make_fl_mesh(mediator={mediator}, model={model})"))
 
 
 def default_fl_mesh(model_parallel: int = 1) -> AbstractMesh:
     """The engine's default mesh: the 1-D mediator mesh over the visible
-    cards; model parallelism (``model_parallel > 1``) raises."""
+    cards, or with ``model_parallel > 1`` the 2-D mesh over them (the card
+    count must be a multiple of it)."""
     if model_parallel <= 1:
         return make_mediator_mesh()
     return make_fl_mesh(model=model_parallel)
 
 
+def resolve_fl_mesh(mesh, model_parallel: int | None):
+    """The trainers' mesh: an explicit ``mesh`` wins; else a
+    ``model_parallel`` knob builds ``default_fl_mesh``; else None (the
+    engine's one-shard default)."""
+    if mesh is not None or model_parallel is None:
+        return mesh
+    return default_fl_mesh(model_parallel)
+
+
 def mediator_devices(mesh: AbstractMesh) -> tuple[torch.device, ...]:
-    """The devices along the ``mediator`` axis (a model axis, if any, has
-    size 1 in the port)."""
+    """The devices along the ``mediator`` axis: model column 0's on a 2-D
+    mesh (the client axis of a sharded store partitions over the mediator
+    rows and is replicated along each row's model columns)."""
     if mesh.devices is None:
         raise ValueError(f"mesh {mesh.shape} carries no devices; build it with "
-                         f"make_mediator_mesh or pass devices")
-    if model_axis_size(mesh) != 1:
-        raise NotImplementedError(f"a mesh with a model axis: {_MODEL_AXIS}")
-    return mesh.devices
+                         f"make_mediator_mesh / make_fl_mesh or pass devices")
+    return mesh.devices[::model_axis_size(mesh)]
+
+
+def model_devices(mesh: AbstractMesh, row: int = 0) -> tuple[torch.device, ...]:
+    """The devices of mediator row ``row``'s model columns, in order."""
+    if mesh.devices is None:
+        raise ValueError(f"mesh {mesh.shape} carries no devices")
+    t = model_axis_size(mesh)
+    return mesh.devices[row * t:(row + 1) * t]
 
 
 @dataclass(frozen=True)
@@ -237,18 +290,24 @@ def coordination_client():
 
 
 def process_local_mesh(model: int = 1, *, device=None) -> AbstractMesh:
-    """This process's own one-device mediator mesh.  ``device`` names it
-    (two processes sharing one card both pass ``cuda:0``); None takes the
-    card of torchrun's ``LOCAL_RANK`` (0 without it), and raises without
-    a card."""
+    """This process's own mesh: the 1-D one-device mediator mesh, or with
+    ``model > 1`` a ``1 x model`` mesh whose positions all sit on this
+    process's device (the model axis's collectives stay in the process, as
+    the reference's do).  ``device`` names the device (two processes
+    sharing one card both pass ``cuda:0``); None takes the card of
+    torchrun's ``LOCAL_RANK`` (0 without it), and raises without a card."""
     from repro_torch.device import resolve_device
-    if model != 1:
-        raise NotImplementedError(f"process_local_mesh(model={model}): {_MODEL_AXIS}")
+    model = int(model)
+    if model < 1:
+        raise ValueError(f"model axis size must be >= 1, got {model}")
     if device is None:
         index = int(os.environ.get("LOCAL_RANK", "0") or "0")
-        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        cards = _visible_cards()
         device = f"cuda:{index % cards}" if cards else None
-    return make_mediator_mesh(devices=(resolve_device(device),))
+    dev = resolve_device(device)
+    if model == 1:
+        return make_mediator_mesh(devices=(dev,))
+    return make_fl_mesh(mediator=1, model=model, devices=(dev,) * model)
 
 
 class ProcessWaveDispatcher:
@@ -260,11 +319,13 @@ class ProcessWaveDispatcher:
     w)``, so the processes agree on it without talking, and each books the
     same WAN charges.  Payloads are framed with ``np.savez`` (ordered,
     dtype- and shape-preserving) and read with ``allow_pickle=False``,
-    under keys ``astraea/<tag>`` that are never reused; a read that waits
-    past ``timeout_s`` raises."""
+    under keys ``<namespace>/<tag>`` that are never reused (a second
+    workload in the same run takes a namespace of its own); a read that
+    waits past ``timeout_s`` raises."""
 
     def __init__(self, client=None, *, process_index: int | None = None,
-                 num_processes: int | None = None, timeout_s: float = 120.0):
+                 num_processes: int | None = None, timeout_s: float = 120.0,
+                 namespace: str = "astraea"):
         self.client = client if client is not None else coordination_client()
         if self.client is None:
             raise ValueError("ProcessWaveDispatcher needs a joined run "
@@ -276,6 +337,7 @@ class ProcessWaveDispatcher:
         self.timeout = timedelta(seconds=timeout_s)
         self.num_published = 0
         self.num_received = 0
+        self.namespace = namespace
         self._tags: set[str] = set()
 
     def owner_of(self, round_idx: int, wave_idx: int) -> int:
@@ -290,11 +352,11 @@ class ProcessWaveDispatcher:
         self._tags.add(tag)
         buf = io.BytesIO()
         np.savez(buf, *[np.asarray(a) for a in arrays])
-        self.client.set(f"astraea/{tag}", buf.getvalue())
+        self.client.set(f"{self.namespace}/{tag}", buf.getvalue())
         self.num_published += 1
 
     def receive(self, tag: str) -> list[np.ndarray]:
-        key = f"astraea/{tag}"
+        key = f"{self.namespace}/{tag}"
         self.client.wait([key], self.timeout)
         with np.load(io.BytesIO(self.client.get(key)), allow_pickle=False) as z:
             out = [z[f"arr_{i}"] for i in range(len(z.files))]
@@ -304,7 +366,7 @@ class ProcessWaveDispatcher:
     def barrier(self, name: str) -> None:
         """Every process waits here until all have arrived (or raises after
         the timeout); each ``name`` is used once."""
-        key = f"astraea/barrier/{name}"
+        key = f"{self.namespace}/barrier/{name}"
         if self.client.add(key, 1) == self.num_processes:
             self.client.set(f"{key}/open", b"1")
         self.client.wait([f"{key}/open"], self.timeout)

@@ -17,8 +17,12 @@ dimension -- ``None``, a mesh axis, or a tuple of them -- trailing
 
 Each ``*_shardings`` function returns a ``Sharding`` per leaf: its
 placement and the shape one device holds.  No device or process group is
-needed; mapping a placement onto a live ``DeviceMesh`` waits for the
-distributed runtime (``launch/mesh.py``).
+needed for them.  On live tensors (the model axis, ``launch/mesh.py``):
+``placements`` gives the dimension of each port parameter that the rules
+split over ``model`` (None: replicated), ``shard_params`` cuts a dict of
+parameters into its shards on the mesh's positions (``ModelShards``,
+``launch/model_axis.py::split``), and ``gather_params`` puts them back
+together, bit for bit.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.launch import model_axis
 from repro_torch.launch.mesh import AbstractMesh, data_axes, model_axis_size
 
 TRAIN_RULES: dict[str, list] = {
@@ -217,3 +222,120 @@ def opt_state_shardings(opt_state: dict, param_shards: dict[str, Sharding],
         else:
             out[k] = replicated(getattr(v, "shape", ()), mesh)
     return out
+
+
+# ---------------------------------------------------------------------------
+# live tensors on the model axis
+# ---------------------------------------------------------------------------
+
+def _model_dim(spec: tuple) -> int | None:
+    """The dimension a placement puts on ``"model"`` (None: none)."""
+    for i, entry in enumerate(spec):
+        if "model" in _axes_of(entry):
+            if _axes_of(entry) != ("model",):
+                raise ValueError(f"placement {spec}: dimension {i} shards over "
+                                 f"{entry}, not the model axis alone")
+            return i
+    return None
+
+
+def placements(specs: dict, mesh: AbstractMesh,
+               rules: dict[str, list] | None = None) -> dict[str, int | None]:
+    """``{port parameter name: the dimension the rules split over model, or
+    None}`` for a model's specs: a transformer's (``Spec.logical``, a
+    stacked layer axis that no table shards, dropped for each layer's
+    parameter) or a CNN's (``models/cnn.py::ParamSpec``: ``axes`` in the
+    reference's layout, ``perm`` to the port's).  The placement of each is
+    ``spec_for``'s, the reference's (``model_only_rules()`` by default)."""
+    rules = rules if rules is not None else model_only_rules()
+    out: dict[str, int | None] = {}
+    for k, sp in specs.items():
+        logical = getattr(sp, "logical", ())
+        if logical:
+            dim = _model_dim(spec_for(sp.shape, logical, mesh, rules))
+            if len(sp.names) == 1 and sp.names[0] == k:
+                out[k] = dim
+                continue
+            if dim == 0:
+                raise ValueError(f"{k}: its layer axis is sharded")
+            out.update({name: None if dim is None else dim - 1 for name in sp.names})
+            continue
+        dim = _model_dim(spec_for(sp.shape, sp.axes, mesh, rules))
+        if dim is not None and sp.perm is not None:
+            dim = sp.perm.index(dim)
+        out.update({name: dim for name in sp.names})
+    return out
+
+
+@dataclass
+class ModelShards:
+    """A dict of parameters split over a mesh's model axis: ``positions[p]``
+    the shards position ``p`` (row-major, ``launch/mesh.py``) holds -- model
+    column ``p % t``'s slice of every split leaf, and every replicated leaf
+    whole.  Positions of one column on one device share its tensors;
+    another device holds its own copy (the mediator axis replicates)."""
+    dims: dict[str, int | None]
+    t: int
+    positions: list[dict[str, torch.Tensor]]
+
+    def column(self, j: int) -> dict[str, torch.Tensor]:
+        """Model column ``j``'s shards (mediator row 0's)."""
+        return self.positions[j]
+
+    def position_bytes(self, p: int = 0) -> int:
+        """Bytes of parameters position ``p`` holds."""
+        return sum(v.nbytes for v in self.positions[p].values())
+
+
+def shard_params(params: dict[str, torch.Tensor], dims: dict[str, int | None],
+                 mesh: AbstractMesh) -> ModelShards:
+    """``params`` split over ``mesh``'s model axis by ``dims``
+    (``placements``) and replicated over its mediator rows, each shard on
+    its position's device."""
+    if mesh.devices is None:
+        raise ValueError(f"mesh {mesh.shape} carries no devices")
+    if set(params) != set(dims):
+        raise ValueError(f"params {sorted(set(params) ^ set(dims))} have no placement")
+    t = model_axis_size(mesh)
+    col_devices = mesh.devices[:t]
+    cols: list[dict[str, torch.Tensor]] = [{} for _ in range(t)]
+    for k, v in params.items():
+        for j, shard in enumerate(model_axis.split(v, dims[k], col_devices)):
+            cols[j][k] = shard
+    positions = []
+    for p, dev in enumerate(mesh.devices):
+        col = cols[p % t]
+        positions.append({k: v if v.device == dev else model_axis.split(v, None, (dev,))[0]
+                          for k, v in col.items()})
+    return ModelShards(dict(dims), t, positions)
+
+
+def fold_shards(shards: ModelShards, agg: dict[str, torch.Tensor], add: bool) -> ModelShards:
+    """New shards from whole leaves ``agg``: each shard takes its slice of
+    its leaf's aggregate (``add``: plus its own values), on its device, so
+    the whole weights are never formed.  Positions that shared a tensor
+    share its successor.  Elementwise, so the result is bit for bit the
+    split of ``gather + agg`` (or of ``agg``)."""
+    done: dict[int, torch.Tensor] = {}
+    positions = []
+    for p, pos in enumerate(shards.positions):
+        j, new = p % shards.t, {}
+        for k, v in pos.items():
+            if id(v) not in done:
+                dim, piece = shards.dims[k], agg[k]
+                if dim is not None:
+                    piece = piece.narrow(dim, j * v.shape[dim], v.shape[dim])
+                done[id(v)] = v + piece.to(v.device) if add \
+                    else model_axis.split(piece, None, (v.device,))[0]
+            new[k] = done[id(v)]
+        positions.append(new)
+    return ModelShards(shards.dims, shards.t, positions)
+
+
+def gather_params(shards: ModelShards, device: torch.device) -> dict[str, torch.Tensor]:
+    """The whole parameters on ``device``: every leaf all-gathered from
+    mediator row 0's columns, in shard order (exact bytes)."""
+    return {k: model_axis.all_gather([shards.positions[j][k] for j in range(shards.t)],
+                                     dim, device)
+            for k, dim in shards.dims.items()}
+

@@ -12,6 +12,14 @@ serving.
   top of the model's prefill and decode passes; they also return the
   logits.
 
+On a ``(mediator, model)`` mesh (``launch/mesh.py::make_fl_mesh``) the
+round is tensor-parallel over the model axis (the reference leaves that
+axis to its compiler): each mediator's local SGD runs Megatron-style over
+the ``t`` positions (``models/transformer.py::TensorParallel``), and Eq. 6
+runs per position on its slice of each leaf, one ``fedavg_agg`` a shard
+(the reference's ``psum_eq6``), which is the whole leaf's Eq. 6 bit for bit
+(the kernel reduces over M column by column).
+
 The reference jits each step; here they run eagerly.  Parameters are flat
 dicts keyed by the port's names (``transformer.train_params``).  The
 training step updates its ``params`` and optimizer state in place, leaf by
@@ -143,7 +151,8 @@ def suggest_microbatches(cfg, global_batch: int, seq_len: int, *, data_parallel:
 
 def make_fl_round(model: T.Transformer, n_mediators: int = 1, *,
                   learning_rate: float = 1e-3, local_steps: int = 4,
-                  mediator_epochs: int = 1, lora_mapping: dict | None = None):
+                  mediator_epochs: int = 1, lora_mapping: dict | None = None,
+                  mesh=None):
     """One Astraea synchronization round over ``n_mediators`` mediators.
 
     Inputs: ``tokens, labels (n_mediators * local_batch, S)``, row block
@@ -164,9 +173,25 @@ def make_fl_round(model: T.Transformer, n_mediators: int = 1, *,
     weights) -> state``.  The backbone and the frozen ``A`` stay fixed, the
     mediators train the adapter state through ``lora.merge_params`` inside
     the loss, and Eq. 6 averages the adapter deltas in one ``fedavg_agg``
-    launch (``ops.fedavg_agg_tree``): the only thing that rides the WAN."""
+    launch (``ops.fedavg_agg_tree``): the only thing that rides the WAN.
+
+    With ``mesh`` (a ``make_fl_mesh`` with a model axis ``t > 1``) the
+    full-delta round is tensor-parallel over the mesh's model columns
+    (mediator row 0's devices; the mediators still run in turn):
+    ``round(params, ...)`` splits ``params`` by the rule tables
+    (``launch/sharding.py::placements``), trains each mediator's shards
+    through ``forward_train``'s ``TensorParallel`` hook, runs Eq. 6 shard by
+    shard and returns the new weights gathered whole on ``params``'
+    device.  A family the
+    tensor-parallel forward does not cover, or a LoRA mapping, raises."""
     if n_mediators < 1 or local_steps < 1 or mediator_epochs < 1:
         raise ValueError("n_mediators, local_steps and mediator_epochs must be >= 1")
+    tp_size = 1 if mesh is None else mesh.shape.get("model", 1)
+    if tp_size > 1:
+        T.check_tp_family(model.cfg)
+        if lora_mapping is not None:
+            raise ValueError("a tensor-parallel round over a LoRA adapter state is not "
+                             "ported (ROADMAP.md Queue 1, TP for the adapter rounds)")
 
     def split(tokens, labels, weights):
         if tokens.shape[0] % (n_mediators * local_steps):
@@ -203,7 +228,8 @@ def make_fl_round(model: T.Transformer, n_mediators: int = 1, *,
         out = {}
         for k, s in start.items():
             deltas = torch.stack([f.pop(k).to(f32) - s.to(f32) for f in finals])
-            avg = ops.fedavg_agg(deltas.reshape(len(finals), -1), n_m).reshape(s.shape)
+            avg = ops.fedavg_agg(deltas.reshape(len(finals), -1),
+                                 n_m.to(s.device)).reshape(s.shape)
             out[k] = (s.to(f32) + avg).to(s.dtype)
         return out
 
@@ -226,7 +252,41 @@ def make_fl_round(model: T.Transformer, n_mediators: int = 1, *,
         streams, n_m = split(tokens, labels, weights)
         finals = [local_sgd(params, t, l, loss_of) for t, l in streams]
         return eq6(params, finals, n_m, tree=False)
-    return fl_round
+    if tp_size == 1:
+        return fl_round
+
+    from repro_torch.launch import model_axis, sharding
+    from repro_torch.launch.mesh import model_devices
+    from repro_torch.launch.model_axis import shard_key
+    dims = sharding.placements(T.param_specs(model.cfg, model.max_seq), mesh)
+    devices = model_devices(mesh)
+
+    def fl_round_tp(params: Params, tokens, labels, weights) -> Params:
+        home = next(iter(params.values())).device
+        tp = T.TensorParallel(model, dims, devices, home)
+        start: Params = {}
+        for k, p in params.items():
+            if dims[k] is None:
+                start[k] = p
+            else:
+                for j, shard in enumerate(model_axis.split(p, dims[k], devices)):
+                    start[shard_key(k, j)] = shard
+
+        def loss_of(p, mb):
+            return T.forward_train(model, mb, p, par=tp)[0]
+        streams, n_m = split(tokens, labels, weights)
+        finals = [local_sgd(start, t, l, loss_of) for t, l in streams]
+        new = eq6(start, finals, n_m, tree=False)         # one launch a shard
+        del start, finals
+        out = {}
+        for k in params:
+            if dims[k] is None:
+                out[k] = new.pop(k)
+            else:
+                out[k] = model_axis.all_gather([new.pop(shard_key(k, j))
+                                                for j in range(len(devices))], dims[k], home)
+        return out
+    return fl_round_tp
 
 
 # --------------------------------------------------------------------------

@@ -24,7 +24,10 @@ reference's layout (conv ``(kh, kw, cin, cout)``, dense ``(din, dout)``)
 for the LoRA mapping table (``models/lora.py``).
 
 Training code calls the model functionally, ``model.apply(params, x,
-keep=...)`` with ``params`` a dict keyed like ``state_dict()``.  Dropout
+keep=...)`` with ``params`` a dict keyed like ``state_dict()``.  Each
+convolution and dense layer goes through ``layers`` (``PLAIN``: the whole
+weights); ``TensorParallel`` runs them over a model axis's shards
+(the FL engine's ``tp_rows``).  Dropout
 takes its keep-masks from the caller, one boolean mask per dropout site in
 the site's NHWC (or ``(B, features)``) shape; ``dropout_sites(batch)``
 lists each site's ``(shape, rate)``, so the draws can be injected.
@@ -37,6 +40,8 @@ from dataclasses import dataclass
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from repro_torch.launch import model_axis
 
 Params = dict[str, torch.Tensor]
 Site = tuple[tuple[int, ...], float]
@@ -67,6 +72,66 @@ def _dense_specs(name: str, din: int, dout: int, out_axis: str = "mlp") -> dict:
     return {f"{name}/w": ParamSpec((din, dout), ("embed", out_axis), (f"{name}.weight",),
                                    (1, 0)),
             f"{name}/b": ParamSpec((dout,), (out_axis,), (f"{name}.bias",))}
+
+
+class Layers:
+    """The convolution and dense layers ``apply`` calls, over the whole
+    weights ``params[f"{name}.weight"]`` / ``.bias``."""
+
+    def conv(self, params: Params, name: str, x: torch.Tensor, **kw) -> torch.Tensor:
+        return F.conv2d(x, params[f"{name}.weight"], params[f"{name}.bias"], **kw)
+
+    def linear(self, params: Params, name: str, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, params[f"{name}.weight"], params[f"{name}.bias"])
+
+
+PLAIN = Layers()
+
+
+class TensorParallel(Layers):
+    """The layers over a model axis of ``len(devices)`` positions (the
+    reference's TP rows, ``repro/core/engine.py`` §8): a layer whose weight
+    the rules split (``dims[f"{name}.weight"]`` not None: output channels
+    or features, port dimension 0, never a contraction dimension) reads
+    its shards ``params[model_axis.shard_key(f"{name}.weight", j)]`` (and
+    the bias's); position ``j`` computes its output-channel slice from the
+    whole input
+    (``to_positions``: the input gradient all-reduced in the backward) and
+    the slices are all-gathered on ``home`` (the gradient's slice back to
+    each position in the backward).  A replicated layer runs whole on
+    ``home``.  ``apply``/``dropout_sites`` make it a model for the round
+    programs: ``apply(tree, x, keep)`` is ``model.apply`` through these
+    layers."""
+
+    def __init__(self, model, dims: dict[str, int | None], devices, home):
+        self.model, self.dims = model, dims
+        self.devices = tuple(torch.device(d) for d in devices)
+        self.home = torch.device(home)
+        for k, d in dims.items():
+            if d not in (None, 0):
+                raise ValueError(f"{k}: TP rows split output channels (port dim 0), "
+                                 f"not dim {d}")
+
+    def dropout_sites(self, batch: int):
+        return self.model.dropout_sites(batch)
+
+    def apply(self, tree: Params, x: torch.Tensor, keep=None) -> torch.Tensor:
+        return self.model.apply(tree, x, keep, layers=self)
+
+    def _split(self, params, name, x, fn):
+        if self.dims.get(f"{name}.weight") is None:
+            return fn(x, params[f"{name}.weight"], params[f"{name}.bias"])
+        xs = model_axis.to_positions(x, self.devices)
+        key = model_axis.shard_key
+        ys = [fn(xj, params[key(f"{name}.weight", j)], params[key(f"{name}.bias", j)])
+              for j, xj in enumerate(xs)]
+        return model_axis.gather_from_positions(ys, 1, self.home)
+
+    def conv(self, params, name, x, **kw):
+        return self._split(params, name, x, lambda a, w, b: F.conv2d(a, w, b, **kw))
+
+    def linear(self, params, name, x):
+        return self._split(params, name, x, F.linear)
 
 
 def _shapes(h: int) -> tuple[int, int, int]:
@@ -114,23 +179,22 @@ class EmnistCNN(nn.Module):
 
     @staticmethod
     def apply(params: Params, x: torch.Tensor,
-              keep: list[torch.Tensor] | None = None) -> torch.Tensor:
+              keep: list[torch.Tensor] | None = None,
+              layers: Layers = PLAIN) -> torch.Tensor:
         """Logits of NHWC images ``x``; ``keep`` = dropout keep-masks
         (training), ``None`` = inference."""
         rates = EmnistCNN.DROPOUT_RATES
         x = x.permute(0, 3, 1, 2).contiguous()
-        x = F.relu(F.conv2d(x, params["conv1.weight"], params["conv1.bias"],
-                            stride=2))
+        x = F.relu(layers.conv(params, "conv1", x, stride=2))
         if keep is not None:
             x = _dropout(x, keep[0], rates[0])
-        x = F.relu(F.conv2d(x, params["conv2.weight"], params["conv2.bias"],
-                            stride=2))
+        x = F.relu(layers.conv(params, "conv2", x, stride=2))
         if keep is not None:
             x = _dropout(x, keep[1], rates[1])
-        x = F.relu(F.conv2d(x, params["conv3.weight"], params["conv3.bias"]))
+        x = F.relu(layers.conv(params, "conv3", x))
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
-        x = F.relu(F.linear(x, params["dense1.weight"], params["dense1.bias"]))
-        return F.linear(x, params["out.weight"], params["out.bias"])
+        x = F.relu(layers.linear(params, "dense1", x))
+        return layers.linear(params, "out", x)
 
     def forward(self, x: torch.Tensor,
                 keep: list[torch.Tensor] | None = None) -> torch.Tensor:
@@ -176,12 +240,12 @@ class CinicCNN(nn.Module):
 
     @staticmethod
     def apply(params: Params, x: torch.Tensor,
-              keep: list[torch.Tensor] | None = None) -> torch.Tensor:
+              keep: list[torch.Tensor] | None = None,
+              layers: Layers = PLAIN) -> torch.Tensor:
         """Logits of NHWC images ``x``; ``keep`` = dropout keep-masks
         (training), ``None`` = inference."""
         def conv(x, name):
-            return F.relu(F.conv2d(x, params[f"{name}.weight"],
-                                   params[f"{name}.bias"], padding=1))
+            return F.relu(layers.conv(params, name, x, padding=1))
         rates = CinicCNN.DROPOUT_RATES
         x = x.permute(0, 3, 1, 2).contiguous()
         x = F.max_pool2d(conv(conv(x, "conv1a"), "conv1b"), 2)
@@ -191,10 +255,10 @@ class CinicCNN(nn.Module):
         if keep is not None:
             x = _dropout(x, keep[1], rates[1])
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
-        x = F.relu(F.linear(x, params["dense1.weight"], params["dense1.bias"]))
+        x = F.relu(layers.linear(params, "dense1", x))
         if keep is not None:
             x = _dropout(x, keep[2], rates[2])
-        return F.linear(x, params["out.weight"], params["out.bias"])
+        return layers.linear(params, "out", x)
 
     def forward(self, x: torch.Tensor,
                 keep: list[torch.Tensor] | None = None) -> torch.Tensor:

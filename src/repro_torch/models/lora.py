@@ -231,21 +231,59 @@ def flat_layout(mapping: dict[str, LoraEntry], state: dict, backbone: dict):
                        if e.kind == "dense" and e.perm is not None})
 
 
+def merge_shards(backbone: dict[str, torch.Tensor], a_tree: dict, state: dict,
+                 mapping: dict[str, LoraEntry], dims: dict[str, int | None],
+                 t: int) -> dict[str, torch.Tensor]:
+    """``merge_params`` onto a backbone split over a model axis of ``t``
+    (``models/cnn.py::shard_key(name, j)`` for column ``j``'s shard of a
+    leaf that ``dims`` splits, the name itself for a whole leaf): each
+    entry's update is formed whole, as ``merge_params`` forms it, and its
+    slice along the leaf's split dimension added to each shard, so a
+    shard's merged weight is the same bits as the same slice of
+    ``merge_params``' weight.  The backbone is never gathered."""
+    from repro_torch.launch.model_axis import shard_key
+    out = dict(backbone)
+    for path, e in mapping.items():
+        if e.kind == "dense":
+            full = state[path]
+        else:
+            full = (e.alpha / e.rank) * torch.matmul(a_tree[path], state[path]).reshape(e.shape)
+        parts = full.unbind(0) if e.batch_shape else (full,)
+        for n, part in zip(e.names, parts):
+            part, dim = _to_port(part, e.perm), dims[n]
+            keys = [n] if dim is None else [shard_key(n, j) for j in range(t)]
+            size = part.shape[dim] // t if dim is not None else None
+            for j, key in enumerate(keys):
+                w = backbone[key]
+                piece = part if dim is None else part.narrow(dim, j * size, size)
+                piece = piece.to(w.device)
+                out[key] = piece.to(w.dtype) if e.kind == "dense" \
+                    else (w.to(torch.float32) + piece).to(w.dtype)
+    return out
+
+
 class MergedModel:
     """``model`` trained through a LoRA adapter state: ``apply(state, ...)``
     merges ``state`` into the frozen ``backbone`` with the frozen A bases
-    (``merge_params``) and applies ``model`` to the merged weights -- the
-    reference's ``dc_replace(model, apply=...merge_params...)``.  Every
-    other attribute is the model's."""
+    (``merge_params``; with ``dims`` and ``t``, into a backbone split over
+    a model axis, ``merge_shards``) and applies ``model`` to the merged
+    weights -- the reference's ``dc_replace(model, apply=...merge_params...)``.
+    Every other attribute is the model's."""
 
     def __init__(self, model, backbone: dict, a_tree: dict,
-                 mapping: dict[str, LoraEntry]):
+                 mapping: dict[str, LoraEntry], *, dims: dict | None = None,
+                 t: int = 1):
         self.model, self.backbone, self.a_tree, self.mapping = \
             model, backbone, a_tree, mapping
+        self.dims, self.t = dims, t
 
     def apply(self, state: dict, *args, **kwargs):
-        return self.model.apply(merge_params(self.backbone, self.a_tree, state,
-                                             self.mapping), *args, **kwargs)
+        if self.dims is None:
+            merged = merge_params(self.backbone, self.a_tree, state, self.mapping)
+        else:
+            merged = merge_shards(self.backbone, self.a_tree, state, self.mapping,
+                                  self.dims, self.t)
+        return self.model.apply(merged, *args, **kwargs)
 
     def __getattr__(self, name):
         if "model" not in self.__dict__:        # mid-copy: not built yet

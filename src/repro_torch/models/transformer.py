@@ -25,6 +25,13 @@ Entry points:
   ``forward_decode``   one token + cache -> logits; the cache is updated in
                        place (the reference returns a new one)
 
+``forward_train(..., par=TensorParallel(...))`` trains a dense model
+tensor-parallel over a model axis: the attention, the GLU MLP, the
+embedding and the head take their weights through a ``par`` hook
+(``Whole``, the default: the whole weights), which runs one part a
+position over its shards and joins the parts with the model axis's
+collectives (``launch/model_axis.py``); the layer bodies are the same.
+
 Every attention -- causal self-attention, the encoder's non-causal one and
 the decoder's cross-attention, in decode too -- runs through the flash
 kernel (``layers.gqa_attention``), except decode's self-attention over the
@@ -44,6 +51,7 @@ W``, after prefill as after decode, whatever the prompt length.
 """
 from __future__ import annotations
 
+import copy
 import math
 from dataclasses import dataclass, replace
 
@@ -281,6 +289,30 @@ class _Params(nn.Module):
                 torch.empty(shape, dtype=dtype, device=device), requires_grad=False))
 
 
+class Whole:
+    """How a layer reaches its weights (the ``par`` hook): here the
+    module's own, or those ``functional_call`` binds, whole.
+    ``parts(module, x)`` lists ``(input, weight getter)`` for each part of
+    the layer's work -- one here -- and ``reduce`` sums the parts' outputs;
+    ``embed`` and ``logits`` are the embedding lookup and the fp32 head."""
+
+    def parts(self, module: nn.Module, x: torch.Tensor) -> list:
+        return [(x, lambda n: getattr(module, n))]
+
+    def reduce(self, outs: list[torch.Tensor]) -> torch.Tensor:
+        return outs[0]
+
+    def embed(self, model: nn.Module, tokens: torch.Tensor) -> torch.Tensor:
+        return model.embed[tokens]
+
+    def logits(self, model: nn.Module, h: torch.Tensor) -> torch.Tensor:
+        w = model.embed.t() if model.cfg.tie_embeddings else model.lm_head
+        return (h @ w).to(torch.float32)
+
+
+WHOLE = Whole()
+
+
 def _project(x: torch.Tensor, w: torch.Tensor, heads: int, hd: int,
              bias: torch.Tensor | None = None) -> torch.Tensor:
     y = x @ w
@@ -291,50 +323,56 @@ def _project(x: torch.Tensor, w: torch.Tensor, heads: int, hd: int,
 
 class Attention(_Params):
     def forward(self, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor, *,
-                mode: str, cache: dict | None = None, causal: bool = True) -> torch.Tensor:
+                mode: str, cache: dict | None = None, causal: bool = True,
+                par: Whole = WHOLE) -> torch.Tensor:
         """Train attends over the full sequence with no cache (``causal``
         False: the audio encoder); prefill also writes the layer's K/V into
         ``cache`` (ring-buffer slots for a sliding window); decode writes
         one slot and attends over the cache.  ``positions``: ``(b, s)`` for
         train and prefill, ``(b,)`` for decode; RoPE only under ``pos ==
-        "rope"``."""
+        "rope"``.  Each of ``par``'s parts attends over the heads its
+        weights hold (all of them for ``WHOLE``); their outputs through
+        ``wo`` are summed."""
         b, s, _ = x.shape
-        hd, H, KV = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
-        bias = cfg.qkv_bias
-        q = _project(x, self.wq, H, hd, self.bq if bias else None)
-        k = _project(x, self.wk, KV, hd, self.bk if bias else None)
-        v = _project(x, self.wv, KV, hd, self.bv if bias else None)
-        if cfg.qk_norm:
-            q = L.rms_norm(q, self.q_norm, cfg.norm_eps)
-            k = L.rms_norm(k, self.k_norm, cfg.norm_eps)
+        hd, bias = cfg.resolved_head_dim, cfg.qkv_bias
         rope = cfg.pos == "rope"
         W = cfg.sliding_window
-        if mode in ("train", "prefill"):
-            if rope:
-                q = L.apply_rope(q, positions, cfg.rope_theta)
-                k = L.apply_rope(k, positions, cfg.rope_theta)
-            out = L.gqa_attention(q, k, v, causal=causal, window=W)
-            if cache is not None:
-                start = max(0, s - W) if W is not None else 0
-                slots = torch.arange(start, s, device=x.device)
-                if W is not None:
-                    slots = slots % W
-                cache["k"][:, slots] = k[:, start:].to(cache["k"].dtype)
-                cache["v"][:, slots] = v[:, start:].to(cache["v"].dtype)
-        elif mode == "decode":
-            pos = positions.reshape(b)
-            if rope:
-                q = L.apply_rope(q, pos[:, None], cfg.rope_theta)
-                k = L.apply_rope(k, pos[:, None], cfg.rope_theta)
-            slot = pos % W if W is not None else pos
-            rows = torch.arange(b, device=x.device)
-            cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
-            cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
-            cache_len = torch.clamp(pos + 1, max=cache["k"].shape[1])
-            out = L.decode_attention(q, cache["k"], cache["v"], cache_len)
-        else:
-            raise ValueError(mode)
-        return out.reshape(b, s, H * hd) @ self.wo
+        outs = []
+        for xp, w in par.parts(self, x):
+            q = _project(xp, w("wq"), -1, hd, w("bq") if bias else None)
+            k = _project(xp, w("wk"), -1, hd, w("bk") if bias else None)
+            v = _project(xp, w("wv"), -1, hd, w("bv") if bias else None)
+            if cfg.qk_norm:
+                q = L.rms_norm(q, w("q_norm"), cfg.norm_eps)
+                k = L.rms_norm(k, w("k_norm"), cfg.norm_eps)
+            if mode in ("train", "prefill"):
+                if rope:
+                    pos = positions.to(xp.device)
+                    q = L.apply_rope(q, pos, cfg.rope_theta)
+                    k = L.apply_rope(k, pos, cfg.rope_theta)
+                out = L.gqa_attention(q, k, v, causal=causal, window=W)
+                if cache is not None:
+                    start = max(0, s - W) if W is not None else 0
+                    slots = torch.arange(start, s, device=x.device)
+                    if W is not None:
+                        slots = slots % W
+                    cache["k"][:, slots] = k[:, start:].to(cache["k"].dtype)
+                    cache["v"][:, slots] = v[:, start:].to(cache["v"].dtype)
+            elif mode == "decode":
+                pos = positions.reshape(b)
+                if rope:
+                    q = L.apply_rope(q, pos[:, None], cfg.rope_theta)
+                    k = L.apply_rope(k, pos[:, None], cfg.rope_theta)
+                slot = pos % W if W is not None else pos
+                rows = torch.arange(b, device=x.device)
+                cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
+                cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
+                cache_len = torch.clamp(pos + 1, max=cache["k"].shape[1])
+                out = L.decode_attention(q, cache["k"], cache["v"], cache_len)
+            else:
+                raise ValueError(mode)
+            outs.append(out.reshape(b, s, -1) @ w("wo"))
+        return par.reduce(outs)
 
 
 class CrossAttention(_Params):
@@ -385,11 +423,13 @@ class SSMBlock(_Params):
 
 
 class MLP(_Params):
-    def forward(self, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-        """The GLU MLP, or under LayerNorm Whisper's biased GELU MLP."""
+    def forward(self, cfg: ArchConfig, x: torch.Tensor, par: Whole = WHOLE) -> torch.Tensor:
+        """The GLU MLP (``par``'s parts each over its slice of ``d_ff``,
+        summed), or under LayerNorm Whisper's biased GELU MLP."""
         if cfg.norm == "ln":
             return L.mlp(x, self.w_in, self.b_in, self.w_out, self.b_out)
-        return L.glu_mlp(x, self.w_gate, self.w_up, self.w_down, cfg.activation)
+        return par.reduce([L.glu_mlp(xp, w("w_gate"), w("w_up"), w("w_down"), cfg.activation)
+                           for xp, w in par.parts(self, x)])
 
 
 class MoE(_Params):
@@ -439,16 +479,16 @@ class DecoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, *, mode: str,
                 cache: dict | None, enc_out: torch.Tensor | None = None,
-                causal: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+                causal: bool = True, par: Whole = WHOLE) -> tuple[torch.Tensor, torch.Tensor]:
         """``(x, aux)``: the layer's output and its MoE load-balance term
-        (0 without experts)."""
+        (0 without experts); the norms and residuals whole."""
         cfg, cache = self.cfg, cache or {}
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         h = _norm(cfg, x, self, "norm1")
         if cfg.arch_type == "ssm":
             return x + self.ssm(cfg, h, mode=mode, cache=cache.get("ssm")), aux
         a_out = self.attn(cfg, h, positions, mode=mode, cache=cache.get("attn"),
-                          causal=causal)
+                          causal=causal, par=par)
         if cfg.arch_type == "hybrid":
             s_out = self.ssm(cfg, h, mode=mode, cache=cache.get("ssm"))
             ga = 0.5 * (1.0 + self.mix_attn.to(torch.float32))
@@ -463,7 +503,7 @@ class DecoderLayer(nn.Module):
         if cfg.is_moe:
             out, aux = self.moe(cfg, h)
         else:
-            out = self.mlp(cfg, h)
+            out = self.mlp(cfg, h, par)
         return x + out, aux
 
 
@@ -494,7 +534,8 @@ class Transformer(nn.Module):
                                     for _ in range(cfg.n_layers))
 
     def forward(self, tokens: torch.Tensor, vision_embeds: torch.Tensor | None = None,
-                enc_feats: torch.Tensor | None = None, *, with_aux: bool = False):
+                enc_feats: torch.Tensor | None = None, *, with_aux: bool = False,
+                par: Whole = WHOLE):
         """Train mode: ``tokens (b, s)`` -> fp32 logits ``(b, s, vocab)`` of
         every text position, no cache (``_embed_inputs``, the layer stack,
         then ``_lm_head``; a VLM's vision span is left out, as the
@@ -503,14 +544,16 @@ class Transformer(nn.Module):
         left out is the one given: ``vision_embeds.shape[1]`` positions,
         ``cfg.vision_tokens`` or fewer (``configs.token_split`` gives a
         sequence shorter than twice the vision tokens half of it; the
-        reference slices ``cfg.vision_tokens`` there and keeps no text)."""
+        reference slices ``cfg.vision_tokens`` there and keeps no text).
+        ``par``: how the layers reach their weights (``Whole``)."""
         cfg = self.cfg
         enc_out = _run_encoder(self, enc_feats) if cfg.arch_type == "audio" else None
-        h, positions = _embed_inputs(self, tokens, vision_embeds)
-        h, aux = _run_layers(self, h, positions, mode="train", cache=None, enc_out=enc_out)
+        h, positions = _embed_inputs(self, tokens, vision_embeds, par)
+        h, aux = _run_layers(self, h, positions, mode="train", cache=None, enc_out=enc_out,
+                             par=par)
         if cfg.arch_type == "vlm":
             h = h[:, vision_embeds.shape[1]:]
-        logits = _lm_head(self, h)
+        logits = _lm_head(self, h, par)
         return (logits, aux) if with_aux else logits
 
 
@@ -572,22 +615,23 @@ def _check_positions(model: Transformer, last: int) -> None:
                          f"learned positions (max_seq)")
 
 
-def _embed_tokens(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+def _embed_tokens(model: Transformer, tokens: torch.Tensor, par: Whole = WHOLE
+                  ) -> torch.Tensor:
     cfg = model.cfg
-    h = model.embed[tokens].to(cfg.torch_dtype())
+    h = par.embed(model, tokens).to(cfg.torch_dtype())
     if cfg.embed_scale:
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype)
     return h
 
 
 def _embed_inputs(model: Transformer, tokens: torch.Tensor,
-                  vision_embeds: torch.Tensor | None = None
+                  vision_embeds: torch.Tensor | None = None, par: Whole = WHOLE
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Token embeddings, a VLM's vision embeddings prepended, learned
     positions added (``transformer.py::_embed_inputs``) -> ``(h,
     positions (b, s))``."""
     cfg = model.cfg
-    h = _embed_tokens(model, tokens)
+    h = _embed_tokens(model, tokens, par)
     if cfg.arch_type == "vlm":
         if vision_embeds is None:
             raise ValueError(f"{cfg.name} takes vision_embeds (b, vision tokens, d)")
@@ -643,21 +687,18 @@ def _call_layer(cfg, layer, h, positions, **kw):
 
 
 def _run_layers(model: Transformer, h: torch.Tensor, positions: torch.Tensor, *,
-                mode: str, cache: dict | None, enc_out: torch.Tensor | None
-                ) -> tuple[torch.Tensor, torch.Tensor]:
+                mode: str, cache: dict | None, enc_out: torch.Tensor | None,
+                par: Whole = WHOLE) -> tuple[torch.Tensor, torch.Tensor]:
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, layer in enumerate(model.layers):
         h, a = _call_layer(model.cfg, layer, h, positions, mode=mode,
-                           cache=_layer_cache(cache, i), enc_out=enc_out)
+                           cache=_layer_cache(cache, i), enc_out=enc_out, par=par)
         aux = aux + a
     return h, aux
 
 
-def _lm_head(model: Transformer, h: torch.Tensor) -> torch.Tensor:
-    cfg = model.cfg
-    h = _norm(cfg, h, model, "final_norm")
-    w = model.embed.t() if cfg.tie_embeddings else model.lm_head
-    return (h @ w).to(torch.float32)
+def _lm_head(model: Transformer, h: torch.Tensor, par: Whole = WHOLE) -> torch.Tensor:
+    return par.logits(model, _norm(model.cfg, h, model, "final_norm"))
 
 
 def train_params(model: Transformer) -> dict[str, torch.Tensor]:
@@ -668,8 +709,8 @@ def train_params(model: Transformer) -> dict[str, torch.Tensor]:
 
 
 def forward_train(model: Transformer, batch: dict,
-                  params: dict[str, torch.Tensor] | None = None
-                  ) -> tuple[torch.Tensor, dict]:
+                  params: dict[str, torch.Tensor] | None = None,
+                  par: TensorParallel | None = None) -> tuple[torch.Tensor, dict]:
     """Causal-LM loss: the mean next-token NLL of ``batch["labels"]`` under
     the fp32 logits of ``batch["tokens"]`` (both ``(b, s)``; a VLM's
     ``vision_embeds`` and an audio model's ``enc_feats`` from the batch
@@ -677,13 +718,16 @@ def forward_train(model: Transformer, batch: dict,
     tensors, e.g. ones that require grad, or LoRA-merged weights) stand in
     for the model's own through ``torch.func.functional_call``.  Returns
     ``(loss, {"loss", "aux"})``, ``aux`` the MoE load-balance terms summed
-    over the layers (0 without experts)."""
+    over the layers (0 without experts).  With ``par`` (a dense model over
+    a model axis) ``params`` is a tree of shards (``TensorParallel``)."""
     args = (batch["tokens"], batch.get("vision_embeds"), batch.get("enc_feats"))
     kw = {"with_aux": True}
+    if par is not None:
+        params, kw["par"] = par.bind(params)
     logits, aux = model(*args, **kw) if params is None else \
         torch.func.functional_call(model, params, args, kw)
     loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                           batch["labels"].reshape(-1).long())
+                           batch["labels"].reshape(-1).long().to(logits.device))
     if model.cfg.is_moe:
         loss = loss + 0.01 * aux
     return loss, {"loss": loss, "aux": aux}
@@ -736,3 +780,142 @@ def forward_decode(model: Transformer, batch: dict, cache: dict
         else None
     h, _ = _run_layers(model, h, positions, mode="decode", cache=cache, enc_out=enc_out)
     return _lm_head(model, h), cache
+
+
+# ==========================================================================
+# Tensor parallelism over a model axis (training)
+# ==========================================================================
+
+# the families a tensor-parallel round covers; the others wait for their
+# own slice of the port
+TP_FAMILIES = ("dense",)
+TP_REFUSED = ("tensor parallelism over a model axis covers the dense attention "
+              "families with GLU MLPs (qwen3-4b, h2o-danube-1.8b, gemma-2b); MoE, "
+              "SSM, audio and VLM layers are ROADMAP.md Queue 1's 'TP for MoE, SSM, "
+              "audio and VLM'")
+
+
+def check_tp_family(cfg: ArchConfig) -> None:
+    """Raise for a config the tensor-parallel forward does not cover."""
+    if cfg.arch_type not in TP_FAMILIES or cfg.is_moe or cfg.norm == "ln":
+        raise ValueError(f"{cfg.name} ({cfg.arch_type}): {TP_REFUSED}")
+
+
+class TensorParallel(Whole):
+    """The ``par`` hook over a model axis of ``t = len(devices)`` positions
+    (Megatron's layout): ``dims[name]`` the dimension a weight splits
+    along (None: whole on every position;
+    ``launch/sharding.py::placements``), ``home`` the device of the whole
+    activations.  ``bind(tree)`` reads a tree holding
+    ``model_axis.shard_key(name, j)`` for position ``j``'s shard of a split
+    weight and ``name`` for a whole one.  Position ``j`` gets the layer's
+    input (``to_positions``: the input gradient all-reduced backward) and
+    computes with its shards: ``wq``/``wk``/``wv`` by heads and KV heads
+    (where the KV heads do not split, the KV weights gathered whole and
+    narrowed to the heads its query groups read), ``w_gate``/``w_up`` by
+    ``d_ff``; ``wo``/``w_down`` are row-parallel and the parts all-reduced
+    (``reduce``).  The vocabulary-split embedding is all-reduced; the
+    vocabulary-split head's logits are gathered whole on ``home``."""
+
+    def __init__(self, model: Transformer, dims: dict, devices, home):
+        check_tp_family(model.cfg)
+        self.cfg, self.dims, self.tree = model.cfg, dims, None
+        self.devices = tuple(torch.device(d) for d in devices)
+        self.home = torch.device(home)
+        self._paths = {m: n for n, m in model.named_modules()}
+
+    @property
+    def t(self) -> int:
+        return len(self.devices)
+
+    def bind(self, tree: dict) -> tuple[dict, TensorParallel]:
+        """``(the whole weights to bind by name, this hook reading tree)``."""
+        out = copy.copy(self)
+        out.tree = tree
+        return {k: v for k, v in tree.items() if k in self.dims and self.dims[k] is None}, out
+
+    def _part(self, module: nn.Module, name: str, j: int) -> torch.Tensor:
+        from repro_torch.launch.model_axis import shard_key
+        path = f"{self._paths[module]}.{name}" if self._paths[module] else name
+        if self.dims[path] is None:
+            return getattr(module, name).to(self.devices[j])
+        return self.tree[shard_key(path, j)]
+
+    def _kv_narrow(self, module: nn.Module, j: int):
+        """Where the KV heads do not split over the positions (MQA's one
+        head, say), position ``j``'s getter of a KV weight: whole
+        (gathered), narrowed to the KV heads its query heads read (query
+        head ``h`` reads KV head ``h // (H / KV)``)."""
+        from repro_torch.launch import model_axis
+        from repro_torch.launch.model_axis import shard_key
+        cfg, t, path = self.cfg, self.t, self._paths[module]
+        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        if H % t or self.dims[f"{path}.wq"] is None:
+            raise ValueError(f"{cfg.name}: {H} query heads do not split over {t} positions")
+        hj, g = H // t, H // KV
+        if KV % t == 0 and self.dims[f"{path}.wk"] is not None:
+            return None
+        if hj % g and g % hj:
+            raise ValueError(f"{cfg.name}: {hj} query heads a position do not line up "
+                             f"with GQA groups of {g}")
+        first, last = j * hj // g, ((j + 1) * hj - 1) // g + 1
+
+        def whole(name):
+            key = f"{path}.{name}"
+            if self.dims[key] is None:
+                w = getattr(module, name).to(self.devices[j])
+            else:
+                w = model_axis.gather_from_positions(
+                    [self.tree[shard_key(key, i)] for i in range(t)], -1, self.devices[j])
+            return w.narrow(-1, first * hd, (last - first) * hd)
+        return whole
+
+    def parts(self, module: nn.Module, x: torch.Tensor) -> list:
+        from repro_torch.launch import model_axis
+        path = self._paths[module]
+        lead = "wq" if isinstance(module, Attention) else "w_gate"
+        if self.dims[f"{path}.{lead}"] is None:
+            return super().parts(module, x)
+        out = []
+        for j, xj in enumerate(model_axis.to_positions(x, self.devices)):
+            kv = self._kv_narrow(module, j) if lead == "wq" else None
+
+            def get(n, j=j, kv=kv):
+                if kv is not None and n in ("wk", "wv", "bk", "bv"):
+                    return kv(n)
+                return self._part(module, n, j)
+            out.append((xj, get))
+        return out
+
+    def reduce(self, outs: list[torch.Tensor]) -> torch.Tensor:
+        from repro_torch.launch import model_axis
+        return outs[0] if len(outs) == 1 else \
+            model_axis.reduce_from_positions(outs, self.home)
+
+    def embed(self, model: nn.Module, tokens: torch.Tensor) -> torch.Tensor:
+        """Each position looks up the tokens in its rows (zero elsewhere);
+        the positions' rows all-reduced, so each row arrives exactly."""
+        if self.dims["embed"] is None:
+            return super().embed(model, tokens)
+        parts = []
+        for j, dev in enumerate(self.devices):
+            w = self._part(model, "embed", j)
+            rows = w.shape[0]
+            local = tokens.to(dev) - j * rows
+            inside = (local >= 0) & (local < rows)
+            got = w[local.clamp(0, rows - 1)]
+            parts.append(torch.where(inside[..., None], got,
+                                     torch.zeros((), dtype=got.dtype, device=dev)))
+        return self.reduce(parts)
+
+    def logits(self, model: nn.Module, h: torch.Tensor) -> torch.Tensor:
+        from repro_torch.launch import model_axis
+        tied = self.cfg.tie_embeddings
+        name = "embed" if tied else "lm_head"
+        if self.dims[name] is None:
+            return super().logits(model, h)
+        parts = []
+        for j, x in enumerate(model_axis.to_positions(h, self.devices)):
+            w = self._part(model, name, j)
+            parts.append((x @ (w.t() if tied else w)).to(torch.float32))
+        return model_axis.gather_from_positions(parts, -1, self.home)

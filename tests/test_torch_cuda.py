@@ -1704,3 +1704,216 @@ def test_card_step_count_equals_meta_count(dev, arch, b, s):
     assert card.kernels == meta.kernels
     assert card.flops == meta.flops
     assert torch.isfinite(card.result[2])
+
+
+# ---------------------------------------------------------------- the model axis
+
+def _model_axis_mesh(dev, mediator=2, model=2):
+    from repro_torch.launch.mesh import make_fl_mesh
+    return make_fl_mesh(mediator=mediator, model=model, devices=(dev,) * (mediator * model))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["replicated", "sharded", "host", "lora", "async"])
+def test_model_axis_2x2_vmap_bitwise_4x1_on_card(dev, deterministic_convolutions, case):
+    """Under the gather oracle the 2 x 2 mesh of four logical positions on
+    the card is the 4 x 1 mesh bit for bit at the EMNIST width under
+    "vmap" (one capture each), two rounds with a reschedule each, for the
+    replicated, sharded and host stores, with LoRA adapters (rank 2) and
+    async S=0 (a wave per mediator, masked); the split leaves' bytes a
+    position halve, the WAN ledger is equal and only the 2 x 2 run charges
+    the model axis."""
+    from repro_torch.core import AsyncSpec, StragglerSpec
+    kw = {"store": case} if case in ("replicated", "sharded", "host") else {}
+    if case == "lora":
+        kw["lora_rank"] = 2
+    if case == "async":
+        kw["async_spec"] = AsyncSpec(staleness_bound=0, wave_size=1, dispatch="masked",
+                                     straggler=StragglerSpec(model="fixed", seed=0))
+    runs = {}
+    for name, mesh in (("2x2", _model_axis_mesh(dev)), ("4x1", _model_axis_mesh(dev, 4, 1))):
+        tr = _emnist_full_trainer(dev, "vmap", mesh=mesh, tp_rows=False,
+                                  reschedule_every_round=True, **kw)
+        tr.run_round()
+        tr.run_round()
+        if tr.runner is not tr.engine:
+            tr.runner.flush()
+        torch.cuda.synchronize()
+        assert tr.engine.num_round_traces == 1 and tr.engine._program.graph is not None
+        runs[name] = tr
+    a, b = runs["2x2"].engine, runs["4x1"].engine
+    for k in b.params:
+        assert torch.equal(a.params[k], b.params[k]), k
+    for k in (b.adapters or {}):
+        assert torch.equal(a.adapters[k], b.adapters[k]), k
+    for k, dim in a._dims.items():
+        want = b.params[k].nbytes // (2 if dim is not None else 1)
+        assert a._shards.positions[0][k].nbytes == want, k
+    assert a.comm.round_log == b.comm.round_log
+    assert a.comm.model_axis_tp_bytes > 0 == b.comm.model_axis_tp_bytes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row_exec", ["vmap", "map"])
+def test_model_axis_tp_rows_match_oracle_on_card(dev, deterministic_convolutions, row_exec):
+    """``tp_rows="auto"`` is TP rows on the card; at the reference's own
+    config (``tests/test_tp_rows.py``: the tiny federation, 12 clients, 8
+    classes, 16 px, c=6, gamma=3, B=10, E=1) their params after two rounds
+    are the gather oracle's within the reference's bound (rtol 1e-5, atol
+    1e-6), one capture under "vmap".  (At the EMNIST arm's width a few
+    small elements of ``dense1.weight`` fall outside that elementwise
+    bound: ``chip_smoke.py`` phase 15 (a) holds TP rows there to 1e-5 of
+    the update in L2.)"""
+    from repro_torch.core import EngineConfig, FLRoundEngine, LocalSpec
+    from repro_torch.data.federated import EMNIST_LIKE, partition
+    from repro_torch.models.cnn import emnist_cnn
+    from repro_torch.optim import adam
+    fed = partition(dataclasses.replace(EMNIST_LIKE, num_classes=8, image_size=16),
+                    num_clients=12, total_samples=600, test_samples=160, sizes="instagram",
+                    global_dist="letterfreq", local="random", seed=0)
+    runs = {}
+    for mode in ("auto", False):
+        cfg = EngineConfig.astraea(clients_per_round=6, gamma=3, local=LocalSpec(10, 1),
+                                   seed=0, pad_mediators_to=2, row_exec=row_exec,
+                                   tp_rows=mode)
+        e = FLRoundEngine(emnist_cnn(8, 16), adam(1e-3), fed, cfg,
+                          mesh=_model_axis_mesh(dev), device=dev)
+        e.run_round()
+        e.run_round()
+        torch.cuda.synchronize()
+        runs[mode] = e
+    tp, oracle = runs["auto"], runs[False]
+    assert tp._tp_rows is True and oracle._tp_rows is False
+    assert tp.num_round_traces == (1 if row_exec == "vmap" else 0)
+    for k in oracle.params:
+        torch.testing.assert_close(tp.params[k], oracle.params[k], rtol=1e-5, atol=1e-6,
+                                   msg=k)
+
+
+# the qwen3-4b-shaped TP layer's gradients against the whole layer's, in L2
+# over all its weights: bf16 sums reordered at 2,560 and 9,728 wide read
+# 3.382e-3 on an H100 (700 W); a zero gradient reads 1, a negated one 2
+TP_LAYER_GRAD_BOUND = 2 ** -6
+
+
+@pytest.mark.cuda
+def test_model_axis_qwen3_tp_layer_flash_on_card(dev):
+    """A qwen3-4b-shaped decoder layer (d 2,560, 32:8 heads at 128, d_ff
+    9,728; bf16) tensor-parallel over two logical positions against the
+    whole layer at 1 x 128: each position's flash runs at 16:4 heads
+    (forward and backward, one launch each a position), held against the
+    plain versions (bf16: 2^-7 of the largest magnitude); the layer's
+    output within 2^-6 of its scale, and its gradients in every weight,
+    the shards put together, within ``TP_LAYER_GRAD_BOUND`` of the whole
+    layer's in L2 over all of them (a zero gradient reads 1, a negated one
+    2)."""
+    from repro_torch.launch import model_axis, sharding
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_fl_mesh
+    cfg = dataclasses.replace(configs.get("qwen3-4b"), n_layers=1, vocab=512, remat=False)
+    model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    params = T.train_params(model)
+    mesh = make_fl_mesh(mediator=1, model=2, devices=(dev, dev))
+    dims = sharding.placements(T.param_specs(cfg), mesh)
+    tp = T.TensorParallel(model, dims, (dev, dev), dev)
+    tree = {}
+    for k, p in params.items():
+        if dims[k] is None:
+            tree[k] = p
+        else:
+            for j, s in enumerate(model_axis.split(p, dims[k], (dev, dev))):
+                tree[f"{k}@{j}"] = s
+    g = torch.Generator(device=dev).manual_seed(1)
+    h = torch.randn(1, 128, cfg.d_model, generator=g, device=dev).to(torch.bfloat16)
+    pos = torch.arange(128, device=dev)[None]
+    layer, pre = model.layers[0], "layers.0."
+
+    def tp_layer(t):
+        whole, par = tp.bind(t)
+        bound = {k[len(pre):]: v for k, v in whole.items() if k.startswith(pre)}
+        return torch.func.functional_call(layer, bound, (h, pos),
+                                          {"mode": "train", "cache": None, "par": par})[0]
+
+    def whole_layer(p):
+        bound = {k[len(pre):]: v for k, v in p.items() if k.startswith(pre)}
+        return torch.func.functional_call(layer, bound, (h, pos),
+                                          {"mode": "train", "cache": None})[0]
+
+    seen = []
+    flash, flash_bwd = ops.flash_attention, ops.flash_attention_bwd
+
+    def rec(q, k, v, **kw):
+        seen.append(("fwd", tuple(q.shape), tuple(k.shape)))
+        return flash(q, k, v, **kw)
+
+    def rec_bwd(q, k, v, out, dout, **kw):
+        seen.append(("bwd", tuple(q.shape), tuple(k.shape)))
+        return flash_bwd(q, k, v, out, dout, **kw)
+
+    ops.flash_attention, ops.flash_attention_bwd = rec, rec_bwd
+    try:
+        ops.reset_launches()
+        loss, grads = S._loss_and_grads(lambda t: tp_layer(t).float().square().mean(), tree)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+    finally:
+        ops.flash_attention, ops.flash_attention_bwd = flash, flash_bwd
+    with torch.no_grad():
+        whole = model.layers[0](h, pos, mode="train", cache=None)[0]
+        got = tp_layer(tree)
+    _, want_grads = S._loss_and_grads(lambda p: whole_layer(p).float().square().mean(),
+                                      {k: v for k, v in params.items() if k.startswith(pre)})
+    assert launches["flash_attention"] == launches["flash_attention_bwd"] == 2
+    assert sorted(set(seen)) == [("bwd", (1, 128, 16, 128), (1, 128, 4, 128)),
+                                 ("fwd", (1, 128, 16, 128), (1, 128, 4, 128))]
+    scale = float(whole.float().abs().max())
+    assert float((got.float() - whole.float()).abs().max()) <= 2 ** -6 * scale
+    q = torch.randn(1, 128, 16, 128, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(1, 128, 4, 128, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(1, 128, 4, 128, generator=g, device=dev).to(torch.bfloat16)
+    dout = torch.randn(1, 128, 16, 128, generator=g, device=dev).to(torch.bfloat16)
+    out = ops.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention(q.float(), k.float(), v.float(), causal=True)
+    assert float((out.float() - want).abs().max()) <= 2 ** -7 * float(want.abs().max())
+    got_g = ops.flash_attention_bwd(q, k, v, out, dout, causal=True)
+    want_g = ref.flash_attention_bwd(q.float(), k.float(), v.float(), want, dout.float(),
+                                     causal=True)
+    for a, b in zip(got_g, want_g):
+        assert float((a.float() - b).abs().max()) <= 2 ** -7 * float(b.abs().max())
+    assert all(torch.isfinite(x).all() for x in grads.values())
+    err = norm = 0.0
+    for k, want_g in want_grads.items():
+        d = dims[k]
+        got_g = grads[k] if d is None else torch.cat([grads[f"{k}@{j}"] for j in range(2)], d)
+        err += float((got_g.float() - want_g.float()).square().sum())
+        norm += float(want_g.float().square().sum())
+    rel = (err / norm) ** 0.5
+    print(f"TP layer gradients: {rel:.3e} of the whole layer's in L2")
+    assert rel <= TP_LAYER_GRAD_BOUND
+
+
+@pytest.mark.cuda
+def test_model_axis_two_cards_bitwise_logical(dev, deterministic_convolutions):
+    """Positions on ``cuda:0`` and ``cuda:1`` (a 1 x 2 mesh): the
+    collectives move exact bytes across the cards (peer copies), and the
+    gather oracle's and the TP rows' rounds (``"map"``: one CUDA graph
+    cannot span two cards) equal the same runs on two logical positions of
+    ``cuda:0`` bit for bit."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    from repro_torch.launch import model_axis
+    from repro_torch.launch.mesh import make_fl_mesh
+    d0, d1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    x = torch.randn(6, 8, device=d0)
+    shards = model_axis.split(x, 1, (d0, d1))
+    assert shards[1].device == d1 and torch.equal(model_axis.all_gather(shards, 1, d0), x)
+    assert torch.equal(model_axis.all_reduce([x, x.to(d1)], d0), x + x)
+    for mode in (False, True):
+        outs = []
+        for devices in ((d0, d1), (d0, d0)):
+            tr = _emnist_full_trainer(d0, "map", tp_rows=mode,
+                                      mesh=make_fl_mesh(mediator=1, model=2, devices=devices))
+            tr.run_round()
+            outs.append(tr.engine.params)
+        for k in outs[0]:
+            assert torch.equal(outs[0][k], outs[1][k]), (mode, k)

@@ -117,7 +117,50 @@ def test_fl_train_coordinator_two_processes(capsys):
 
 
 def test_fl_train_refuses_the_model_axis():
-    """``--model-parallel`` above 1 is the model axis, not ported: refused
-    by name before anything runs."""
-    with pytest.raises(SystemExit, match="model axis"):
-        fl_train.main(["--device", "cpu", "--model-parallel", "2"])
+    """``--model-parallel`` above 1 runs the round on a model axis for the
+    dense families (tests/test_torch_tp_round.py); for a family its
+    tensor-parallel forward does not cover (MoE here) the model axis is
+    refused by name, and a size below 1 before anything runs."""
+    with pytest.raises(ValueError, match="TP for MoE, SSM, audio and VLM"):
+        fl_train.main(["--device", "cpu", "--model-parallel", "2", "--rounds", "1",
+                       "--arch", "granite-moe-3b-a800m"])
+    with pytest.raises(SystemExit, match="model-parallel"):
+        fl_train.main(["--device", "cpu", "--model-parallel", "0"])
+
+
+def test_waves_on_process_local_model_axis_equal_one(tmp_path):
+    """``distributed_waves --model-parallel 2``: after the usual pair of
+    rounds each child runs the workload again on its
+    ``process_local_mesh(model=2)`` (two model positions on its device,
+    the gather oracle on the CPU, TP rows with ``tp_rows=True``) through a
+    second dispatcher namespace; both passes are bit for bit this
+    process's runs of the same, and the model-axis pass the 1-D pass."""
+    from repro_torch.launch.mesh import process_local_mesh
+    store = torch.distributed.TCPStore("127.0.0.1", 0, None, is_master=True,
+                                       wait_for_workers=False,
+                                       timeout=timedelta(seconds=CHILD_TIMEOUT_S))
+    outs = _children(
+        [["-m", "repro_torch.examples.distributed_waves", "--device", "cpu",
+          "--coordinator", f"127.0.0.1:{store.port}", "--num-processes", "2",
+          "--process-id", str(i), "--model-parallel", "2",
+          "--out", str(tmp_path / f"r{i}.npz")] for i in range(2)],
+        {"TORCHELASTIC_USE_AGENT_STORE": "True"})
+    solo = DW.summary(DW.run_waves("tiny", "cpu"))
+    solo2 = DW.summary(DW.run_waves("tiny", "cpu", mesh=process_local_mesh(2, device="cpu")))
+    names = sorted(solo["params"])
+    for j, k in enumerate(names):
+        assert np.array_equal(solo2["params"][k], solo["params"][k]), k
+    for i, out in enumerate(outs):
+        with np.load(tmp_path / f"r{i}.npz") as z:
+            report = json.loads(str(z["report"]))
+            assert report["failures"] == [], out
+            run = report["model_axis_run"]
+            assert run["model_axis"] == 2 and run["tp_rows"] is False
+            assert run["num_published"] > 0 and run["num_received"] > 0
+            for prefix, want in (("", solo), ("model_", solo2)):
+                assert list(z[f"{prefix}names"]) == names
+                for j, k in enumerate(names):
+                    assert np.array_equal(z[f"{prefix}p_{j}"], want["params"][k]), (prefix, k)
+                keys = sorted(want["ledger"])
+                assert np.array_equal(z[f"{prefix}ledger"], [want["ledger"][k] for k in keys])
+                assert json.loads(str(z[f"{prefix}commit_log"])) == want["commit_log"]

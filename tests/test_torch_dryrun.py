@@ -250,8 +250,9 @@ def test_quickstart_twin_wan_is_the_closed_form(capsys):
     assert [h["traffic_mb"] for h in out["astraea"]] == astraea
     assert all(np.isfinite(h["accuracy"]) for h in out["fedavg"] + out["astraea"])
     assert "WAN traffic after 2 rounds" in capsys.readouterr().out
+    assert out["store_stats"]["model_axis"] == 1 and out["intra_pod_bytes"] == 0
     with pytest.raises(SystemExit):
-        quickstart.main(["--model-parallel", "2"])
+        quickstart.main(["--model-parallel", "0"])
 
 
 def test_finish_releases_the_unclipped_gradients():

@@ -166,7 +166,8 @@ def test_meshes_and_helpers_match_reference():
         assert PMesh.ring_permutation(n, s) == RMesh.ring_permutation(n, s)
     with pytest.raises(ValueError):
         PMesh.ring_permutation(4, 0)
-    assert PMesh.make_fl_mesh(mediator=4).shape == {"mediator": 4, "model": 1}
+    cpu4 = (torch.device("cpu"),) * 4
+    assert PMesh.make_fl_mesh(mediator=4, devices=cpu4).shape == {"mediator": 4, "model": 1}
     assert PS.model_only_rules() == RS.model_only_rules()
     assert PS.TRAIN_RULES == RS.TRAIN_RULES and PS.INFER_RULES == RS.INFER_RULES
 
@@ -177,7 +178,9 @@ def test_meshes_and_helpers_match_reference():
     lambda: PMesh.default_fl_mesh(2),
 ])
 def test_distributed_runtime_is_refused_by_name(call):
-    """The model axis of the distributed runtime is refused by name (the
-    mediator axis, its processes included, runs: test_torch_distributed)."""
-    with pytest.raises(NotImplementedError, match="model axis"):
+    """Model-axis meshes without devices on a host without cards are
+    refused by name: their positions take visible cards, one each, and
+    logical positions must be spelled out (the model axis itself runs:
+    tests/test_torch_model_mesh.py)."""
+    with pytest.raises((ValueError, RuntimeError), match="card|CUDA device"):
         call()

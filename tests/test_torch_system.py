@@ -164,18 +164,43 @@ def test_paper_claims_hold_where_the_reference_meets_them(runs):
     assert all(sides["port"][c] for c in met), sides
 
 
+def _clear_targets(ref, targets):
+    """The targets whose crossing on the reference history ``ref`` clears
+    them by more than ``ACC_BAND`` on both sides: the first evaluation at
+    or above the target lies above it by more than the band, every earlier
+    one below it by more.  A port history within the band of ``ref`` at
+    every evaluation crosses each such target at the same evaluation."""
+    accs = [h["accuracy"] for h in ref]
+    out = []
+    for t in targets:
+        first = next((i for i, a in enumerate(accs) if a >= t), None)
+        if first is not None and accs[first] - t > ACC_BAND and \
+                all(a < t - ACC_BAND for a in accs[:first]):
+            out.append(t)
+    return out
+
+
 def test_traffic_to_reach_matches_reference(runs):
     """Table III's metric: the WAN MiB at the first evaluation reaching a
-    target, on both histories, at FedAvg's best accuracy and at an
-    unreached one."""
+    target.  At FedAvg's best accuracy (the reference's own crossing) the
+    port's ``traffic_to_reach`` is the reference function's, and an
+    unreached target is None.  On the port's histories it is held at the
+    targets whose reference crossing clears them by more than ``ACC_BAND``
+    (``_clear_targets``, over a 0.01 grid and FedAvg's best): the same
+    evaluation and the same WAN MiB exactly.  At a target the reference
+    crosses by less than the band the port's crossing may fall on another
+    evaluation: the CPU's instruction set alone moves the port's FedAvg by
+    3 of the 600 test samples there (ROADMAP.md, Queue 3)."""
     target = _best(runs["fedavg"]["ref_history"])["accuracy"]
+    grid = [round(0.01 * i, 2) for i in range(1, 100)] + [target]
     for name in ("fedavg", "astraea"):
         port, ref = runs[name]["port"].history, runs[name]["ref_history"]
         assert traffic_to_reach(ref, target) == ref_traffic_to_reach(ref, target)
-        assert traffic_to_reach(ref, 2.0) is None
-        got = traffic_to_reach(port, target)
-        assert got is not None and got in [h["traffic_mb"] for h in ref]
-    ast = traffic_to_reach(runs["astraea"]["port"].history, target)
-    fed = traffic_to_reach(runs["fedavg"]["port"].history, target)
-    assert ast == traffic_to_reach(runs["astraea"]["ref_history"], target)
-    assert fed == traffic_to_reach(runs["fedavg"]["ref_history"], target)
+        assert traffic_to_reach(ref, 2.0) is None and traffic_to_reach(port, 2.0) is None
+        clear = _clear_targets(ref, grid)
+        assert len(clear) >= 3, (name, clear)
+        for t in clear:
+            got, want = traffic_to_reach(port, t), traffic_to_reach(ref, t)
+            assert got == want and got in [h["traffic_mb"] for h in ref], (name, t)
+            cross = [h["round"] for h in port if h["accuracy"] >= t][0]
+            assert cross == [h["round"] for h in ref if h["accuracy"] >= t][0], (name, t)
