@@ -28,11 +28,10 @@ Phases, each fatal on failure:
    (``num_round_traces`` must be 1), with every kernel launch count reset
    just before and read just after; the WAN ledger must equal the
    CommMeter formula and accuracy must be finite.  Then, per trainer, one
-   more round profiled, and one ``row_exec="map"`` round (rows one by
-   one, eagerly) from the same seed, held to the first lockstep round
-   (``row_exec_check``), timed, and for Astraea (``MAP_PROFILED``)
-   profiled: seconds, host launches, device kernels and device busy and
-   idle per round of both paths;
+   more round profiled (seconds, host launches, device kernels, device
+   busy and idle), and one ``row_exec="map"`` round (rows one by one,
+   eagerly) from the same seed, held to the first lockstep round
+   (``row_exec_check``) and timed;
 6. Path A, Alg. 3 step by step: ``reschedule(impl="loop")`` on the card
    over 1,024 integer histograms (one ``kld_score`` launch per pick) and
    the (mediator x client) score sweep of its schedule (one
@@ -108,8 +107,10 @@ Phases, each fatal on failure:
     steps at 4 x 128 (64 flash, 32 flash backward, 64 SSD and 32 SSD
     backward launches a step) and a LoRA rank-16 round over the same 2
     mediators, and mamba2-370m (368,338,432) two AdamW steps at 4 x 512
-    (eight chunks; 96 SSD and 48 SSD backward launches a step, no flash),
-    each with seconds, peak memory, finite losses and a moved update; then
+    (eight chunks; 96 SSD and 48 SSD backward launches a step, no flash)
+    and a full-delta round over the same 2 mediators (one Eq. 6 launch a
+    leaf), each with seconds, peak memory, finite losses and a moved
+    update; then
     the MoE, audio and VLM families at full width (bf16, seed 0) at 4 x
     128: granite-moe-3b-a800m (3,298,793,472 parameters; 64 flash and 32
     flash backward launches a step, 40 experts top 8 through the MoE's
@@ -122,7 +123,8 @@ Phases, each fatal on failure:
     backward launches a step: 6 encoder layers, non-causal over
     1,536 stub frames, 6 decoder and 6 cross-attention) and internvl2-1b
     (493,780,992; 64 stub vision tokens and 64 text tokens a row; 48 and 24)
-    two AdamW steps each, with a profiled step each; then the training
+    two AdamW steps each (no third, profiled step: the script's time
+    limit; qwen3-4b's stays); then the training
     launchers at their reduced defaults (qwen3-4b, mamba2-370m,
     granite-moe-3b-a800m, whisper-base, internvl2-1b) and ``fl_train``;
     every kernel signature these runs called that phase 3 did not hold --
@@ -175,7 +177,8 @@ Phases, each fatal on failure:
     single-process run's, their per-key ledgers equal; a child that fails
     or hangs fails the phase.  (a) runs on the 4 x 1 ``(mediator, model)``
     mesh (``make_fl_mesh(mediator=4, model=1)``: the 1-D mesh's program).
-15. the model axis (``phase15a``, ``tp_round_check`` and phase 14 (b)),
+15. the model axis (``phase15a``, ``tp_round_check``, phase 14 (b) and
+    ``tp_family_round``),
     every line with the card's name and power limit (logical positions on
     one card measure device copies, not NVLink): (a) after phase 14 (a), at
     its EMNIST arm under cuDNN's deterministic algorithms, a 2 x 2 mesh of
@@ -201,7 +204,26 @@ Phases, each fatal on failure:
     seconds and peak GB, and every new flash signature held to its plain
     version; (c) phase 14 (b)'s two children run one more
     pair of rounds on ``process_local_mesh(model=2)`` (TP rows), bit for
-    bit this process's run of the same.
+    bit this process's run of the same; (d)-(f) inside phase 11, after each
+    family's t=1 round (``tp_family_round``), that round again over two
+    logical positions from the same start and inputs -- (d)
+    granite-moe-3b-a800m's LoRA round (expert-parallel, 20 experts and
+    12:4 heads a position), (e) mamba2-370m's full-delta round (16 SSD heads
+    a position), (f) hymba-1.5b's LoRA round (whole KV groups, 15:3 and
+    10:2 heads; the scan once a layer at 25 heads) -- in bf16 (finite, a
+    moved update), then as a t=1 / t=2 pair on the weights cast to fp32
+    with the TP round's update within ``P15_DELTA_BOUND_F32`` of the t=1
+    round's in L2 (the t=1 round with its gradient negated reads above
+    it; a bf16 round's update there is below its rounding noise), launch
+    counts of every run predicted from the placements and held exactly
+    (flash and SSD once a position where their heads split; Eq. 6 one
+    launch a shard of each split leaf and one a whole leaf, or one for the
+    adapter tree, each held to its plain version), the first microbatch's
+    fp32 gradient through
+    ``P15_GRAD_LAYERS`` full-width layers TP against the whole model within
+    ``P15_GRAD_BOUND`` (one position's partial dropped from every
+    all-reduce reads above it), seconds and peak GB; every new kernel
+    signature held to its plain version with phase 11's.
 
 Phase 3 also holds the flash-attention and SSD kernels against their plain
 versions at the serve shapes (bf16 and f32), with a no-window, a
@@ -855,21 +877,13 @@ def main_path(fed, dev, make_model, n_params):
     return rows, launches, torch.cuda.max_memory_allocated(dev) / 1e9, trainers
 
 
-# the trainers whose "map" round is profiled: analysing the ~10^5 eager
-# launches of one round takes 22-32 s on an H100 host, so FedAvg's "map"
-# rounds are timed and held but not profiled, which leaves the script's
-# time limit room for phase 15
-MAP_PROFILED = ("Astraea",)
-
-
 def row_exec_check(fed, dev, make_model, vmap_runs):
     """Per trainer: one more lockstep round under ``torch.profiler``; then
     the same trainer with ``row_exec="map"`` from the same seed: its first
-    round timed and held to the lockstep trainer's first round, and for
-    the trainers in ``MAP_PROFILED`` its second round profiled without its
-    aten ops (``host_ops=False``: the runtime calls and the device activity
-    of its ~10^5 eager launches; the aten ops would multiply the events the
-    analysis walks).
+    round timed and held to the lockstep trainer's first round (not
+    profiled: analysing the ~10^5 eager launches of one round took 22.6 s
+    at EMNIST's width and 36.0 s at CINIC-10's on an H100 host, which the
+    script's time limit cannot hold).
 
     The hold: after one full-width round the two paths (fp32 sums in
     other orders, carried through the round's Adam steps) must lie no
@@ -877,7 +891,8 @@ def row_exec_check(fed, dev, make_model, vmap_runs):
     distance at which the loop itself lands from weights perturbed by
     1e-7 (a third trainer): CINIC-10's rounds amplify any such difference
     to a tenth of the update or more, EMNIST's do not.  Returns per
-    trainer both paths' seconds, launches and device busy and idle."""
+    trainer both paths' seconds and the lockstep round's launches and
+    device busy and idle."""
     from repro_torch.examples.profile_round import profile_round
     from repro_torch.models.cnn import init_params
     out = {}
@@ -908,10 +923,9 @@ def row_exec_check(fed, dev, make_model, vmap_runs):
                                  f"the vmap round, more than twice the {rel_noise:.3e} a "
                                  "1e-7 perturbation of the weights moves it")
         max_abs = float((flat(mp.params) - flat(first)).abs().max())
-        map_prof = profile_round(mp, top=6, host_ops=False) if name in MAP_PROFILED else None
         out[name] = {"map_round_s": map_s, "rel_l2_vs_vmap": rel,
                      "rel_l2_perturbed": rel_noise, "max_abs_vs_vmap": max_abs,
-                     "vmap_profile": vmap_prof, "map_profile": map_prof,
+                     "vmap_profile": vmap_prof,
                      "num_round_traces": tr.engine.num_round_traces}
         del mp, noisy
     return out
@@ -919,7 +933,7 @@ def row_exec_check(fed, dev, make_model, vmap_runs):
 
 def log_row_exec(arm, rows, check):
     for name, c in check.items():
-        v, m = c["vmap_profile"], c["map_profile"]
+        p = c["vmap_profile"]
         secs = rows[name]["round_seconds"]
         log(f"[rows] {arm} {name}: num_round_traces {c['num_round_traces']}; vmap "
             f"s/round {' '.join(f'{x:.4f}' for x in secs)} (first includes the "
@@ -927,15 +941,11 @@ def log_row_exec(arm, rows, check):
             f"{c['rel_l2_vs_vmap']:.3e} of the update (L2; the loop from weights "
             f"perturbed by 1e-7: {c['rel_l2_perturbed']:.3e}), max abs "
             f"{c['max_abs_vs_vmap']:.3e}")
-        for path, p in (("vmap", v), ("map", m)):
-            if p is None:
-                log(f"[rows] {arm} {name} {path}: not profiled (MAP_PROFILED)")
-                continue
-            log(f"[rows] {arm} {name} {path} (profiled round): wall {p['wall_s']:.4f} s, "
-                f"device busy {p['busy_s']:.4f} s, idle {100 * p['idle_share']:.1f} % "
-                f"(kernel time summed {p['kernel_s']:.4f} s), "
-                f"{p['host_launches']} host launches ({p['graph_launches']} graph), "
-                f"{p['device_kernels']} device kernels; analysis {p['analysis_s']:.1f} s")
+        log(f"[rows] {arm} {name} vmap (profiled round): wall {p['wall_s']:.4f} s, "
+            f"device busy {p['busy_s']:.4f} s, idle {100 * p['idle_share']:.1f} % "
+            f"(kernel time summed {p['kernel_s']:.4f} s), "
+            f"{p['host_launches']} host launches ({p['graph_launches']} graph), "
+            f"{p['device_kernels']} device kernels; analysis {p['analysis_s']:.1f} s")
 
 
 def cinic_cohort_counts(fed):
@@ -1789,7 +1799,9 @@ def largest_update(new: dict, old: dict) -> float:
 
 
 def train_family(dev, arch: str, n_expect: int, seq: int, seen: dict,
-                 path_launches: dict, fl_data=None, fan_in: bool = False) -> dict:
+                 path_launches: dict, fl_data=None, fan_in: bool = False,
+                 lora_round: bool = True, tp: str | None = None, smi: str = "",
+                 lap=None) -> dict:
     """``arch`` at full width (bf16, weights from seed 0; an ``norm="ln"``
     model's LayerNorm scales set to 1, ``ln_scales_to_one``, as the
     reference's init zeroes them and every output with them; with
@@ -1801,9 +1813,14 @@ def train_family(dev, arch: str, n_expect: int, seq: int, seen: dict,
     kernels; with ``fl_data`` (phase 11's 2 mediators: their token streams
     mapped into this vocab, rows, weights, steps per mediator) also a LoRA
     rank-16 round of ``make_fl_round`` (its Eq. 6 launch held to its plain
-    version).  Each run's launch counts reset just before it and read just
-    after; finite losses, a moved update, seconds and peak memory.  Kernel
-    signatures go to ``seen``."""
+    version); with ``tp`` (phase 15's letter) that round -- or, without
+    ``fl_data``'s LoRA round (``lora_round=False``), a full-delta round -- again
+    tensor-parallel over a model axis of ``P15_T`` (``tp_family_round``:
+    in bf16, then as a t=1 / t=2 pair on the weights cast to fp32).  Each
+    run's launch counts reset just before it
+    and read just after; finite losses, a moved update, seconds and peak
+    memory.  Kernel signatures go to ``seen``; ``lap`` times the family's
+    phase 11 part and its phase 15 part apart."""
     from repro_torch import configs
     from repro_torch.kernels import ops
     from repro_torch.launch import steps
@@ -1852,8 +1869,7 @@ def train_family(dev, arch: str, n_expect: int, seq: int, seen: dict,
                      "params": n_params, "ln_scales_set_to_one": ln_scales,
                      "fan_in": fan_in,
                      "microbatches_suggested": steps.suggest_microbatches(cfg, 4, seq),
-                     "flop_bound_ms": 6 * n_params * 4 * seq / 989e12 * 1e3,
-                     "profile": profile_call(lambda: step(params, state, batches[0]))}}
+                     "flop_bound_ms": 6 * n_params * 4 * seq / 989e12 * 1e3}}
     log(f"[train] {arch} {n_params:,} params bf16, AdamW, batch 4 x {seq}: s/step "
         f"{' '.join(f'{x:.4f}' for x in secs)} (6 N tokens at 989 TFLOP/s: "
         f"{res['train']['flop_bound_ms']:.2f} ms), losses {losses}, largest update "
@@ -1873,10 +1889,9 @@ def train_family(dev, arch: str, n_expect: int, seq: int, seen: dict,
             f"saved residuals at the decoder's seq, {frames:,} B with the encoder's "
             f"{cfg.source_positions} frames (budget 4e9 B); measured peak "
             f"{res['train']['peak_gb']:.2f} GB")
-    log_profile(f"{arch} AdamW step (a third, profiled)", res["train"]["profile"])
     del state, opt, step
     torch.cuda.empty_cache()
-    if fl_data is not None:
+    if fl_data is not None and lora_round:
         tokens, labels, w, per_med = fl_data
         mapping = T.adapter_mapping(cfg, LORA_RANK)
         leg = lora.exchange_nbytes(mapping, 2)
@@ -1915,7 +1930,21 @@ def train_family(dev, arch: str, n_expect: int, seq: int, seen: dict,
             f"{_peak_gb():.2f} GB, {res['lora_round']['trainable']:,} trainable, {leg:,} B "
             f"a leg (adapter/full {leg / (2 * n_params):.6f}), launches {launches}; Eq. 6 "
             f"held to its plain version: {held.calls} call, worst {held.worst:.2e}")
-        del a_tree, ad_state, new_state, fl
+        del fl
+        if tp is not None:
+            if lap is not None:
+                lap(f"11 {arch}")
+            res["tp_round"] = tp_family_round(dev, tp, model, params, fl_data, new_state,
+                                              seen, path_launches, smi,
+                                              lora=(mapping, a_tree, ad_state))
+        del a_tree, ad_state, new_state
+    elif fl_data is not None and tp is not None:
+        if lap is not None:
+            lap(f"11 {arch}")
+        res["tp_round"] = tp_family_round(dev, tp, model, params, fl_data, None, seen,
+                                          path_launches, smi)
+    if lap is not None:
+        lap(f"15 ({tp}) {arch} TP round" if tp is not None else f"11 {arch}")
     del model, params
     torch.cuda.empty_cache()
     return res
@@ -2122,10 +2151,17 @@ def phase11(dev, gen, checks: dict, path_launches: dict, lap, smi: str = "") -> 
     hy_streams = [t * hy_vocab // cfg.vocab for t in streams]
     hy_tokens, hy_labels, hy_w, _ = fl_train.pack_mediators(meds, hy_streams, counts, FL_SEQ, 2)
     res["hymba"] = train_family(dev, "hymba-1.5b", HYMBA_PARAMS, 128, seen, path_launches,
-                                fl_data=(hy_tokens, hy_labels, hy_w, per_med))
-    lap("11 hymba-1.5b")
-    res["mamba2"] = train_family(dev, "mamba2-370m", MAMBA2_PARAMS, 512, seen, path_launches)
-    lap("11 mamba2-370m")
+                                fl_data=(hy_tokens, hy_labels, hy_w, per_med), tp="f",
+                                smi=smi, lap=lap)
+    # mamba2's steps at 4 x 512, then (phase 15 (e)) a full-delta round
+    # over the same 2 mediators at t=2 in bf16, then at t=1 and at t=2 on
+    # fp32 weights (tp_family_round)
+    mb_vocab = configs.get("mamba2-370m").vocab
+    mb_streams = [t * mb_vocab // cfg.vocab for t in streams]
+    mb_tokens, mb_labels, mb_w, _ = fl_train.pack_mediators(meds, mb_streams, counts, FL_SEQ, 2)
+    res["mamba2"] = train_family(dev, "mamba2-370m", MAMBA2_PARAMS, 512, seen, path_launches,
+                                 fl_data=(mb_tokens, mb_labels, mb_w, per_med),
+                                 lora_round=False, tp="e", smi=smi, lap=lap)
 
     # (e) the MoE, audio and VLM families at full width, 4 x 128: granite's
     # steps and a LoRA round over the same 2 mediators (its adapters batched
@@ -2141,8 +2177,7 @@ def phase11(dev, gen, checks: dict, path_launches: dict, lap, smi: str = "") -> 
     gr_tokens, gr_labels, gr_w, _ = fl_train.pack_mediators(meds, gr_streams, counts, FL_SEQ, 2)
     res["granite"] = train_family(dev, "granite-moe-3b-a800m", GRANITE_PARAMS, 128, seen,
                                   path_launches, fl_data=(gr_tokens, gr_labels, gr_w, per_med),
-                                  fan_in=True)
-    lap("11 granite-moe-3b-a800m")
+                                  fan_in=True, tp="d", smi=smi, lap=lap)
     res["whisper"] = train_family(dev, "whisper-base", WHISPER_PARAMS, 128, seen, path_launches)
     res["internvl2"] = train_family(dev, "internvl2-1b", INTERNVL2_PARAMS, 128, seen,
                                     path_launches)
@@ -2592,6 +2627,11 @@ P15_T, P15_ARM_BOUND = 2, 1e-5
 # model, in L2 over every weight and in the worst leaf: 5.2e-6 and 7.0e-6
 # there (sums reordered at 2,560 and 9,728 wide); a zero gradient reads 1
 P15_DELTA_BOUND, P15_GRAD_LAYERS, P15_GRAD_BOUND = 0.5, 2, 1e-4
+# phase 15 (d)-(f) hold a round pair on fp32 weights (t=1 and t=2 from
+# one fp32 start): fp32 sums reordered, 6.97e-6 (granite), 5.54e-4
+# (mamba2) and 7.05e-4 (hymba at the reference's init) on an H100 (700 W);
+# the t=1 round with its gradient negated reads 2.00 there
+P15_DELTA_BOUND_F32 = 1e-2
 
 
 def phase15a(fed, dev, smi: str, four: dict, path_launches: dict) -> dict:
@@ -2819,36 +2859,9 @@ def tp_round_check(dev, model, params, new, moved, batch, per_med, steps_per_rou
     # the TP backward's maths: one microbatch's gradient in fp32 at full
     # width, P15_GRAD_LAYERS layers, TP against the whole model
     micro = tokens.shape[0] // 2 // per_med
-    mb = {"tokens": tokens[:micro], "labels": labels[:micro]}
-    cut = dataclasses.replace(cfg, n_layers=P15_GRAD_LAYERS, dtype="float32")
-    small = T.init_model(cut, torch.Generator(device=dev).manual_seed(15), device=dev)
-    whole_p = T.train_params(small)
-    sdims = sharding.placements(T.param_specs(cut, small.max_seq), mesh)
-    _, want_g = steps._loss_and_grads(lambda p: T.forward_train(small, mb, p)[0], whole_p)
-    tree = {}
-    for k, p in whole_p.items():
-        if sdims[k] is None:
-            tree[k] = p
-        else:
-            for j, s in enumerate(model_axis.split(p, sdims[k], (dev,) * P15_T)):
-                tree[model_axis.shard_key(k, j)] = s
-    tp = T.TensorParallel(small, sdims, (dev,) * P15_T, dev)
-    _, got_g = steps._loss_and_grads(lambda p: T.forward_train(small, mb, p, par=tp)[0], tree)
-    err = norm = 0.0
-    worst = (0.0, "")
-    for k, wg in want_g.items():
-        g = got_g[k] if sdims[k] is None else torch.cat(
-            [got_g[model_axis.shard_key(k, j)] for j in range(P15_T)], sdims[k])
-        e, n = float((g - wg).square().sum()), float(wg.square().sum())
-        err, norm = err + e, norm + n
-        if n > 0 and (e / n) ** 0.5 > worst[0]:
-            worst = ((e / n) ** 0.5, k)
-    del small, whole_p, tree, want_g, got_g
-    grad_rel = (err / norm) ** 0.5
-    if not (grad_rel <= P15_GRAD_BOUND and worst[0] <= P15_GRAD_BOUND):
-        raise AssertionError(f"TP round: the fp32 TP gradient lies {grad_rel} of the whole "
-                             f"model's from it in L2, {worst[0]} in {worst[1]} (bound "
-                             f"{P15_GRAD_BOUND})")
+    grad = tp_grad_check(dev, cfg, {"tokens": tokens[:micro], "labels": labels[:micro]},
+                         fan_in=False)
+    grad_rel, worst = grad["rel_l2"], (grad["worst_leaf_rel_l2"], grad["worst_leaf"])
     # per-shard Eq. 6 against the whole leaf's, fp32 deltas of two rows
     g = torch.Generator(device=dev).manual_seed(15)
     eq6_bitwise = {}
@@ -2870,6 +2883,7 @@ def tp_round_check(dev, model, params, new, moved, batch, per_med, steps_per_rou
            "delta_rel_l2_negated_round": neg_rel,
            "grad_rel_l2": grad_rel, "grad_bound": P15_GRAD_BOUND,
            "grad_worst_leaf": {"rel_l2": worst[0], "name": worst[1]},
+           "grad_one_partial_dropped": grad["dropped_rel_l2"],
            "elements_moved_t1": moved_t1, "elements_moved_tp": moved_tp,
            "elements_differing": n_diff, "elements": n_all,
            "eq6_held": {"calls": held.calls, "worst_rel": held.worst},
@@ -2884,11 +2898,228 @@ def tp_round_check(dev, model, params, new, moved, batch, per_med, steps_per_rou
         f"elements, the TP round {moved_tp:,}, {n_diff:,} differ, largest |diff| {diff:.3e} "
         f"(the t=1 round's largest update {moved:.3e}); a microbatch's fp32 gradient "
         f"through {P15_GRAD_LAYERS} full-width layers, TP against whole: {grad_rel:.4e} "
-        f"in L2, worst leaf {worst[1]} {worst[0]:.4e} (bound {P15_GRAD_BOUND}); flash at "
-        f"(q, k) {sig}; per-shard Eq. 6 bit for bit the whole leaf's: {eq6_bitwise}")
+        f"in L2, worst leaf {worst[1]} {worst[0]:.4e} (bound {P15_GRAD_BOUND}; with one "
+        f"position's partial dropped from every all-reduce {grad['dropped_rel_l2']:.4f}); "
+        f"flash at (q, k) {sig}; per-shard Eq. 6 bit for bit the whole leaf's: {eq6_bitwise}")
     return out
 
 
+def tp_grad_check(dev, cfg, mb: dict, fan_in: bool) -> dict:
+    """The TP backward's maths for phase 15: the gradient of one
+    microbatch ``mb`` through ``cfg`` at full width cut to
+    ``P15_GRAD_LAYERS`` layers, fp32, weights from seed 15 (with
+    ``fan_in`` at the standard fan-in, ``to_fan_in``), tensor-parallel over
+    ``P15_T`` logical positions against the whole model: in L2 over every
+    weight and in the worst leaf, each within ``P15_GRAD_BOUND``; the same
+    with one position's partial dropped from every all-reduce (a wrong TP
+    forward) must read above it.  The full weights' gradient covers the
+    expert shards', the SSM's and the narrowed heads' backward."""
+    from repro_torch.launch import model_axis, sharding, steps
+    from repro_torch.launch.mesh import make_fl_mesh
+    from repro_torch.models import transformer as T
+    mesh = make_fl_mesh(mediator=1, model=P15_T, devices=(dev,) * P15_T)
+    cut = dataclasses.replace(cfg, n_layers=P15_GRAD_LAYERS, dtype="float32")
+    small = T.init_model(cut, torch.Generator(device=dev).manual_seed(15), device=dev)
+    if fan_in:
+        to_fan_in(small)
+    whole_p = T.train_params(small)
+    sdims = sharding.placements(T.param_specs(cut, small.max_seq), mesh)
+    _, want_g = steps._loss_and_grads(lambda p: T.forward_train(small, mb, p)[0], whole_p)
+    tree = model_axis.split_tree(whole_p, sdims, (dev,) * P15_T)
+    tp = T.TensorParallel(small, sdims, (dev,) * P15_T, dev)
+
+    def rel(got_g):
+        err = norm = 0.0
+        worst = (0.0, "")
+        for k, wg in want_g.items():
+            g = got_g[k] if sdims[k] is None else torch.cat(
+                [got_g[model_axis.shard_key(k, j)] for j in range(P15_T)], sdims[k])
+            e, n = float((g - wg).square().sum()), float(wg.square().sum())
+            err, norm = err + e, norm + n
+            if n > 0 and (e / n) ** 0.5 > worst[0]:
+                worst = ((e / n) ** 0.5, k)
+        return (err / norm) ** 0.5, worst
+
+    def tp_grads():
+        return steps._loss_and_grads(lambda p: T.forward_train(small, mb, p, par=tp)[0],
+                                     tree)[1]
+    grad_rel, worst = rel(tp_grads())
+    reduce = model_axis.reduce_from_positions
+    model_axis.reduce_from_positions = lambda parts, device: reduce(
+        list(parts[:-1]) + [torch.zeros_like(parts[-1])], device)
+    try:
+        dropped_rel, _ = rel(tp_grads())
+    finally:
+        model_axis.reduce_from_positions = reduce
+    del small, whole_p, tree, want_g
+    if not (grad_rel <= P15_GRAD_BOUND and worst[0] <= P15_GRAD_BOUND):
+        raise AssertionError(f"{cfg.name}: the fp32 TP gradient lies {grad_rel} of the whole "
+                             f"model's from it in L2, {worst[0]} in {worst[1]} (bound "
+                             f"{P15_GRAD_BOUND})")
+    if not dropped_rel > P15_GRAD_BOUND:
+        raise AssertionError(f"{cfg.name}: a TP gradient with one partial dropped reads "
+                             f"{dropped_rel}, within the bound {P15_GRAD_BOUND}")
+    return {"rel_l2": grad_rel, "worst_leaf": worst[1], "worst_leaf_rel_l2": worst[0],
+            "dropped_rel_l2": dropped_rel, "bound": P15_GRAD_BOUND, "fan_in": fan_in}
+
+
+def tp_want_launches(cfg, dims: dict, n_steps: int, **extra) -> dict:
+    """``want_launches`` of a round over ``P15_T`` positions: flash once a
+    position where the attention's heads split, the SSD scan once a
+    position where its heads split (once on the home device where they
+    stay whole, as hymba's 25)."""
+    want = want_launches(cfg, n_steps, **extra)
+    t_attn = P15_T if cfg.has_attention and dims["layers.0.attn.wq"] is not None else 1
+    t_ssd = P15_T if cfg.has_ssm and dims["layers.0.ssm.A_log"] is not None else 1
+    for k, t in (("flash_attention", t_attn), ("flash_attention_bwd", t_attn),
+                 ("ssd_chunk", t_ssd), ("ssd_chunk_bwd", t_ssd)):
+        want[k] *= t
+    return want
+
+
+def tp_family_round(dev, letter: str, model, params, fl_data, t1: dict | None, seen: dict,
+                    path_launches: dict, smi: str, lora=None) -> dict:
+    """Phase 15 (d)-(f), inside ``train_family``: ``model``'s round (full
+    width, remat on) tensor-parallel over ``P15_T`` logical positions on
+    the card, from the t=1 round's start and inputs (``fl_data``; with
+    ``lora = (mapping, a_tree, state)`` over that adapter state).
+
+    * The bf16 round at t=2, what ``fl_train --model-parallel`` runs:
+      finite and moved, exact launch counts from the placements
+      (``tp_want_launches``: Eq. 6 one launch a shard of each split leaf
+      and one a whole leaf, or one for the adapter tree), every Eq. 6
+      launch held to its plain version, its kernel signatures in ``seen``;
+      its update against the bf16 t=1 round's (``t1``, phase 11's, where
+      given) printed but not bounded: a bf16 leaf that a round moves by
+      less than an ulp flips on rounding noise, and that floor reads above
+      TP's difference in these rounds (``examples/tp_round_noise.py``).
+    * The same round as a pair on the weights cast to fp32, t=1 and t=2
+      from one start (launches held too): the TP round's update within
+      ``P15_DELTA_BOUND_F32`` of the t=1 round's in L2, which the t=1
+      round with its gradient negated must read above.
+    * The first microbatch's fp32 gradient through ``P15_GRAD_LAYERS``
+      full-width layers (``tp_grad_check``).
+
+    Seconds and peak GB for each run."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding, steps
+    from repro_torch.launch.mesh import make_fl_mesh
+    from repro_torch.models import lora as lora_lib
+    from repro_torch.models import transformer as T
+    tag = f"[phase15] ({smi}; logical positions on one card: device copies, not NVLink)"
+    tokens, labels, w, per_med = fl_data
+    mesh = make_fl_mesh(mediator=1, model=P15_T, devices=(dev,) * P15_T)
+
+    def setup(model, params, state):
+        dims = sharding.placements(T.param_specs(model.cfg, model.max_seq), mesh)
+        if lora is None:
+            n_eq6 = (len(params), sum(P15_T if dims[k] is not None else 1 for k in params))
+
+            def round_at(m=None, lr=FL_LR):
+                fl = steps.make_fl_round(model, 2, mesh=m, learning_rate=lr, local_steps=per_med)
+                return fl(params, tokens, labels, w)
+            return dims, params, n_eq6, round_at
+        mapping, a_tree = lora[:2]
+
+        def round_at(m=None, lr=FL_LR):
+            fl = steps.make_fl_round(model, 2, mesh=m, lora_mapping=mapping, learning_rate=lr,
+                                     local_steps=per_med)
+            return fl(params, a_tree, state, tokens, labels, w)
+        return dims, state, (1, 1), round_at
+
+    def timed(cfg, dims, round_at, label, m, eq6):
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        with HeldEq6() as held, recorded_kernel_calls(seen):
+            got, sec = _sync_time(lambda: round_at(m))
+        sec -= held.seconds
+        launches = dict(ops.LAUNCHES)
+        path_launches[f"15 ({letter}) {label} round {cfg.name}"] = launches
+        want = (want_launches(cfg, 2 * per_med, fedavg_agg=eq6) if m is None else
+                tp_want_launches(cfg, dims, 2 * per_med, fedavg_agg=eq6))
+        if launches != want:
+            raise AssertionError(f"15 ({letter}) {cfg.name} {label} round: launches "
+                                 f"{launches}, expected {want}")
+        return got, {"s_per_round": sec, "peak_gb": _peak_gb(), "launches": launches,
+                     "eq6_held": {"calls": held.calls, "worst_rel": held.worst}}
+
+    def update_rel(res, ref, start):
+        err = norm = 0.0
+        for k, p in start.items():
+            d1 = ref[k].float() - p.float()
+            err += float((res[k].float() - p.float() - d1).square().sum())
+            norm += float(d1.square().sum())
+        return (err / norm) ** 0.5
+
+    def finite(res):
+        return all(bool(torch.isfinite(v.float()).all()) for v in res.values())
+
+    out = {"what": "lora" if lora else "full-delta"}
+    # the bf16 round at t=2
+    torch.cuda.empty_cache()
+    dims, start, n_eq6, round_at = setup(model, params, lora[2] if lora else None)
+    got, bf = timed(model.cfg, dims, round_at, f"bf16 t={P15_T}", mesh, n_eq6[1])
+    bf["largest_update"] = largest_update(got, start)
+    if not finite(got) or bf["largest_update"] == 0.0:
+        raise AssertionError(f"15 ({letter}) {model.cfg.name} bf16 TP round: finite "
+                             f"{finite(got)}, largest update {bf['largest_update']}")
+    if t1 is not None:
+        bf["delta_rel_l2_vs_t1"] = update_rel(got, t1, start)
+    out[f"bf16 t={P15_T}"] = bf
+    del got, round_at
+
+    # the fp32 pair
+    cast = T.Transformer(dataclasses.replace(model.cfg, dtype="float32"), device=dev,
+                         max_seq=model.max_seq)
+    cast.load_state_dict(params)
+    cfg, cparams = cast.cfg, T.train_params(cast)
+    state = lora_lib.init_adapter_state(lora[0], cparams) if lora else None
+    torch.cuda.empty_cache()
+    dims, start, n_eq6, round_at = setup(cast, cparams, state)
+    t1f, out["t=1"] = timed(cfg, dims, round_at, "t=1", None, n_eq6[0])
+    out["t=1"]["largest_update"] = largest_update(t1f, start)
+    got, out[f"t={P15_T}"] = timed(cfg, dims, round_at, f"t={P15_T}", mesh, n_eq6[1])
+    bound = P15_DELTA_BOUND_F32
+    delta_rel = update_rel(got, t1f, start)
+    ok = finite(got)
+    diff = max(float((got[k].float() - t1f[k].float()).abs().max()) for k in start)
+    del got
+    if not ok or not delta_rel <= bound:
+        raise AssertionError(f"15 ({letter}) {cfg.name} TP round: finite {ok}, its update "
+                             f"{delta_rel} of the t=1 round's from it in L2 (bound {bound})")
+    neg_rel = update_rel(round_at(lr=-FL_LR), t1f, start)
+    if not neg_rel > bound:
+        raise AssertionError(f"15 ({letter}) {cfg.name}: the t=1 round with its gradient "
+                             f"negated reads {neg_rel}, within the bound {bound}")
+    del t1f, round_at, cast, cparams, state, start
+    torch.cuda.empty_cache()
+    micro = tokens.shape[0] // 2 // per_med
+    with recorded_kernel_calls(seen):
+        grad = tp_grad_check(dev, cfg, {"tokens": tokens[:micro], "labels": labels[:micro]},
+                             fan_in=True)
+    out.update({"delta_rel_l2": delta_rel, "delta_bound": bound,
+                "delta_rel_l2_negated_round": neg_rel, "largest_diff": diff, "grad": grad,
+                "placement": {k: d for k, d in dims.items()
+                              if k.startswith("layers.0.") or not k.startswith("layers.")}})
+    one, tp_run = out["t=1"], out[f"t={P15_T}"]
+    vs_t1 = (f", its update {bf['delta_rel_l2_vs_t1']:.4e} of phase 11's bf16 t=1 round's "
+             f"in L2 (not bounded: bf16 rounding noise)" if t1 is not None else "")
+    log(f"{tag} ({letter}) {cfg.name} {out['what']} round, 2 mediators x {per_med} steps of "
+        f"1 x {tokens.shape[1]}: bf16 at t={P15_T} {bf['s_per_round']:.3f} s, peak "
+        f"{bf['peak_gb']:.2f} GB, launches {bf['launches']} (predicted from the placements), "
+        f"finite, largest update {bf['largest_update']:.3e}{vs_t1}; on fp32 weights t=1 "
+        f"{one['s_per_round']:.3f} s, {one['peak_gb']:.2f} GB, launches {one['launches']}; "
+        f"t={P15_T} {tp_run['s_per_round']:.3f} s, peak {tp_run['peak_gb']:.2f} GB, "
+        f"launches {tp_run['launches']}, Eq. 6 held to its plain version "
+        f"({tp_run['eq6_held']['calls']} calls, worst {tp_run['eq6_held']['worst_rel']:.2e}); "
+        f"its update {delta_rel:.4e} of the t=1 round's from it in L2 (bound {bound}; no "
+        f"update reads 1, the t=1 round with its gradient negated {neg_rel:.4f}), largest "
+        f"|diff| {diff:.3e}; a microbatch's fp32 gradient through {P15_GRAD_LAYERS} "
+        f"full-width layers (standard fan-in), TP against whole: {grad['rel_l2']:.4e} in L2, "
+        f"worst leaf {grad['worst_leaf']} {grad['worst_leaf_rel_l2']:.4e} (bound "
+        f"{P15_GRAD_BOUND}; one position's partial dropped from every all-reduce: "
+        f"{grad['dropped_rel_l2']:.4f})")
+    return out
 
 
 def phase14(fed, dev, smi: str, path_launches: dict, lap) -> dict:

@@ -65,21 +65,14 @@ def busy_seconds(events) -> float:
     return busy / 1e6
 
 
-def profile_round(trainer, top: int = 12, trace: Path | None = None, *,
-                  host_ops: bool = True) -> dict:
+def profile_round(trainer, top: int = 12, trace: Path | None = None) -> dict:
     """One round under ``torch.profiler``: wall seconds, device busy
     seconds (``busy_seconds``) and idle share, the summed device time of
     all kernels and copies, host launch calls (kernels and graph
     launches), device kernels, the ``top`` kernels by device time, and the
-    seconds the profile's analysis took (``analysis_s``).
-    ``host_ops=False`` records the device activity and the CUDA runtime
-    calls but no aten op: the same fields, at a fraction of the analysis
-    for an eager round of ~10^5 launches."""
-    activities = [ProfilerActivity.CUDA]
-    if host_ops:
-        activities.insert(0, ProfilerActivity.CPU)
+    seconds the profile's analysis took (``analysis_s``)."""
     torch.cuda.synchronize()
-    with profile(activities=activities) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         trainer.run_round()
         torch.cuda.synchronize()

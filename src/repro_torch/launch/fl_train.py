@@ -21,10 +21,15 @@ Several processes (``--coordinator host:port --num-processes P
 single-process run's WAN ledger.  ``--model-parallel t`` runs the round
 tensor-parallel over a model axis of ``t`` positions
 (``launch/steps.py::make_fl_round(mesh=...)``): ``t`` logical positions on
-``--device``'s card, or the cards ``--devices`` names (one a position); a
-family the tensor-parallel round does not cover raises.
+``--device``'s card, or the cards ``--devices`` names (one a position), for
+every ``--arch`` the round trains, full-delta or with ``--lora-rank``; the
+WAN ledger does not change with ``t``.  An audio model's or a VLM's round
+raises for its missing frames or vision embeddings at any ``t``, as the
+reference's does.
 
   PYTHONPATH=src python -m repro_torch.launch.fl_train --device cpu --model-parallel 2
+  PYTHONPATH=src python -m repro_torch.launch.fl_train --device cpu --model-parallel 2 \
+      --arch granite-moe-3b-a800m --lora-rank 2
 """
 from __future__ import annotations
 

@@ -19,15 +19,18 @@ or in another process.
   on one device.
 
 For tensor-parallel compute (the CNN engine's ``tp_rows``,
-``launch/steps.py::make_fl_round`` on a model axis) three autograd
+``launch/steps.py::make_fl_round`` on a model axis) four autograd
 functions pair the collectives with their gradients, Megatron's ``f`` and
 ``g``: ``to_positions`` (forward a copy to each position, backward the
 all-reduce of the positions' gradients), ``reduce_from_positions``
-(forward the all-reduce, backward a copy of the gradient to each position)
-and ``gather_from_positions`` (forward the all-gather, backward each
-position's slice of the gradient).  They run under ``torch.func`` (their
-vmap rule is generated), so the lockstep rows of the CNN engine can use
-them.
+(forward the all-reduce, backward a copy of the gradient to each position),
+``gather_from_positions`` (forward the all-gather, backward each
+position's slice of the gradient) and ``scatter_to_positions`` (forward
+each position's slice, backward the all-gather of the slices' gradients).
+They run under ``torch.func`` (their vmap rule is generated), so the
+lockstep rows of the CNN engine can use them.  ``gather_narrow`` is a
+weight's all-gather narrowed to the units a position computes (whole heads
+or KV groups where the stored split cuts through one).
 """
 from __future__ import annotations
 
@@ -64,6 +67,22 @@ def split(t: torch.Tensor, dim: int | None, devices: Sequence[torch.device]
     size = t.shape[dim] // n
     return [_contiguous_on(t.narrow(dim, i * size, size), d)
             for i, d in enumerate(devices)]
+
+
+def split_tree(params: dict[str, torch.Tensor], dims: dict[str, int | None],
+               devices: Sequence[torch.device]) -> dict[str, torch.Tensor]:
+    """``params`` as one tree of shards (what a tensor-parallel forward
+    reads): a leaf ``dims`` splits as ``split`` cuts it, position ``j``'s
+    shard under ``shard_key(name, j)``; a whole leaf under its name, as
+    it is."""
+    tree = {}
+    for k, p in params.items():
+        if dims[k] is None:
+            tree[k] = p
+        else:
+            for j, shard in enumerate(split(p, dims[k], devices)):
+                tree[shard_key(k, j)] = shard
+    return tree
 
 
 def all_gather(shards: Sequence[torch.Tensor], dim: int | None,
@@ -146,6 +165,24 @@ class _GatherFromPositions(torch.autograd.Function):
         return (None, None) + tuple(out)
 
 
+class _ScatterToPositions(torch.autograd.Function):
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, dim, devices):
+        size = x.shape[dim] // len(devices)
+        return tuple(_contiguous_on(x.narrow(dim, i * size, size), d)
+                     for i, d in enumerate(devices))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.dim, ctx.device = inputs[1], inputs[0].device
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return torch.cat([g.to(ctx.device) for g in grads], ctx.dim), None, None
+
+
 def to_positions(x: torch.Tensor, devices: Sequence[torch.device]) -> tuple:
     """``x`` on every position (forward), the positions' gradients summed
     in order back on ``x``'s device (backward)."""
@@ -157,6 +194,33 @@ def reduce_from_positions(partials: Sequence[torch.Tensor],
     """The all-reduce of ``partials`` on ``device`` (forward); the gradient
     copied to every position (backward)."""
     return _ReduceFromPositions.apply(torch.device(device), *partials)
+
+
+def scatter_to_positions(x: torch.Tensor, dim: int,
+                         devices: Sequence[torch.device]) -> tuple:
+    """Position ``i`` gets the ``i``-th equal slice of ``x`` along ``dim``
+    (forward, ``split``'s cut); the slices' gradients concatenated back on
+    ``x``'s device (backward)."""
+    devices = tuple(torch.device(d) for d in devices)
+    if x.shape[dim] % len(devices):
+        raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not split "
+                         f"into {len(devices)} slices")
+    return _ScatterToPositions.apply(x, dim, devices)
+
+
+def gather_narrow(shards: Sequence[torch.Tensor], dim: int | None, device: torch.device,
+                  along: int, start: int, length: int) -> torch.Tensor:
+    """A weight stored as ``shards`` (``split`` along ``dim``; ``dim=None``:
+    one whole copy in ``shards[0]``), all-gathered on ``device`` and
+    narrowed along ``along`` to ``[start, start + length)``: the units one
+    position computes where the stored split cuts through them.  Backward:
+    the narrowed slice's gradient back in the shards it came from (zero in
+    the rest)."""
+    if dim is None:
+        whole = shards[0].to(device)
+    else:
+        whole = gather_from_positions(shards, dim, device)
+    return whole.narrow(along, start, length)
 
 
 def gather_from_positions(shards: Sequence[torch.Tensor], dim: int,

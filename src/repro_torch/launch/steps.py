@@ -176,22 +176,35 @@ def make_fl_round(model: T.Transformer, n_mediators: int = 1, *,
     launch (``ops.fedavg_agg_tree``): the only thing that rides the WAN.
 
     With ``mesh`` (a ``make_fl_mesh`` with a model axis ``t > 1``) the
-    full-delta round is tensor-parallel over the mesh's model columns
-    (mediator row 0's devices; the mediators still run in turn):
-    ``round(params, ...)`` splits ``params`` by the rule tables
-    (``launch/sharding.py::placements``), trains each mediator's shards
-    through ``forward_train``'s ``TensorParallel`` hook, runs Eq. 6 shard by
-    shard and returns the new weights gathered whole on ``params``'
-    device.  A family the
-    tensor-parallel forward does not cover, or a LoRA mapping, raises."""
+    round is tensor-parallel over the mesh's model columns (mediator row
+    0's devices; the mediators still run in turn), for every family the
+    round trains: ``round(params, ...)`` splits ``params`` by the rule
+    tables (``launch/sharding.py::placements``), trains each mediator's
+    shards through ``forward_train``'s ``TensorParallel`` hook, runs Eq. 6
+    shard by shard and returns the new weights gathered whole on
+    ``params``' device.  Over a LoRA mapping the backbone is split the same
+    way, the adapter state and the A bases stay whole on their device (what
+    rides the WAN), each position's merged weights come from
+    ``lora.merge_shards`` (the same bits as ``merge_params``' slice) and
+    Eq. 6 over the adapter tree is one launch, as at ``t = 1``.  A
+    placement the tensor-parallel forward cannot serve raises
+    (``transformer.check_tp``)."""
     if n_mediators < 1 or local_steps < 1 or mediator_epochs < 1:
         raise ValueError("n_mediators, local_steps and mediator_epochs must be >= 1")
     tp_size = 1 if mesh is None else mesh.shape.get("model", 1)
     if tp_size > 1:
-        T.check_tp_family(model.cfg)
-        if lora_mapping is not None:
-            raise ValueError("a tensor-parallel round over a LoRA adapter state is not "
-                             "ported (ROADMAP.md Queue 1, TP for the adapter rounds)")
+        from repro_torch.launch import model_axis, sharding
+        from repro_torch.launch.mesh import model_devices
+        from repro_torch.launch.model_axis import shard_key
+        dims = sharding.placements(T.param_specs(model.cfg, model.max_seq), mesh)
+        devices = model_devices(mesh)
+        T.check_tp(model.cfg, dims, tp_size)
+
+        def split_params(params: Params) -> tuple[Params, T.TensorParallel]:
+            """``params`` as a tree of shards, and the hook reading it."""
+            home = next(iter(params.values())).device
+            return model_axis.split_tree(params, dims, devices), \
+                T.TensorParallel(model, dims, devices, home)
 
     def split(tokens, labels, weights):
         if tokens.shape[0] % (n_mediators * local_steps):
@@ -236,9 +249,16 @@ def make_fl_round(model: T.Transformer, n_mediators: int = 1, *,
     if lora_mapping is not None:
         def fl_round_lora(backbone: Params, a_tree: Params, state: Params, tokens, labels,
                           weights) -> Params:
-            def loss_of(st, mb):
-                merged = lora.merge_params(backbone, a_tree, st, lora_mapping)
-                return T.forward_train(model, mb, merged)[0]
+            if tp_size == 1:
+                def loss_of(st, mb):
+                    merged = lora.merge_params(backbone, a_tree, st, lora_mapping)
+                    return T.forward_train(model, mb, merged)[0]
+            else:
+                tree, tp = split_params(backbone)
+
+                def loss_of(st, mb):
+                    merged = lora.merge_shards(tree, a_tree, st, lora_mapping, dims, tp_size)
+                    return T.forward_train(model, mb, merged, par=tp)[0]
             streams, n_m = split(tokens, labels, weights)
             if not state:
                 return {}
@@ -255,22 +275,9 @@ def make_fl_round(model: T.Transformer, n_mediators: int = 1, *,
     if tp_size == 1:
         return fl_round
 
-    from repro_torch.launch import model_axis, sharding
-    from repro_torch.launch.mesh import model_devices
-    from repro_torch.launch.model_axis import shard_key
-    dims = sharding.placements(T.param_specs(model.cfg, model.max_seq), mesh)
-    devices = model_devices(mesh)
-
     def fl_round_tp(params: Params, tokens, labels, weights) -> Params:
         home = next(iter(params.values())).device
-        tp = T.TensorParallel(model, dims, devices, home)
-        start: Params = {}
-        for k, p in params.items():
-            if dims[k] is None:
-                start[k] = p
-            else:
-                for j, shard in enumerate(model_axis.split(p, dims[k], devices)):
-                    start[shard_key(k, j)] = shard
+        start, tp = split_params(params)
 
         def loss_of(p, mb):
             return T.forward_train(model, mb, p, par=tp)[0]

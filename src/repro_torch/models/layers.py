@@ -17,10 +17,14 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """fp32 RMS norm with a zero-centred scale ``(1 + scale)``."""
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+             var: torch.Tensor | None = None) -> torch.Tensor:
+    """fp32 RMS norm with a zero-centred scale ``(1 + scale)``; ``var`` the
+    rows' fp32 mean square where it comes from elsewhere (a row split over
+    a model axis), else ``x``'s."""
     xf = x.to(torch.float32)
-    var = xf.square().mean(-1, keepdim=True)
+    if var is None:
+        var = xf.square().mean(-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * (1.0 + scale.to(torch.float32))
     return out.to(x.dtype)
 

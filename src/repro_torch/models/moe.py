@@ -17,6 +17,19 @@ outputs and adds them with its gate weights; no step waits on the host.  The sam
 4 x 2,048 prefill).  ``moe_glu(..., onehot=True)`` is the reference's
 formulation, which the tests hold the index form to.
 
+``moe_glu_sharded`` runs the index form with its experts over the
+positions of a model axis, expert-parallel (``moe_glu`` is its one
+position): the router's column shards (``d x E`` fp32, small) are
+gathered and the routing runs once on the whole softmax, from the same
+logits as one position's, so the top-k, queue positions, drops and
+``aux`` are one position's bit for bit (logits from column slices are not:
+a one-column slice runs another BLAS path and moves gates by an ulp), and
+each position fills the buffer rows of its own experts, runs their three
+products and gathers its (token, slot) outputs; over several positions
+each position's weighted partial of the output is formed in fp32 and the
+partials are summed in fp32 and rounded once, as the one-position ``bmm``
+over the k slots rounds once.
+
 Both gathers carry their own backward (``_Dispatch``, ``_Combine``), a
 gather by the inverse index: a token's gradient is the sum of its
 ``top_k`` buffer rows' gradients in fp32, rounded once, and a buffer
@@ -141,6 +154,13 @@ class _Combine(torch.autograd.Function):
         return rows, None, None
 
 
+def _token_rows(n: int, g: int, top_k: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each (group, token, slot)'s group index and flat token index."""
+    group = torch.arange(n, device=device)[:, None, None]
+    token = torch.arange(n * g, device=device).view(n, g, 1).expand(n, g, top_k)
+    return group, token
+
+
 def moe_glu(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
             w_up: torch.Tensor, w_down: torch.Tensor, *, top_k: int,
             group_size: int = 512, capacity_factor: float = 1.25,
@@ -150,49 +170,104 @@ def moe_glu(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
     (d, E)``, ``w_gate``/``w_up (E, d, f)``, ``w_down (E, f, d)`` ->
     ``(y (b, s, d), aux)``, ``aux`` the fp32 load-balance term averaged
     over the groups.  ``b * s`` must be a multiple of the group (``min(
-    group_size, b * s)``).  Dispatch by index, or with ``onehot`` by the
-    reference's one-hot einsums; the gate weights are cast to ``x``'s dtype
-    before they weight the experts' outputs, as the reference casts its
-    combine tensor.  Differentiable in ``x`` and the weights."""
+    group_size, b * s)``).  Dispatch by index (``moe_glu_sharded`` with
+    one position), or with ``onehot`` by the reference's one-hot einsums;
+    the gate weights are cast to ``x``'s dtype before they weight the
+    experts' outputs, as the reference casts its combine tensor.
+    Differentiable in ``x`` and the weights."""
+    kw = dict(top_k=top_k, group_size=group_size, capacity_factor=capacity_factor,
+              activation=activation)
+    if not onehot:
+        return moe_glu_sharded(x, [router_w], [w_gate], [w_up], [w_down], (x.device,), **kw)
     b, s, d = x.shape
-    n_experts = router_w.shape[-1]
-    tokens = b * s
-    g = min(group_size, tokens)
-    if tokens % g:
-        raise ValueError(f"tokens {tokens} not divisible by the MoE group {g}")
-    n = tokens // g
-    capacity = moe_capacity(g, top_k, n_experts, capacity_factor)
+    n, g, capacity = _groups(b * s, group_size, top_k, router_w.shape[-1], capacity_factor)
     xg = x.reshape(n, g, d)
     logits = xg.to(torch.float32) @ router_w.to(torch.float32)       # (n, g, E)
     act = act_fn(activation)
-    if onehot:
-        dispatch, combine, aux = route_topk(logits, top_k, capacity)
-        expert_in = torch.einsum("ngec,ngd->necd", dispatch.to(x.dtype), xg)
-        h = act(torch.einsum("necd,edf->necf", expert_in, w_gate)) \
-            * torch.einsum("necd,edf->necf", expert_in, w_up)
-        expert_out = torch.einsum("necf,efd->necd", h, w_down)
-        y = torch.einsum("ngec,necd->ngd", combine.to(x.dtype), expert_out)
-        return y.reshape(b, s, d), aux.mean()
-    gates, experts, pos, keep, aux = _route(_softmax(logits), top_k, capacity)
-    # each kept (group, token, slot)'s row of the (E, n, C) expert buffer;
-    # a dropped one points at a spare row past it
-    slots = n_experts * n * capacity
-    group = torch.arange(n, device=x.device)[:, None, None]
-    row = (experts * n + group) * capacity + torch.where(keep, pos, 0)
-    # the buffer row's token: an empty row reads the zero row past the
-    # tokens (scatters and gathers by index: no host sync)
-    token = torch.arange(n * g, device=x.device).view(n, g, 1).expand(n, g, top_k)
-    place = torch.where(keep, row, slots).flatten()        # (token, slot) -> row
-    src = torch.full((slots + 1,), n * g, dtype=torch.long, device=x.device)
-    src.scatter_(0, place, token.flatten())
-    buf = _Dispatch.apply(x.reshape(n * g, d), src[:slots], place, top_k)
-    buf = buf.view(n_experts, n * capacity, d)
-    h = act(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_up)
-    out = torch.bmm(h, w_down).view(slots, d)
-    # each token's top_k outputs, weighted by its gates in x's dtype and
-    # summed (fp32 accumulation, one rounding); a dropped slot reads a live
-    # row with weight 0, and its place gets no gradient back
-    weight = torch.where(keep, gates.to(x.dtype), 0).view(n * g, 1, top_k)
-    picked = _Combine.apply(out, row.flatten(), place).view(n * g, top_k, d)
-    y = torch.bmm(weight, picked)
+    dispatch, combine, aux = route_topk(logits, top_k, capacity)
+    expert_in = torch.einsum("ngec,ngd->necd", dispatch.to(x.dtype), xg)
+    h = act(torch.einsum("necd,edf->necf", expert_in, w_gate)) \
+        * torch.einsum("necd,edf->necf", expert_in, w_up)
+    expert_out = torch.einsum("necf,efd->necd", h, w_down)
+    y = torch.einsum("ngec,necd->ngd", combine.to(x.dtype), expert_out)
+    return y.reshape(b, s, d), aux.mean()
+
+
+def _groups(tokens: int, group_size: int, top_k: int, n_experts: int,
+            capacity_factor: float) -> tuple[int, int, int]:
+    """``(groups, group, capacity)`` for ``tokens`` routed in groups."""
+    g = min(group_size, tokens)
+    if tokens % g:
+        raise ValueError(f"tokens {tokens} not divisible by the MoE group {g}")
+    return tokens // g, g, moe_capacity(g, top_k, n_experts, capacity_factor)
+
+
+def routes(x32: torch.Tensor, routers, *, top_k: int, capacity: int, n: int, g: int):
+    """The routing of ``x32 (n * g, d)`` fp32: the router's column shards
+    ``routers[j] (d, E/t)`` gathered on ``x32``'s device (their gradient
+    back to the shards), the fp32 logits and ``_route`` on their softmax,
+    as one position computes them.  Returns ``_route``'s ``(gates,
+    experts, pos, keep, aux)``."""
+    from repro_torch.launch import model_axis
+    router = model_axis.gather_from_positions([r.to(torch.float32) for r in routers], -1,
+                                              x32.device)
+    return _route(_softmax(x32.view(n, g, -1) @ router), top_k, capacity)
+
+
+def moe_glu_sharded(x: torch.Tensor, routers, w_gates, w_ups, w_downs, devices, *,
+                    top_k: int, group_size: int = 512, capacity_factor: float = 1.25,
+                    activation: str = "silu") -> tuple[torch.Tensor, torch.Tensor]:
+    """The index-dispatched MoE with its experts over ``t = len(devices)``
+    positions: ``routers[j] (d, E/t)``, ``w_gates[j]``/``w_ups[j] (E/t, d,
+    f)`` and ``w_downs[j] (E/t, f, d)`` position ``j``'s shards of experts
+    ``[j E/t, (j + 1) E/t)`` on ``devices[j]``; ``x`` and the result on
+    one device.  ``moe_glu`` is ``t = 1``.  The routes are one position's
+    (``routes``); each position fills its experts' buffer rows, runs their
+    three products and gathers its (token, slot) outputs, weighted by their
+    gates in ``x``'s dtype.  Over several positions the token copies and
+    the weighted partials are fp32, the partials all-reduced in order and
+    rounded once to ``x``'s dtype (as one position's ``bmm`` over the k
+    slots rounds once).  Differentiable in ``x`` and every shard."""
+    from repro_torch.launch import model_axis
+    b, s, d = x.shape
+    t = len(devices)
+    n_local = w_gates[0].shape[0]
+    n, g, capacity = _groups(b * s, group_size, top_k, n_local * t, capacity_factor)
+    flat = x.reshape(n * g, d)
+    x32 = flat.to(torch.float32)
+    gates, experts, pos, keep, aux = routes(x32, routers, top_k=top_k, capacity=capacity,
+                                            n=n, g=g)
+    # over several positions the token copies are fp32, so a token's
+    # gradient is summed over the positions and the router in fp32 and
+    # rounded once
+    acc = x.dtype if t == 1 else torch.float32
+    xs = model_axis.to_positions(flat if t == 1 else x32, devices)
+    act = act_fn(activation)
+    slots = n_local * n * capacity
+    partials = []
+    for j, dev in enumerate(devices):
+        e0 = j * n_local
+        ex, ps, kp = experts.to(dev), pos.to(dev), keep.to(dev)
+        mine = kp & (ex >= e0) & (ex < e0 + n_local)
+        group, token = _token_rows(n, g, top_k, dev)
+        # each of this position's kept (group, token, slot)s' row of its
+        # (E/t, n, C) expert buffer; another position's or a dropped one
+        # points at a spare row past them
+        row = ((ex - e0).clamp(0, n_local - 1) * n + group) * capacity + torch.where(mine, ps, 0)
+        place = torch.where(mine, row, slots).flatten()        # (token, slot) -> row
+        # the buffer row's token: an empty row reads the zero row past the
+        # tokens (scatters and gathers by index: no host sync)
+        src = torch.full((slots + 1,), n * g, dtype=torch.long, device=dev)
+        src.scatter_(0, place, token.flatten())
+        buf = _Dispatch.apply(xs[j], src[:slots], place, top_k).to(x.dtype)
+        buf = buf.view(n_local, n * capacity, d)
+        h = act(torch.bmm(buf, w_gates[j])) * torch.bmm(buf, w_ups[j])
+        out = torch.bmm(h, w_downs[j]).view(slots, d)
+        # each token's top_k outputs, weighted by its gates and summed
+        # (fp32 accumulation, one rounding); a slot not kept here reads a
+        # live row with weight 0, and its place gets no gradient back
+        weight = torch.where(mine, gates.to(dev).to(x.dtype), 0).view(n * g, 1, top_k)
+        picked = _Combine.apply(out, row.flatten(), place).view(n * g, top_k, d)
+        partials.append(torch.bmm(weight.to(acc), picked.to(acc)))
+    y = model_axis.reduce_from_positions(partials, x.device).to(x.dtype)
     return y.reshape(b, s, d), aux.mean()

@@ -16,6 +16,7 @@ The state is (b, h, p, n) fp32, the conv tail (b, k-1, channels).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 
@@ -35,6 +36,22 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = Non
     if b is not None:
         y = y + b
     return y, xp[:, -(k - 1):]
+
+
+def dt_and_A(dt: torch.Tensor, dt_bias: torch.Tensor, A_log: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The block's step sizes ``softplus(dt + dt_bias)`` and decay rates
+    ``A = -exp(A_log)``, fp32, for the heads ``dt_bias`` and ``A_log``
+    hold."""
+    dt = torch.logaddexp(dt.to(torch.float32) + dt_bias.to(torch.float32),
+                         torch.zeros((), device=dt.device))              # softplus
+    return dt, -torch.exp(A_log.to(torch.float32))
+
+
+def gate(y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """The scan's output gated by ``silu(z)`` (fp32, cast to ``y``'s
+    dtype), ahead of the gated RMS norm."""
+    return y * F.silu(z.to(torch.float32)).to(y.dtype)
 
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,

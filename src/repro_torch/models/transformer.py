@@ -25,12 +25,14 @@ Entry points:
   ``forward_decode``   one token + cache -> logits; the cache is updated in
                        place (the reference returns a new one)
 
-``forward_train(..., par=TensorParallel(...))`` trains a dense model
+``forward_train(..., par=TensorParallel(...))`` trains a model
 tensor-parallel over a model axis: the attention, the GLU MLP, the
 embedding and the head take their weights through a ``par`` hook
 (``Whole``, the default: the whole weights), which runs one part a
 position over its shards and joins the parts with the model axis's
 collectives (``launch/model_axis.py``); the layer bodies are the same.
+The MoE runs expert-parallel and the SSM block by its pieces' splits
+through the hook's ``moe`` and ``ssm``.
 
 Every attention -- causal self-attention, the encoder's non-causal one and
 the decoder's cross-attention, in decode too -- runs through the flash
@@ -294,7 +296,9 @@ class Whole:
     module's own, or those ``functional_call`` binds, whole.
     ``parts(module, x)`` lists ``(input, weight getter)`` for each part of
     the layer's work -- one here -- and ``reduce`` sums the parts' outputs;
-    ``embed`` and ``logits`` are the embedding lookup and the fp32 head."""
+    ``embed`` and ``logits`` are the embedding lookup and the fp32 head;
+    ``experts`` gives the MoE's expert shards, and ``columns``, ``conv``,
+    ``scan`` and ``gated_out`` are the Mamba-2 block's pieces."""
 
     def parts(self, module: nn.Module, x: torch.Tensor) -> list:
         return [(x, lambda n: getattr(module, n))]
@@ -309,8 +313,36 @@ class Whole:
         w = model.embed.t() if model.cfg.tie_embeddings else model.lm_head
         return (h @ w).to(torch.float32)
 
+    def experts(self, module: nn.Module, x: torch.Tensor) -> tuple[list, tuple]:
+        """The MoE's ``_EXPERT_LEAVES`` as lists of shards, one a position
+        that computes experts, and those positions' devices: one, whole,
+        on ``x``'s device."""
+        return [[getattr(module, n)] for n in _EXPERT_LEAVES], (x.device,)
+
+    # the Mamba-2 block's pieces (``SSMBlock``)
+    def columns(self, module: nn.Module, name: str, x: torch.Tensor) -> torch.Tensor:
+        return x @ getattr(module, name)
+
+    def conv(self, block: nn.Module, xbc: torch.Tensor, tail: torch.Tensor | None = None):
+        return ssm_lib.causal_conv1d(xbc, block.conv_w, block.conv_b, tail)
+
+    def scan(self, block: nn.Module, cfg: ArchConfig, xh, dt, Bc, Cc):
+        return _scan(cfg, xh, dt, Bc, Cc, block.dt_bias, block.A_log, block.D)
+
+    def gated_out(self, block: nn.Module, cfg: ArchConfig, y: torch.Tensor,
+                  z: torch.Tensor) -> torch.Tensor:
+        return L.rms_norm(ssm_lib.gate(y, z), block.norm, cfg.norm_eps) @ block.out_proj
+
 
 WHOLE = Whole()
+_EXPERT_LEAVES = ("router", "w_gate", "w_up", "w_down")
+
+
+def _scan(cfg: ArchConfig, xh, dt, Bc, Cc, dt_bias, A_log, D):
+    """The chunked SSD scan over the heads ``dt_bias``, ``A_log`` and ``D``
+    hold: ``(y, final state)``."""
+    dt, A = ssm_lib.dt_and_A(dt, dt_bias, A_log)
+    return ssm_lib.ssd_chunked(xh, dt, A, Bc, Cc, D, cfg.ssm_chunk)
 
 
 def _project(x: torch.Tensor, w: torch.Tensor, heads: int, hd: int,
@@ -392,34 +424,31 @@ class CrossAttention(_Params):
 
 class SSMBlock(_Params):
     def forward(self, cfg: ArchConfig, x: torch.Tensor, *, mode: str,
-                cache: dict | None = None) -> torch.Tensor:
+                cache: dict | None = None, par: Whole = WHOLE) -> torch.Tensor:
         """Mamba-2 block.  Train runs the chunked scan with no cache;
         prefill also writes the final state and conv tail into ``cache``;
-        decode advances them in place."""
+        decode advances them in place.  ``in_proj``, the conv, the scan and
+        the gated norm with ``out_proj`` go through ``par``'s hooks
+        (``TensorParallel`` splits each in training)."""
         b, s, _ = x.shape
         di, n, h, pd = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-        proj = x @ self.in_proj
+        proj = par.columns(self, "in_proj", x)
         z, xs, Bc, Cc, dt = torch.split(proj, [di, di, n, n, h], dim=-1)
         tail = cache["conv"] if mode == "decode" else None
-        conv_out, new_tail = ssm_lib.causal_conv1d(torch.cat([xs, Bc, Cc], dim=-1),
-                                                   self.conv_w, self.conv_b, tail)
+        conv_out, new_tail = par.conv(self, torch.cat([xs, Bc, Cc], dim=-1), tail)
         xs, Bc, Cc = torch.split(F.silu(conv_out), [di, n, n], dim=-1)
-        dt = torch.logaddexp(dt.to(torch.float32) + self.dt_bias.to(torch.float32),
-                             torch.zeros((), device=x.device))          # softplus
-        A = -torch.exp(self.A_log.to(torch.float32))
         xh = xs.reshape(b, s, h, pd)
         if mode == "decode":
+            dt, A = ssm_lib.dt_and_A(dt, self.dt_bias, self.A_log)
             y, state = ssm_lib.ssd_decode_step(xh[:, 0], dt[:, 0], A, Bc[:, 0],
                                                Cc[:, 0], self.D, cache["state"])
             y = y[:, None]
         else:
-            y, state = ssm_lib.ssd_chunked(xh, dt, A, Bc, Cc, self.D, cfg.ssm_chunk)
+            y, state = par.scan(self, cfg, xh, dt, Bc, Cc)
         if cache is not None:
             cache["state"].copy_(state)
             cache["conv"].copy_(new_tail)
-        y = y.reshape(b, s, di)
-        y = L.rms_norm(y * F.silu(z.to(torch.float32)).to(y.dtype), self.norm, cfg.norm_eps)
-        return y @ self.out_proj
+        return par.gated_out(self, cfg, y.reshape(b, s, di), z)
 
 
 class MLP(_Params):
@@ -433,12 +462,16 @@ class MLP(_Params):
 
 
 class MoE(_Params):
-    def forward(self, cfg: ArchConfig, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """The mixture of GLU experts: ``(out, aux)``."""
-        return moe_lib.moe_glu(x, self.router, self.w_gate, self.w_up, self.w_down,
-                               top_k=cfg.top_k, group_size=cfg.moe_group,
-                               capacity_factor=cfg.capacity_factor,
-                               activation=cfg.activation)
+    def forward(self, cfg: ArchConfig, x: torch.Tensor, par: Whole = WHOLE
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The mixture of GLU experts: ``(out, aux)``, its experts over the
+        positions ``par`` gives them (one; over a model axis
+        expert-parallel)."""
+        shards, devices = par.experts(self, x)
+        return moe_lib.moe_glu_sharded(x, *shards, devices, top_k=cfg.top_k,
+                                       group_size=cfg.moe_group,
+                                       capacity_factor=cfg.capacity_factor,
+                                       activation=cfg.activation)
 
 
 def _sub(specs: dict[str, Spec], prefix: str) -> dict[str, tuple]:
@@ -486,11 +519,11 @@ class DecoderLayer(nn.Module):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         h = _norm(cfg, x, self, "norm1")
         if cfg.arch_type == "ssm":
-            return x + self.ssm(cfg, h, mode=mode, cache=cache.get("ssm")), aux
+            return x + self.ssm(cfg, h, mode=mode, cache=cache.get("ssm"), par=par), aux
         a_out = self.attn(cfg, h, positions, mode=mode, cache=cache.get("attn"),
                           causal=causal, par=par)
         if cfg.arch_type == "hybrid":
-            s_out = self.ssm(cfg, h, mode=mode, cache=cache.get("ssm"))
+            s_out = self.ssm(cfg, h, mode=mode, cache=cache.get("ssm"), par=par)
             ga = 0.5 * (1.0 + self.mix_attn.to(torch.float32))
             gs = 0.5 * (1.0 + self.mix_ssm.to(torch.float32))
             out = (ga * a_out.to(torch.float32) + gs * s_out.to(torch.float32)).to(x.dtype)
@@ -501,7 +534,7 @@ class DecoderLayer(nn.Module):
             x = x + self.xattn(cfg, _norm(cfg, x, self, "norm_x"), enc_out)
         h = _norm(cfg, x, self, "norm2")
         if cfg.is_moe:
-            out, aux = self.moe(cfg, h)
+            out, aux = self.moe(cfg, h, par)
         else:
             out = self.mlp(cfg, h, par)
         return x + out, aux
@@ -718,11 +751,18 @@ def forward_train(model: Transformer, batch: dict,
     tensors, e.g. ones that require grad, or LoRA-merged weights) stand in
     for the model's own through ``torch.func.functional_call``.  Returns
     ``(loss, {"loss", "aux"})``, ``aux`` the MoE load-balance terms summed
-    over the layers (0 without experts).  With ``par`` (a dense model over
-    a model axis) ``params`` is a tree of shards (``TensorParallel``)."""
+    over the layers (0 without experts).  With ``par`` (a model over a
+    model axis) ``params`` is a tree of shards (``TensorParallel``); it
+    runs a decoder from tokens alone, as a round's batch holds them, so an
+    audio model's frames or a VLM's vision embeddings raise (without them
+    the model raises for them, as without ``par``)."""
     args = (batch["tokens"], batch.get("vision_embeds"), batch.get("enc_feats"))
     kw = {"with_aux": True}
     if par is not None:
+        if args[1] is not None or args[2] is not None:
+            raise ValueError(f"{model.cfg.name}: the tensor-parallel forward runs the "
+                             f"decoder from tokens alone; the audio encoder and the "
+                             f"vision span have no tensor-parallel path")
         params, kw["par"] = par.bind(params)
     logits, aux = model(*args, **kw) if params is None else \
         torch.func.functional_call(model, params, args, kw)
@@ -786,39 +826,90 @@ def forward_decode(model: Transformer, batch: dict, cache: dict
 # Tensor parallelism over a model axis (training)
 # ==========================================================================
 
-# the families a tensor-parallel round covers; the others wait for their
-# own slice of the port
-TP_FAMILIES = ("dense",)
-TP_REFUSED = ("tensor parallelism over a model axis covers the dense attention "
-              "families with GLU MLPs (qwen3-4b, h2o-danube-1.8b, gemma-2b); MoE, "
-              "SSM, audio and VLM layers are ROADMAP.md Queue 1's 'TP for MoE, SSM, "
-              "audio and VLM'")
+# the families a tensor-parallel round covers: every family the round
+# trains from tokens alone (an audio model's frames and a VLM's vision
+# embeddings are no part of a round's batch, in the reference's too)
+TP_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
-def check_tp_family(cfg: ArchConfig) -> None:
-    """Raise for a config the tensor-parallel forward does not cover."""
-    if cfg.arch_type not in TP_FAMILIES or cfg.is_moe or cfg.norm == "ln":
-        raise ValueError(f"{cfg.name} ({cfg.arch_type}): {TP_REFUSED}")
+def check_tp(cfg: ArchConfig, dims: dict, t: int) -> None:
+    """Raise a ``ValueError`` naming ``cfg`` where the tensor-parallel
+    forward cannot serve its placements ``dims`` over ``t`` positions:
+    attention whose query heads split but whose GQA groups do not line up
+    with them, or whose KV groups are fewer than the positions where the
+    query heads do not split; experts split along another axis than the
+    expert axis.  An audio model or a VLM passes (its round raises for its
+    missing input, as at ``t = 1``)."""
+    if cfg.arch_type not in TP_FAMILIES:
+        return
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    if cfg.has_attention and dims.get("layers.0.attn.wq") is not None:
+        if H % t == 0:
+            hj, g = H // t, H // KV
+            kv_split = KV % t == 0 and dims["layers.0.attn.wk"] is not None
+            if not kv_split and hj % g and g % hj:
+                raise ValueError(f"{cfg.name}: {hj} query heads a position do not line "
+                                 f"up with GQA groups of {g}")
+        elif KV < t:
+            raise ValueError(f"{cfg.name}: {H}:{KV} heads split over {t} positions "
+                             f"cut a head, and {KV} KV groups cannot give each position "
+                             f"whole ones")
+    if cfg.is_moe:
+        got = (dims["layers.0.moe.router"], dims["layers.0.moe.w_gate"],
+               dims["layers.0.moe.w_up"], dims["layers.0.moe.w_down"])
+        if got not in ((1, 0, 0, 0), (None,) * 4):
+            raise ValueError(f"{cfg.name}: its {cfg.n_experts} experts split over {t} "
+                             f"positions along {got} (router, w_gate, w_up, w_down), not "
+                             f"the expert axis")
+
+
+def kv_groups(n_kv: int, t: int) -> list[tuple[int, int]]:
+    """``[k0, k1)`` for each of ``t`` positions: whole KV groups, as even
+    as they go, the first positions one more (25:5 heads at ``t = 2``:
+    3 and 2 groups, 15:3 and 10:2 heads)."""
+    out, k0 = [], 0
+    for j in range(t):
+        k1 = k0 + n_kv // t + (1 if j < n_kv % t else 0)
+        out.append((k0, k1))
+        k0 = k1
+    return out
 
 
 class TensorParallel(Whole):
     """The ``par`` hook over a model axis of ``t = len(devices)`` positions
-    (Megatron's layout): ``dims[name]`` the dimension a weight splits
-    along (None: whole on every position;
-    ``launch/sharding.py::placements``), ``home`` the device of the whole
-    activations.  ``bind(tree)`` reads a tree holding
+    (Megatron's layout): ``dims[name]`` the dimension a weight is stored
+    split along (None: whole on every position;
+    ``launch/sharding.py::placements``, the reference's), ``home`` the
+    device of the whole activations.  ``bind(tree)`` reads a tree holding
     ``model_axis.shard_key(name, j)`` for position ``j``'s shard of a split
-    weight and ``name`` for a whole one.  Position ``j`` gets the layer's
-    input (``to_positions``: the input gradient all-reduced backward) and
-    computes with its shards: ``wq``/``wk``/``wv`` by heads and KV heads
-    (where the KV heads do not split, the KV weights gathered whole and
-    narrowed to the heads its query groups read), ``w_gate``/``w_up`` by
-    ``d_ff``; ``wo``/``w_down`` are row-parallel and the parts all-reduced
-    (``reduce``).  The vocabulary-split embedding is all-reduced; the
-    vocabulary-split head's logits are gathered whole on ``home``."""
+    weight and ``name`` for a whole one.  Each position computes only along
+    a dimension the layer's maths separates on; where the stored split cuts
+    through such a unit the position gathers the weight and narrows it
+    (``model_axis.gather_narrow``), or runs a column-parallel product and
+    the activation is gathered.
+
+    * Attention: position ``j`` gets the layer's input (``to_positions``:
+      the input gradient all-reduced backward) and attends over its query
+      heads -- ``H / t`` of them where the heads split evenly, the KV
+      weights gathered and narrowed to the heads they read where the KV
+      heads do not split (MQA's one head), else whole KV groups
+      (``kv_groups``: hymba's 25:5 as 15:3 and 10:2 at ``t = 2``), each
+      weight gathered and narrowed to them; ``wo`` row-parallel, the parts
+      all-reduced (``reduce``).
+    * The GLU MLP by ``d_ff`` (``w_down`` row-parallel).
+    * MoE expert-parallel (``experts``: each position's shards for
+      ``moe_lib.moe_glu_sharded``).
+    * SSM (``columns``, ``conv``, ``scan``, ``gated_out``): ``in_proj``
+      column-parallel and its output gathered, the depthwise conv by
+      channels and gathered, the SSD scan by heads (with B and C whole) or
+      once on ``home`` where the heads stay whole, the gated RMS norm by
+      the stored split of ``d_inner`` with its sum of squares all-reduced
+      in fp32, ``out_proj`` row-parallel.
+    * The vocabulary-split embedding is all-reduced; the vocabulary-split
+      head's logits are gathered whole on ``home``."""
 
     def __init__(self, model: Transformer, dims: dict, devices, home):
-        check_tp_family(model.cfg)
+        check_tp(model.cfg, dims, len(devices))
         self.cfg, self.dims, self.tree = model.cfg, dims, None
         self.devices = tuple(torch.device(d) for d in devices)
         self.home = torch.device(home)
@@ -834,6 +925,9 @@ class TensorParallel(Whole):
         out.tree = tree
         return {k: v for k, v in tree.items() if k in self.dims and self.dims[k] is None}, out
 
+    def _split(self, module: nn.Module, name: str) -> bool:
+        return self.dims[f"{self._paths[module]}.{name}"] is not None
+
     def _part(self, module: nn.Module, name: str, j: int) -> torch.Tensor:
         from repro_torch.launch.model_axis import shard_key
         path = f"{self._paths[module]}.{name}" if self._paths[module] else name
@@ -841,44 +935,63 @@ class TensorParallel(Whole):
             return getattr(module, name).to(self.devices[j])
         return self.tree[shard_key(path, j)]
 
-    def _kv_narrow(self, module: nn.Module, j: int):
-        """Where the KV heads do not split over the positions (MQA's one
-        head, say), position ``j``'s getter of a KV weight: whole
-        (gathered), narrowed to the KV heads its query heads read (query
-        head ``h`` reads KV head ``h // (H / KV)``)."""
-        from repro_torch.launch import model_axis
-        from repro_torch.launch.model_axis import shard_key
-        cfg, t, path = self.cfg, self.t, self._paths[module]
-        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-        if H % t or self.dims[f"{path}.wq"] is None:
-            raise ValueError(f"{cfg.name}: {H} query heads do not split over {t} positions")
-        hj, g = H // t, H // KV
-        if KV % t == 0 and self.dims[f"{path}.wk"] is not None:
-            return None
-        if hj % g and g % hj:
-            raise ValueError(f"{cfg.name}: {hj} query heads a position do not line up "
-                             f"with GQA groups of {g}")
-        first, last = j * hj // g, ((j + 1) * hj - 1) // g + 1
+    def _parts(self, module: nn.Module, name: str) -> list[torch.Tensor]:
+        return [self._part(module, name, j) for j in range(self.t)]
 
-        def whole(name):
-            key = f"{path}.{name}"
-            if self.dims[key] is None:
-                w = getattr(module, name).to(self.devices[j])
-            else:
-                w = model_axis.gather_from_positions(
-                    [self.tree[shard_key(key, i)] for i in range(t)], -1, self.devices[j])
-            return w.narrow(-1, first * hd, (last - first) * hd)
-        return whole
+    def _narrowed(self, module: nn.Module, name: str, j: int, along: int, start: int,
+                  length: int) -> torch.Tensor:
+        """Position ``j``'s ``[start, start + length)`` along ``along`` of
+        weight ``name``, gathered from its shards (or whole)."""
+        from repro_torch.launch import model_axis
+        key = f"{self._paths[module]}.{name}"
+        dim = self.dims[key]
+        shards = [getattr(module, name)] if dim is None else \
+            [self.tree[model_axis.shard_key(key, i)] for i in range(self.t)]
+        return model_axis.gather_narrow(shards, dim, self.devices[j], along, start, length)
+
+    def _kv_narrow(self, module: nn.Module, j: int):
+        """Where the query heads split evenly but the KV heads do not (MQA's
+        one head, say), position ``j``'s getter of a KV weight: whole
+        (gathered), narrowed to the KV heads its query heads read (query
+        head ``h`` reads KV head ``h // (H / KV)``); None where the KV
+        heads split too."""
+        cfg, t = self.cfg, self.t
+        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        hj, g = H // t, H // KV
+        if KV % t == 0 and self._split(module, "wk"):
+            return None
+        first, last = j * hj // g, ((j + 1) * hj - 1) // g + 1
+        return lambda name: self._narrowed(module, name, j, -1, first * hd, (last - first) * hd)
+
+    def _group_getter(self, module: nn.Module, j: int, k0: int, k1: int):
+        """Position ``j``'s getter over whole KV groups ``[k0, k1)`` (the
+        query heads that read them): every head-split weight gathered and
+        narrowed, ``wo`` by rows."""
+        hd, g = self.cfg.resolved_head_dim, self.cfg.n_heads // self.cfg.n_kv_heads
+        q = (k0 * g * hd, (k1 - k0) * g * hd)
+        kv = (k0 * hd, (k1 - k0) * hd)
+        spans = {"wq": (-1,) + q, "bq": (-1,) + q, "wo": (0,) + q,
+                 "wk": (-1,) + kv, "wv": (-1,) + kv, "bk": (-1,) + kv, "bv": (-1,) + kv}
+
+        def get(name):
+            if name in spans:
+                return self._narrowed(module, name, j, *spans[name])
+            return self._part(module, name, j)
+        return get
 
     def parts(self, module: nn.Module, x: torch.Tensor) -> list:
         from repro_torch.launch import model_axis
-        path = self._paths[module]
-        lead = "wq" if isinstance(module, Attention) else "w_gate"
-        if self.dims[f"{path}.{lead}"] is None:
+        attn = isinstance(module, Attention)
+        if not self._split(module, "wq" if attn else "w_gate"):
             return super().parts(module, x)
+        xs = model_axis.to_positions(x, self.devices)
+        if attn and self.cfg.n_heads % self.t:
+            return [(xj, self._group_getter(module, j, k0, k1))
+                    for j, (xj, (k0, k1)) in enumerate(
+                        zip(xs, kv_groups(self.cfg.n_kv_heads, self.t)))]
         out = []
-        for j, xj in enumerate(model_axis.to_positions(x, self.devices)):
-            kv = self._kv_narrow(module, j) if lead == "wq" else None
+        for j, xj in enumerate(xs):
+            kv = self._kv_narrow(module, j) if attn else None
 
             def get(n, j=j, kv=kv):
                 if kv is not None and n in ("wk", "wv", "bk", "bv"):
@@ -891,6 +1004,67 @@ class TensorParallel(Whole):
         from repro_torch.launch import model_axis
         return outs[0] if len(outs) == 1 else \
             model_axis.reduce_from_positions(outs, self.home)
+
+    def experts(self, module: nn.Module, x: torch.Tensor) -> tuple[list, tuple]:
+        """Position ``j``'s shards of the experts (``check_tp``: all four
+        leaves split along the expert axis, or none)."""
+        if not self._split(module, "w_gate"):
+            return super().experts(module, x)
+        return [self._parts(module, n) for n in _EXPERT_LEAVES], self.devices
+
+    def columns(self, module: nn.Module, name: str, x: torch.Tensor) -> torch.Tensor:
+        """``x @ weight`` column-parallel over its shards, the outputs
+        gathered on ``home`` (``in_proj``: a split cuts through its packed
+        ``[z | x | B | C | dt]``)."""
+        from repro_torch.launch import model_axis as MA
+        if not self._split(module, name):
+            return super().columns(module, name, x)
+        return MA.gather_from_positions(
+            [xj @ w for xj, w in zip(MA.to_positions(x, self.devices),
+                                     self._parts(module, name))], -1, self.home)
+
+    def conv(self, block: nn.Module, xbc: torch.Tensor, tail: torch.Tensor | None = None):
+        """The depthwise conv by its channel shards (exact), gathered; in
+        training (no tail)."""
+        from repro_torch.launch import model_axis as MA
+        if not self._split(block, "conv_w"):
+            return super().conv(block, xbc, tail)
+        outs = [ssm_lib.causal_conv1d(c, w, cb)[0] for c, w, cb in zip(
+            MA.scatter_to_positions(xbc, -1, self.devices), self._parts(block, "conv_w"),
+            self._parts(block, "conv_b"))]
+        return MA.gather_from_positions(outs, -1, self.home), None
+
+    def scan(self, block: nn.Module, cfg: ArchConfig, xh, dt, Bc, Cc):
+        """The scan by SSD heads, B and C whole on every position, gathered;
+        once on ``home`` where the heads stay whole."""
+        from repro_torch.launch import model_axis as MA
+        if not self._split(block, "A_log"):
+            return super().scan(block, cfg, xh, dt, Bc, Cc)
+        devs = self.devices
+        ys = [_scan(cfg, *a)[0] for a in zip(
+            MA.scatter_to_positions(xh, 2, devs), MA.scatter_to_positions(dt, -1, devs),
+            MA.to_positions(Bc, devs), MA.to_positions(Cc, devs),
+            self._parts(block, "dt_bias"), self._parts(block, "A_log"), self._parts(block, "D"))]
+        return MA.gather_from_positions(ys, 2, self.home), None
+
+    def gated_out(self, block: nn.Module, cfg: ArchConfig, y: torch.Tensor,
+                  z: torch.Tensor) -> torch.Tensor:
+        """The gate and RMS norm by the stored split of ``d_inner``, each
+        position's fp32 sum of squares all-reduced (the whole row's
+        statistics), ``out_proj`` row-parallel and all-reduced."""
+        from repro_torch.launch import model_axis as MA
+        if not self._split(block, "norm"):
+            return super().gated_out(block, cfg, y, z)
+        devs = self.devices
+        gated = [ssm_lib.gate(yj, zj) for yj, zj in zip(MA.scatter_to_positions(y, -1, devs),
+                                                          MA.scatter_to_positions(z, -1, devs))]
+        var = MA.reduce_from_positions(
+            [g.to(torch.float32).square().sum(-1, keepdim=True) for g in gated],
+            self.home) / y.shape[-1]
+        return MA.reduce_from_positions(
+            [L.rms_norm(g, w, cfg.norm_eps, var=v) @ wo for g, v, w, wo in zip(
+                gated, MA.to_positions(var, devs), self._parts(block, "norm"),
+                self._parts(block, "out_proj"))], self.home)
 
     def embed(self, model: nn.Module, tokens: torch.Tensor) -> torch.Tensor:
         """Each position looks up the tokens in its rows (zero elsewhere);

@@ -1816,13 +1816,7 @@ def test_model_axis_qwen3_tp_layer_flash_on_card(dev):
     mesh = make_fl_mesh(mediator=1, model=2, devices=(dev, dev))
     dims = sharding.placements(T.param_specs(cfg), mesh)
     tp = T.TensorParallel(model, dims, (dev, dev), dev)
-    tree = {}
-    for k, p in params.items():
-        if dims[k] is None:
-            tree[k] = p
-        else:
-            for j, s in enumerate(model_axis.split(p, dims[k], (dev, dev))):
-                tree[f"{k}@{j}"] = s
+    tree = model_axis.split_tree(params, dims, (dev, dev))
     g = torch.Generator(device=dev).manual_seed(1)
     h = torch.randn(1, 128, cfg.d_model, generator=g, device=dev).to(torch.bfloat16)
     pos = torch.arange(128, device=dev)[None]
@@ -1890,6 +1884,174 @@ def test_model_axis_qwen3_tp_layer_flash_on_card(dev):
     rel = (err / norm) ** 0.5
     print(f"TP layer gradients: {rel:.3e} of the whole layer's in L2")
     assert rel <= TP_LAYER_GRAD_BOUND
+
+
+# each family's TP layer at t=2 (bf16, full width, 1 x 128) against the
+# whole layer: its output and its gradients in every weight, each in L2
+# over all of it, within the bounds (out, grad); the same layer with one
+# position's partial dropped from every all-reduce must read above both.
+# mamba2 and hymba: the qwen3 layer's 2^-6 (a bf16 CPU rehearsal reads 3.8e-3
+# and 9.3e-3 at most).  granite's MoE block alone is held to one bf16
+# rounding on the same input (its routes are one position's by
+# construction), but in the layer the row-parallel attention's partials
+# round once more in bf16, and that ulp of the router's input flips
+# near-ties among its top 8 of 40 experts: 1.2e-2 and 3.9e-2 in the CPU
+# rehearsal (the fp32 layer reads 7.9e-8), so 2^-5 and 2^-4
+FAMILY_TP_LAYERS = {
+    # granite: 12:4 heads a position, 20 experts a position
+    "granite-moe-3b-a800m": {"flash": [((1, 128, 12, 64), (1, 128, 4, 64))], "ssd": [],
+                             "bounds": (2 ** -5, 2 ** -4)},
+    # mamba2: 16 SSD heads a position (in_proj, conv gathered)
+    "mamba2-370m": {"flash": [], "ssd": [(1, 2, 64, 16, 64, 128)],
+                    "bounds": (2 ** -6, 2 ** -6)},
+    # hymba: whole KV groups, 15:3 and 10:2; the scan once at 25 heads
+    "hymba-1.5b": {"flash": [((1, 128, 15, 64), (1, 128, 3, 64)),
+                             ((1, 128, 10, 64), (1, 128, 2, 64))],
+                   "ssd": [(1, 2, 64, 25, 64, 16)], "bounds": (2 ** -6, 2 ** -6)},
+}
+
+
+def _tp_layer_run(dev, arch, drop_partial=False):
+    """One full-width bf16 layer of ``arch`` (1 layer, vocab 512, no remat)
+    tensor-parallel over two logical positions against the whole layer:
+    ``(output rel L2, gradient rel L2, launches, flash and SSD calls, the
+    MoE block alone's largest |diff| over its scale or None)``;
+    ``drop_partial`` drops the last position's partial from every
+    all-reduce (a wrong TP layer)."""
+    from repro_torch.launch import model_axis, sharding
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_fl_mesh
+    cfg = dataclasses.replace(configs.get(arch), n_layers=1, vocab=512, remat=False)
+    model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    with torch.no_grad():                     # the standard fan-in (chip_smoke.to_fan_in)
+        for name, p in model.named_parameters():
+            if name.startswith("layers.") and p.dim() >= 2 and not name.endswith("conv_w"):
+                p.mul_(p.shape[-2] ** -0.5 / cfg.n_layers ** -0.5)
+    params = T.train_params(model)
+    dims = sharding.placements(T.param_specs(cfg), make_fl_mesh(mediator=1, model=2,
+                                                                devices=(dev, dev)))
+    tp = T.TensorParallel(model, dims, (dev, dev), dev)
+    tree = model_axis.split_tree(params, dims, (dev, dev))
+    g = torch.Generator(device=dev).manual_seed(1)
+    h = torch.randn(1, 128, cfg.d_model, generator=g, device=dev).to(torch.bfloat16)
+    pos = torch.arange(128, device=dev)[None]
+    layer, pre = model.layers[0], "layers.0."
+
+    def run(p, par=None):
+        whole, par = (p, None) if par is None else par.bind(p)
+        bound = {k[len(pre):]: v for k, v in whole.items() if k.startswith(pre)}
+        kw = {"mode": "train", "cache": None}
+        if par is not None:
+            kw["par"] = par
+        return torch.func.functional_call(layer, bound, (h, pos), kw)[0]
+
+    calls = []
+    flash, flash_bwd, ssd, reduce = (ops.flash_attention, ops.flash_attention_bwd,
+                                     ops.ssd_chunk, model_axis.reduce_from_positions)
+
+    def rec(q, k, v, **kw):
+        calls.append(("flash", tuple(q.shape), tuple(k.shape)))
+        return flash(q, k, v, **kw)
+
+    def rec_ssd(x, *a):
+        calls.append(("ssd", tuple(x.shape), tuple(a[-1].shape)))
+        return ssd(x, *a)
+
+    def dropped(parts, device):
+        return reduce(list(parts[:-1]) + [torch.zeros_like(parts[-1])], device)
+    ops.flash_attention, ops.ssd_chunk = rec, rec_ssd
+    if drop_partial:
+        model_axis.reduce_from_positions = dropped
+    try:
+        ops.reset_launches()
+        _, grads = S._loss_and_grads(lambda t: run(t, tp).float().square().mean(), tree)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        with torch.no_grad():
+            got = run(tree, tp)
+    finally:
+        ops.flash_attention, ops.flash_attention_bwd, ops.ssd_chunk = flash, flash_bwd, ssd
+        model_axis.reduce_from_positions = reduce
+    with torch.no_grad():
+        whole = run(params)
+        moe_rel = None
+        if cfg.is_moe and not drop_partial:         # the block alone, one input
+            x = torch.randn(1, 128, cfg.d_model, generator=g, device=dev).to(torch.bfloat16)
+            want_y = layer.moe(cfg, x)[0]
+            bound, par = tp.bind(tree)
+            got_y = torch.func.functional_call(
+                layer.moe, {k[len(pre) + 4:]: v for k, v in bound.items()
+                            if k.startswith(pre + "moe.")}, (cfg, x, par))[0]
+            moe_rel = float((got_y.float() - want_y.float()).abs().max()) \
+                / float(want_y.float().abs().max())
+    _, want_grads = S._loss_and_grads(lambda p: run(p).float().square().mean(),
+                                      {k: v for k, v in params.items() if k.startswith(pre)})
+    out_rel = float((got.float() - whole.float()).norm()) / float(whole.float().norm())
+    err = norm = 0.0
+    for k, want_g in want_grads.items():
+        d = dims[k]
+        got_g = grads[k] if d is None else torch.cat([grads[f"{k}@{j}"] for j in range(2)], d)
+        assert bool(torch.isfinite(got_g.float()).all()), k
+        err += float((got_g.float() - want_g.float()).square().sum())
+        norm += float(want_g.float().square().sum())
+    return out_rel, (err / norm) ** 0.5, launches, sorted(set(calls)), moe_rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(FAMILY_TP_LAYERS))
+def test_model_axis_family_tp_layer_on_card(dev, arch):
+    """A full-width bf16 layer of granite-moe-3b-a800m (expert-parallel,
+    12:4 heads a position), mamba2-370m (16 SSD heads a position, the
+    packed in_proj and the conv gathered) and hymba-1.5b (whole KV groups
+    15:3 and 10:2, the scan once at 25 heads) tensor-parallel over two
+    logical positions against the whole layer at 1 x 128: the output and
+    the gradients within ``FAMILY_TP_LAYERS``' bounds in L2 (granite's
+    MoE block alone on one input within one bf16 rounding, 2^-8 of its
+    scale); one launch of each kernel a position (the SSD once where its
+    heads stay whole); each new flash and SSD signature held against its
+    plain version, forward and backward; the layer with one position's
+    partial dropped from every all-reduce reads above both bounds."""
+    want = FAMILY_TP_LAYERS[arch]
+    out_bound, grad_bound = want["bounds"]
+    out_rel, grad_rel, launches, calls, moe_rel = _tp_layer_run(dev, arch)
+    print(f"{arch} TP layer: output {out_rel:.3e}, gradients {grad_rel:.3e} in L2 (bounds "
+          f"{out_bound}, {grad_bound}); the MoE block alone {moe_rel}")
+    assert out_rel <= out_bound and grad_rel <= grad_bound
+    if moe_rel is not None:
+        assert moe_rel <= 2 ** -8
+    n_flash = 2 * bool(want["flash"])
+    n_ssd = (2 if arch == "mamba2-370m" else 1) * bool(want["ssd"])
+    assert launches["flash_attention"] == launches["flash_attention_bwd"] == n_flash
+    assert launches["ssd_chunk"] == launches["ssd_chunk_bwd"] == n_ssd
+    assert [c[1:] for c in calls if c[0] == "flash"] == sorted(
+        (q, k) for q, k in want["flash"])
+    assert [c[1] for c in calls if c[0] == "ssd"] == [(b, nc, L, h, p) for b, nc, L, h, p, _
+                                                      in want["ssd"]]
+    g = torch.Generator(device=dev).manual_seed(2)
+    window = configs.get(arch).sliding_window
+    for qs, ks in want["flash"]:
+        q, k, v, dout = (torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+                         for s in (qs, ks, ks, qs))
+        out = ops.flash_attention(q, k, v, causal=True, window=window)
+        ex = ref.flash_attention(q.float(), k.float(), v.float(), causal=True,
+                                 window=window)
+        assert float((out.float() - ex).abs().max()) <= 2 ** -7 * float(ex.abs().max())
+        got_g = ops.flash_attention_bwd(q, k, v, out, dout, causal=True,
+                                        window=window)
+        want_g = ref.flash_attention_bwd(q.float(), k.float(), v.float(), ex, dout.float(),
+                                         causal=True, window=window)
+        for a, b in zip(got_g, want_g):
+            assert float((a.float() - b).abs().max()) <= 2 ** -7 * float(b.abs().max())
+    for case in want["ssd"]:
+        x, dt, A, B, C = _ssd_inputs(dev, torch.float32, *case)
+        _ssd_matches_plain(ops.ssd_chunk(x, dt, A, B, C), ref.ssd_chunk(x, dt, A, B, C),
+                           torch.float32)
+        args = _ssd_bwd_inputs(dev, *case)
+        _ssd_bwd_matches_plain(ops.ssd_chunk_bwd(*args), ref.ssd_chunk_bwd(*args))
+    bad_out, bad_grad, _, _, _ = _tp_layer_run(dev, arch, drop_partial=True)
+    print(f"{arch} TP layer, one partial dropped: output {bad_out:.3e}, gradients "
+          f"{bad_grad:.3e}")
+    assert bad_out > out_bound and bad_grad > grad_bound
 
 
 @pytest.mark.cuda
