@@ -125,8 +125,9 @@ Phases, each fatal on failure:
     (493,780,992; 64 stub vision tokens and 64 text tokens a row; 48 and 24)
     two AdamW steps each (no third, profiled step: the script's time
     limit; qwen3-4b's stays); then the training
-    launchers at their reduced defaults (qwen3-4b, mamba2-370m,
-    granite-moe-3b-a800m, whisper-base, internvl2-1b) and ``fl_train``;
+    launchers at their reduced configs (qwen3-4b, mamba2-370m,
+    granite-moe-3b-a800m, whisper-base, internvl2-1b; ``LAUNCHER_STEPS``
+    steps each, the script's time limit) and ``fl_train`` (2 rounds);
     every kernel signature these runs called that phase 3 did not hold --
     the flash backward's too -- held against its plain version after.
 12. the CNN engine's LoRA adapter exchange and the round telemetry, under
@@ -169,7 +170,7 @@ Phases, each fatal on failure:
     and the all-gather exchange bit for bit equal, each shard a quarter of
     the replicated store's bytes, exchange bytes a round (ragged <= gather,
     both > 0), the placement's fetch counts, seconds a round and launches;
-    async S=0 over the sharded store bitwise its sync run; (b) two child
+    (b) two child
     processes on the card (``examples/distributed_waves.py``, the library
     phase 2 built loaded, never rebuilt), joined through a ``TCPStore``
     this process hosts: two overlapped async rounds of (a)'s arm over a
@@ -184,9 +185,11 @@ Phases, each fatal on failure:
     its EMNIST arm under cuDNN's deterministic algorithms, a 2 x 2 mesh of
     four logical positions on the card: three Astraea rounds under the
     gather oracle over the replicated and the sharded store, each bit for
-    bit phase 14 (a)'s 4 x 1 run, one capture, the split leaves' bytes a
-    position halved, WAN ledgers equal, model-axis bytes on the intra-pod
-    ledger at 2 x 2 only; async S=0 bitwise its sync run; TP rows (``"auto"``
+    bit the sharded store's run on a 2 x 1 mesh (a lockstep program's bits
+    follow its width), one capture a mediator row, the split leaves' bytes a
+    position halved, WAN ledgers phase 14 (a)'s, model-axis bytes on the intra-pod
+    ledger at 2 x 2 only; async S=0 over the sharded store bitwise its sync
+    run; TP rows (``"auto"``
     on the card) after two rounds within 1e-5 relative and 1e-6 absolute of
     the oracle's at the reference's tiny config, and within
     ``P15_ARM_BOUND`` in L2 at the EMNIST arm; seconds a round of each; (b)
@@ -224,6 +227,25 @@ Phases, each fatal on failure:
     ``P15_GRAD_BOUND`` (one position's partial dropped from every
     all-reduce reads above it), seconds and peak GB; every new kernel
     signature held to its plain version with phase 11's.
+16. the mediator axis as compute (``phase16a``, phase 15 (a),
+    ``mediator_rows_round_check``), every line with the card's name and
+    power limit (logical positions on one card: device copies, no overlap
+    across cards): each mediator row of a mesh trains its own schedule rows
+    on its own position, its own round program and CUDA graph, the sharded
+    store's exchange run between the positions.  Phases 14 (a) and 15 (a)
+    hold one graph and one warp launch a mediator row a round.  (a) after
+    phase 15 (a), at phase 5's EMNIST arm on the 4 x 1 mesh under cuDNN's
+    deterministic algorithms, three rounds over the sharded store:
+    ``"map"`` bit for bit the run with every row on the engine's device;
+    ``"vmap"`` within ``P16_VMAP_BOUND`` of ``"map"``; the exchange bytes
+    counted where they move equal to the ledger's (phase 14 (a)'s ragged
+    and gather runs); seconds a round and a profiled round's device busy
+    and idle beside the engine-device run's; (b) phase 15 (a)'s TP rows,
+    each mediator row on its own two columns; (c) inside phase 11 after
+    15 (b), qwen3-4b's full-delta round on a 2 x 1 mesh (one mediator a
+    row) from phase 11 (c)'s start and inputs: bit for bit its t=1 round,
+    flash launches as at t=1, Eq. 6 one launch a row a leaf (the
+    reference's ``psum_eq6``), seconds and peak GB.
 
 Phase 3 also holds the flash-attention and SSD kernels against their plain
 versions at the serve shapes (bf16 and f32), with a no-window, a
@@ -1679,6 +1701,8 @@ GRANITE_PARAMS, WHISPER_PARAMS, INTERNVL2_PARAMS = 3_298_793_472, 73_542_144, 49
 LORA_LEGS = {"granite-moe-3b-a800m": (54_670_848, 109_341_696)}
 # the federated runs' traffic: 8 synthetic clients of 128 tokens, gamma 4
 FL_CLIENTS, FL_GAMMA, FL_SEQ, FL_LR = 8, 4, 128, 5e-4
+# the training launchers' steps in phase 11 (their default is 20)
+LAUNCHER_STEPS = 5
 
 
 def fl_client_streams(dev):
@@ -1961,8 +1985,9 @@ def phase11(dev, gen, checks: dict, path_launches: dict, lap, smi: str = "") -> 
     rounds'); then through ``train_family`` hymba-1.5b (steps and a LoRA
     round over the same mediators), mamba2-370m (steps at 4 x 512),
     granite-moe-3b-a800m (steps and a LoRA round), whisper-base and
-    internvl2-1b (steps); then the launchers at their reduced defaults
-    (qwen3-4b, mamba2-370m, granite, whisper, internvl2 and ``fl_train``);
+    internvl2-1b (steps); then the launchers at their reduced configs
+    (qwen3-4b, mamba2-370m, granite, whisper, internvl2 at
+    ``LAUNCHER_STEPS`` steps, and ``fl_train``);
     every kernel signature these runs called that no check had held (the
     flash backward's too) is then held against its plain version
     (``checks`` gains the rows)."""
@@ -2138,10 +2163,16 @@ def phase11(dev, gen, checks: dict, path_launches: dict, lap, smi: str = "") -> 
     res["tp_round"] = tp_round_check(dev, model, params, new, moved, (tokens, labels, w),
                                      per_med, steps_per_round, eval_loss, path_launches,
                                      tp_seen, smi)
-    del new, model, params
     torch.cuda.empty_cache()
     hold_unchecked(dev, gen, tp_seen, checks, f"train {TRAIN_ARCH} TP round")
     lap("15 (b) qwen3-4b TP round")
+    # phase 16 (c): the same round over two mediator rows, one mediator each
+    res["mediator_rows_round"] = mediator_rows_round_check(
+        dev, model, params, new, (tokens, labels, w), per_med, steps_per_round,
+        path_launches, smi)
+    del new, model, params
+    torch.cuda.empty_cache()
+    lap("16 (c) qwen3-4b mediator rows round")
 
     # (d) the SSD families at full width, their SSD gradient on the card's
     # backward kernel; Hymba's LoRA round over the same 2 mediators, their
@@ -2183,19 +2214,21 @@ def phase11(dev, gen, checks: dict, path_launches: dict, lap, smi: str = "") -> 
                                     path_launches)
     lap("11 whisper-base, internvl2-1b")
 
-    # (f) the launchers at their reduced defaults
+    # (f) the launchers at their reduced defaults, LAUNCHER_STEPS steps
+    # and two rounds (the script's time limit)
     ops.reset_launches()
-    tr = train.main([])
+    depth = ["--steps", str(LAUNCHER_STEPS)]
+    tr = train.main(depth)
     path_launches["launch.train"] = dict(ops.LAUNCHES)
     archs = ("mamba2-370m", "granite-moe-3b-a800m", "whisper-base", "internvl2-1b")
     arch_losses = {}
     for arch in archs:
         ops.reset_launches()
         with recorded_kernel_calls(seen):
-            arch_losses[arch] = train.main(["--arch", arch])["losses"]
+            arch_losses[arch] = train.main(["--arch", arch] + depth)["losses"]
         path_launches[f"launch.train {arch}"] = dict(ops.LAUNCHES)
     ops.reset_launches()
-    ft = fl_train.main(["--lora-rank", "2"])
+    ft = fl_train.main(["--lora-rank", "2", "--rounds", "2"])
     path_launches["launch.fl_train"] = dict(ops.LAUNCHES)
     every = tr["losses"] + ft["losses"] + [x for v in arch_losses.values() for x in v]
     if not all(math.isfinite(x) for x in every):
@@ -2204,11 +2237,11 @@ def phase11(dev, gen, checks: dict, path_launches: dict, lap, smi: str = "") -> 
     res["launchers"] = {"train_losses": tr["losses"], "arch_train_losses": arch_losses,
                         "fl_losses": ft["losses"], "fl_ratio": ft["ratio"],
                         "launches": {k: path_launches[k] for k in names}}
-    log(f"[launch] train (reduced {TRAIN_ARCH}, 20 steps): loss {tr['losses'][0]:.4f} -> "
-        f"{tr['losses'][-1]:.4f}; "
-        + "; ".join(f"train --arch {a} (reduced, 20 steps): loss {v[0]:.4f} -> {v[-1]:.4f}"
-                    for a, v in arch_losses.items())
-        + f"; fl_train --lora-rank 2 (3 rounds): losses {ft['losses']}, ratio "
+    log(f"[launch] train (reduced {TRAIN_ARCH}, {LAUNCHER_STEPS} steps): loss "
+        f"{tr['losses'][0]:.4f} -> {tr['losses'][-1]:.4f}; "
+        + "; ".join(f"train --arch {a} (reduced, {LAUNCHER_STEPS} steps): loss {v[0]:.4f} -> "
+                    f"{v[-1]:.4f}" for a, v in arch_losses.items())
+        + f"; fl_train --lora-rank 2 (2 rounds): losses {ft['losses']}, ratio "
         f"{ft['ratio']:.4f}; launches " + " / ".join(str(path_launches[k]) for k in names))
     # every kernel signature these runs called, held against its plain
     # version on fresh inputs (the models freed), unless a check did
@@ -2632,6 +2665,9 @@ P15_DELTA_BOUND, P15_GRAD_LAYERS, P15_GRAD_BOUND = 0.5, 2, 1e-4
 # (mamba2) and 7.05e-4 (hymba at the reference's init) on an H100 (700 W);
 # the t=1 round with its gradient negated reads 2.00 there
 P15_DELTA_BOUND_F32 = 1e-2
+# phase 16 (a): "vmap" against "map" at the EMNIST arm, in L2 relative to
+# the update, the bound the card's round tests hold the engine's "vmap" to
+P16_VMAP_BOUND = 1e-4
 
 
 def phase15a(fed, dev, smi: str, four: dict, path_launches: dict) -> dict:
@@ -2639,26 +2675,32 @@ def phase15a(fed, dev, smi: str, four: dict, path_launches: dict) -> dict:
     deterministic algorithms, on a 2 x 2 ``(mediator, model)`` mesh of four
     logical positions on the card: three Astraea rounds with a reschedule
     each under the gather oracle (``tp_rows=False``) over the replicated
-    and the sharded store, each bit for bit phase 14 (a)'s 4 x 1 run of the
-    same (``four``), one capture, the split leaves' bytes a position half
-    the 4 x 1's (the 47-class head, which the rules leave whole, whole),
-    the WAN ledger equal, the model axis charged to the intra-pod ledger at
-    2 x 2 only; async S=0 (masked, a wave per mediator) bit for bit the
-    sync 2 x 2 run; TP rows (``"auto"`` on the card), one capture: after
+    and the sharded store, each bit for bit the sharded store's run on the
+    2 x 1 mesh (each mediator row a round program of ``M_pad / 2`` rows on
+    both: a lockstep program's bits follow its width; the stores agree bit
+    for bit, phase 14 (a)), its WAN ledger phase 14
+    (a)'s 4 x 1 run's (``four``), one capture a mediator row, the split
+    leaves' bytes a position half the 4 x 1's (the 47-class head, which
+    the rules leave whole, whole), the model axis charged to the
+    intra-pod ledger at 2 x 2 only; async S=0 (masked, a wave per
+    mediator) over the sharded store bit for bit the sync 2 x 2 run; TP rows (``"auto"`` on the
+    card; phase 16 (b): each mediator row on its own two columns), one
+    capture a mediator row: after
     two rounds at the reference's own config (``tests/test_tp_rows.py``'s
     tiny federation) within 1e-5 relative and 1e-6 absolute of the
     oracle's two rounds (the reference's bound), and at the EMNIST arm
     within ``P15_ARM_BOUND`` of the oracle, in L2 over the parameters
     relative to the two rounds' update; seconds a round of each."""
     from repro_torch.core import AsyncSpec, StragglerSpec
-    from repro_torch.launch.mesh import make_fl_mesh
+    from repro_torch.launch.mesh import make_fl_mesh, model_devices
     from repro_torch.models.cnn import emnist_cnn, init_params
     tag = f"[phase15] ({smi}; logical positions on one card: device copies, not NVLink)"
     mesh = make_fl_mesh(mediator=2, model=P15_T, devices=(dev,) * (2 * P15_T))
+    mesh21 = make_fl_mesh(mediator=2, model=1, devices=(dev,) * 2)
     res: dict = {"card": smi}
 
-    def run(label, rounds=ROUNDS, snapshot_after=None, **kw):
-        tr = p10_trainer(fed, dev, mesh=mesh, reschedule_every_round=True, **kw)
+    def run(label, rounds=ROUNDS, snapshot_after=None, at=mesh, **kw):
+        tr = p10_trainer(fed, dev, mesh=at, reschedule_every_round=True, **kw)
         from repro_torch.kernels import ops
         torch.cuda.synchronize()
         ops.reset_launches()
@@ -2675,11 +2717,11 @@ def phase15a(fed, dev, smi: str, four: dict, path_launches: dict) -> dict:
         torch.cuda.synchronize()
         launches = {k: ops.LAUNCHES[k] for k in FL_KERNELS}
         path_launches[f"15 (a) {label}"] = launches
-        if launches != {k: rounds for k in FL_KERNELS}:
+        n = tr.engine.mesh.shape["mediator"]
+        if launches != {"fedavg_agg": rounds, "kld_greedy_picks": rounds,
+                        "affine_warp": n * rounds}:
             raise AssertionError(f"phase 15 (a) {label}: launches {launches}")
-        if tr.engine.num_round_traces != 1:
-            raise AssertionError(f"phase 15 (a) {label}: {tr.engine.num_round_traces} "
-                                 f"round programs")
+        rows_on_positions(tr, n, f"phase 15 (a) {label}")
         res[label] = {"round_seconds": secs, "launches": launches,
                       "tp_rows": tr.engine._tp_rows,
                       "per_position_param_bytes":
@@ -2695,10 +2737,14 @@ def phase15a(fed, dev, smi: str, four: dict, path_launches: dict) -> dict:
     with deterministic_convolutions():
         rep, snap2 = run("2x2 replicated oracle", tp_rows=False, snapshot_after=2)
         sharded, _ = run("2x2 sharded oracle", tp_rows=False, store="sharded")
+        # the stores agree bit for bit (phase 14 (a)), so one 2 x 1 run, of
+        # the sharded store, holds both 2 x 2 runs
+        sharded21, _ = run("2x1 sharded", at=mesh21, store="sharded")
         for tr, name in ((rep, "replicated"), (sharded, "sharded ragged")):
             want = four[name]
-            if not all(torch.equal(tr.params[k], want["params"][k]) for k in want["params"]):
-                raise AssertionError(f"phase 15 (a): 2 x 2 {name} differs from 4 x 1")
+            if not same_params(tr, sharded21):
+                raise AssertionError(f"phase 15 (a): 2 x 2 {name} differs from the 2 x 1 "
+                                     f"sharded run")
             if tr.comm.round_log != want["round_log"]:
                 raise AssertionError(f"phase 15 (a): {name} WAN ledger {tr.comm.round_log}")
             if not tr.comm.model_axis_tp_bytes > 0:
@@ -2717,18 +2763,26 @@ def phase15a(fed, dev, smi: str, four: dict, path_launches: dict) -> dict:
             raise AssertionError(f"phase 15 (a): {got} B a position of {whole}")
         res["param_bytes"] = {"per_position": got, "replica": whole, "split": split,
                               "ratio": got / whole}
-        log(f"{tag} (a) 2 x 2 == 4 x 1 bit for bit (replicated and sharded stores), WAN "
-            f"ledgers equal; param bytes a position {got:,} of the replica's {whole:,} "
+        log(f"{tag} (a) 2 x 2 (replicated and sharded stores) == 2 x 1 (sharded) bit for "
+            f"bit, WAN "
+            f"ledgers 4 x 1's; param bytes a position {got:,} of the replica's {whole:,} "
             f"({got / whole:.4f}: the split leaves' {split:,} B halve, the 47-class head "
             f"stays whole as the rules leave it)")
         spec = AsyncSpec(staleness_bound=0, wave_size=1, dispatch="masked",
                          straggler=StragglerSpec(**FLEET))
-        asy, _ = run("2x2 async S=0 oracle", tp_rows=False, async_spec=spec)
-        if not same_params(asy, rep):
-            raise AssertionError("phase 15 (a): async S=0 on 2 x 2 differs from the sync run")
+        asy, _ = run("2x2 async S=0 sharded oracle", tp_rows=False, store="sharded",
+                     async_spec=spec)
+        if not same_params(asy, sharded):
+            raise AssertionError("phase 15 (a): async S=0 over the sharded store on 2 x 2 "
+                                 "differs from the sync run")
+        res["async_store_exchange_bytes"] = asy.comm.store_exchange_bytes
         tp, _ = run("2x2 TP rows", rounds=2, tp_rows="auto")
         if not tp.engine._tp_rows:
             raise AssertionError("phase 15 (a): tp_rows='auto' did not resolve on the card")
+        # phase 16 (b): each mediator row's TP rows on its own model columns
+        columns = [tuple(p.model.devices) for p in tp.engine._programs]
+        if columns != [model_devices(mesh, i) for i in range(2)]:
+            raise AssertionError(f"phase 16 (b): TP rows on {columns}")
         init = init_params(emnist_cnn(47, 28), 0, dev)
 
         def flat(p):
@@ -2742,13 +2796,18 @@ def phase15a(fed, dev, smi: str, four: dict, path_launches: dict) -> dict:
         res["tp_vs_oracle"] = {"rel_l2": rel, "bound": P15_ARM_BOUND,
                                "max_abs": float((flat(tp.params) - flat(snap2)).abs().max()),
                                "reference_config": ref_cfg}
-        log(f"{tag} (a) async S=0 bitwise its sync run; TP rows after 2 rounds at the "
+        log(f"{tag} (a) async S=0 over the sharded store bitwise its sync run (store_exchange "
+            f"{asy.comm.store_exchange_bytes:,.0f} B, once a wave); TP rows after 2 rounds at the "
             f"EMNIST arm: {rel:.3e} of the update from the oracle in L2 (bound "
             f"{P15_ARM_BOUND}; max abs {res['tp_vs_oracle']['max_abs']:.3e}); at the "
             f"reference's config (tiny federation) within "
             f"rtol 1e-5 atol 1e-6 of the oracle: largest |diff| {ref_cfg['max_abs']:.3e}, "
             f"worst {ref_cfg['worst_over_bound']:.3f} of the bound, s/round TP "
             f"{' '.join(f'{x:.4f}' for x in ref_cfg['tp_round_seconds'])}")
+        log(f"[phase16] ({smi}; logical positions on one card) (b) the 2 x 2 TP rows above: "
+            f"each mediator row a round program and a graph on its own two columns, "
+            f"{rel:.3e} of the oracle's update in L2 (bound {P15_ARM_BOUND}), s/round "
+            f"{' '.join(f'{x:.4f}' for x in res['2x2 TP rows']['round_seconds'])}")
     return res
 
 
@@ -2779,7 +2838,7 @@ def tp_rows_at_reference_config(dev) -> dict:
                 secs.append(time.perf_counter() - t0)
         engines[mode] = e
     tp, oracle = engines["auto"], engines[False]
-    if not tp._tp_rows or tp.num_round_traces != 1:
+    if not tp._tp_rows or tp.num_round_traces != 2:       # one a mediator row
         raise AssertionError("phase 15 (a): the reference config's TP engine")
     worst = 0.0
     for k, want in oracle.params.items():
@@ -3130,8 +3189,8 @@ def phase14(fed, dev, smi: str, path_launches: dict, lap) -> dict:
     closed form), each shard a quarter of the replicated store's bytes (the
     card's peak over each run printed beside it), the
     ragged exchange at most the all-gather's and both above 0, the
-    placement's fetches adding up; async S=0 (a wave per mediator, masked)
-    over the sharded store bit for bit the sync run.  (b) Two processes on
+    placement's fetches adding up (async S=0 over the sharded store is
+    phase 15 (a)'s, on the 2 x 2 mesh).  (b) Two processes on
     ``cuda:0``, spawned after phase 2 built the kernels (they load the
     library, never build it), each joining a ``TCPStore`` this process
     hosts: two overlapped async rounds of (a)'s arm over the replicated
@@ -3147,7 +3206,6 @@ def phase14(fed, dev, smi: str, path_launches: dict, lap) -> dict:
     copies, not NVLink or NCCL."""
     from datetime import timedelta
 
-    from repro_torch.core import AsyncSpec, StragglerSpec
     from repro_torch.examples import distributed_waves
     from repro_torch.launch.mesh import make_fl_mesh, process_local_mesh
     tag = f"[phase14] ({smi}; one card: device copies, not NVLink or NCCL)"
@@ -3170,9 +3228,12 @@ def phase14(fed, dev, smi: str, path_launches: dict, lap) -> dict:
             secs, launches = run_timed(tr, label=name)
             peak = torch.cuda.max_memory_allocated(dev) - held
             path_launches[f"14 {name}"] = launches
+            # one warp launch a mediator row a round (each row's slots on its
+            # position), one Eq. 6 and one greedy pass a round
             if launches != {"fedavg_agg": ROUNDS, "kld_greedy_picks": ROUNDS,
-                            "affine_warp": ROUNDS}:
+                            "affine_warp": P14_SHARDS * ROUNDS}:
                 raise AssertionError(f"{name}: launches {launches}")
+            rows_on_positions(tr, P14_SHARDS, name)
             store = tr.engine.store
             stats[name] = {"round_seconds": secs, "launches": launches,
                            "per_device_bytes": store.per_device_bytes(),
@@ -3186,7 +3247,10 @@ def phase14(fed, dev, smi: str, path_launches: dict, lap) -> dict:
             four[name] = {"params": {k: v.clone() for k, v in tr.params.items()},
                           "round_log": list(tr.comm.round_log),
                           "intra_pod": tr.comm.intra_pod_bytes,
-                          "param_bytes": tr.engine.store.stats()["per_device_param_bytes"]}
+                          "param_bytes": tr.engine.store.stats()["per_device_param_bytes"],
+                          "round_seconds": secs,
+                          "moved_bytes": getattr(store, "moved_bytes", 0),
+                          "store_exchange_bytes": tr.comm.store_exchange_bytes}
             log(f"{tag} (a) {name}: s/round {' '.join(f'{x:.4f}' for x in secs)}, launches "
                 f"{launches}, device bytes a shard {store.per_device_bytes():,}, the card's "
                 f"peak over the run {peak:,} B (max_memory_allocated less what was held "
@@ -3213,24 +3277,15 @@ def phase14(fed, dev, smi: str, path_launches: dict, lap) -> dict:
         g_bytes = gather.engine.store.exchange_bytes_per_round
         if not 0 < r_bytes <= g_bytes or rep.comm.store_exchange_bytes != 0:
             raise AssertionError(f"exchange bytes ragged {r_bytes}, gather {g_bytes}")
-        spec = AsyncSpec(staleness_bound=0, wave_size=1, dispatch="masked",
-                         straggler=StragglerSpec(**FLEET))
-        tr = p10_trainer(fed, dev, mesh=mesh, reschedule_every_round=True,
-                         store="sharded", async_spec=spec)
-        secs, launches = run_timed(tr, label="async S=0 sharded")
-        path_launches["14 async S=0 sharded"] = launches
-        if not same_params(tr, ragged):
-            raise AssertionError("async S=0 over the sharded store differs from the sync run")
-        stats["async S=0 sharded"] = {"round_seconds": secs, "launches": launches,
-                                      "commits": tr.runner.num_commits,
-                                      "ledger": tr.comm.ledger_totals()}
-        log(f"{tag} (a) async S=0 masked, a wave per mediator, over the sharded store: "
-            f"bitwise the sync run; s/round {' '.join(f'{x:.4f}' for x in secs)}, launches "
-            f"{launches}, store_exchange {tr.comm.store_exchange_bytes:,.0f} B (once a wave)")
         log(f"{tag} (a) replicated == sharded ragged == sharded gather, bit for bit; "
             f"device bytes a shard {ragged.engine.store.per_device_bytes():,} x "
             f"{P14_SHARDS} = replicated {rep.engine.store.per_device_bytes():,}; exchange "
             f"a round ragged {r_bytes:,} B <= gather {g_bytes:,} B")
+        # phase 16 (a): a fourth round of the ragged run, profiled (its three
+        # rounds' params are in ``four``)
+        from repro_torch.examples.profile_round import profile_round
+        four["sharded ragged"]["profile"] = {k: v for k, v in profile_round(ragged).items()
+                                             if k != "top"}
     res["stores"] = stats
     del runs, rep, ragged, gather, tr
     torch.cuda.empty_cache()
@@ -3238,6 +3293,9 @@ def phase14(fed, dev, smi: str, path_launches: dict, lap) -> dict:
     res["model_axis"] = phase15a(fed, dev, smi, four, path_launches)
     torch.cuda.empty_cache()
     lap("15 (a) model axis, EMNIST")
+    res["mediator_rows"] = phase16a(fed, dev, smi, four, path_launches)
+    torch.cuda.empty_cache()
+    lap("16 (a) mediator rows, EMNIST")
 
     # (b) two processes on this card
     store = torch.distributed.TCPStore("127.0.0.1", 0, None, is_master=True,
@@ -3329,6 +3387,176 @@ def phase14(fed, dev, smi: str, path_launches: dict, lap) -> dict:
                         "single_launches": solo["launches"],
                         "model_axis_single_round_seconds": solo_tp["round_seconds"]}
     lap("14 (b) two processes")
+    return res
+
+
+# ---------------------------------------------------------------- phase 16
+
+def rows_on_positions(tr, n: int, label: str) -> None:
+    """The trainer's engine trains each of its mesh's ``n`` mediator rows
+    as its own round program on that row's home, each captured once as a
+    CUDA graph (``num_round_traces`` counts one a row)."""
+    from repro_torch.launch.mesh import model_devices
+    eng = tr.engine
+    progs = eng._programs
+    if eng.num_round_traces != n or len(progs) != n or any(p.graph is None for p in progs):
+        raise AssertionError(f"{label}: {eng.num_round_traces} round programs, graphs "
+                             f"{[p.graph is not None for p in progs]}; expected {n}")
+    if [p.device for p in progs] != [model_devices(eng.mesh, i)[0] for i in range(n)]:
+        raise AssertionError(f"{label}: programs on {[p.device for p in progs]}")
+
+
+def engine_device_rows(tr):
+    """The oracle of phase 16: every schedule row on the engine's device in
+    one block (one round program, one graph), each store's slots gathered
+    there -- how the rows trained before they moved to their positions."""
+    eng = tr.engine
+    eng.row_positions = lambda: [(eng.device,)]
+    return tr
+
+
+def phase16a(fed, dev, smi: str, four: dict, path_launches: dict) -> dict:
+    """Phase 16 (a), the mediator axis as compute at phase 5's EMNIST arm
+    (three Astraea rounds with a reschedule each, under cuDNN's
+    deterministic algorithms) on phase 14 (a)'s ``4 x 1`` mesh of logical
+    positions, each mediator row's schedule rows trained on its own
+    position: ``"map"`` over the sharded store (ragged) bit for bit the same
+    run with every row on the engine's device (``engine_device_rows``);
+    ``"vmap"`` (four programs, four graphs a round; phase 14 (a)'s ragged
+    run, its fourth round profiled there) within ``P16_VMAP_BOUND`` of
+    ``"map"`` in L2 relative to the update;
+    the device exchange's bytes, counted where they move, equal to the
+    intra-pod ledger's under both exchanges (phase 14 (a)'s runs); seconds
+    a round and a profiled fourth round's device busy (the union of its
+    kernels' intervals) and idle, beside the engine-device run's (one
+    program, one graph)."""
+    from repro_torch.examples.profile_round import profile_round
+    from repro_torch.launch.mesh import make_fl_mesh
+    from repro_torch.models.cnn import emnist_cnn, init_params
+    tag = (f"[phase16] ({smi}; four logical positions on one card: device copies, "
+           f"no overlap across cards)")
+    mesh = make_fl_mesh(mediator=P14_SHARDS, model=1, devices=(dev,) * P14_SHARDS)
+    res: dict = {"card": smi}
+    for name in ("sharded ragged", "sharded gather"):
+        got = four[name]
+        if not got["moved_bytes"] == got["store_exchange_bytes"] > 0:
+            raise AssertionError(f"phase 16 (a) {name}: moved {got['moved_bytes']} B, "
+                                 f"charged {got['store_exchange_bytes']} B")
+        res[f"{name} exchange"] = {"moved_bytes": got["moved_bytes"],
+                                   "charged_bytes": got["store_exchange_bytes"]}
+        log(f"{tag} (a) {name} (phase 14 (a), vmap): four graphs a round, exchange moved "
+            f"between the positions {got['moved_bytes']:,} B = the intra-pod ledger's "
+            f"{got['store_exchange_bytes']:,.0f} B over {ROUNDS} rounds")
+    runs = {}
+    with deterministic_convolutions():
+        for label, row_exec, oracle in (("engine device vmap", "vmap", True),
+                                        ("positions map", "map", False),
+                                        ("engine device map", "map", True)):
+            tr = p10_trainer(fed, dev, row_exec=row_exec, mesh=mesh, store="sharded",
+                             reschedule_every_round=True)
+            if oracle:
+                engine_device_rows(tr)
+            secs, launches = run_timed(tr, label=f"phase 16 (a) {label}")
+            path_launches[f"16 (a) {label}"] = launches
+            warps = 1 if oracle else P14_SHARDS
+            if launches != {"fedavg_agg": ROUNDS, "kld_greedy_picks": ROUNDS,
+                            "affine_warp": warps * ROUNDS}:
+                raise AssertionError(f"phase 16 (a) {label}: launches {launches}")
+            if row_exec == "vmap":
+                rows_on_positions(tr, 1 if oracle else P14_SHARDS, f"phase 16 (a) {label}")
+            runs[label] = {"params": {k: v.clone() for k, v in tr.params.items()},
+                           "round_seconds": secs, "launches": launches,
+                           "round_log": list(tr.comm.round_log)}
+            if row_exec == "vmap":
+                # one more round, profiled: device busy is the union of the
+                # kernels' intervals (a graph's kernels overlap)
+                prof = profile_round(tr)
+                runs[label]["profile"] = {k: v for k, v in prof.items() if k != "top"}
+            del tr
+            torch.cuda.empty_cache()
+    ragged = four["sharded ragged"]
+    runs["positions vmap"] = {"params": ragged["params"], "round_log": ragged["round_log"],
+                              "round_seconds": ragged["round_seconds"],
+                              "profile": ragged["profile"],
+                              "launches": path_launches["14 sharded ragged"]}
+    pm, om = runs["positions map"], runs["engine device map"]
+    if not same_state(pm["params"], om["params"]) or pm["round_log"] != om["round_log"]:
+        raise AssertionError("phase 16 (a): rows on positions under 'map' differ from the "
+                             "engine-device run")
+    init = init_params(emnist_cnn(47, 28), 0, dev)
+
+    def flat(p):
+        return torch.cat([p[k].flatten() for k in init])
+    update = float((flat(pm["params"]) - flat(init)).norm())
+    res["vmap_vs_map"] = {}
+    for label in ("positions vmap", "engine device vmap"):
+        diff = flat(runs[label]["params"]) - flat(pm["params"])
+        rel = float(diff.norm()) / update
+        res["vmap_vs_map"][label] = {"rel_l2": rel, "max_abs": float(diff.abs().max()),
+                                     "bitwise": rel == 0.0}
+        if not rel <= P16_VMAP_BOUND:
+            raise AssertionError(f"phase 16 (a): {label} lies {rel:.3e} of the update from "
+                                 f"'map' (bound {P16_VMAP_BOUND})")
+    res["runs"] = {k: {kk: vv for kk, vv in v.items() if kk != "params"}
+                   for k, v in runs.items()}
+    log(f"{tag} (a) 'map' rows on the positions == the engine-device run bit for bit "
+        f"(params and WAN ledger); 'vmap' against 'map' in L2 of the update: positions "
+        f"{res['vmap_vs_map']['positions vmap']['rel_l2']:.3e}, engine device "
+        f"{res['vmap_vs_map']['engine device vmap']['rel_l2']:.3e} (bound {P16_VMAP_BOUND})")
+    for label, r in runs.items():
+        prof = r.get("profile")
+        log(f"{tag} (a) {label}: s/round {' '.join(f'{x:.4f}' for x in r['round_seconds'])}"
+            + (f"; profiled round wall {1e3 * prof['wall_s']:.1f} ms, device busy "
+               f"{1e3 * prof['busy_s']:.1f} ms (union), idle {100 * prof['idle_share']:.1f} "
+               f"%, {prof['device_kernels']} device kernels, {prof['graph_launches']} graph "
+               f"launches, {prof['host_launches']} host launches" if prof else "")
+            + f"; launches {r['launches']}")
+    return res
+
+
+def mediator_rows_round_check(dev, model, params, new, batch, per_med, steps_per_round,
+                              path_launches, smi) -> dict:
+    """Phase 16 (c), inside phase 11: qwen3-4b's full-delta round over a
+    ``2 x 1`` mesh of logical positions (one mediator a mediator row, each
+    on its own position, their steps interleaved), from phase 11 (c)'s
+    start and inputs: bit for bit its in-turn t=1 round ``new``; flash
+    launches as at t=1; Eq. 6 as the reference's ``psum_eq6``, one
+    ``fedavg_agg`` a mediator row a leaf over the leaf's column block (each
+    held to its plain version); seconds and peak GB."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_fl_mesh
+    tag = f"[phase16] ({smi}; two logical positions on one card)"
+    tokens, labels, w = batch
+    cfg = model.cfg
+    mesh = make_fl_mesh(mediator=2, model=1, devices=(dev,) * 2)
+    fl = steps.make_fl_round(model, 2, learning_rate=FL_LR, local_steps=per_med, mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with HeldEq6() as held:
+        got, sec = _sync_time(lambda: fl(params, tokens, labels, w))
+    sec -= held.seconds
+    launches = dict(ops.LAUNCHES)
+    path_launches[f"16 (c) mediator rows round {TRAIN_ARCH}"] = launches
+    flash = steps_per_round * cfg.n_layers
+    n_eq6 = sum(len(steps.eq6_blocks(p.numel(), 2)) for p in params.values())
+    want = {k: 0 for k in ops.LAUNCHES}
+    want.update(flash_attention=(2 if cfg.remat else 1) * flash, flash_attention_bwd=flash,
+                fedavg_agg=n_eq6)
+    if launches != want:
+        raise AssertionError(f"phase 16 (c): launches {launches}, expected {want}")
+    differ = [k for k in params if not torch.equal(got[k], new[k])]
+    if differ:
+        raise AssertionError(f"phase 16 (c): {len(differ)} leaves differ from the in-turn "
+                             f"round, e.g. {differ[:3]}")
+    res = {"s_per_round": sec, "peak_gb": _peak_gb(), "launches": launches,
+           "eq6_held": {"calls": held.calls, "worst_rel": held.worst}, "bitwise": True}
+    log(f"{tag} (c) {TRAIN_ARCH} full-delta round on a 2 x 1 mesh, one mediator a row: bit "
+        f"for bit the in-turn t=1 round; {sec:.3f} s, peak {res['peak_gb']:.2f} GB (the t=1 "
+        f"round's result held beside it), flash "
+        f"{launches['flash_attention']} + {launches['flash_attention_bwd']} (as at t=1), "
+        f"fedavg_agg {launches['fedavg_agg']} (a column block a row of each of "
+        f"{len(params)} leaves; held to its plain version, worst {held.worst:.2e})")
     return res
 
 
@@ -3694,6 +3922,7 @@ def main() -> int:
     # ---- 14. the mediator axis: logical shards and two processes on this card
     # ---- 15. the model axis (run inside phases 11 and 14): the 2-D mesh at
     # the EMNIST arm, qwen3-4b's TP round, the children's model-axis rounds
+    # ---- 16. the mediator rows as compute (run inside phases 11 and 14)
     p14 = phase14(fed, dev, smi, path_launches, lap)
     phases_s = sum(phase_s.values())
     log(f"[time] phases {phases_s:.1f} s in all, phase 12 "
@@ -3701,7 +3930,9 @@ def main() -> int:
         f"{sum(v for k, v in phase_s.items() if k.startswith('13 ')):.1f} s, phase 14 "
         f"{sum(v for k, v in phase_s.items() if k.startswith('14 ')):.1f} s, phase 15 "
         f"{sum(v for k, v in phase_s.items() if k.startswith('15 ')):.1f} s (its (c) in "
-        f"14 (b)); {1200 - phases_s:.1f} s left of a 1,200 s call")
+        f"14 (b)), phase 16 "
+        f"{sum(v for k, v in phase_s.items() if k.startswith('16 ')):.1f} s (its (b) in "
+        f"15 (a)); {1200 - phases_s:.1f} s left of a 1,200 s call")
 
     # every kernel's launches over the paths that drive it (each path's
     # counts were reset just before it and read just after)

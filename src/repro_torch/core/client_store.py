@@ -26,7 +26,13 @@ axis over the ``mediator`` axis of a mesh (``launch/mesh.py``): shard
 ``d`` holds clients ``[d * K_local, (d + 1) * K_local)`` in its own buffer
 on its mesh device -- ``K / n`` rows a device -- and each round moves the
 scheduled clients that a row reads from another shard between the shards
-(the serve exchange), charged to the intra-pod ledger.
+(the serve exchange, run on the devices), charged to the intra-pod ledger.
+
+The round engine trains each mediator row of its mesh on that row's
+devices and asks ``serve`` for each row's block of slots on its home: the
+sharded store serves them from its shards and the exchange's receive
+buffers; the other stores gather on the engine's device and copy each
+block to its row (the reference replicates them over the mediator axis).
 
 On the card the streaming stores keep two pinned host staging buffers and
 one compact device buffer of ``U_cap`` rows, all allocated once.  A
@@ -58,7 +64,7 @@ import torch
 
 from repro_torch.core import scheduling
 from repro_torch.device import to_device
-from repro_torch.launch.mesh import mediator_sharding
+from repro_torch.launch.mesh import mediator_sharding, ring_permutation
 from repro_torch.obs.telemetry import NULL_TELEMETRY
 
 POLICIES = ("replicated", "sharded", "host", "spilled")
@@ -141,7 +147,10 @@ class ClientStore:
       returns ``(data, index)``, the device arrays and the device gather
       index ``(M_pad, gamma)`` into them.
     * ``slot_data(data, index)``: the ``(M_pad, gamma, pad, ...)`` x / y /
-      mask slot tensors (the mask not yet scaled by the slot mask).
+      mask slot tensors (the mask not yet scaled by the slot mask) on the
+      engine's device.
+    * ``serve(data, index, homes)``: the same slots as ``len(homes)``
+      equal blocks of schedule rows, block ``i`` on ``homes[i]``.
     * ``row_specs``: each array's per-client shape and numpy dtype.
     * ``last_stream_bytes``: what the latest ``plan`` copied host->device.
     * ``telemetry``: the ``obs`` handle the engine installs (the spilled
@@ -181,6 +190,15 @@ class ClientStore:
     def slot_data(data, index):
         x_all, y_all, m_all = data
         return x_all[index], y_all[index], m_all[index]
+
+    def serve(self, data, index, homes) -> list[tuple]:
+        """Each mediator row's block of the round's slots on its home: the
+        slots gathered on the engine's device, each block copied to its row
+        (nothing moves for a row on the engine's device)."""
+        slots = self.slot_data(data, index)
+        step = slots[0].shape[0] // len(homes)
+        return [tuple(a[i * step:(i + 1) * step].to(home) for a in slots)
+                for i, home in enumerate(homes)]
 
     def per_device_bytes(self) -> int:
         raise NotImplementedError
@@ -234,10 +252,12 @@ class ReplicatedStore(ClientStore):
 
 class ShardPlan(tuple):
     """One reschedule's sharded plan: the host arrays ``(route, loc, lpos,
-    rpos)`` -- the reference's plan tensors, byte for byte -- and ``dev``,
-    the slot block's shape and each shard's gather list on the devices
-    (None for a store without devices)."""
+    rpos)`` -- the reference's plan tensors, byte for byte -- and, for a
+    store with devices, ``dev`` (the slot block's shape and each shard's
+    gather list, for ``slot_data``) and ``exchange`` (the device exchange's
+    index lists, for ``serve``); None without devices."""
     dev = None
+    exchange = None
 
 
 class ShardedStore(ClientStore):
@@ -266,15 +286,21 @@ class ShardedStore(ClientStore):
       ``n * F * (n - 1)`` slices, occupied or not.
 
     The plan and its ``exchange_bytes_per_round`` are what the engine
-    charges to the intra-pod ledger.  On the devices every row trains on
-    the engine's one device, so ``slot_data`` moves no rows between shards:
-    each shard's slots are gathered on their owner (one ``index_select``)
-    and copied straight into the engine's ``(M_pad, gamma, pad, ...)``
-    block.  A reader shard's receive buffers and the ring would only add
-    copies and hold up to a replicated store's rows on every shard; they
-    pay once rows train on their own shard's card.  Copies move exact
-    values, so every placement and both exchanges give the replicated
-    store's slots bit for bit."""
+    charges to the intra-pod ledger.  ``serve`` runs that exchange on the
+    devices, where mediator row ``i`` trains on shard ``i``'s device: each
+    sender's list (its occupied rows under ``ragged``, its whole padded
+    serve buffer under ``gather``) is gathered on its owner and copied into
+    the reader's receive buffer (``(n - 1) * R`` or ``n * F`` rows) at the
+    plan's offset, hop by hop of the ring; each row block then reads its
+    local slots from its own shard at ``lpos`` and its remote ones from its
+    receive buffer at ``rpos``.  The bytes copied between positions are
+    counted where they move (``last_moved_bytes``, ``moved_bytes``) and
+    equal ``exchange_bytes_per_round``.  An inactive slot reads its shard's
+    row 0, as the reference's plan says (its mask is zero).
+    ``slot_data`` -- every row's slots on the engine's device -- gathers
+    each shard's slots on their owner and copies them straight there.
+    Copies move exact values, so every placement and both exchanges give
+    the replicated store's active slots bit for bit."""
 
     policy = "sharded"
     permutes_rows = True
@@ -299,6 +325,8 @@ class ShardedStore(ClientStore):
                               .to(dev) for a in arrays)
                         for d, dev in enumerate(self._devices)]
         self.last_placement_stats: dict | None = None
+        self.last_moved_bytes = 0         # the latest serve's exchange bytes
+        self.moved_bytes = 0              # every serve's
 
     def owner(self, cid: int) -> int:
         return cid // self._k_local
@@ -335,12 +363,13 @@ class ShardedStore(ClientStore):
         rpos = np.zeros((m_pad, gamma), np.int32)
         lpos[rr[~remote], gg[~remote]] = (cids[~remote] % self._k_local).astype(np.int32)
         loc[rr[remote], gg[remote]] = False
+        fill = None
         if self.exchange == "gather":
             route, occupied, capacity = self._plan_gather(
                 m_pad, gamma, rr, gg, cids, remote, rpos)
             self.exchange_bytes_per_round = capacity * (self._n - 1) * self._slice_nbytes
         else:
-            route, occupied, capacity = self._plan_ragged(
+            route, occupied, capacity, fill = self._plan_ragged(
                 m_local, gamma, rr, gg, cids, owners, readers, remote, rpos)
             self.exchange_bytes_per_round = occupied * self._slice_nbytes
         if self.last_placement_stats is not None:
@@ -351,6 +380,7 @@ class ShardedStore(ClientStore):
         shards = getattr(self, "_shards", None)
         if shards is not None:
             plan.dev = self._gather_lists(idx)
+            plan.exchange = self._exchange_lists(route, fill, loc, lpos, rpos)
         return shards, plan
 
     def _plan_gather(self, m_pad, gamma, rr, gg, cids, remote, rpos):
@@ -380,6 +410,7 @@ class ShardedStore(ClientStore):
         n = self._n
         r_cap = max(1, min(m_local * gamma, self._k_local))
         send = np.zeros((n, max(n - 1, 1), r_cap), np.int32)
+        fill = np.zeros((n, max(n - 1, 1)), np.int64)    # each send list's length
         rc = cids[remote]
         occupied = 0
         if rc.size:
@@ -396,12 +427,48 @@ class ShardedStore(ClientStore):
             if int(j.max(initial=-1)) >= r_cap:         # a pair holds <= R clients
                 raise AssertionError("ragged pair capacity overflow")
             send[u_own, u_hop - 1, j] = (u_cid % self._k_local).astype(np.int32)
+            np.add.at(fill, (u_own, u_hop - 1), 1)
             enc_rank = np.empty(uq.size, np.int64)
             enc_rank[enc] = np.arange(uq.size)
             pos = (u_hop - 1) * r_cap + j              # reader-local rpos
             rpos[rr[remote], gg[remote]] = pos[enc_rank[inv]].astype(np.int32)
             occupied = int(uq.size)
-        return send, occupied, n * max(n - 1, 1) * r_cap
+        return send, occupied, n * max(n - 1, 1) * r_cap, fill
+
+    def _exchange_lists(self, route, fill, loc, lpos, rpos) -> tuple:
+        """The device exchange's index lists, once a reschedule: the sends
+        ``(owner, reader, rows on the owner's device, receive offset,
+        count)`` in ring order (``ragged``: hop by hop, each pair's
+        occupied rows; ``gather``: each owner's whole padded serve buffer to
+        every other shard), the receive buffers' rows, and each shard's
+        reads ``(local rows, remote slot positions, their receive rows)`` on
+        its device."""
+        n, devs = self._n, self._devices
+        sends = []
+        if self.exchange == "gather":
+            f = route.shape[1]
+            for o in range(n):
+                rows = to_device(route[o].astype(np.int64), devs[o])
+                sends += [(o, (o + s) % n, rows, o * f, f) for s in range(1, n)]
+            capacity = n * f
+        else:
+            r_cap = route.shape[2]
+            for s in range(1, n):
+                for o, r in ring_permutation(n, s):
+                    count = int(fill[o, s - 1])
+                    if count:
+                        sends.append((o, r, to_device(route[o, s - 1, :count].astype(np.int64),
+                                                      devs[o]), (s - 1) * r_cap, count))
+            capacity = max(n - 1, 1) * r_cap
+        m_local = loc.shape[0] // n
+        reads = []
+        for i, dev in enumerate(devs):
+            block = slice(i * m_local, (i + 1) * m_local)
+            at = np.flatnonzero(~loc[block].reshape(-1))
+            reads.append((to_device(lpos[block].reshape(-1).astype(np.int64), dev),
+                          to_device(at, dev),
+                          to_device(rpos[block].reshape(-1)[at].astype(np.int64), dev)))
+        return sends, capacity, reads, loc.shape
 
     def _gather_lists(self, idx: np.ndarray) -> tuple:
         """The slot block's shape and, for each shard that owns a slot, the
@@ -427,6 +494,36 @@ class ShardedStore(ClientStore):
                 block.index_copy_(0, at, data[d][a].index_select(0, rows).to(self.device))
             out.append(block.reshape(tuple(shape) + row_shape))
         return tuple(out)
+
+    def serve(self, data, plan, homes) -> list[tuple]:
+        """Shard ``i``'s row block of slots on its own device, by the
+        exchange on the devices (class docstring); rows placed anywhere but
+        on the shards' devices take the base class's copies from the
+        engine's device."""
+        if tuple(homes) != tuple(self._devices):
+            return super().serve(data, plan, homes)
+        sends, capacity, reads, (m_pad, gamma) = plan.exchange
+        recv = [tuple(torch.empty((capacity,) + shape, dtype=data[0][a].dtype, device=dev)
+                      for a, (shape, _) in enumerate(self.row_specs))
+                for dev in self._devices]
+        moved = 0
+        for owner, reader, rows, at, count in sends:
+            for a in range(len(self.row_specs)):
+                recv[reader][a][at:at + count].copy_(data[owner][a].index_select(0, rows))
+            moved += count * self._slice_nbytes
+        self.last_moved_bytes = moved
+        self.moved_bytes += moved
+        out = []
+        m_local = m_pad // self._n
+        for i, (local, at, rpos) in enumerate(reads):
+            block = []
+            for a, (shape, _) in enumerate(self.row_specs):
+                slots = data[i][a].index_select(0, local)
+                if at.numel():
+                    slots.index_copy_(0, at, recv[i][a].index_select(0, rpos))
+                block.append(slots.reshape((m_local, gamma) + tuple(shape)))
+            out.append(tuple(block))
+        return out
 
     def per_device_bytes(self) -> int:
         return _bytes(*self._shards[0])

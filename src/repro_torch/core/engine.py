@@ -53,15 +53,14 @@ The sharded store places each mediator on the shard that holds most of its
 clients (``store.place``, ``scheduling.place_mediators``): schedule row
 ``r`` then holds mediator ``row_to_group[r]``, whose draws it asks for, and
 the rows and weights are put back in mediator order (``unperm``) before
-Eq. 6, so every placement sums the same rows in the same order.  The rows
-train on the engine's device whatever the mesh.  The engine also takes a
-*streaming federation* -- ``data`` without ``client_images`` but with the
-row-source protocol (``data.synthetic.StreamingFederation``) -- for the
-host and spilled stores, so the device footprint is fixed by ``c``, never
-by ``K``.  With a prefetching
-store and a reschedule every round, ``ensure_schedule`` pre-draws the
-next ``store_prefetch_depth`` selections (the rng is called in the same
-order at any depth) and hands them to ``store.prefetch``.
+Eq. 6, so every placement sums the same rows in the same order.  The
+engine also takes a *streaming federation* -- ``data`` without
+``client_images`` but with the row-source protocol
+(``data.synthetic.StreamingFederation``) -- for the host and spilled
+stores, so the device footprint is fixed by ``c``, never by ``K``.  With
+a prefetching store and a reschedule every round, ``ensure_schedule``
+pre-draws the next ``store_prefetch_depth`` selections (the rng is called
+in the same order at any depth) and hands them to ``store.prefetch``.
 
 A round is three steps, shared with the async engine
 (``core/async_engine.py``):
@@ -86,6 +85,24 @@ adapter width), the row programs train it through ``lora.MergedModel``
 reads), and each WAN leg carries ``lora.exchange_nbytes``.  At
 ``lora.full_rank`` every entry is dense and the round is the full-delta
 round bit for bit; rank 0 trains and averages nothing.
+
+**Rows on their mesh positions** (the reference's ``mediator_shard_map``):
+the ``M_pad`` schedule rows split into one contiguous block a mediator row
+of the mesh (``row_positions``), after placement; block ``i`` trains on
+mediator row ``i``'s devices (``model_devices(mesh, i)``: its home, the
+first, under the gather oracle, every model column under TP rows).  The
+store serves each block its slots on its home (``ClientStore.serve``: the
+sharded store by its exchange on the devices, the others by a copy from
+the engine's device), each block's Alg. 2 warp is one launch on its home,
+and under ``"vmap"`` each row has its own round program of width ``M_pad /
+n`` with its static buffers on its devices (on the card its own CUDA graph;
+every row's graph is replayed before any is waited on).  The rows come
+back to the engine's device in mediator order (``unperm``) and Eq. 6 is
+one launch over the ``(M_pad, N)`` stack there, as the reference's
+``eq6_aggregate`` replicates its stack first: the reduction order, and so
+``fold``, never depend on the mesh.  Sliced async waves
+(``run_rows_sliced``) and the process dispatcher still train on mediator
+row 0's devices.
 
 **The 2-D ``(mediator, model)`` mesh** (``launch/mesh.py::make_fl_mesh``,
 the reference's §8 contract): the parameters are split over the ``model``
@@ -240,21 +257,26 @@ class EngineConfig:
 @dataclass
 class RoundInputs:
     """One round's prepared inputs (``FLRoundEngine.prepare_round``):
-    the ``(M_pad, gamma)`` slot mask and real row count, the (augmented)
-    client data ``xs``/``ys (M_pad, gamma, pad, ...)``, the masks ``ms``
-    scaled by the slot mask, and the Eq. 6 sizes ``weights (M_pad,)``, all
-    in schedule-row order; ``row_to_group (M_pad,)`` the mediator on each
-    row (-1 a dummy) and ``unperm (M_pad,)`` the rows in mediator order,
-    the dummies last."""
+    the ``(M_pad, gamma)`` slot mask and real row count, ``parts``: each
+    mediator row's block of the (augmented) client data ``(xs, ys, ms)``
+    (``(M_pad / n, gamma, pad, ...)``, the masks scaled by the slot mask)
+    on its home, and the Eq. 6 sizes ``weights (M_pad,)`` on the engine's
+    device, all in schedule-row order; ``row_to_group (M_pad,)`` the
+    mediator on each row (-1 a dummy) and ``unperm (M_pad,)`` the rows in
+    mediator order, the dummies last."""
     rnd: int
     slot: np.ndarray
     m_real: int
-    xs: torch.Tensor
-    ys: torch.Tensor
-    ms: torch.Tensor
+    parts: list
     weights: torch.Tensor
     row_to_group: np.ndarray
     unperm: np.ndarray
+
+    def whole(self, device: torch.device) -> tuple:
+        """Every row's ``(xs, ys, ms)`` on ``device``."""
+        if len(self.parts) == 1:
+            return tuple(a.to(device) for a in self.parts[0])
+        return tuple(torch.cat([p[a].to(device) for p in self.parts]) for a in range(3))
 
     @property
     def address(self) -> np.ndarray:
@@ -313,6 +335,9 @@ class FLRoundEngine:
         self._dims = shard_lib.placements(specs(), mesh) \
             if self._model_size > 1 and specs is not None else None
         self._shards: shard_lib.ModelShards | None = None
+        # the model column of each shard key a TP tree holds
+        self._shard_col = {shard_key(k, j): j for k, dim in (self._dims or {}).items()
+                           if dim is not None for j in range(self._model_size)}
         capacity = min(cfg.clients_per_round, data.num_clients)
         store_kw = dict(device=dev, capacity=capacity,
                         prefetch_depth=cfg.store_prefetch_depth,
@@ -390,7 +415,7 @@ class FLRoundEngine:
         self._schedule: tuple | None = None
         self._round = 0
         self._rows: torch.Tensor | None = None      # the (M_pad, N) row outputs
-        self._program: _RoundProgram | None = None
+        self._programs: list[_RoundProgram] = []     # one a mediator row
         self._wave_programs: dict[int, _RoundProgram] = {}   # width -> sliced
         self.num_round_traces = 0                    # round programs built
         self.num_schedule_packs = 0                  # host packing events
@@ -413,6 +438,28 @@ class FLRoundEngine:
         else:
             self._shards = shard_lib.shard_params(value, self._dims, self.mesh)
 
+    @property
+    def _program(self) -> "_RoundProgram | None":
+        """Mediator row 0's round program (the only one on a 1-D mesh of one
+        position)."""
+        return self._programs[0] if self._programs else None
+
+    def row_positions(self) -> list[tuple[torch.device, ...]]:
+        """The devices of each mediator row of the mesh, in order: its
+        model columns (``model_devices(mesh, i)``), its home the first.
+        Schedule row block ``i`` (``M_pad / n`` rows) trains there."""
+        return [model_devices(self.mesh, i) for i in range(self._msize)]
+
+    def _leaf_device(self, key: str, devices: tuple) -> torch.device:
+        """Where a row trained on ``devices`` keeps leaf ``key``: a shard
+        on its model column's device, anything else on the row's home."""
+        return devices[self._shard_col.get(key, 0)]
+
+    def _on_row(self, tree: Params, devices: tuple) -> Params:
+        """``tree`` on a row's devices (the mediator axis replicates it;
+        nothing moves for a row on the tree's own devices)."""
+        return {k: v.to(self._leaf_device(k, devices)) for k, v in tree.items()}
+
     def _resolve_tp_rows(self) -> bool:
         """``cfg.tp_rows`` against the mesh: TP rows only where parameters
         split over a model axis; ``"auto"`` turns them on on a CUDA device.
@@ -423,10 +470,10 @@ class FLRoundEngine:
             return False
         on = mode is True or self.device.type == "cuda"
         if on and self.cfg.row_exec == "vmap" and self.device.type == "cuda" \
-                and len(set(model_devices(self.mesh))) > 1:
-            raise ValueError("tp_rows under row_exec='vmap' captures one CUDA graph on "
-                             "one card; model columns on several cards need "
-                             "row_exec='map'")
+                and any(len(set(devs)) > 1 for devs in self.row_positions()):
+            raise ValueError("tp_rows under row_exec='vmap' captures one CUDA graph a "
+                             "mediator row on one card; a row's model columns on several "
+                             "cards need row_exec='map'")
         return on
 
     def _tp_tree(self) -> Params:
@@ -517,13 +564,16 @@ class FLRoundEngine:
             raise ValueError(f"A shapes differ from the mapping's at {bad}")
         self._lora_a = new
 
-    def _row_model(self, frozen: tuple | None = None):
-        """The model the rows train: through the TP layers under TP rows,
-        and through the adapter state under LoRA, merged into the frozen
-        operands ``frozen`` (``lora_args()`` if None)."""
+    def _row_model(self, frozen: tuple | None = None, devices: tuple | None = None):
+        """The model the rows on ``devices`` (mediator row 0's if None)
+        train: through the TP layers over those model columns under TP
+        rows, and through the adapter state under LoRA, merged into the
+        frozen operands ``frozen`` (``lora_args()`` if None)."""
         model = self.model
+        if devices is None:
+            devices = self.row_positions()[0]
         if self._tp_rows:
-            model = TensorParallel(model, self._dims, model_devices(self.mesh), self.device)
+            model = TensorParallel(model, self._dims, devices, devices[0])
         if self._lora_mapping is None:
             return model
         backbone, a_tree = self.lora_args() if frozen is None else frozen
@@ -532,14 +582,19 @@ class FLRoundEngine:
                                         dims=self._dims, t=self._model_size)
         return lora_lib.MergedModel(model, backbone, a_tree, self._lora_mapping)
 
-    def _note_trace(self, fn: str, width: int) -> None:
+    def _note_trace(self, fn: str, width: int, position: int | None = None) -> None:
         """Count a round program built and record why, as the reference's
-        ``_note_trace`` does for its traces."""
+        ``_note_trace`` does for its traces; ``position`` names the mediator
+        row of a mesh of several."""
         self.num_round_traces += 1
-        first = not any(t["fn"] == fn and t["width"] == width for t in self.trace_log)
-        self.trace_log.append({"fn": fn, "width": width, "round": self._round,
-                               "trace_index": self.num_round_traces,
-                               "reason": "initial" if first else "retrace"})
+        first = not any(t["fn"] == fn and t["width"] == width
+                        and t.get("position") == position for t in self.trace_log)
+        entry = {"fn": fn, "width": width, "round": self._round,
+                 "trace_index": self.num_round_traces,
+                 "reason": "initial" if first else "retrace"}
+        if position is not None:
+            entry["position"] = position
+        self.trace_log.append(entry)
 
     def load_params(self, params: Params) -> None:
         """Replace the weights with ``params`` (the same keys and shapes),
@@ -657,16 +712,20 @@ class FLRoundEngine:
     # ------------------------------------------------------------------
     # the round
     # ------------------------------------------------------------------
-    def _augment(self, xs, ys, weights, address):
-        """Online Alg. 2 over every (row, slot) batch in one warp launch.
-        ``xs (R, pad, H, W, C)``, ``ys``/``weights (R, pad)`` with rows
-        ordered (schedule row, slot); schedule row ``r`` draws at
-        ``address[r]``."""
+    def _augment(self, xs, ys, weights, address, plan):
+        """Online Alg. 2 over every (row, slot) batch of a block in one warp
+        launch on its device.  ``xs (R, pad, H, W, C)``, ``ys``/``weights
+        (R, pad)`` with rows ordered (schedule row, slot); schedule row
+        ``r`` of the block draws at ``address[r]``; ``plan`` on the block's
+        device.  The draws come from the engine's source and move to the
+        block's device."""
         gamma = 1 if self.cfg.aggregate == "weights" else self.cfg.gamma
+        dev = xs.device
         draws = [self.draws.augment(self._round, int(address[i // gamma]), i % gamma,
-                                    weights[i]) for i in range(ys.shape[0])]
-        idx, u, mats, trans = (torch.stack([d[j] for d in draws]) for j in range(4))
-        return online_augment_rows(xs, ys, self._plan, idx, u,
+                                    weights[i].to(self.device))
+                 for i in range(ys.shape[0])]
+        idx, u, mats, trans = (torch.stack([d[j] for d in draws]).to(dev) for j in range(4))
+        return online_augment_rows(xs, ys, plan, idx, u,
                                    mats.reshape(-1, 2, 2), trans.reshape(-1, 2))
 
     def _row_buffer(self, m_pad: int) -> torch.Tensor:
@@ -679,51 +738,67 @@ class FLRoundEngine:
 
     def prepare_round(self) -> RoundInputs:
         """Round ``_round``'s schedule, gathered client data, Eq. 6 sizes
-        and -- with a plan -- its online warp, one launch over every
-        scheduled slot."""
+        and -- with a plan -- its online warp, each mediator row's block on
+        its home (one warp launch a row over its scheduled slots)."""
         data, index, slot_np, m_real, row_to_group, unperm = self.ensure_schedule()
         m_pad, gamma = slot_np.shape
-        xs, ys, mask = self.store.slot_data(data, index)    # (M, gamma, pad, ...)
-        ms = mask * to_device(slot_np, self.device)[..., None]
-        mult = ms if self._plan is None else ms * (1.0 + self._plan[ys.long()])
-        weights = mult.sum(dim=(1, 2))                      # Eq. 6 sizes
-        inp = RoundInputs(self._round, slot_np, m_real, xs, ys, ms, weights,
-                          row_to_group, unperm)
-        if self._plan is not None:
-            flat = (m_pad * gamma, self.pad)
-            ax, ay = self._augment(xs.reshape(flat + xs.shape[3:]),
-                                   ys.reshape(flat), mult.reshape(flat), inp.address)
-            inp.xs, inp.ys = ax.reshape(xs.shape), ay.reshape(ys.shape)
+        homes = [devs[0] for devs in self.row_positions()]
+        step = m_pad // len(homes)
+        inp = RoundInputs(self._round, slot_np, m_real, [], None, row_to_group, unperm)
+        weights = []
+        for i, ((xs, ys, mask), home) in enumerate(
+                zip(self.store.serve(data, index, homes), homes)):
+            rows = slice(i * step, (i + 1) * step)
+            ms = mask * to_device(slot_np[rows], home)[..., None]
+            plan = None if self._plan is None else self._plan.to(home)
+            mult = ms if plan is None else ms * (1.0 + plan[ys.long()])
+            weights.append(mult.sum(dim=(1, 2)))            # Eq. 6 sizes
+            if plan is not None:
+                flat = (step * gamma, self.pad)
+                ax, ay = self._augment(xs.reshape(flat + xs.shape[3:]), ys.reshape(flat),
+                                       mult.reshape(flat), inp.address[rows], plan)
+                xs, ys = ax.reshape(xs.shape), ay.reshape(ys.shape)
+            inp.parts.append((xs, ys, ms))
+        inp.weights = torch.cat([w.to(self.device) for w in weights])
         return inp
 
-    def _map_row(self, inp: RoundInputs, model, params, r: int, out: torch.Tensor) -> None:
+    def _map_row(self, inp: RoundInputs, model, params, r: int, out: torch.Tensor,
+                 data: tuple, draws) -> None:
         """Schedule row ``r`` through ``client_update`` / ``mediator_update``
-        of ``model`` (``_row_model()``) from ``params``, into the flat row
-        ``out``."""
+        of ``model`` (``_row_model()``) from ``params`` on its client data
+        ``data = (x, y, mask)`` (``(gamma, pad, ...)``) with ``draws`` (the
+        round's, on the row's device), into the flat row ``out``."""
         cfg = self.cfg
         at = int(inp.address[r])
+        x, y, m = data
         if cfg.aggregate == "weights":
-            res = client_update(model, self.opt, cfg.local, params,
-                                inp.xs[r, 0], inp.ys[r, 0], inp.ms[r, 0],
-                                self.draws.client(inp.rnd, at, 0, 0), self.loss_fn)
+            res = client_update(model, self.opt, cfg.local, params, x[0], y[0], m[0],
+                                draws.client(inp.rnd, at, 0, 0), self.loss_fn)
         else:
             res = mediator_update(
-                model, self.opt, cfg.local, cfg.mediator_epochs, params,
-                inp.xs[r], inp.ys[r], inp.ms[r],
-                lambda e, s: self.draws.client(inp.rnd, at, e, s)
-                if inp.slot[r, s] > 0 else EmptySlotDraws(self.device),
+                model, self.opt, cfg.local, cfg.mediator_epochs, params, x, y, m,
+                lambda e, s: draws.client(inp.rnd, at, e, s)
+                if inp.slot[r, s] > 0 else EmptySlotDraws(x.device),
                 loss_fn=self.loss_fn)
         for k, v in self._row_views(out).items():
             v.copy_(res[k])
 
+    def _draws_on(self, device: torch.device):
+        """The round's draws on ``device`` (the source's own where they
+        already land there)."""
+        return self.draws if device == self.device else _DrawsOn(self.draws, device)
+
     def run_rows(self, inp: RoundInputs, params,
                  rows: np.ndarray | None = None) -> torch.Tensor:
         """Local training of schedule ``rows`` (all real rows if None) from
-        ``params``, into the ``(M_pad, N)`` row buffer, which is returned.
-        Under ``"vmap"`` it is the round program over every row, built (and
-        on the card captured) once per ``M_pad``, the rows outside ``rows``
-        run as no-ops (zero masks); under ``"map"`` each real row in
-        ``rows`` runs alone and every other row of the buffer is zero."""
+        ``params``, into the ``(M_pad, N)`` row buffer on the engine's
+        device, which is returned.  Mediator row ``i`` of the mesh trains
+        schedule row block ``i`` on its devices.  Under ``"vmap"`` each
+        block is a round program, built (and on the card captured) once per
+        ``M_pad``, the rows outside ``rows`` run as no-ops (zero masks);
+        every block's program runs before any block's rows are read back.
+        Under ``"map"`` each real row in ``rows`` runs alone and every other
+        row of the buffer is zero."""
         m_pad = inp.slot.shape[0]
         buf = self._row_buffer(m_pad)
         real = inp.row_to_group >= 0
@@ -731,72 +806,106 @@ class FLRoundEngine:
         if rows is not None:
             member[:] = False
             member[rows] = True
+        positions = self.row_positions()
+        n = len(positions)
+        step = m_pad // n
+        lora_args = self.lora_args()
         if self.cfg.row_exec == "map":
             buf.zero_()
-            model = self._row_model()
-            for r in np.flatnonzero(member & real):
-                self._map_row(inp, model, params, int(r), buf[r])
+            for i, devices in enumerate(positions):
+                todo = [r for r in range(i * step, (i + 1) * step) if member[r] and real[r]]
+                if not todo:
+                    continue
+                frozen = tuple(self._on_row(t, devices) for t in lora_args)
+                model = self._row_model(frozen or None, devices)
+                tree, draws = self._on_row(params, devices), self._draws_on(devices[0])
+                xs, ys, ms = inp.parts[i]
+                for r in todo:
+                    j = r - i * step
+                    self._map_row(inp, model, tree, r, buf[r], (xs[j], ys[j], ms[j]), draws)
             return buf
-        prog = self._program
-        fresh = prog is None or prog.m != m_pad
+        progs = self._programs
+        fresh = len(progs) != n or progs[0].m != step
         if fresh:
-            prog = self._program = _RoundProgram(self, buf)
-            self._note_trace("round_fn", m_pad)
-        ms = inp.ms
-        if rows is not None:
-            ms = ms * to_device(member.astype(np.float32), self.device)[:, None, None]
-        prog.load(params, inp.xs, inp.ys, ms, (inp.slot > 0) & member[:, None],
-                  inp.rnd, row_ids=inp.address, frozen=self.lora_args())
-        if fresh and self.device.type == "cuda":
-            prog.capture()
-        prog.run()
+            progs = self._programs = []
+            for i, devices in enumerate(positions):
+                out = buf[i * step:(i + 1) * step] if devices[0] == self.device else \
+                    torch.zeros((step, self._layout.total), dtype=torch.float32,
+                                device=devices[0])
+                progs.append(_RoundProgram(self, out, devices))
+                self._note_trace("round_fn", step, i if n > 1 else None)
+        warmed = set()
+        for i, prog in enumerate(progs):
+            block = slice(i * step, (i + 1) * step)
+            xs, ys, ms = inp.parts[i]
+            if rows is not None:
+                ms = ms * to_device(member[block].astype(np.float32), ms.device)[:, None, None]
+            prog.load(params, xs, ys, ms, (inp.slot[block] > 0) & member[block, None],
+                      inp.rnd, row_ids=inp.address[block], frozen=lora_args)
+            if fresh and self.device.type == "cuda":
+                prog.capture(warm=prog.device not in warmed)
+                warmed.add(prog.device)
+        for prog in progs:
+            prog.run()
+        for i, prog in enumerate(progs):
+            if prog.device != self.device:
+                buf[i * step:(i + 1) * step].copy_(prog.rows)
         return buf
 
     def run_rows_sliced(self, inp: RoundInputs, params,
                         rows: np.ndarray) -> torch.Tensor:
         """Local training of just the real schedule ``rows`` from
-        ``params`` (a store that keeps schedule order only):
-        ``(len(rows), N)``, row ``i`` the output of schedule row ``rows[i]``,
-        whose draws it asks for.  Under ``"vmap"`` it is a
-        round program of that width, built (and on the card captured) at
-        its first use and cached for the engine's life; the result is its
-        static row buffer, which the next call of that width overwrites.
-        Under ``"map"`` the rows run one by one into a fresh buffer."""
+        ``params`` (a store that keeps schedule order only), on mediator
+        row 0's devices: ``(len(rows), N)``, row ``i`` the output of
+        schedule row ``rows[i]``, whose draws it asks for.  Under
+        ``"vmap"`` it is a round program of that width, built (and on the
+        card captured) at its first use and cached for the engine's life;
+        the result is its static row buffer, which the next call of that
+        width overwrites.  Under ``"map"`` the rows run one by one into a
+        fresh buffer."""
         if self.store.permutes_rows:
             raise ValueError(f"the {self.store.policy!r} store reads each row on the "
                              f"shard its position gives it; run its waves masked")
         rows = np.asarray(rows, np.int64)
         n = int(rows.size)
+        devices = self.row_positions()[0]
+        xs, ys, ms = inp.whole(self.device)
         if self.cfg.row_exec == "map":
             out = torch.empty((n, self._layout.total), dtype=torch.float32,
                               device=self.device)
-            model = self._row_model()
+            frozen = tuple(self._on_row(t, devices) for t in self.lora_args())
+            model = self._row_model(frozen or None, devices)
+            tree, draws = self._on_row(params, devices), self._draws_on(devices[0])
             for i, r in enumerate(rows):
-                self._map_row(inp, model, params, int(r), out[i])
+                r = int(r)
+                data = tuple(a[r].to(devices[0]) for a in (xs, ys, ms))
+                self._map_row(inp, model, tree, r, out[i], data, draws)
             return out
         prog = self._wave_programs.get(n)
         fresh = prog is None
         if fresh:
             prog = _RoundProgram(self, torch.zeros((n, self._layout.total),
                                                    dtype=torch.float32,
-                                                   device=self.device))
+                                                   device=devices[0]), devices)
             self._wave_programs[n] = prog
             self._note_trace("wave_fn", n)
         pick = to_device(rows, self.device)
-        prog.load(params, inp.xs[pick], inp.ys[pick], inp.ms[pick],
+        prog.load(params, xs[pick], ys[pick], ms[pick],
                   inp.slot[rows] > 0, inp.rnd, row_ids=inp.address[rows],
                   frozen=self.lora_args())
         if fresh and self.device.type == "cuda":
             prog.capture()
         prog.run()
-        return prog.rows
+        return prog.rows.to(self.device)
 
     def programs(self) -> dict:
-        """The round programs built, by width (``M_pad`` for the round's,
-        a wave's width for a sliced one): their static buffer bytes and
-        their graphs' pool bytes (0 off the card)."""
-        progs = ([("round", self._program)] if self._program is not None else []) + \
-            [(f"wave[{w}]", p) for w, p in sorted(self._wave_programs.items())]
+        """The round programs built, by width (``M_pad / n`` for a mediator
+        row's, ``round@i`` on a mesh of several rows; a wave's width for a
+        sliced one): their static buffer bytes and their graphs' pool bytes
+        (0 off the card)."""
+        rounds = [("round", p) for p in self._programs] if len(self._programs) < 2 else \
+            [(f"round@{i}", p) for i, p in enumerate(self._programs)]
+        progs = rounds + [(f"wave[{w}]", p) for w, p in sorted(self._wave_programs.items())]
         return {name: {"width": p.m, "buffer_bytes": p.buffer_bytes,
                        "graph_pool_bytes": p.pool_bytes} for name, p in progs}
 
@@ -897,6 +1006,18 @@ class FLRoundEngine:
 
 
 
+# one capture stream a card: ``torch.cuda.graph``'s default is one stream
+# for the process, on the card current at its first use, so a program on
+# another card would record nothing and run its body eagerly once
+_CAPTURE_STREAMS: dict = {}
+
+
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    if device not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return _CAPTURE_STREAMS[device]
+
+
 class _RoundProgram:
     """The lockstep round's local training over fixed ``(M, gamma, pad)``
     rows (``M`` the padded mediator count, or a wave's width).  It reads only its static buffers -- the stacked weights
@@ -908,10 +1029,13 @@ class _RoundProgram:
     CUDA device ``capture`` records the body once as a CUDA graph and
     ``run`` replays it.  It holds no reference to its engine, so a
     finished engine frees its graph at once rather than whenever the
-    garbage collector runs (which may be inside another capture)."""
+    garbage collector runs (which may be inside another capture).  It
+    trains on one mediator row's ``devices`` (its home the first, where the
+    client data, the draws and ``rows`` live; a TP row's shards each on its
+    model column's device)."""
 
-    def __init__(self, engine: FLRoundEngine, rows: torch.Tensor):
-        cfg, dev = engine.cfg, engine.device
+    def __init__(self, engine: FLRoundEngine, rows: torch.Tensor, devices: tuple):
+        cfg, dev = engine.cfg, devices[0]
         self.opt, self.loss_fn = engine.opt, engine.loss_fn
         self.local, self.draws, self.device = cfg.local, engine.draws, dev
         self.graph = None
@@ -924,13 +1048,15 @@ class _RoundProgram:
         self.pad = engine.pad
         shape = (self.m, self.gamma, engine.pad)
         # each leaf on its own device: a shard on its model column's
-        self.p0 = {k: torch.zeros((self.m,) + p.shape, dtype=p.dtype, device=p.device)
+        where = engine._leaf_device
+        self.p0 = {k: torch.zeros((self.m,) + p.shape, dtype=p.dtype,
+                                  device=where(k, devices))
                    for k, p in engine.row_state().items()}
         # under LoRA the rows train the adapter state through the frozen
         # backbone and A bases, static buffers filled by ``load``
-        self.frozen = tuple({k: torch.empty_like(v) for k, v in tree.items()}
-                            for tree in engine.lora_args())
-        self.model = engine._row_model(self.frozen or None)
+        self.frozen = tuple({k: torch.empty_like(v, device=where(k, devices))
+                             for k, v in tree.items()} for tree in engine.lora_args())
+        self.model = engine._row_model(self.frozen or None, devices)
         (x_shape, x_dtype), (_, y_dtype), _ = engine.store.row_specs
         self.x = torch.zeros(shape + tuple(x_shape[1:]), device=dev,
                              dtype=torch.from_numpy(np.zeros(0, x_dtype)).dtype)
@@ -988,10 +1114,11 @@ class _RoundProgram:
         for k, v in self.out.items():
             v.copy_(out[k])
 
-    def capture(self) -> None:
+    def capture(self, warm: bool = True) -> None:
         """Record ``_body`` as a CUDA graph after one eager run of it on a
         side stream (so the libraries set themselves up outside the
-        capture).  The capture is relaxed and runs with the cyclic garbage
+        capture; ``warm=False`` skips that run where a program of the same
+        shapes was just run and captured on the same card).  The capture is relaxed and runs with the cyclic garbage
         collector off: a library that still sets something up (cuDNN
         building a plan it had not cached, an allocation), or an object the
         collector frees, may call the CUDA runtime mid-capture, which a
@@ -999,12 +1126,17 @@ class _RoundProgram:
         failures, now and then, at ``cinic_cnn``'s width).  Reading a
         device value or synchronizing the stream still fails the capture,
         and then this raises: the round never falls back to eager."""
+        with torch.cuda.device(self.device):
+            self._capture(warm)
+
+    def _capture(self, warm: bool) -> None:
         dev = self.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self._body()
-        torch.cuda.current_stream(dev).wait_stream(side)
+        if warm:
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self._body()
+            torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         collecting = gc.isenabled()
         # what the graph's private memory pool reserves: the capture's
@@ -1012,7 +1144,8 @@ class _RoundProgram:
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         try:
-            with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            with torch.cuda.graph(graph, stream=_capture_stream(dev),
+                                  capture_error_mode="relaxed"):
                 gc.disable()
                 self._body()
         except RuntimeError as err:
@@ -1037,4 +1170,28 @@ class _RoundProgram:
         if self.graph is None:
             self._body()
         else:
-            self.graph.replay()
+            with torch.cuda.device(self.device):
+                self.graph.replay()
+
+
+class _DrawsOn:
+    """A round's draws (``RoundDraws``) handed to rows that train on
+    another device than the source draws on: each client update's
+    permutations and keep-masks moved there."""
+
+    def __init__(self, draws, device: torch.device):
+        self.draws, self.device = draws, device
+
+    def client(self, *address):
+        return _ClientDrawsOn(self.draws.client(*address), self.device)
+
+
+class _ClientDrawsOn:
+    def __init__(self, inner, device: torch.device):
+        self.inner, self.device = inner, device
+
+    def permutation(self, epoch, n):
+        return self.inner.permutation(epoch, n).to(self.device)
+
+    def epoch_keep_masks(self, epoch, steps, sites):
+        return [k.to(self.device) for k in self.inner.epoch_keep_masks(epoch, steps, sites)]

@@ -3,7 +3,8 @@ execution, at the paper's EMNIST width, or with ``--cinic`` at its
 CINIC-10 width (``cinic_cnn``, 32x32x3, width 32).
 
   PYTHONPATH=src python -m repro_torch.examples.profile_round [--cinic] \\
-      [--rounds 3] [--order map,vmap,vmap,map] [--out DIR]
+      [--rounds 3] [--order map,vmap,vmap,map] [--out DIR] \\
+      [--devices cuda:0,cuda:1,cuda:2,cuda:3 [--store sharded]]
 
 For each trainer (FedAvg, Astraea) and each ``row_exec`` in ``--order``
 (a fresh trainer each, from the same seed): one warm-up round (the
@@ -16,6 +17,11 @@ kernels' and copies' intervals) and idle share (1 - busy / wall), the
 summed time of all kernels and copies, the host's launch calls (kernels
 and graphs), the device kernels, and the top kernels by device time.
 ``--out`` also writes each profiled round's Chrome trace there.
+``--devices`` trains on an ``n x 1`` ``(mediator, model)`` mesh of those
+positions, each mediator row's rows on its own (``cuda:0`` four times:
+four logical positions of one card), over ``--store``; the clock and
+the profile then wait on every visible card, and device busy is the
+union over the cards.
 """
 import argparse
 import json
@@ -27,6 +33,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.core import AstraeaTrainer, FedAvgTrainer, LocalSpec
 from repro_torch.examples.astraea_vs_fedavg import configuration
+from repro_torch.launch.mesh import make_fl_mesh
 from repro_torch.optim import adam
 
 # the runtime calls that put work on the card's queue
@@ -39,14 +46,20 @@ def device_us(evt) -> float:
                  or getattr(evt, "self_cuda_time_total", 0.0))
 
 
+def synchronize() -> None:
+    """Wait for every visible card."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
 def round_seconds(trainer, rounds: int) -> list[float]:
     """Host seconds of ``rounds`` synchronized rounds."""
     out = []
     for _ in range(rounds):
-        torch.cuda.synchronize()
+        synchronize()
         t0 = time.perf_counter()
         trainer.run_round()
-        torch.cuda.synchronize()
+        synchronize()
         out.append(time.perf_counter() - t0)
     return out
 
@@ -71,11 +84,11 @@ def profile_round(trainer, top: int = 12, trace: Path | None = None) -> dict:
     all kernels and copies, host launch calls (kernels and graph
     launches), device kernels, the ``top`` kernels by device time, and the
     seconds the profile's analysis took (``analysis_s``)."""
-    torch.cuda.synchronize()
+    synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         trainer.run_round()
-        torch.cuda.synchronize()
+        synchronize()
         wall = time.perf_counter() - t0
     t1 = time.perf_counter()
     busy = busy_seconds(prof.events())
@@ -97,11 +110,12 @@ def profile_round(trainer, top: int = 12, trace: Path | None = None) -> dict:
                     for e in sorted(kernels, key=device_us, reverse=True)[:top]]}
 
 
-def trainers(cinic: bool, row_exec: str) -> dict:
-    """The two trainers of the full-width arm, both from seed 0."""
+def trainers(cinic: bool, row_exec: str, **kw) -> dict:
+    """The two trainers of the full-width arm, both from seed 0, with the
+    trainer fields ``kw`` (a mesh, a store)."""
     fed, model, c, _ = configuration(cinic, full=True)
     common = dict(clients_per_round=c, local=LocalSpec(20, 2), seed=0,
-                  row_exec=row_exec)
+                  row_exec=row_exec, **kw)
     return {"FedAvg": lambda: FedAvgTrainer(model, adam(1e-3), fed, **common),
             "Astraea": lambda: AstraeaTrainer(model, adam(1e-3), fed, gamma=4,
                                               alpha=0.67, **common)}
@@ -115,20 +129,28 @@ def main():
     ap.add_argument("--order", default="map,vmap,vmap,map",
                     help="row_exec of each run, in turn")
     ap.add_argument("--cinic", action="store_true", help="the CINIC-10 arm")
+    ap.add_argument("--devices", default=None,
+                    help="comma-separated positions of an n x 1 mesh, one a mediator row")
+    ap.add_argument("--store", default="replicated", help="the client store")
     args = ap.parse_args()
+    kw = {"store": args.store}
+    if args.devices:
+        devices = args.devices.split(",")
+        kw["mesh"] = make_fl_mesh(mediator=len(devices), model=1, devices=devices)
     report = []
     for turn, row_exec in enumerate(args.order.split(",")):
-        for name, make in trainers(args.cinic, row_exec).items():
+        for name, make in trainers(args.cinic, row_exec, **kw).items():
             tr = make()
             t0 = time.perf_counter()
             tr.run_round()                      # warm-up (build, plans, capture)
-            torch.cuda.synchronize()
+            synchronize()
             first = time.perf_counter() - t0
             secs = round_seconds(tr, args.rounds)
             trace = None if args.out is None else \
                 Path(args.out) / f"{name.lower()}_{row_exec}_{turn}.json"
             prof = profile_round(tr, args.top, trace)
             row = {"trainer": name, "row_exec": row_exec, "turn": turn,
+                   "devices": args.devices, "store": args.store,
                    "first_round_s": first, "round_s": secs,
                    "num_round_traces": tr.engine.num_round_traces, **prof}
             report.append(row)

@@ -2,8 +2,8 @@
 // (flash_attention_bwd.cu) kernels share: TMA maps (bf16 and fp32) and loads
 // of the model layout (b, s, heads, d) as a 4-D (d, heads, s, b) view, the wgmma
 // m64n64k16 bf16 products (both operands in shared memory, or A from
-// registers and B MN-major), their shared-memory descriptors and fences,
-// and the dynamic shared memory limit.
+// registers and B MN-major), their shared-memory descriptors and fences.
+// The dynamic shared memory limit is mbarrier.cuh's smem_limit_once.
 #pragma once
 
 #include <cuda.h>
@@ -19,15 +19,6 @@ using repro_ptx::smem_u32;
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kSubBytes = 64 * 64 * 2;      // a 64 x 64 bf16 box, 128-byte rows
-
-// Raises a kernel's dynamic shared memory limit once per instantiation (a
-// function-local static: set on the first launch, thread-safe).
-template <auto kKernel>
-cudaError_t smem_limit_once(size_t bytes) {
-  static const cudaError_t err = cudaFuncSetAttribute(
-      kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  return err;
-}
 
 // One 4-D TMA box (c0 fastest) into shared memory, completing on `bar`.
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,

@@ -259,9 +259,8 @@ kld_score_matrix_kernel(const float* __restrict__ meds, const float* __restrict_
 template <int L>
 cudaError_t launch_matrix(const float* meds, const float* cand, float* out, int m, int k,
                           int c, const MatrixPlan& p, cudaStream_t stream) {
-  static const cudaError_t limit = cudaFuncSetAttribute(
-      kld_score_matrix_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kMaxStageBytes);
+  const cudaError_t limit =
+      repro_ptx::smem_limit_once<kld_score_matrix_kernel<L>>(kMaxStageBytes);
   if (limit != cudaSuccess) return limit;
   const dim3 grid(static_cast<unsigned>(p.ctas_k), static_cast<unsigned>(p.ctas_m));
   kld_score_matrix_kernel<L><<<grid, kMatrixThreads, p.smem, stream>>>(

@@ -2,13 +2,41 @@
 // asynchronous copies or stores: flash_attention.cu and
 // flash_attention_bwd.cu (TMA tiles),
 // affine_warp.cu (bulk image copies), kld_score.cu (bulk tile copies) and
-// kld_greedy.cu (st.async keys between the CTAs of a cluster).
+// kld_greedy.cu (st.async keys between the CTAs of a cluster), and the
+// dynamic shared memory limit their large tiles need.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace repro_ptx {
+
+// Raises a kernel's dynamic shared memory limit on the current device,
+// once a device and instantiation: cudaFuncSetAttribute holds for the
+// device current when it is called, so a process that launches on several
+// cards sets it on each.  Each device's answer is kept (0 unset, else the
+// error + 1); two threads racing on one device set the same value.
+template <auto kKernel>
+cudaError_t smem_limit_once(size_t bytes) {
+  constexpr int kDevices = 64;
+  static std::atomic<int> state[kDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kDevices)
+    return cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(bytes));
+  int s = state[dev].load(std::memory_order_acquire);
+  if (s == 0) {
+    err = cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+    s = static_cast<int>(err) + 1;
+    state[dev].store(s, std::memory_order_release);
+  }
+  return static_cast<cudaError_t>(s - 1);
+}
 
 // The 32-bit shared-state-space address of a shared-memory pointer.
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {

@@ -11,8 +11,12 @@ Alg. 3 schedules synthetic non-IID clients' token streams onto mediators
 The reduced (CPU smoke) variant of ``--arch``, as the reference.  The
 reference runs one mediator per ("pod", "data") slice of its mesh, so on
 one device it trains the first mediator's clients only; so does this
-launcher.  A round over several mediators is ``make_fl_round(model,
-n_mediators=M)`` with ``pack_mediators(..., n_mediators=M)``.
+launcher.  ``--devices`` names the mesh's positions row-major, ``n * t`` of
+them for ``--model-parallel t``: mediator row ``i`` holds positions ``i *
+t ... i * t + t - 1``, and the round trains ``n = positions / t``
+mediators, one a mediator row on its own devices
+(``make_fl_round(model, n, mesh=...)``); a count ``t`` does not divide
+raises, as in the reference.
 
 Several processes (``--coordinator host:port --num-processes P
 --process-id i``, or torchrun's environment) join through
@@ -21,13 +25,15 @@ Several processes (``--coordinator host:port --num-processes P
 single-process run's WAN ledger.  ``--model-parallel t`` runs the round
 tensor-parallel over a model axis of ``t`` positions
 (``launch/steps.py::make_fl_round(mesh=...)``): ``t`` logical positions on
-``--device``'s card, or the cards ``--devices`` names (one a position), for
-every ``--arch`` the round trains, full-delta or with ``--lora-rank``; the
-WAN ledger does not change with ``t``.  An audio model's or a VLM's round
+``--device``'s card, or the positions ``--devices`` names, for every
+``--arch`` the round trains, full-delta or with ``--lora-rank``; the WAN
+ledger does not change with ``t``.  An audio model's or a VLM's round
 raises for its missing frames or vision embeddings at any ``t``, as the
 reference's does.
 
   PYTHONPATH=src python -m repro_torch.launch.fl_train --device cpu --model-parallel 2
+  PYTHONPATH=src python -m repro_torch.launch.fl_train --devices cpu,cpu,cpu,cpu \
+      --model-parallel 2 --clients 8 --gamma 4
   PYTHONPATH=src python -m repro_torch.launch.fl_train --device cpu --model-parallel 2 \
       --arch granite-moe-3b-a800m --lora-rank 2
 """
@@ -110,9 +116,11 @@ def main(argv=None) -> dict:
                          "many positions (logical ones on --device's card unless "
                          "--devices names them)")
     ap.add_argument("--devices", default=None,
-                    help="comma-separated devices of the model axis's positions, one "
-                         "each (e.g. cuda:0,cuda:1); default: --model-parallel logical "
-                         "positions on the round's device")
+                    help="comma-separated devices of the mesh's positions, row-major "
+                         "(e.g. cuda:0,cuda:1,cuda:2,cuda:3 with --model-parallel 2: two "
+                         "mediator rows of two columns); the round trains one mediator "
+                         "a row; default: --model-parallel logical positions on the "
+                         "round's device")
     ap.add_argument("--coordinator", default=None,
                     help="host:port of the run's TCPStore, hosted by process 0 "
                          "(env: MASTER_ADDR, MASTER_PORT); each process trains on "
@@ -136,16 +144,20 @@ def main(argv=None) -> dict:
         dev = resolve_device(args.device)
     cfg = C.reduced(C.get(args.arch))
     mesh = None
+    n_mediators = 1                       # one device: the reference's 1 x 1 mesh
     if args.model_parallel > 1 or args.devices:
+        # this process's positions (under several processes each keeps its
+        # process-local mesh, as the reference does)
         positions = [resolve_device(d) for d in args.devices.split(",")] if args.devices \
             else [dev] * args.model_parallel
-        if len(positions) != args.model_parallel:
-            raise SystemExit(f"--devices names {len(positions)} positions for "
+        if len(positions) % args.model_parallel:
+            raise SystemExit(f"{len(positions)} positions are not divisible by "
                              f"--model-parallel {args.model_parallel}")
-        mesh = make_fl_mesh(mediator=1, model=args.model_parallel, devices=positions)
-        print(f"model axis: {args.model_parallel} positions on "
-              f"{', '.join(str(d) for d in positions)}")
-    n_mediators = 1                       # one device: the reference's 1 x 1 mesh
+        n_mediators = len(positions) // args.model_parallel
+        mesh = make_fl_mesh(mediator=n_mediators, model=args.model_parallel,
+                            devices=positions)
+        print(f"mesh: {n_mediators} mediator rows x {args.model_parallel} model columns "
+              f"on {', '.join(str(d) for d in positions)}")
     model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     params = T.train_params(model)
 
@@ -167,6 +179,9 @@ def main(argv=None) -> dict:
     meds = scheduling.reschedule(counts, gamma=args.gamma, device=dev)
     stats = scheduling.schedule_stats(meds)
     print(f"mediators={stats['num_mediators']} kld_mean={stats['kld_mean']:.3f}")
+    if len(meds) < n_mediators:
+        raise SystemExit(f"Alg. 3 made {len(meds)} mediators for {n_mediators} mediator "
+                         f"rows: schedule more --clients")
     tokens, labels, w, per_med = pack_mediators(meds, streams, counts, args.seq, n_mediators)
 
     fl_round = make_fl_round(model, n_mediators, learning_rate=args.lr,
@@ -207,7 +222,7 @@ def main(argv=None) -> dict:
               f"({(1 - ratio) * 100:.1f}% WAN reduction)")
     print("done")
     return {"losses": losses, "ledger": ledger, "ratio": ratio,
-            "mediators": stats["num_mediators"]}
+            "mediators": stats["num_mediators"], "mediators_trained": n_mediators}
 
 
 if __name__ == "__main__":

@@ -49,7 +49,11 @@ class AbstractMesh:
         if len(self.axis_names) != len(self.sizes) or any(s < 1 for s in self.sizes):
             raise ValueError(f"bad mesh {self.axis_names} {self.sizes}")
         if self.devices is not None:
-            devs = tuple(torch.device(d) for d in self.devices)
+            # a card named without an index is the current card, so that
+            # positions compare equal to the devices the engine resolves
+            devs = tuple(torch.device("cuda", torch.cuda.current_device())
+                         if torch.device(d).type == "cuda" and torch.device(d).index is None
+                         else torch.device(d) for d in self.devices)
             if len(devs) != self.size:
                 raise ValueError(f"mesh of {self.size} positions given {len(devs)} devices")
             if len({d.type for d in devs}) != 1:

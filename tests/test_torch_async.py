@@ -232,7 +232,8 @@ def test_noop_row_is_exact(kind, row_exec):
     tr = _trainer(kind, row_exec)
     eng = tr.engine
     inp = eng.prepare_round()
-    inp = dataclasses.replace(inp, ms=torch.zeros_like(inp.ms))
+    inp = dataclasses.replace(inp, parts=[(x, y, torch.zeros_like(m))
+                                          for x, y, m in inp.parts])
     out = eng.run_rows_sliced(inp, eng.params, np.array([0, 1]))
     want = eng.noop_rows(eng.params, 2)
     assert torch.equal(out, want)

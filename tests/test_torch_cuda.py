@@ -1717,12 +1717,14 @@ def _model_axis_mesh(dev, mediator=2, model=2):
 @pytest.mark.parametrize("case", ["replicated", "sharded", "host", "lora", "async"])
 def test_model_axis_2x2_vmap_bitwise_4x1_on_card(dev, deterministic_convolutions, case):
     """Under the gather oracle the 2 x 2 mesh of four logical positions on
-    the card is the 4 x 1 mesh bit for bit at the EMNIST width under
-    "vmap" (one capture each), two rounds with a reschedule each, for the
-    replicated, sharded and host stores, with LoRA adapters (rank 2) and
-    async S=0 (a wave per mediator, masked); the split leaves' bytes a
-    position halve, the WAN ledger is equal and only the 2 x 2 run charges
-    the model axis."""
+    the card is the mesh without a model axis over as many mediator rows
+    (2 x 1: each row a round program of ``M_pad / 2`` rows on both, as a
+    lockstep program's bits follow its width) bit for bit at the EMNIST
+    width under "vmap" (one capture a mediator row), two rounds with a
+    reschedule each, for the replicated, sharded and host stores, with
+    LoRA adapters (rank 2) and async S=0 (a wave per mediator, masked);
+    the split leaves' bytes a position halve against the 4 x 1 run's, the
+    WAN ledger is equal and only the 2 x 2 run charges the model axis."""
     from repro_torch.core import AsyncSpec, StragglerSpec
     kw = {"store": case} if case in ("replicated", "sharded", "host") else {}
     if case == "lora":
@@ -1731,7 +1733,8 @@ def test_model_axis_2x2_vmap_bitwise_4x1_on_card(dev, deterministic_convolutions
         kw["async_spec"] = AsyncSpec(staleness_bound=0, wave_size=1, dispatch="masked",
                                      straggler=StragglerSpec(model="fixed", seed=0))
     runs = {}
-    for name, mesh in (("2x2", _model_axis_mesh(dev)), ("4x1", _model_axis_mesh(dev, 4, 1))):
+    for name, mesh in (("2x2", _model_axis_mesh(dev)), ("2x1", _model_axis_mesh(dev, 2, 1)),
+                       ("4x1", _model_axis_mesh(dev, 4, 1))):
         tr = _emnist_full_trainer(dev, "vmap", mesh=mesh, tp_rows=False,
                                   reschedule_every_round=True, **kw)
         tr.run_round()
@@ -1739,17 +1742,19 @@ def test_model_axis_2x2_vmap_bitwise_4x1_on_card(dev, deterministic_convolutions
         if tr.runner is not tr.engine:
             tr.runner.flush()
         torch.cuda.synchronize()
-        assert tr.engine.num_round_traces == 1 and tr.engine._program.graph is not None
+        n = mesh.shape["mediator"]
+        assert tr.engine.num_round_traces == n
+        assert [p.graph is not None for p in tr.engine._programs] == [True] * n
         runs[name] = tr
-    a, b = runs["2x2"].engine, runs["4x1"].engine
+    a, b, c = runs["2x2"].engine, runs["2x1"].engine, runs["4x1"].engine
     for k in b.params:
         assert torch.equal(a.params[k], b.params[k]), k
     for k in (b.adapters or {}):
         assert torch.equal(a.adapters[k], b.adapters[k]), k
     for k, dim in a._dims.items():
-        want = b.params[k].nbytes // (2 if dim is not None else 1)
+        want = c.params[k].nbytes // (2 if dim is not None else 1)
         assert a._shards.positions[0][k].nbytes == want, k
-    assert a.comm.round_log == b.comm.round_log
+    assert a.comm.round_log == b.comm.round_log == c.comm.round_log
     assert a.comm.model_axis_tp_bytes > 0 == b.comm.model_axis_tp_bytes
 
 
@@ -1760,7 +1765,7 @@ def test_model_axis_tp_rows_match_oracle_on_card(dev, deterministic_convolutions
     config (``tests/test_tp_rows.py``: the tiny federation, 12 clients, 8
     classes, 16 px, c=6, gamma=3, B=10, E=1) their params after two rounds
     are the gather oracle's within the reference's bound (rtol 1e-5, atol
-    1e-6), one capture under "vmap".  (At the EMNIST arm's width a few
+    1e-6), one capture a mediator row under "vmap".  (At the EMNIST arm's width a few
     small elements of ``dense1.weight`` fall outside that elementwise
     bound: ``chip_smoke.py`` phase 15 (a) holds TP rows there to 1e-5 of
     the update in L2.)"""
@@ -1784,7 +1789,7 @@ def test_model_axis_tp_rows_match_oracle_on_card(dev, deterministic_convolutions
         runs[mode] = e
     tp, oracle = runs["auto"], runs[False]
     assert tp._tp_rows is True and oracle._tp_rows is False
-    assert tp.num_round_traces == (1 if row_exec == "vmap" else 0)
+    assert tp.num_round_traces == (2 if row_exec == "vmap" else 0)     # one a mediator row
     for k in oracle.params:
         torch.testing.assert_close(tp.params[k], oracle.params[k], rtol=1e-5, atol=1e-6,
                                    msg=k)
@@ -2079,3 +2084,151 @@ def test_model_axis_two_cards_bitwise_logical(dev, deterministic_convolutions):
             outs.append(tr.engine.params)
         for k in outs[0]:
             assert torch.equal(outs[0][k], outs[1][k]), (mode, k)
+
+
+# ---------------------------------------------------------------- the mediator axis as compute
+
+def _tiny_engine(dev, mesh, row_exec, store="sharded", exchange="ragged", oracle=False):
+    """Astraea at the reference's tiny federation (12 clients, 8 classes, 16
+    px, c=6, gamma=3, B=10, E=1, Adam 1e-3, the online plan, seed 0,
+    ``pad_mediators_to=4``, a reschedule each round) on ``mesh``;
+    ``oracle`` trains every row on the engine's device in one block."""
+    from repro_torch.core import EngineConfig, FLRoundEngine, LocalSpec
+    from repro_torch.core.augmentation import augmentation_plan
+    from repro_torch.data.federated import EMNIST_LIKE, partition
+    from repro_torch.models.cnn import emnist_cnn
+    from repro_torch.optim import adam
+    fed = partition(dataclasses.replace(EMNIST_LIKE, num_classes=8, image_size=16),
+                    num_clients=12, total_samples=600, test_samples=160, sizes="instagram",
+                    global_dist="letterfreq", local="random", seed=0)
+    cfg = EngineConfig.astraea(clients_per_round=6, gamma=3, local=LocalSpec(10, 1), seed=0,
+                               pad_mediators_to=4, reschedule_every_round=True,
+                               row_exec=row_exec, store=store, store_exchange=exchange,
+                               tp_rows=False)
+    e = FLRoundEngine(emnist_cnn(8, 16), adam(1e-3), fed, cfg, mesh=mesh, device=dev,
+                      aug_plan=augmentation_plan(fed.client_counts().sum(0), 0.67))
+    if oracle:
+        e.row_positions = lambda: [(e.device,)]
+    return e
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store,exchange", [("replicated", "ragged"), ("sharded", "ragged"),
+                                            ("sharded", "gather")])
+def test_mediator_axis_logical_positions_bitwise_engine_device(dev, deterministic_convolutions,
+                                                               store, exchange):
+    """Four logical positions of the card (a 4 x 1 mesh), each mediator row
+    trained on its own position: under "map" bit for bit the run with every
+    row on the engine's device, the sharded store's exchange moving the
+    bytes the ledger charges; under "vmap" four programs, four graphs, one
+    warp launch a row a round, within 1e-4 of "map" in L2 of the update."""
+    mesh = _model_axis_mesh(dev, 4, 1)
+    runs = {}
+    for label, row_exec, oracle in (("map", "map", False), ("oracle", "map", True),
+                                    ("vmap", "vmap", False)):
+        e = _tiny_engine(dev, mesh, row_exec, store, exchange, oracle)
+        ops.reset_launches()
+        for _ in range(2):
+            e.run_round()
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["affine_warp"] == 2 * (1 if oracle else 4)
+        assert ops.LAUNCHES["fedavg_agg"] == 2
+        runs[label] = e
+    for k in runs["map"].params:
+        assert torch.equal(runs["map"].params[k], runs["oracle"].params[k]), k
+    v = runs["vmap"]
+    assert v.num_round_traces == 4 and all(p.graph is not None for p in v._programs)
+    if store == "sharded":
+        assert v.store.moved_bytes == v.comm.store_exchange_bytes > 0
+    init = _tiny_engine(dev, mesh, "map").params
+    flat = lambda p: torch.cat([p[k].flatten() for k in init])          # noqa: E731
+    update = float((flat(runs["map"].params) - flat(init)).norm())
+    rel = float((flat(v.params) - flat(runs["map"].params)).norm()) / update
+    print(f"{store} {exchange}: vmap on positions {rel:.3e} of the update from map")
+    assert rel <= 1e-4
+
+
+def _reduced_round_inputs(dev, mediators, steps=2):
+    cfg = configs.reduced(configs.get("qwen3-4b"))
+    model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (mediators * steps, 32), generator=g, device=dev)
+    weights = torch.arange(1, mediators * steps + 1, dtype=torch.float32, device=dev)
+    return model, tokens, torch.roll(tokens, -1, 1), weights
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 1), (2, 2)], ids=["2x1", "2x2"])
+@pytest.mark.parametrize("lora", [False, True], ids=["full-delta", "lora"])
+def test_mediator_axis_reduced_round_bitwise_in_turn(dev, shape, lora):
+    """qwen3-4b-reduced's round over ``n`` mediator rows of logical
+    positions (one mediator a row at 2 x 1, two at 2 x 2) is the in-turn
+    round at the same ``t`` bit for bit, full-delta and over a rank-2
+    adapter state; Eq. 6 one launch a row a leaf (the flat adapter tree)."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_fl_mesh
+    from repro_torch.models import lora as lora_lib
+    n, t = shape
+    m = 2 * (n * t // 2)
+    model, tokens, labels, w = _reduced_round_inputs(dev, m)
+    params = T.train_params(model)
+    in_turn = make_fl_mesh(mediator=1, model=t, devices=(dev,) * t) if t > 1 else None
+    mesh = make_fl_mesh(mediator=n, model=t, devices=(dev,) * (n * t))
+    kw = dict(learning_rate=0.05, local_steps=2)
+    if lora:
+        mapping = T.adapter_mapping(model.cfg, 2)
+        a_tree = lora_lib.init_adapter_A(lora_lib.A_SALT, mapping, dev)
+        state = {k: v + 0.01 for k, v in lora_lib.init_adapter_state(mapping, params).items()}
+        args = (params, a_tree, state, tokens, labels, w)
+        kw["lora_mapping"] = mapping
+    else:
+        args = (params, tokens, labels, w)
+    want = steps.make_fl_round(model, m, mesh=in_turn, **kw)(*args)
+    ops.reset_launches()
+    got = steps.make_fl_round(model, m, mesh=mesh, **kw)(*args)
+    torch.cuda.synchronize()
+    dims = _placements(model, mesh)
+    assert ops.LAUNCHES["fedavg_agg"] == (n if lora else sum(
+        len(steps.eq6_blocks(v.numel() // (t if dims[k] is not None else 1), n))
+        * (t if dims[k] is not None else 1) for k, v in params.items()))
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def _placements(model, mesh):
+    from repro_torch.launch import sharding
+    if mesh.shape["model"] == 1:
+        return {k: None for k in T.train_params(model)}
+    return sharding.placements(T.param_specs(model.cfg, model.max_seq), mesh)
+
+
+@pytest.mark.cuda
+def test_mediator_axis_two_cards_bitwise_logical(dev, deterministic_convolutions):
+    """Mediator rows on ``cuda:0`` and ``cuda:1`` (a 2 x 1 mesh): the tiny
+    federation's rounds over the sharded store (the exchange moving rows
+    between the cards) under "map" and "vmap" (a graph on each card,
+    replayed before either is waited on), and qwen3-4b-reduced's round
+    (one mediator a card), each bit for bit the same run on two logical
+    positions of ``cuda:0``."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_fl_mesh
+    d0, d1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    for row_exec in ("map", "vmap"):
+        outs = []
+        for devices in ((d0, d1), (d0, d0)):
+            e = _tiny_engine(d0, make_fl_mesh(mediator=2, model=1, devices=devices), row_exec)
+            for _ in range(2):
+                e.run_round()
+            outs.append(e)
+        assert outs[0].store.moved_bytes == outs[1].store.moved_bytes > 0
+        for k in outs[0].params:
+            assert torch.equal(outs[0].params[k], outs[1].params[k]), (row_exec, k)
+    model, tokens, labels, w = _reduced_round_inputs(d0, 2)
+    params = T.train_params(model)
+    rounds = [steps.make_fl_round(model, 2, learning_rate=0.05, local_steps=2,
+                                  mesh=make_fl_mesh(mediator=2, model=1, devices=devices))(
+        params, tokens, labels, w) for devices in ((d0, d1), (d0, d0))]
+    for k in params:
+        assert rounds[0][k].device == d0 and torch.equal(rounds[0][k], rounds[1][k]), k

@@ -238,7 +238,7 @@ def test_trainer_model_parallel_knob(model, fed):
         tr = make(mesh=m22(), model_parallel=5)
         assert tr.engine.mesh.shape == {"mediator": 2, "model": 2}
         tr.run_round()
-        assert tr.engine.num_round_traces == 1
+        assert tr.engine.num_round_traces == 2         # one program a mediator row
         assert tr.engine.store.stats()["model_axis"] == 2
 
 
@@ -266,14 +266,19 @@ def test_model_unannotated_falls_back_to_replicated(fed):
 @pytest.mark.parametrize("row_exec", ["vmap", "map"])
 @pytest.mark.parametrize("store", ["replicated", "sharded", "host"])
 def test_2x2_equals_4x1_bitwise(model, fed, plan, store, row_exec):
-    """2 x 2 == 4 x 1 bit for bit for every store (Alg. 2 riding along),
-    one round program under ``"vmap"``, two packs; the bytes a position
-    holds halve; the WAN ledger is equal and only 2 x 2 charges the
-    model axis's gathers on the intra-pod ledger."""
+    """2 x 2 == 4 x 1 bit for bit for every store (Alg. 2 riding along)
+    under ``"map"``; under ``"vmap"`` each mediator row is a round program
+    of ``M_pad / n`` rows, whose bits follow that width on the CPU (one row
+    takes the unbatched convolutions), so the 2 x 2 run is held to the 2 x
+    1 run, one program a mediator row on each; two packs; the bytes a
+    position holds halve; the WAN ledger is equal and only 2 x 2 charges
+    the model axis's gathers on the intra-pod ledger."""
     e22 = _run(model, fed, m22(), plan, store=store, row_exec=row_exec, tp_rows=False)
-    e41 = _run(model, fed, m41(), plan, store=store, row_exec=row_exec)
+    mesh = m41() if row_exec == "map" else M.make_fl_mesh(mediator=2, model=1,
+                                                          devices=(CPU,) * 2)
+    e41 = _run(model, fed, mesh, plan, store=store, row_exec=row_exec)
     _same(e22.params, e41.params)
-    assert e22.num_round_traces == e41.num_round_traces == (1 if row_exec == "vmap" else 0)
+    assert e22.num_round_traces == e41.num_round_traces == (2 if row_exec == "vmap" else 0)
     assert e22.num_schedule_packs == 2
     s22, s41 = e22.store.stats(), e41.store.stats()
     assert s22["model_axis"] == 2 and s41["model_axis"] == 1
@@ -311,7 +316,7 @@ def test_async_s0_on_2x2_bitwise_sync(model, fed, plan, row_exec):
     a22 = _run(model, fed, m22(), plan, spec, row_exec=row_exec, tp_rows=False)
     e22 = _run(model, fed, m22(), plan, row_exec=row_exec, tp_rows=False)
     _same(a22.params, e22.params)
-    assert a22.num_round_traces == (1 if row_exec == "vmap" else 0)
+    assert a22.num_round_traces == (2 if row_exec == "vmap" else 0)
     assert a22.comm.total_bytes == e22.comm.total_bytes
     assert a22.comm.model_axis_tp_bytes > e22.comm.model_axis_tp_bytes > 0
 
@@ -320,13 +325,14 @@ def test_async_s0_on_2x2_bitwise_sync(model, fed, plan, row_exec):
 def test_lora_gather_oracle_2x2_bitwise_1d(model, fed, row_exec):
     """The gather oracle with LoRA adapters on the 2 x 2 mesh: the backbone
     operand is gathered, the adapters are whole; the adapter state is the
-    1-D run's bit for bit, the WAN ledger adapter-sized and equal, the
-    backbone gather charged to the intra-pod ledger."""
+    1-D run's over as many mediator rows bit for bit (under ``"vmap"`` a
+    row's program width sets its bits), the WAN ledger adapter-sized and
+    equal, the backbone gather charged to the intra-pod ledger."""
     l22 = _run(model, fed, m22(), row_exec=row_exec, tp_rows=False, lora_rank=2)
-    l1d = _run(model, fed, m1d(), row_exec=row_exec, lora_rank=2)
+    l1d = _run(model, fed, m1d(2), row_exec=row_exec, lora_rank=2)
     _same(l22.adapters, l1d.adapters)
     _same(l22.params, l1d.params)
-    assert l22.num_round_traces == (1 if row_exec == "vmap" else 0)
+    assert l22.num_round_traces == (2 if row_exec == "vmap" else 0)
     assert l22.comm.total_bytes == l1d.comm.total_bytes
     assert l22.comm.wan_adapter_bytes == l22.comm.total_bytes
     assert l22.comm.intra_pod_bytes > 0 and l1d.comm.intra_pod_bytes == 0

@@ -116,7 +116,7 @@ def test_auto_oracle_is_bitwise_1d(fed):
     e22 = _run(fed, m22(), tp_rows="auto")
     e1d = _run(fed, make_mediator_mesh(devices=(CPU,) * 2), tp_rows="auto")
     _same(e22.params, e1d.params)
-    assert e22.num_round_traces == 1
+    assert e22.num_round_traces == 2            # one round program a mediator row
 
 
 @pytest.mark.parametrize("row_exec", ["map", "vmap"])
@@ -125,11 +125,11 @@ def test_tp_rows_matches_gather_oracle(fed, row_exec, lora_rank):
     """TP rows reproduce the gather oracle's trajectory within the
     reference's bound after two rounds (not bit for bit: each position's
     convolution covers its channels only, and the input gradients are
-    summed over the positions), one round program."""
+    summed over the positions), one round program a mediator row."""
     tp = _run(fed, m22(), tp_rows=True, row_exec=row_exec, lora_rank=lora_rank)
     oracle = _run(fed, m22(), tp_rows=False, row_exec=row_exec, lora_rank=lora_rank)
     assert tp._tp_rows is True and oracle._tp_rows is False
-    assert tp.num_round_traces == (1 if row_exec == "vmap" else 0)
+    assert tp.num_round_traces == (2 if row_exec == "vmap" else 0)   # one a mediator row
     _close(tp.params, oracle.params)
     if lora_rank is not None:
         _close(tp.adapters, oracle.adapters)
